@@ -1,0 +1,91 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+``nvcc`` compiles every ``f9tpu_torch/csrc/*.cu`` into one shared library
+with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so a
+build takes seconds.  The library lands in ``f9tpu_torch/_build/<hash>/``,
+keyed by a hash of the sources and flags, and is reused while they are
+unchanged.  Nothing is compiled or loaded when this module is imported;
+`load_library` does it at the first kernel launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+__all__ = ["load_library", "build_seconds"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+#: wall seconds the last build took (0.0 when the cached library was reused)
+build_seconds = 0.0
+#: what ptxas reported for the last build (registers, shared memory, spills)
+build_log = ""
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.f9_cycle_src.argtypes = [vp, vp, vp, vp, i32, i64, i64, i32, i32, i32,
+                                 i32, i64, i64, vp]
+    lib.f9_cycle_src.restype = i32
+    lib.f9_cycle_src_tile_l.argtypes = []
+    lib.f9_cycle_src_tile_l.restype = i32
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built from the checkout's sources on
+    first use.  Raises RuntimeError with nvcc's output if the build fails."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for s in srcs:
+            with open(s, "rb") as f:
+                h.update(os.path.basename(s).encode() + b"\0" + f.read())
+        out_dir = os.path.join(BUILD_DIR, h.hexdigest()[:16])
+        so = os.path.join(out_dir, "libf9kernels.so")
+        if not os.path.exists(so):
+            os.makedirs(out_dir, exist_ok=True)
+            tmp = f"{so}.tmp-{os.getpid()}"
+            cu = [s for s in srcs if s.endswith(".cu")]
+            t0 = time.time()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, so)
+            build_seconds = time.time() - t0
+            build_log = proc.stderr
+        _lib = _declare(ctypes.CDLL(so))
+        return _lib

@@ -1,0 +1,125 @@
+"""Latency calibration: impulse -> SRC -> peak find, with cached results
+(port of `f9tpu/pipeline/calibration.py`; same cache JSON format and keys).
+
+The SRC is group-delay compensated by construction, so a bare resampler
+measures a latency of 0; measuring it is the calibration test.  Measuring
+an insert chain (the JAX package's ``chain_fn``) waits for the chain port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+
+import numpy as np
+import torch
+
+from f9tpu.models.filters import resolve_ratio
+
+from ..ops.resample import resample_rates
+from ..ops.signal import IMPULSE_AMP, impulse
+
+__all__ = ["CalibrationResult", "CalibrationCache", "measure_latency",
+           "CAPTURE_FRAMES", "PEAK_THRESHOLD"]
+
+#: Peak threshold of the impulse detector.
+PEAK_THRESHOLD = 0.1
+CAPTURE_FRAMES = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class CalibrationResult:
+    latency_frames: int        # chain delay at the OUTPUT rate, in frames
+    noise_floor_db: float      # RMS dB of the response away from the peak
+    peak_amplitude: float      # detected peak (must exceed PEAK_THRESHOLD)
+
+    @property
+    def detected(self) -> bool:
+        return self.peak_amplitude > PEAK_THRESHOLD
+
+
+def measure_latency(
+    rate_in: int,
+    rate_out: int,
+    quality: str = "high",
+    kind: str = "sinc",
+    capture_frames: int = CAPTURE_FRAMES,
+    device: torch.device | str = "cpu",
+) -> CalibrationResult:
+    """Group delay of the resampler in output frames, measured with a
+    mid-buffer impulse on ``device`` (mid-buffer, so an acausal chain would
+    measure too)."""
+    pos = capture_frames // 2
+    x = impulse(capture_frames, amp=IMPULSE_AMP, position=pos, device=device)
+    y = resample_rates(x, rate_in, rate_out, quality=quality, kind=kind)
+    yn = y.cpu().numpy()               # one device-to-host copy
+    ya = np.abs(yn)
+    peak_idx = int(ya.argmax())
+    peak_amp = float(ya[peak_idx])
+    # sub-sample peak refinement (parabolic fit on |y|): a short kernel's
+    # argmax can sit a sample off the true zero-delay position
+    if 0 < peak_idx < len(ya) - 1:
+        a, b, c = ya[peak_idx - 1], ya[peak_idx], ya[peak_idx + 1]
+        denom = a - 2 * b + c
+        frac = 0.5 * (a - c) / denom if abs(denom) > 1e-12 else 0.0
+        refined = peak_idx + float(np.clip(frac, -0.5, 0.5))
+    else:
+        refined = float(peak_idx)
+    L, M = resolve_ratio(rate_in, rate_out)
+    latency = int(round(refined - pos * L / M))
+    # noise floor: RMS away from the response's main lobe, on both sides
+    guard = 4096
+    mask = np.ones(len(yn), bool)
+    mask[max(0, peak_idx - guard):peak_idx + guard] = False
+    tail = yn[mask]
+    rms = float(np.sqrt(np.mean(tail**2))) if tail.size else 0.0
+    nf_db = 20.0 * np.log10(max(rms, 1e-30)) if rms > 0 else -200.0
+    return CalibrationResult(latency_frames=latency, noise_floor_db=nf_db,
+                             peak_amplitude=peak_amp)
+
+
+class CalibrationCache:
+    """Persistent {chain-signature -> CalibrationResult}: a changed
+    signature misses the cache and is re-measured."""
+
+    def __init__(self, path: str | None = None):
+        self._path = path
+        self._lock = threading.Lock()
+        self._data: dict[str, CalibrationResult] = {}
+        if path and os.path.exists(path):
+            try:
+                with open(path) as f:
+                    raw = json.load(f)
+                self._data = {k: CalibrationResult(**v) for k, v in raw.items()}
+            except (json.JSONDecodeError, TypeError, AttributeError, KeyError):
+                self._data = {}  # corrupt cache self-heals (re-measured)
+
+    @staticmethod
+    def key(rate_in: int, rate_out: int, quality: str, kind: str, chain_sig: str = "") -> str:
+        """The JAX package's key; ``chain_sig`` is empty for a bare SRC."""
+        return f"{rate_in}->{rate_out}:{kind}:{quality}:{chain_sig}"
+
+    def get_or_measure(
+        self, rate_in: int, rate_out: int, quality: str = "high", kind: str = "sinc",
+        device: torch.device | str = "cpu",
+    ) -> CalibrationResult:
+        k = self.key(rate_in, rate_out, quality, kind)
+        with self._lock:
+            if k in self._data:
+                return self._data[k]
+        res = measure_latency(rate_in, rate_out, quality=quality, kind=kind,
+                              device=device)
+        with self._lock:
+            self._data[k] = res
+            self._save_locked()
+        return res
+
+    def _save_locked(self) -> None:
+        if not self._path:
+            return
+        tmp = self._path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({k: dataclasses.asdict(v) for k, v in self._data.items()}, f, indent=1)
+        os.replace(tmp, self._path)

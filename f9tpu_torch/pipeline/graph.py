@@ -1,0 +1,267 @@
+"""The per-batch device graph: decode buffers in, PCM codes + metrics out
+(port of `f9tpu/pipeline/graph.py`, flat "packed" layout).
+
+One fixed-shape batch ``(files, channels, frames)`` runs, in order:
+
+    on-device unpack -> mono fan-out -> mask -> SRC (CUDA kernel) ->
+    [latency trim] -> masked DC/gain epilogue -> peak/RMS/tail-floor
+    metrics -> position-keyed TPDF dither + quantize -> byte packing
+
+PyTorch runs it eagerly on the tensors' device; there is no jit.  Per-file
+lengths ride through as masks, as in the JAX graph.  Not ported yet, each
+raising NotImplementedError that names its ROADMAP item: the insert chain,
+reverb mode, channel routing, channel-axis sharding and the rows layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from f9tpu.config import ProcessingConfig
+from f9tpu.models.filters import design_cycle_bank
+
+from ..device import resolve_device
+from ..ops import analysis, dither
+from ..ops.devcodec import pack_interleaved, unpack_pcm_interleaved
+from ..ops.src_kernel import resample_auto
+from ..ops.trim import mask_beyond, trim_latency
+
+__all__ = ["ProcessResult", "process_batch", "process_batch_raw", "not_ported"]
+
+#: Options of the JAX package the port does not have yet, with the ROADMAP
+#: item each waits for (the graph's and the scheduler's).
+NOT_PORTED = {
+    "chain": "ROADMAP Queue 1 'Insert chain' (ops/chain.py)",
+    "reverb_mode": "ROADMAP Queue 1 'trim.detect_tail_end + reverb'",
+    "channel_routing": "ROADMAP Queue 1 'Routing' (ops/routing.py)",
+    "channel_axis": "ROADMAP Queue 1 'Multi-device' (parallel/)",
+    "mesh": "ROADMAP Queue 1 'Multi-device' (parallel/)",
+    "rows_layout": "ROADMAP Queue 1, the rows layout (_process_impl_rows)",
+    "normalize_lufs": "ROADMAP Queue 1 'Loudness' (ops/loudness.py)",
+    "native_loader": "left out of the port (measured slower than Python decode)",
+}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    """The error an unported option raises, naming its ROADMAP item."""
+    return NotImplementedError(
+        f"{what} is not ported to f9tpu_torch yet: {NOT_PORTED[what]}")
+
+
+@dataclasses.dataclass
+class ProcessResult:
+    """Device outputs for one batch (tensors on the batch's device)."""
+
+    codes: Any          # int32 codes (files, channels, out_total), or the uint8
+                        # payload (files, out_total * channels * bits // 8)
+    out_frames: Any     # (files,) int32 — valid output length per file
+    tail_terminated: Any  # (files,) bool
+    peak_db: Any        # (files,) float32, pre-quantize
+    rms_db: Any         # (files,) float32
+    noise_floor_db: Any  # (files,) float32 (tail window RMS)
+
+
+def _metrics(y: torch.Tensor, out_frames: torch.Tensor):
+    # RMS over each file's valid length, not the padded bucket
+    flat = y.reshape(y.shape[0], -1)
+    n_valid = (out_frames.to(torch.float32) * y.shape[1]).clamp(min=1.0)
+    rms = torch.sqrt(torch.sum(torch.square(flat), dim=-1) / n_valid)
+    return analysis.peak_db(flat), analysis._amp_to_db(rms)
+
+
+def _front_end(x, frames_valid, out_channels, raw_in):
+    """On-device raw decode, mono fan-out, and zeroing beyond each file's
+    true length."""
+    if raw_in is not None:
+        in_channels, in_bits, in_big = raw_in
+        x = unpack_pcm_interleaved(x, in_channels, in_bits, big_endian=in_big)
+    files = x.shape[0]
+    if out_channels is not None and x.shape[1] == 1 and out_channels != 1:
+        x = x.expand(files, out_channels, x.shape[-1])
+    return mask_beyond(x, frames_valid)
+
+
+def _exact_out_valid(frames_valid: torch.Tensor, bank, out_total: int) -> torch.Tensor:
+    """ceil(n*L/M) per file in exact integer arithmetic (float32 would drop
+    frames once n*L passes 2^24).  The L*M guard is the JAX graph's int32
+    limit, kept so both packages accept the same banks."""
+    if bank.L * bank.M >= 2**31:
+        raise ValueError(
+            f"ratio {bank.L}/{bank.M} too fine for the batch graph's int32 "
+            f"length math; re-resolve with a smaller max_denominator")
+    n = frames_valid.to(torch.int64)
+    out_valid = (n // bank.M) * bank.L + ((n % bank.M) * bank.L + bank.M - 1) // bank.M
+    return torch.clamp(out_valid, max=out_total).to(torch.int32)
+
+
+def _process_impl(x, frames_valid, latency_frames, seeds, *, rate_in, rate_out,
+                  cfg_key, static_zero_latency=False, raw_in=None,
+                  packed_out=False, chain=None, channel_axis=None):
+    (quality, kind, bits, do_dither, remove_dc, gain_db, trim_enabled,
+     reverb_mode, _margin_pct, _tail_mode, tail_window_ms, _tail_hop_ms,
+     _tail_consecutive, pad_frames, routing, out_channels) = cfg_key
+    for what, on in (("chain", chain is not None),
+                     ("channel_axis", channel_axis is not None),
+                     ("reverb_mode", reverb_mode),
+                     ("channel_routing", routing is not None)):
+        if on:
+            raise not_ported(what)
+
+    dev = x.device
+    bank = design_cycle_bank(rate_in, rate_out, quality=quality, kind=kind)
+    files = x.shape[0]
+    x = _front_end(x, frames_valid, out_channels, raw_in)
+    if pad_frames:
+        x = F.pad(x, (0, pad_frames))
+
+    y = resample_auto(x, bank)
+
+    out_total = y.shape[-1]
+    if trim_enabled and not static_zero_latency:
+        y = trim_latency(y, latency_frames, out_total)
+    out_frames = _exact_out_valid(frames_valid, bank, out_total)
+    terminated = torch.ones((files,), dtype=torch.bool, device=dev)
+
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    vmask = (torch.arange(out_total, dtype=torch.int32, device=dev)[None, None, :]
+             < out_frames[:, None, None])
+    ym = torch.where(vmask, y, zero)
+    if remove_dc:
+        # mean over each file's valid span only (masked samples add 0)
+        mean = (torch.sum(ym, dim=-1, keepdim=True)
+                / torch.clamp(out_frames, min=1).reshape(files, 1, 1).to(torch.float32))
+    else:
+        mean = torch.zeros((files, 1, 1), dtype=torch.float32, device=dev)
+    g = 10.0 ** (gain_db / 20.0) if gain_db else 1.0
+    z = torch.where(vmask, (ym - mean) * g, zero)
+
+    pk_db, level_db = _metrics(z, out_frames)
+    # noise floor: RMS of the last tail window of each file's valid span
+    win = max(1, rate_out * tail_window_ms // 1000)
+    mono = torch.amax(torch.abs(z), dim=1)                       # (files, out_total)
+    raw_pos = (out_frames[:, None].to(torch.int64) - win
+               + torch.arange(win, dtype=torch.int64, device=dev)[None, :])
+    in_range = raw_pos >= 0            # short files have < win valid samples
+    gathered = torch.gather(mono, -1, raw_pos.clamp(0, out_total - 1))
+    n_tail = torch.clamp(torch.clamp(out_frames, max=win).to(torch.float32), min=1.0)
+    tail_rms = torch.sqrt(torch.sum(torch.square(gathered) * in_range, dim=-1) / n_tail)
+    nf_est = analysis._amp_to_db(tail_rms)
+
+    if do_dither:
+        # noise keyed by (file seed, channel, absolute output frame): bytes
+        # do not depend on batching, devices or the package that made them
+        cs = dither.channel_seeds(dither.noise_seeds(seeds, files), z.shape[1])
+        pos_t = torch.arange(out_total, dtype=torch.int64, device=dev)[None, None, :]
+        codes = dither.quantize_noise(z, bits, cs[:, :, None], pos_t)
+    else:
+        codes = dither.quantize_noise(z, bits)
+    codes = torch.where(vmask, codes, torch.zeros((), dtype=torch.int32, device=dev))
+    if packed_out:
+        codes = pack_interleaved(codes, bits)
+    return codes, out_frames, terminated, pk_db, level_db, nf_est
+
+
+def _cfg_key(cfg: ProcessingConfig, pad_frames: int) -> tuple:
+    return (
+        cfg.quality, cfg.kind, cfg.bits, cfg.dither, cfg.remove_dc,
+        float(cfg.gain_db), cfg.trim_enabled, cfg.reverb_mode,
+        float(cfg.noise_floor_margin_pct), cfg.tail_mode, cfg.tail_window_ms,
+        cfg.tail_hop_ms, cfg.tail_consecutive, pad_frames,
+        tuple(cfg.channel_routing) if cfg.channel_routing is not None else None,
+        cfg.output_channels,
+    )
+
+
+def _default_pad_frames(cfg: ProcessingConfig, rate_in: int, latency_frames) -> int:
+    """Capture head-room (src + 5*latency rule).  Without a chain or reverb
+    mode — the only cases the port runs yet — there is none; the other
+    branches raise with their ROADMAP item."""
+    if cfg.chain is not None:
+        raise not_ported("chain")
+    if cfg.reverb_mode:
+        raise not_ported("reverb_mode")
+    return 0
+
+
+def _pick_device(a, device) -> torch.device:
+    if device is not None:
+        return resolve_device(device)
+    if isinstance(a, torch.Tensor):
+        return a.device
+    return resolve_device("cuda")
+
+
+def _as_tensor(a, dtype, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _seed_vector(seeds, files: int, device) -> torch.Tensor:
+    s = _as_tensor(seeds, torch.int32, device)
+    if s.shape != (files,):
+        raise ValueError(f"expected ({files},) per-file seeds, got {tuple(s.shape)}")
+    return s
+
+
+def _latency(latency_frames, device):
+    static_zero = isinstance(latency_frames, int) and latency_frames == 0
+    return _as_tensor(latency_frames, torch.int64, device), static_zero
+
+
+def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
+                  latency_frames=0, rows_layout: bool = False,
+                  device=None) -> ProcessResult:
+    """Run one fixed-shape batch of float32 ``x (files, channels, frames)``
+    (zero-padded per file to the bucket length; ``frames_valid`` holds the
+    true lengths) on ``device`` (default: ``x``'s device if it is a tensor,
+    else CUDA).  ``seeds`` is the
+    per-file int32 dither seed vector."""
+    if rows_layout:
+        raise not_ported("rows_layout")
+    dev = _pick_device(x, device)
+    x = _as_tensor(x, torch.float32, dev)
+    pad_frames = _default_pad_frames(cfg, rate_in, latency_frames)
+    lat, static_zero = _latency(latency_frames, dev)
+    codes, out_frames, terminated, pk, level, nf_est = _process_impl(
+        x, _as_tensor(frames_valid, torch.int32, dev), lat,
+        _seed_vector(seeds, x.shape[0], dev),
+        rate_in=rate_in, rate_out=cfg.target_rate,
+        cfg_key=_cfg_key(cfg, pad_frames), static_zero_latency=static_zero,
+        chain=cfg.chain)
+    return ProcessResult(codes=codes, out_frames=out_frames,
+                         tail_terminated=terminated, peak_db=pk, rms_db=level,
+                         noise_floor_db=nf_est)
+
+
+def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
+                      seeds, in_channels: int, in_bits: int,
+                      in_big_endian: bool = False, latency_frames=0,
+                      rows_layout: bool = False, device=None) -> ProcessResult:
+    """Raw-bytes path: uint8 interleaved PCM ``(files, bucket_frames *
+    in_channels * in_bits // 8)`` in, packed payload out.  ``codes`` holds
+    the uint8 payload ``(files, out_total * out_channels * cfg.bits // 8)``;
+    slice each file to ``out_frames[i] * out_channels * cfg.bits // 8``."""
+    if cfg.bits not in (16, 24):
+        raise ValueError("packed output path requires bits in (16, 24)")
+    if rows_layout:
+        raise not_ported("rows_layout")
+    dev = _pick_device(raw, device)
+    raw = _as_tensor(raw, torch.uint8, dev)
+    pad_frames = _default_pad_frames(cfg, rate_in, latency_frames)
+    lat, static_zero = _latency(latency_frames, dev)
+    payload, out_frames, terminated, pk, level, nf_est = _process_impl(
+        raw, _as_tensor(frames_valid, torch.int32, dev), lat,
+        _seed_vector(seeds, raw.shape[0], dev),
+        rate_in=rate_in, rate_out=cfg.target_rate,
+        cfg_key=_cfg_key(cfg, pad_frames), static_zero_latency=static_zero,
+        raw_in=(in_channels, in_bits, in_big_endian), packed_out=True,
+        chain=cfg.chain)
+    return ProcessResult(codes=payload, out_frames=out_frames,
+                         tail_terminated=terminated, peak_db=pk, rms_db=level,
+                         noise_floor_db=nf_est)

@@ -1,0 +1,583 @@
+"""Batch scheduler (port of `f9tpu/pipeline/scheduler.py`).
+
+decode threads -> length-bucketed fixed-shape batches -> the device graph
+-> collector (device-to-host copy) -> encode threads, overlapped through
+queues.  Files are grouped by (rate, channels, raw wire) and length-bucketed;
+per-file status flows through the persistent `JobManifest` (resume at file
+granularity) and the `StatusLog`.
+
+Not ported yet, each refused when the processor is built: multi-device
+meshes, loudness normalization, the rows layout, the native loader, the
+insert chain, reverb mode and channel routing.  Files longer than the
+largest bucket (which the JAX package streams) are marked FAILED with
+"streaming not yet ported" while the rest of the batch goes on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import struct
+import threading
+import time
+
+import numpy as np
+import torch
+
+from f9tpu.config import ProcessingConfig
+from f9tpu.io import aiff, codec, flac, wav
+
+from ..device import resolve_device
+from ..ops.dither import file_seed as _file_seed
+from .calibration import CalibrationCache
+from .graph import not_ported, process_batch, process_batch_raw
+from .logbook import StatusLog, Throughput
+from .manifest import FileStatus, JobManifest, file_crc32
+
+__all__ = ["BatchResult", "BatchProcessor", "build_output_path"]
+
+#: files at/above this many source frames get sub-file decode/encode progress
+SUBFILE_PROGRESS_FRAMES = 1 << 21
+#: host-stage chunk size (frames) for the sub-file progress paths
+SUBFILE_PROGRESS_CHUNK = 1 << 20
+#: bound of the decode -> dispatch and collector -> encode queues
+QUEUE_DEPTH = 16
+STREAMING_TODO = "streaming not yet ported (ROADMAP Queue 1 'stream.py')"
+
+
+def build_output_path(src_path: str, output_dir: str, postfix: str,
+                      fmt: str = "wav") -> str:
+    """out_dir/<stem><postfix>.<fmt>"""
+    stem = os.path.splitext(os.path.basename(src_path))[0]
+    ext = fmt if fmt in ("aiff", "flac") else "wav"
+    return os.path.join(output_dir, f"{stem}{postfix}.{ext}")
+
+
+@dataclasses.dataclass
+class BatchResult:
+    completed: int
+    failed: int
+    invalid: int
+    audio_seconds_in: float
+    audio_seconds_out: float
+    wall_seconds: float
+    throughput: dict
+    per_file: dict = dataclasses.field(default_factory=dict)
+    """Per-file device metrics keyed by input path: out_frames, peak_db,
+    rms_db, noise_floor_db."""
+    skipped: int = 0
+    """How many of `completed` were resume skips."""
+    aborted: bool = False
+    """True when a device step failed and the remaining files were failed
+    with 'batch aborted'."""
+
+    @property
+    def x_realtime(self) -> float:
+        return self.audio_seconds_out / self.wall_seconds if self.wall_seconds else 0.0
+
+
+@dataclasses.dataclass
+class _Decoded:
+    entry_path: str
+    data: np.ndarray      # (channels, frames) float32, or the raw uint8 payload
+    rate: int
+
+
+class BatchProcessor:
+    """Orchestrates a whole batch on one device: probe -> validate ->
+    calibrate -> pipeline."""
+
+    def __init__(
+        self,
+        cfg: ProcessingConfig,
+        log: StatusLog | None = None,
+        calibration: CalibrationCache | None = None,
+        decode_workers: int = 4,
+        encode_workers: int = 4,
+        mesh=None,
+        device: torch.device | str = "cuda",
+    ):
+        cfg.validate()
+        for what, on in (("mesh", mesh is not None),
+                         ("normalize_lufs", cfg.normalize_lufs is not None),
+                         ("rows_layout", cfg.device_layout == "rows"),
+                         ("native_loader", cfg.native_loader),
+                         ("chain", cfg.chain is not None),
+                         ("reverb_mode", cfg.reverb_mode),
+                         ("channel_routing", cfg.channel_routing is not None)):
+            if on:
+                raise not_ported(what)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.log = log or StatusLog()
+        self.calibration = calibration or CalibrationCache()
+        self.decode_workers = decode_workers
+        self.encode_workers = encode_workers
+        self.throughput = Throughput()
+
+    # ------------------------------------------------------------------- run
+
+    def run(self, files: list[str], manifest_path: str | None = None) -> BatchResult:
+        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        manifest = (
+            JobManifest.load_or_create(files, manifest_path)
+            if manifest_path else JobManifest.from_files(files)
+        )
+        try:
+            return self._run(files, manifest)
+        finally:
+            manifest.close()
+
+    def _probe(self, run_files, manifest):
+        """Probe + validate; returns (groups, skipped) with groups keyed by
+        (rate, channels, raw_bits, raw_big_endian)."""
+        cfg = self.cfg
+        groups: dict[tuple, list] = {}
+        skipped = 0
+        for path in run_files:
+            e = manifest.get(path)
+            if e.status == FileStatus.COMPLETED:
+                self.log.append(f"Skip (already completed): {e.path}")
+                skipped += 1
+                continue
+            if not codec.is_supported(e.path):
+                manifest.update(e.path, FileStatus.FAILED, error="unsupported file type")
+                continue
+            try:
+                info = codec.probe(e.path)
+                in_st = os.stat(e.path)
+            except (ValueError, OSError, struct.error, EOFError) as err:
+                manifest.update(e.path, FileStatus.FAILED, error=str(err))
+                self.log.append(f"Probe failed: {e.path}: {err}")
+                continue
+            if (cfg.require_input_rate is not None
+                    and not info.is_valid_for_rate(cfg.require_input_rate)):
+                manifest.update(e.path, FileStatus.INVALID_SAMPLE_RATE,
+                                sample_rate=info.sample_rate)
+                self.log.append(
+                    f"Invalid sample rate {info.sample_rate} (require "
+                    f"{cfg.require_input_rate}): {e.path}")
+                continue
+            manifest.update(e.path, FileStatus.PENDING,
+                            sample_rate=info.sample_rate,
+                            num_channels=info.num_channels,
+                            num_frames=info.num_frames,
+                            input_size=in_st.st_size,
+                            input_mtime_ns=in_st.st_mtime_ns)
+            # raw wire: integer-PCM WAV/AIFF/FLAC/AU ship 2-3 B/sample and
+            # decode on the device (either byte order)
+            raw_bits = (info.bit_depth
+                        if (not info.is_float
+                            and info.container in ("wav", "aiff", "flac", "au")
+                            and info.bit_depth in (16, 24)
+                            and cfg.bits in (16, 24))
+                        else 0)
+            raw_be = bool(raw_bits) and info.byte_order == "big"
+            groups.setdefault(
+                (info.sample_rate, info.num_channels, raw_bits, raw_be),
+                []).append(info)
+        return groups, skipped
+
+    def _output_paths(self, run_files, manifest) -> dict[str, str]:
+        """Collision-safe output naming: two inputs with one stem never share
+        an output, and no output lands on an input of this run."""
+        cfg = self.cfg
+        out_paths: dict[str, str] = {}
+        taken: dict[str, int] = {}
+        in_real = {os.path.realpath(p) for p in run_files}
+        will_process = {p for p in run_files
+                        if manifest.get(p).status == FileStatus.PENDING}
+        for e in manifest.entries():
+            # deliverables of files not (re)processed this run are reserved
+            if e.path not in will_process and e.output_path:
+                taken.setdefault(e.output_path, 1)
+        for path in run_files:
+            if path not in will_process:
+                continue
+            base = build_output_path(path, cfg.output_dir, cfg.postfix,
+                                     fmt=cfg.output_format)
+            if base in taken or os.path.realpath(base) in in_real:
+                stem, ext = os.path.splitext(base)
+                n = taken.get(base, 1)
+                while True:
+                    n += 1
+                    out = f"{stem}_{n}{ext}"
+                    if out not in taken and os.path.realpath(out) not in in_real:
+                        break
+                taken[base] = n
+                taken[out] = 1
+                self.log.append(
+                    f"Output name collision: {os.path.basename(path)} -> "
+                    f"{os.path.basename(out)}")
+            else:
+                taken[base] = 1
+                out = base
+            out_paths[path] = out
+        return out_paths
+
+    def _calibrate(self, groups) -> dict[int, int]:
+        """Latency per input rate: ``cfg.latency_frames`` or a cached/measured
+        impulse calibration on the processor's device."""
+        cfg = self.cfg
+        latencies: dict[int, int] = {}
+        for rate_in, _, _, _ in groups:
+            if rate_in in latencies:
+                continue
+            if cfg.latency_frames is not None:
+                latencies[rate_in] = cfg.latency_frames
+                continue
+            cal = self.calibration.get_or_measure(
+                rate_in, cfg.target_rate, quality=cfg.quality, kind=cfg.kind,
+                device=self.device)
+            if not cal.detected:
+                raise RuntimeError(
+                    f"calibration impulse not detected for "
+                    f"{rate_in}->{cfg.target_rate}")
+            latencies[rate_in] = cal.latency_frames
+            self.log.append(
+                f"Calibrated {rate_in}->{cfg.target_rate}: latency "
+                f"{cal.latency_frames} frames, noise floor {cal.noise_floor_db:.1f} dB")
+        return latencies
+
+    def _run(self, files: list[str], manifest: JobManifest) -> BatchResult:
+        t_start = time.time()
+        cfg = self.cfg
+        dev = self.device
+        self.log.append(f"Batch start: {len(files)} file(s) -> {cfg.output_dir}")
+        run_files = list(dict.fromkeys(files))
+        listed = set(run_files)
+        groups, skipped = self._probe(run_files, manifest)
+        out_paths = self._output_paths(run_files, manifest)
+        latencies = self._calibrate(groups)
+
+        audio_in = audio_out = 0.0
+        stop_event = threading.Event()
+        errors: list[str] = []
+        per_file_metrics: dict[str, dict] = {}
+        # per-file dither seeds from (cfg.seed, path): reruns are
+        # byte-identical whatever the decode order; None = wall clock
+        base_seed = (cfg.seed if cfg.seed is not None
+                     else int(time.time()) & 0x7FFFFFFF)
+
+        # ---- plan: group -> length buckets ----
+        max_bucket = max(cfg.bucket_frames)
+        buckets: list[dict] = []
+        for (rate_in, channels, raw_bits, raw_be), infos in groups.items():
+            infos = [i for i in infos
+                     if manifest.get(i.path).status == FileStatus.PENDING]
+            by_bucket: dict[int, list] = {}
+            for info in infos:
+                n = info.num_frames
+                if n > max_bucket:
+                    manifest.update(info.path, FileStatus.FAILED,
+                                    error=STREAMING_TODO)
+                    self.log.append(
+                        f"Oversized ({n} frames > largest bucket {max_bucket}): "
+                        f"{os.path.basename(info.path)}: {STREAMING_TODO}")
+                    continue
+                blen = next(b for b in sorted(cfg.bucket_frames) if n <= b)
+                by_bucket.setdefault(blen, []).append(info)
+            out_ch = (cfg.output_channels
+                      if (cfg.output_channels and channels == 1) else channels)
+            for blen, binfos in sorted(by_bucket.items()):
+                buckets.append(dict(
+                    rate_in=rate_in, channels=channels, raw_bits=raw_bits,
+                    raw_be=raw_be, lat=latencies[rate_in], out_ch=out_ch,
+                    blen=blen, infos=binfos, bs=cfg.batch_size))
+
+        work = [(bi, info) for bi, b in enumerate(buckets) for info in b["infos"]]
+        dec_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
+        enc_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
+        res_q: queue.Queue = queue.Queue(maxsize=2)
+
+        def decode_worker(work_q):
+            # the finally-sentinel is load-bearing: the main loop counts one
+            # None per worker.  A per-file failure marks the file FAILED and
+            # posts a failure token so the bucket's arrival count completes.
+            try:
+                while True:
+                    try:
+                        bi, info = work_q.get_nowait()
+                    except queue.Empty:
+                        return
+                    if stop_event.is_set():
+                        return
+                    try:
+                        t0 = time.time()
+                        if buckets[bi]["raw_bits"]:
+                            data, rinfo = codec.read_raw_pcm(info.path)
+                            rate = rinfo.sample_rate
+                            audio_s = rinfo.num_frames / rate
+                        elif info.num_frames >= SUBFILE_PROGRESS_FRAMES:
+                            manifest.update(info.path, FileStatus.PROCESSING,
+                                            progress=0.0)
+                            data, rate = codec.read_audio_progress(
+                                info.path,
+                                lambda fr, _p=info.path:
+                                    manifest.set_progress(_p, 0.3 * fr),
+                                chunk_frames=SUBFILE_PROGRESS_CHUNK)
+                            audio_s = data.shape[-1] / rate
+                        else:
+                            data, rate = codec.read_audio(info.path)
+                            audio_s = data.shape[-1] / rate
+                        self.throughput.add("decode", audio_s, time.time() - t0)
+                        manifest.update(info.path, FileStatus.PROCESSING,
+                                        progress=0.3)
+                        dec_q.put((bi, _Decoded(info.path, data, rate)))
+                    except Exception as err:
+                        manifest.update(info.path, FileStatus.FAILED,
+                                        error=str(err))
+                        self.log.append(f"Decode failed: {info.path}: {err}")
+                        dec_q.put((bi, None))
+            finally:
+                dec_q.put(None)
+
+        def put_enc(item) -> bool:
+            # abort-aware bounded put: never wedge on a dead encode pool
+            while not stop_event.is_set():
+                try:
+                    enc_q.put(item, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def encode_worker():
+            while True:
+                item = enc_q.get()
+                if item is None:
+                    return
+                path, codes, out_frames, rate_out, metrics = item
+                part = None
+                try:
+                    t0 = time.time()
+                    out_path = out_paths[path]
+                    # atomic publish: encode to .part, os.replace when done
+                    part = out_path + ".part"
+                    fmt = cfg.output_format
+                    prog = None
+                    if out_frames >= SUBFILE_PROGRESS_FRAMES:
+                        prog = (lambda fr, _p=path:
+                                manifest.set_progress(_p, 0.7 + 0.3 * fr))
+                    if metrics["payload"]:
+                        out_ch = metrics["out_channels"]
+                        writer = {"aiff": aiff.write_aiff_payload,
+                                  "flac": flac.write_flac_payload,
+                                  }.get(fmt, wav.write_wav_payload)
+                        writer(part, codes[: out_frames * out_ch * (cfg.bits // 8)],
+                               out_ch, rate_out, bits=cfg.bits,
+                               progress_cb=prog,
+                               chunk_frames=SUBFILE_PROGRESS_CHUNK)
+                    else:
+                        writer = {"aiff": aiff.write_aiff_codes,
+                                  "flac": flac.write_flac_codes,
+                                  }.get(fmt, wav.write_wav_codes)
+                        writer(part, codes[:, :out_frames], rate_out,
+                               bits=cfg.bits, progress_cb=prog,
+                               chunk_frames=SUBFILE_PROGRESS_CHUNK)
+                    if cfg.keep_metadata:
+                        try:
+                            codec.carry_metadata(path, part, cfg.output_format,
+                                                 metrics["rate_in"], rate_out)
+                        except (ValueError, OSError, MemoryError) as err:
+                            self.log.append(
+                                f"Metadata passthrough skipped for "
+                                f"{os.path.basename(path)}: {err}")
+                    os.replace(part, out_path)
+                    self.throughput.add("encode", out_frames / rate_out,
+                                        time.time() - t0)
+                    out_st = os.stat(out_path)
+                    manifest.update(
+                        path, FileStatus.COMPLETED,
+                        output_path=out_path,
+                        output_size=out_st.st_size,
+                        output_crc32=file_crc32(out_path),
+                        output_mtime_ns=out_st.st_mtime_ns,
+                        metrics=per_file_metrics.get(path),
+                        progress=1.0)
+                    self.log.append(
+                        f"Completed: {os.path.basename(out_path)} "
+                        f"({out_frames} frames @ {rate_out} Hz, "
+                        f"peak {metrics['peak_db']:.1f} dB)")
+                except Exception as err:
+                    # any write-path failure fails the file and keeps the
+                    # worker alive so enc_q keeps draining
+                    manifest.update(path, FileStatus.FAILED, error=str(err))
+                    self.log.append(f"Encode failed: {path}: {err}")
+                    errors.append(str(err))
+                    if part is not None:
+                        try:
+                            os.unlink(part)
+                        except OSError:
+                            pass
+
+        def collector():
+            nonlocal audio_in, audio_out
+            while True:
+                item = res_q.get()
+                if item is None:
+                    return
+                bi, c_paths, res, c_valid, c_rate_in = item
+                b = buckets[bi]
+                # stage wall = the collector's blocking time materialising
+                # this batch (device work still outstanding + the copy)
+                t_blk = time.time()
+                try:
+                    codes = res.codes.cpu().numpy()
+                    out_frames = res.out_frames.cpu().numpy()
+                    pk = res.peak_db.cpu().numpy()
+                    rms = res.rms_db.cpu().numpy()
+                    nf = res.noise_floor_db.cpu().numpy()
+                except Exception as err:
+                    stop_event.set()
+                    manifest.fail_remaining(f"device step failed: {err}", paths=listed)
+                    self.log.append(f"BATCH ABORT: device step failed: {err}")
+                    errors.append(str(err))
+                    continue
+                self.throughput.add(
+                    "device", float(c_valid.sum()) / c_rate_in,
+                    max(time.time() - t_blk, 1e-3))
+                for i, p in enumerate(c_paths):
+                    manifest.set_progress(p, 0.7)
+                    audio_in += c_valid[i] / c_rate_in
+                    audio_out += int(out_frames[i]) / cfg.target_rate
+                    per_file_metrics[p] = {
+                        "out_frames": int(out_frames[i]),
+                        "peak_db": round(float(pk[i]), 2),
+                        "rms_db": round(float(rms[i]), 2),
+                        "noise_floor_db": round(float(nf[i]), 2),
+                    }
+                    delivered = put_enc(
+                        (p, codes[i], int(out_frames[i]), cfg.target_rate,
+                         {"peak_db": float(pk[i]), "rate_in": c_rate_in,
+                          "payload": bool(b["raw_bits"]),
+                          "out_channels": b["out_ch"]}))
+                    if not delivered:
+                        manifest.update(p, FileStatus.FAILED,
+                                        error="aborted before encode")
+
+        pending: dict[int, list] = {bi: [] for bi in range(len(buckets))}
+        total = {bi: len(b["infos"]) for bi, b in enumerate(buckets)}
+        got = {bi: 0 for bi in range(len(buckets))}
+
+        def flush(bi: int):
+            batch_x = pending[bi]
+            if not batch_x:
+                return
+            b = buckets[bi]
+            blen, channels, raw_bits = b["blen"], b["channels"], b["raw_bits"]
+            paths = [d.entry_path for d in batch_x]
+            # always the bucket's full batch width (zero-padded)
+            bs = b["bs"]
+            valid = np.zeros(bs, np.int32)
+            seeds = np.zeros(bs, np.int32)
+            for i, d in enumerate(batch_x):
+                seeds[i] = _file_seed(base_seed, d.entry_path)
+            if raw_bits:
+                bpf = channels * (raw_bits // 8)
+                x = np.zeros((bs, blen * bpf), np.uint8)
+                for i, d in enumerate(batch_x):
+                    nb = min(len(d.data), blen * bpf)
+                    x[i, :nb] = d.data[:nb]
+                    valid[i] = nb // bpf
+            else:
+                x = np.zeros((bs, channels, blen), np.float32)
+                for i, d in enumerate(batch_x):
+                    n = min(d.data.shape[-1], blen)
+                    x[i, :, :n] = d.data[:, :n]
+                    valid[i] = n
+            for d in batch_x:
+                manifest.set_progress(d.entry_path, 0.4)
+            try:
+                # enqueue only: the collector thread waits for the device
+                # and copies the results while the next batch is staged
+                if raw_bits:
+                    res = process_batch_raw(
+                        x, valid, cfg, b["rate_in"], seeds,
+                        in_channels=channels, in_bits=raw_bits,
+                        in_big_endian=b["raw_be"], latency_frames=b["lat"],
+                        device=dev)
+                else:
+                    res = process_batch(
+                        x, valid, cfg, b["rate_in"], seeds,
+                        latency_frames=b["lat"], device=dev)
+            except Exception as err:
+                stop_event.set()
+                manifest.fail_remaining(f"device step failed: {err}", paths=listed)
+                self.log.append(f"BATCH ABORT: device step failed: {err}")
+                errors.append(str(err))
+                pending[bi] = []
+                return
+            res_q.put((bi, paths, res, valid.copy(), b["rate_in"]))
+            pending[bi] = []
+
+        dec_threads = []
+        if work:
+            work_q: queue.Queue = queue.Queue()
+            for item in work:
+                work_q.put(item)
+            for _ in range(min(self.decode_workers, len(work))):
+                t = threading.Thread(target=decode_worker, args=(work_q,),
+                                     daemon=True)
+                t.start()
+                dec_threads.append(t)
+        enc_threads = [threading.Thread(target=encode_worker, daemon=True)
+                       for _ in range(self.encode_workers)]
+        for t in enc_threads:
+            t.start()
+        collector_thread = threading.Thread(target=collector, daemon=True)
+        collector_thread.start()
+
+        done_workers = 0
+        while done_workers < len(dec_threads):
+            item = dec_q.get()
+            if item is None:
+                done_workers += 1
+                continue
+            bi, dec = item
+            got[bi] += 1
+            if stop_event.is_set():
+                continue  # aborted: drain the queue, no more batches
+            if dec is not None:
+                pending[bi].append(dec)
+                if len(pending[bi]) >= buckets[bi]["bs"]:
+                    flush(bi)
+            if got[bi] == total[bi]:
+                flush(bi)   # every file of the bucket has arrived or failed
+        if not stop_event.is_set():
+            for bi in range(len(buckets)):
+                flush(bi)   # safety sweep
+        res_q.put(None)
+        collector_thread.join()
+        for _ in enc_threads:
+            enc_q.put(None)
+        for t in enc_threads:
+            t.join()
+        for t in dec_threads:
+            t.join()
+
+        if stop_event.is_set():
+            manifest.fail_remaining("batch aborted", paths=listed)
+        manifest.save()
+        counts = manifest.counts(listed)
+        wall = time.time() - t_start
+        result = BatchResult(
+            completed=counts.get("completed", 0),
+            failed=counts.get("failed", 0),
+            invalid=counts.get("invalid_sample_rate", 0),
+            audio_seconds_in=audio_in,
+            audio_seconds_out=audio_out,
+            wall_seconds=wall,
+            throughput=self.throughput.summary(),
+            per_file=per_file_metrics,
+            skipped=skipped,
+            aborted=stop_event.is_set(),
+        )
+        xrt = result.x_realtime
+        xrt_s = f"{xrt:.0f}x" if xrt >= 10 else f"{xrt:.2f}x"
+        self.log.append(
+            f"Batch done in {wall:.2f}s: {result.completed} completed, "
+            f"{result.failed} failed, {result.invalid} invalid rate "
+            f"({xrt_s} real time)")
+        return result
