@@ -16,7 +16,15 @@ its results, any failure exiting non-zero:
 4. the default batch job, `f9tpu_torch.cli process --rate 48000` on 8
    stereo 24-bit 44.1 kHz WAVs of 50-60 s: 8 completed, kernel launches
    counted from zero, outputs <= -120 dB against the oracle and within
-   2 LSB of the port's CPU path, wall time and x real time.
+   2 LSB of the port's CPU path, wall time and x real time;
+5. the insert loop, `cli process --rate 48000 --reverb --routing 1,0
+   --chain-delay-ms 5 --chain-eq peaking:1000:1:3 --chain-comp=-18:3
+   --chain-ir IR.wav --chain-limit=-0.3` on 8 stereo 24-bit 44.1 kHz WAVs
+   of 20-40 s with a stereo 2.5 s 48 kHz IR: 8 completed, every tail
+   terminated and longer than its source, kernel launches counted from
+   zero (calibration and batches), the 2 shortest outputs within 16 LSB of
+   the port's CPU path, wall time and x real time, and one batch's device
+   graph split by CUDA events into SRC, each chain stage and the rest.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits 1 and
@@ -25,6 +33,7 @@ prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -45,7 +54,14 @@ TWIN_TOL = 5e-7
 ORACLE_DB_MAX = -120.0
 #: the JAX package's own tolerance between two SRC forms after quantizing
 LSB_TOL = 2
+#: the insert loop's card-vs-CPU bound: the JAX package's full-scale bound
+#: between two forms (tests/test_pipeline.py), since cuFFT and pocketfft
+#: round differently and the dynamics stages amplify that through log/pow
+LOOP_LSB_TOL = 16
 SEED = 20260116
+INSERT_LOOP_FLAGS = ["--rate", "48000", "--reverb", "--routing", "1,0",
+                     "--chain-delay-ms", "5", "--chain-eq", "peaking:1000:1:3",
+                     "--chain-comp=-18:3", "--chain-limit=-0.3"]
 
 
 def _card() -> str:
@@ -237,6 +253,250 @@ def phase_slice(card: str, work: str) -> int:
     return launches
 
 
+def _stereo_ir(rng, rate: int = 48000, seconds: float = 2.5):
+    """Exponentially decaying noise, 90 dB down at its end, unit energy per
+    channel, behind a 0.5 direct-sound spike (the calibration peak)."""
+    import numpy as np
+
+    n = int(seconds * rate)
+    tau = seconds / (90.0 / (20.0 * np.log10(np.e)))
+    ir = rng.standard_normal((2, n)) * np.exp(-np.arange(n) / (tau * rate))
+    ir /= np.sqrt(np.sum(np.square(ir), axis=-1, keepdims=True))
+    ir[:, 0] = 0.5
+    return ir.astype(np.float32)
+
+
+def _timed(fn, runs: int = 3):
+    """(result of the last run, median CUDA-event ms over ``runs``)."""
+    import numpy as np
+    import torch
+
+    out, ts = None, []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return out, float(np.median(ts))
+
+
+def _loop_graph_split(card: str, in_dir: str, names: list[str], ir_path: str,
+                      lat: int, dev) -> None:
+    """One 8-file batch of the insert loop on the card, every file in the
+    60 s capture bucket, by CUDA events (median of 3 after one warm-up):
+    the whole graph, the same graph without the chain on the same capture
+    (chain = the difference, rest = no-chain graph - SRC), then SRC, each
+    chain stage and the fold / moving-average / UPOLS helpers alone.
+    ``lat`` is the calibrated latency."""
+    import numpy as np
+    import torch
+
+    from f9tpu.config import ProcessingConfig
+    from f9tpu.io import codec
+    from f9tpu.models import design_cycle_bank
+    from f9tpu_torch import cli
+    from f9tpu_torch.ops import chain as ch
+    from f9tpu_torch.ops.routing import route_channels
+    from f9tpu_torch.ops.src_kernel import resample_auto
+    from f9tpu_torch.pipeline import graph
+
+    chain = cli._build_chain(argparse.Namespace(**_chain_args(ir_path)))
+    cfg = ProcessingConfig(output_dir="unused", target_rate=48000, reverb_mode=True,
+                           channel_routing=[1, 0], chain=chain)
+    datas = [codec.read_audio(os.path.join(in_dir, n))[0] for n in names]
+    blen = int(60 * 44100)
+    x = np.zeros((8, 2, blen), np.float32)
+    valid = np.zeros(8, np.int32)
+    for i, d in enumerate(datas):
+        valid[i] = min(d.shape[-1], blen)
+        x[i, :, :valid[i]] = d[:, :valid[i]]
+    seeds = np.arange(1, 9, dtype=np.int32)
+    xd = torch.from_numpy(x).to(dev)
+    vd = torch.from_numpy(valid).to(dev)
+    pad = graph._default_pad_frames(cfg, 44100, lat)
+
+    def whole():
+        return graph.process_batch(xd, vd, cfg, 44100, seeds, latency_frames=lat,
+                                   device=dev)
+    whole()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, t_all = _timed(whole)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg_bare = ProcessingConfig(output_dir="unused", target_rate=48000,
+                                reverb_mode=True, channel_routing=[1, 0])
+    _, t_bare = _timed(lambda: graph.process_batch(
+        xd, vd, cfg_bare, 44100, seeds, latency_frames=lat, pad_frames=pad,
+        device=dev))
+    xin = torch.nn.functional.pad(route_channels(xd, [1, 0]), (0, pad))
+    bank = design_cycle_bank(44100, 48000)
+    y, t_src = _timed(lambda: resample_auto(xin, bank))
+    audio_s = float(valid.sum()) / 44100
+    print(f"loop graph: 8 files x 2 ch, capture {blen} + pad {pad} input frames "
+          f"({audio_s:.1f} s of source): whole graph {t_all:.1f} ms "
+          f"({audio_s / (t_all / 1000):.0f}x real time), peak device memory "
+          f"{peak_gb:.2f} GB, tail_terminated={res.tail_terminated.tolist()} [{card}]",
+          flush=True)
+    for name, t in (("chain (whole - no-chain graph)", t_all - t_bare),
+                    ("SRC cycle_src alone", t_src),
+                    ("rest (no-chain graph - SRC: routing, pad, trim, tail "
+                     "detection, epilogue, dither)", t_bare - t_src)):
+        print(f"loop graph: {name}: {t:.2f} ms ({100.0 * t / t_all:.1f} %) [{card}]",
+              flush=True)
+    for st in chain.stages:
+        y, t = _timed(lambda st=st, y=y: st.apply(y, 48000))
+        print(f"loop graph: chain stage {type(st).__name__} alone: {t:.2f} ms "
+              f"[{card}]", flush=True)
+    y = resample_auto(xin, bank)
+    sq = torch.square(y)
+    for label, fn in (
+            ("_fir_fold 351 taps (8, 2, T)",
+             lambda: ch._fir_fold(y, chain.stages[1].impulse_response(48000))),
+            ("_uniform_ma_past win 48 (8, 2, T)", lambda: ch._uniform_ma_past(sq, 48)),
+            ("_uniform_ma_past win 240 (8, 1, T)",
+             lambda: ch._uniform_ma_past(sq[:, :1], 240)),
+            ("_fft_convolve_multi 2.5 s stereo IR (upols)",
+             lambda: ch._fft_convolve_multi(y, chain.stages[3].ir))):
+        _, t = _timed(fn)
+        print(f"loop helper: {label}, T={y.shape[-1]}: {t:.2f} ms [{card}]", flush=True)
+
+
+#: calibration through SRC + chain in a fresh process: CUDA, the SRC kernel
+#: and its first launch are warmed first, so the cold call isolates the
+#: chain's own first use (cuFFT and the other library kernels it loads)
+_COLD_CALIBRATION = """
+import argparse, json, sys, time
+sys.path.insert(0, {root!r})
+import torch
+from f9tpu_torch import cli
+from f9tpu_torch.ops.resample import resample_rates
+from f9tpu_torch.pipeline import calibration
+resample_rates(torch.zeros(4096, device="cuda"), 44100, 48000)
+torch.cuda.synchronize()
+chain = cli._build_chain(argparse.Namespace(**{args!r}))
+ring = chain.tail_frames(48000)
+cap = max(calibration.CAPTURE_FRAMES, -(-(3 * ring + (1 << 15)) * 44100 // 48000))
+out = []
+for _ in range(2):
+    t0 = time.time()
+    cal = calibration.measure_latency(
+        44100, 48000, capture_frames=cap, ringout_frames=ring, device="cuda",
+        chain_fn=lambda v: chain.apply(resample_rates(v, 44100, 48000), 48000))
+    out.append(time.time() - t0)
+print(json.dumps({{"cold_s": out[0], "warm_s": out[1], "latency": cal.latency_frames}}))
+"""
+
+
+def _chain_args(ir_path: str) -> dict:
+    """The phase-5 chain flags as `cli._build_chain` reads them."""
+    return dict(rate=48000, chain_delay_ms=5.0, chain_gate=None,
+                chain_eq=["peaking:1000:1:3"], chain_fir=None, chain_comp="-18:3",
+                chain_sat=None, chain_width=None, chain_ir=ir_path,
+                chain_wet=1.0, chain_dry=0.0, chain_limit="-0.3")
+
+
+def phase_insert_loop(card: str, work: str, dev) -> int:
+    """The insert-loop job through the port's CLI; returns the kernel
+    launches it made."""
+    import numpy as np
+
+    from f9tpu.io import wav
+    from f9tpu_torch import cli
+    from f9tpu_torch.ops import src_kernel as sk
+
+    rng = np.random.default_rng(SEED + 2)
+    in_dir = os.path.join(work, "in")
+    os.makedirs(in_dir)
+    t0 = time.time()
+    frames = {}
+    for i in range(8):
+        n = int(rng.integers(20 * 44100, 40 * 44100))
+        frames[f"take{i}.wav"] = n
+        wav.write_wav(os.path.join(in_dir, f"take{i}.wav"),
+                      _signal(rng, 2, n, 44100), 44100, bits=24)
+    ir_path = os.path.join(work, "IR.wav")
+    wav.write_wav(ir_path, _stereo_ir(rng), 48000, bits=32)
+    print(f"loop: wrote 8 stereo 24-bit 44.1 kHz WAVs of 20-40 s and a stereo "
+          f"2.5 s 48 kHz float IR in {time.time() - t0:.1f} s", flush=True)
+
+    out_gpu = os.path.join(work, "out_gpu")
+    flags = INSERT_LOOP_FLAGS + ["--chain-ir", ir_path, "--json"]
+    buf = io.StringIO()
+    sk.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["process", in_dir, "--out", out_gpu, *flags])
+    wall = time.time() - t0
+    launches = sk.launches
+    summary = json.loads(buf.getvalue())
+    print(f"loop: cli process rc={rc} completed={summary['completed']} "
+          f"failed={summary['failed']} kernel_launches={launches} "
+          f"wall={wall:.3f} s audio_out={summary['audio_seconds_out']:.1f} s "
+          f"x_realtime={summary['audio_seconds_out'] / wall:.1f} "
+          f"(scheduler's own wall {summary['wall_seconds']:.3f} s, "
+          f"{summary['x_realtime']:.1f}x) [{card}]", flush=True)
+    print("loop: stages " + json.dumps(summary["throughput"]), flush=True)
+    if rc != 0 or summary["completed"] != 8 or summary["failed"] != 0:
+        raise AssertionError(f"loop: expected 8 completed, got {summary}")
+    if launches < 2:     # calibration + at least one batch
+        raise AssertionError(f"loop: {launches} kernel launches")
+    for name, n in sorted(frames.items()):
+        m = summary["per_file"][os.path.join(in_dir, name)]
+        n_out = -(-n * 160 // 147)
+        print(f"loop: {name} source {n} frames ({n_out} at 48 kHz) -> out "
+              f"{m['out_frames']} (+{(m['out_frames'] - n_out) / 48000:.3f} s tail) "
+              f"tail_terminated={m['tail_terminated']} peak {m['peak_db']} dB",
+              flush=True)
+        if not m["tail_terminated"] or m["out_frames"] <= n_out:
+            raise AssertionError(f"loop: {name}: tail not terminated past the source")
+
+    names = sorted(frames, key=frames.get)[:2]
+    srcs = [os.path.join(in_dir, n) for n in names]
+    out_cpu = os.path.join(work, "out_cpu")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["process", *srcs, "--out", out_cpu, *flags,
+                       "--batch-size", "2", "--device", "cpu"])
+    print(f"loop: CPU path on the 2 shortest files rc={rc} in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if rc != 0:
+        raise AssertionError(f"loop: CPU run rc={rc}")
+    for name in names:
+        stem = os.path.splitext(name)[0]
+        g_codes, g_rate = _read_codes(os.path.join(out_gpu, f"{stem}_processed.wav"))
+        c_codes, c_rate = _read_codes(os.path.join(out_cpu, f"{stem}_processed.wav"))
+        same = g_codes.shape == c_codes.shape and g_rate == c_rate == 48000
+        diff = np.abs(g_codes - c_codes) if same else None
+        print(f"loop: {name} card frames={g_codes.shape[-1]} cpu frames="
+              f"{c_codes.shape[-1]} vs_cpu: "
+              f"{int((diff != 0).sum()) if same else -1} of {g_codes.size} "
+              f"samples differ, max {int(diff.max()) if same else -1} LSB "
+              f"(tol {LOOP_LSB_TOL})", flush=True)
+        if not same or int(diff.max()) > LOOP_LSB_TOL:
+            raise AssertionError(f"loop: {name}: card vs CPU path differ")
+
+    with open(os.path.join(out_gpu, ".calibration.json")) as f:
+        (cal,) = json.load(f).values()
+    print(f"loop: calibrated latency {cal['latency_frames']} frames "
+          f"(5 ms delay = 240 + limiter lookahead 72), noise floor "
+          f"{cal['noise_floor_db']:.1f} dB", flush=True)
+    _loop_graph_split(card, in_dir, sorted(frames), ir_path,
+                      cal["latency_frames"], dev)
+    proc = subprocess.run(
+        [sys.executable, "-c", _COLD_CALIBRATION.format(root=ROOT, args=_chain_args(ir_path))],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"loop: cold calibration failed:\n{proc.stderr[-3000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"loop calibration in a fresh process (CUDA and the SRC kernel warm): "
+          f"cold {cold['cold_s']:.3f} s, warm {cold['warm_s']:.3f} s, latency "
+          f"{cold['latency']} [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -260,11 +520,14 @@ def main() -> int:
     print(_build.build_log.strip(), flush=True)
 
     k = phase_kernel(card, dev)
-    work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
-    try:
-        launches = phase_slice(card, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    launches = {}
+    for path, phase in (("default_job", phase_slice),
+                        ("insert_loop", lambda c, w: phase_insert_loop(c, w, dev))):
+        work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        try:
+            launches[path] = phase(card, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",
@@ -272,7 +535,8 @@ def main() -> int:
         "source": "f9tpu_torch/csrc/cycle_src.cu",
         "replaces": "f9tpu/ops/pallas_src.py:189",
         "also_replaces": "f9tpu/ops/pallas_src.py:141",
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -1,8 +1,12 @@
 """Command-line interface of the port (counterpart of `f9tpu/cli.py`).
 
-Only the batch job is ported:
+Only the batch job is ported, with reverb mode, channel routing and the
+insert chain:
 
     python -m f9tpu_torch.cli process ./stems --out ./out --rate 48000 [--device cuda]
+    python -m f9tpu_torch.cli process ./stems --out ./out --reverb --routing 1,0 \
+        --chain-delay-ms 5 --chain-eq peaking:1000:1:3 --chain-comp=-18:3 \
+        --chain-ir hall.wav --chain-limit=-0.3
 
 Every other `f9tpu` subcommand prints "not yet ported" and exits 2.
 """
@@ -14,6 +18,8 @@ import glob
 import json
 import os
 import sys
+
+import numpy as np
 
 from f9tpu.config import ProcessingConfig
 from f9tpu.io import codec
@@ -45,6 +51,130 @@ def _expand_inputs(inputs: list[str]) -> list[str]:
     return list(dict.fromkeys(files))
 
 
+def _parse_routing(spec):
+    """'0,1,-1,2' -> [0, 1, -1, 2] with a clean usage error on junk."""
+    if not spec:
+        return None
+    try:
+        return [int(c) for c in spec.split(",")]
+    except ValueError:
+        raise SystemExit(
+            f"error: --routing must be comma-separated integers "
+            f"(-1 = silent), got {spec!r}")
+
+
+def _build_chain(args):
+    """The insert chain from the CLI flags, in studio signal order: delay
+    -> gate -> EQ -> FIR -> compressor -> saturator -> width -> reverb ->
+    limiter, each optional (the JAX CLI's `_build_chain`)."""
+    from .ops.chain import (Biquad, Chain, Compressor, ConvolutionReverb,
+                            Delay, Expander, FIRInsert, Limiter, Saturator,
+                            StereoWidth)
+
+    stages = []
+    if args.chain_delay_ms:
+        try:
+            stages.append(Delay(args.chain_delay_ms / 1000.0))
+        except ValueError as e:
+            raise SystemExit(f"--chain-delay-ms: {e}")
+    if args.chain_gate:
+        parts = str(args.chain_gate).split(":")
+        if not 2 <= len(parts) <= 5:
+            raise SystemExit("--chain-gate expects "
+                             "thresh_db:ratio[:release_db_s[:range_db"
+                             f"[:attack_ms]]], got {args.chain_gate!r}")
+        try:
+            stages.append(Expander(
+                threshold_db=float(parts[0]), ratio=float(parts[1]),
+                release_db_per_s=(float(parts[2]) if len(parts) > 2
+                                  else 200.0),
+                range_db=float(parts[3]) if len(parts) > 3 else 60.0,
+                attack_ms=float(parts[4]) if len(parts) > 4 else 0.0))
+        except ValueError as e:
+            raise SystemExit(f"--chain-gate: {e}")
+    for spec in args.chain_eq or []:
+        parts = spec.split(":")
+        if not 2 <= len(parts) <= 4:
+            raise SystemExit(
+                f"--chain-eq expects kind:freq[:q[:gain_db]], got {spec!r}")
+        try:
+            kind, freq = parts[0], float(parts[1])
+            q = float(parts[2]) if len(parts) > 2 else 0.70710678
+            gain = float(parts[3]) if len(parts) > 3 else 0.0
+            stages.append(Biquad(kind, freq, q=q, gain_db=gain))
+        except ValueError as e:
+            raise SystemExit(f"--chain-eq {spec!r}: {e}")
+
+    def _read_at_session_rate(path):
+        # a filter or IR captured at another rate keeps its response by the
+        # float64 oracle resampler (host, exact) to the session rate
+        try:
+            arr, arr_rate = codec.read_audio(path)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"error: cannot read chain file {path}: {e}")
+        if arr_rate != args.rate:
+            from f9tpu.models.oracle import resample_oracle
+
+            arr = resample_oracle(arr.astype(np.float64), arr_rate,
+                                  args.rate).astype(np.float32)
+        return arr
+
+    if args.chain_fir:
+        taps = _read_at_session_rate(args.chain_fir)
+        stages.append(FIRInsert(taps[0]))
+    if args.chain_comp:
+        parts = str(args.chain_comp).split(":")
+        if not 2 <= len(parts) <= 5:
+            raise SystemExit("--chain-comp expects "
+                             "thresh_db:ratio[:attack_ms[:release_db_s"
+                             f"[:makeup_db]]], got {args.chain_comp!r}")
+        try:
+            stages.append(Compressor(
+                threshold_db=float(parts[0]), ratio=float(parts[1]),
+                attack_ms=float(parts[2]) if len(parts) > 2 else 5.0,
+                release_db_per_s=(float(parts[3]) if len(parts) > 3 else 80.0),
+                makeup_db=float(parts[4]) if len(parts) > 4 else 0.0))
+        except ValueError as e:
+            raise SystemExit(f"--chain-comp: {e}")
+    if args.chain_sat:
+        parts = str(args.chain_sat).split(":")
+        if not 2 <= len(parts) <= 3:
+            raise SystemExit("--chain-sat expects kind:drive_db[:mix], "
+                             f"got {args.chain_sat!r}")
+        try:
+            stages.append(Saturator(parts[0], drive_db=float(parts[1]),
+                                    mix=(float(parts[2]) if len(parts) > 2
+                                         else 1.0)))
+        except ValueError as e:
+            raise SystemExit(f"--chain-sat: {e}")
+    if args.chain_width is not None:
+        try:
+            stages.append(StereoWidth(float(args.chain_width)))
+        except ValueError as e:
+            raise SystemExit(f"--chain-width: {e}")
+    if args.chain_ir:
+        ir = _read_at_session_rate(args.chain_ir)
+        if ir.shape[0] == 1:
+            ir = ir[0]
+        stages.append(ConvolutionReverb(ir, wet=args.chain_wet,
+                                        dry=args.chain_dry))
+    if args.chain_limit:
+        parts = str(args.chain_limit).split(":")
+        if not 1 <= len(parts) <= 3:
+            raise SystemExit("--chain-limit expects "
+                             "ceiling_db[:lookahead_ms[:release_db_s]], "
+                             f"got {args.chain_limit!r}")
+        try:
+            stages.append(Limiter(
+                ceiling_db=float(parts[0]),
+                lookahead_ms=float(parts[1]) if len(parts) > 1 else 1.5,
+                release_db_per_s=(float(parts[2]) if len(parts) > 2
+                                  else 300.0)))
+        except ValueError as e:
+            raise SystemExit(f"--chain-limit: {e}")
+    return Chain(*stages) if stages else None
+
+
 def _batch_cfg_from_args(args) -> ProcessingConfig:
     return ProcessingConfig(
         target_rate=args.rate,
@@ -58,8 +188,14 @@ def _batch_cfg_from_args(args) -> ProcessingConfig:
         output_format=args.output_format,
         batch_size=args.batch_size,
         gain_db=args.gain,
+        reverb_mode=args.reverb,
+        noise_floor_db=args.noise_floor,
+        noise_floor_margin_pct=args.margin,
+        channel_routing=_parse_routing(args.routing),
+        output_channels=args.channels,
         seed=None if args.seed == -1 else args.seed,
         latency_frames=args.latency,
+        chain=_build_chain(args),
     )
 
 
@@ -133,6 +269,53 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
+    p.add_argument("--reverb", action="store_true",
+                   help="reverb mode: keep tails until below noise floor")
+    p.add_argument("--noise-floor", type=float, default=None,
+                   help="measured noise floor dB (default: -80 fallback)")
+    p.add_argument("--margin", type=float, default=10.0,
+                   help="noise floor margin %% (0-50)")
+    p.add_argument("--routing", default=None,
+                   help="channel routing map, e.g. '0,1,-1,2' "
+                        "(out[i] <- in[map[i]], -1 = silence)")
+    p.add_argument("--channels", type=int, default=None,
+                   help="fan mono inputs out to N channels")
+    p.add_argument("--chain-ir", default=None,
+                   help="insert chain: convolution reverb impulse-response "
+                        "WAV (mono or matching channel count)")
+    p.add_argument("--chain-wet", type=float, default=1.0,
+                   help="reverb wet level (with --chain-ir)")
+    p.add_argument("--chain-dry", type=float, default=0.0,
+                   help="reverb dry level (with --chain-ir)")
+    p.add_argument("--chain-fir", default=None,
+                   help="insert chain: FIR taps WAV (first channel)")
+    p.add_argument("--chain-delay-ms", type=float, default=0.0,
+                   help="insert chain: pure delay in ms (calibration "
+                        "measures and trims it)")
+    p.add_argument("--chain-comp", default=None,
+                   metavar="THRESH:RATIO[:ATTACK_MS[:RELEASE_DBS[:MAKEUP]]]",
+                   help="insert chain: bus compressor (instant attack, "
+                        "linear-dB release; channel-linked). Negative "
+                        "threshold needs the = form: --chain-comp=-18:4")
+    p.add_argument("--chain-sat", default=None, metavar="KIND:DRIVE_DB[:MIX]",
+                   help="insert chain: saturator (tanh/soft/hard waveshaper)")
+    p.add_argument("--chain-width", type=float, default=None,
+                   help="insert chain: stereo M/S width (0=mono, 1=as-is, 2=wide)")
+    p.add_argument("--chain-eq", action="append", default=None,
+                   metavar="KIND:FREQ[:Q[:GAIN_DB]]",
+                   help="insert chain: biquad EQ section (lowpass/highpass/"
+                        "peaking/lowshelf/highshelf); repeatable, in order")
+    p.add_argument("--chain-gate", default=None,
+                   metavar="THRESH:RATIO[:RELEASE_DBS[:RANGE_DB[:ATTACK_MS]]]",
+                   help="insert chain: downward expander / gate (channel-"
+                        "linked). Negative threshold needs the = form: "
+                        "--chain-gate=-50:3")
+    p.add_argument("--chain-limit", default=None,
+                   metavar="CEILING_DB[:LOOKAHEAD_MS[:RELEASE_DBS]]",
+                   help="insert chain: lookahead brickwall limiter (applied "
+                        "last; calibration measures and trims its "
+                        "lookahead). Negative ceiling needs the = form: "
+                        "--chain-limit=-0.3")
     args = ap.parse_args(argv)
     return cmd_process(args)
 

@@ -6,6 +6,9 @@ It also switches TF32 off for every float32 matmul and convolution: TF32
 keeps ~10 mantissa bits, and the SRC's accuracy gate (<= -120 dB against
 the float64 oracle) needs full float32 — on the TPU one reduced-precision
 pass measured -53 dB (docs/PERF.md).
+
+Importing this module also makes the first CPU call of each transcendental
+the port uses (`_warm_cpu_transcendentals`).
 """
 
 from __future__ import annotations
@@ -13,6 +16,25 @@ from __future__ import annotations
 import torch
 
 __all__ = ["resolve_device"]
+
+
+def _warm_cpu_transcendentals() -> None:
+    """Call each float32 transcendental the port's CPU path uses once, on a
+    tensor below torch's parallel grain, so it runs on one thread.
+
+    torch's CPU build sets up each vectorized transcendental kernel at its
+    first call.  When that first call is split across threads, one thread
+    can compute its whole chunk with a wrong approximation: in fresh
+    processes on a loaded 8-core host, tanh, exp and log10 were off by up to
+    8e-5 (700 codes at 24 bits) in 3-5 % of first calls, while the second
+    call was right.  A first call on one thread never showed it (0 of 60)."""
+    t = torch.linspace(0.1, 1.0, 64)
+    for f in (torch.tanh, torch.exp, torch.log, torch.log10,
+              lambda v: torch.pow(10.0, v)):
+        f(t)
+
+
+_warm_cpu_transcendentals()
 
 
 def resolve_device(name: str | torch.device | None = "cuda") -> torch.device:

@@ -1,9 +1,11 @@
-"""Latency calibration: impulse -> SRC -> peak find, with cached results
-(port of `f9tpu/pipeline/calibration.py`; same cache JSON format and keys).
+"""Latency calibration: impulse -> SRC [-> insert chain] -> peak find, with
+cached results (port of `f9tpu/pipeline/calibration.py`; same cache JSON
+format and keys).
 
 The SRC is group-delay compensated by construction, so a bare resampler
-measures a latency of 0; measuring it is the calibration test.  Measuring
-an insert chain (the JAX package's ``chain_fn``) waits for the chain port.
+measures a latency of 0; measuring it is the calibration test.  Through an
+insert chain (``chain_fn``) the impulse measures the chain's real delay,
+which the batch graph then trims.
 """
 
 from __future__ import annotations
@@ -45,15 +47,23 @@ def measure_latency(
     rate_out: int,
     quality: str = "high",
     kind: str = "sinc",
+    chain_fn=None,
     capture_frames: int = CAPTURE_FRAMES,
+    ringout_frames: int = 0,
     device: torch.device | str = "cpu",
 ) -> CalibrationResult:
-    """Group delay of the resampler in output frames, measured with a
-    mid-buffer impulse on ``device`` (mid-buffer, so an acausal chain would
-    measure too)."""
+    """Group delay of the processing chain in output frames, measured with
+    a mid-buffer impulse on ``device`` (mid-buffer, so an acausal chain
+    measures too).  ``chain_fn(x) -> y`` defaults to the bare resampler.
+    ``ringout_frames`` (output rate) keeps the chain's known decay out of
+    the noise-floor estimate, on both sides of the peak: a reverb tail is
+    signal, and a linear-phase FIR pre-rings."""
     pos = capture_frames // 2
     x = impulse(capture_frames, amp=IMPULSE_AMP, position=pos, device=device)
-    y = resample_rates(x, rate_in, rate_out, quality=quality, kind=kind)
+    if chain_fn is None:
+        y = resample_rates(x, rate_in, rate_out, quality=quality, kind=kind)
+    else:
+        y = chain_fn(x)
     yn = y.cpu().numpy()               # one device-to-host copy
     ya = np.abs(yn)
     peak_idx = int(ya.argmax())
@@ -72,7 +82,8 @@ def measure_latency(
     # noise floor: RMS away from the response's main lobe, on both sides
     guard = 4096
     mask = np.ones(len(yn), bool)
-    mask[max(0, peak_idx - guard):peak_idx + guard] = False
+    mask[max(0, peak_idx - guard - int(ringout_frames)):
+         peak_idx + guard + int(ringout_frames)] = False
     tail = yn[mask]
     rms = float(np.sqrt(np.mean(tail**2))) if tail.size else 0.0
     nf_db = 20.0 * np.log10(max(rms, 1e-30)) if rms > 0 else -200.0
@@ -103,18 +114,39 @@ class CalibrationCache:
 
     def get_or_measure(
         self, rate_in: int, rate_out: int, quality: str = "high", kind: str = "sinc",
+        chain_fn=None, chain_sig: str = "",
+        capture_frames: int = CAPTURE_FRAMES, ringout_frames: int = 0,
         device: torch.device | str = "cpu",
     ) -> CalibrationResult:
-        k = self.key(rate_in, rate_out, quality, kind)
-        with self._lock:
-            if k in self._data:
-                return self._data[k]
+        """The cached result for this key, else a measurement on ``device``
+        (then cached).  A custom ``chain_fn`` without a ``chain_sig`` is
+        measured uncached: it cannot share the bare resampler's slot."""
+        k = (self.key(rate_in, rate_out, quality, kind, chain_sig)
+             if (chain_fn is None or chain_sig) else None)
+        if k is not None:
+            with self._lock:
+                if k in self._data:
+                    return self._data[k]
         res = measure_latency(rate_in, rate_out, quality=quality, kind=kind,
-                              device=device)
-        with self._lock:
-            self._data[k] = res
-            self._save_locked()
+                              chain_fn=chain_fn, capture_frames=capture_frames,
+                              ringout_frames=ringout_frames, device=device)
+        if k is not None:
+            with self._lock:
+                self._data[k] = res
+                self._save_locked()
         return res
+
+    def invalidate(self, prefix: str | None = None) -> None:
+        """Drop entries whose key starts with ``prefix`` at a ':' field
+        boundary (or equals it); ``None`` clears all."""
+        with self._lock:
+            if prefix is None:
+                self._data = {}
+            else:
+                pat = prefix if prefix.endswith(":") else prefix + ":"
+                self._data = {k: v for k, v in self._data.items()
+                              if not (k == prefix or k.startswith(pat))}
+            self._save_locked()
 
     def _save_locked(self) -> None:
         if not self._path:

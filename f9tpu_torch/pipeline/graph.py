@@ -3,14 +3,16 @@
 
 One fixed-shape batch ``(files, channels, frames)`` runs, in order:
 
-    on-device unpack -> mono fan-out -> mask -> SRC (CUDA kernel) ->
-    [latency trim] -> masked DC/gain epilogue -> peak/RMS/tail-floor
-    metrics -> position-keyed TPDF dither + quantize -> byte packing
+    on-device unpack -> mono fan-out -> channel routing -> mask ->
+    [capture head-room pad] -> SRC (CUDA kernel) -> [insert chain] ->
+    [latency trim] -> [reverb-tail detection] -> masked DC/gain epilogue ->
+    peak/RMS/tail-floor metrics -> position-keyed TPDF dither + quantize ->
+    routed-silent channels to zero -> byte packing
 
 PyTorch runs it eagerly on the tensors' device; there is no jit.  Per-file
 lengths ride through as masks, as in the JAX graph.  Not ported yet, each
-raising NotImplementedError that names its ROADMAP item: the insert chain,
-reverb mode, channel routing, channel-axis sharding and the rows layout.
+raising NotImplementedError that names its ROADMAP item: channel-axis
+sharding, meshes, the rows layout, loudness normalization.
 """
 
 from __future__ import annotations
@@ -22,23 +24,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from f9tpu.config import ProcessingConfig
+from f9tpu.config import ProcessingConfig, recording_length
 from f9tpu.models.filters import design_cycle_bank
 
 from ..device import resolve_device
 from ..ops import analysis, dither
+from ..ops.chain import Chain
 from ..ops.devcodec import pack_interleaved, unpack_pcm_interleaved
+from ..ops.routing import route_channels
 from ..ops.src_kernel import resample_auto
-from ..ops.trim import mask_beyond, trim_latency
+from ..ops.trim import detect_tail_end, mask_beyond, trim_latency
 
 __all__ = ["ProcessResult", "process_batch", "process_batch_raw", "not_ported"]
 
 #: Options of the JAX package the port does not have yet, with the ROADMAP
 #: item each waits for (the graph's and the scheduler's).
 NOT_PORTED = {
-    "chain": "ROADMAP Queue 1 'Insert chain' (ops/chain.py)",
-    "reverb_mode": "ROADMAP Queue 1 'trim.detect_tail_end + reverb'",
-    "channel_routing": "ROADMAP Queue 1 'Routing' (ops/routing.py)",
     "channel_axis": "ROADMAP Queue 1 'Multi-device' (parallel/)",
     "mesh": "ROADMAP Queue 1 'Multi-device' (parallel/)",
     "rows_layout": "ROADMAP Queue 1, the rows layout (_process_impl_rows)",
@@ -74,15 +75,18 @@ def _metrics(y: torch.Tensor, out_frames: torch.Tensor):
     return analysis.peak_db(flat), analysis._amp_to_db(rms)
 
 
-def _front_end(x, frames_valid, out_channels, raw_in):
-    """On-device raw decode, mono fan-out, and zeroing beyond each file's
-    true length."""
+def _front_end(x, frames_valid, routing, out_channels, raw_in):
+    """On-device raw decode, mono fan-out, channel routing (after the
+    fan-out, as in the JAX graph) and zeroing beyond each file's true
+    length."""
     if raw_in is not None:
         in_channels, in_bits, in_big = raw_in
         x = unpack_pcm_interleaved(x, in_channels, in_bits, big_endian=in_big)
     files = x.shape[0]
     if out_channels is not None and x.shape[1] == 1 and out_channels != 1:
         x = x.expand(files, out_channels, x.shape[-1])
+    if routing is not None:
+        x = route_channels(x, list(routing))
     return mask_beyond(x, frames_valid)
 
 
@@ -99,33 +103,55 @@ def _exact_out_valid(frames_valid: torch.Tensor, bank, out_total: int) -> torch.
     return torch.clamp(out_valid, max=out_total).to(torch.int32)
 
 
-def _process_impl(x, frames_valid, latency_frames, seeds, *, rate_in, rate_out,
-                  cfg_key, static_zero_latency=False, raw_in=None,
-                  packed_out=False, chain=None, channel_axis=None):
+def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
+                  rate_in, rate_out, cfg_key, static_zero_latency=False,
+                  raw_in=None, packed_out=False, chain=None, channel_axis=None):
     (quality, kind, bits, do_dither, remove_dc, gain_db, trim_enabled,
-     reverb_mode, _margin_pct, _tail_mode, tail_window_ms, _tail_hop_ms,
-     _tail_consecutive, pad_frames, routing, out_channels) = cfg_key
-    for what, on in (("chain", chain is not None),
-                     ("channel_axis", channel_axis is not None),
-                     ("reverb_mode", reverb_mode),
-                     ("channel_routing", routing is not None)):
-        if on:
-            raise not_ported(what)
+     reverb_mode, margin_pct, tail_mode, tail_window_ms, tail_hop_ms,
+     tail_consecutive, pad_frames, routing, out_channels) = cfg_key
+    if channel_axis is not None:
+        raise not_ported("channel_axis")
+    if chain is not None and not isinstance(chain, Chain):
+        raise TypeError(
+            f"cfg.chain must be an f9tpu_torch.ops.chain.Chain, got "
+            f"{type(chain).__name__} (convert a JAX chain with chain_from_jax)")
 
     dev = x.device
     bank = design_cycle_bank(rate_in, rate_out, quality=quality, kind=kind)
     files = x.shape[0]
-    x = _front_end(x, frames_valid, out_channels, raw_in)
+    x = _front_end(x, frames_valid, routing, out_channels, raw_in)
     if pad_frames:
+        # capture head-room for the chain's delay and ring-out and for the
+        # reverb tail detector, as explicit silence
         x = F.pad(x, (0, pad_frames))
 
     y = resample_auto(x, bank)
 
+    if chain is not None:
+        # the insert loop: the processor stack runs on the resampled signal,
+        # adding its group delay (trimmed below) and ring-out (into the pad)
+        y = chain.apply(y, rate_out)
+
     out_total = y.shape[-1]
     if trim_enabled and not static_zero_latency:
         y = trim_latency(y, latency_frames, out_total)
-    out_frames = _exact_out_valid(frames_valid, bank, out_total)
-    terminated = torch.ones((files,), dtype=torch.bool, device=dev)
+    out_valid = _exact_out_valid(frames_valid, bank, out_total)
+
+    if reverb_mode:
+        # loudest-channel envelope; quiet windows count only once each
+        # file's source span has played (min_frames = out_valid)
+        end_frame, terminated = detect_tail_end(
+            torch.amax(torch.abs(y), dim=1), noise_floor_db, margin_pct,
+            rate=rate_out, window_ms=tail_window_ms, hop_ms=tail_hop_ms,
+            consecutive=tail_consecutive, min_frames=out_valid, mode=tail_mode)
+        # the tail may run past the source but not past the capture; a tail
+        # that never fell quiet keeps the whole capture
+        out_frames = torch.maximum(torch.clamp(end_frame, max=out_total), out_valid)
+        # an empty file has no tail to ring
+        out_frames = torch.where(out_valid > 0, out_frames, torch.zeros_like(out_frames))
+    else:
+        terminated = torch.ones((files,), dtype=torch.bool, device=dev)
+        out_frames = out_valid
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     vmask = (torch.arange(out_total, dtype=torch.int32, device=dev)[None, None, :]
@@ -161,6 +187,10 @@ def _process_impl(x, frames_valid, latency_frames, seeds, *, rate_in, rate_out,
     else:
         codes = dither.quantize_noise(z, bits)
     codes = torch.where(vmask, codes, torch.zeros((), dtype=torch.int32, device=dev))
+    if routing is not None and any(r < 0 for r in routing):
+        # routed-silent channels stay digital zero even under dither
+        silent = torch.tensor([r < 0 for r in routing], device=dev).reshape(1, -1, 1)
+        codes = torch.where(silent, torch.zeros((), dtype=torch.int32, device=dev), codes)
     if packed_out:
         codes = pack_interleaved(codes, bits)
     return codes, out_frames, terminated, pk_db, level_db, nf_est
@@ -178,14 +208,30 @@ def _cfg_key(cfg: ProcessingConfig, pad_frames: int) -> tuple:
 
 
 def _default_pad_frames(cfg: ProcessingConfig, rate_in: int, latency_frames) -> int:
-    """Capture head-room (src + 5*latency rule).  Without a chain or reverb
-    mode — the only cases the port runs yet — there is none; the other
-    branches raise with their ROADMAP item."""
+    """Capture head-room in input frames: latency + 4 * latency
+    (`recording_length`) plus the chain's ring-out; reverb mode adds room
+    for one whole detection run (window + consecutive hops) after it.  All
+    capped at ``max_tail_seconds``.  A chain needs head-room without reverb
+    too: the trim shifts the capture left by the measured delay.
+
+    Latency is in output frames and is converted to input frames; a
+    negative (acausal) latency shifts right and needs no head-room."""
+    lat_out = max(0, int(latency_frames)) if isinstance(latency_frames, int) else 0
+    lat_in = -(-lat_out * rate_in // max(cfg.target_rate, 1))
+    tail_in = 0
     if cfg.chain is not None:
-        raise not_ported("chain")
-    if cfg.reverb_mode:
-        raise not_ported("reverb_mode")
-    return 0
+        tail_out = int(cfg.chain.tail_frames(cfg.target_rate))
+        tail_in = -(-tail_out * rate_in // max(cfg.target_rate, 1))
+    cap = int(cfg.max_tail_seconds * rate_in)
+    if not cfg.reverb_mode:
+        if cfg.chain is None:
+            return 0
+        return min(recording_length(0, lat_in) + tail_in + 4096, cap)
+    detect_ms = (cfg.tail_window_ms
+                 + (cfg.tail_consecutive + 1) * cfg.tail_hop_ms + 100)
+    detect_frames = detect_ms * rate_in // 1000
+    # the detection run fits after the chain's ring-out
+    return min(recording_length(0, lat_in) + tail_in + detect_frames + 4096, cap)
 
 
 def _pick_device(a, device) -> torch.device:
@@ -214,23 +260,36 @@ def _latency(latency_frames, device):
     return _as_tensor(latency_frames, torch.int64, device), static_zero
 
 
+def _noise_floor(cfg: ProcessingConfig, noise_floor_db, device) -> torch.Tensor:
+    """The tail detector's noise floor: the argument, else the config's,
+    else 1.0 (any value >= 0 selects the -80 dB fallback threshold)."""
+    if noise_floor_db is None:
+        noise_floor_db = cfg.noise_floor_db
+    return torch.tensor(noise_floor_db if noise_floor_db is not None else 1.0,
+                        dtype=torch.float32, device=device)
+
+
 def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
-                  latency_frames=0, rows_layout: bool = False,
+                  latency_frames=0, pad_frames: int | None = None,
+                  noise_floor_db: float | None = None, rows_layout: bool = False,
                   device=None) -> ProcessResult:
     """Run one fixed-shape batch of float32 ``x (files, channels, frames)``
     (zero-padded per file to the bucket length; ``frames_valid`` holds the
     true lengths) on ``device`` (default: ``x``'s device if it is a tensor,
-    else CUDA).  ``seeds`` is the
-    per-file int32 dither seed vector."""
+    else CUDA).  ``seeds`` is the per-file int32 dither seed vector.
+    ``pad_frames`` overrides the capture head-room (`_default_pad_frames`);
+    ``noise_floor_db`` overrides ``cfg.noise_floor_db`` for the reverb-tail
+    threshold."""
     if rows_layout:
         raise not_ported("rows_layout")
     dev = _pick_device(x, device)
     x = _as_tensor(x, torch.float32, dev)
-    pad_frames = _default_pad_frames(cfg, rate_in, latency_frames)
+    if pad_frames is None:
+        pad_frames = _default_pad_frames(cfg, rate_in, latency_frames)
     lat, static_zero = _latency(latency_frames, dev)
     codes, out_frames, terminated, pk, level, nf_est = _process_impl(
         x, _as_tensor(frames_valid, torch.int32, dev), lat,
-        _seed_vector(seeds, x.shape[0], dev),
+        _noise_floor(cfg, noise_floor_db, dev), _seed_vector(seeds, x.shape[0], dev),
         rate_in=rate_in, rate_out=cfg.target_rate,
         cfg_key=_cfg_key(cfg, pad_frames), static_zero_latency=static_zero,
         chain=cfg.chain)
@@ -242,6 +301,7 @@ def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
 def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
                       seeds, in_channels: int, in_bits: int,
                       in_big_endian: bool = False, latency_frames=0,
+                      noise_floor_db: float | None = None,
                       rows_layout: bool = False, device=None) -> ProcessResult:
     """Raw-bytes path: uint8 interleaved PCM ``(files, bucket_frames *
     in_channels * in_bits // 8)`` in, packed payload out.  ``codes`` holds
@@ -257,7 +317,7 @@ def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
     lat, static_zero = _latency(latency_frames, dev)
     payload, out_frames, terminated, pk, level, nf_est = _process_impl(
         raw, _as_tensor(frames_valid, torch.int32, dev), lat,
-        _seed_vector(seeds, raw.shape[0], dev),
+        _noise_floor(cfg, noise_floor_db, dev), _seed_vector(seeds, raw.shape[0], dev),
         rate_in=rate_in, rate_out=cfg.target_rate,
         cfg_key=_cfg_key(cfg, pad_frames), static_zero_latency=static_zero,
         raw_in=(in_channels, in_bits, in_big_endian), packed_out=True,

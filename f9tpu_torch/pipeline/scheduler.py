@@ -4,13 +4,17 @@ decode threads -> length-bucketed fixed-shape batches -> the device graph
 -> collector (device-to-host copy) -> encode threads, overlapped through
 queues.  Files are grouped by (rate, channels, raw wire) and length-bucketed;
 per-file status flows through the persistent `JobManifest` (resume at file
-granularity) and the `StatusLog`.
+granularity) and the `StatusLog`.  Calibration runs the impulse through the
+SRC and the insert chain; reverb mode takes its tail threshold from the
+measured noise floor (or -80 dB) and caps each capture at
+``max_tail_seconds``; channel routing is checked per file before any
+output is written.
 
 Not ported yet, each refused when the processor is built: multi-device
-meshes, loudness normalization, the rows layout, the native loader, the
-insert chain, reverb mode and channel routing.  Files longer than the
-largest bucket (which the JAX package streams) are marked FAILED with
-"streaming not yet ported" while the rest of the batch goes on.
+meshes, loudness normalization, the rows layout and the native loader.
+Without reverb mode, files longer than the largest bucket (which the JAX
+package streams) are marked FAILED with "streaming not yet ported" while
+the rest of the batch goes on.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ from f9tpu.config import ProcessingConfig
 from f9tpu.io import aiff, codec, flac, wav
 
 from ..device import resolve_device
+from ..ops.chain import Chain
 from ..ops.dither import file_seed as _file_seed
-from .calibration import CalibrationCache
+from ..ops.resample import resample_rates
+from .calibration import CAPTURE_FRAMES, CalibrationCache
 from .graph import not_ported, process_batch, process_batch_raw
 from .logbook import StatusLog, Throughput
 from .manifest import FileStatus, JobManifest, file_crc32
@@ -65,7 +71,7 @@ class BatchResult:
     throughput: dict
     per_file: dict = dataclasses.field(default_factory=dict)
     """Per-file device metrics keyed by input path: out_frames, peak_db,
-    rms_db, noise_floor_db."""
+    rms_db, noise_floor_db, tail_terminated."""
     skipped: int = 0
     """How many of `completed` were resume skips."""
     aborted: bool = False
@@ -102,12 +108,13 @@ class BatchProcessor:
         for what, on in (("mesh", mesh is not None),
                          ("normalize_lufs", cfg.normalize_lufs is not None),
                          ("rows_layout", cfg.device_layout == "rows"),
-                         ("native_loader", cfg.native_loader),
-                         ("chain", cfg.chain is not None),
-                         ("reverb_mode", cfg.reverb_mode),
-                         ("channel_routing", cfg.channel_routing is not None)):
+                         ("native_loader", cfg.native_loader)):
             if on:
                 raise not_ported(what)
+        if cfg.chain is not None and not isinstance(cfg.chain, Chain):
+            raise TypeError(
+                "cfg.chain must be an f9tpu_torch.ops.chain.Chain (convert a "
+                "JAX chain with f9tpu_torch.ops.chain.chain_from_jax)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.log = log or StatusLog()
@@ -150,6 +157,11 @@ class BatchProcessor:
             except (ValueError, OSError, struct.error, EOFError) as err:
                 manifest.update(e.path, FileStatus.FAILED, error=str(err))
                 self.log.append(f"Probe failed: {e.path}: {err}")
+                continue
+            bound_err = cfg.routing_channel_bound_error(info.num_channels)
+            if bound_err:
+                manifest.update(e.path, FileStatus.FAILED, error=bound_err)
+                self.log.append(f"Routing invalid: {e.path}: {bound_err}")
                 continue
             if (cfg.require_input_rate is not None
                     and not info.is_valid_for_rate(cfg.require_input_rate)):
@@ -216,29 +228,68 @@ class BatchProcessor:
             out_paths[path] = out
         return out_paths
 
-    def _calibrate(self, groups) -> dict[int, int]:
-        """Latency per input rate: ``cfg.latency_frames`` or a cached/measured
-        impulse calibration on the processor's device."""
+    def _calibrate(self, groups) -> tuple[dict[int, int], dict[int, float]]:
+        """Latency and measured noise floor per input rate:
+        ``cfg.latency_frames`` (no floor), or a cached/measured impulse
+        calibration on the processor's device through SRC + chain."""
         cfg = self.cfg
         latencies: dict[int, int] = {}
+        noise_floors: dict[int, float] = {}
         for rate_in, _, _, _ in groups:
             if rate_in in latencies:
                 continue
             if cfg.latency_frames is not None:
                 latencies[rate_in] = cfg.latency_frames
                 continue
+            chain_fn, chain_sig, capture, ringout = None, "", CAPTURE_FRAMES, 0
+            if cfg.chain is not None:
+                # the impulse passes through what a batch passes through; the
+                # capture fits the peak and a noise window after the ring-out
+                chain, rate_out = cfg.chain, cfg.target_rate
+                chain_sig = chain.sig_str()
+                ringout = int(chain.tail_frames(rate_out))
+                capture = max(CAPTURE_FRAMES,
+                              -(-(3 * ringout + (1 << 15)) * rate_in // rate_out))
+
+                def chain_fn(x, _rate_in=rate_in):
+                    y = resample_rates(x, _rate_in, rate_out,
+                                       quality=cfg.quality, kind=cfg.kind)
+                    return chain.apply(y, rate_out)
+
             cal = self.calibration.get_or_measure(
                 rate_in, cfg.target_rate, quality=cfg.quality, kind=cfg.kind,
-                device=self.device)
+                chain_fn=chain_fn, chain_sig=chain_sig, capture_frames=capture,
+                ringout_frames=ringout, device=self.device)
             if not cal.detected:
+                hint = ("" if cfg.chain is None else
+                        " (a dynamics stage, such as a slow-attack gate or a "
+                        "heavy limiter, can hold the impulse under the "
+                        "detection threshold; pass --latency / "
+                        "cfg.latency_frames to skip calibration)")
                 raise RuntimeError(
                     f"calibration impulse not detected for "
-                    f"{rate_in}->{cfg.target_rate}")
+                    f"{rate_in}->{cfg.target_rate}{hint}")
             latencies[rate_in] = cal.latency_frames
+            noise_floors[rate_in] = cal.noise_floor_db
             self.log.append(
                 f"Calibrated {rate_in}->{cfg.target_rate}: latency "
                 f"{cal.latency_frames} frames, noise floor {cal.noise_floor_db:.1f} dB")
-        return latencies
+        return latencies, noise_floors
+
+    def _group_noise_floor(self, rate_in: int, noise_floors) -> float | None:
+        """Reverb mode's tail threshold base for one rate: the configured
+        floor, else the measured one if usable, else None (-80 dB)."""
+        cfg = self.cfg
+        if cfg.noise_floor_db is not None or not cfg.reverb_mode:
+            return cfg.noise_floor_db
+        measured = noise_floors.get(rate_in)
+        if measured is not None and measured > -150.0:
+            self.log.append(f"Using measured noise floor {measured:.1f} dB "
+                            f"for {rate_in} Hz group")
+            return measured
+        self.log.append("No usable noise floor (numerically silent chain); "
+                        "using -80 dB fallback for tail detection")
+        return None
 
     def _run(self, files: list[str], manifest: JobManifest) -> BatchResult:
         t_start = time.time()
@@ -249,7 +300,7 @@ class BatchProcessor:
         listed = set(run_files)
         groups, skipped = self._probe(run_files, manifest)
         out_paths = self._output_paths(run_files, manifest)
-        latencies = self._calibrate(groups)
+        latencies, noise_floors = self._calibrate(groups)
 
         audio_in = audio_out = 0.0
         stop_event = threading.Event()
@@ -266,25 +317,51 @@ class BatchProcessor:
         for (rate_in, channels, raw_bits, raw_be), infos in groups.items():
             infos = [i for i in infos
                      if manifest.get(i.path).status == FileStatus.PENDING]
+            if not infos:
+                continue
+            group_nf = self._group_noise_floor(rate_in, noise_floors)
+            # reverb mode caps each capture at max_tail_seconds (longer
+            # sources are truncated, never streamed); without it a file
+            # beyond the largest bucket needs the streaming path
+            cap = int(cfg.max_tail_seconds * rate_in) if cfg.reverb_mode else None
             by_bucket: dict[int, list] = {}
             for info in infos:
                 n = info.num_frames
-                if n > max_bucket:
+                if cap is not None and n > cap:
+                    self.log.append(
+                        f"Reverb capture cap: truncating {info.path} to "
+                        f"{cfg.max_tail_seconds:.0f} s ({cap} frames)")
+                    n = cap
+                if cap is None and n > max_bucket:
                     manifest.update(info.path, FileStatus.FAILED,
                                     error=STREAMING_TODO)
                     self.log.append(
                         f"Oversized ({n} frames > largest bucket {max_bucket}): "
                         f"{os.path.basename(info.path)}: {STREAMING_TODO}")
                     continue
-                blen = next(b for b in sorted(cfg.bucket_frames) if n <= b)
-                by_bucket.setdefault(blen, []).append(info)
-            out_ch = (cfg.output_channels
-                      if (cfg.output_channels and channels == 1) else channels)
+                blen = next((b for b in sorted(cfg.bucket_frames) if n <= b), n)
+                by_bucket.setdefault(blen if cap is None else min(max(blen, n), cap),
+                                     []).append(info)
+            # output channel count after in-graph routing / mono fan-out
+            out_ch = (len(cfg.channel_routing)
+                      if cfg.channel_routing is not None
+                      else (cfg.output_channels
+                            if (cfg.output_channels and channels == 1)
+                            else channels))
             for blen, binfos in sorted(by_bucket.items()):
+                bs = cfg.batch_size
+                if blen > max_bucket:
+                    # a capped reverb capture past the largest bucket: a
+                    # narrower batch keeps host staging within the budget
+                    bs = min(max(1, cfg.batch_size * max_bucket // blen),
+                             cfg.batch_size)
+                    self.log.append(
+                        f"Oversized bucket {blen} frames: batch width "
+                        f"reduced to {bs} (memory budget)")
                 buckets.append(dict(
                     rate_in=rate_in, channels=channels, raw_bits=raw_bits,
-                    raw_be=raw_be, lat=latencies[rate_in], out_ch=out_ch,
-                    blen=blen, infos=binfos, bs=cfg.batch_size))
+                    raw_be=raw_be, lat=latencies[rate_in], group_nf=group_nf,
+                    out_ch=out_ch, blen=blen, infos=binfos, bs=bs))
 
         work = [(bi, info) for bi, b in enumerate(buckets) for info in b["infos"]]
         dec_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
@@ -429,6 +506,7 @@ class BatchProcessor:
                     pk = res.peak_db.cpu().numpy()
                     rms = res.rms_db.cpu().numpy()
                     nf = res.noise_floor_db.cpu().numpy()
+                    term = res.tail_terminated.cpu().numpy()
                 except Exception as err:
                     stop_event.set()
                     manifest.fail_remaining(f"device step failed: {err}", paths=listed)
@@ -447,6 +525,7 @@ class BatchProcessor:
                         "peak_db": round(float(pk[i]), 2),
                         "rms_db": round(float(rms[i]), 2),
                         "noise_floor_db": round(float(nf[i]), 2),
+                        "tail_terminated": bool(term[i]),
                     }
                     delivered = put_enc(
                         (p, codes[i], int(out_frames[i]), cfg.target_rate,
@@ -497,11 +576,12 @@ class BatchProcessor:
                         x, valid, cfg, b["rate_in"], seeds,
                         in_channels=channels, in_bits=raw_bits,
                         in_big_endian=b["raw_be"], latency_frames=b["lat"],
-                        device=dev)
+                        noise_floor_db=b["group_nf"], device=dev)
                 else:
                     res = process_batch(
                         x, valid, cfg, b["rate_in"], seeds,
-                        latency_frames=b["lat"], device=dev)
+                        latency_frames=b["lat"], noise_floor_db=b["group_nf"],
+                        device=dev)
             except Exception as err:
                 stop_event.set()
                 manifest.fail_remaining(f"device step failed: {err}", paths=listed)

@@ -1,0 +1,362 @@
+"""The port's insert chain and routing against the JAX package's.
+
+Every case feeds the same numpy input, made from a seed, through the JAX
+function and its port on the CPU.  Each bound is set a little above what
+these inputs measure (in brackets):
+
+- exact: `route_channels`, `_window_max_past`, `Delay`, signatures and
+  tail lengths;
+- <= 2.5e-7 abs on unit-level signals (0, bitwise here): `_fir_fold` and
+  `_uniform_ma_past`, which keep the JAX package's association;
+- <= 5e-7 abs (<= 1.8e-7): `Gain`, `StereoWidth`, `Saturator` (XLA's tanh
+  approximation against the port's); `_direct_convolve` <= 2e-6 (1.7e-6,
+  two convolutions summing in different orders);
+- <= -130 dB RMS (-134.8 ... -138.8 dB): the FFT convolvers and the stages
+  that use them (torch's CPU FFT is MKL's, JAX's is pocketfft);
+- <= 1e-6 abs (<= 1.8e-7): `Compressor`, `Expander`, `Limiter` (log10 and
+  pow round apart by an ulp); a whole stack <= 5e-6 (2.6e-6)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from f9tpu.ops import chain as jchain  # noqa: E402
+from f9tpu.ops import routing as jrouting  # noqa: E402
+from f9tpu_torch.ops import chain as tchain  # noqa: E402
+from f9tpu_torch.ops import routing as trouting  # noqa: E402
+
+RATE = 48000
+
+
+def _sig(shape, seed, level=0.5):
+    rng = np.random.default_rng(seed)
+    t = np.arange(shape[-1]) / RATE
+    x = (level * np.sin(2 * np.pi * 441.0 * t)
+         + 0.3 * level * rng.standard_normal(shape))
+    return x.astype(np.float32)
+
+
+def _both(fn_j, fn_t, x):
+    want = np.asarray(fn_j(jnp.asarray(x)))
+    got = fn_t(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    return got, want
+
+
+def _db(got, want):
+    e = np.sqrt(np.mean(np.square(got.astype(np.float64) - want)))
+    r = np.sqrt(np.mean(np.square(want.astype(np.float64))))
+    return 20.0 * np.log10(max(e, 1e-300) / r)
+
+
+# ---------------------------------------------------------------- routing
+
+@pytest.mark.parametrize("routing,num_out", [
+    ([1, 0], None), ([1, 0, -1], None), ([0, 0, 2, -1], None),
+    ([2, 1], 4), ([0, 1, 2], 2), ([-1, -1], None), ([], 2)])
+def test_route_channels_matches_jax(routing, num_out):
+    """Exact: a gather plus zeros."""
+    x = _sig((2, 3, 300), seed=len(routing))
+    got, want = _both(lambda a: jrouting.route_channels(a, routing, num_out),
+                      lambda a: trouting.route_channels(a, routing, num_out), x)
+    assert np.array_equal(got, want)
+
+
+def test_route_channels_refuses_out_of_range():
+    x = np.zeros((1, 2, 10), np.float32)
+    for mod, arr in ((jrouting, jnp.asarray(x)), (trouting, torch.from_numpy(x))):
+        with pytest.raises(ValueError, match="out of range"):
+            mod.route_channels(arr, [0, 2])
+
+
+def test_routing_helpers_match_jax():
+    """Exact: fan-out, interleave and its inverse.  The monitor mixdown is
+    a mean of three channels, which XLA divides differently: <= 1e-7."""
+    x = _sig((2, 5, 64), seed=3)
+    got, want = _both(jrouting.interleave, trouting.interleave, x)
+    assert np.array_equal(got, want)
+    got, want = _both(jrouting.mixdown_monitor, trouting.mixdown_monitor, x)
+    assert np.abs(got - want).max() <= 1e-7
+    for c in (1, 2):
+        got, want = _both(jrouting.mixdown_monitor, trouting.mixdown_monitor, x[:, :c])
+        assert np.array_equal(got, want)
+    got, want = _both(lambda a: jrouting.fan_out_mono(a, 3),
+                      lambda a: trouting.fan_out_mono(a, 3), x[:, 0])
+    assert np.array_equal(got, want)
+    inter = x.reshape(2, -1)
+    got, want = _both(lambda a: jrouting.deinterleave(a, 5),
+                      lambda a: trouting.deinterleave(a, 5), inter)
+    assert np.array_equal(got, want)
+    with pytest.raises(ValueError, match="not a multiple"):
+        trouting.deinterleave(torch.zeros(2, 7), 2)
+    assert trouting.stereo_pairs(5) == jrouting.stereo_pairs(5)
+
+
+# ------------------------------------------------------ device helpers
+
+@pytest.mark.parametrize("W", [1, 2, 3, 7, 64, 351])
+def test_fir_fold_matches_jax(W):
+    """<= 2.5e-7 abs (measured 0): the same pairwise tree."""
+    taps = _sig((W,), seed=W, level=1.0 / np.sqrt(W))
+    x = _sig((2, 2, 1500), seed=W + 1)
+    got, want = _both(lambda a: jchain._fir_fold(a, taps),
+                      lambda a: tchain._fir_fold(a, taps), x)
+    assert np.abs(got - want).max() <= 2.5e-7
+
+
+def test_fir_fold_is_position_invariant():
+    """Bitwise: the same window computed at two buffer offsets."""
+    taps = _sig((301,), seed=5, level=0.05)
+    x = torch.from_numpy(_sig((2, 4000), seed=6))
+    a = tchain._fir_fold(x, taps)[..., 1000:3000]
+    b = tchain._fir_fold(x[..., 537:], taps)[..., 1000 - 537:3000 - 537]
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W", [5, 97])
+def test_direct_convolve_matches_jax(W):
+    """<= 2e-6 abs (measured 1.7e-6 at 97 taps on a 1.5-peak output): two
+    float32 convolutions summing in different orders."""
+    taps = _sig((W,), seed=W, level=1.0 / np.sqrt(W))
+    x = _sig((3, 2000), seed=2)
+    got, want = _both(lambda a: jchain._direct_convolve(a, taps),
+                      lambda a: tchain._direct_convolve(a, taps), x)
+    assert np.abs(got - want).max() <= 2e-6
+
+
+@pytest.mark.parametrize("win", [1, 2, 48, 241])
+def test_uniform_ma_past_matches_jax(win):
+    """<= 2.5e-7 abs (measured 0): the same sequential fold."""
+    x = np.square(_sig((2, 1, 3000), seed=win))
+    got, want = _both(lambda a: jchain._uniform_ma_past(a, win),
+                      lambda a: tchain._uniform_ma_past(a, win), x)
+    assert np.abs(got - want).max() <= 2.5e-7
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 5, 8, 13, 73])
+def test_window_max_past_matches_jax(W):
+    """Exact: max is exact whatever the combine order."""
+    x = np.abs(_sig((2, 1, 777), seed=W))
+    got, want = _both(lambda a: jchain._window_max_past(a, W),
+                      lambda a: tchain._window_max_past(a, W), x)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("ir_len,block", [(1, 64), (300, 64), (1000, 128), (9000, 64)])
+def test_fft_convolve_matches_jax(ir_len, block):
+    """<= -130 dB RMS (measured -135.5 ... -137.8 dB); the last case
+    doubles B."""
+    ir = _sig((ir_len,), seed=ir_len, level=0.2) * np.exp(
+        -np.arange(ir_len) / max(1.0, ir_len / 6)).astype(np.float32)
+    x = _sig((2, 2, 3001), seed=1)
+    got, want = _both(lambda a: jchain.fft_convolve(a, ir, block=block),
+                      lambda a: tchain.fft_convolve(a, ir, block=block), x)
+    assert _db(got, want) <= -130.0
+    assert tchain._fft_block_size(ir_len, block) == jchain._fft_block_size(ir_len, block)
+
+
+def test_fft_convolve_multi_matches_jax():
+    """<= -130 dB RMS (measured -138.4 dB): two channels, one delay line
+    each."""
+    irs = _sig((2, 700), seed=9, level=0.2)
+    x = _sig((3, 2, 2500), seed=10)
+    got, want = _both(lambda a: jchain._fft_convolve_multi(a, irs, block=128),
+                      lambda a: tchain._fft_convolve_multi(a, irs, block=128), x)
+    assert _db(got, want) <= -130.0
+
+
+def test_fft_convolve_against_direct_sum():
+    """The port's UPOLS against numpy's float64 convolution: <= -130 dB
+    (measured -138.6 dB)."""
+    ir = _sig((500,), seed=4, level=0.1)
+    x = _sig((2, 1800), seed=8)
+    got = tchain.fft_convolve(torch.from_numpy(x), ir, block=64).numpy()
+    want = np.stack([np.convolve(r.astype(np.float64), ir)[:1800] for r in x])
+    assert _db(got, want) <= -130.0
+
+
+# ------------------------------------------------------------------ stages
+
+def _stage_pairs():
+    """(id, JAX stage, port stage, tolerance kind)."""
+    fir_long = _sig((1500,), seed=11, level=0.03)
+    ir_mono = (_sig((5000,), seed=12, level=0.1)
+               * np.exp(-np.arange(5000) / 800.0)).astype(np.float32)
+    ir_st = (_sig((2, 3000), seed=13, level=0.1)
+             * np.exp(-np.arange(3000) / 500.0)).astype(np.float32)
+    J, T = jchain, tchain
+    return [
+        ("gain", J.Gain(-4.5), T.Gain(-4.5), "tight"),
+        ("delay", J.Delay(0.0031), T.Delay(0.0031), "exact"),
+        ("delay0", J.Delay(0.0), T.Delay(0.0), "exact"),
+        ("width", J.StereoWidth(1.7), T.StereoWidth(1.7), "tight"),
+        ("sat_tanh", J.Saturator("tanh", 9.0, 0.8, -2.0),
+         T.Saturator("tanh", 9.0, 0.8, -2.0), "tight"),
+        ("sat_soft", J.Saturator("soft", 6.0), T.Saturator("soft", 6.0), "tight"),
+        ("sat_hard", J.Saturator("hard", 4.0, 0.5), T.Saturator("hard", 4.0, 0.5), "tight"),
+        ("fir_fold", J.FIRInsert(fir_long[:200]), T.FIRInsert(fir_long[:200]), "tight"),
+        ("fir_upols", J.FIRInsert(fir_long), T.FIRInsert(fir_long), "fft"),
+        ("biquad_fold", J.Biquad("peaking", 1000.0, 1.0, 3.0),
+         T.Biquad("peaking", 1000.0, 1.0, 3.0), "tight"),
+        ("biquad_upols", J.Biquad("highpass", 80.0), T.Biquad("highpass", 80.0), "fft"),
+        ("reverb_mono", J.ConvolutionReverb(ir_mono, 0.7, 0.4),
+         T.ConvolutionReverb(ir_mono, 0.7, 0.4), "fft"),
+        ("reverb_stereo", J.ConvolutionReverb(ir_st), T.ConvolutionReverb(ir_st), "fft"),
+        ("comp", J.Compressor(-18.0, 3.0), T.Compressor(-18.0, 3.0), "dyn"),
+        ("comp_hardknee", J.Compressor(-12.0, 8.0, 0.0, 300.0, 0.0, 2.0),
+         T.Compressor(-12.0, 8.0, 0.0, 300.0, 0.0, 2.0), "dyn"),
+        ("expander", J.Expander(-20.0, 3.0, 1.0, 400.0, 40.0),
+         T.Expander(-20.0, 3.0, 1.0, 400.0, 40.0), "dyn"),
+        ("limiter", J.Limiter(-3.0), T.Limiter(-3.0), "dyn"),
+    ]
+
+
+_STAGES = _stage_pairs()
+
+
+def _check(kind, got, want):
+    """Bounds of the module docstring; measured on these inputs: tight
+    <= 1.8e-7, dyn <= 1.8e-7, fft -134.8 ... -138.8 dB."""
+    if kind == "exact":
+        assert np.array_equal(got, want)
+    elif kind == "tight":
+        d = np.abs(got - want)
+        at = np.unravel_index(np.argmax(d), d.shape)
+        assert d.max() <= 5e-7, (d.max(), at, got[at], want[at], int((d > 5e-7).sum()))
+    elif kind == "dyn":
+        assert np.abs(got - want).max() <= 1e-6, np.abs(got - want).max()
+    else:
+        assert _db(got, want) <= -130.0, _db(got, want)
+
+
+@pytest.mark.parametrize("name,js,ts,kind", _STAGES, ids=[s[0] for s in _STAGES])
+def test_stage_matches_jax(name, js, ts, kind):
+    x = _sig((2, 2, 4800), seed=len(name), level=0.6)
+    got, want = _both(lambda a: js.apply(a, RATE), lambda a: ts.apply(a, RATE), x)
+    _check(kind, got, want)
+    # the 1-D branch: the calibration impulse goes through every stage
+    imp = np.zeros(3000, np.float32)
+    imp[1000] = 0.9
+    got, want = _both(lambda a: js.apply(a, RATE), lambda a: ts.apply(a, RATE), imp)
+    _check(kind, got, want)
+    assert ts.channel_local == js.channel_local
+
+
+@pytest.mark.parametrize("cls", ["Compressor", "Expander", "Limiter"])
+def test_dynamics_across_envelope_blocks(cls, monkeypatch):
+    """<= 1e-6 abs (measured <= 1.8e-7) with the slanted cummax cut into
+    256-frame blocks in both packages (the carried maximum crosses 18 block
+    boundaries); the envelope itself is bitwise."""
+    monkeypatch.setattr(jchain.Compressor, "_ENV_BLOCK", 256)
+    monkeypatch.setattr(tchain.Compressor, "_ENV_BLOCK", 256)
+    args = {"Compressor": (-20.0, 4.0, 2.0, 200.0), "Expander": (-25.0, 2.0, 0.0, 300.0),
+            "Limiter": (-4.0, 1.0, 250.0)}[cls]
+    js, ts = getattr(jchain, cls)(*args), getattr(tchain, cls)(*args)
+    x = _sig((2, 2, 4700), seed=7, level=0.8)
+    x[..., 2000:3000] *= 0.01                  # a quiet stretch: release runs
+    got, want = _both(lambda a: js.apply(a, RATE), lambda a: ts.apply(a, RATE), x)
+    assert np.abs(got - want).max() <= 1e-6
+    lv = _sig((2, 1, 1000), seed=3, level=20.0) - 30.0
+    got, want = _both(lambda a: jchain.Compressor._slanted_cummax(a, 0.01),
+                      lambda a: tchain.Compressor._slanted_cummax(a, 0.01), lv)
+    assert np.array_equal(got, want)
+
+
+def test_limiter_holds_its_ceiling():
+    """The float32 round trip through dB (log10, then pow) lets the peak
+    poke 1.1e-6 relative above the ceiling, in both packages alike."""
+    lim = tchain.Limiter(ceiling_db=-6.0, lookahead_ms=1.0)
+    x = _sig((2, 2, 9600), seed=2, level=1.5)
+    y = lim.apply(torch.from_numpy(x), RATE)
+    L = lim.lookahead_frames(RATE)
+    ceiling = 10.0 ** (-6.0 / 20.0)
+    assert float(y.abs().max()) <= ceiling * (1 + 2e-6)
+    want = np.asarray(jchain.Limiter(-6.0, 1.0).apply(jnp.asarray(x), RATE))
+    assert abs(float(y.abs().max()) - float(np.abs(want).max())) <= 1e-6
+    # the lookahead is pure delay where nothing is limited
+    quiet = torch.full((1, 100), 0.01)
+    assert torch.equal(lim.apply(quiet, RATE)[:, L:], quiet[:, :-L])
+
+
+def _chain_pair():
+    """Every stage kind in one stack, levels kept near unity."""
+    ir = (_sig((6000,), seed=21) * np.exp(-np.arange(6000) / 900.0)).astype(np.float32)
+    ir /= np.sqrt(np.sum(np.square(ir.astype(np.float64))))
+    taps = np.hanning(31).astype(np.float32)
+    taps /= taps.sum()
+
+    def build(m):
+        return m.Chain(m.Gain(-6.0), m.Delay(0.002), m.Expander(-40.0, 2.0),
+                       m.Biquad("peaking", 1000.0, 1.0, 3.0), m.Biquad("highpass", 80.0),
+                       m.FIRInsert(taps), m.Compressor(-18.0, 3.0),
+                       m.Saturator("soft", 3.0), m.StereoWidth(1.3),
+                       m.ConvolutionReverb(ir, 0.6, 0.5), m.Limiter(-1.0))
+    return build(jchain), build(tchain)
+
+
+def test_chain_signature_and_tail_match_jax():
+    """Exact: the calibration cache keys and the capture head-room agree."""
+    for _name, js, ts, _k in _STAGES:
+        assert ts.signature() == js.signature()
+        for rate in (44100, 48000, 96000):
+            assert ts.tail_frames(rate) == js.tail_frames(rate)
+    jc, tc = (jchain.Chain(*[s[1] for s in _STAGES]),
+              tchain.Chain(*[s[2] for s in _STAGES]))
+    assert tc.sig_str() == jc.sig_str()
+    assert tc.tail_frames(48000) == jc.tail_frames(48000)
+    assert tc == tchain.chain_from_jax(jc) and hash(tc) == hash(tchain.chain_from_jax(jc))
+    assert tc != tchain.Chain(tchain.Gain(1.0))
+    assert repr(tchain.Chain(tchain.Gain(1.0), tchain.Delay(0.1))) == "Chain(Gain, Delay)"
+    with pytest.raises(TypeError, match="lacks required method"):
+        tchain.Chain(object())
+
+
+def test_chain_from_jax_covers_every_stage():
+    for _name, js, _ts, _k in _STAGES:
+        got = tchain.chain_from_jax(jchain.Chain(js))
+        assert type(got.stages[0]).__name__ == type(js).__name__
+
+    class Odd:
+        def signature(self):
+            return ("odd",)
+
+        def tail_frames(self, rate):
+            return 0
+
+        def apply(self, y, rate):
+            return y
+
+    with pytest.raises(TypeError, match="no port"):
+        tchain.chain_from_jax(jchain.Chain(Odd()))
+
+
+def test_chain_apply_matches_jax():
+    """<= 5e-6 abs (measured 2.6e-6) over a stack of every stage kind."""
+    jc, tc = _chain_pair()
+    x = _sig((2, 2, 4000), seed=17, level=0.4)
+    got, want = _both(lambda a: jc.apply(a, RATE), lambda a: tc.apply(a, RATE), x)
+    assert np.abs(got - want).max() <= 5e-6
+
+
+def test_stage_argument_checks():
+    T = tchain
+    for bad in (lambda: T.Delay(-1.0), lambda: T.FIRInsert([]),
+                lambda: T.Biquad("notch", 100.0), lambda: T.Biquad("peaking", 0.0),
+                lambda: T.Saturator("fuzz"), lambda: T.Saturator(mix=2.0),
+                lambda: T.Saturator(drive_db=200.0), lambda: T.StereoWidth(5.0),
+                lambda: T.Compressor(ratio=0.5), lambda: T.Compressor(release_db_per_s=0),
+                lambda: T.Compressor(attack_ms=-1), lambda: T.Expander(range_db=0),
+                lambda: T.Limiter(ceiling_db=1.0), lambda: T.Limiter(lookahead_ms=0),
+                lambda: T.Limiter(release_db_per_s=0),
+                lambda: T.ConvolutionReverb(np.zeros((2, 2, 2))),
+                lambda: T.fft_convolve(torch.zeros(10), np.ones(3), block=0)):
+        with pytest.raises(ValueError):
+            bad()
+    with pytest.raises(ValueError, match="stereo"):
+        T.StereoWidth(1.0).apply(torch.zeros(1, 3, 10), RATE)
+    with pytest.raises(ValueError, match="multichannel IR"):
+        T.ConvolutionReverb(np.ones((2, 4), np.float32)).apply(torch.zeros(1, 3, 10), RATE)
+    assert torch.equal(T.fft_convolve(torch.ones(5), np.zeros(0)), torch.zeros(5))

@@ -1,9 +1,12 @@
-"""The port's default batch job end to end, against the JAX package's.
+"""The port's batch jobs end to end, against the JAX package's.
 
-Both `BatchProcessor`s run on the CPU over the same small WAVs with the
-same seed; the outputs must have identical headers and frame counts,
-samples within 2 LSB, and the same manifest statuses.  Also: the port
-never imports jax, refuses CUDA without a GPU, and switches TF32 off."""
+Both `BatchProcessor`s (or both CLIs) run on the CPU over the same small
+WAVs with the same seed; the outputs must have identical headers and frame
+counts, samples within 2 LSB, and the same manifest statuses.  That holds
+for the default job and for the insert-loop job (reverb mode, channel
+routing and an insert chain of delay, EQ, compressor, convolution reverb
+and limiter).  Also: the port never imports jax, refuses CUDA without a
+GPU, and switches TF32 off."""
 
 import json
 import os
@@ -15,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from f9tpu import cli as jcli  # noqa: E402
 from f9tpu.config import ProcessingConfig  # noqa: E402
 from f9tpu.io import wav  # noqa: E402
 from f9tpu.pipeline import calibration as jcal  # noqa: E402
@@ -101,12 +105,101 @@ def test_oversized_file_fails_alone(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"mesh": object()}, {"normalize_lufs": -14.0}, {"device_layout": "rows"},
-    {"native_loader": True}, {"reverb_mode": True}, {"channel_routing": [0, 1]}])
+    {"native_loader": True}])
 def test_unported_options_are_refused(tmp_path, kw):
     mesh = kw.pop("mesh", None)
     cfg = ProcessingConfig(output_dir=str(tmp_path), **kw)
     with pytest.raises(NotImplementedError, match="not ported"):
         tsched.BatchProcessor(cfg, mesh=mesh, device="cpu")
+
+
+def _write_irs(d) -> tuple[str, str]:
+    """A mono and a stereo 0.2 s IR of decaying noise, float32 at 48 kHz,
+    at a wet gain of about 0.75 (energy 0.56)."""
+    rng = np.random.default_rng(8)
+    env = np.exp(-np.arange(9600) / 700.0)
+    paths = []
+    for name, ch in (("ir_mono.wav", 1), ("ir_stereo.wav", 2)):
+        ir = (0.04 * rng.standard_normal((ch, 9600)) * env).astype(np.float32)
+        paths.append(os.path.join(d, name))
+        wav.write_wav(paths[-1], ir, 48000, bits=32)
+    return paths[0], paths[1]
+
+
+INSERT_LOOP_FLAGS = ["--rate", "48000", "--reverb", "--chain-delay-ms", "5",
+                     "--chain-eq", "peaking:1000:1:3", "--chain-comp=-18:3:1:400",
+                     "--chain-limit=-0.3", "--seed", "9", "--json"]
+
+
+@pytest.mark.parametrize("ir,routing", [("mono", "1,0,-1"), ("stereo", "1,0")])
+def test_insert_loop_cli_matches_jax(tmp_path, capsys, ir, routing):
+    """`cli process --reverb --routing ... --chain-*` on both packages:
+    identical headers, frame counts and manifest statuses, codes <= 2 LSB at
+    24 bits (measured: 2), every tail terminated past its source, silent
+    channels digital zero.
+
+    On the CPU the port's FFT is MKL's and JAX's is pocketfft; they round
+    apart at about -137 dB RMS, which the convolution's gain carries to the
+    output: with this IR at twice the level the reverb alone differed by up
+    to 3 LSB (peak 0.7) and the codes by 4."""
+    src = _write_inputs(str(tmp_path))
+    ir_path = _write_irs(str(tmp_path))[0 if ir == "mono" else 1]
+    flags = INSERT_LOOP_FLAGS + ["--routing", routing, "--chain-ir", ir_path]
+    out = {}
+    for name, mod, extra in (("jax", jcli, []), ("torch", cli, ["--device", "cpu"])):
+        out[name] = str(tmp_path / f"out_{name}")
+        rc = mod.main(["process", *src, "--out", out[name], *flags, *extra])
+        summary = json.loads(capsys.readouterr().out)
+        # m16.wav is mono: a 2-channel routing map fails it alone, per file
+        assert rc == 1 and summary["completed"] == 2 and summary["failed"] == 1, summary
+        out[name] = (out[name], summary["per_file"])
+    assert out["torch"][1].keys() == out["jax"][1].keys()
+    for p, metrics in out["torch"][1].items():
+        assert metrics["out_frames"] == out["jax"][1][p]["out_frames"]
+        assert metrics["tail_terminated"] is True
+        n_in = wav.read_wav(p)[0].shape[-1]
+        assert metrics["out_frames"] > -(-n_in * 160 // 147)
+        stem = os.path.splitext(os.path.basename(p))[0]
+        jh, jc, _ = _header_and_codes(os.path.join(out["jax"][0], f"{stem}_processed.wav"))
+        th, tc, _ = _header_and_codes(os.path.join(out["torch"][0], f"{stem}_processed.wav"))
+        assert th == jh and tc.shape == jc.shape == (len(routing.split(",")),
+                                                      metrics["out_frames"])
+        assert np.abs(tc - jc).max() <= 2          # 24-bit codes
+        if routing.endswith("-1"):
+            assert not tc[-1].any()
+
+
+def test_insert_loop_usage_errors(tmp_path, capsys):
+    src = _write_inputs(str(tmp_path))[:1]
+    out = str(tmp_path / "o")
+    for bad in (["--routing", "1,x"], ["--chain-comp=-18"], ["--chain-eq", "peaking"],
+                ["--chain-limit=-0.3:1:2:3"], ["--chain-sat", "tanh"],
+                ["--chain-gate=-40"], ["--chain-ir", str(tmp_path / "none.wav")],
+                ["--chain-width", "9"], ["--chain-delay-ms", "-1"],
+                ["--chain-eq", "notch:100"]):
+        with pytest.raises(SystemExit):
+            cli.main(["process", *src, "--out", out, "--device", "cpu", *bad])
+    capsys.readouterr()
+
+
+def test_reverb_cap_and_routing_bound_match_jax(tmp_path):
+    """Per-file routing failures and the reverb capture cap, both schedulers."""
+    src = _write_inputs(str(tmp_path))
+    runs = {}
+    for name, mod, extra in (("jax", jsched, {}), ("torch", tsched, {"device": "cpu"})):
+        cfg = ProcessingConfig(output_dir=str(tmp_path / name), target_rate=48000,
+                               reverb_mode=True, max_tail_seconds=0.15,
+                               channel_routing=[1, 0], seed=2)
+        res = mod.BatchProcessor(cfg, **extra).run(src)
+        assert res.completed == 2 and res.failed == 1
+        runs[name] = res.per_file
+    assert runs["torch"].keys() == runs["jax"].keys()
+    for p, m in runs["torch"].items():
+        assert m["out_frames"] == runs["jax"][p]["out_frames"]
+        # source and head-room are each capped at 0.15 s, too short for the
+        # 200 ms detection run: the whole capped capture is kept
+        assert m["out_frames"] == -(-2 * int(0.15 * 44100) * 160 // 147)
+        assert m["tail_terminated"] is False
 
 
 def test_calibration_matches_jax(tmp_path):
@@ -131,10 +224,20 @@ sys.path.insert(0, {REPO!r})
 import numpy as np
 from f9tpu.io import wav
 import f9tpu_torch, f9tpu_torch.cli, f9tpu_torch.pipeline
-from f9tpu_torch.ops import analysis, devcodec, dither, resample, signal, src_kernel, trim, _build
+from f9tpu_torch.ops import (analysis, chain, devcodec, dither, resample, routing,
+                             signal, src_kernel, trim, _build)
 wav.write_wav({str(tmp_path / "a.wav")!r}, np.zeros((2, 3000), np.float32) + 0.1, 44100, bits=24)
 rc = f9tpu_torch.cli.main(["process", {str(tmp_path / "a.wav")!r}, "--out",
                            {str(tmp_path / "o")!r}, "--device", "cpu"])
+assert rc == 0, rc
+ir = np.exp(-np.arange(2000) / 300.0)[None].astype(np.float32) * 0.5
+wav.write_wav({str(tmp_path / "ir.wav")!r}, ir, 48000, bits=32)
+rc = f9tpu_torch.cli.main(["process", {str(tmp_path / "a.wav")!r}, "--out",
+                           {str(tmp_path / "o2")!r}, "--device", "cpu", "--reverb",
+                           "--routing", "1,0,-1", "--chain-delay-ms", "5",
+                           "--chain-eq", "peaking:1000:1:3", "--chain-comp=-18:3",
+                           "--chain-ir", {str(tmp_path / "ir.wav")!r},
+                           "--chain-limit=-0.3"])
 assert rc == 0, rc
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
