@@ -10,9 +10,12 @@ its results, any failure exiting non-zero:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build of the CUDA kernels from `f9tpu_torch/csrc/` (seconds, ptxas report);
 3. the cycle-matrix SRC kernel against its plain PyTorch twin on 32 signals
-   x 2^20 frames for four banks (R = 1, 1, 2, 4): max abs difference, dB
-   against the float64 oracle (<= -120 dB), launch count, median
-   CUDA-event times of kernel and twin;
+   x 2^20 frames for four banks (R = 1, 1, 2, 4): max abs difference and
+   24-bit LSB error against the twin, dB against the float64 oracle
+   (<= -120 dB), launch count, launch plan and blocks per SM, median
+   CUDA-event times of kernel, twin and the one-call library form (an fp32
+   `torch.matmul` of the rows view plus R shifted adds, which the port never
+   calls), and the card's bound for the same work;
 4. the default batch job, `f9tpu_torch.cli process --rate 48000` on 8
    stereo 24-bit 44.1 kHz WAVs of 50-60 s: 8 completed, kernel launches
    counted from zero, outputs <= -120 dB against the oracle and within
@@ -47,9 +50,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: kernel vs twin: the twin sums in float64 and rounds once, the kernel in
-#: compensated float32 (~0.1 LSB RMS at 24 bits); on signals peaking near
-#: 0.5 they agree to a few float32 ulps (6e-8 each), while an indexing
-#: fault is of the order of the signal.
+#: split TF32 with compensated partials (~0.18 LSB RMS at 24 bits); on
+#: signals peaking near 0.5 they agree to a few float32 ulps (6e-8 each),
+#: while an indexing fault is of the order of the signal.
 TWIN_TOL = 5e-7
 ORACLE_DB_MAX = -120.0
 #: the JAX package's own tolerance between two SRC forms after quantizing
@@ -107,23 +110,54 @@ def _median_ms(fn, runs: int = 10) -> float:
     return float(np.median(ts))
 
 
+#: the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
+#: HBM bytes per second and TF32 tensor-core operations per second
+HBM_BYTES_PER_S = 3.35e12
+TF32_OPS_PER_S = 495e12
+#: TF32 products the kernel makes per multiply-add of the function
+#: (split TF32: xh*gl, xl*gh, xh*gh)
+TF32_PASSES = 3
+
+
+def _src_bound(bank, signals: int, frames: int, out_len: int) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card needs for the
+    SRC of ``signals`` x ``frames``: the signal read once, the output and
+    the bank written and read once, against the kernel's TF32 passes of 2
+    operations per non-zero tap of each output's phase at the tensor
+    cores' TF32 rate."""
+    import numpy as np
+
+    nnz = np.count_nonzero(bank.G, axis=0).astype(np.int64)       # per phase
+    full, rest = divmod(out_len, bank.L)
+    ops = TF32_PASSES * 2 * signals * (full * int(nnz.sum()) + int(nnz[:rest].sum()))
+    nbytes = 4 * (signals * frames + signals * out_len + bank.G.size)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / TF32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
 def phase_kernel(card: str, dev) -> dict:
-    """Kernel vs twin vs oracle on four banks; returns the default bank's
-    numbers for the JSON summary."""
+    """Kernel vs twin vs oracle on four banks, timed beside its plain twin
+    and the one-call library form; returns the default bank's numbers for
+    the JSON summary (and every bank's under ``per_bank``)."""
     import numpy as np
     import torch
 
-    from f9tpu.models import design_cycle_bank, resample_oracle
+    from f9tpu_torch.models import design_cycle_bank, resample_oracle
+    from f9tpu_torch.ops import _build
     from f9tpu_torch.ops import src_kernel as sk
 
     rng = np.random.default_rng(SEED)
-    x_np = _signal(rng, 32, 1 << 20, 44100)
+    n_sig, frames = 32, 1 << 20
+    x_np = _signal(rng, n_sig, frames, 44100)
     x = torch.from_numpy(x_np).to(dev)
     summary = None
+    per_bank = []
+    lib = _build.load_library()
     for ri, ro, q in [(44100, 48000, "high"), (48000, 44100, "high"),
                       (44100, 48000, "ultra"), (176400, 48000, "high")]:
         bank = design_cycle_bank(ri, ro, quality=q)
         R = sk._overlap_rows(bank)
+        plan = sk.kernel_plan(bank)
         if not sk.kernel_applicable(bank):
             raise AssertionError(f"{ri}->{ro} {q}: kernel not applicable")
         n0 = sk.launches
@@ -135,9 +169,32 @@ def phase_kernel(card: str, dev) -> dict:
 
         def twin():
             yt, _ = sk.resample_rows_reference(x, bank)
-            return yt.reshape(32, -1)[:, :out_len]
+            return yt.reshape(n_sig, -1)[:, :out_len]
 
-        err = float((y - twin()).abs().max())
+        # the library form: one fp32 torch.matmul of the zero-padded
+        # (Q + R, M) rows view by the stacked bank, then R shifted adds
+        # (TF32 off); the marshalling stays outside the timed window
+        Q = -(-out_len // bank.L)
+        n_rows = Q + R
+        keep = min(frames, n_rows * bank.M - bank.pad_front)
+        xp = torch.zeros((n_sig, n_rows * bank.M), device=dev)
+        xp[:, bank.pad_front:bank.pad_front + keep] = x[:, :keep]
+        gs = torch.from_numpy(sk.stacked_bank_f32(bank)).to(dev)
+        L = bank.L
+
+        def library():
+            P = torch.matmul(xp.view(n_sig, n_rows, bank.M), gs.T)
+            yl = P[:, :Q, :L].clone()
+            for r in range(1, R + 1):
+                yl += P[:, r:r + Q, r * L:(r + 1) * L]
+            return yl
+
+        yt = twin()
+        err = float((y - yt).abs().max())
+        lsb = (y.double() - yt.double()) * float(1 << 23)
+        lsb_rms, lsb_max = float(lsb.square().mean().sqrt()), float(lsb.abs().max())
+        lib_err = float((library().reshape(n_sig, -1)[:, :out_len] - yt).abs().max())
+        del yt, lsb
         small = x_np[:2, :1 << 16]
         yk = sk.resample_kernel(torch.from_numpy(small).to(dev), bank).cpu().numpy()
         ref = resample_oracle(small, ri, ro, quality=q)
@@ -145,32 +202,49 @@ def phase_kernel(card: str, dev) -> dict:
         for _ in range(3):
             sk.resample_kernel(x, bank)
             twin()
+            library()
         torch.cuda.synchronize()
-        ms = _median_ms(lambda: sk.resample_kernel(x, bank))
-        plain_ms = _median_ms(twin)
-        ms2 = _median_ms(lambda: sk.resample_kernel(x, bank))
-        plain_ms2 = _median_ms(twin)
-        print(f"kernel {ri}->{ro} {q} (L={bank.L} M={bank.M} W={bank.W} R={R}) "
-              f"32x2^20: max_abs_vs_twin={err:.3e} (tol {TWIN_TOL:g}) "
-              f"oracle={db:.1f} dB (max {ORACLE_DB_MAX:g}) "
-              f"kernel_ms={ms:.4f}/{ms2:.4f} twin_ms={plain_ms:.4f}/{plain_ms2:.4f} "
+        # kernel, plain, library, library, plain, kernel
+        t = {"ms": [], "plain_ms": [], "library_ms": []}
+        for key, fn in (("ms", lambda: sk.resample_kernel(x, bank)), ("plain_ms", twin),
+                        ("library_ms", library), ("library_ms", library),
+                        ("plain_ms", twin), ("ms", lambda: sk.resample_kernel(x, bank))):
+            t[key].append(_median_ms(fn))
+        bound_ms, bound_by = _src_bound(bank, n_sig, frames, out_len)
+        blocks = lib.f9_cycle_src_blocks_per_sm(plan.nt, plan.warps, plan.smem_bytes)
+        print(f"kernel {ri}->{ro} {q} (L={L} M={bank.M} W={bank.W} R={R}; "
+              f"plan nt={plan.nt} warps={plan.warps} skew={plan.skew} rowmap={plan.rowmap} "
+              f"smem={plan.smem_bytes} B, {blocks} blocks/SM) {n_sig}x2^20: "
+              f"max_abs_vs_twin={err:.3e} (tol {TWIN_TOL:g}) "
+              f"vs_twin_24bit_lsb rms={lsb_rms:.4f} max={lsb_max:.3f} "
+              f"oracle={db:.1f} dB (max {ORACLE_DB_MAX:g}) library_vs_twin={lib_err:.3e} "
+              f"kernel_ms={t['ms'][0]:.4f}/{t['ms'][1]:.4f} "
+              f"plain_ms={t['plain_ms'][0]:.4f}/{t['plain_ms'][1]:.4f} "
+              f"library_ms={t['library_ms'][0]:.4f}/{t['library_ms'][1]:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) "
               f"(median of 10, two turns) [{card}]", flush=True)
         if not err <= TWIN_TOL:
             raise AssertionError(f"{ri}->{ro} {q}: kernel vs twin {err:.3e}")
         if not db <= ORACLE_DB_MAX:
             raise AssertionError(f"{ri}->{ro} {q}: {db:.1f} dB vs oracle")
+        row = {"bank": f"{ri}->{ro} {q}", "max_abs_err": err, "lsb_rms": lsb_rms,
+               "lsb_max": lsb_max, "oracle_db": db, "ms": min(t["ms"]),
+               "plain_ms": min(t["plain_ms"]), "library_ms": min(t["library_ms"]),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        per_bank.append(row)
         if summary is None:
-            summary = {"max_abs_err": err, "ms": min(ms, ms2),
-                       "plain_ms": min(plain_ms, plain_ms2)}
+            summary = dict(row)
+        del xp, gs
     del x
     torch.cuda.empty_cache()
+    summary["per_bank"] = per_bank
     return summary
 
 
 def _read_codes(path: str):
     import numpy as np
 
-    from f9tpu.io import wav
+    from f9tpu_torch.io import wav
 
     x, rate = wav.read_wav(path)
     return np.round(np.asarray(x, np.float64) * (1 << 23)).astype(np.int64), rate
@@ -181,8 +255,8 @@ def phase_slice(card: str, work: str) -> int:
     launches it made."""
     import numpy as np
 
-    from f9tpu.io import wav
-    from f9tpu.models import resample_oracle
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.models import resample_oracle
     from f9tpu_torch import cli
     from f9tpu_torch.ops import src_kernel as sk
 
@@ -294,9 +368,9 @@ def _loop_graph_split(card: str, in_dir: str, names: list[str], ir_path: str,
     import numpy as np
     import torch
 
-    from f9tpu.config import ProcessingConfig
-    from f9tpu.io import codec
-    from f9tpu.models import design_cycle_bank
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.io import codec
+    from f9tpu_torch.models import design_cycle_bank
     from f9tpu_torch import cli
     from f9tpu_torch.ops import chain as ch
     from f9tpu_torch.ops.routing import route_channels
@@ -403,7 +477,7 @@ def phase_insert_loop(card: str, work: str, dev) -> int:
     launches it made."""
     import numpy as np
 
-    from f9tpu.io import wav
+    from f9tpu_torch.io import wav
     from f9tpu_torch import cli
     from f9tpu_torch.ops import src_kernel as sk
 
@@ -540,6 +614,10 @@ def main() -> int:
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"],
+        "per_bank": k["per_bank"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,8 @@ import sys
 
 import numpy as np
 
-from f9tpu.config import ProcessingConfig
-from f9tpu.io import codec
+from .config import ProcessingConfig
+from .io import codec
 
 from .pipeline.calibration import CalibrationCache
 from .pipeline.logbook import StatusLog
@@ -113,7 +113,7 @@ def _build_chain(args):
         except (OSError, ValueError) as e:
             raise SystemExit(f"error: cannot read chain file {path}: {e}")
         if arr_rate != args.rate:
-            from f9tpu.models.oracle import resample_oracle
+            from .models.oracle import resample_oracle
 
             arr = resample_oracle(arr.astype(np.float64), arr_rate,
                                   args.rate).astype(np.float32)

@@ -52,10 +52,13 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.f9_cycle_src.argtypes = [vp, vp, vp, vp, i32, i64, i64, i32, i32, i32,
-                                 i32, i64, i64, vp]
+                                 i32, i64, i64, i32, i32, i32, i32, i32, i32,
+                                 i32, vp]
     lib.f9_cycle_src.restype = i32
-    lib.f9_cycle_src_tile_l.argtypes = []
-    lib.f9_cycle_src_tile_l.restype = i32
+    lib.f9_cycle_src_geometry.argtypes = []
+    lib.f9_cycle_src_geometry.restype = i32
+    lib.f9_cycle_src_blocks_per_sm.argtypes = [i32, i32, i32]
+    lib.f9_cycle_src_blocks_per_sm.restype = i32
     return lib
 
 

@@ -2,7 +2,7 @@
 `f9tpu/ops/resample.py`).
 
 The whole polyphase resampler is folded at design time into one ``(W, L)``
-cycle matrix ``G`` (`f9tpu.models.filters.design_cycle_bank`), so
+cycle matrix ``G`` (`f9tpu_torch.models.filters.design_cycle_bank`), so
 
     y[b, q*L : (q+1)*L] = x_padded[b, q*M : q*M + W] @ G
 
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from f9tpu.models.filters import CycleBank, design_cycle_bank
+from ..models.filters import CycleBank, design_cycle_bank
 
 __all__ = ["resample", "resample_rates", "cycle_matrix_f32", "bank_to_torch",
            "VARISPEED_TODO"]

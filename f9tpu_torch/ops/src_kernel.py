@@ -7,7 +7,14 @@ hand-written CUDA kernel, `f9tpu_torch/csrc/cycle_src.cu`, which computes
 
     y[b, q*L + l] = sum_{w < W} xpad[b, q*M + w] * G[w, l]
 
-straight from the flat signal (no host or device retiling into (rows, M)).
+straight from the flat signal (no host or device retiling into (rows, M)),
+on the tensor cores in split TF32 with Kahan-joined k8 partials.
+
+`kernel_plan` is the kernel's launch geometry for a bank (column-tile width,
+warps, the span's skew and row order, each tile's band of G rows), and
+`packed_bank_f32` the bank split into TF32 high and low parts in the order
+the kernel's fragments read them.  Both are plain numpy, so the CPU tests
+can replay the kernel's arithmetic on them.
 
 The wrapper rule: on a CUDA tensor `resample_rows` / `resample_kernel`
 launch the kernel or raise; on a CPU tensor they run the plain PyTorch twin
@@ -19,22 +26,34 @@ the kernel to the twin.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
-from f9tpu.models.filters import CycleBank
+from ..models.filters import CycleBank
 
-from .resample import _require_dense, bank_to_torch, cycle_matrix_f32, resample
+from .resample import _require_dense, cycle_matrix_f32, resample
 
-__all__ = ["kernel_applicable", "resample_rows", "resample_rows_reference",
-           "resample_kernel", "resample_auto", "rows_marshal_plan",
-           "stacked_bank_f32", "launches"]
+__all__ = ["kernel_applicable", "kernel_plan", "packed_bank_f32", "tf32_rna",
+           "resample_rows", "resample_rows_reference", "resample_kernel",
+           "resample_auto", "rows_marshal_plan", "stacked_bank_f32", "launches"]
 
 #: CUDA kernel launches since the count was last reset (a plain integer:
 #: callers set it to 0 and read it back to prove a path ran the kernel).
 launches = 0
+
+# The kernel's compile-time geometry (csrc/cycle_src.cu): k8 steps per ring
+# stage, ring stages, 8-column n-tiles per block at most, warps (16 cycles
+# each) per block at most.  `_launch` checks the library agrees.
+KC8, STAGES, MAX_NT, MAX_WARPS = 2, 4, 5, 8
+_GEOMETRY = 10 * KC8 + 100 * STAGES + 1000 * MAX_NT + 10000 * MAX_WARPS
+#: span bytes up to which two blocks share an SM
+_SPAN_BUDGET = 96 * 1024
+#: shared memory one block may use on Hopper
+_SMEM_MAX = 232448
+_SKEWS = (0, 4)
 
 
 def _overlap_rows(bank: CycleBank) -> int:
@@ -42,18 +61,183 @@ def _overlap_rows(bank: CycleBank) -> int:
     return max(1, -(-(bank.taps_per_phase - 1) // bank.M))
 
 
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """One bank's launch geometry.  Column tile c covers output phases
+    ``[8*nt*c, 8*nt*(c+1))`` and contracts over G rows
+    ``[bands[c][0], bands[c][0] + 8*bands[c][1])`` (``nk = bands[c][1]`` k8
+    steps, a multiple of `KC8`); a block owns ``16*warps`` cycles.  The span
+    in shared memory stores logical float ``j`` at ``j + skew*(j // 32)``;
+    ``rowmap`` orders a warp's cycles (see `cycle_of`)."""
+    nt: int
+    warps: int
+    skew: int
+    rowmap: int
+    bands: tuple[tuple[int, int], ...]
+    ring_off: int
+    smem_bytes: int
+
+
+def _choose_nt(L: int) -> int:
+    """n-tiles per column tile: few tiles (each reloads the span) and little
+    idle width in the last one; L = 40 -> one tile of 40, L = 160 -> four."""
+    return min(range(1, MAX_NT + 1),
+               key=lambda nt: (-(-L // (8 * nt)) * (8 * nt + 16), -nt))
+
+
+def _span_floats(M: int, warps: int, rows: int, skew: int) -> int:
+    """Shared-memory floats of a block's span: (16*warps - 1)*M + rows
+    logical floats behind a shift of up to 3, in whole 16-byte chunks,
+    skewed."""
+    n = (16 * warps - 1) * M + rows + 8
+    return 4 * -(-(n + skew * (n // 32 + 1)) // 4)
+
+
+def cycle_of(rowmap: int, warp, h, g):
+    """Block-local cycle of fragment row ``h*8 + g`` in ``warp`` (the
+    kernel's `cycle_of`): rowmap 0 keeps a warp's 16 cycles in order,
+    rowmap 1 interleaves a warp pair's 32 so one load's 8 cycles are 4
+    apart."""
+    if rowmap:
+        return (warp >> 1) * 32 + 4 * g + 2 * h + (warp & 1)
+    return warp * 16 + h * 8 + g
+
+
+def _a_load_wavefronts(M: int, warps: int, skew: int, rowmap: int) -> float:
+    """Mean shared-memory wavefronts per A-fragment load (1 = no bank
+    conflict), over every warp, fragment half, span shift and k8 step
+    phase."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    rows = [cycle_of(rowmap, w, h, g) * M + t for w in range(warps) for h in range(2)]
+    base = np.array(rows)                                     # (loads, 32)
+    off = (np.arange(4)[:, None] + 8 * np.arange(4)[None, :]).ravel()
+    off = (off[:, None] + np.array([0, 4])[None, :]).ravel()  # shift, 8s, +4
+    j = (base[None, :, :] + off[:, None, None]).reshape(-1, 32)
+    p = np.sort(j + skew * (j >> 5), axis=1)
+    new = np.ones_like(p, dtype=bool)
+    new[:, 1:] = p[:, 1:] != p[:, :-1]
+    cnt = np.zeros((p.shape[0], 32), np.int64)
+    r, c = np.nonzero(new)
+    np.add.at(cnt, (r, p[r, c] % 32), 1)
+    return float(cnt.max(axis=1).mean())
+
+
+@functools.lru_cache(maxsize=256)
+def _bands(bank: CycleBank, nt: int) -> tuple[tuple[int, int], ...]:
+    g = cycle_matrix_f32(bank)
+    out = []
+    for l0 in range(0, bank.L, 8 * nt):
+        nz = np.flatnonzero(np.any(g[:, l0:l0 + 8 * nt] != 0, axis=1))
+        if nz.size == 0:
+            out.append((0, 0))
+            continue
+        k8 = -(-(int(nz[-1]) + 1 - int(nz[0])) // 8)
+        out.append((int(nz[0]), KC8 * -(-k8 // KC8)))
+    return tuple(out)
+
+
+def _fits(bank: CycleBank, nt: int, warps: int, skew: int, rows: int):
+    """(ring_off, smem_bytes): the span, which the block's output tile
+    (pitch 8*nt + 1) reuses at the end, then the ring."""
+    tile = 16 * warps * (8 * nt + 1)
+    ring_off = max(_span_floats(bank.M, warps, rows, skew), 4 * -(-tile // 4))
+    return ring_off, 4 * ring_off + STAGES * KC8 * nt * 32 * 16
+
+
+@functools.lru_cache(maxsize=256)
+def kernel_plan(bank: CycleBank) -> KernelPlan | None:
+    """The kernel's geometry for ``bank``, or None when it does not take it
+    (no dense matrix, L < 8, or a span too long for shared memory even at
+    one warp: M in the thousands).  Warps: the most (8, 4, 2, 1) whose span
+    fits `_SPAN_BUDGET`; skew and row order: the fewest bank conflicts on
+    the A loads among those that fit (the interleaved order needs a warp
+    pair)."""
+    if not (bank.dense_ok and bank.L >= 8):
+        return None
+    nt = _choose_nt(bank.L)
+    bands = _bands(bank, nt)
+    rows = 8 * max(nk for _, nk in bands) if bands else 0
+    for warps in (8, 4, 2, 1):
+        if 4 * _span_floats(bank.M, warps, rows, 0) <= _SPAN_BUDGET:
+            break
+    if _fits(bank, nt, warps, 0, rows)[1] > _SMEM_MAX:
+        return None
+    opts = sorted((_a_load_wavefronts(bank.M, warps, sk, rm), sk, rm)
+                  for sk in _SKEWS for rm in ((0, 1) if warps > 1 else (0,)))
+    for _, skew, rowmap in opts:
+        ring_off, smem = _fits(bank, nt, warps, skew, rows)
+        if smem <= _SMEM_MAX:
+            return KernelPlan(nt, warps, skew, rowmap, bands, ring_off, smem)
+    raise AssertionError("unreachable: skew 0 fits")
+
+
 def kernel_applicable(bank: CycleBank) -> bool:
     """Does the CUDA kernel take this bank?
 
-    It needs the dense cycle matrix (varispeed banks have none) and L >= 8:
-    a block computes 32 output phases, so below 8 (the integer-ratio banks,
-    L in {1, 2, 4}) more than three quarters of every block would idle, and
-    the unfold + matmul form serves them.  Unlike the Pallas gate
-    (`pallas_applicable`: R <= 8, M >= 16, both TPU VMEM tiling rules) it
-    bounds neither R nor M: the kernel contracts over W in 16-row chunks and
-    reads the flat signal, so its shared memory does not grow with the bank.
-    Every bank `pallas_applicable` accepts is accepted here."""
-    return bank.dense_ok and bank.L >= 8
+    It needs the dense cycle matrix (varispeed banks have none), L >= 8 (a
+    block computes 8 to 40 output phases; below 8, the integer-ratio banks
+    with L in {1, 2, 4}, most of it would idle and the unfold + matmul form
+    serves them) and a signal span of 16 cycles that fits a block's shared
+    memory (M up to ~3,000): `kernel_plan` is not None.  Unlike the Pallas
+    gate (`pallas_applicable`: R <= 8, M >= 16, both TPU VMEM tiling rules)
+    it does not bound R: G streams through the ring in 16-row chunks.  Every
+    bank `pallas_applicable` accepts at the standard rates is accepted here."""
+    return kernel_plan(bank) is not None
+
+
+def tf32_rna(a: np.ndarray) -> np.ndarray:
+    """float32 ``a`` rounded to TF32 (10 stored mantissa bits) to nearest,
+    ties away from zero: PTX ``cvt.rna.tf32.f32``, as a float32 array."""
+    b = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_cached(bank: CycleBank) -> tuple[np.ndarray, np.ndarray]:
+    plan = kernel_plan(bank)
+    if plan is None:
+        raise ValueError(f"the cycle_src kernel does not take bank L={bank.L} "
+                         f"M={bank.M} W={bank.W}")
+    g = cycle_matrix_f32(bank)
+    W, L, nt = bank.W, bank.L, plan.nt
+    lane = np.arange(32)
+    gi, ti = lane >> 2, lane & 3
+    parts, tiles, off = [], [], 0
+    for c, (w_lo, nk) in enumerate(plan.bands):
+        s = np.arange(nk)[:, None, None]
+        n = np.arange(nt)[None, :, None]
+        w0 = w_lo + 8 * s + ti                               # (nk, 1, 32)
+        col = 8 * nt * c + 8 * n + gi                        # (1, nt, 32)
+        quad = np.zeros((nk, nt, 32, 4), np.float32)
+        for k, w in ((0, w0), (1, w0 + 4)):
+            ok = (w < W) & (col < L)
+            v = np.where(ok, g[np.minimum(w, W - 1), np.minimum(col, L - 1)], 0)
+            hi = tf32_rna(v)
+            quad[..., k] = hi
+            quad[..., k + 2] = tf32_rna(v - hi)
+        parts.append(quad.reshape(-1, 4))
+        tiles.append((w_lo, nk, off))
+        off += nk * nt * 32
+    packed = np.concatenate(parts) if parts else np.zeros((0, 4), np.float32)
+    return packed, np.asarray(tiles, np.int32).reshape(-1, 3)
+
+
+def packed_bank_f32(bank: CycleBank) -> tuple[np.ndarray, np.ndarray]:
+    """``(packed, tiles)``: the bank split into TF32 high and low parts in
+    the kernel's fragment order, ``packed (N, 4)`` float32 where row
+    ``tiles[c, 2] + (s*nt + n)*32 + lane`` holds the high parts of
+    ``G[w, l]`` and ``G[w + 4, l]``, then their low parts, for
+    ``w = w_lo + 8s + lane % 4``,
+    ``l = 8*nt*c + 8n + lane // 4`` (zero outside G), and ``tiles (n, 3)``
+    int32 rows ``(w_lo, nk, offset)``."""
+    return _packed_cached(bank)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_bank(bank: CycleBank, device: torch.device):
+    packed, tiles = packed_bank_f32(bank)
+    return torch.from_numpy(packed).to(device), torch.from_numpy(tiles).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -86,19 +270,6 @@ def _stacked_bank_f64(bank: CycleBank, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(stacked_bank_f32(bank)).to(device, torch.float64)
 
 
-@functools.lru_cache(maxsize=64)
-def _band_table(bank: CycleBank, device: torch.device, tile_l: int) -> torch.Tensor:
-    """Per ``tile_l``-column tile of G (the kernel's block width), the row
-    range ``[w_lo, w_hi)`` outside which all its columns are zero, as int32
-    ``(n_tiles, 2)`` on ``device``."""
-    g = cycle_matrix_f32(bank)
-    rows = []
-    for l0 in range(0, bank.L, tile_l):
-        nz = np.flatnonzero(np.any(g[:, l0:l0 + tile_l] != 0, axis=1))
-        rows.append((int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0))
-    return torch.tensor(rows, dtype=torch.int32).to(device)
-
-
 def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
             out_stride: int) -> torch.Tensor:
     """One kernel launch over ``xf (bc, T)``: ``(bc, out_stride)`` float32 of
@@ -115,19 +286,25 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
         raise ValueError(f"cycle_src kernel takes 1..65535 signals, got {bc}")
     if Q >= 2**31:
         raise ValueError(f"{Q} output cycles exceed the kernel's int32 grid")
+    plan = kernel_plan(bank)
+    if plan is None:
+        raise ValueError(f"the cycle_src kernel does not take bank L={bank.L} "
+                         f"M={bank.M} W={bank.W}")
     from ._build import load_library
 
     lib = load_library()
-    g = bank_to_torch(bank, xf.device)
-    band = _band_table(bank, xf.device, lib.f9_cycle_src_tile_l())
+    if lib.f9_cycle_src_geometry() != _GEOMETRY:
+        raise RuntimeError("cycle_src library geometry differs from the wrapper's")
+    gp, tiles = _device_bank(bank, xf.device)
     y = torch.empty((bc, out_stride), dtype=torch.float32, device=xf.device)
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream(xf.device).cuda_stream
         err = lib.f9_cycle_src(
-            ctypes.c_void_p(xf.data_ptr()), ctypes.c_void_p(g.data_ptr()),
-            ctypes.c_void_p(band.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_void_p(xf.data_ptr()), ctypes.c_void_p(gp.data_ptr()),
+            ctypes.c_void_p(tiles.data_ptr()), ctypes.c_void_p(y.data_ptr()),
             bc, T, T, bank.pad_front, bank.M, bank.L, Q, out_len, out_stride,
-            ctypes.c_void_p(stream))
+            plan.nt, len(plan.bands), plan.warps, plan.skew, plan.rowmap,
+            plan.ring_off, plan.smem_bytes, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"cycle_src kernel launch failed: CUDA error {err}")
     launches += 1

@@ -18,7 +18,7 @@ import threading
 import numpy as np
 import torch
 
-from f9tpu.models.filters import resolve_ratio
+from ..models.filters import resolve_ratio
 
 from ..ops.resample import resample_rates
 from ..ops.signal import IMPULSE_AMP, impulse

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from f9tpu.config import ProcessingConfig, recording_length
-from f9tpu.models.filters import design_cycle_bank
+from ..config import ProcessingConfig, recording_length
+from ..models.filters import design_cycle_bank
 
 from ..device import resolve_device
 from ..ops import analysis, dither

@@ -29,8 +29,8 @@ import time
 import numpy as np
 import torch
 
-from f9tpu.config import ProcessingConfig
-from f9tpu.io import aiff, codec, flac, wav
+from ..config import ProcessingConfig
+from ..io import aiff, codec, flac, wav
 
 from ..device import resolve_device
 from ..ops.chain import Chain

@@ -16,6 +16,8 @@ import jax.numpy as jnp  # noqa: E402
 from f9tpu.config import ProcessingConfig  # noqa: E402
 from f9tpu.ops import trim as jtrim  # noqa: E402
 from f9tpu.pipeline import graph as jgraph  # noqa: E402
+from f9tpu_torch.config import ProcessingConfig as TConfig  # noqa: E402
+from f9tpu_torch.models import design_cycle_bank as tbank  # noqa: E402
 from f9tpu_torch.ops import trim as ttrim  # noqa: E402
 from f9tpu_torch.pipeline import graph as tgraph  # noqa: E402
 
@@ -76,11 +78,11 @@ def _check(got, want, codes_got, codes_want, bits=24):
     (24, False, 24), (24, True, 24), (16, False, 24), (16, True, 16)])
 def test_process_batch_raw_matches_jax(in_bits, big_endian, out_bits):
     raw = _raw_batch(in_bits, big_endian, seed=in_bits + big_endian)
-    cfg = ProcessingConfig(output_dir="/tmp/x", target_rate=48000, bits=out_bits)
-    want = jgraph.process_batch_raw(jnp.asarray(raw), VALID, cfg, 44100,
+    kw = dict(output_dir="/tmp/x", target_rate=48000, bits=out_bits)
+    want = jgraph.process_batch_raw(jnp.asarray(raw), VALID, ProcessingConfig(**kw), 44100,
                                     jnp.asarray(SEEDS), in_channels=C,
                                     in_bits=in_bits, in_big_endian=big_endian)
-    got = tgraph.process_batch_raw(raw, VALID, cfg, 44100, SEEDS, in_channels=C,
+    got = tgraph.process_batch_raw(raw, VALID, TConfig(**kw), 44100, SEEDS, in_channels=C,
                                    in_bits=in_bits, in_big_endian=big_endian,
                                    device="cpu")
     assert got.codes.dtype == torch.uint8
@@ -107,11 +109,11 @@ def test_process_batch_matches_jax(case):
     elif case == "bits32_48k_to_44k":
         rate_in = 48000
         kw.update(target_rate=44100, bits=32, quality="medium")
-    cfg = ProcessingConfig(**kw)
+    cfg = TConfig(**kw)
     x = _float_batch(channels, seed=len(case))
     for i, n in enumerate(VALID):
         x[i, :, n:] = 0.0
-    want = jgraph.process_batch(jnp.asarray(x), VALID, cfg, rate_in,
+    want = jgraph.process_batch(jnp.asarray(x), VALID, ProcessingConfig(**kw), rate_in,
                                 jnp.asarray(SEEDS), latency_frames=latency)
     got = tgraph.process_batch(torch.from_numpy(x), VALID, cfg, rate_in,
                                SEEDS, latency_frames=latency)
@@ -135,16 +137,17 @@ def test_trim_and_mask_match_jax():
 def test_exact_length_math_and_its_guard():
     from f9tpu.models import design_cycle_bank
 
-    bank = design_cycle_bank(44100, 48000)
+    bank = tbank(44100, 48000)
     n = np.array([0, 1, 146, 147, 148, 60 * 192000], np.int32)
-    want = np.asarray(jgraph._exact_out_valid(jnp.asarray(n), bank, 2**31 - 1))
+    want = np.asarray(jgraph._exact_out_valid(jnp.asarray(n), design_cycle_bank(44100, 48000),
+                                              2**31 - 1))
     got = tgraph._exact_out_valid(torch.from_numpy(n), bank, 2**31 - 1).numpy()
     assert np.array_equal(got, want)
     assert got[-1] == -(-60 * 192000 * 160 // 147)
     # beyond the int32 range the port clamps to out_total instead of wrapping
     big = torch.tensor([2**31 - 1], dtype=torch.int32)
     assert tgraph._exact_out_valid(big, bank, 2**31 - 1).tolist() == [2**31 - 1]
-    fine = design_cycle_bank(44100, 44056)       # L*M near 2^27: within the guard
+    fine = tbank(44100, 44056)       # L*M near 2^27: within the guard
     assert fine.L * fine.M < 2**31
     tgraph._exact_out_valid(torch.from_numpy(n), fine, 10)
 
@@ -159,7 +162,7 @@ def test_unported_options_name_their_roadmap_item(what):
     """The graph's remaining refusals name their ROADMAP item; the insert
     chain, reverb mode and channel routing are ported and refuse nothing."""
     assert not set(tgraph.NOT_PORTED) & {"chain", "reverb_mode", "channel_routing"}
-    cfg = ProcessingConfig(output_dir="/tmp/x", target_rate=48000)
+    cfg = TConfig(output_dir="/tmp/x", target_rate=48000)
     x = torch.zeros((1, 2, 100))
     if what == "rows_layout":
         with pytest.raises(NotImplementedError, match="rows layout"):

@@ -22,6 +22,7 @@ from f9tpu.ops import chain as jchain  # noqa: E402
 from f9tpu.ops import trim as jtrim  # noqa: E402
 from f9tpu.pipeline import calibration as jcal  # noqa: E402
 from f9tpu.pipeline import graph as jgraph  # noqa: E402
+from f9tpu_torch.config import ProcessingConfig as TConfig  # noqa: E402
 from f9tpu_torch.ops import chain as tchain  # noqa: E402
 from f9tpu_torch.ops import trim as ttrim  # noqa: E402
 from f9tpu_torch.pipeline import calibration as tcal  # noqa: E402
@@ -186,8 +187,8 @@ def _graph_chain(stereo_ir: bool):
 def _cfgs(**kw):
     jc = kw.pop("chain", None)
     return (ProcessingConfig(output_dir="/tmp/x", target_rate=48000, chain=jc, **kw),
-            ProcessingConfig(output_dir="/tmp/x", target_rate=48000,
-                             chain=None if jc is None else tchain.chain_from_jax(jc), **kw))
+            TConfig(output_dir="/tmp/x", target_rate=48000,
+                    chain=None if jc is None else tchain.chain_from_jax(jc), **kw))
 
 
 def _input(channels: int) -> np.ndarray:
@@ -291,8 +292,8 @@ def test_default_pad_frames_matches_jax(kw):
 
 
 def test_graph_refuses_a_jax_chain():
-    cfg = ProcessingConfig(output_dir="/tmp/x", target_rate=48000,
-                           chain=jchain.Chain(jchain.Gain(1.0)))
+    cfg = TConfig(output_dir="/tmp/x", target_rate=48000,
+                  chain=jchain.Chain(jchain.Gain(1.0)))
     with pytest.raises(TypeError, match="chain_from_jax"):
         tgraph.process_batch(torch.zeros(1, 2, 100), [100], cfg, 48000, [1],
                              pad_frames=0)

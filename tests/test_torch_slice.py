@@ -24,6 +24,7 @@ from f9tpu.io import wav  # noqa: E402
 from f9tpu.pipeline import calibration as jcal  # noqa: E402
 from f9tpu.pipeline import scheduler as jsched  # noqa: E402
 from f9tpu_torch import cli, resolve_device  # noqa: E402
+from f9tpu_torch.config import ProcessingConfig as TConfig  # noqa: E402
 from f9tpu_torch.pipeline import calibration as tcal  # noqa: E402
 from f9tpu_torch.pipeline import scheduler as tsched  # noqa: E402
 
@@ -56,9 +57,10 @@ def _header_and_codes(path):
 def test_batch_job_matches_jax(tmp_path):
     src = _write_inputs(str(tmp_path))
     runs = {}
-    for name, mod, extra in (("jax", jsched, {}), ("torch", tsched, {"device": "cpu"})):
+    for name, mod, conf, extra in (("jax", jsched, ProcessingConfig, {}),
+                                   ("torch", tsched, TConfig, {"device": "cpu"})):
         out = str(tmp_path / f"out_{name}")
-        cfg = ProcessingConfig(output_dir=out, target_rate=48000, seed=5)
+        cfg = conf(output_dir=out, target_rate=48000, seed=5)
         bp = mod.BatchProcessor(cfg, **extra)
         res = bp.run(src, manifest_path=os.path.join(out, ".manifest.json"))
         assert res.completed == 3 and res.failed == 0, (name, res)
@@ -97,8 +99,8 @@ def test_cli_process_on_cpu(tmp_path, capsys):
 
 def test_oversized_file_fails_alone(tmp_path):
     src = _write_inputs(str(tmp_path))
-    cfg = ProcessingConfig(output_dir=str(tmp_path / "out"), target_rate=48000,
-                           bucket_frames=(1 << 13,))
+    cfg = TConfig(output_dir=str(tmp_path / "out"), target_rate=48000,
+                  bucket_frames=(1 << 13,))
     res = tsched.BatchProcessor(cfg, device="cpu").run(src)
     assert res.completed == 2 and res.failed == 1       # s24.wav: 9000 frames
 
@@ -108,7 +110,7 @@ def test_oversized_file_fails_alone(tmp_path):
     {"native_loader": True}])
 def test_unported_options_are_refused(tmp_path, kw):
     mesh = kw.pop("mesh", None)
-    cfg = ProcessingConfig(output_dir=str(tmp_path), **kw)
+    cfg = TConfig(output_dir=str(tmp_path), **kw)
     with pytest.raises(NotImplementedError, match="not ported"):
         tsched.BatchProcessor(cfg, mesh=mesh, device="cpu")
 
@@ -186,10 +188,11 @@ def test_reverb_cap_and_routing_bound_match_jax(tmp_path):
     """Per-file routing failures and the reverb capture cap, both schedulers."""
     src = _write_inputs(str(tmp_path))
     runs = {}
-    for name, mod, extra in (("jax", jsched, {}), ("torch", tsched, {"device": "cpu"})):
-        cfg = ProcessingConfig(output_dir=str(tmp_path / name), target_rate=48000,
-                               reverb_mode=True, max_tail_seconds=0.15,
-                               channel_routing=[1, 0], seed=2)
+    for name, mod, conf, extra in (("jax", jsched, ProcessingConfig, {}),
+                                   ("torch", tsched, TConfig, {"device": "cpu"})):
+        cfg = conf(output_dir=str(tmp_path / name), target_rate=48000,
+                   reverb_mode=True, max_tail_seconds=0.15,
+                   channel_routing=[1, 0], seed=2)
         res = mod.BatchProcessor(cfg, **extra).run(src)
         assert res.completed == 2 and res.failed == 1
         runs[name] = res.per_file
@@ -217,12 +220,13 @@ def test_calibration_matches_jax(tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """tests/conftest.py imports jax into this process, so the check runs
-    the port's whole job in a fresh interpreter."""
+    the port's whole job in a fresh interpreter; neither jax nor any module
+    of the JAX package may load."""
     code = f"""
 import sys
 sys.path.insert(0, {REPO!r})
 import numpy as np
-from f9tpu.io import wav
+from f9tpu_torch.io import wav
 import f9tpu_torch, f9tpu_torch.cli, f9tpu_torch.pipeline
 from f9tpu_torch.ops import (analysis, chain, devcodec, dither, resample, routing,
                              signal, src_kernel, trim, _build)
@@ -239,7 +243,8 @@ rc = f9tpu_torch.cli.main(["process", {str(tmp_path / "a.wav")!r}, "--out",
                            "--chain-ir", {str(tmp_path / "ir.wav")!r},
                            "--chain-limit=-0.3"])
 assert rc == 0, rc
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "f9tpu") or m.startswith(("jax.", "jaxlib", "f9tpu.")))
 assert not bad, bad
 print("NO_JAX_OK")
 """
@@ -257,7 +262,7 @@ def test_resolve_device_refuses_missing_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        tsched.BatchProcessor(ProcessingConfig(output_dir="/tmp/x"))
+        tsched.BatchProcessor(TConfig(output_dir="/tmp/x"))
 
 
 def test_resolve_device_switches_tf32_off():
