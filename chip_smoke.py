@@ -26,18 +26,37 @@ its results, any failure exiting non-zero:
    of 20-40 s with a stereo 2.5 s 48 kHz IR: 8 completed, every tail
    terminated and longer than its source, kernel launches counted from
    zero (calibration and batches), the 2 shortest outputs within 16 LSB of
-   the port's CPU path, wall time and x real time, and one batch's device
-   graph split by CUDA events into SRC, each chain stage and the rest.
+   the port's CPU path, wall time and x real time, one batch's device graph
+   split by CUDA events into SRC, each chain stage and the rest, and the 2
+   shortest files run again as a 2-file batch on the card (how many samples
+   differ from the 8-file batch is printed, not checked);
+6. the streaming path: (a) `cycle_src` on a 2^22-frame stereo signal whole
+   and as haloed chunks of 6000 and 1777 cycles, equal bit for bit, each
+   chunk within `TWIN_TOL` of its plain twin, four banks; (b) `cli process`
+   on a 10-minute stereo 24-bit 44.1 kHz WAV (past the largest bucket) and
+   two 30 s files: 3 completed, the long one streamed, launches counted
+   from zero; (c) `cli stream` with phase 5's chain flags and the
+   calibrated latency on the 10-minute file at 20 s and 7.3 s chunks:
+   identical sha256, wall time, x real time and peak device memory (also
+   for a 2-minute file), the device's busy share of the 2-minute stream
+   (`torch.profiler`), and one 20 s chunk split by CUDA events into SRC,
+   each chain stage and finish / pack / download; (d) the same in reverb
+   mode on a 5-minute file: tail detected past the source, identical bytes
+   at two chunk sizes; (e) a 30 s file streamed at 4 s chunks on the card
+   and on the CPU: <= 2 LSB and <= -120 dB against the oracle without the
+   chain, <= 16 LSB with it; (f) `f9tpu_torch.tools.hw_soak` at a fixed
+   seed, a few trials per part.
 
-The line before the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits 1 and
-prints no result.
+Each phase prints its wall time.  The line before the last is the kernels'
+JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA GPU it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -552,6 +571,24 @@ def phase_insert_loop(card: str, work: str, dev) -> int:
         if not same or int(diff.max()) > LOOP_LSB_TOL:
             raise AssertionError(f"loop: {name}: card vs CPU path differ")
 
+    # does a file's output depend on the batch's width on the card?  The
+    # same 2 files as a 2-file batch (printed, not checked)
+    out_gpu2 = os.path.join(work, "out_gpu2")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["process", *srcs, "--out", out_gpu2, *flags, "--batch-size", "2"])
+    if rc != 0:
+        raise AssertionError(f"loop: 2-file batch on the card rc={rc}")
+    for name in names:
+        stem = os.path.splitext(name)[0]
+        g8, _ = _read_codes(os.path.join(out_gpu, f"{stem}_processed.wav"))
+        g2, _ = _read_codes(os.path.join(out_gpu2, f"{stem}_processed.wav"))
+        if g8.shape != g2.shape:
+            raise AssertionError(f"loop: {name}: batch width changed the frame count")
+        d = np.abs(g8 - g2)
+        print(f"loop: {name} 2-file batch vs 8-file batch on the card: "
+              f"{int((d != 0).sum())} of {d.size} samples differ, max {int(d.max())} LSB "
+              f"[{card}]", flush=True)
+
     with open(os.path.join(out_gpu, ".calibration.json")) as f:
         (cal,) = json.load(f).values()
     print(f"loop: calibrated latency {cal['latency_frames']} frames "
@@ -569,6 +606,365 @@ def phase_insert_loop(card: str, work: str, dev) -> int:
           f"cold {cold['cold_s']:.3f} s, warm {cold['warm_s']:.3f} s, latency "
           f"{cold['latency']} [{card}]", flush=True)
     return launches
+
+
+def _write_long_wav(path: str, seconds: float, seed: int, rate: int = 44100) -> int:
+    """A stereo 24-bit WAV of two tones plus noise (as `_signal`), written in
+    blocks of 2^20 frames so the host never holds the whole file; returns
+    its frames."""
+    import numpy as np
+
+    from f9tpu_torch.io.wav import WavWriter
+
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(80.0, 6000.0, size=(2, 2))
+    n = int(seconds * rate)
+    with WavWriter(path, 2, rate, bits=24) as w:
+        for a in range(0, n, 1 << 20):
+            t = (a + np.arange(min(1 << 20, n - a))) / rate
+            x = (0.3 * np.sin(2 * np.pi * f[:, :1] * t)
+                 + 0.15 * np.sin(2 * np.pi * f[:, 1:] * t + 0.7)
+                 + 0.02 * rng.standard_normal((2, t.size)))
+            w.append_codes(np.clip(np.round(x * (1 << 23)), -(1 << 23),
+                                   (1 << 23) - 1).astype(np.int32))
+    return n
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for blk in iter(lambda: f.read(1 << 24), b""):
+            h.update(blk)
+    return h.hexdigest()
+
+
+def _stream_kernel_check(card: str, dev, frames: int = 1 << 22) -> None:
+    """6a: the kernel on a 2^22-frame stereo signal whole (implicit pad)
+    against the same signal cut into haloed chunks (`resample_presliced`,
+    pad 0) of 6000 and 1777 cycles: equal bit for bit, and every chunk
+    within `TWIN_TOL` of its plain twin, the float64 fold."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import src_kernel as sk
+    from f9tpu_torch.ops.resample import _presliced_fold, resample_presliced
+
+    rng = np.random.default_rng(SEED + 6)
+    x = torch.from_numpy(_signal(rng, 2, frames, 44100)).to(dev)
+    for ri, ro, q in [(44100, 48000, "high"), (48000, 44100, "high"),
+                      (44100, 48000, "ultra"), (176400, 48000, "high")]:
+        bank = design_cycle_bank(ri, ro, quality=q)
+        whole = sk.resample_kernel(x, bank)
+        out_len = whole.shape[-1]
+        Q = -(-out_len // bank.L)
+        # the signal behind its front pad, zero past the end: the file's
+        # halos as the stream reads them
+        xp = torch.zeros((2, (Q + 6000) * bank.M + bank.W), device=dev)
+        xp[:, bank.pad_front:bank.pad_front + frames] = x
+        for cycles in (6000, 1777):
+            outs, twin_err, n0 = [], 0.0, sk.launches
+            for q0 in range(0, Q, cycles):
+                span = xp[:, q0 * bank.M:q0 * bank.M + (cycles - 1) * bank.M + bank.W]
+                y = resample_presliced(span, bank, cycles)
+                twin_err = max(twin_err, float((y - _presliced_fold(span, bank, cycles))
+                                               .abs().max()))
+                outs.append(y)
+            got = torch.cat(outs, dim=-1)[:, :out_len]
+            torch.cuda.synchronize()
+            n_diff = int((got != whole).sum())
+            print(f"stream kernel {ri}->{ro} {q}: 2 x {frames} frames whole vs "
+                  f"{len(outs)} haloed chunks of {cycles} cycles "
+                  f"({sk.launches - n0} launches): {n_diff} of {got.numel()} outputs "
+                  f"differ; chunks vs twin max abs {twin_err:.3e} (tol {TWIN_TOL:g}) "
+                  f"[{card}]", flush=True)
+            if n_diff or not torch.equal(got, whole):
+                raise AssertionError(f"stream kernel {ri}->{ro} {q}: presliced "
+                                     f"chunks of {cycles} cycles differ from whole")
+            if not twin_err <= TWIN_TOL:
+                raise AssertionError(f"stream kernel {ri}->{ro} {q}: vs twin {twin_err:.3e}")
+        del xp, whole, outs
+    del x
+    torch.cuda.empty_cache()
+
+
+def _stream_chunk_split(card: str, ir_path: str, lat: int, dev) -> None:
+    """6c: one 20 s chunk of the stream with phase 5's chain, by CUDA events
+    (median of 3 after a warm-up): the SRC, each chain stage from its
+    initial state, the finish (gain, dither, pack), the pinned copy to the
+    host, and the whole step."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch import cli
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import dither
+    from f9tpu_torch.ops.chain import _ring_stream
+    from f9tpu_torch.ops.resample import resample_presliced
+    from f9tpu_torch.pipeline import stream as st
+
+    chain = cli._build_chain(argparse.Namespace(**_chain_args(ir_path)))
+    cfg = ProcessingConfig(output_dir="unused", target_rate=48000, chain=chain,
+                           latency_frames=lat)
+    bank = design_cycle_bank(44100, 48000)
+    cycles = st._chunk_cycles(bank, cfg, 20.0, 44100)
+    span = (cycles - 1) * bank.M + bank.W
+    rng = np.random.default_rng(SEED + 7)
+    xp = torch.from_numpy(_signal(rng, 2, span, 44100)).to(dev)
+    seeds_c = dither.channel_seeds(torch.tensor(12345, device=dev), 2)
+    states = chain.stream_init(48000, 2, dev)
+
+    def stage(s, y, state):
+        if hasattr(s, "apply_stream"):
+            return s.apply_stream(y, state, 48000, 0)[0]
+        return _ring_stream(s, y, state, 48000)[0]
+
+    def finish(y):
+        return st._finish_chunk(y, None, seeds_c, 0, 1.0, rate_out=48000, bits=24,
+                                do_dither=True, wire="pack24")[0]
+
+    def step():
+        y = resample_presliced(xp, bank, cycles)
+        return st._finish_chunk(y, states, seeds_c, 0, 1.0, rate_out=48000, bits=24,
+                                do_dither=True, chain=chain, wire="pack24")[0]
+
+    for fn in (step, step):
+        fn()
+    torch.cuda.synchronize()
+    y, t_src = _timed(lambda: resample_presliced(xp, bank, cycles))
+    rows = [("SRC cycle_src (presliced)", t_src)]
+    z = y
+    for s, state in zip(chain.stages, states):
+        z_next, t = _timed(lambda s=s, z=z, state=state: stage(s, z, state))
+        rows.append((f"chain stage {type(s).__name__}", t))
+        z = z_next
+    codes, t_fin = _timed(lambda: finish(z))
+    rows.append(("finish (gain, dither, pack24)", t_fin))
+    _, t_dl = _timed(lambda: st._Download(codes).get())
+    rows.append(("pinned copy to the host", t_dl))
+    _, t_all = _timed(step)
+    print(f"stream chunk: 20 s chunk = {cycles} cycles, {cycles * bank.L} output frames "
+          f"x 2 ch; whole step (SRC + chain + finish) {t_all:.2f} ms "
+          f"({cycles * bank.L / 48000 / (t_all / 1000):.0f}x real time) [{card}]", flush=True)
+    for label, t in rows:
+        print(f"stream chunk: {label}: {t:.2f} ms ({100.0 * t / t_all:.1f} % of the "
+              f"step) [{card}]", flush=True)
+
+
+def _stream_busy_share(card: str, run, wall: float) -> None:
+    """The device's busy share of one stream: the summed duration of every
+    kernel and copy `torch.profiler` saw on the card during ``run``, over
+    ``wall``, the same run's wall time without the profiler (which slows
+    the host several times over, not the device)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rc = run()[0]
+        torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"stream: profiled run rc={rc}")
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    if busy <= 0:
+        print(f"stream profile: device busy share not measured (the profiler saw no "
+              f"device time) [{card}]", flush=True)
+        return
+    print(f"stream profile: 120 s with chain at 20 s chunks: device busy {busy:.3f} s "
+          f"(kernels and copies, torch.profiler) of {wall:.3f} s wall unprofiled: "
+          f"{100.0 * busy / wall:.1f} % busy, {100.0 - 100.0 * busy / wall:.1f} % idle "
+          f"[{card}]", flush=True)
+    for name, us in by_name.most_common(6):
+        print(f"stream profile: {name[:80]}: {us / 1e3:.2f} ms", flush=True)
+
+
+def _cli_json(argv: list[str]) -> tuple[int, dict, float]:
+    """(rc, the --json summary, wall seconds) of one in-process CLI run."""
+    from f9tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(argv)
+    wall = time.time() - t0
+    return rc, (json.loads(buf.getvalue()) if rc == 0 else {}), wall
+
+
+def phase_stream(card: str, work: str, dev) -> int:
+    """The streaming path (phase 6); returns the kernel launches of the
+    stream path's run, `cli stream` with the chain at 20 s chunks, counted
+    from zero."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch import cli
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.models import resample_oracle
+    from f9tpu_torch.ops import src_kernel as sk
+    from f9tpu_torch.ops.resample import resample_rates
+    from f9tpu_torch.pipeline import calibration
+    from f9tpu_torch.tools import hw_soak
+
+    t0 = time.time()
+    _stream_kernel_check(card, dev)
+    print(f"stream 6a: {time.time() - t0:.1f} s", flush=True)
+
+    # ---- 6b: the scheduler's oversized-file route
+    t0 = time.time()
+    in_dir = os.path.join(work, "in")
+    os.makedirs(in_dir)
+    long_path = os.path.join(in_dir, "long.wav")
+    n_long = _write_long_wav(long_path, 600.0, SEED + 8)
+    for i in range(2):
+        _write_long_wav(os.path.join(in_dir, f"short{i}.wav"), 30.0, SEED + 9 + i)
+    print(f"stream: wrote a 600 s and two 30 s stereo 24-bit 44.1 kHz WAVs "
+          f"({os.path.getsize(long_path) / 1e6:.0f} MB long) in {time.time() - t0:.1f} s",
+          flush=True)
+    t0 = time.time()
+    sk.launches = 0
+    rc, summary, wall = _cli_json(["process", in_dir, "--out", os.path.join(work, "out_b"),
+                                   "--rate", "48000", "--json"])
+    launches_b = sk.launches
+    m_long = summary.get("per_file", {}).get(long_path, {})
+    print(f"stream 6b: cli process rc={rc} completed={summary.get('completed')} "
+          f"failed={summary.get('failed')} long.wav {n_long} frames streamed="
+          f"{m_long.get('streamed')} out_frames={m_long.get('out_frames')} "
+          f"kernel_launches={launches_b} wall={wall:.3f} s audio_out="
+          f"{summary.get('audio_seconds_out', 0):.1f} s x_realtime="
+          f"{summary.get('audio_seconds_out', 0) / wall:.1f} [{card}]", flush=True)
+    print("stream 6b: stages " + json.dumps(summary.get("throughput")), flush=True)
+    if rc != 0 or summary["completed"] != 3 or summary["failed"] != 0:
+        raise AssertionError(f"stream 6b: expected 3 completed, got {summary}")
+    if m_long.get("streamed") is not True or m_long["out_frames"] != -(-n_long * 160 // 147):
+        raise AssertionError(f"stream 6b: long file not streamed whole: {m_long}")
+    if launches_b < n_long // 882000 + 2:
+        raise AssertionError(f"stream 6b: {launches_b} kernel launches")
+    print(f"stream 6b: {time.time() - t0:.1f} s", flush=True)
+
+    # ---- 6c: cli stream with the insert chain at two chunk sizes
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 2)
+    ir_path = os.path.join(work, "IR.wav")
+    wav.write_wav(ir_path, _stereo_ir(rng), 48000, bits=32)
+    chain = cli._build_chain(argparse.Namespace(**_chain_args(ir_path)))
+    ring = chain.tail_frames(48000)
+    cal = calibration.measure_latency(
+        44100, 48000, chain_fn=lambda v: chain.apply(resample_rates(v, 44100, 48000), 48000),
+        capture_frames=max(calibration.CAPTURE_FRAMES,
+                           -(-(3 * ring + (1 << 15)) * 44100 // 48000)),
+        ringout_frames=ring, device=dev)
+    lat = cal.latency_frames
+    chain_flags = ["--rate", "48000", "--chain-delay-ms", "5", "--chain-eq",
+                   "peaking:1000:1:3", "--chain-comp=-18:3", "--chain-ir", ir_path,
+                   "--chain-limit=-0.3", "--latency", str(lat), "--json"]
+    shas, launches_c = {}, 0
+    for cs in ("20", "7.3"):
+        out = os.path.join(work, f"long_{cs}.wav")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        rc, res, wall = _cli_json(["stream", long_path, "--out", out, *chain_flags,
+                                   "--chunk-seconds", cs])
+        if cs == "20":
+            launches_c = sk.launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        shas[cs] = _sha256(out)
+        print(f"stream 6c: cli stream 600 s with chain, latency {lat}, chunk {cs} s: "
+              f"rc={rc} out_frames={res.get('out_frames')} wall={wall:.3f} s "
+              f"x_realtime={res.get('seconds', 0) / wall:.1f} peak device memory "
+              f"{peak:.3f} GB kernel_launches={sk.launches} sha256={shas[cs][:16]} "
+              f"[{card}]", flush=True)
+        if rc != 0 or res["out_frames"] != -(-n_long * 160 // 147):
+            raise AssertionError(f"stream 6c: chunk {cs}: rc={rc} {res}")
+    if shas["20"] != shas["7.3"]:
+        raise AssertionError("stream 6c: bytes depend on the chunk size")
+    if launches_c < 1:
+        raise AssertionError("stream 6c: the stream launched no kernel")
+    two_min = os.path.join(work, "two_min.wav")
+    _write_long_wav(two_min, 120.0, SEED + 11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rc, res, wall = _cli_json(["stream", two_min, "--out", os.path.join(work, "two_out.wav"),
+                               *chain_flags, "--chunk-seconds", "20"])
+    print(f"stream 6c: cli stream 120 s with chain, chunk 20 s: rc={rc} wall={wall:.3f} s "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"[{card}]", flush=True)
+    if rc != 0:
+        raise AssertionError(f"stream 6c: 2-minute file rc={rc}")
+    _stream_busy_share(card, lambda: _cli_json(
+        ["stream", two_min, "--out", os.path.join(work, "two_prof.wav"), *chain_flags,
+         "--chunk-seconds", "20"]), wall)
+    _stream_chunk_split(card, ir_path, lat, dev)
+    print(f"stream 6c: {time.time() - t0:.1f} s", flush=True)
+
+    # ---- 6d: reverb mode streamed on a 5-minute file
+    t0 = time.time()
+    five = os.path.join(work, "five.wav")
+    n_five = _write_long_wav(five, 300.0, SEED + 12)
+    src_out = -(-n_five * 160 // 147)
+    rev = {}
+    for cs in ("20", "7.3"):
+        out = os.path.join(work, f"five_{cs}.wav")
+        rc, res, wall = _cli_json(["stream", five, "--out", out, *chain_flags, "--reverb",
+                                   "--chunk-seconds", cs])
+        rev[cs] = (_sha256(out), res.get("out_frames"))
+        print(f"stream 6d: cli stream --reverb 300 s, chunk {cs} s: rc={rc} out_frames="
+              f"{res.get('out_frames')} (source {src_out}, tail "
+              f"{(res.get('out_frames', 0) - src_out) / 48000:.3f} s) wall={wall:.3f} s "
+              f"sha256={rev[cs][0][:16]} [{card}]", flush=True)
+        if rc != 0 or not src_out < res["out_frames"] < src_out + 60 * 48000:
+            raise AssertionError(f"stream 6d: tail not detected past the source: {res}")
+    if rev["20"] != rev["7.3"]:
+        raise AssertionError("stream 6d: reverb bytes depend on the chunk size")
+    print(f"stream 6d: {time.time() - t0:.1f} s", flush=True)
+
+    # ---- 6e: the card against the port's CPU path, 30 s at 4 s chunks
+    t0 = time.time()
+    short = os.path.join(in_dir, "short0.wav")
+    x_in, _ = wav.read_wav(short)
+    for label, flags, tol in (("no chain", ["--rate", "48000", "--json"], LSB_TOL),
+                              ("chain", chain_flags, LOOP_LSB_TOL)):
+        got = {}
+        for d in ("cuda", "cpu"):
+            out = os.path.join(work, f"e_{d}_{label.replace(' ', '_')}.wav")
+            rc, _res, wall = _cli_json(["stream", short, "--out", out, *flags,
+                                        "--chunk-seconds", "4", "--device", d])
+            if rc != 0:
+                raise AssertionError(f"stream 6e: {label} on {d}: rc={rc}")
+            got[d] = _read_codes(out)[0]
+        same = got["cuda"].shape == got["cpu"].shape
+        diff = np.abs(got["cuda"] - got["cpu"]) if same else None
+        msg = (f"stream 6e: 30 s {label}, card vs CPU: "
+               f"{int((diff != 0).sum()) if same else -1} of {got['cuda'].size} samples "
+               f"differ, max {int(diff.max()) if same else -1} LSB (tol {tol})")
+        if label == "no chain":
+            ref = resample_oracle(x_in, 44100, 48000, quality="high")
+            ref = ref - ref.mean(axis=-1, keepdims=True)
+            y = got["cuda"] / float(1 << 23)
+            db = _db(y - y.mean(axis=-1, keepdims=True) - ref, ref) if same else 0.0
+            msg += f"; oracle {db:.1f} dB (max {ORACLE_DB_MAX:g})"
+            if not db <= ORACLE_DB_MAX:
+                raise AssertionError(f"stream 6e: {db:.1f} dB vs oracle")
+        print(msg + f" [{card}]", flush=True)
+        if not same or int(diff.max()) > tol:
+            raise AssertionError(f"stream 6e: {label}: card vs CPU path differ")
+    print(f"stream 6e: {time.time() - t0:.1f} s", flush=True)
+
+    # ---- 6f: the soak on the card
+    t0 = time.time()
+    if hw_soak.main(["--seed", str(SEED % 100000), "--chain-trials", "3",
+                     "--stream-trials", "3", "--device", "cuda"]) != 0:
+        raise AssertionError("stream 6f: hw_soak failed")
+    print(f"stream 6f: {time.time() - t0:.1f} s", flush=True)
+    return launches_c
+
 
 
 def main() -> int:
@@ -593,15 +989,20 @@ def main() -> int:
           flush=True)
     print(_build.build_log.strip(), flush=True)
 
+    t0 = time.time()
     k = phase_kernel(card, dev)
+    print(f"phase 3 (kernel): {time.time() - t0:.1f} s", flush=True)
     launches = {}
-    for path, phase in (("default_job", phase_slice),
-                        ("insert_loop", lambda c, w: phase_insert_loop(c, w, dev))):
+    for n, path, phase in ((4, "default_job", phase_slice),
+                           (5, "insert_loop", lambda c, w: phase_insert_loop(c, w, dev)),
+                           (6, "stream", lambda c, w: phase_stream(c, w, dev))):
         work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        t0 = time.time()
         try:
             launches[path] = phase(card, work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        print(f"phase {n} ({path}): {time.time() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",

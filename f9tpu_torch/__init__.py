@@ -9,9 +9,11 @@ design, `CycleBank` and the float64 oracle, and `native`, the g++ twins).
 
 What runs today is the default batch job (`python -m f9tpu_torch.cli
 process`): integer-PCM or float files in, resampled 16/24/32-bit files out,
-and the insert loop (`--reverb`, `--routing`, `--chain-*`), with the
-cycle-matrix SRC as a hand-written CUDA kernel
-(`f9tpu_torch/csrc/cycle_src.cu`).  See ROADMAP.md for what is still to port.
+the insert loop (`--reverb`, `--routing`, `--chain-*`), and the
+constant-memory stream of files of any length (`cli stream`, and `process`
+for files past the largest bucket), with the cycle-matrix SRC as a
+hand-written CUDA kernel (`f9tpu_torch/csrc/cycle_src.cu`).  See ROADMAP.md
+for what is still to port.
 """
 
 from .device import resolve_device  # noqa: F401

@@ -1,14 +1,19 @@
 """Command-line interface of the port (counterpart of `f9tpu/cli.py`).
 
-Only the batch job is ported, with reverb mode, channel routing and the
-insert chain:
+The batch job, with reverb mode, channel routing and the insert chain, and
+the constant-memory stream of one file of any length:
 
     python -m f9tpu_torch.cli process ./stems --out ./out --rate 48000 [--device cuda]
     python -m f9tpu_torch.cli process ./stems --out ./out --reverb --routing 1,0 \
         --chain-delay-ms 5 --chain-eq peaking:1000:1:3 --chain-comp=-18:3 \
         --chain-ir hall.wav --chain-limit=-0.3
+    python -m f9tpu_torch.cli stream long.wav --out long_48k.wav --rate 48000 \
+        [--chunk-seconds 20] [--latency N] [--reverb] [--chain-* ...]
 
-Every other `f9tpu` subcommand prints "not yet ported" and exits 2.
+`stream` takes the JAX CLI's flags plus ``--device`` and every
+``--chain-*`` flag of `process`; ``--frames-shards`` above 1 and
+``--normalize-lufs`` exit 2 with the ROADMAP item they wait for.  Every
+other `f9tpu` subcommand prints "not yet ported" and exits 2.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import glob
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -25,13 +31,14 @@ from .config import ProcessingConfig
 from .io import codec
 
 from .pipeline.calibration import CalibrationCache
+from .pipeline.graph import not_ported
 from .pipeline.logbook import StatusLog
 from .pipeline.scheduler import BatchProcessor
 
 __all__ = ["main"]
 
 #: `f9tpu` subcommands the port does not have yet (ROADMAP Queue 1).
-UNPORTED = ("stream", "preview", "measure", "selftest", "probe", "watch",
+UNPORTED = ("preview", "measure", "selftest", "probe", "watch",
             "verify", "devices")
 
 
@@ -230,6 +237,95 @@ def cmd_process(args) -> int:
     return 0 if (res.failed == 0 and res.invalid == 0) else 1
 
 
+def cmd_stream(args) -> int:
+    """One file of any length through the streaming path (the JAX CLI's
+    `cmd_stream`, on ``--device``)."""
+    from .pipeline.stream import stream_resample_file
+
+    out_ext = os.path.splitext(args.out)[1].lower()
+    if out_ext in (".ogg", ".oga", ".mp3", ".m4a"):
+        print(f"error: lossy output format '{out_ext}' is not supported; "
+              "deliverables are WAV/AIFF/FLAC", file=sys.stderr)
+        return 2
+    if args.frames_shards > 1:
+        raise not_ported("mesh")
+    if args.normalize_lufs is not None:
+        raise not_ported("normalize_lufs")
+    cfg = ProcessingConfig(
+        target_rate=args.rate,
+        quality=args.quality,
+        kind=args.kind,
+        bits=args.bits,
+        dither=not args.no_dither,
+        remove_dc=not args.keep_dc,
+        output_dir=os.path.dirname(os.path.abspath(args.out)) or ".",
+        # an explicit --format wins, else the --out extension decides
+        output_format=(args.output_format
+                       or {".aif": "aiff", ".aiff": "aiff", ".flac": "flac"}.get(
+                           out_ext, "wav")),
+        keep_metadata=args.keep_metadata,
+        seed=None if args.seed == -1 else args.seed,
+        gain_db=args.gain,
+        normalize_tp_db=args.normalize_tp_db,
+        surround_weights=args.surround_weights,
+        channel_routing=_parse_routing(args.routing),
+        output_channels=args.channels,
+        reverb_mode=args.reverb,
+        noise_floor_db=args.noise_floor,
+        noise_floor_margin_pct=args.margin,
+        chain=_build_chain(args),
+    )
+    cfg.validate()      # no processor object validates on this path
+    last = [0]
+    # --json: progress goes to stderr, stdout carries only the summary
+    prog_out = sys.stderr if args.json else sys.stdout
+    jlog = StatusLog(jsonl_path=args.log_jsonl) if args.log_jsonl else None
+
+    def progress(p):
+        pct = int(p * 100)
+        if pct >= last[0] + 10:
+            last[0] = pct
+            print(f"  {pct}%", file=prog_out, flush=True)
+            if jlog:
+                jlog.append(f"progress {pct}%", event="progress",
+                            input=args.input, pct=pct)
+
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    if jlog:
+        jlog.append(f"Streaming {args.input} -> {args.out}",
+                    event="stream_start", input=args.input, output=args.out,
+                    rate=args.rate, bits=cfg.bits, format=cfg.output_format)
+    t0 = time.time()
+    try:
+        n = stream_resample_file(args.input, args.out, cfg,
+                                 chunk_seconds=args.chunk_seconds,
+                                 progress_cb=progress,
+                                 latency_frames=args.latency,
+                                 device=args.device)
+    except Exception as err:
+        # every stream_start gets a terminal event; the error still surfaces
+        if jlog:
+            jlog.append(f"FAILED: {args.input}: {err}", event="failed",
+                        input=args.input, output=args.out, error=str(err))
+        raise
+    wall = time.time() - t0
+    if jlog:
+        jlog.append(f"Completed: {args.out} ({n} frames @ {args.rate} Hz)",
+                    event="completed", input=args.input, output=args.out,
+                    out_frames=n, rate=args.rate,
+                    seconds=round(n / args.rate, 3), wall_seconds=round(wall, 3),
+                    x_realtime=round(n / args.rate / wall, 2) if wall > 0 else None)
+    if args.json:
+        print(json.dumps({"input": args.input, "output": args.out,
+                          "out_frames": n, "rate": args.rate,
+                          "seconds": round(n / args.rate, 3),
+                          "bits": cfg.bits, "format": cfg.output_format,
+                          "wall_seconds": wall, "device": args.device}))
+    else:
+        print(f"wrote {n} frames @ {args.rate} Hz -> {args.out}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in UNPORTED:
@@ -244,11 +340,7 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("process", help="batch resample files")
     p.add_argument("inputs", nargs="+", help="files, globs or directories")
     p.add_argument("--out", required=True, help="output directory (mandatory)")
-    p.add_argument("--rate", type=int, default=48000, help="target sample rate")
-    p.add_argument("--quality", default="high",
-                   choices=["low", "medium", "high", "ultra"])
-    p.add_argument("--kind", default="sinc",
-                   choices=["sinc", "minphase", "lagrange"])
+    _add_src_args(p)
     p.add_argument("--bits", type=int, default=24, choices=[16, 24, 32])
     p.add_argument("--no-dither", action="store_true")
     p.add_argument("--keep-dc", action="store_true", help="skip DC offset removal")
@@ -266,20 +358,93 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--resume", action="store_true",
                    help="persist a manifest in --out and skip completed files")
     p.add_argument("--json", action="store_true", help="print summary JSON")
+    p.add_argument("--reverb", action="store_true",
+                   help="reverb mode: keep tails until below noise floor")
+    _add_tail_args(p)
+    _add_routing_args(p)
+    _add_chain_args(p)
+    p.set_defaults(fn=cmd_process)
+
+    p = sub.add_parser("stream", help="constant-memory resample of one long file")
+    p.add_argument("input")
+    p.add_argument("--out", required=True, help="output WAV/AIFF/FLAC path")
+    p.add_argument("--log-jsonl", default=None, metavar="PATH",
+                   help="append stream_start/progress/completed events to "
+                        "PATH as one JSON object per line")
+    _add_src_args(p)
+    p.add_argument("--bits", type=int, default=24, choices=[16, 24, 32])
+    p.add_argument("--format", dest="output_format", default=None,
+                   choices=["wav", "aiff", "flac"],
+                   help="output container (default: inferred from the "
+                        "--out extension, else wav)")
+    p.add_argument("--keep-metadata", action="store_true",
+                   help="carry bext/LIST/cue metadata (same container)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="dither seed (-1 = wall clock, non-reproducible)")
+    p.add_argument("--no-dither", action="store_true")
+    p.add_argument("--keep-dc", action="store_true")
+    p.add_argument("--gain", type=float, default=0.0, help="gain dB")
+    p.add_argument("--normalize-lufs", type=float, default=None,
+                   help="not ported yet (ROADMAP Queue 1 'Loudness')")
+    p.add_argument("--normalize-tp", dest="normalize_tp_db", type=float,
+                   default=None, help="with --normalize-lufs (not ported yet)")
+    p.add_argument("--surround-weights", action="store_true",
+                   help="with --normalize-lufs (not ported yet)")
+    _add_routing_args(p)
+    p.add_argument("--latency", type=int, default=None,
+                   help="trim this many output frames of known chain/system "
+                        "delay from the head (negative = dithered zero head)")
+    p.add_argument("--reverb", action="store_true",
+                   help="keep the (chain) tail past the source until it "
+                        "falls below the noise floor; the input length is "
+                        "unbounded, only the tail is capped")
+    _add_tail_args(p)
+    _add_chain_args(p)
+    p.add_argument("--chunk-seconds", type=float, default=20.0,
+                   help="chunk length (the bytes do not depend on it)")
+    p.add_argument("--frames-shards", type=int, default=1,
+                   help="shard each step over N devices (not ported yet)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable result on stdout")
+    p.set_defaults(fn=cmd_stream)
+    args = ap.parse_args(argv)
+    try:
+        return args.fn(args)
+    except (ValueError, NotImplementedError) as err:
+        # the CLI boundary: usage and validation errors raised before any
+        # work, and options not ported yet (naming their ROADMAP item)
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+
+
+def _add_src_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--rate", type=int, default=48000, help="target sample rate")
+    p.add_argument("--quality", default="high",
+                   choices=["low", "medium", "high", "ultra"])
+    p.add_argument("--kind", default="sinc",
+                   choices=["sinc", "minphase", "lagrange"])
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
-    p.add_argument("--reverb", action="store_true",
-                   help="reverb mode: keep tails until below noise floor")
+
+
+def _add_tail_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--noise-floor", type=float, default=None,
                    help="measured noise floor dB (default: -80 fallback)")
     p.add_argument("--margin", type=float, default=10.0,
                    help="noise floor margin %% (0-50)")
+
+
+def _add_routing_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--routing", default=None,
                    help="channel routing map, e.g. '0,1,-1,2' "
                         "(out[i] <- in[map[i]], -1 = silence)")
     p.add_argument("--channels", type=int, default=None,
                    help="fan mono inputs out to N channels")
+
+
+def _add_chain_args(p: argparse.ArgumentParser) -> None:
+    """The insert chain's flags (`_build_chain` reads them)."""
     p.add_argument("--chain-ir", default=None,
                    help="insert chain: convolution reverb impulse-response "
                         "WAV (mono or matching channel count)")
@@ -316,8 +481,6 @@ def main(argv: list[str] | None = None) -> int:
                         "last; calibration measures and trims its "
                         "lookahead). Negative ceiling needs the = form: "
                         "--chain-limit=-0.3")
-    args = ap.parse_args(argv)
-    return cmd_process(args)
 
 
 if __name__ == "__main__":

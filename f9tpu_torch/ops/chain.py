@@ -1,4 +1,4 @@
-"""The insert chain's batch forms (port of `f9tpu/ops/chain.py`).
+"""The insert chain (port of `f9tpu/ops/chain.py`), batch and streamed.
 
 A :class:`Chain` is an ordered stack of in-graph stages applied to the
 resampled signal at the output rate, before latency trimming: the
@@ -23,22 +23,32 @@ Numerics, as in the JAX package:
   on ``torch.fft`` with a K-deep frequency-domain delay line, so memory is
   O(K*N) whatever the capture length;
 - dynamics (compressor, expander, limiter) use causal moving averages
-  (`_uniform_ma_past`), a slanted running maximum for the linear-in-dB
-  release (`Compressor._slanted_cummax`) and a windowed maximum
-  (`_window_max_past`): no per-sample recurrence.
+  (`_uniform_ma_past`, a fixed-order fold for every window), a slanted
+  running maximum for the linear-in-dB release (`Compressor._slanted_cummax`)
+  and a windowed maximum (`_window_max_past`): no per-sample recurrence.
 
-PyTorch runs all of it eagerly.  Only the batch forms are ported; the
-streaming forms (`stream_grid`, `stream_state`, `apply_stream`,
-`Chain.stream_init`) wait for the streaming slice (ROADMAP Queue 1).
+Streaming (`Chain.stream_grid`, `stream_init`, `apply_stream`): each stage
+carries its own state from chunk to chunk, so the chunked output equals the
+whole signal's `apply` bit for bit on either device.  Fold stages carry
+their last input frames (`_ring_stream`); FFT stages carry the UPOLS delay
+line on the absolute block grid (chunks are multiples of `stream_grid`);
+dynamics carry their moving-average tails and the release envelope's state
+on the absolute `_ENV_BLOCK` grid.  No library convolution runs anywhere in
+the chain: a convolution's algorithm, and so its rounding, is picked by
+shape.  On the CPU the transcendentals go through `_whole_vectors`, which
+keeps torch's scalar loop tails out of every call.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..device import resolve_device
 
 __all__ = [
     "Chain",
@@ -74,8 +84,42 @@ def _array_sig(a: np.ndarray) -> tuple:
 #: FIR-type stages fold up to this many taps and run UPOLS above it.
 FIR_FOLD_MAX = 1024
 
-#: `_uniform_ma_past` folds up to this window and convolves above it.
-_MA_FOLD_MAX = 4096
+#: torch's grain: an elementwise CPU loop of more elements than this is split
+#: into one contiguous range per thread (`at::parallel_for`)
+_CPU_GRAIN = 32768
+#: elements per step of torch's vectorized CPU loops, rounded up: two
+#: AVX-512 vectors of float32 are 32
+_CPU_STEP = 64
+
+
+def _whole_vectors(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise float32 transcendental (``log10``,
+    ``pow``, ``tanh``), each element's value independent of the tensor's
+    size.
+
+    torch's CPU loop gives each thread ``ceil(n / threads)`` elements once
+    ``n`` passes the grain and runs each range in steps of two SIMD vectors,
+    the ragged end in scalar code, whose ``pow`` rounds apart from the
+    vector code by an ulp.  So one sample could take two values in a chunk
+    and in the whole signal.  Here the flat tensor is zero-padded until every
+    thread's range is a whole number of `_CPU_STEP` steps, which leaves no
+    scalar tail anywhere.  On CUDA every element runs one device function,
+    and ``fn`` is called as it is."""
+    if x.device.type != "cpu":
+        return fn(x)
+    n = x.numel()
+    threads = max(1, torch.get_num_threads())
+    m = -(-n // _CPU_STEP) * _CPU_STEP
+    while True:
+        parts = 1 if m <= _CPU_GRAIN else min(threads, -(-m // _CPU_GRAIN))
+        m2 = -(-m // (_CPU_STEP * parts)) * (_CPU_STEP * parts)
+        if m2 == m:
+            break
+        m = m2
+    if m == n and x.is_contiguous():
+        return fn(x)
+    flat = F.pad(x.reshape(-1), (0, m - n))
+    return fn(flat)[:n].reshape(x.shape)
 
 
 def _fir_fold(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
@@ -113,22 +157,6 @@ def _fir_fold(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     return acc
 
 
-def _direct_convolve(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """Causal direct-form convolution along the last axis, same length
-    (``F.conv1d`` is a correlation: the taps are flipped and the front is
-    padded).  float32 throughout: cuDNN runs in full float32 here whatever
-    the global TF32 flag (which `resolve_device` switches off anyway)."""
-    W = int(taps.shape[-1])
-    lead, T = x.shape[:-1], x.shape[-1]
-    xb = F.pad(x.reshape(-1, 1, T), (W - 1, 0))
-    w = torch.from_numpy(np.ascontiguousarray(taps[::-1], np.float32)).to(
-        x.device).reshape(1, 1, W)
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                    deterministic=True, allow_tf32=False):
-        y = F.conv1d(xb, w)
-    return y.reshape(*lead, T)
-
-
 def _fft_block_size(ir_len: int, block: int = 4096) -> int:
     """The block B the UPOLS convolvers pick for an IR of ``ir_len``: the
     delay line stays at most 64 blocks deep."""
@@ -157,6 +185,18 @@ def _spectrum(parts: list[tuple[np.ndarray, np.ndarray]], device) -> torch.Tenso
     return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
 
 
+def _cached_spectrum(cache: dict, key, irs, B: int, device) -> torch.Tensor:
+    """`_spectrum` of the rows of ``irs`` made once per (key, B, device) and
+    kept in a stage's ``cache``: a streamed stage would otherwise partition
+    its IR and copy it to the card again for every chunk."""
+    k = (key, B, str(device))
+    H = cache.get(k)
+    if H is None:
+        H = cache[k] = _spectrum(
+            [_partition_ir(np.asarray(r, np.float32), B) for r in irs], device)
+    return H
+
+
 def _upols_step(fdl: torch.Tensor, win: torch.Tensor, H: torch.Tensor, B: int):
     """One block of uniform-partitioned overlap-save.  ``win (..., 2B)`` is
     the previous and the current input block; ``fdl (K, ..., Nf)`` the
@@ -164,15 +204,17 @@ def _upols_step(fdl: torch.Tensor, win: torch.Tensor, H: torch.Tensor, B: int):
     partitioned IR spectrum.  Returns the new delay line and the block's B
     alias-free output frames.
 
-    The K-deep sum ``sum_k fdl[k] * H[k]`` is one ``torch.sum`` over the
-    delay-line axis (k = 0, the newest block, first in memory), in the
-    order the backend picks for that shape.  Every block of a run has the
-    same shape and so rounds alike, as does a streamed form that calls this
-    step with the same rows; with another row count the CPU picks another
-    order (a file's output moves by an ulp between an 8-file and a 2-file
-    batch).  cuFFT, MKL and pocketfft round apart, so the card, the CPU and
-    the JAX package agree to a bound, not bitwise."""
-    Xi = torch.fft.rfft(win, n=2 * B, dim=-1)
+    The window is made contiguous, so the batch and the streamed forms hand
+    the FFT the same layout.  The K-deep sum ``sum_k fdl[k] * H[k]`` is one
+    ``torch.sum`` over the delay-line axis (k = 0, the newest block, first
+    in memory), in the order the backend picks for that shape.  Every block
+    of a run has the same shape and so rounds alike, as does the streamed
+    form (`_upols_stream`), which calls this step with the same rows; with
+    another row count the CPU picks another order (a file's output moves by
+    an ulp between an 8-file and a 2-file batch).  cuFFT, MKL and pocketfft
+    round apart, so the card, the CPU and the JAX package agree to a bound,
+    not bitwise."""
+    Xi = torch.fft.rfft(win.contiguous(), n=2 * B, dim=-1)
     fdl = torch.cat([Xi[None], fdl[:-1]], dim=0)
     Y = torch.sum(fdl * H, dim=0)
     return fdl, torch.fft.irfft(Y, n=2 * B, dim=-1)[..., B:]
@@ -187,13 +229,56 @@ def _upols(x: torch.Tensor, H: torch.Tensor, B: int) -> torch.Tensor:
     nb = max(1, -(-T // B))
     xp = F.pad(x, (B, nb * B - T))                  # one zero block in front
     lead = torch.broadcast_shapes(x.shape[:-1], H.shape[1:-1])
-    fdl = torch.zeros((H.shape[0], *lead, B + 1), dtype=torch.complex64,
-                      device=x.device)
+    fdl, _ = _upols_state(lead, H.shape[0], B, x.device)
     y = x.new_empty((*lead, nb * B))
     for i in range(nb):
         fdl, y[..., i * B:(i + 1) * B] = _upols_step(
             fdl, xp[..., i * B:i * B + 2 * B], H, B)
     return y[..., :T]
+
+
+def _upols_state(lead, K: int, B: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The zero UPOLS state for rows ``lead``: the delay line ``(K, *lead,
+    B + 1)`` complex64 and the previous input block ``(*lead, B)``."""
+    return (torch.zeros((K, *lead, B + 1), dtype=torch.complex64, device=device),
+            torch.zeros((*lead, B), dtype=torch.float32, device=device))
+
+
+def _upols_stream(x: torch.Tensor, state, H: torch.Tensor, B: int):
+    """Streaming form of `_upols`, bitwise equal to it when the chunk ``x
+    (..., T)`` starts on the absolute block grid and T is a multiple of B:
+    each block's window holds the values the whole signal's window holds
+    and goes through the same `_upols_step` on the same rows.  ``state`` is
+    (delay line, previous input block); returns ``(y, state')``."""
+    fdl, prev = state
+    T = x.shape[-1]
+    if T % B:
+        raise ValueError(f"a streamed FFT stage takes chunks of whole "
+                         f"{B}-frame blocks, got {T} frames")
+    y = torch.empty_like(x)
+    for i in range(T // B):
+        cur = x[..., i * B:(i + 1) * B]
+        fdl, y[..., i * B:(i + 1) * B] = _upols_step(
+            fdl, torch.cat([prev, cur], dim=-1), H, B)
+        prev = cur
+    return y, (fdl, prev.clone())
+
+
+def _upols_rows(x: torch.Tensor, H: torch.Tensor, B: int) -> torch.Tensor:
+    """`_upols` of every row of ``x (..., T)`` with one IR spectrum ``H
+    (K, 1, Nf)``, rows flattened as `fft_convolve` flattens them."""
+    lead, T = x.shape[:-1], x.shape[-1]
+    return _upols(x.reshape(-1, T), H, B).reshape(*lead, T)
+
+
+def _upols_channels(x: torch.Tensor, H: torch.Tensor, B: int) -> torch.Tensor:
+    """`_upols` of ``x (..., C, T)`` with one IR per channel, ``H (K, C, 1,
+    Nf)``: the C spectra ride a channel axis of the delay line, so the input
+    is transformed once."""
+    C = H.shape[1]
+    lead, T = x.shape[:-2], x.shape[-1]
+    y = _upols(torch.movedim(x, -2, 0).reshape(C, -1, T), H, B)
+    return torch.movedim(y.reshape(C, *lead, T), 0, -2)
 
 
 def fft_convolve(x: torch.Tensor, ir: np.ndarray, block: int = 4096) -> torch.Tensor:
@@ -207,38 +292,46 @@ def fft_convolve(x: torch.Tensor, ir: np.ndarray, block: int = 4096) -> torch.Te
         raise ValueError(f"block must be >= 1, got {block}")
     B = _fft_block_size(ir_len, block)
     H = _spectrum([_partition_ir(ir, B)], x.device)[:, 0]        # (K, 1, Nf)
-    lead, T = x.shape[:-1], x.shape[-1]
-    y = _upols(x.reshape(-1, T), H, B)
-    return y.reshape(*lead, T).to(x.dtype)
+    return _upols_rows(x, H, B).to(x.dtype)
 
 
 def _fft_convolve_multi(x: torch.Tensor, irs: np.ndarray,
                         block: int = 4096) -> torch.Tensor:
     """Per-channel FFT convolution in one block loop: ``x (..., C, T)``
-    with ``irs (C, ir_len)`` -> ``(..., C, T)``; the C spectra ride a
-    channel axis of the delay line, so the input is transformed once."""
+    with ``irs (C, ir_len)`` -> ``(..., C, T)``."""
     C, ir_len = irs.shape
     if int(block) < 1:
         raise ValueError(f"block must be >= 1, got {block}")
     B = _fft_block_size(ir_len, block)
     H = _spectrum([_partition_ir(np.asarray(irs[c], np.float32), B)
                    for c in range(C)], x.device)                 # (K, C, 1, Nf)
-    lead, T = x.shape[:-2], x.shape[-1]
-    xr = torch.movedim(x, -2, 0).reshape(C, -1, T)
-    y = _upols(xr, H, B)
-    return torch.movedim(y.reshape(C, *lead, T), 0, -2).to(x.dtype)
+    return _upols_channels(x, H, B).to(x.dtype)
+
+
+def _ring_stream(stage, x: torch.Tensor, ring: torch.Tensor, rate: int):
+    """Exact continuation of a causal, position-invariant stage whose whole
+    state is its last ``tail_frames`` input frames: apply the stage to the
+    ring and the chunk, keep the chunk's span, and keep the new last frames
+    as the ring.  The fold and the delay compute each output from the same
+    inputs in the same order wherever it sits, so this is bitwise."""
+    if ring.shape[-1] == 0:
+        return stage.apply(x, rate), ring
+    z = torch.cat([ring, x], dim=-1)
+    y = stage.apply(z, rate)[..., ring.shape[-1]:]
+    return y, z[..., z.shape[-1] - ring.shape[-1]:].clone()
 
 
 def _uniform_ma_past(x: torch.Tensor, win: int) -> torch.Tensor:
     """Causal moving average ``out[n] = (sum_{k<win} x[n-k]) / win`` as a
     fixed-order fold of ``win`` shifted copies (k = 0 first), so each
-    output's float32 op sequence is independent of its position.  One
-    accumulator is added into in place.  Windows above `_MA_FOLD_MAX` fall
-    back to `_direct_convolve`, as in the JAX package."""
+    output's float32 op sequence is independent of its position: the
+    streamed dynamics rest on it.  One accumulator is added into in place.
+    Every window folds; the JAX package convolves windows above 4096 (an
+    85 ms attack at 48 kHz), and a convolution's rounding follows the
+    algorithm the library picks for the shape, which would make the
+    streamed form depend on the chunk size there."""
     if win <= 1:
         return x
-    if win > _MA_FOLD_MAX:
-        return _direct_convolve(x, np.full(win, 1.0 / win, np.float32))
     xp = F.pad(x, (win - 1, 0))
     T = x.shape[-1]
     acc = xp[..., win - 1:win - 1 + T].clone()
@@ -310,16 +403,59 @@ class Delay:
         return F.pad(y, (d, 0))[..., :y.shape[-1]]
 
 
-class FIRInsert:
-    """A causal FIR processor with its uncompensated group delay (a
-    linear-phase FIR delays by (W-1)/2 frames; calibration trims it)."""
+class _FIRStage:
+    """What FIRInsert and Biquad share: their taps (`_taps`) fold up to
+    `FIR_FOLD_MAX` and run UPOLS above it, batch and streamed alike."""
 
     channel_local = True
+
+    def _taps(self, rate: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def _block(self, rate: int) -> tuple[np.ndarray, int]:
+        """(float32 taps, UPOLS block B, or 0 where they fold)."""
+        h = self._taps(rate)
+        return h, (0 if h.shape[0] <= FIR_FOLD_MAX else _fft_block_size(h.shape[0]))
+
+    def _spectrum(self, rate: int, B: int, device) -> torch.Tensor:
+        return _cached_spectrum(self._spectra, rate, [self._taps(rate)], B, device)[:, 0]
+
+    def apply(self, y: torch.Tensor, rate: int) -> torch.Tensor:
+        h, B = self._block(rate)
+        if not B:
+            return _fir_fold(y, h)
+        return _upols_rows(y, self._spectrum(rate, B, y.device), B)
+
+    def stream_grid(self, rate: int) -> int:
+        return max(1, self._block(rate)[1])
+
+    def stream_state(self, rate: int, channels: int, device=None):
+        """The fold's input ring ``(channels, taps - 1)``, or the UPOLS
+        state (delay line, previous block) for ``channels`` rows."""
+        dev = resolve_device(device)
+        h, B = self._block(rate)
+        if not B:
+            return torch.zeros((channels, h.shape[0] - 1), device=dev)
+        return _upols_state((channels,), -(-h.shape[0] // B), B, dev)
+
+    def apply_stream(self, x: torch.Tensor, state, rate: int, pos: int):
+        """One chunk ``x (channels, T)`` with exact continuation; an UPOLS
+        stage needs T and ``pos`` on its block grid (`stream_grid`)."""
+        _, B = self._block(rate)
+        if not B:
+            return _ring_stream(self, x, state, rate)
+        return _upols_stream(x, state, self._spectrum(rate, B, x.device), B)
+
+
+class FIRInsert(_FIRStage):
+    """A causal FIR processor with its uncompensated group delay (a
+    linear-phase FIR delays by (W-1)/2 frames; calibration trims it)."""
 
     def __init__(self, taps):
         self.taps = np.asarray(taps, np.float32).reshape(-1)
         if self.taps.size == 0:
             raise ValueError("FIR needs at least one tap")
+        self._spectra: dict = {}
 
     def signature(self) -> tuple:
         return ("fir", _array_sig(self.taps))
@@ -327,20 +463,16 @@ class FIRInsert:
     def tail_frames(self, rate: int) -> int:
         return int(self.taps.shape[0]) - 1
 
-    def apply(self, y: torch.Tensor, rate: int) -> torch.Tensor:
-        if self.taps.shape[0] <= FIR_FOLD_MAX:
-            return _fir_fold(y, self.taps)
-        return fft_convolve(y, self.taps)
+    def _taps(self, rate: int) -> np.ndarray:
+        return self.taps
 
 
-class Biquad:
+class Biquad(_FIRStage):
     """A second-order IIR EQ section (RBJ audio-EQ-cookbook forms) run as
     its impulse response, truncated where the float32 quantum is reached;
     the IR is sampled for the actual session rate at apply time."""
 
     TYPES = ("lowpass", "highpass", "peaking", "lowshelf", "highshelf")
-
-    channel_local = True
 
     def __init__(self, kind: str, freq_hz: float, q: float = 0.70710678,
                  gain_db: float = 0.0, max_ir_seconds: float = 2.0):
@@ -354,6 +486,7 @@ class Biquad:
         self.gain_db = float(gain_db)
         self.max_ir_seconds = float(max_ir_seconds)
         self._ir_cache: dict[int, np.ndarray] = {}
+        self._spectra: dict = {}
 
     def signature(self) -> tuple:
         return ("biquad", self.kind, round(self.freq_hz, 6), round(self.q, 9),
@@ -439,11 +572,8 @@ class Biquad:
     def tail_frames(self, rate: int) -> int:
         return int(self.impulse_response(rate).shape[0]) - 1
 
-    def apply(self, y: torch.Tensor, rate: int) -> torch.Tensor:
-        h = self.impulse_response(rate).astype(np.float32)
-        if h.shape[0] <= FIR_FOLD_MAX:
-            return _fir_fold(y, h)
-        return fft_convolve(y, h)
+    def _taps(self, rate: int) -> np.ndarray:
+        return self.impulse_response(rate).astype(np.float32)
 
 
 class Saturator:
@@ -479,7 +609,7 @@ class Saturator:
         if self.kind == "tanh":
             # normalisation 1/tanh(g) in float64; for tiny drive tanh(g) ~ g
             denom = float(np.tanh(np.float64(g))) or float(g)
-            shaped = torch.tanh(y * float(g)) * _f32(1.0 / denom)
+            shaped = _whole_vectors(torch.tanh, y * float(g)) * _f32(1.0 / denom)
         elif self.kind == "soft":
             u = torch.clamp(y * float(g), -1.0, 1.0)
             shaped = 1.5 * u - 0.5 * u * u * u
@@ -569,31 +699,47 @@ class Compressor:
 
     @staticmethod
     def _slanted_cummax(level_db: torch.Tensor, c: float) -> torch.Tensor:
-        """``env[n] = max_{k<=n}(level[k] - c*(n-k))`` exactly: per block of
-        `_ENV_BLOCK` frames ``cummax(level + c*j) - c*j``, then the maximum
-        with the previous block's last value decayed by ``c*(j+1)``; a
-        Python loop over the blocks carries that value."""
-        T = level_db.shape[-1]
+        """``env[n] = max_{k<=n}(level[k] - c*(n-k))`` exactly: the streamed
+        form over the whole signal from position 0."""
+        init = torch.full(level_db.shape[:-1], -1e9, dtype=torch.float32,
+                          device=level_db.device)
+        return Compressor._slanted_cummax_stream(level_db, c, 0, init, init)[0]
+
+    @staticmethod
+    def _slanted_cummax_stream(level_db: torch.Tensor, c: float, pos: int,
+                               m: torch.Tensor, env_carry: torch.Tensor):
+        """The slanted cummax of a chunk starting at absolute position
+        ``pos``, on the absolute grid of `_ENV_BLOCK`-frame blocks: within a
+        block ``cummax(level + c*j) - c*j`` (j the frame's index in its
+        block), then the maximum with the previous block's last value
+        decayed by ``c*(j+1)``.  The state is ``m``, the running maximum of
+        ``level + c*j`` over the part of the current block already seen
+        (-1e9 at a block's start), and ``env_carry``, the envelope at the
+        end of the previous block.  The chunk is walked in pieces that end
+        on the grid; maximum is exact, so a block cut anywhere gives the
+        whole block's bits.  Returns ``(env, m', env_carry')``."""
         B = Compressor._ENV_BLOCK
         cf = _f32(c)
-        dev = level_db.device
-        if T <= B:
-            n = torch.arange(T, dtype=torch.float32, device=dev)
-            return torch.cummax(level_db + cf * n, dim=-1).values - cf * n
-        nb = -(-T // B)
-        lv = F.pad(level_db, (0, nb * B - T), value=-1e9)
-        ramp = torch.arange(B, dtype=torch.float32, device=dev) * cf
-        decay = cf * (torch.arange(B, dtype=torch.float32, device=dev) + 1.0)
-        carry = torch.full(level_db.shape[:-1], -1e9, dtype=torch.float32,
-                           device=dev)
-        out = torch.empty_like(lv)
-        for b in range(nb):
-            blk = lv[..., b * B:(b + 1) * B]
-            slant = torch.cummax(blk + ramp, dim=-1).values - ramp
-            env = torch.maximum(slant, carry[..., None] - decay)
-            out[..., b * B:(b + 1) * B] = env
-            carry = env[..., -1]
-        return out[..., :T]
+        out = torch.empty_like(level_db)
+        T = level_db.shape[-1]
+        a = 0
+        while a < T:
+            j0 = (pos + a) % B
+            n = min(T - a, B - j0)
+            # the piece's in-block indices j (exact in float32 below 2^24)
+            j = torch.arange(j0, j0 + n, dtype=torch.float32, device=level_db.device)
+            r = j * cf
+            s = torch.maximum(
+                torch.cummax(level_db[..., a:a + n] + r, dim=-1).values, m[..., None])
+            env = torch.maximum(s - r, env_carry[..., None] - cf * (j + 1.0))
+            out[..., a:a + n] = env
+            if j0 + n == B:
+                env_carry = env[..., -1]
+                m = torch.full_like(m, -1e9)
+            else:
+                m = s[..., -1]
+            a += n
+        return out, m, env_carry
 
     def _gr_from_env(self, env_db: torch.Tensor) -> torch.Tensor:
         """Unsmoothed gain reduction (dB, <= 0): the soft-knee computer."""
@@ -607,22 +753,58 @@ class Compressor:
                                torch.where(over >= k2, -slope * over, knee_gr))
         return torch.clamp(-slope * over, max=0.0)
 
-    def _gain_db(self, y: torch.Tensor, rate: int) -> torch.Tensor:
-        win = max(1, int(round(self.detector_ms * rate / 1000.0)))
-        p = _uniform_ma_past(torch.square(y), win)
+    def _windows(self, rate: int) -> tuple[int, int]:
+        """(detector window, attack window) in frames at ``rate``."""
+        return (max(1, int(round(self.detector_ms * rate / 1000.0))),
+                max(1, int(round(self.attack_ms * rate / 1000.0))))
+
+    def _state(self, rate: int, lead: tuple, device) -> tuple:
+        """Zero state for a signal with leading axes ``lead`` (``(...,
+        channels)``, or ``()`` for a 1-D signal): the detector's input tail,
+        the unsmoothed gain's tail on the linked axis, and the envelope's
+        running maximum and carry (-1e9, the batch form's virgin carry).
+        The zero tails are the batch form's front padding."""
+        win, win_a = self._windows(rate)
+        link = (*lead[:-1], 1) if lead else ()
+        return (torch.zeros((*lead, win - 1), device=device),
+                torch.zeros((*link, win_a - 1), device=device),
+                torch.full(link, -1e9, device=device),
+                torch.full(link, -1e9, device=device))
+
+    def stream_state(self, rate: int, channels: int, device=None) -> tuple:
+        return self._state(rate, (channels,), resolve_device(device))
+
+    def apply_stream(self, y: torch.Tensor, state: tuple, rate: int,
+                     pos: int) -> tuple:
+        """One chunk starting at absolute position ``pos``, bitwise equal to
+        that span of `apply` over the whole signal: the moving averages
+        carry their input tails and the release envelope its state on the
+        absolute block grid."""
+        x_tail, gr_tail, m, env_carry = state
+        win, win_a = self._windows(rate)
+        T = y.shape[-1]
+        xin = torch.cat([x_tail, y], dim=-1) if win > 1 else y
+        p = _uniform_ma_past(torch.square(xin), win)[..., xin.shape[-1] - T:]
         if y.ndim >= 2:
             p = torch.amax(p, dim=-2, keepdim=True)      # stereo/bus link
-        level_db = 10.0 * torch.log10(torch.clamp(p, min=1e-20))
-        env_db = self._slanted_cummax(level_db, self.release_db_per_s / rate)
+        level_db = 10.0 * _whole_vectors(torch.log10, torch.clamp(p, min=1e-20))
+        env_db, m, env_carry = self._slanted_cummax_stream(
+            level_db, self.release_db_per_s / rate, pos, m, env_carry)
         gr = self._gr_from_env(env_db)
-        win_a = max(1, int(round(self.attack_ms * rate / 1000.0)))
         if win_a > 1:
-            gr = _uniform_ma_past(gr, win_a)
-        return gr + _f32(self.makeup_db)
+            gc = torch.cat([gr_tail, gr], dim=-1)
+            gr = _uniform_ma_past(gc, win_a)[..., gc.shape[-1] - T:]
+            gr_tail = gc[..., gc.shape[-1] - (win_a - 1):].clone()
+        if win > 1:
+            x_tail = xin[..., xin.shape[-1] - (win - 1):].clone()
+        gain = _whole_vectors(lambda v: torch.pow(10.0, v),
+                              (gr + _f32(self.makeup_db)) * _f32(1.0 / 20.0))
+        return y * gain, (x_tail, gr_tail, m, env_carry)
 
     def apply(self, y: torch.Tensor, rate: int) -> torch.Tensor:
-        gain = torch.pow(10.0, self._gain_db(y, rate) * _f32(1.0 / 20.0))
-        return y * gain
+        """The whole signal: the streamed form from a zero state at 0."""
+        return self.apply_stream(y, self._state(rate, tuple(y.shape[:-1]), y.device),
+                                 rate, 0)[0]
 
 
 class Expander(Compressor):
@@ -704,25 +886,48 @@ class Limiter:
         horizon = int(np.ceil(120.0 / self.release_db_per_s * rate))
         return 3 * L + horizon
 
-    def _atten_db(self, x: torch.Tensor, rate: int) -> torch.Tensor:
-        """The smoothed attenuation stream S (dB >= 0), channel-linked."""
+    def _state(self, rate: int, lead: tuple, device) -> tuple:
+        """Zero state for leading axes ``lead``: the signal's delay ring, the
+        release output's and the spread attenuation's rings on the linked
+        axis, and the envelope's running maximum and carry."""
         L = self.lookahead_frames(rate)
-        if x.ndim >= 2:
-            lvl = torch.amax(torch.abs(x), dim=-2, keepdim=True)
-        else:
-            lvl = torch.abs(x)
-        level_db = 20.0 * torch.log10(torch.clamp(lvl, min=1e-20))
+        link = (*lead[:-1], 1) if lead else ()
+        return (torch.zeros((*lead, L), device=device),
+                torch.zeros((*link, L), device=device),
+                torch.zeros((*link, L), device=device),
+                torch.full(link, -1e9, device=device),
+                torch.full(link, -1e9, device=device))
+
+    def stream_state(self, rate: int, channels: int, device=None) -> tuple:
+        return self._state(rate, (channels,), resolve_device(device))
+
+    def apply_stream(self, x: torch.Tensor, state: tuple, rate: int,
+                     pos: int) -> tuple:
+        """One chunk starting at absolute position ``pos``, bitwise equal to
+        that span of `apply`; the zero rings are the batch form's front
+        padding (0 is neutral for the non-negative attenuation)."""
+        L = self.lookahead_frames(rate)
+        x_tail, ar_tail, b_tail, m, env_carry = state
+        T = x.shape[-1]
+        lvl = torch.amax(torch.abs(x), dim=-2, keepdim=True) if x.ndim >= 2 else torch.abs(x)
+        level_db = 20.0 * _whole_vectors(torch.log10, torch.clamp(lvl, min=1e-20))
         atten = torch.clamp(level_db - _f32(self.ceiling_db), min=0.0)
-        atten_rel = Compressor._slanted_cummax(
-            atten, self.release_db_per_s / rate)
-        b = _window_max_past(atten_rel, L + 1)
-        return _uniform_ma_past(b, L + 1)
+        atten_rel, m, env_carry = Compressor._slanted_cummax_stream(
+            atten, self.release_db_per_s / rate, pos, m, env_carry)
+        ac = torch.cat([ar_tail, atten_rel], dim=-1)
+        b = _window_max_past(ac, L + 1)[..., L:]
+        bc = torch.cat([b_tail, b], dim=-1)
+        s_db = _uniform_ma_past(bc, L + 1)[..., L:]
+        xc = torch.cat([x_tail, x], dim=-1)
+        out = xc[..., :T] * _whole_vectors(lambda v: torch.pow(10.0, v),
+                                           s_db * _f32(-1.0 / 20.0))
+        return out, (xc[..., T:].clone(), ac[..., T:].clone(),
+                     bc[..., T:].clone(), m, env_carry)
 
     def apply(self, x: torch.Tensor, rate: int) -> torch.Tensor:
-        L = self.lookahead_frames(rate)
-        s_db = self._atten_db(x, rate)
-        xd = F.pad(x, (L, 0))[..., :x.shape[-1]]
-        return xd * torch.pow(10.0, s_db * _f32(-1.0 / 20.0))
+        """The whole signal: the streamed form from a zero state at 0."""
+        return self.apply_stream(x, self._state(rate, tuple(x.shape[:-1]), x.device),
+                                 rate, 0)[0]
 
 
 class ConvolutionReverb:
@@ -741,6 +946,7 @@ class ConvolutionReverb:
         self.ir = ir
         self.wet = float(wet)
         self.dry = float(dry)
+        self._spectra: dict = {}
 
     def signature(self) -> tuple:
         return ("convreverb", _array_sig(self.ir),
@@ -749,22 +955,56 @@ class ConvolutionReverb:
     def tail_frames(self, rate: int) -> int:
         return int(self.ir.shape[-1]) - 1
 
-    def apply(self, y: torch.Tensor, rate: int) -> torch.Tensor:
-        n_ir = self.ir.shape[0]
-        if n_ir == 1 or y.ndim < 2:
-            # a 1-D signal (the calibration impulse) is measured through
-            # the first IR channel: group delay is per unit, not per channel
-            wet = fft_convolve(y, self.ir[0])
-        else:
-            if y.shape[-2] != n_ir:
-                raise ValueError(
-                    f"multichannel IR has {n_ir} channels but the signal's "
-                    f"channel axis is {y.shape[-2]}")
-            wet = _fft_convolve_multi(y, self.ir)
+    def _spectrum(self, B: int, device) -> torch.Tensor:
+        """``(K, IR channels, 1, Nf)``, made once per device."""
+        return _cached_spectrum(self._spectra, None, self.ir, B, device)
+
+    def _check_channels(self, y: torch.Tensor) -> None:
+        if y.shape[-2] != self.ir.shape[0]:
+            raise ValueError(
+                f"multichannel IR has {self.ir.shape[0]} channels but the "
+                f"signal's channel axis is {y.shape[-2]}")
+
+    def _mix(self, wet: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         out = _f32(self.wet) * wet
         if self.dry:
             out = out + _f32(self.dry) * y
         return out
+
+    def apply(self, y: torch.Tensor, rate: int) -> torch.Tensor:
+        B = self.stream_grid(rate)
+        H = self._spectrum(B, y.device)
+        if self.ir.shape[0] == 1 or y.ndim < 2:
+            # a 1-D signal (the calibration impulse) is measured through
+            # the first IR channel: group delay is per unit, not per channel
+            wet = _upols_rows(y, H[:, 0], B)
+        else:
+            self._check_channels(y)
+            wet = _upols_channels(y, H, B)
+        return self._mix(wet, y)
+
+    def stream_grid(self, rate: int) -> int:
+        return _fft_block_size(int(self.ir.shape[-1]))
+
+    def stream_state(self, rate: int, channels: int, device=None):
+        """UPOLS state for ``channels`` rows sharing a mono IR, or for one
+        row per IR channel (the layout of `_upols_channels`)."""
+        B = self.stream_grid(rate)
+        K = -(-int(self.ir.shape[-1]) // B)
+        lead = (channels,) if self.ir.shape[0] == 1 else (self.ir.shape[0], 1)
+        return _upols_state(lead, K, B, resolve_device(device))
+
+    def apply_stream(self, x: torch.Tensor, state, rate: int, pos: int):
+        """One chunk ``x (channels, T)`` on the block grid."""
+        B = self.stream_grid(rate)
+        H = self._spectrum(B, x.device)
+        if self.ir.shape[0] == 1:
+            wet, state = _upols_stream(x, state, H[:, 0], B)
+        else:
+            self._check_channels(x)
+            wet, state = _upols_stream(x[:, None, :], state, H, B)
+            wet = wet[:, 0, :]
+        return self._mix(wet, x), state
 
 
 class Chain:
@@ -797,6 +1037,45 @@ class Chain:
         for s in self.stages:
             y = s.apply(y, rate)
         return y
+
+    def stream_grid(self, rate: int) -> int:
+        """Chunk-length granule of exact streaming: the lcm of the stages'
+        UPOLS blocks (1 when no stage convolves by FFT).  Chunks that are
+        multiples of it start on every FFT stage's block grid."""
+        return math.lcm(1, *(int(s.stream_grid(rate)) for s in self.stages
+                             if hasattr(s, "stream_grid")))
+
+    def stream_init(self, rate: int, channels: int, device=None) -> tuple:
+        """Each stage's zero streaming state on ``device`` (default CUDA):
+        its own (`stream_state`) where it has one, else a zero ring of its
+        ``tail_frames`` input frames (a delay), or None (memoryless)."""
+        dev = resolve_device(device)
+        states = []
+        for s in self.stages:
+            if hasattr(s, "apply_stream"):
+                states.append(s.stream_state(rate, channels, dev))
+            else:
+                t = int(s.tail_frames(rate))
+                states.append(torch.zeros((channels, t), device=dev) if t else None)
+        return tuple(states)
+
+    def apply_stream(self, y: torch.Tensor, states: tuple, rate: int,
+                     pos: int) -> tuple:
+        """One chunk ``y (channels, T)`` starting at absolute position
+        ``pos`` of the chain's input, each stage threading its state:
+        bitwise equal to that span of `apply` over the whole signal.  With
+        `stream_grid` > 1, T and ``pos`` must be multiples of it.  Returns
+        ``(out, states')``."""
+        new = []
+        for s, st in zip(self.stages, states):
+            if hasattr(s, "apply_stream"):
+                y, st = s.apply_stream(y, st, rate, pos)
+            elif st is not None:
+                y, st = _ring_stream(s, y, st, rate)
+            else:
+                y = s.apply(y, rate)
+            new.append(st)
+        return y, tuple(new)
 
     def __hash__(self):
         return hash(self._sig)

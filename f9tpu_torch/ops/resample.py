@@ -9,6 +9,8 @@ cycle matrix ``G`` (`f9tpu_torch.models.filters.design_cycle_bank`), so
 `resample` here is the plain form for banks the CUDA kernel does not take
 (`f9tpu_torch.ops.src_kernel.kernel_applicable`): a strided ``unfold`` of
 the padded signal into cycle windows and one float32 ``torch.matmul``.
+`resample_presliced` is the streamed form, on a chunk that carries its own
+halos: the kernel on the card, a fixed-order float64 fold elsewhere.
 Varispeed banks (``bank.G is None``) are not ported yet.
 """
 
@@ -22,8 +24,8 @@ import torch.nn.functional as F
 
 from ..models.filters import CycleBank, design_cycle_bank
 
-__all__ = ["resample", "resample_rates", "cycle_matrix_f32", "bank_to_torch",
-           "VARISPEED_TODO"]
+__all__ = ["resample", "resample_rates", "resample_presliced", "cycle_matrix_f32",
+           "bank_to_torch", "VARISPEED_TODO"]
 
 #: ROADMAP item that varispeed banks (no dense matrix) wait for.
 VARISPEED_TODO = "ROADMAP Queue 1 'Varispeed' (banded SRC forms)"
@@ -94,6 +96,67 @@ def resample(x: torch.Tensor, bank: CycleBank,
     for s in range(0, Q, step):
         y[:, s:s + step] = torch.matmul(windows[:, s:s + step], g)
     return y.reshape(bc, Q * L)[:, :out_len].reshape(*lead, out_len)
+
+
+@functools.lru_cache(maxsize=64)
+def _fold_rows(bank: CycleBank) -> tuple[tuple[int, int, int], ...]:
+    """``(w, lo, hi)`` for every row of G with a non-zero entry: the row's
+    non-zero columns lie in ``[lo, hi)``."""
+    g = cycle_matrix_f32(bank)
+    rows = []
+    for w in range(bank.W):
+        nz = np.flatnonzero(g[w])
+        if nz.size:
+            rows.append((w, int(nz[0]), int(nz[-1]) + 1))
+    return tuple(rows)
+
+
+@functools.lru_cache(maxsize=64)
+def _bank_f64(bank: CycleBank, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(cycle_matrix_f32(bank)).to(device, torch.float64)
+
+
+def _presliced_fold(xp: torch.Tensor, bank: CycleBank, num_cycles: int) -> torch.Tensor:
+    """``y[..., q*L + l] = sum_w xp[..., q*M + w] * G[w, l]`` in float64,
+    one tap row after another (w ascending), rounded to float32 once.
+
+    Each output's sum runs in the same order whatever the chunk's length or
+    offset (a matmul's order follows the library's choice of kernel for the
+    shape), and float64 keeps it within half an output ulp of the exact sum,
+    like the kernel's twin `resample_rows_reference`."""
+    L, M = bank.L, bank.M
+    Q = num_cycles
+    lead, T = xp.shape[:-1], xp.shape[-1]
+    x64 = xp.reshape(-1, T).to(torch.float64)
+    g = _bank_f64(bank, xp.device)
+    y = torch.zeros((x64.shape[0], Q, L), dtype=torch.float64, device=xp.device)
+    for w, lo, hi in _fold_rows(bank):
+        y[:, :, lo:hi] += x64[:, w:w + (Q - 1) * M + 1:M, None] * g[w, lo:hi]
+    return y.to(torch.float32).reshape(*lead, Q * L)
+
+
+def resample_presliced(xp: torch.Tensor, bank: CycleBank, num_cycles: int) -> torch.Tensor:
+    """The cycle conv on an already padded or haloed chunk ``xp (..., T)``,
+    ``T >= (num_cycles - 1)*M + W``, with no implicit padding: output cycle
+    q reads ``xp[..., q*M : q*M + W]``; returns ``(..., num_cycles * L)``.
+    The streaming path's SRC (`f9tpu.ops.resample.resample_presliced`).
+
+    On a CUDA tensor the `cycle_src` kernel runs where it takes the bank
+    (`src_kernel.resample_presliced_kernel`); the fixed-order float64 fold
+    `_presliced_fold` serves CPU tensors (the kernel's plain twin) and the
+    banks the kernel does not take (L < 8).  Both compute each output from
+    its own window in an order that does not depend on where the chunk
+    starts, so chunked output equals whole output bit for bit."""
+    _require_dense(bank)
+    need = (num_cycles - 1) * bank.M + bank.W
+    if xp.shape[-1] < need:
+        raise ValueError(f"padded input too short: {xp.shape[-1]} < {need}")
+    if xp.device.type == "cuda":
+        from .src_kernel import kernel_applicable, resample_presliced_kernel
+
+        if kernel_applicable(bank):
+            return resample_presliced_kernel(xp, bank, num_cycles)
+    return _presliced_fold(xp, bank, num_cycles)
 
 
 def resample_rates(x: torch.Tensor, rate_in: int, rate_out: int,

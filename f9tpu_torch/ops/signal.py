@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["IMPULSE_AMP", "impulse"]
 
 #: Amplitude of the latency-measurement impulse.
@@ -11,8 +13,9 @@ IMPULSE_AMP = 0.9
 
 
 def impulse(frames: int, amp: float = IMPULSE_AMP, position: int = 0,
-            device: torch.device | str = "cpu") -> torch.Tensor:
-    """Single-sample float32 impulse of ``amp`` at ``position``."""
-    x = torch.zeros(frames, dtype=torch.float32, device=device)
+            device: torch.device | str | None = None) -> torch.Tensor:
+    """Single-sample float32 impulse of ``amp`` at ``position`` on
+    ``device`` (default CUDA, raising without a GPU)."""
+    x = torch.zeros(frames, dtype=torch.float32, device=resolve_device(device))
     x[position] = amp
     return x

@@ -38,7 +38,8 @@ from .resample import _require_dense, cycle_matrix_f32, resample
 
 __all__ = ["kernel_applicable", "kernel_plan", "packed_bank_f32", "tf32_rna",
            "resample_rows", "resample_rows_reference", "resample_kernel",
-           "resample_auto", "rows_marshal_plan", "stacked_bank_f32", "launches"]
+           "resample_auto", "resample_presliced_kernel", "rows_marshal_plan",
+           "stacked_bank_f32", "launches"]
 
 #: CUDA kernel launches since the count was last reset (a plain integer:
 #: callers set it to 0 and read it back to prove a path ran the kernel).
@@ -271,9 +272,11 @@ def _stacked_bank_f64(bank: CycleBank, device: torch.device) -> torch.Tensor:
 
 
 def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
-            out_stride: int) -> torch.Tensor:
+            out_stride: int, pad_front: int | None = None) -> torch.Tensor:
     """One kernel launch over ``xf (bc, T)``: ``(bc, out_stride)`` float32 of
-    which samples ``[0, out_len)`` are written."""
+    which samples ``[0, out_len)`` are written.  Output cycle q reads
+    ``xf[:, q*M - pad_front + w]`` (zero outside ``[0, T)``); ``pad_front``
+    defaults to the bank's, 0 reads an already haloed chunk."""
     global launches
     if xf.dtype != torch.float32:
         raise TypeError(f"cycle_src kernel takes float32, got {xf.dtype}")
@@ -302,7 +305,8 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
         err = lib.f9_cycle_src(
             ctypes.c_void_p(xf.data_ptr()), ctypes.c_void_p(gp.data_ptr()),
             ctypes.c_void_p(tiles.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            bc, T, T, bank.pad_front, bank.M, bank.L, Q, out_len, out_stride,
+            bc, T, T, bank.pad_front if pad_front is None else pad_front,
+            bank.M, bank.L, Q, out_len, out_stride,
             plan.nt, len(plan.bands), plan.warps, plan.skew, plan.rowmap,
             plan.ring_off, plan.smem_bytes, ctypes.c_void_p(stream))
     if err != 0:
@@ -385,6 +389,22 @@ def resample_kernel(x: torch.Tensor, bank: CycleBank,
     Q = -(-out_len // bank.L)
     y = _launch(x.reshape(-1, T).contiguous(), bank, Q, out_len, out_len)
     return y.reshape(*lead, out_len)
+
+
+def resample_presliced_kernel(xp: torch.Tensor, bank: CycleBank,
+                              num_cycles: int) -> torch.Tensor:
+    """The kernel on a CUDA chunk that carries its own halos (the streamed
+    form of `f9tpu_torch.ops.resample.resample_presliced`): ``xp (..., T)``
+    with ``T >= (num_cycles - 1)*M + W`` -> ``(..., num_cycles * L)``, one
+    launch with ``pad_front = 0``.  Each output sums its window in the same
+    k8 order wherever the chunk starts; where a cycle's window sits in the
+    block's span moves only the shared-memory address."""
+    _require_dense(bank)
+    T = xp.shape[-1]
+    lead = xp.shape[:-1]
+    n = num_cycles * bank.L
+    y = _launch(xp.reshape(-1, T).contiguous(), bank, num_cycles, n, n, pad_front=0)
+    return y.reshape(*lead, n)
 
 
 def resample_auto(x: torch.Tensor, bank: CycleBank,

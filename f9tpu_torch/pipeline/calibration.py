@@ -20,6 +20,7 @@ import torch
 
 from ..models.filters import resolve_ratio
 
+from ..device import resolve_device
 from ..ops.resample import resample_rates
 from ..ops.signal import IMPULSE_AMP, impulse
 
@@ -50,16 +51,17 @@ def measure_latency(
     chain_fn=None,
     capture_frames: int = CAPTURE_FRAMES,
     ringout_frames: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> CalibrationResult:
     """Group delay of the processing chain in output frames, measured with
-    a mid-buffer impulse on ``device`` (mid-buffer, so an acausal chain
-    measures too).  ``chain_fn(x) -> y`` defaults to the bare resampler.
+    a mid-buffer impulse on ``device`` (default CUDA, raising without a GPU;
+    mid-buffer, so an acausal chain measures too).  ``chain_fn(x) -> y`` defaults to the bare resampler.
     ``ringout_frames`` (output rate) keeps the chain's known decay out of
     the noise-floor estimate, on both sides of the peak: a reverb tail is
     signal, and a linear-phase FIR pre-rings."""
     pos = capture_frames // 2
-    x = impulse(capture_frames, amp=IMPULSE_AMP, position=pos, device=device)
+    x = impulse(capture_frames, amp=IMPULSE_AMP, position=pos,
+                device=resolve_device(device))
     if chain_fn is None:
         y = resample_rates(x, rate_in, rate_out, quality=quality, kind=kind)
     else:
@@ -116,10 +118,10 @@ class CalibrationCache:
         self, rate_in: int, rate_out: int, quality: str = "high", kind: str = "sinc",
         chain_fn=None, chain_sig: str = "",
         capture_frames: int = CAPTURE_FRAMES, ringout_frames: int = 0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> CalibrationResult:
         """The cached result for this key, else a measurement on ``device``
-        (then cached).  A custom ``chain_fn`` without a ``chain_sig`` is
+        (default CUDA; then cached).  A custom ``chain_fn`` without a ``chain_sig`` is
         measured uncached: it cannot share the bare resampler's slot."""
         k = (self.key(rate_in, rate_out, quality, kind, chain_sig)
              if (chain_fn is None or chain_sig) else None)

@@ -10,11 +10,12 @@ measured noise floor (or -80 dB) and caps each capture at
 ``max_tail_seconds``; channel routing is checked per file before any
 output is written.
 
+Without reverb mode, files longer than the largest bucket take the
+constant-memory streaming path (`pipeline/stream.py`) on the processor's
+device, after the batches, with the group's calibrated latency.
+
 Not ported yet, each refused when the processor is built: multi-device
 meshes, loudness normalization, the rows layout and the native loader.
-Without reverb mode, files longer than the largest bucket (which the JAX
-package streams) are marked FAILED with "streaming not yet ported" while
-the rest of the batch goes on.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from .calibration import CAPTURE_FRAMES, CalibrationCache
 from .graph import not_ported, process_batch, process_batch_raw
 from .logbook import StatusLog, Throughput
 from .manifest import FileStatus, JobManifest, file_crc32
+from .stream import stream_resample_file, streaming_exclusions
 
 __all__ = ["BatchResult", "BatchProcessor", "build_output_path"]
 
@@ -49,7 +51,6 @@ SUBFILE_PROGRESS_FRAMES = 1 << 21
 SUBFILE_PROGRESS_CHUNK = 1 << 20
 #: bound of the decode -> dispatch and collector -> encode queues
 QUEUE_DEPTH = 16
-STREAMING_TODO = "streaming not yet ported (ROADMAP Queue 1 'stream.py')"
 
 
 def build_output_path(src_path: str, output_dir: str, postfix: str,
@@ -311,8 +312,11 @@ class BatchProcessor:
         base_seed = (cfg.seed if cfg.seed is not None
                      else int(time.time()) & 0x7FFFFFFF)
 
-        # ---- plan: group -> length buckets ----
+        # ---- plan: group -> length buckets; files beyond the largest
+        # bucket stream instead (an exact-fit bucket at batch width would
+        # stage batch_size x the file on the host and the card) ----
         max_bucket = max(cfg.bucket_frames)
+        stream_jobs: list[tuple] = []          # (info, rate_in, latency)
         buckets: list[dict] = []
         for (rate_in, channels, raw_bits, raw_be), infos in groups.items():
             infos = [i for i in infos
@@ -322,8 +326,11 @@ class BatchProcessor:
             group_nf = self._group_noise_floor(rate_in, noise_floors)
             # reverb mode caps each capture at max_tail_seconds (longer
             # sources are truncated, never streamed); without it a file
-            # beyond the largest bucket needs the streaming path
+            # beyond the largest bucket streams, unless the config cannot
+            # (`streaming_exclusions`, per rate pair), and then it takes an
+            # exact-fit bucket at reduced width
             cap = int(cfg.max_tail_seconds * rate_in) if cfg.reverb_mode else None
+            group_stream_ok = not streaming_exclusions(cfg, infos[0].path)
             by_bucket: dict[int, list] = {}
             for info in infos:
                 n = info.num_frames
@@ -332,12 +339,8 @@ class BatchProcessor:
                         f"Reverb capture cap: truncating {info.path} to "
                         f"{cfg.max_tail_seconds:.0f} s ({cap} frames)")
                     n = cap
-                if cap is None and n > max_bucket:
-                    manifest.update(info.path, FileStatus.FAILED,
-                                    error=STREAMING_TODO)
-                    self.log.append(
-                        f"Oversized ({n} frames > largest bucket {max_bucket}): "
-                        f"{os.path.basename(info.path)}: {STREAMING_TODO}")
+                if cap is None and n > max_bucket and group_stream_ok:
+                    stream_jobs.append((info, rate_in, latencies[rate_in]))
                     continue
                 blen = next((b for b in sorted(cfg.bucket_frames) if n <= b), n)
                 by_bucket.setdefault(blen if cap is None else min(max(blen, n), cap),
@@ -636,6 +639,47 @@ class BatchProcessor:
             t.join()
         for t in dec_threads:
             t.join()
+
+        # ---- oversized files: the streaming path, with the same manifest
+        # flow and per-file progress ----
+        for info, s_rate_in, s_lat in stream_jobs:
+            if stop_event.is_set():
+                break
+            out_path = out_paths[info.path]
+            self.log.append(
+                f"Oversized ({info.num_frames} frames > largest bucket "
+                f"{max_bucket}): streaming {os.path.basename(info.path)}")
+            manifest.update(info.path, FileStatus.PROCESSING, progress=0.0)
+            try:
+                t0 = time.time()
+                n = stream_resample_file(
+                    info.path, out_path, cfg,
+                    progress_cb=lambda p, _p=info.path: manifest.set_progress(_p, p),
+                    latency_frames=s_lat, device=dev)
+                # a whole-stream wall (decode, link, device, encode) has its
+                # own counter, apart from the batch stages
+                self.throughput.add("stream", info.num_frames / s_rate_in,
+                                    time.time() - t0)
+                audio_in += info.num_frames / s_rate_in
+                audio_out += n / cfg.target_rate
+                per_file_metrics[info.path] = {"out_frames": int(n), "streamed": True}
+                out_st = os.stat(out_path)
+                manifest.update(
+                    info.path, FileStatus.COMPLETED,
+                    output_path=out_path,
+                    output_size=out_st.st_size,
+                    output_crc32=file_crc32(out_path),
+                    output_mtime_ns=out_st.st_mtime_ns,
+                    metrics=per_file_metrics[info.path],
+                    progress=1.0)
+                self.log.append(
+                    f"Completed (streamed): {os.path.basename(out_path)} "
+                    f"({n} frames @ {cfg.target_rate} Hz)")
+            except Exception as err:
+                # stream_resample_file has removed its .part file
+                manifest.update(info.path, FileStatus.FAILED, error=str(err))
+                self.log.append(f"Stream failed: {info.path}: {err}")
+                errors.append(str(err))
 
         if stop_event.is_set():
             manifest.fail_remaining("batch aborted", paths=listed)

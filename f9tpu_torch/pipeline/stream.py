@@ -1,0 +1,597 @@
+"""Streaming SRC for files of any length (port of `f9tpu/pipeline/stream.py`):
+chunked overlap-save through the device in constant memory.
+
+A file flows through fixed-size chunks of whole cycles (multiples of M input
+frames), each read from the file with the filter's halo on both sides.  Per
+chunk, on the device: the raw-PCM decode (integer WAV/AIFF/FLAC sources ship
+their container bytes), mono fan-out, routing and DC removal, the SRC
+(`resample_presliced`: the `cycle_src` kernel with no implicit padding), the
+insert chain's streamed form with its carried state, gain, dither keyed by
+absolute output position, and the 24-bit packing.  The host writes each
+chunk as it comes, so memory is one chunk whatever the file's length, and
+the output is byte-identical across chunk sizes.
+
+The loop runs one chunk ahead: chunk k is read, copied up and queued on the
+device before chunk k-1's bytes are written, and chunk k-1's copy to the host
+is queued before chunk k's work, so the host's read and write overlap the
+device.  The chain's state threads from chunk to chunk in the CUDA stream's
+order.
+
+DC removal subtracts the source's whole-file mean, taken in a host pre-pass
+on a fixed grid, before the SRC and the chain; the batch path removes the
+output's mean after the chain.  For a linear chain the two agree; a
+nonlinear stage sees the offset one way and not the other (as in the JAX
+package).
+
+Not ported here, each raising NotImplementedError that names its ROADMAP
+item: meshes (the sharded stream), varispeed banks (the rows form) and
+loudness normalization.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import ProcessingConfig
+from ..io.aiff import AiffWriter
+from ..io.flac import FlacWriter
+from ..io.wav import WavWriter
+from ..models.filters import design_cycle_bank, resolve_ratio
+
+from ..device import resolve_device
+from ..ops import dither
+from ..ops.chain import Chain
+from ..ops.devcodec import pack24_interleaved, unpack_pcm_interleaved
+from ..ops.resample import _require_dense, resample_presliced
+from .graph import not_ported
+
+__all__ = ["stream_resample_file", "stream_chunk_plan", "streaming_exclusions"]
+
+#: output container -> incremental writer (one open/append/close shape)
+_WRITERS = {"aiff": AiffWriter, "flac": FlacWriter}
+#: the DC pre-pass's block: fixed, so the mean (and every byte after it)
+#: does not depend on the chunk size
+DC_GRID = 1 << 20
+
+
+def streaming_exclusions(cfg: ProcessingConfig, in_path: str | None = None) -> list[str]:
+    """Reasons this config cannot run on the streaming path (empty = it
+    can): the one source of the streaming path's coverage, which the
+    scheduler consults before routing an oversized file here.  The one gate
+    is the JAX package's: byte-exact streaming of an FFT chain needs chunks
+    that are multiples of both L and the chain's `stream_grid`, which for a
+    varispeed ratio (L in the ten-thousands) would reach tens of megaframes."""
+    if cfg.chain is not None and in_path is not None:
+        g = int(cfg.chain.stream_grid(cfg.target_rate))
+        if g > 1:
+            from ..io import codec
+
+            try:
+                rate_in = codec.probe(in_path).sample_rate
+            except (OSError, ValueError):
+                return []     # unreadable input fails later, with its own error
+            L, _M = resolve_ratio(rate_in, cfg.target_rate)
+            m = g // math.gcd(L, g)
+            if m * L > (1 << 23):
+                return [
+                    f"chain FFT-grid alignment needs {m * L}-frame chunks "
+                    f"for ratio L={L} (over the 2^23 budget); this "
+                    "varispeed + FFT-chain config cannot stream — use the "
+                    "batch path"]
+    return []
+
+
+def stream_chunk_plan(bank, chunk_seconds: float, rate_in: int) -> int:
+    """Chunk length in input frames: whole cycles, ~chunk_seconds long."""
+    cycles = max(1, int(chunk_seconds * rate_in) // bank.M)
+    return cycles * bank.M
+
+
+def _chunk_cycles(bank, cfg: ProcessingConfig, chunk_seconds: float,
+                  rate_in: int) -> int:
+    """Cycles per chunk: ~chunk_seconds, grown to cover the chain's
+    ring-out (a ring much longer than the chunk would re-convolve its
+    context every chunk) and rounded up to a whole number of the chain's
+    FFT blocks, so every chunk starts on the absolute block grid."""
+    cycles = stream_chunk_plan(bank, chunk_seconds, rate_in) // bank.M
+    if cfg.chain is not None:
+        ring = int(cfg.chain.tail_frames(cfg.target_rate))
+        if ring >= cycles * bank.L:
+            cycles = ring // bank.L + 1
+        g = int(cfg.chain.stream_grid(cfg.target_rate))
+        m = g // math.gcd(bank.L, g)   # smallest granule of cycles
+        cycles = -(-cycles // m) * m
+    return cycles
+
+
+class _TailDetector:
+    """Host-side incremental twin of `ops.trim.detect_tail_end`: the same
+    hop-aligned windows, threshold rule (nf + nf*margin%, -80 dB fallback)
+    and N-consecutive-quiet-windows termination, evaluated as the emitted
+    stream flows past, so reverb-mode tails stream in constant memory.  A
+    window's verdict is known once its last frame has been fed, so detection
+    never lags the write position.
+
+    It sees the post-gain signal (the batch graph detects pre-gain), so the
+    threshold is shifted by the applied gain."""
+
+    def __init__(self, rate_out: int, min_frames: int, cfg,
+                 gain_db_total: float, noise_floor_db: float | None):
+        win = max(1, rate_out * cfg.tail_window_ms // 1000)
+        self.hop = max(1, rate_out * cfg.tail_hop_ms // 1000)
+        self.factor = -(-win // self.hop)
+        self.consecutive = int(cfg.tail_consecutive)
+        nf = noise_floor_db
+        thr = (nf + nf * float(cfg.noise_floor_margin_pct) / 100.0
+               if (nf is not None and nf < 0) else -80.0)
+        self.threshold_db = thr + gain_db_total
+        self.mode = cfg.tail_mode
+        self.min_frames = int(min_frames)
+        self._stats = collections.deque(maxlen=self.factor)
+        self._n_chunks = 0
+        self._run = 0
+        self._rem = np.zeros(0, np.float32)
+
+    def feed(self, env: np.ndarray) -> int | None:
+        """Feed the next per-frame statistics (loudest-channel |envelope| in
+        peak mode, channel-mean square in rms mode); returns the absolute
+        end frame the moment termination is confirmed."""
+        buf = (np.concatenate([self._rem, env])
+               if self._rem.size else np.asarray(env))
+        n_complete = len(buf) // self.hop
+        for k in range(n_complete):
+            seg = buf[k * self.hop:(k + 1) * self.hop]
+            self._stats.append(float(seg.max()) if self.mode == "peak"
+                               else float(seg.sum(dtype=np.float64)))
+            self._n_chunks += 1
+            if len(self._stats) < self.factor:
+                continue
+            w = self._n_chunks - self.factor        # window index
+            if self.mode == "peak":
+                level = max(self._stats)
+                level_db = (20.0 * np.log10(max(level, 1e-30))
+                            if level > 0 else -200.0)
+            else:
+                e = sum(self._stats) / (self.factor * self.hop)
+                level_db = (10.0 * np.log10(max(e, 1e-30))
+                            if e > 0 else -200.0)
+            end_w = (w + self.factor) * self.hop
+            quiet = level_db < self.threshold_db and end_w >= self.min_frames
+            self._run = self._run + 1 if quiet else 0
+            if self._run >= self.consecutive:
+                return end_w
+        self._rem = buf[n_complete * self.hop:]
+        return None
+
+
+def _finish_chunk(y, carry, seeds_c, pos0: int, gain: float, *, rate_out, bits,
+                  do_dither, chain=None, chain_pos=0, silent=None,
+                  want_env=False, env_rms=False, wire=None):
+    """Everything after the SRC for one chunk: the chain's streamed form
+    (``carry`` its state, ``chain_pos`` the chunk's absolute pre-trim
+    position), gain, the tail detector's statistic of the post-gain float
+    signal, dither keyed by absolute output position ``pos0 + j`` (so the
+    bytes do not depend on the chunk size), routed-silent channels
+    (``silent``, a bool tensor) to zero, and the download wire: ``"pack24"``
+    packs 24-bit codes into interleaved bytes on the device, ``"i16"``
+    narrows 16-bit codes.  Returns ``(codes, env or None, carry)``."""
+    if chain is not None:
+        y, carry = chain.apply_stream(y, carry, rate_out, chain_pos)
+    y = y * gain
+    env = None
+    if want_env:
+        # detecting on the float signal, not the codes: at 16 bits the TPDF
+        # floor's window peak sits near -90 dBFS, above usable thresholds
+        env = (torch.mean(torch.square(y), dim=0) if env_rms
+               else torch.amax(torch.abs(y), dim=0))
+    if do_dither:
+        pos = pos0 + torch.arange(y.shape[-1], dtype=torch.int64, device=y.device)
+        codes = dither.quantize_noise(y, bits, seeds_c[:, None], pos[None, :])
+    else:
+        codes = dither.quantize_noise(y, bits)
+    if silent is not None:
+        codes = codes.masked_fill(silent[:, None], 0)
+    if wire == "pack24":
+        codes = pack24_interleaved(codes)
+    elif wire == "i16":
+        codes = codes.to(torch.int16)
+    return codes, env, carry
+
+
+def _raw_front(raw, *, in_wire, in_channels, fanout=0, route=None,
+               mean=None, valid=(0, 0)):
+    """The on-device input front of the raw wire: container bytes ->
+    float32 ``(channels, frames)``, mono fan-out, the routing gather
+    (``route`` = (source index, silent mask) tensors) and the DC mean
+    subtracted over the real span ``valid`` only (zero-padded halos stay
+    exactly zero, as on the float wire's host path).  Integer to float
+    scaling is a power of two, so the floats equal the host decode's."""
+    in_bits, in_be = in_wire
+    x = unpack_pcm_interleaved(raw, in_channels, in_bits, big_endian=in_be)
+    if fanout:
+        x = x.expand(fanout, x.shape[-1])
+    if route is not None:
+        idx, silent = route
+        x = x.index_select(0, idx).masked_fill(silent[:, None], 0.0)
+    if mean is not None:
+        i = torch.arange(x.shape[-1], device=x.device)
+        real = (i >= valid[0]) & (i < valid[1])
+        x = x - torch.where(real, mean, torch.zeros((), device=x.device))
+    return x
+
+
+class _Emitter:
+    """The stream's host tail: latency-drop accounting, the output-limit
+    clamp, the tail detector's feed with truncation where it fires, the
+    incremental write and progress.  ``codes`` arrive as int codes
+    ``(channels, n)`` or, on the ``"pack24"`` wire, interleaved bytes."""
+
+    def __init__(self, writer, detector, *, lat, out_limit, out_total,
+                 progress_cb=None, wire=None, channels=0):
+        self.writer = writer
+        self.detector = detector
+        self.lat = int(lat)
+        self.out_limit = int(out_limit)
+        self.out_total = int(out_total)
+        self.progress_cb = progress_cb
+        self.written = 0
+        self.g0 = 0          # pre-trim output frame index of the next chunk
+        self.wire = wire
+        self._stride = channels * 3
+
+    def _frames(self, codes: np.ndarray) -> int:
+        return (codes.shape[0] // self._stride if self.wire == "pack24"
+                else codes.shape[1])
+
+    def _append(self, codes: np.ndarray, drop: int, take: int) -> None:
+        if self.wire == "pack24":
+            self.writer.append_payload(
+                codes[drop * self._stride:(drop + take) * self._stride])
+        else:
+            self.writer.append_codes(codes[:, drop:drop + take])
+
+    def _progress(self, p: float) -> None:
+        if self.progress_cb:
+            self.progress_cb(p)
+
+    def emit_head(self, codes: np.ndarray, env) -> bool:
+        """Write the acausal-latency head (dithered digital silence at
+        output positions 0..|lat|) before the first chunk, the streaming
+        twin of `trim_latency`'s right shift.  ``g0`` does not move: chunk
+        k's noise keying already lands past the head."""
+        take = min(self._frames(codes), self.out_limit - self.written)
+        if self.detector is not None and take > 0:
+            self.detector.feed(np.asarray(env)[:take].astype(np.float32))
+        self._append(codes, 0, take)
+        self.written += take
+        self._progress(min(1.0, self.written / max(self.out_total, 1)))
+        return self.written >= self.out_limit
+
+    def emit(self, codes: np.ndarray, env) -> bool:
+        """Consume one chunk; True when the stream is finished (tail
+        detected or ``out_limit`` reached)."""
+        n = self._frames(codes)
+        drop = min(max(0, self.lat - self.g0), n)
+        take = min(n - drop, self.out_limit - self.written)
+        if self.detector is not None and take > 0:
+            fire = self.detector.feed(
+                np.asarray(env)[drop:drop + take].astype(np.float32))
+            if fire is not None:
+                self._append(codes, drop, max(0, fire - self.written))
+                self.written = max(self.written, fire)
+                self._progress(1.0)
+                return True
+        self._append(codes, drop, take)
+        self.written += take
+        self.g0 += n
+        self._progress(min(1.0, self.written / max(self.out_total, 1)))
+        return self.written >= self.out_limit
+
+
+def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host array -> ``dev``; to the card through a pinned buffer, without
+    waiting for the work already queued (the caching host allocator keeps
+    the buffer until the copy is done)."""
+    t = torch.from_numpy(arr)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+class _Download:
+    """Device tensors queued for the host: on the card, copies into pinned
+    buffers behind an event; `get` waits for the event and returns numpy
+    arrays (None stays None)."""
+
+    def __init__(self, *tensors):
+        self._event = None
+        if any(t is not None and t.is_cuda for t in tensors):
+            tensors = tuple(
+                None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True) for t in tensors)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        self._tensors = tensors
+
+    def get(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        return [None if t is None else t.numpy() for t in self._tensors]
+
+
+def _emit_acausal_head(em: _Emitter, lat: int, out_ch: int, seeds_c, gain, cfg,
+                       want_env: bool, env_rms: bool, wire, silent, dev) -> bool:
+    """Negative latency (an acausal chain, or a caller's compensation):
+    ``|lat|`` frames of dithered digital silence at output positions
+    0..|lat|, through the same `_finish_chunk` as the chunks.  Returns True
+    if that already completes the stream."""
+    codes, env, _ = _finish_chunk(
+        torch.zeros((out_ch, -int(lat)), device=dev), None, seeds_c, 0, gain,
+        rate_out=cfg.target_rate, bits=cfg.bits, do_dither=cfg.dither,
+        silent=silent, want_env=want_env, env_rms=env_rms, wire=wire)
+    codes, env = _Download(codes, env).get()
+    return em.emit_head(codes, env)
+
+
+def stream_resample_file(
+    in_path: str,
+    out_path: str,
+    cfg: ProcessingConfig,
+    chunk_seconds: float = 20.0,
+    progress_cb=None,
+    mesh=None,
+    latency_frames: int | None = None,
+    noise_floor_db: float | None = None,
+    device: torch.device | str | None = None,
+) -> int:
+    """Resample ``in_path`` -> ``out_path`` at ``cfg.target_rate`` in
+    constant memory on ``device`` (default CUDA, raising without a GPU);
+    returns the output frames written.  See `_stream_resample_impl`.
+
+    Refuses out == in before any pre-pass reads the file, and owns the
+    ``.part`` file: any failure (device error, Ctrl-C) removes it."""
+    if os.path.realpath(out_path) == os.path.realpath(in_path):
+        raise ValueError(
+            f"output path equals the input path ({in_path}); refusing "
+            "to destroy the source")
+    try:
+        return _stream_resample_impl(
+            in_path, out_path, cfg, chunk_seconds, progress_cb, mesh,
+            latency_frames, noise_floor_db, resolve_device(device))
+    except BaseException:
+        try:
+            os.unlink(out_path + ".part")
+        except OSError:
+            pass
+        raise
+
+
+def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
+                          mesh, latency_frames, noise_floor_db, dev) -> int:
+    """The output has exactly ``ceil(in_frames * L / M)`` frames, as the
+    whole-file path (plus the tail in reverb mode).
+
+    - ``cfg.chain`` streams exactly (`Chain.apply_stream`); chunks grow to
+      at least the chain's ring-out and to a multiple of its `stream_grid`.
+    - Latency (``latency_frames``, else ``cfg.latency_frames``; under
+      ``cfg.trim_enabled``): the first ``lat`` emitted frames are dropped
+      and chunks flow past the input's end until the whole output is
+      written; a negative latency writes a dithered head.  Dither is keyed
+      by the post-trim position, as in the batch path.
+    - Routing and mono fan-out apply per chunk before the SRC.
+    - Reverb mode: `_TailDetector` follows the emitted stream; the input is
+      unbounded, only the tail is capped at ``max_tail_seconds``.
+    - Per-file dither seeds come from ``(cfg.seed, in_path)`` as in the
+      batch scheduler, so a file streamed or batched carries the same noise.
+    """
+    if mesh is not None:
+        raise not_ported("mesh")
+    if cfg.normalize_lufs is not None:
+        raise not_ported("normalize_lufs")
+    if cfg.chain is not None and not isinstance(cfg.chain, Chain):
+        raise TypeError(
+            "cfg.chain must be an f9tpu_torch.ops.chain.Chain (convert a "
+            "JAX chain with f9tpu_torch.ops.chain.chain_from_jax)")
+    excl = streaming_exclusions(cfg, in_path)
+    if excl:
+        raise ValueError(excl[0])
+    lat = 0
+    if cfg.trim_enabled:
+        lat = int(latency_frames if latency_frames is not None
+                  else (cfg.latency_frames or 0))
+    from ..io import codec
+
+    with codec.open_reader(in_path) as reader:
+        rate_in = reader.sample_rate
+        bank = design_cycle_bank(rate_in, cfg.target_rate,
+                                 quality=cfg.quality, kind=cfg.kind)
+        _require_dense(bank)          # varispeed: before any output exists
+        M, W = bank.M, bank.W
+        halo_left = bank.pad_front
+        halo_right = max(0, W - M - halo_left)
+        cycles = _chunk_cycles(bank, cfg, chunk_seconds, rate_in)
+        chunk_in = cycles * M
+        chunk_out = cycles * bank.L
+        T = reader.num_frames
+        C_in = reader.num_channels
+        out_total = bank.out_len(T)
+
+        bound_err = cfg.routing_channel_bound_error(C_in)
+        if bound_err:
+            raise ValueError(bound_err)   # before any output is written
+        routing = (tuple(cfg.channel_routing)
+                   if cfg.channel_routing is not None else None)
+        fanout = (cfg.output_channels
+                  if (cfg.output_channels and C_in == 1
+                      and cfg.output_channels != 1) else 0)
+
+        def routed(x: np.ndarray) -> np.ndarray:
+            if fanout:
+                x = np.broadcast_to(x, (fanout, x.shape[1]))
+            if routing is not None:
+                r = np.asarray(routing, np.int32)
+                x = np.where((r < 0)[:, None], np.float32(0.0),
+                             x[np.where(r < 0, 0, r)])
+            return np.ascontiguousarray(x, dtype=np.float32)
+
+        out_ch = (len(routing) if routing is not None
+                  else (cfg.output_channels
+                        if (cfg.output_channels and C_in == 1) else C_in))
+        silent_idx = [i for i, r in enumerate(routing or ()) if r < 0]
+        silent = None
+        if silent_idx:
+            silent = torch.zeros(out_ch, dtype=torch.bool)
+            silent[silent_idx] = True
+            silent = silent.to(dev)
+
+        reverb = bool(cfg.reverb_mode)
+        cap_extra = (int(cfg.max_tail_seconds * cfg.target_rate)
+                     if reverb and T > 0 else 0)   # an empty file has no tail
+        out_limit = out_total + cap_extra
+        if cfg.output_format == "aiff":
+            # AIFF has no 64-bit container: a projected overflow fails now,
+            # not after hours of writing
+            from ..io.aiff import check_aiff_capacity
+
+            check_aiff_capacity(out_limit, out_ch, cfg.bits)
+
+        # the gain as one float32 factor, composed as the batch graph does
+        gain = float(np.float32(10.0 ** (cfg.gain_db / 20.0) if cfg.gain_db else 1.0))
+
+        # DC pre-pass: the whole-file mean per routed channel, accumulated
+        # on the fixed DC_GRID (a chunk-sized grid would make the mean, and
+        # every byte, depend on the chunk size)
+        mean = np.zeros((out_ch, 1), np.float32)
+        if cfg.remove_dc and T > 0:
+            acc = np.zeros(out_ch, np.float64)
+            pos = 0
+            while pos < T:
+                blk = routed(reader.read(pos, DC_GRID))
+                acc += blk.sum(axis=1)
+                pos += blk.shape[1]
+            mean = (acc / T).astype(np.float32).reshape(-1, 1)
+
+        base_seed = (cfg.seed if cfg.seed is not None
+                     else int(time.time()) & 0x7FFFFFFF)
+        seeds_c = dither.channel_seeds(
+            torch.tensor(dither.file_seed(base_seed, in_path), dtype=torch.int64,
+                         device=dev), out_ch)
+        carry = (cfg.chain.stream_init(cfg.target_rate, out_ch, dev)
+                 if cfg.chain is not None else None)
+        detector = None
+        if reverb and T > 0:
+            nf = (noise_floor_db if noise_floor_db is not None
+                  else cfg.noise_floor_db)
+            detector = _TailDetector(cfg.target_rate, out_total, cfg,
+                                     20.0 * float(np.log10(max(gain, 1e-30))), nf)
+        want_env = detector is not None
+        env_rms = want_env and cfg.tail_mode == "rms"
+        wire = {24: "pack24", 16: "i16"}.get(cfg.bits)
+
+        # raw upload wire: integer-PCM sources ship their container bytes
+        # (3 B/sample at 24 bits) and decode, fan out, route and take the DC
+        # mean off on the device, bit for bit as the host path does
+        in_wire = getattr(reader, "raw_wire", lambda: None)()
+        bpf_in = C_in * (in_wire[0] // 8) if in_wire is not None else 0
+        mean_dev = (torch.from_numpy(mean).to(dev)
+                    if (cfg.remove_dc and in_wire is not None) else None)
+        route = None
+        if routing is not None and in_wire is not None:
+            r = np.asarray(routing, np.int64)
+            route = (torch.from_numpy(np.where(r < 0, 0, r)).to(dev),
+                     torch.from_numpy(r < 0).to(dev))
+
+        def read_chunk(start: int) -> np.ndarray:
+            """The chunk's span with its halos, DC-corrected, zero-padded
+            past both ends of the file (the mean comes off the real samples
+            only: a -mean step in the halos would smear an edge through the
+            filter)."""
+            lo = start - halo_left
+            hi = start + chunk_in + halo_right
+            span = routed(reader.read(max(0, lo), hi - max(0, lo)))
+            if cfg.remove_dc:
+                span = span - mean
+            pad_l = max(0, -lo)
+            pad_r = (hi - lo) - pad_l - span.shape[1]
+            return np.pad(span, ((0, 0), (pad_l, max(0, pad_r))))
+
+        def read_chunk_raw(start: int):
+            lo = start - halo_left
+            hi = start + chunk_in + halo_right
+            span_b = reader.read_raw(max(0, lo), hi - max(0, lo))
+            pad_l = max(0, -lo)
+            buf = np.zeros((hi - lo) * bpf_in, np.uint8)
+            buf[pad_l * bpf_in:pad_l * bpf_in + span_b.size] = span_b
+            return buf, pad_l, pad_l + span_b.size // bpf_in
+
+        def dispatch(k: int) -> _Download:
+            # chunk k reads input at k*chunk_in and emits pre-trim output
+            # positions k*chunk_out: the geometry is fixed, so dispatch runs
+            # ahead of emission; `carry` threads through dispatch order
+            nonlocal carry
+            if in_wire is not None:
+                buf, a, b = read_chunk_raw(k * chunk_in)
+                xp = _raw_front(_upload(buf, dev), in_wire=in_wire,
+                                in_channels=C_in, fanout=fanout, route=route,
+                                mean=mean_dev, valid=(a, b))
+            else:
+                xp = _upload(read_chunk(k * chunk_in), dev)
+            y = resample_presliced(xp, bank, cycles)
+            codes, env, carry = _finish_chunk(
+                y, carry, seeds_c, k * chunk_out - lat, gain,
+                rate_out=cfg.target_rate, bits=cfg.bits, do_dither=cfg.dither,
+                chain=cfg.chain, chain_pos=k * chunk_out, silent=silent,
+                want_env=want_env, env_rms=env_rms, wire=wire)
+            return _Download(codes, env)
+
+        # atomic publish: stream into .part, os.replace at the end
+        part = out_path + ".part"
+        writer_cls = _WRITERS.get(cfg.output_format, WavWriter)
+        with writer_cls(part, out_ch, cfg.target_rate, bits=cfg.bits) as writer:
+            em = _Emitter(writer, detector, lat=lat, out_limit=out_limit,
+                          out_total=out_total, progress_cb=progress_cb,
+                          wire=wire, channels=out_ch)
+            # one chunk ahead: dispatch chunk k, then write chunk k-1.  The
+            # chunk count is exact without a detector; in reverb mode the
+            # stream's length depends on the data, and at most one queued
+            # chunk is discarded when the detector fires
+            n_chunks = (None if detector is not None
+                        else -(-(out_limit + lat) // chunk_out))
+            k = 0
+            pending = None
+            done = out_limit == 0
+            if lat < 0 and not done:
+                done = _emit_acausal_head(em, lat, out_ch, seeds_c, gain, cfg,
+                                          want_env, env_rms, wire, silent, dev)
+            while not done:
+                nxt = dispatch(k) if (n_chunks is None or k < n_chunks) else None
+                k += 1
+                if pending is not None:
+                    done = em.emit(*pending.get())
+                elif nxt is None:
+                    break       # nothing in flight, nothing left
+                if not done:
+                    pending = nxt
+        _carry_metadata(in_path, part, cfg, rate_in)
+        os.replace(part, out_path)
+        return em.written
+
+
+def _carry_metadata(in_path: str, out_path: str, cfg, rate_in: int) -> None:
+    """Best-effort ``keep_metadata`` (`io.codec.carry_metadata`, the batch
+    path's rule); failures are swallowed: the audio is complete."""
+    if not cfg.keep_metadata:
+        return
+    from ..io.codec import carry_metadata
+
+    try:
+        carry_metadata(in_path, out_path, cfg.output_format, rate_in,
+                       cfg.target_rate)
+    except (ValueError, OSError, MemoryError):
+        pass
