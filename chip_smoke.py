@@ -45,7 +45,27 @@ its results, any failure exiting non-zero:
    at two chunk sizes; (e) a 30 s file streamed at 4 s chunks on the card
    and on the CPU: <= 2 LSB and <= -120 dB against the oracle without the
    chain, <= 16 LSB with it; (f) `f9tpu_torch.tools.hw_soak` at a fixed
-   seed, a few trials per part.
+   seed, a few trials per part;
+7. varispeed and loudness normalization: (a) the kernel's windowed form
+   (varispeed banks, no dense matrix) against its plain twin, the float64
+   gather, on 32 signals x 2^20 frames for 44.1k->44056 high, 44056->44.1k
+   high and 44.1k->44056 ultra: max abs and 24-bit LSB error against the
+   twin, dB against the float64 oracle, launch plan, median CUDA-event
+   times of kernel, twin and the library form (one fp32 `torch.matmul` per
+   128-output segment of the cycle rows, which the port never calls), and
+   the bound; (b) a 2^22-frame stereo signal whole and as haloed chunks of
+   100 and 37 cycles, and flat against marshalled cycle rows: 0 outputs
+   differ; (c) `cli process --rate 44056` on 8 stereo 24-bit 44.1 kHz WAVs
+   of 50-60 s (8 completed, launches from zero, <= 2 LSB against the CPU
+   path, <= -120 dB against the oracle) and `cli stream --rate 44056` on a
+   10-minute file at 20 s and 7.3 s chunks (identical sha256, peak device
+   memory); (d) `cli process --rate 48000 --normalize-lufs=-16
+   --normalize-tp=-1` on 8 stereo files of 50-60 s whose levels span
+   20 dB, one of them peaky: 8 completed, each output within 0.1 LU of
+   -16 LUFS unless its log line says capped or clamped, source LUFS and
+   gain on the card within 0.01 of the port's CPU path and bytes <= 2 LSB,
+   the same gain from `cli stream` and from the meter on a file reader,
+   `cli probe --loudness`, and one file's meter split by CUDA events.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -146,12 +166,39 @@ def _src_bound(bank, signals: int, frames: int, out_len: int) -> tuple[float, st
     cores' TF32 rate."""
     import numpy as np
 
-    nnz = np.count_nonzero(bank.G, axis=0).astype(np.int64)       # per phase
+    if bank.G is not None:
+        nnz = np.count_nonzero(bank.G, axis=0).astype(np.int64)       # per phase
+        bank_bytes = 4 * bank.G.size
+    else:
+        # a varispeed bank: the non-zero taps of each phase's row of the
+        # (L, K) phase bank, which is the operand the function needs (the
+        # padded hi/lo band the kernel stages is its own cost, not the
+        # function's, and is printed beside the plan)
+        from f9tpu_torch.ops import resample as tr
+
+        _off, ph = tr._phase_tables(bank)
+        nnz = np.count_nonzero(bank.H, axis=1).astype(np.int64)[ph]
+        bank_bytes = 4 * bank.H.size
     full, rest = divmod(out_len, bank.L)
     ops = TF32_PASSES * 2 * signals * (full * int(nnz.sum()) + int(nnz[:rest].sum()))
-    nbytes = 4 * (signals * frames + signals * out_len + bank.G.size)
+    nbytes = 4 * (signals * frames + signals * out_len) + bank_bytes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / TF32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _zero_counts() -> None:
+    """Set both launch counts to 0, just before a main path is driven."""
+    from f9tpu_torch.ops import src_kernel as sk
+
+    sk.launches = sk.launches_windowed = 0
+
+
+def _read_counts() -> tuple[int, int]:
+    """(every launch, those of the windowed form) since `_zero_counts`, read
+    just after a main path was driven."""
+    from f9tpu_torch.ops import src_kernel as sk
+
+    return sk.launches, sk.launches_windowed
 
 
 def phase_kernel(card: str, dev) -> dict:
@@ -269,15 +316,19 @@ def _read_codes(path: str):
     return np.round(np.asarray(x, np.float64) * (1 << 23)).astype(np.int64), rate
 
 
-def phase_slice(card: str, work: str) -> int:
-    """The default batch job through the port's CLI; returns the kernel
-    launches it made."""
+def phase_slice(card: str, work: str, rate: int = 48000, tag: str = "slice",
+                oracle_files: int = 2, dev=None) -> tuple[int, int]:
+    """The default batch job through the port's CLI at ``--rate`` (phase 4;
+    phase 7c runs it at 44056); returns the kernel launches it made and how
+    many of them were the windowed form.  With ``dev`` it also splits one
+    batch's device graph.  The
+    first two files also go through the port's CPU path, ``oracle_files`` of
+    them through the float64 oracle."""
     import numpy as np
 
     from f9tpu_torch.io import wav
     from f9tpu_torch.models import resample_oracle
     from f9tpu_torch import cli
-    from f9tpu_torch.ops import src_kernel as sk
 
     rng = np.random.default_rng(SEED + 1)
     in_dir = os.path.join(work, "in")
@@ -287,63 +338,68 @@ def phase_slice(card: str, work: str) -> int:
         frames = int(rng.integers(50 * 44100, 60 * 44100))
         wav.write_wav(os.path.join(in_dir, f"take{i}.wav"),
                       _signal(rng, 2, frames, 44100), 44100, bits=24)
-    print(f"slice: wrote 8 stereo 24-bit 44.1 kHz WAVs of 50-60 s "
+    print(f"{tag}: wrote 8 stereo 24-bit 44.1 kHz WAVs of 50-60 s "
           f"in {time.time() - t0:.1f} s", flush=True)
 
     out_gpu = os.path.join(work, "out_gpu")
     buf = io.StringIO()
-    sk.launches = 0
+    _zero_counts()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["process", in_dir, "--out", out_gpu, "--rate", "48000",
+        rc = cli.main(["process", in_dir, "--out", out_gpu, "--rate", str(rate),
                        "--json"])
     wall = time.time() - t0
-    launches = sk.launches
+    launches, windowed = _read_counts()
     summary = json.loads(buf.getvalue())
-    print(f"slice: cli process rc={rc} completed={summary['completed']} "
+    print(f"{tag}: cli process rc={rc} completed={summary['completed']} "
           f"failed={summary['failed']} kernel_launches={launches} "
           f"wall={wall:.3f} s audio_out={summary['audio_seconds_out']:.1f} s "
           f"x_realtime={summary['audio_seconds_out'] / wall:.1f} "
           f"(scheduler's own wall {summary['wall_seconds']:.3f} s, "
           f"{summary['x_realtime']:.1f}x) [{card}]", flush=True)
-    print("slice: stages " + json.dumps(summary["throughput"]), flush=True)
+    print(f"{tag}: stages " + json.dumps(summary["throughput"]), flush=True)
     if rc != 0 or summary["completed"] != 8 or summary["failed"] != 0:
-        raise AssertionError(f"slice: expected 8 completed, got {summary}")
+        raise AssertionError(f"{tag}: expected 8 completed, got {summary}")
     if launches < 2:     # calibration + at least one batch
-        raise AssertionError(f"slice: {launches} kernel launches")
+        raise AssertionError(f"{tag}: {launches} kernel launches")
 
     names = ["take0.wav", "take1.wav"]
     srcs = [os.path.join(in_dir, n) for n in names]
     out_cpu = os.path.join(work, "out_cpu")
     with contextlib.redirect_stdout(io.StringIO()):
-        rc = cli.main(["process", *srcs, "--out", out_cpu, "--rate", "48000",
+        rc = cli.main(["process", *srcs, "--out", out_cpu, "--rate", str(rate),
                        "--batch-size", "2", "--device", "cpu", "--json"])
     if rc != 0:
-        raise AssertionError(f"slice: CPU run rc={rc}")
+        raise AssertionError(f"{tag}: CPU run rc={rc}")
     for src, name in zip(srcs, names):
         stem = os.path.splitext(name)[0]
         g_codes, g_rate = _read_codes(os.path.join(out_gpu, f"{stem}_processed.wav"))
         c_codes, c_rate = _read_codes(os.path.join(out_cpu, f"{stem}_processed.wav"))
         x_in, _ = wav.read_wav(src)
-        ref = resample_oracle(x_in, 44100, 48000, quality="high")
-        ref = ref - ref.mean(axis=-1, keepdims=True)
-        got = g_codes / float(1 << 23)
-        got = got - got.mean(axis=-1, keepdims=True)
-        db = _db(got - ref, ref)
+        db = None
+        if names.index(name) < oracle_files:
+            ref = resample_oracle(x_in, 44100, rate, quality="high")
+            ref = ref - ref.mean(axis=-1, keepdims=True)
+            got = g_codes / float(1 << 23)
+            got = got - got.mean(axis=-1, keepdims=True)
+            db = _db(got - ref, ref) if ref.shape == got.shape else 0.0
+        n_expect = -(-x_in.shape[-1] * rate // 44100)
         diff = np.abs(g_codes - c_codes) if g_codes.shape == c_codes.shape else None
         n_diff = int((diff != 0).sum()) if diff is not None else -1
         max_diff = int(diff.max()) if diff is not None else -1
-        print(f"slice: {name} frames={g_codes.shape[-1]} rate={g_rate} "
-              f"oracle={db:.1f} dB (max {ORACLE_DB_MAX:g}) "
+        print(f"{tag}: {name} frames={g_codes.shape[-1]} rate={g_rate} "
+              f"oracle={'not run' if db is None else f'{db:.1f} dB'} (max {ORACLE_DB_MAX:g}) "
               f"vs_cpu: {n_diff} of {g_codes.size} samples differ, "
               f"max {max_diff} LSB (tol {LSB_TOL})", flush=True)
-        if g_rate != 48000 or c_rate != 48000 or ref.shape != g_codes.shape:
-            raise AssertionError(f"slice: {name}: shape/rate mismatch")
+        if g_rate != rate or c_rate != rate or g_codes.shape[-1] != n_expect:
+            raise AssertionError(f"{tag}: {name}: shape/rate mismatch")
         if diff is None or max_diff > LSB_TOL:
-            raise AssertionError(f"slice: {name}: card vs CPU path differ")
-        if not db <= ORACLE_DB_MAX:
-            raise AssertionError(f"slice: {name}: {db:.1f} dB vs oracle")
-    return launches
+            raise AssertionError(f"{tag}: {name}: card vs CPU path differ")
+        if db is not None and not db <= ORACLE_DB_MAX:
+            raise AssertionError(f"{tag}: {name}: {db:.1f} dB vs oracle")
+    if dev is not None:
+        _slice_graph_split(card, in_dir, dev)
+    return launches, windowed
 
 
 def _stereo_ir(rng, rate: int = 48000, seconds: float = 2.5):
@@ -374,6 +430,49 @@ def _timed(fn, runs: int = 3):
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
     return out, float(np.median(ts))
+
+
+def _slice_graph_split(card: str, in_dir: str, dev) -> None:
+    """One 8-file batch of the default job on the card, every file in the
+    2^22-frame bucket, on device-resident input by CUDA events (median of 3
+    after one warm-up): the whole graph, the SRC alone, and the epilogue's
+    DC-mean reduction over the graph's output accumulated in float64 (what
+    the graph does) beside the float32 reduction it replaced."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.io import codec
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops.src_kernel import resample_auto
+    from f9tpu_torch.pipeline import calibration, graph
+
+    cfg = ProcessingConfig(output_dir="unused", target_rate=48000)
+    blen = 1 << 22
+    x = np.zeros((8, 2, blen), np.float32)
+    valid = np.zeros(8, np.int32)
+    for i in range(8):
+        d = codec.read_audio(os.path.join(in_dir, f"take{i}.wav"))[0]
+        valid[i] = d.shape[-1]
+        x[i, :, :valid[i]] = d
+    xd = torch.from_numpy(x).to(dev)
+    vd = torch.from_numpy(valid).to(dev)
+    seeds = np.arange(1, 9, dtype=np.int32)
+    lat = calibration.measure_latency(44100, 48000, device=dev).latency_frames
+
+    def whole():
+        return graph.process_batch(xd, vd, cfg, 44100, seeds, latency_frames=lat,
+                                   device=dev)
+    whole()
+    _, t_all = _timed(whole)
+    y, t_src = _timed(lambda: resample_auto(xd, design_cycle_bank(44100, 48000)))
+    _, t_f64 = _timed(lambda: torch.sum(y, dim=-1, keepdim=True, dtype=torch.float64))
+    _, t_f32 = _timed(lambda: torch.sum(y, dim=-1, keepdim=True))
+    audio_s = float(valid.sum()) / 44100
+    print(f"slice graph: 8 files x 2 ch x 2^22 input frames ({audio_s:.1f} s of source), "
+          f"latency {lat}: whole graph {t_all:.2f} ms ({audio_s / (t_all / 1000):.0f}x real "
+          f"time), SRC alone {t_src:.3f} ms, the DC sum over {tuple(y.shape)} in float64 "
+          f"{t_f64:.3f} ms, in float32 {t_f32:.3f} ms [{card}]", flush=True)
 
 
 def _loop_graph_split(card: str, in_dir: str, names: list[str], ir_path: str,
@@ -491,14 +590,13 @@ def _chain_args(ir_path: str) -> dict:
                 chain_wet=1.0, chain_dry=0.0, chain_limit="-0.3")
 
 
-def phase_insert_loop(card: str, work: str, dev) -> int:
+def phase_insert_loop(card: str, work: str, dev) -> tuple[int, int]:
     """The insert-loop job through the port's CLI; returns the kernel
-    launches it made."""
+    launches it made and how many of them were the windowed form."""
     import numpy as np
 
     from f9tpu_torch.io import wav
     from f9tpu_torch import cli
-    from f9tpu_torch.ops import src_kernel as sk
 
     rng = np.random.default_rng(SEED + 2)
     in_dir = os.path.join(work, "in")
@@ -518,12 +616,12 @@ def phase_insert_loop(card: str, work: str, dev) -> int:
     out_gpu = os.path.join(work, "out_gpu")
     flags = INSERT_LOOP_FLAGS + ["--chain-ir", ir_path, "--json"]
     buf = io.StringIO()
-    sk.launches = 0
+    _zero_counts()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["process", in_dir, "--out", out_gpu, *flags])
     wall = time.time() - t0
-    launches = sk.launches
+    launches, windowed = _read_counts()
     summary = json.loads(buf.getvalue())
     print(f"loop: cli process rc={rc} completed={summary['completed']} "
           f"failed={summary['failed']} kernel_launches={launches} "
@@ -605,7 +703,7 @@ def phase_insert_loop(card: str, work: str, dev) -> int:
     print(f"loop calibration in a fresh process (CUDA and the SRC kernel warm): "
           f"cold {cold['cold_s']:.3f} s, warm {cold['warm_s']:.3f} s, latency "
           f"{cold['latency']} [{card}]", flush=True)
-    return launches
+    return launches, windowed
 
 
 def _write_long_wav(path: str, seconds: float, seed: int, rate: int = 44100) -> int:
@@ -638,37 +736,60 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def _stream_kernel_check(card: str, dev, frames: int = 1 << 22) -> None:
-    """6a: the kernel on a 2^22-frame stereo signal whole (implicit pad)
-    against the same signal cut into haloed chunks (`resample_presliced`,
-    pad 0) of 6000 and 1777 cycles: equal bit for bit, and every chunk
-    within `TWIN_TOL` of its plain twin, the float64 fold."""
+DENSE_BANKS = [(44100, 48000, "high"), (48000, 44100, "high"),
+               (44100, 48000, "ultra"), (176400, 48000, "high")]
+VARISPEED_BANKS = [(44100, 44056, "high"), (44056, 44100, "high"),
+                   (44100, 44056, "ultra")]
+
+
+def _stream_kernel_check(card: str, dev, frames: int = 1 << 22, banks=DENSE_BANKS,
+                         cycle_counts=(6000, 1777)) -> None:
+    """6a / 7b: the kernel on a 2^22-frame stereo signal whole (implicit
+    pad) against the same signal cut into haloed chunks
+    (`resample_presliced`, pad 0) of two cycle counts: equal bit for bit,
+    and every chunk within `TWIN_TOL` of its plain twin (the float64 fold;
+    for a varispeed bank the float64 gather).  A varispeed bank also runs
+    on marshalled cycle rows: equal to the flat form bit for bit."""
     import numpy as np
     import torch
 
     from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import resample as tr
     from f9tpu_torch.ops import src_kernel as sk
-    from f9tpu_torch.ops.resample import _presliced_fold, resample_presliced
+    from f9tpu_torch.ops.resample import resample_presliced
 
     rng = np.random.default_rng(SEED + 6)
     x = torch.from_numpy(_signal(rng, 2, frames, 44100)).to(dev)
-    for ri, ro, q in [(44100, 48000, "high"), (48000, 44100, "high"),
-                      (44100, 48000, "ultra"), (176400, 48000, "high")]:
+    for ri, ro, q in banks:
         bank = design_cycle_bank(ri, ro, quality=q)
+        twin = ((lambda sp, n, b=bank: tr._gather_core(sp, b, n * b.L)) if bank.G is None
+                else (lambda sp, n, b=bank: tr._presliced_fold(sp, b, n)))
         whole = sk.resample_kernel(x, bank)
         out_len = whole.shape[-1]
         Q = -(-out_len // bank.L)
         # the signal behind its front pad, zero past the end: the file's
         # halos as the stream reads them
-        xp = torch.zeros((2, (Q + 6000) * bank.M + bank.W), device=dev)
+        xp = torch.zeros((2, (Q + max(cycle_counts)) * bank.M + bank.W), device=dev)
         xp[:, bank.pad_front:bank.pad_front + frames] = x
-        for cycles in (6000, 1777):
+        if bank.G is None:
+            n0 = sk.launches_windowed
+            w_rows = tr.banded_rows_plan(bank, frames)[1]
+            rows = xp[:, :(Q - 1) * bank.M + w_rows].unfold(-1, w_rows, bank.M).contiguous()
+            got = tr.resample_banded_rows_pre(rows, bank).reshape(2, -1)[:, :out_len]
+            torch.cuda.synchronize()
+            n_diff = int((got != whole).sum())
+            print(f"stream kernel {ri}->{ro} {q}: flat vs {Q} marshalled cycle rows of "
+                  f"{w_rows} floats ({sk.launches_windowed - n0} windowed launch): {n_diff} "
+                  f"of {got.numel()} outputs differ [{card}]", flush=True)
+            if n_diff or sk.launches_windowed != n0 + 1:
+                raise AssertionError(f"stream kernel {ri}->{ro} {q}: rows form differs")
+            del rows, got
+        for cycles in cycle_counts:
             outs, twin_err, n0 = [], 0.0, sk.launches
             for q0 in range(0, Q, cycles):
                 span = xp[:, q0 * bank.M:q0 * bank.M + (cycles - 1) * bank.M + bank.W]
                 y = resample_presliced(span, bank, cycles)
-                twin_err = max(twin_err, float((y - _presliced_fold(span, bank, cycles))
-                                               .abs().max()))
+                twin_err = max(twin_err, float((y - twin(span, cycles)).abs().max()))
                 outs.append(y)
             got = torch.cat(outs, dim=-1)[:, :out_len]
             torch.cuda.synchronize()
@@ -797,10 +918,10 @@ def _cli_json(argv: list[str]) -> tuple[int, dict, float]:
     return rc, (json.loads(buf.getvalue()) if rc == 0 else {}), wall
 
 
-def phase_stream(card: str, work: str, dev) -> int:
+def phase_stream(card: str, work: str, dev) -> tuple[int, int]:
     """The streaming path (phase 6); returns the kernel launches of the
     stream path's run, `cli stream` with the chain at 20 s chunks, counted
-    from zero."""
+    from zero, and how many of them were the windowed form."""
     import numpy as np
     import torch
 
@@ -864,16 +985,16 @@ def phase_stream(card: str, work: str, dev) -> int:
     chain_flags = ["--rate", "48000", "--chain-delay-ms", "5", "--chain-eq",
                    "peaking:1000:1:3", "--chain-comp=-18:3", "--chain-ir", ir_path,
                    "--chain-limit=-0.3", "--latency", str(lat), "--json"]
-    shas, launches_c = {}, 0
+    shas, launches_c, windowed_c = {}, 0, 0
     for cs in ("20", "7.3"):
         out = os.path.join(work, f"long_{cs}.wav")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        sk.launches = 0
+        _zero_counts()
         rc, res, wall = _cli_json(["stream", long_path, "--out", out, *chain_flags,
                                    "--chunk-seconds", cs])
         if cs == "20":
-            launches_c = sk.launches
+            launches_c, windowed_c = _read_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         shas[cs] = _sha256(out)
         print(f"stream 6c: cli stream 600 s with chain, latency {lat}, chunk {cs} s: "
@@ -963,8 +1084,400 @@ def phase_stream(card: str, work: str, dev) -> int:
                      "--stream-trials", "3", "--device", "cuda"]) != 0:
         raise AssertionError("stream 6f: hw_soak failed")
     print(f"stream 6f: {time.time() - t0:.1f} s", flush=True)
-    return launches_c
+    return launches_c, windowed_c
 
+
+def phase_windowed_kernel(card: str, dev) -> dict:
+    """7a: the kernel's windowed form on three varispeed banks against its
+    plain twin (the float64 gather) and the float64 oracle, timed beside the
+    twin and the library form: the JAX package's banded evaluation, one fp32
+    `torch.matmul` per 128-output segment of the marshalled cycle rows
+    (TF32 off; the port never calls it).  Returns the first bank's numbers
+    (and every bank's under ``per_bank``)."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank, resample_oracle
+    from f9tpu_torch.ops import _build
+    from f9tpu_torch.ops import resample as tr
+    from f9tpu_torch.ops import src_kernel as sk
+
+    n_sig, frames = 32, 1 << 20
+    lib = _build.load_library()
+    per_bank = []
+    for ri, ro, q in VARISPEED_BANKS:
+        rng = np.random.default_rng(SEED + 70)
+        x_np = _signal(rng, n_sig, frames, ri)
+        x = torch.from_numpy(x_np).to(dev)
+        bank = design_cycle_bank(ri, ro, quality=q)
+        if bank.G is not None or not sk.kernel_applicable(bank):
+            raise AssertionError(f"{ri}->{ro} {q}: not a varispeed bank the kernel takes")
+        plan = sk.kernel_plan(bank)
+        n0, w0 = sk.launches, sk.launches_windowed
+        y = sk.resample_kernel(x, bank)
+        torch.cuda.synchronize()
+        if (sk.launches, sk.launches_windowed) != (n0 + 1, w0 + 1):
+            raise AssertionError(f"{ri}->{ro} {q}: launch counters did not move")
+        out_len = y.shape[-1]
+        Q = -(-out_len // bank.L)
+
+        def twin():
+            return tr.resample_gather(x, bank)
+
+        # the library form's operands, marshalled outside the timed window
+        in0, w, seg, w_rows, G = tr._banded_plan(bank)
+        xp = torch.zeros((n_sig, (Q - 1) * bank.M + w_rows), device=dev)
+        keep = min(frames, xp.shape[-1] - bank.pad_front)
+        xp[:, bank.pad_front:bank.pad_front + keep] = x[:, :keep]
+        rows = xp.unfold(-1, w_rows, bank.M).contiguous()        # (n_sig, Q, w_rows)
+        gs = torch.from_numpy(G).to(dev)
+        S, L = len(in0), bank.L
+        del xp
+
+        def library():
+            ys = [torch.matmul(rows[..., a:a + w], gs[i]) for i, a in enumerate(in0)]
+            ys[-1] = ys[-1][..., S * seg - L:]
+            return torch.cat(ys, dim=-1)
+
+        yt = twin()
+        err = float((y - yt).abs().max())
+        lsb = (y.double() - yt.double()) * float(1 << 23)
+        lsb_rms, lsb_max = float(lsb.square().mean().sqrt()), float(lsb.abs().max())
+        lib_err = float((library().reshape(n_sig, -1)[:, :out_len] - yt).abs().max())
+        del yt, lsb
+        small = x_np[:2, :1 << 16]
+        yk = sk.resample_kernel(torch.from_numpy(small).to(dev), bank).cpu().numpy()
+        ref = resample_oracle(small, ri, ro, quality=q)
+        db = _db(yk - ref, ref)
+        for _ in range(3):
+            sk.resample_kernel(x, bank)
+            library()
+        twin()
+        torch.cuda.synchronize()
+        # kernel, plain, library, library, plain, kernel (the twin's 130-200
+        # float64 passes take ~0.1 s a call: median of 3)
+        t = {"ms": [], "plain_ms": [], "library_ms": []}
+        for key, fn, runs in (("ms", lambda: sk.resample_kernel(x, bank), 10),
+                              ("plain_ms", twin, 3), ("library_ms", library, 10),
+                              ("library_ms", library, 10), ("plain_ms", twin, 3),
+                              ("ms", lambda: sk.resample_kernel(x, bank), 10)):
+            t[key].append(_median_ms(fn, runs))
+        bound_ms, bound_by = _src_bound(bank, n_sig, frames, out_len)
+        smem = sk._window_smem(plan.nt, plan.warps, plan.pitch)[1]
+        blocks = lib.f9_cycle_src_win_blocks_per_sm(plan.nt, plan.warps, smem)
+        packed_mb = sk.packed_bank_f32(bank)[0].nbytes / 1e6
+        print(f"windowed kernel {ri}->{ro} {q} (L={L} M={bank.M} W={bank.W} "
+              f"K={bank.taps_per_phase}; plan nt={plan.nt} warps={plan.warps} "
+              f"pitch={plan.pitch} tiles={len(plan.bands)} smem={smem} B, {blocks} blocks/SM, "
+              f"packed bank {packed_mb:.1f} MB; {n_sig * Q} rows) {n_sig}x2^20: "
+              f"max_abs_vs_twin={err:.3e} (tol {TWIN_TOL:g}) "
+              f"vs_twin_24bit_lsb rms={lsb_rms:.4f} max={lsb_max:.3f} "
+              f"oracle={db:.1f} dB (max {ORACLE_DB_MAX:g}) library_vs_twin={lib_err:.3e} "
+              f"kernel_ms={t['ms'][0]:.4f}/{t['ms'][1]:.4f} "
+              f"plain_ms={t['plain_ms'][0]:.3f}/{t['plain_ms'][1]:.3f} "
+              f"library_ms ({S} matmuls)={t['library_ms'][0]:.4f}/{t['library_ms'][1]:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"(median of 10, the twin of 3, two turns) [{card}]", flush=True)
+        if not err <= TWIN_TOL:
+            raise AssertionError(f"{ri}->{ro} {q}: windowed kernel vs twin {err:.3e}")
+        if not db <= ORACLE_DB_MAX:
+            raise AssertionError(f"{ri}->{ro} {q}: {db:.1f} dB vs oracle")
+        per_bank.append({"bank": f"{ri}->{ro} {q}", "max_abs_err": err, "lsb_rms": lsb_rms,
+                         "lsb_max": lsb_max, "oracle_db": db, "ms": min(t["ms"]),
+                         "plain_ms": min(t["plain_ms"]),
+                         "library_ms": min(t["library_ms"]), "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+        del x, y, rows, gs
+        torch.cuda.empty_cache()
+    summary = dict(per_bank[0])
+    summary["per_bank"] = per_bank
+    return summary
+
+
+def _stream_two_chunk_sizes(card: str, tag: str, src: str, work: str, flags: list[str],
+                            n_expect: int) -> None:
+    """`cli stream` on ``src`` at 20 s and 7.3 s chunks: identical sha256,
+    the expected frame count, wall, x real time and peak device memory."""
+    import torch
+
+    from f9tpu_torch.ops import src_kernel as sk
+
+    shas = {}
+    for cs in ("20", "7.3"):
+        out = os.path.join(work, f"{tag.replace(' ', '_')}_{cs}.wav")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        rc, res, wall = _cli_json(["stream", src, "--out", out, *flags, "--json",
+                                   "--chunk-seconds", cs])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        shas[cs] = _sha256(out) if rc == 0 else ""
+        print(f"{tag}: cli stream {' '.join(flags)}, chunk {cs} s: rc={rc} out_frames="
+              f"{res.get('out_frames')} wall={wall:.3f} s x_realtime="
+              f"{res.get('seconds', 0) / wall:.1f} peak device memory {peak:.3f} GB "
+              f"kernel_launches={sk.launches} sha256={shas[cs][:16]} [{card}]", flush=True)
+        if rc != 0 or res["out_frames"] != n_expect or sk.launches < 1:
+            raise AssertionError(f"{tag}: chunk {cs}: rc={rc} {res}")
+    if shas["20"] != shas["7.3"]:
+        raise AssertionError(f"{tag}: bytes depend on the chunk size")
+
+
+def phase_varispeed(card: str, work: str, dev) -> tuple[int, int]:
+    """7b and 7c: the windowed form's invariance, then the varispeed job
+    (`cli process --rate 44056`) and stream; returns the job's launches and
+    how many of them were the windowed form."""
+    import torch
+
+    from f9tpu_torch.ops import src_kernel as sk
+
+    t0 = time.time()
+    _stream_kernel_check(card, dev, banks=VARISPEED_BANKS, cycle_counts=(100, 37))
+    print(f"varispeed 7b: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    launches, windowed = phase_slice(card, os.path.join(work, "job"), rate=44056,
+                                     tag="varispeed 7c", oracle_files=1)
+    print(f"varispeed 7c: cli process: {launches} kernel launches, "
+          f"{windowed} of them the windowed form [{card}]", flush=True)
+    if windowed != launches:
+        raise AssertionError("varispeed 7c: a launch of the job was not the windowed form")
+    print(f"varispeed 7c (process): {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    # only the streamed bank's device copies count towards the stream's peak
+    # memory: drop those the phases before left cached on the card
+    from f9tpu_torch.ops import resample as tr
+
+    for cache in (sk._device_bank, sk._stacked_bank_f64, tr.bank_to_torch,
+                  tr._phase_bank_f64, tr._bank_f64):
+        cache.cache_clear()
+    torch.cuda.empty_cache()
+    long_path = os.path.join(work, "long.wav")
+    n_long = _write_long_wav(long_path, 600.0, SEED + 71)
+    _stream_two_chunk_sizes(card, "varispeed 7c", long_path, work, ["--rate", "44056"],
+                            -(-n_long * 44056 // 44100))
+    print(f"varispeed 7c (stream): {time.time() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return launches, windowed
+
+
+NORMALIZE_FLAGS = ["--rate", "48000", "--normalize-lufs=-16", "--normalize-tp=-1"]
+
+
+def _meter_split(card: str, path: str, dev) -> None:
+    """One file's normalization meter by CUDA events (median of 3 after a
+    warm-up), summed over its 20 s chunks: the SRC to 48 kHz, the
+    K-weighting, the hop energies and the 4x true-peak fold, beside the
+    whole `meter_source_streamed` call (host reads and uploads included)."""
+    import torch
+
+    from f9tpu_torch.io import codec
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import loudness as ld
+    from f9tpu_torch.ops.resample import resample_presliced
+
+    x, rate = codec.read_audio(path)
+    C, T = x.shape
+    ctx = int(ld.k_weighting_ir().shape[0]) - 1
+    chunk_in, cycles, bank = ld._meter_chunk_plan(rate, 20.0, ctx)
+    tp_bank = design_cycle_bank(rate, rate * 4, quality="high")
+    h_l, h_r = ld._halos(bank)
+    th_l, th_r = ld._halos(tp_bank)
+    read = ld.array_reader(x)
+    t = {"SRC to 48 kHz (cycle_src, presliced)": 0.0, "K-weighting (UPOLS)": 0.0,
+         "hop energies": 0.0, "4x true-peak fold (float64, L=4)": 0.0}
+    n_chunks = 0
+    for start in range(0, T, chunk_in):
+        xp = torch.from_numpy(ld._read_span(read, C, T, start - h_l,
+                                            h_l + chunk_in + h_r)).to(dev)
+        xtp = torch.from_numpy(ld._read_span(read, C, T, start - th_l,
+                                             th_l + chunk_in + th_r)).to(dev)
+        carry = torch.zeros((C, ctx), device=dev)
+        for fn in (lambda: resample_presliced(xp, bank, cycles),
+                   lambda: ld._tp_step(xtp, cycles=chunk_in, rate_in=rate, oversample=4)):
+            fn()
+        y, ms = _timed(lambda: resample_presliced(xp, bank, cycles))
+        t["SRC to 48 kHz (cycle_src, presliced)"] += ms
+        z = torch.cat([carry, y], dim=-1)
+        kw, ms = _timed(lambda: ld.k_weight(z))
+        t["K-weighting (UPOLS)"] += ms
+        _, ms = _timed(lambda: torch.sum(torch.square(kw[:, ctx:]).reshape(C, -1, ld._HOP),
+                                         dim=-1))
+        t["hop energies"] += ms
+        _, ms = _timed(lambda: ld._tp_step(xtp, cycles=chunk_in, rate_in=rate, oversample=4))
+        t["4x true-peak fold (float64, L=4)"] += ms
+        n_chunks += 1
+    t0 = time.time()
+    m = ld.meter_source_streamed(read, C, T, rate, want_tp=True, device=dev)
+    wall = time.time() - t0
+    print(f"normalize meter: {os.path.basename(path)} {T / rate:.1f} s x {C} ch in "
+          f"{n_chunks} chunks of {chunk_in} frames: meter_source_streamed {1e3 * wall:.1f} ms "
+          f"wall ({m['lufs']:.2f} LUFS, {m['true_peak_db']:.2f} dBTP) [{card}]", flush=True)
+    for label, ms in t.items():
+        print(f"normalize meter: {label}: {ms:.2f} ms over {n_chunks} chunks "
+              f"({ms / n_chunks:.2f} ms per 20 s chunk) [{card}]", flush=True)
+
+
+def phase_normalize(card: str, work: str, dev) -> tuple[int, int]:
+    """7d: loudness normalization through `cli process`, `cli stream` and
+    `cli probe`; returns the batch job's kernel launches and how many of
+    them were the windowed form."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch import cli
+    from f9tpu_torch.io import codec, wav
+    from f9tpu_torch.ops import loudness as ld
+
+    rng = np.random.default_rng(SEED + 72)
+    in_dir = os.path.join(work, "in")
+    os.makedirs(in_dir)
+    t0 = time.time()
+    levels_db = np.linspace(0.0, -20.0, 8)
+    for i in range(8):
+        frames = int(rng.integers(50 * 44100, 60 * 44100))
+        x = _signal(rng, 2, frames, 44100) * np.float32(10.0 ** (levels_db[i] / 20.0))
+        if i == 6:
+            # a quiet file with a click every half second: its gain would
+            # lift the clicks past the -1 dBTP ceiling, so the cap engages
+            x[:, ::22050] = 0.6
+        wav.write_wav(os.path.join(in_dir, f"take{i}.wav"), x, 44100, bits=24)
+    print(f"normalize: wrote 8 stereo 24-bit 44.1 kHz WAVs of 50-60 s, levels 0 to "
+          f"-20 dB of the -12 dBFS signal, take6 with 0.6 clicks, in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    def run(argv):
+        out, err = io.StringIO(), io.StringIO()
+        t1 = time.time()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        return rc, out.getvalue(), err.getvalue(), time.time() - t1
+
+    out_gpu = os.path.join(work, "out_gpu")
+    _zero_counts()
+    rc, out, log, wall = run(["process", in_dir, "--out", out_gpu, *NORMALIZE_FLAGS, "--json"])
+    launches, windowed = _read_counts()
+    summary = json.loads(out) if rc == 0 else {}
+    print(f"normalize: cli process {' '.join(NORMALIZE_FLAGS)} rc={rc} completed="
+          f"{summary.get('completed')} failed={summary.get('failed')} kernel_launches="
+          f"{launches} wall={wall:.3f} s audio_out={summary.get('audio_seconds_out', 0):.1f} s "
+          f"x_realtime={summary.get('audio_seconds_out', 0) / wall:.1f} [{card}]", flush=True)
+    print("normalize: stages " + json.dumps(summary.get("throughput")), flush=True)
+    if rc != 0 or summary["completed"] != 8 or summary["failed"] != 0:
+        raise AssertionError(f"normalize: expected 8 completed, got {summary}\n{log[-2000:]}")
+    if launches < 2 + 8 * 3:     # calibration, a batch, three meter chunks per file
+        raise AssertionError(f"normalize: {launches} kernel launches")
+    # "[timestamp] Normalize: take3.wav -21.5 LUFS -> -16.0 (+5.5 dB...)"
+    notes = {line.split("Normalize: ")[1].split()[0]: line for line in log.splitlines()
+             if "Normalize: " in line}
+    n_capped = 0
+    for i in range(8):
+        name = f"take{i}.wav"
+        m = summary["per_file"][os.path.join(in_dir, name)]
+        y, r = wav.read_wav(os.path.join(out_gpu, f"take{i}_processed.wav"))
+        got = float(ld.integrated_lufs(y, r, device=dev))
+        limited = "capped" in notes[name] or "clamped" in notes[name]
+        n_capped += limited
+        print(f"normalize: {name} source {m['source_lufs']} LUFS, gain "
+              f"{m['applied_gain_db']:+} dB -> output {got:.2f} LUFS"
+              f"{' (' + notes[name].split('(')[-1] if limited else ''}", flush=True)
+        if not limited and not abs(got + 16.0) <= 0.1:
+            raise AssertionError(f"normalize: {name}: output {got:.2f} LUFS, target -16")
+        if limited and not got < -16.0:
+            raise AssertionError(f"normalize: {name}: limited but at {got:.2f} LUFS")
+    if n_capped < 1:
+        raise AssertionError("normalize: the dBTP cap engaged on no file")
+
+    # the meter's share of the job: the same files without normalization
+    # (raw upload, no meter), and the normalized job again with one decode
+    # worker, so that a single thread makes the meter's launches
+    rc, out, _log, wall_plain = run(["process", in_dir, "--out", os.path.join(work, "out_plain"),
+                                     "--rate", "48000", "--json"])
+    if rc != 0:
+        raise AssertionError(f"normalize: the job without normalization rc={rc}")
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.pipeline.scheduler import BatchProcessor
+
+    cfg1 = ProcessingConfig(output_dir=os.path.join(work, "out_one"), target_rate=48000,
+                            normalize_lufs=-16.0, normalize_tp_db=-1.0, seed=0)
+    t1 = time.time()
+    res1 = BatchProcessor(cfg1, decode_workers=1, device=dev).run(
+        sorted(os.path.join(in_dir, n) for n in os.listdir(in_dir)))
+    wall_one = time.time() - t1
+    print(f"normalize: the same 8 files without normalization {wall_plain:.3f} s, "
+          f"normalized {wall:.3f} s with 4 decode workers (the meter and the float upload: "
+          f"{100.0 * (1.0 - wall_plain / wall):.1f} % of the wall) and {wall_one:.3f} s with "
+          f"1 decode worker ({res1.completed} completed) [{card}]", flush=True)
+    if res1.completed != 8:
+        raise AssertionError(f"normalize: one decode worker: {res1}")
+    same = all(
+        _sha256(os.path.join(out_gpu, f"take{i}_processed.wav"))
+        == _sha256(os.path.join(work, "out_one", f"take{i}_processed.wav")) for i in range(8))
+    print(f"normalize: outputs of the 4-worker and the 1-worker job identical: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("normalize: the bytes depend on the decode workers")
+
+    # the card against the port's CPU path: the loudest file and the capped one
+    names = ["take0.wav", "take6.wav"]
+    srcs = [os.path.join(in_dir, n) for n in names]
+    out_cpu = os.path.join(work, "out_cpu")
+    rc, out, log_c, wall_c = run(["process", *srcs, "--out", out_cpu, *NORMALIZE_FLAGS,
+                                  "--batch-size", "2", "--device", "cpu", "--json"])
+    if rc != 0:
+        raise AssertionError(f"normalize: CPU run rc={rc}\n{log_c[-2000:]}")
+    cpu = json.loads(out)["per_file"]
+    print(f"normalize: CPU path on 2 files in {wall_c:.1f} s", flush=True)
+    for src, name in zip(srcs, names):
+        stem = os.path.splitext(name)[0]
+        mg, mc = summary["per_file"][src], cpu[src]
+        g_codes, _ = _read_codes(os.path.join(out_gpu, f"{stem}_processed.wav"))
+        c_codes, _ = _read_codes(os.path.join(out_cpu, f"{stem}_processed.wav"))
+        same = g_codes.shape == c_codes.shape
+        diff = np.abs(g_codes - c_codes) if same else None
+        print(f"normalize: {name} card {mg['source_lufs']} LUFS {mg['applied_gain_db']:+} dB, "
+              f"CPU {mc['source_lufs']} LUFS {mc['applied_gain_db']:+} dB; vs_cpu: "
+              f"{int((diff != 0).sum()) if same else -1} of {g_codes.size} samples differ, "
+              f"max {int(diff.max()) if same else -1} LSB (tol {LSB_TOL}) [{card}]", flush=True)
+        if (abs(mg["source_lufs"] - mc["source_lufs"]) > 0.011
+                or abs(mg["applied_gain_db"] - mc["applied_gain_db"]) > 0.011):
+            raise AssertionError(f"normalize: {name}: card and CPU meters differ")
+        if not same or int(diff.max()) > LSB_TOL:
+            raise AssertionError(f"normalize: {name}: card vs CPU path differ")
+
+    # the same file through the stream: the same gain, from the same meter
+    src = srcs[1]
+    rc, out, _log, wall_s = run(["stream", src, "--out", os.path.join(work, "s6.wav"),
+                                 *NORMALIZE_FLAGS, "--json"])
+    res = json.loads(out) if rc == 0 else {}
+    mb = summary["per_file"][src]
+    x, rate = codec.read_audio(src)
+    with codec.open_reader(src) as reader:
+        m_file = ld.meter_source_streamed(reader.read, x.shape[0], x.shape[1], rate,
+                                          want_tp=True, device=dev)
+    m_arr = ld.meter_source_streamed(ld.array_reader(x), x.shape[0], x.shape[1], rate,
+                                     want_tp=True, device=dev)
+    print(f"normalize: take6 through cli stream rc={rc} in {wall_s:.3f} s: "
+          f"{res.get('source_lufs')} LUFS {res.get('applied_gain_db')} dB, batch "
+          f"{mb['source_lufs']} LUFS {mb['applied_gain_db']} dB; the meter on the file "
+          f"reader {m_file!r}, on the decoded array {m_arr!r} [{card}]", flush=True)
+    if (rc != 0 or res["source_lufs"] != mb["source_lufs"]
+            or res["applied_gain_db"] != mb["applied_gain_db"] or m_file != m_arr):
+        raise AssertionError("normalize: batch and stream gains differ")
+
+    rc, out, _log, wall_p = run(["probe", srcs[0], "--loudness", "--json"])
+    row = json.loads(out)[0] if rc == 0 else {}
+    print(f"normalize: cli probe --loudness take0.wav rc={rc} in {wall_p:.3f} s: "
+          f"{row.get('lufs')} LUFS, {row.get('true_peak_db')} dBTP, LRA {row.get('lra_lu')} LU "
+          f"[{card}]", flush=True)
+    if rc != 0 or not all(isinstance(row.get(k), float)
+                          for k in ("lufs", "true_peak_db", "lra_lu")):
+        raise AssertionError(f"normalize: probe row {row}")
+    if abs(row["lufs"] - summary["per_file"][srcs[0]]["source_lufs"]) > 0.05:
+        raise AssertionError("normalize: probe and the streamed meter disagree")
+    _meter_split(card, srcs[0], dev)
+    torch.cuda.empty_cache()
+    return launches, windowed
 
 
 def main() -> int:
@@ -992,14 +1505,28 @@ def main() -> int:
     t0 = time.time()
     k = phase_kernel(card, dev)
     print(f"phase 3 (kernel): {time.time() - t0:.1f} s", flush=True)
-    launches = {}
-    for n, path, phase in ((4, "default_job", phase_slice),
+    dense = {}
+    windowed = {}
+    kw = None
+    for n, path, phase in ((4, "default_job", lambda c, w: phase_slice(c, w, dev=dev)),
                            (5, "insert_loop", lambda c, w: phase_insert_loop(c, w, dev)),
-                           (6, "stream", lambda c, w: phase_stream(c, w, dev))):
+                           (6, "stream", lambda c, w: phase_stream(c, w, dev)),
+                           ("7b-c", "varispeed", lambda c, w: phase_varispeed(c, w, dev)),
+                           ("7d", "normalize", lambda c, w: phase_normalize(c, w, dev))):
+        if path == "varispeed":
+            # after phases 3-6, whose memory readings it would otherwise
+            # raise by the varispeed banks it leaves cached on the card
+            t0 = time.time()
+            kw = phase_windowed_kernel(card, dev)
+            print(f"phase 7a (windowed kernel): {time.time() - t0:.1f} s", flush=True)
         work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
         t0 = time.time()
         try:
-            launches[path] = phase(card, work)
+            # each phase sets both counts to 0 just before it drives its
+            # path and reads both just after: a launch is the dense form's
+            # unless it was counted as the windowed form's
+            total, windowed[path] = phase(card, work)
+            dense[path] = total - windowed[path]
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase {n} ({path}): {time.time() - t0:.1f} s", flush=True)
@@ -1010,8 +1537,8 @@ def main() -> int:
         "source": "f9tpu_torch/csrc/cycle_src.cu",
         "replaces": "f9tpu/ops/pallas_src.py:189",
         "also_replaces": "f9tpu/ops/pallas_src.py:141",
-        "launches": sum(launches.values()),
-        "launches_by_path": launches,
+        "launches": sum(dense.values()),
+        "launches_by_path": dense,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -1019,6 +1546,23 @@ def main() -> int:
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
         "per_bank": k["per_bank"],
+    }, {
+        # a second launch form of the same kernel, for banks with no dense
+        # matrix; the JAX package has no TPU kernel for it (XLA evaluates
+        # `_banded_eval_rows`, one matmul per segment)
+        "name": "cycle_src (windowed form)",
+        "route": "cuda",
+        "source": "f9tpu_torch/csrc/cycle_src.cu",
+        "replaces": "f9tpu/ops/resample.py:202",
+        "launches": sum(windowed.values()),
+        "launches_by_path": windowed,
+        "max_abs_err": kw["max_abs_err"],
+        "ms": kw["ms"],
+        "plain_ms": kw["plain_ms"],
+        "bound_ms": kw["bound_ms"],
+        "bound_by": kw["bound_by"],
+        "library_ms": kw["library_ms"],
+        "per_bank": kw["per_bank"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

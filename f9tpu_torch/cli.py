@@ -9,11 +9,18 @@ the constant-memory stream of one file of any length:
         --chain-ir hall.wav --chain-limit=-0.3
     python -m f9tpu_torch.cli stream long.wav --out long_48k.wav --rate 48000 \
         [--chunk-seconds 20] [--latency N] [--reverb] [--chain-* ...]
+    python -m f9tpu_torch.cli process ./stems --out ./out --rate 44056
+    python -m f9tpu_torch.cli process ./stems --out ./out --normalize-lufs=-16 \
+        --normalize-tp=-1 [--surround-weights]
+    python -m f9tpu_torch.cli probe ./stems --loudness [--json]
 
-`stream` takes the JAX CLI's flags plus ``--device`` and every
-``--chain-*`` flag of `process`; ``--frames-shards`` above 1 and
-``--normalize-lufs`` exit 2 with the ROADMAP item they wait for.  Every
-other `f9tpu` subcommand prints "not yet ported" and exits 2.
+Varispeed rates (``--rate 44056``, the NTSC pull-down) and loudness
+normalization run on `process` and `stream` alike.  `stream` takes the JAX
+CLI's flags plus ``--device`` and every ``--chain-*`` flag of `process`;
+``--frames-shards`` above 1 exits 2 with the ROADMAP item it waits for.
+`probe` prints file metadata and, with ``--loudness``, LUFS, dBTP and LRA
+measured on ``--device``.  Every other `f9tpu` subcommand prints "not yet
+ported" and exits 2.
 """
 
 from __future__ import annotations
@@ -38,8 +45,7 @@ from .pipeline.scheduler import BatchProcessor
 __all__ = ["main"]
 
 #: `f9tpu` subcommands the port does not have yet (ROADMAP Queue 1).
-UNPORTED = ("preview", "measure", "selftest", "probe", "watch",
-            "verify", "devices")
+UNPORTED = ("preview", "measure", "selftest", "watch", "verify", "devices")
 
 
 def _expand_inputs(inputs: list[str]) -> list[str]:
@@ -195,6 +201,9 @@ def _batch_cfg_from_args(args) -> ProcessingConfig:
         output_format=args.output_format,
         batch_size=args.batch_size,
         gain_db=args.gain,
+        normalize_lufs=args.normalize_lufs,
+        normalize_tp_db=args.normalize_tp_db,
+        surround_weights=args.surround_weights,
         reverb_mode=args.reverb,
         noise_floor_db=args.noise_floor,
         noise_floor_margin_pct=args.margin,
@@ -249,8 +258,6 @@ def cmd_stream(args) -> int:
         return 2
     if args.frames_shards > 1:
         raise not_ported("mesh")
-    if args.normalize_lufs is not None:
-        raise not_ported("normalize_lufs")
     cfg = ProcessingConfig(
         target_rate=args.rate,
         quality=args.quality,
@@ -266,6 +273,7 @@ def cmd_stream(args) -> int:
         keep_metadata=args.keep_metadata,
         seed=None if args.seed == -1 else args.seed,
         gain_db=args.gain,
+        normalize_lufs=args.normalize_lufs,
         normalize_tp_db=args.normalize_tp_db,
         surround_weights=args.surround_weights,
         channel_routing=_parse_routing(args.routing),
@@ -296,12 +304,13 @@ def cmd_stream(args) -> int:
                     event="stream_start", input=args.input, output=args.out,
                     rate=args.rate, bits=cfg.bits, format=cfg.output_format)
     t0 = time.time()
+    norm: dict = {}
     try:
         n = stream_resample_file(args.input, args.out, cfg,
                                  chunk_seconds=args.chunk_seconds,
                                  progress_cb=progress,
                                  latency_frames=args.latency,
-                                 device=args.device)
+                                 device=args.device, norm_info=norm)
     except Exception as err:
         # every stream_start gets a terminal event; the error still surfaces
         if jlog:
@@ -320,10 +329,101 @@ def cmd_stream(args) -> int:
                           "out_frames": n, "rate": args.rate,
                           "seconds": round(n / args.rate, 3),
                           "bits": cfg.bits, "format": cfg.output_format,
-                          "wall_seconds": wall, "device": args.device}))
+                          "wall_seconds": wall, "device": args.device,
+                          # the batch summary's per-file fields
+                          **({"source_lufs": round(norm["source_lufs"], 2),
+                              "applied_gain_db": round(norm["applied_gain_db"], 2)}
+                             if norm else {})}))
     else:
+        if norm:
+            print(f"Normalize: {os.path.basename(args.input)} "
+                  f"{norm['source_lufs']:.1f} LUFS -> {cfg.normalize_lufs:.1f} "
+                  f"({norm['applied_gain_db']:+.1f} dB{norm['gain_note']})")
         print(f"wrote {n} frames @ {args.rate} Hz -> {args.out}")
     return 0
+
+
+def cmd_probe(args) -> int:
+    """File metadata, one line or JSON row per file; ``--loudness`` adds
+    integrated LUFS, true peak and LRA measured on ``--device`` (the JAX
+    CLI's `cmd_probe`, same text and JSON fields)."""
+    code = 0
+    rows = []
+    for f in _expand_inputs(args.inputs):
+        try:
+            info = codec.probe(f)
+            loud = ""
+            if args.loudness:
+                # r128_stats shares one SRC-to-48k + K-weighting pass between
+                # the integrated and LRA statistics; the file is uploaded
+                # once for it and the true peak
+                import torch
+
+                from . import resolve_device
+                from .ops.loudness import r128_stats, surround_weights, true_peak_db
+
+                x, r = codec.read_audio(f)
+                w = surround_weights(x.shape[0]) if args.surround_weights else None
+                x = torch.from_numpy(x).to(resolve_device(args.device))
+                lufs, lra = r128_stats(x, r, weights=w, device=args.device)
+                tp = None
+                if lufs <= -199.0:
+                    loud = "  --.- LUFS (too short/silent)"
+                else:
+                    tp = float(true_peak_db(x, r, device=args.device))
+                    loud = (f"  {lufs:.1f} LUFS, {tp:+.1f} dBTP, "
+                            f"LRA {lra:.1f} LU")
+        except Exception as e:
+            # broad on purpose: with --loudness the metering can fail on the
+            # device, and a failed file becomes an error row while stdout
+            # stays parseable; one bad file must not abort the whole run
+            if args.json:
+                rows.append({"path": f, "error": str(e)})
+            else:
+                print(f"{f}: ERROR {e}")
+            code = 1
+            continue
+        valid = ("" if args.require_rate is None else
+                 ("  [ok]" if info.is_valid_for_rate(args.require_rate)
+                  else f"  [INVALID: need {args.require_rate} Hz]"))
+        kind = "float" if info.is_float else "pcm"
+        if args.json:
+            row = {"path": f, "container": info.container,
+                   **({} if args.require_rate is None else
+                      {"valid_for_rate":
+                       info.is_valid_for_rate(args.require_rate)}),
+                   "sample_rate": info.sample_rate,
+                   "channels": info.num_channels,
+                   "frames": info.num_frames,
+                   "seconds": round(info.duration_seconds, 3),
+                   "bit_depth": info.bit_depth, "is_float": info.is_float}
+            if args.loudness:
+                row["lufs"] = None if lufs <= -199.0 else round(lufs, 2)
+                if lufs > -199.0:
+                    row["true_peak_db"] = round(tp, 2)
+                    row["lra_lu"] = round(lra, 2)
+            if args.pairs:
+                from .ops.routing import stereo_pairs
+
+                row["stereo_pairs"] = [list(p) for p in
+                                       stereo_pairs(info.num_channels)]
+            rows.append(row)
+        else:
+            print(f"{f}: {info.container} {info.sample_rate} Hz, "
+                  f"{info.num_channels} ch, {info.num_frames} frames "
+                  f"({info.duration_seconds:.3f} s), {info.bit_depth}-bit {kind}"
+                  f"{valid}{loud}")
+            if args.pairs:
+                # 0-indexed, so entries paste directly into --routing
+                from .ops.routing import stereo_pairs
+
+                pairs = stereo_pairs(info.num_channels)
+                txt = (", ".join(f"{a}-{b}" for a, b in pairs)
+                       if pairs else "(none: fewer than 2 channels)")
+                print(f"  stereo pairs (0-indexed): {txt}")
+    if args.json:
+        print(json.dumps(rows, indent=1))
+    return code
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -345,6 +445,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--no-dither", action="store_true")
     p.add_argument("--keep-dc", action="store_true", help="skip DC offset removal")
     p.add_argument("--gain", type=float, default=0.0, help="gain dB")
+    _add_normalize_args(p)
     p.add_argument("--latency", type=int, default=None,
                    help="known delay in output frames: skip calibration and "
                         "trim exactly this (negative = zero head)")
@@ -384,12 +485,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--no-dither", action="store_true")
     p.add_argument("--keep-dc", action="store_true")
     p.add_argument("--gain", type=float, default=0.0, help="gain dB")
-    p.add_argument("--normalize-lufs", type=float, default=None,
-                   help="not ported yet (ROADMAP Queue 1 'Loudness')")
-    p.add_argument("--normalize-tp", dest="normalize_tp_db", type=float,
-                   default=None, help="with --normalize-lufs (not ported yet)")
-    p.add_argument("--surround-weights", action="store_true",
-                   help="with --normalize-lufs (not ported yet)")
+    _add_normalize_args(p)
     _add_routing_args(p)
     p.add_argument("--latency", type=int, default=None,
                    help="trim this many output frames of known chain/system "
@@ -407,6 +503,24 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--json", action="store_true",
                    help="machine-readable result on stdout")
     p.set_defaults(fn=cmd_stream)
+
+    p = sub.add_parser("probe", help="print file metadata")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("--require-rate", type=int, default=None)
+    p.add_argument("--loudness", action="store_true",
+                   help="also measure BS.1770-4 integrated loudness (LUFS), "
+                        "true peak and LRA on --device")
+    p.add_argument("--surround-weights", action="store_true",
+                   help="with --loudness: apply BS.1770-4 5.1/7.1 channel "
+                        "weights to 6/8-channel files")
+    p.add_argument("--pairs", action="store_true",
+                   help="list each file's odd/even stereo pairs (0-indexed, "
+                        "pasteable into --routing)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable output (one list of objects)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the --loudness meter (default cuda)")
+    p.set_defaults(fn=cmd_probe)
     args = ap.parse_args(argv)
     try:
         return args.fn(args)
@@ -426,6 +540,21 @@ def _add_src_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
+
+
+def _add_normalize_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--normalize-lufs", type=float, default=None, metavar="TARGET",
+                   help="loudness-normalize each file to TARGET integrated "
+                        "LUFS (BS.1770-4, measured on the source; negative "
+                        "value needs the = form: --normalize-lufs=-14)")
+    p.add_argument("--normalize-tp", dest="normalize_tp_db", type=float,
+                   default=None, metavar="CEILING",
+                   help="with --normalize-lufs: cap gains so the true peak "
+                        "stays <= CEILING dBTP (= form for negatives)")
+    p.add_argument("--surround-weights", action="store_true",
+                   help="meter 6/8-channel files with BS.1770-4 5.1/7.1 "
+                        "channel weights (surrounds 1.41, LFE excluded) "
+                        "instead of treating them as discrete buses")
 
 
 def _add_tail_args(p: argparse.ArgumentParser) -> None:

@@ -64,6 +64,27 @@
 //     consecutive floats (whole sectors), not as fragment-scattered stores.
 //   * Two blocks of 8 warps per SM for the usual banks (~95-113 KB of shared
 //     memory each).
+//
+// The windowed launch form (WIN) serves varispeed banks, which have no dense
+// G: 44.1k -> 44056 reduces to L/M = 11014/11025, so 16 cycles of contiguous
+// span would be 705 KB, while a column tile of 40 phases reads only a window
+// of ~170-300 floats of each cycle.  The TPU gets this form from XLA as one
+// matmul per 128-output segment (f9tpu/ops/resample.py:202).  Here the same
+// kernel runs with the span replaced by one window per row, at a pitch of
+// 4 mod 32 floats (an A load's 8 rows x 4 taps then fall in 32 different
+// banks), filled by 4-byte cp.async (a window's start is not 16-byte
+// aligned when M is odd).  Windows do not have to be neighbours, so a
+// block's 16*warps rows are taken from the (signal, cycle) pairs of the
+// whole launch in signal-major order: 96 cycles of 32 signals fill 48
+// blocks of 64 rows with none idle.  The cycle stride of the input is a
+// parameter, so the same form reads a flat signal (stride M) or marshalled
+// cycle rows (stride row_width).  The contraction, the compensated join and
+// the order of each output's k8 steps are the dense form's.  Its floor is
+// memory as well (signal, output and the packed band once: 0.085 ms for
+// 32 x 2^20 frames of 44.1k -> 44056 high); with parts cut out
+// (cycle_src_ablation --bank 44100:44056, PERF.md) the window loads are 39 %
+// of its time, since neighbouring column tiles stage mostly the same floats
+// (a tile's window is K + 40 floats for 40 phases).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,6 +122,12 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem_src));
 }
 
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src)
+{
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(s), "l"(gmem_src));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 
 template <int N>
@@ -120,13 +147,18 @@ __device__ __forceinline__ int cycle_of(int rowmap, int warp, int h, int g)
 // G[w + 4, l]}, w = w_lo + 8s + t, l = c*8*NT + 8n + g.  Dynamic shared
 // memory: the span (skewed; at the end the output tile, pitch 8*NT + 1;
 // ring_off floats), then the ring.
-template <int NT>
+//
+// WIN: row r = blockIdx.x*TQ + rho of the launch's n_rows = signals * Q rows
+// is cycle r % Q of signal r / Q; its window xpad[q*M + w_lo, + 8*nk) sits at
+// span + rho*pitch, unskewed, rows in order (skew and rowmap are not read);
+// M is the input's cycle stride.
+template <int NT, bool WIN>
 __global__ void __launch_bounds__(THREADS_MAX, 2)
 cycle_src_tc(const float* __restrict__ x, const float4* __restrict__ gp,
              const int* __restrict__ tiles, float* __restrict__ y,
              long long T, long long x_stride, int pad_front, int M, int L, int Q,
              long long out_len, long long out_stride, int skew, int rowmap,
-             int ring_off)
+             int ring_off, int pitch, int n_rows)
 {
     extern __shared__ __align__(16) float smem[];
     constexpr int STAGE_F4 = KC8 * NT * 32;
@@ -147,28 +179,52 @@ cycle_src_tc(const float* __restrict__ x, const float4* __restrict__ gp,
     const int l0 = ct * 8 * NT;
     const int nch = nk / KC8;
 
-    // ---- the span xpad[q0*M + w_lo, q0*M + w_lo + span_len), as logical
-    // floats j from the 16-byte-aligned signal index t_al = t_begin - shift;
-    // cycle rho's contraction rows start at j = shift + rho*M
-    const float* xb = x + (long long)b * x_stride;
-    const int span_len = (TQ - 1) * M + nk * 8;
-    const long long t_begin = (long long)q0 * M + w_lo - pad_front;
-    const int shift = (int)((((uintptr_t)xb >> 2) + (uintptr_t)t_begin) & 3);
-    const long long t_al = t_begin - shift;
-    const int n4 = (shift + span_len + 3) >> 2;
-    for (int k = tid; k < n4; k += nthreads) {
-        const long long ts = t_al + 4LL * k;
-        const int j = 4 * k;
-        float* dst = span + j + skew * (j >> 5);
-        if (ts >= 0 && ts + 4 <= T) {
-            cp_async16(dst, xb + ts);
-        } else {
-            float4 v;
-            v.x = (ts >= 0 && ts < T) ? xb[ts] : 0.f;
-            v.y = (ts + 1 >= 0 && ts + 1 < T) ? xb[ts + 1] : 0.f;
-            v.z = (ts + 2 >= 0 && ts + 2 < T) ? xb[ts + 2] : 0.f;
-            v.w = (ts + 3 >= 0 && ts + 3 < T) ? xb[ts + 3] : 0.f;
-            *reinterpret_cast<float4*>(dst) = v;
+    int shift = 0;
+    if constexpr (WIN) {
+        // ---- one window per row, by 4-byte cp.async (zeros outside [0, T)
+        // and in the rows past the launch's last)
+        const int win_len = nk * 8;
+        const int nwarps = nthreads >> 5;
+        for (int rho = warp; rho < TQ; rho += nwarps) {
+            const int r = q0 + rho;
+            float* dst = span + rho * pitch;
+            if (r < n_rows) {
+                const int rb = r / Q, rq = r - rb * Q;
+                const float* xr = x + (long long)rb * x_stride;
+                const long long ts0 = (long long)rq * M + w_lo - pad_front;
+                for (int j = lane; j < win_len; j += 32) {
+                    const long long ts = ts0 + j;
+                    if (ts >= 0 && ts < T) cp_async4(dst + j, xr + ts);
+                    else dst[j] = 0.f;
+                }
+            } else {
+                for (int j = lane; j < win_len; j += 32) dst[j] = 0.f;
+            }
+        }
+    } else {
+        // ---- the span xpad[q0*M + w_lo, q0*M + w_lo + span_len), as logical
+        // floats j from the 16-byte-aligned signal index t_al = t_begin - shift;
+        // cycle rho's contraction rows start at j = shift + rho*M
+        const float* xb = x + (long long)b * x_stride;
+        const int span_len = (TQ - 1) * M + nk * 8;
+        const long long t_begin = (long long)q0 * M + w_lo - pad_front;
+        shift = (int)((((uintptr_t)xb >> 2) + (uintptr_t)t_begin) & 3);
+        const long long t_al = t_begin - shift;
+        const int n4 = (shift + span_len + 3) >> 2;
+        for (int k = tid; k < n4; k += nthreads) {
+            const long long ts = t_al + 4LL * k;
+            const int j = 4 * k;
+            float* dst = span + j + skew * (j >> 5);
+            if (ts >= 0 && ts + 4 <= T) {
+                cp_async16(dst, xb + ts);
+            } else {
+                float4 v;
+                v.x = (ts >= 0 && ts < T) ? xb[ts] : 0.f;
+                v.y = (ts + 1 >= 0 && ts + 1 < T) ? xb[ts + 1] : 0.f;
+                v.z = (ts + 2 >= 0 && ts + 2 < T) ? xb[ts + 2] : 0.f;
+                v.w = (ts + 3 >= 0 && ts + 3 < T) ? xb[ts + 3] : 0.f;
+                *reinterpret_cast<float4*>(dst) = v;
+            }
         }
     }
 
@@ -188,7 +244,9 @@ cycle_src_tc(const float* __restrict__ x, const float4* __restrict__ gp,
     // abase[h] -> (cycle of fragment row h*8 + g, contraction row t)
     int abase[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) abase[h] = shift + cycle_of(rowmap, warp, h, g) * M + t;
+    for (int h = 0; h < 2; ++h)
+        abase[h] = WIN ? (warp * 16 + h * 8 + g) * pitch + t
+                       : shift + cycle_of(rowmap, warp, h, g) * M + t;
 
     // running sums and the bits each has lost (Kahan's negated compensation)
     float sum[NT][4], nc[NT][4];
@@ -211,7 +269,7 @@ cycle_src_tc(const float* __restrict__ x, const float4* __restrict__ gp,
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
                 const int j = abase[r & 1] + s8 + ((r >> 1) << 2);
-                const float v = span[j + skew * (j >> 5)];
+                const float v = WIN ? span[j] : span[j + skew * (j >> 5)];
                 const uint32_t hi = tf32_rna(v);
                 ah[r] = hi;
                 al[r] = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
@@ -246,19 +304,32 @@ cycle_src_tc(const float* __restrict__ x, const float4* __restrict__ gp,
     // C fragment: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-        const int rho = cycle_of(rowmap, warp, r >> 1, g);
+        const int rho = WIN ? warp * 16 + (r >> 1) * 8 + g : cycle_of(rowmap, warp, r >> 1, g);
 #pragma unroll
         for (int n = 0; n < NT; ++n)
             ot[rho * OP + n * 8 + 2 * t + (r & 1)] = __fadd_rn(sum[n][r], nc[n][r]);
     }
     __syncthreads();
-    float* yb = y + (long long)b * out_stride;
-    for (int i = tid; i < TQ * 8 * NT; i += nthreads) {
-        const int rho = i / (8 * NT);
-        const int cl = i - rho * (8 * NT);
-        const int q = q0 + rho, l = l0 + cl;
-        const long long ty = (long long)q * L + l;
-        if (q < Q && l < L && ty < out_len) yb[ty] = ot[rho * OP + cl];
+    if constexpr (WIN) {
+        for (int i = tid; i < TQ * 8 * NT; i += nthreads) {
+            const int rho = i / (8 * NT);
+            const int cl = i - rho * (8 * NT);
+            const int r = q0 + rho, l = l0 + cl;
+            if (r < n_rows && l < L) {
+                const int rb = r / Q, rq = r - rb * Q;
+                const long long ty = (long long)rq * L + l;
+                if (ty < out_len) y[(long long)rb * out_stride + ty] = ot[rho * OP + cl];
+            }
+        }
+    } else {
+        float* yb = y + (long long)b * out_stride;
+        for (int i = tid; i < TQ * 8 * NT; i += nthreads) {
+            const int rho = i / (8 * NT);
+            const int cl = i - rho * (8 * NT);
+            const int q = q0 + rho, l = l0 + cl;
+            const long long ty = (long long)q * L + l;
+            if (q < Q && l < L && ty < out_len) yb[ty] = ot[rho * OP + cl];
+        }
     }
 }
 
@@ -268,7 +339,7 @@ constexpr int MAX_DEVICES = 64;
 // `bytes` if it is lower (never lower it: an earlier, larger launch may
 // still rely on it).  The attribute is per device; one lock per template
 // keeps host threads from racing on what was raised.
-template <int NT>
+template <int NT, bool WIN>
 cudaError_t allow_smem(int bytes)
 {
     static std::mutex mu;
@@ -279,7 +350,7 @@ cudaError_t allow_smem(int bytes)
     if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
     const std::lock_guard<std::mutex> lock(mu);
     if (bytes > allowed[dev]) {
-        e = cudaFuncSetAttribute(cycle_src_tc<NT>,
+        e = cudaFuncSetAttribute(cycle_src_tc<NT, WIN>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
         if (e != cudaSuccess) return e;
         allowed[dev] = bytes;
@@ -287,27 +358,62 @@ cudaError_t allow_smem(int bytes)
     return cudaSuccess;
 }
 
-template <int NT>
-int launch(const float* x, const float4* gp, const int* tiles, float* y, dim3 grid,
-           int threads, int smem_bytes, cudaStream_t stream, long long T,
-           long long x_stride, int pad_front, int M, int L, int Q, long long out_len,
-           long long out_stride, int skew, int rowmap, int ring_off)
+struct Args {
+    const float* x;
+    const float4* gp;
+    const int* tiles;
+    float* y;
+    long long T, x_stride;
+    int pad_front, M, L, Q;
+    long long out_len, out_stride;
+    int skew, rowmap, ring_off, pitch, n_rows;
+};
+
+template <int NT, bool WIN>
+int launch(const Args& a, dim3 grid, int threads, int smem_bytes, cudaStream_t stream)
 {
-    const cudaError_t e = allow_smem<NT>(smem_bytes);
+    const cudaError_t e = allow_smem<NT, WIN>(smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    cycle_src_tc<NT><<<grid, threads, smem_bytes, stream>>>(
-        x, gp, tiles, y, T, x_stride, pad_front, M, L, Q, out_len, out_stride, skew,
-        rowmap, ring_off);
+    cycle_src_tc<NT, WIN><<<grid, threads, smem_bytes, stream>>>(
+        a.x, a.gp, a.tiles, a.y, a.T, a.x_stride, a.pad_front, a.M, a.L, a.Q, a.out_len,
+        a.out_stride, a.skew, a.rowmap, a.ring_off, a.pitch, a.n_rows);
     return (int)cudaGetLastError();
 }
 
-template <int NT>
+template <bool WIN>
+int launch_nt(int nt, const Args& a, dim3 grid, int threads, int smem_bytes, cudaStream_t s)
+{
+    switch (nt) {
+    case 1: return launch<1, WIN>(a, grid, threads, smem_bytes, s);
+    case 2: return launch<2, WIN>(a, grid, threads, smem_bytes, s);
+    case 3: return launch<3, WIN>(a, grid, threads, smem_bytes, s);
+    case 4: return launch<4, WIN>(a, grid, threads, smem_bytes, s);
+    default: return launch<5, WIN>(a, grid, threads, smem_bytes, s);
+    }
+}
+
+template <int NT, bool WIN>
 cudaError_t occupancy(int* n, int warps, int smem_bytes)
 {
-    const cudaError_t e = allow_smem<NT>(smem_bytes);
+    const cudaError_t e = allow_smem<NT, WIN>(smem_bytes);
     if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, cycle_src_tc<NT>, 32 * warps,
-                                                         smem_bytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, cycle_src_tc<NT, WIN>,
+                                                         32 * warps, smem_bytes);
+}
+
+template <bool WIN>
+int blocks_per_sm(int nt, int warps, int smem_bytes)
+{
+    int n = 0;
+    cudaError_t e = cudaSuccess;
+    switch (nt) {
+    case 1: e = occupancy<1, WIN>(&n, warps, smem_bytes); break;
+    case 2: e = occupancy<2, WIN>(&n, warps, smem_bytes); break;
+    case 3: e = occupancy<3, WIN>(&n, warps, smem_bytes); break;
+    case 4: e = occupancy<4, WIN>(&n, warps, smem_bytes); break;
+    default: e = occupancy<5, WIN>(&n, warps, smem_bytes); break;
+    }
+    return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // namespace
@@ -316,19 +422,15 @@ extern "C" {
 
 // Resident blocks per SM for a launch of `warps` warps and `smem_bytes` of
 // dynamic shared memory at n-tile count nt (after the attributes the launch
-// sets), or a negative CUDA error code.
+// sets), or a negative CUDA error code; `win` selects the windowed form.
 int f9_cycle_src_blocks_per_sm(int nt, int warps, int smem_bytes)
 {
-    int n = 0;
-    cudaError_t e = cudaSuccess;
-    switch (nt) {
-    case 1: e = occupancy<1>(&n, warps, smem_bytes); break;
-    case 2: e = occupancy<2>(&n, warps, smem_bytes); break;
-    case 3: e = occupancy<3>(&n, warps, smem_bytes); break;
-    case 4: e = occupancy<4>(&n, warps, smem_bytes); break;
-    default: e = occupancy<5>(&n, warps, smem_bytes); break;
-    }
-    return e == cudaSuccess ? n : -(int)e;
+    return blocks_per_sm<false>(nt, warps, smem_bytes);
+}
+
+int f9_cycle_src_win_blocks_per_sm(int nt, int warps, int smem_bytes)
+{
+    return blocks_per_sm<true>(nt, warps, smem_bytes);
 }
 
 // The compile-time geometry the wrapper packs G and sizes shared memory for:
@@ -359,16 +461,35 @@ int f9_cycle_src(const float* x, const void* gp, const int* tiles, float* y,
         return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((Q + 16 * warps - 1) / (16 * warps)), (unsigned)n_tiles,
                     (unsigned)bc);
-    const float4* g4 = static_cast<const float4*>(gp);
-    cudaStream_t s = (cudaStream_t)stream;
-    const int th = 32 * warps;
-    switch (nt) {
-    case 1: return launch<1>(x, g4, tiles, y, grid, th, smem_bytes, s, T, x_stride, pad_front, M, L, Q, out_len, out_stride, skew, rowmap, ring_off);
-    case 2: return launch<2>(x, g4, tiles, y, grid, th, smem_bytes, s, T, x_stride, pad_front, M, L, Q, out_len, out_stride, skew, rowmap, ring_off);
-    case 3: return launch<3>(x, g4, tiles, y, grid, th, smem_bytes, s, T, x_stride, pad_front, M, L, Q, out_len, out_stride, skew, rowmap, ring_off);
-    case 4: return launch<4>(x, g4, tiles, y, grid, th, smem_bytes, s, T, x_stride, pad_front, M, L, Q, out_len, out_stride, skew, rowmap, ring_off);
-    default: return launch<5>(x, g4, tiles, y, grid, th, smem_bytes, s, T, x_stride, pad_front, M, L, Q, out_len, out_stride, skew, rowmap, ring_off);
-    }
+    const Args a{x, static_cast<const float4*>(gp), tiles, y, T, x_stride, pad_front, M, L, Q,
+                 out_len, out_stride, skew, rowmap, ring_off, 0, 0};
+    return launch_nt<false>(nt, a, grid, 32 * warps, smem_bytes, (cudaStream_t)stream);
+}
+
+// The windowed form, for banks with no dense matrix.  As f9_cycle_src, but M
+// is the input's cycle stride (the bank's M on a flat signal, the row width
+// on marshalled cycle rows), tiles' bands are windows of at most `pitch`
+// floats, pitch % 32 == 4, and the span holds 16*warps windows of `pitch`
+// floats: ring_off >= 16*warps*pitch.  bc * Q rows at most 2^31 - 256.
+int f9_cycle_src_win(const float* x, const void* gp, const int* tiles, float* y,
+                     int bc, long long T, long long x_stride, int pad_front, int M,
+                     int L, int Q, long long out_len, long long out_stride, int nt,
+                     int n_tiles, int warps, int pitch, int ring_off, int smem_bytes,
+                     void* stream)
+{
+    const long long n_rows = (long long)bc * Q;
+    if (bc <= 0 || Q <= 0 || L <= 0 || M <= 0 || T < 0 || n_rows > 2147483647LL - 256
+        || out_len > (long long)Q * L || out_stride < out_len
+        || nt < 1 || nt > MAX_NT || n_tiles != (L + 8 * nt - 1) / (8 * nt)
+        || n_tiles > 65535
+        || warps < 1 || warps > MAX_WARPS || (warps & (warps - 1))
+        || pitch % 32 != 4 || ring_off < 16 * warps * pitch
+        || ring_off % 4 || smem_bytes > 232448 || (((uintptr_t)gp) & 15))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)((n_rows + 16 * warps - 1) / (16 * warps)), (unsigned)n_tiles, 1u);
+    const Args a{x, static_cast<const float4*>(gp), tiles, y, T, x_stride, pad_front, M, L, Q,
+                 out_len, out_stride, 0, 0, ring_off, pitch, (int)n_rows};
+    return launch_nt<true>(nt, a, grid, 32 * warps, smem_bytes, (cudaStream_t)stream);
 }
 
 }  // extern "C"

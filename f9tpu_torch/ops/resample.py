@@ -1,4 +1,4 @@
-"""Rational sample-rate conversion by the dense cycle matrix (port of
+"""Rational sample-rate conversion by the cycle matrix (port of
 `f9tpu/ops/resample.py`).
 
 The whole polyphase resampler is folded at design time into one ``(W, L)``
@@ -6,12 +6,25 @@ cycle matrix ``G`` (`f9tpu_torch.models.filters.design_cycle_bank`), so
 
     y[b, q*L : (q+1)*L] = x_padded[b, q*M : q*M + W] @ G
 
-`resample` here is the plain form for banks the CUDA kernel does not take
-(`f9tpu_torch.ops.src_kernel.kernel_applicable`): a strided ``unfold`` of
-the padded signal into cycle windows and one float32 ``torch.matmul``.
-`resample_presliced` is the streamed form, on a chunk that carries its own
-halos: the kernel on the card, a fixed-order float64 fold elsewhere.
-Varispeed banks (``bank.G is None``) are not ported yet.
+`resample` here is the plain form for the dense banks the CUDA kernel does
+not take (`f9tpu_torch.ops.src_kernel.kernel_applicable`: L < 8): a strided
+``unfold`` of the padded signal into cycle windows and one float32
+``torch.matmul``.  `resample_presliced` is the streamed form, on a chunk
+that carries its own halos: the kernel on the card, a fixed-order float64
+fold elsewhere.
+
+Varispeed banks (``bank.G is None``: 44.1k -> 44056 reduces to L/M =
+11014/11025, whose dense matrix would be 0.5 GB) run from the ``(L, K)``
+phase bank.  The JAX package evaluates them as one matmul per 128-output
+segment (`_banded_eval_rows`); a library matmul picks its summation order by
+shape, which a streamed path must not depend on, so the port's forms are:
+on a CUDA tensor the `cycle_src` kernel's windowed launch form (flat,
+presliced or on marshalled cycle rows), and on a CPU tensor the plain twin
+`_gather_core`: K passes, k ascending, ``y += x[base(n) + k] * Hrev[ph(n),
+k]`` in float64, rounded to float32 once.  Each output sums its own taps in
+one fixed order, so flat == rows and chunked == whole bit for bit on either
+device.  A varispeed bank whose window does not fit the kernel's shared
+memory takes the twin on both devices.
 """
 
 from __future__ import annotations
@@ -22,13 +35,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.filters import CycleBank, design_cycle_bank
+from ..models.filters import CycleBank, _cycle_tables, design_cycle_bank
 
-__all__ = ["resample", "resample_rates", "resample_presliced", "cycle_matrix_f32",
-           "bank_to_torch", "VARISPEED_TODO"]
-
-#: ROADMAP item that varispeed banks (no dense matrix) wait for.
-VARISPEED_TODO = "ROADMAP Queue 1 'Varispeed' (banded SRC forms)"
+__all__ = ["resample", "resample_banded", "resample_gather", "resample_rates",
+           "resample_presliced", "cycle_matrix_f32", "bank_to_torch",
+           "banded_rows_applicable", "banded_rows_plan", "marshal_banded_rows",
+           "resample_banded_rows_pre"]
 
 #: Cap on the (rows x W) window matrix `resample` materialises per matmul.
 _WINDOW_ELEMS = 1 << 26
@@ -36,14 +48,16 @@ _WINDOW_ELEMS = 1 << 26
 
 def _require_dense(bank: CycleBank) -> None:
     if bank.G is None:
-        raise NotImplementedError(
-            f"varispeed bank {bank.L}/{bank.M} has no dense cycle matrix; "
-            f"the banded forms are not ported yet ({VARISPEED_TODO})")
+        raise RuntimeError(
+            f"dense cycle matrix disabled for ratio {bank.L}/{bank.M} "
+            f"(would be {bank.W}x{bank.L}); this bank runs via the banded "
+            "forms (resample_banded / resample_banded_rows_pre, dispatched "
+            "by resample / resample_auto)")
 
 
 @functools.lru_cache(maxsize=64)
 def _g_f32_cached(bank: CycleBank) -> np.ndarray:
-    _require_dense(bank)
+    _require_dense(bank)      # the one place a dense matrix is truly needed
     return np.ascontiguousarray(bank.G, dtype=np.float32)
 
 
@@ -54,10 +68,39 @@ def cycle_matrix_f32(bank: CycleBank) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def bank_to_torch(bank: CycleBank, device: torch.device) -> torch.Tensor:
-    """The bank's parameters on ``device``: its float32 ``(W, L)`` cycle
-    matrix, cached per (bank, device)."""
+def _h_rev_f32_cached(bank: CycleBank) -> np.ndarray:
+    """Phase bank with the tap axis reversed, float32 ``(L, K)``: tap k of
+    the gather form multiplies ``x_padded[base + k]``."""
+    return np.ascontiguousarray(bank.H[:, ::-1], dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_tables(bank: CycleBank) -> tuple[np.ndarray, np.ndarray]:
+    """``(off, ph)`` int64 ``(L,)``: output phase p of a cycle starts at
+    padded input ``off[p]`` and uses row ``ph[p]`` of the phase bank."""
+    return _cycle_tables(bank.L, bank.M, bank.delay_upsamples % bank.L)
+
+
+@functools.lru_cache(maxsize=64)
+def bank_to_torch(bank: CycleBank, device: torch.device):
+    """The bank's parameters on ``device``, cached per (bank, device): the
+    float32 ``(W, L)`` cycle matrix of a dense bank, or, for a varispeed
+    bank, ``(Hrev (L, K) float32, off (L,) int64, ph (L,) int64)``."""
+    if bank.G is None:
+        off, ph = _phase_tables(bank)
+        return (torch.from_numpy(_h_rev_f32_cached(bank)).to(device),
+                torch.from_numpy(off).to(device), torch.from_numpy(ph).to(device))
     return torch.from_numpy(cycle_matrix_f32(bank)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _phase_bank_f64(bank: CycleBank, device: torch.device):
+    """The gather twin's operands: ``Hrev`` transposed to ``(K, L)`` float64
+    (the float32 taps, widened), ``off`` and ``ph``."""
+    off, ph = _phase_tables(bank)
+    hrev_t = np.ascontiguousarray(_h_rev_f32_cached(bank).T.astype(np.float64))
+    return (torch.from_numpy(hrev_t).to(device), torch.from_numpy(off).to(device),
+            torch.from_numpy(ph).to(device))
 
 
 def _cycle_budget(T: int, bank: CycleBank, out_len: int | None):
@@ -79,8 +122,10 @@ def resample(x: torch.Tensor, bank: CycleBank,
              out_len: int | None = None) -> torch.Tensor:
     """Resample the last axis of float32 ``x (..., T)`` by the bank's ratio:
     ``(..., out_len)`` with ``out_len`` defaulting to ``ceil(T*L/M)``.
-    Output sample n estimates the input at position ``n*M/L``."""
-    _require_dense(bank)
+    Output sample n estimates the input at position ``n*M/L``.  A varispeed
+    bank goes to `resample_banded`."""
+    if bank.G is None:
+        return resample_banded(x, bank, out_len=out_len)
     L, M, W = bank.L, bank.M, bank.W
     T = x.shape[-1]
     lead = x.shape[:-1]
@@ -142,12 +187,12 @@ def resample_presliced(xp: torch.Tensor, bank: CycleBank, num_cycles: int) -> to
     The streaming path's SRC (`f9tpu.ops.resample.resample_presliced`).
 
     On a CUDA tensor the `cycle_src` kernel runs where it takes the bank
-    (`src_kernel.resample_presliced_kernel`); the fixed-order float64 fold
-    `_presliced_fold` serves CPU tensors (the kernel's plain twin) and the
-    banks the kernel does not take (L < 8).  Both compute each output from
+    (`src_kernel.resample_presliced_kernel`, dense or varispeed).  CPU
+    tensors, and the banks the kernel does not take on either device, get
+    the fixed-order float64 forms: `_presliced_fold` for a dense bank (L <
+    8), `_gather_core` for a varispeed bank.  All compute each output from
     its own window in an order that does not depend on where the chunk
     starts, so chunked output equals whole output bit for bit."""
-    _require_dense(bank)
     need = (num_cycles - 1) * bank.M + bank.W
     if xp.shape[-1] < need:
         raise ValueError(f"padded input too short: {xp.shape[-1]} < {need}")
@@ -156,7 +201,199 @@ def resample_presliced(xp: torch.Tensor, bank: CycleBank, num_cycles: int) -> to
 
         if kernel_applicable(bank):
             return resample_presliced_kernel(xp, bank, num_cycles)
+    if bank.G is None:
+        return _gather_core(xp, bank, num_cycles * bank.L)
     return _presliced_fold(xp, bank, num_cycles)
+
+
+# --------------------------------------------------------------------------
+# Varispeed banks: no dense matrix, executed from the (L, K) phase bank.
+# --------------------------------------------------------------------------
+
+
+def _pad_for_cycles(x: torch.Tensor, bank: CycleBank, out_len: int | None):
+    """`_cycle_budget` + the explicit zero pad: ``(out_len, padded)``, with
+    ``padded`` None for an empty input or output."""
+    T = x.shape[-1]
+    out_len, _Q, keep_T, pad_front, pad_back = _cycle_budget(T, bank, out_len)
+    if T == 0 or out_len == 0:
+        return out_len, None
+    return out_len, F.pad(x[..., :keep_T], (pad_front, pad_back))
+
+
+def _check_index_range(bank: CycleBank) -> None:
+    # the JAX package's int32 gather limit, kept so both accept the same banks
+    if bank.L * bank.M + bank.L >= 2**31:
+        raise ValueError(
+            f"ratio {bank.L}/{bank.M} too fine for int32 gather index math")
+
+
+def _gather_core(xp: torch.Tensor, bank: CycleBank, n_out: int) -> torch.Tensor:
+    """Phase-table resampling of an already padded signal, the plain twin of
+    the kernel's windowed form (`f9tpu.ops.resample._gather_core`):
+
+        y[n] = sum_k Hrev[ph(n), k] * xp[base(n) + k]
+
+    with ``base(n) = (n // L)*M + off[n % L]`` and ``ph(n) = ph[n % L]``: the
+    dense contract with ``G`` never built.  K passes, k ascending, each one
+    gather and one multiply-add over the whole output, summed in float64 and
+    rounded to float32 once: within half an output ulp of the exact sum, in
+    an order that depends on nothing but the output's own taps."""
+    L, M, K = bank.L, bank.M, bank.taps_per_phase
+    _check_index_range(bank)
+    lead, T_pad = xp.shape[:-1], xp.shape[-1]
+    x64 = xp.reshape(-1, T_pad).to(torch.float64)
+    hrev_t, off, ph = _phase_bank_f64(bank, xp.device)
+    n = torch.arange(n_out, dtype=torch.int64, device=xp.device)
+    b = n % L
+    base = (n // L) * M + off[b]
+    phb = ph[b]
+    y = torch.zeros((x64.shape[0], n_out), dtype=torch.float64, device=xp.device)
+    for k in range(K):
+        x_k = x64.index_select(1, torch.clamp(base + k, max=T_pad - 1))
+        y.addcmul_(x_k, hrev_t[k].index_select(0, phb))
+    return y.to(xp.dtype).reshape(*lead, n_out)
+
+
+def _gather_rows(rows: torch.Tensor, bank: CycleBank) -> torch.Tensor:
+    """`_gather_core` on cycle rows ``(..., Q, w_rows)`` -> ``(..., Q, L)``:
+    row q's output p sums ``rows[..., q, off[p] + k] * Hrev[ph[p], k]`` in
+    the same k order, so it equals the flat form bit for bit."""
+    K = bank.taps_per_phase
+    lead, Q, w = rows.shape[:-2], rows.shape[-2], rows.shape[-1]
+    r64 = rows.reshape(-1, Q, w).to(torch.float64)
+    hrev_t, off, ph = _phase_bank_f64(bank, rows.device)
+    y = torch.zeros((r64.shape[0], Q, bank.L), dtype=torch.float64, device=rows.device)
+    for k in range(K):
+        y.addcmul_(r64.index_select(2, off + k), hrev_t[k].index_select(0, ph))
+    return y.to(rows.dtype).reshape(*lead, Q, bank.L)
+
+
+def resample_gather(x: torch.Tensor, bank: CycleBank,
+                    out_len: int | None = None) -> torch.Tensor:
+    """Drop-in equivalent of `resample` through the phase-table gather form,
+    for any bank, on ``x``'s device: the plain twin the kernel's windowed
+    form is held to, and the form of the varispeed banks the kernel does not
+    take."""
+    out_len, xp = _pad_for_cycles(x, bank, out_len)
+    if xp is None:
+        return x.new_zeros((*x.shape[:-1], out_len))
+    return _gather_core(xp, bank, out_len)
+
+
+#: Outputs per banded segment and the alignment of a segment's first input
+#: (the JAX package's MXU lane tile; kept so `_banded_plan`, and with it the
+#: cycle rows' width, equal the JAX package's).
+_BAND_SEG = 128
+_LANE = 128
+
+
+@functools.lru_cache(maxsize=16)
+def _banded_geometry(bank: CycleBank) -> tuple[tuple[int, ...], int, int, int]:
+    """``(in0, w, seg, w_rows)``: the JAX package's banded decomposition of
+    a cycle into S overlapping 128-output segments over lane-aligned input
+    windows of ``w`` floats; ``w_rows`` is the width of a marshalled cycle
+    row (`banded_rows_plan`)."""
+    L, K = bank.L, bank.taps_per_phase
+    seg = min(_BAND_SEG, L)
+    off, _ph = _phase_tables(bank)
+    S = max(1, -(-L // seg))
+    p0s = [s * seg for s in range(S - 1)] + [L - seg]
+    in0 = [int(off[p0]) - int(off[p0]) % _LANE for p0 in p0s]
+    w = int(max(int(off[p0 + seg - 1]) + K - in0[s] for s, p0 in enumerate(p0s)))
+    w = -(-w // 8) * 8
+    return tuple(in0), w, seg, int(max(in0)) + w
+
+
+def _banded_plan(bank: CycleBank):
+    """``(in0, w, seg, w_rows, G)``: `_banded_geometry` with each segment's
+    small dense ``(w, 128)`` matrix (numpy, built on every call).  No path
+    of the port contracts against ``G``: it is the JAX package's form, which
+    the tests hold bitwise to that package's and the card's smoke test times
+    as the library form."""
+    in0, w, seg, w_rows = _banded_geometry(bank)
+    L, K = bank.L, bank.taps_per_phase
+    off, ph = _phase_tables(bank)
+    hrev = _h_rev_f32_cached(bank)
+    p0s = [s * seg for s in range(len(in0) - 1)] + [L - seg]
+    G = np.zeros((len(in0), w, seg), np.float32)
+    for s, p0 in enumerate(p0s):
+        for c in range(seg):
+            pp = p0 + c
+            row = int(off[pp] - in0[s])
+            G[s, row: row + K, c] = hrev[ph[pp]]
+    return in0, w, seg, w_rows, G
+
+
+def _rows_width(bank: CycleBank) -> int:
+    return _banded_geometry(bank)[3]
+
+
+def banded_rows_applicable(bank: CycleBank) -> bool:
+    """Can this bank run on marshalled cycle rows?  Meant for varispeed
+    banks (no dense matrix); dense banks have `resample_rows`."""
+    return bank.G is None and bank.L >= 8 and bank.L * bank.M < 2**31
+
+
+def banded_rows_plan(bank: CycleBank, frames: int) -> tuple[int, int, int]:
+    """``(n_rows, row_width, pad_front)`` for marshalling a ``frames``-long
+    signal into overlapping cycle rows: row q holds ``padded[q*M : q*M +
+    row_width]`` of the zero-padded signal (zeros outside ``[pad_front,
+    pad_front + frames)``)."""
+    n_out = bank.out_len(frames)
+    return -(-n_out // bank.L), _rows_width(bank), bank.pad_front
+
+
+def marshal_banded_rows(flat: np.ndarray, bank: CycleBank,
+                        n_rows: int | None = None) -> np.ndarray:
+    """Overlapping cycle rows from zero-padded flat staging ``(..., total)``
+    (numpy): one strided window view and one contiguous copy.  ``flat``
+    holds the signal at offset ``pad_front`` (`banded_rows_plan`);
+    ``n_rows`` caps the row count when the staging has room to spare."""
+    v = np.lib.stride_tricks.sliding_window_view(
+        flat, _rows_width(bank), axis=-1)[..., ::bank.M, :]
+    if n_rows is not None:
+        v = v[..., :n_rows, :]
+    return np.ascontiguousarray(v)
+
+
+def _kernel_takes(t: torch.Tensor, bank: CycleBank) -> bool:
+    """Does ``t`` go to the kernel's wrapper?  Only a CPU tensor takes the
+    plain twin of a bank the kernel takes; the wrapper raises on any other
+    device than CUDA."""
+    if t.device.type == "cpu":
+        return False
+    from .src_kernel import kernel_applicable
+
+    return kernel_applicable(bank)
+
+
+def resample_banded_rows_pre(xrows: torch.Tensor, bank: CycleBank) -> torch.Tensor:
+    """Varispeed SRC on rows-marshalled input ``(..., Q, row_width)`` ->
+    ``(..., Q, L)`` cycle rows (output sample t at ``[..., t // L, t % L]``).
+    On a CUDA tensor the kernel reads row q's window at stride
+    ``row_width`` in place of M; the same floats as `resample_banded` bit
+    for bit, on either device."""
+    if xrows.shape[-1] != _rows_width(bank):
+        raise ValueError(f"cycle-row width {xrows.shape[-1]} != plan {_rows_width(bank)}")
+    if _kernel_takes(xrows, bank):
+        from .src_kernel import resample_banded_rows_kernel
+
+        return resample_banded_rows_kernel(xrows, bank)
+    return _gather_rows(xrows, bank)
+
+
+def resample_banded(x: torch.Tensor, bank: CycleBank,
+                    out_len: int | None = None) -> torch.Tensor:
+    """The production form for varispeed banks (``bank.G is None``), the
+    same design and contract as `resample`: the kernel's windowed form on a
+    CUDA tensor, `resample_gather` on a CPU tensor (and for a bank the
+    kernel does not take)."""
+    if _kernel_takes(x, bank):
+        from .src_kernel import resample_kernel
+
+        return resample_kernel(x, bank, out_len=out_len)
+    return resample_gather(x, bank, out_len=out_len)
 
 
 def resample_rates(x: torch.Tensor, rate_in: int, rate_out: int,

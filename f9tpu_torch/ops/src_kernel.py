@@ -16,11 +16,21 @@ warps, the span's skew and row order, each tile's band of G rows), and
 the kernel's fragments read them.  Both are plain numpy, so the CPU tests
 can replay the kernel's arithmetic on them.
 
+Varispeed banks (``bank.G is None``, no dense matrix) take the kernel's
+windowed launch form: each (signal, cycle) row stages only its column
+tile's window of the signal, and the packed bank is built from the phase
+bank ``H`` and the cycle tables, never from a dense ``G``.  The JAX package
+has no kernel of its own for them (XLA evaluates `_banded_eval_rows`, one
+matmul per 128-output segment).
+
 The wrapper rule: on a CUDA tensor `resample_rows` / `resample_kernel`
 launch the kernel or raise; on a CPU tensor they run the plain PyTorch twin
 `resample_rows_reference` (the stacked-bank matmul plus R row-shifted adds
-of `f9tpu.ops.pallas_src.resample_rows_pre`).  There is no fallback from
-the kernel to the twin.  ``launches`` counts kernel launches.
+of `f9tpu.ops.pallas_src.resample_rows_pre`; for a varispeed bank the
+float64 gather form `f9tpu_torch.ops.resample._gather_core`).  There is no
+fallback from the kernel to the twin.  ``launches`` counts kernel launches;
+the count is a plain integer raised under a lock, so launches made from
+several host threads all count.
 """
 
 from __future__ import annotations
@@ -28,22 +38,28 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
 
 from ..models.filters import CycleBank
 
-from .resample import _require_dense, cycle_matrix_f32, resample
+from .resample import (_gather_core, _h_rev_f32_cached, _pad_for_cycles,
+                       _phase_tables, _rows_width, cycle_matrix_f32, resample)
 
 __all__ = ["kernel_applicable", "kernel_plan", "packed_bank_f32", "tf32_rna",
            "resample_rows", "resample_rows_reference", "resample_kernel",
-           "resample_auto", "resample_presliced_kernel", "rows_marshal_plan",
-           "stacked_bank_f32", "launches"]
+           "resample_auto", "resample_presliced_kernel",
+           "resample_banded_rows_kernel", "rows_marshal_plan",
+           "stacked_bank_f32", "launches", "launches_windowed"]
 
 #: CUDA kernel launches since the count was last reset (a plain integer:
 #: callers set it to 0 and read it back to prove a path ran the kernel).
 launches = 0
+#: those of them that took the windowed form (varispeed banks)
+launches_windowed = 0
+_launch_lock = threading.Lock()
 
 # The kernel's compile-time geometry (csrc/cycle_src.cu): k8 steps per ring
 # stage, ring stages, 8-column n-tiles per block at most, warps (16 cycles
@@ -69,7 +85,13 @@ class KernelPlan:
     ``[bands[c][0], bands[c][0] + 8*bands[c][1])`` (``nk = bands[c][1]`` k8
     steps, a multiple of `KC8`); a block owns ``16*warps`` cycles.  The span
     in shared memory stores logical float ``j`` at ``j + skew*(j // 32)``;
-    ``rowmap`` orders a warp's cycles (see `cycle_of`)."""
+    ``rowmap`` orders a warp's cycles (see `cycle_of`).
+
+    ``pitch > 0`` is the windowed form of a varispeed bank: the span holds
+    one window of ``pitch`` floats per row (``pitch % 32 == 4``, at least
+    the widest band), unskewed, rows in order; ``warps`` is then the most a
+    launch uses (a launch with few rows takes fewer) and ``ring_off`` /
+    ``smem_bytes`` are those of a launch at ``warps`` (`_window_smem`)."""
     nt: int
     warps: int
     skew: int
@@ -77,6 +99,7 @@ class KernelPlan:
     bands: tuple[tuple[int, int], ...]
     ring_off: int
     smem_bytes: int
+    pitch: int = 0
 
 
 def _choose_nt(L: int) -> int:
@@ -147,15 +170,62 @@ def _fits(bank: CycleBank, nt: int, warps: int, skew: int, rows: int):
 
 
 @functools.lru_cache(maxsize=256)
+def _bands_phase(bank: CycleBank, nt: int) -> tuple[tuple[int, int], ...]:
+    """`_bands` of a varispeed bank, from the cycle tables alone: phase p's
+    taps are rows ``[off[p], off[p] + K)`` and ``off`` never falls, so tile
+    c's band runs from its first phase's ``off`` to its last's ``off + K``."""
+    off, _ph = _phase_tables(bank)
+    K = bank.taps_per_phase
+    out = []
+    for l0 in range(0, bank.L, 8 * nt):
+        lo, hi = int(off[l0]), int(off[min(bank.L, l0 + 8 * nt) - 1]) + K
+        out.append((lo, KC8 * -(-(-(-(hi - lo) // 8)) // KC8)))
+    return tuple(out)
+
+
+def _window_smem(nt: int, warps: int, pitch: int) -> tuple[int, int]:
+    """(ring_off, smem_bytes) of the windowed form at ``warps``: 16*warps
+    windows of ``pitch`` floats (which the output tile reuses), then the
+    ring."""
+    tile = 16 * warps * (8 * nt + 1)
+    ring_off = max(16 * warps * pitch, 4 * -(-tile // 4))
+    return ring_off, 4 * ring_off + STAGES * KC8 * nt * 32 * 16
+
+
+def _window_plan(bank: CycleBank) -> KernelPlan | None:
+    """The windowed form's geometry: the window pitch is the widest band
+    rounded up to 4 mod 32 floats (an A load's 8 rows x 4 taps then hit 32
+    different banks whatever M is); warps: the most of (8, 4, 2, 1) whose
+    windows fit `_SPAN_BUDGET` (several blocks then share an SM), else the
+    most that fit shared memory at all; None if one warp's do not."""
+    if bank.L * bank.M >= 2**31:
+        return None
+    nt = _choose_nt(bank.L)
+    bands = _bands_phase(bank, nt)
+    rows = 8 * max(nk for _, nk in bands)
+    pitch = rows + (4 - rows) % 32
+    fit = [w for w in (8, 4, 2, 1) if _window_smem(nt, w, pitch)[1] <= _SMEM_MAX]
+    if not fit:
+        return None
+    warps = next((w for w in fit if 4 * 16 * w * pitch <= _SPAN_BUDGET), fit[-1])
+    ring_off, smem = _window_smem(nt, warps, pitch)
+    return KernelPlan(nt, warps, 0, 0, bands, ring_off, smem, pitch)
+
+
+@functools.lru_cache(maxsize=256)
 def kernel_plan(bank: CycleBank) -> KernelPlan | None:
     """The kernel's geometry for ``bank``, or None when it does not take it
-    (no dense matrix, L < 8, or a span too long for shared memory even at
-    one warp: M in the thousands).  Warps: the most (8, 4, 2, 1) whose span
+    (L < 8, or a span too long for shared memory even at one warp: a dense
+    bank with M in the thousands, a varispeed bank whose window passes
+    ~3,500 floats).  A varispeed bank gets the windowed form
+    (`_window_plan`).  Dense banks: warps: the most (8, 4, 2, 1) whose span
     fits `_SPAN_BUDGET`; skew and row order: the fewest bank conflicts on
     the A loads among those that fit (the interleaved order needs a warp
     pair)."""
-    if not (bank.dense_ok and bank.L >= 8):
+    if bank.L < 8:
         return None
+    if bank.G is None:
+        return _window_plan(bank)
     nt = _choose_nt(bank.L)
     bands = _bands(bank, nt)
     rows = 8 * max(nk for _, nk in bands) if bands else 0
@@ -176,11 +246,12 @@ def kernel_plan(bank: CycleBank) -> KernelPlan | None:
 def kernel_applicable(bank: CycleBank) -> bool:
     """Does the CUDA kernel take this bank?
 
-    It needs the dense cycle matrix (varispeed banks have none), L >= 8 (a
-    block computes 8 to 40 output phases; below 8, the integer-ratio banks
-    with L in {1, 2, 4}, most of it would idle and the unfold + matmul form
-    serves them) and a signal span of 16 cycles that fits a block's shared
-    memory (M up to ~3,000): `kernel_plan` is not None.  Unlike the Pallas
+    It needs L >= 8 (a block computes 8 to 40 output phases; below 8, the
+    integer-ratio banks with L in {1, 2, 4}, most of it would idle and the
+    unfold + matmul form serves them) and, for a dense bank, a signal span
+    of 16 cycles that fits a block's shared memory (M up to ~3,000), for a
+    varispeed bank 16 windows of one column tile that do: `kernel_plan` is
+    not None.  Unlike the Pallas
     gate (`pallas_applicable`: R <= 8, M >= 16, both TPU VMEM tiling rules)
     it does not bound R: G streams through the ring in 16-row chunks.  Every
     bank `pallas_applicable` accepts at the standard rates is accepted here."""
@@ -200,8 +271,21 @@ def _packed_cached(bank: CycleBank) -> tuple[np.ndarray, np.ndarray]:
     if plan is None:
         raise ValueError(f"the cycle_src kernel does not take bank L={bank.L} "
                          f"M={bank.M} W={bank.W}")
-    g = cycle_matrix_f32(bank)
     W, L, nt = bank.W, bank.L, plan.nt
+    if bank.G is not None:
+        g = cycle_matrix_f32(bank)
+
+        def values(w, col):
+            return g[w, col]
+    else:
+        # G[w, l] = Hrev[ph[l], w - off[l]] inside the phase's K taps
+        hrev, (p_off, p_ph) = _h_rev_f32_cached(bank), _phase_tables(bank)
+        K = bank.taps_per_phase
+
+        def values(w, col):
+            k = w - p_off[col]
+            inside = (k >= 0) & (k < K)
+            return np.where(inside, hrev[p_ph[col], np.clip(k, 0, K - 1)], np.float32(0))
     lane = np.arange(32)
     gi, ti = lane >> 2, lane & 3
     parts, tiles, off = [], [], 0
@@ -213,7 +297,7 @@ def _packed_cached(bank: CycleBank) -> tuple[np.ndarray, np.ndarray]:
         quad = np.zeros((nk, nt, 32, 4), np.float32)
         for k, w in ((0, w0), (1, w0 + 4)):
             ok = (w < W) & (col < L)
-            v = np.where(ok, g[np.minimum(w, W - 1), np.minimum(col, L - 1)], 0)
+            v = np.where(ok, values(np.minimum(w, W - 1), np.minimum(col, L - 1)), 0)
             hi = tf32_rna(v)
             quad[..., k] = hi
             quad[..., k + 2] = tf32_rna(v - hi)
@@ -272,12 +356,18 @@ def _stacked_bank_f64(bank: CycleBank, device: torch.device) -> torch.Tensor:
 
 
 def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
-            out_stride: int, pad_front: int | None = None) -> torch.Tensor:
+            out_stride: int, pad_front: int | None = None,
+            in_stride: int | None = None) -> torch.Tensor:
     """One kernel launch over ``xf (bc, T)``: ``(bc, out_stride)`` float32 of
     which samples ``[0, out_len)`` are written.  Output cycle q reads
     ``xf[:, q*M - pad_front + w]`` (zero outside ``[0, T)``); ``pad_front``
-    defaults to the bank's, 0 reads an already haloed chunk."""
-    global launches
+    defaults to the bank's, 0 reads an already haloed chunk.
+
+    A varispeed bank launches the windowed form: ``in_stride`` replaces M as
+    the input's cycle stride (marshalled cycle rows), and a launch of few
+    rows takes fewer warps than the plan's; neither moves an output's
+    summation order."""
+    global launches, launches_windowed
     if xf.dtype != torch.float32:
         raise TypeError(f"cycle_src kernel takes float32, got {xf.dtype}")
     if xf.device.type != "cuda":
@@ -293,6 +383,8 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
     if plan is None:
         raise ValueError(f"the cycle_src kernel does not take bank L={bank.L} "
                          f"M={bank.M} W={bank.W}")
+    if in_stride is not None and not plan.pitch:
+        raise ValueError("a cycle stride other than M needs the windowed form")
     from ._build import load_library
 
     lib = load_library()
@@ -300,18 +392,32 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
         raise RuntimeError("cycle_src library geometry differs from the wrapper's")
     gp, tiles = _device_bank(bank, xf.device)
     y = torch.empty((bc, out_stride), dtype=torch.float32, device=xf.device)
+    pf = bank.pad_front if pad_front is None else pad_front
     with torch.cuda.device(xf.device):
-        stream = torch.cuda.current_stream(xf.device).cuda_stream
-        err = lib.f9_cycle_src(
-            ctypes.c_void_p(xf.data_ptr()), ctypes.c_void_p(gp.data_ptr()),
-            ctypes.c_void_p(tiles.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            bc, T, T, bank.pad_front if pad_front is None else pad_front,
-            bank.M, bank.L, Q, out_len, out_stride,
-            plan.nt, len(plan.bands), plan.warps, plan.skew, plan.rowmap,
-            plan.ring_off, plan.smem_bytes, ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(xf.device).cuda_stream)
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (xf, gp, tiles, y)]
+        if plan.pitch:
+            n_rows = bc * Q
+            if n_rows > 2**31 - 256:
+                raise ValueError(f"{n_rows} (signal, cycle) rows exceed the kernel's grid")
+            warps = plan.warps
+            while warps > 1 and 16 * (warps // 2) >= n_rows:
+                warps //= 2
+            ring_off, smem = _window_smem(plan.nt, warps, plan.pitch)
+            err = lib.f9_cycle_src_win(
+                *ptrs, bc, T, T, pf, bank.M if in_stride is None else in_stride,
+                bank.L, Q, out_len, out_stride, plan.nt, len(plan.bands), warps,
+                plan.pitch, ring_off, smem, stream)
+        else:
+            err = lib.f9_cycle_src(
+                *ptrs, bc, T, T, pf, bank.M, bank.L, Q, out_len, out_stride,
+                plan.nt, len(plan.bands), plan.warps, plan.skew, plan.rowmap,
+                plan.ring_off, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"cycle_src kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _launch_lock:
+        launches += 1
+        launches_windowed += bool(plan.pitch)
     return y
 
 
@@ -327,8 +433,19 @@ def resample_rows_reference(x: torch.Tensor, bank: CycleBank,
     result rounded to float32 once, so the twin is the exact sum to within
     half an output ulp: the reference the kernel (and the card's output
     against the CPU path's) is held to.  A float32 matmul would itself carry
-    ~0.35 LSB RMS of summation error at 24 bits."""
-    _require_dense(bank)
+    ~0.35 LSB RMS of summation error at 24 bits.
+
+    A varispeed bank has no stacked bank: its twin is the float64 gather
+    form (`f9tpu_torch.ops.resample._gather_core`) over whole cycles."""
+    if bank.G is None:
+        lead = x.shape[:-1]
+        if out_len is None:
+            out_len = bank.out_len(x.shape[-1])
+        Q = -(-out_len // bank.L)
+        _, xp = _pad_for_cycles(x, bank, out_len)
+        if xp is None:
+            return x.new_zeros((*lead, 0, bank.L)), out_len
+        return _gather_core(xp, bank, Q * bank.L).reshape(*lead, Q, bank.L), out_len
     L, M = bank.L, bank.M
     R = _overlap_rows(bank)
     T = x.shape[-1]
@@ -358,7 +475,6 @@ def resample_rows(x: torch.Tensor, bank: CycleBank,
     a CUDA tensor, the twin on a CPU tensor."""
     if x.device.type == "cpu":
         return resample_rows_reference(x, bank, out_len=out_len)
-    _require_dense(bank)
     T = x.shape[-1]
     lead = x.shape[:-1]
     if out_len is None:
@@ -385,7 +501,6 @@ def resample_kernel(x: torch.Tensor, bank: CycleBank,
         y, _ = resample_rows_reference(x, bank, out_len=out_len)
         bc = int(np.prod(lead)) if lead else 1
         return y.reshape(bc, -1)[:, :out_len].reshape(*lead, out_len)
-    _require_dense(bank)
     Q = -(-out_len // bank.L)
     y = _launch(x.reshape(-1, T).contiguous(), bank, Q, out_len, out_len)
     return y.reshape(*lead, out_len)
@@ -398,8 +513,8 @@ def resample_presliced_kernel(xp: torch.Tensor, bank: CycleBank,
     with ``T >= (num_cycles - 1)*M + W`` -> ``(..., num_cycles * L)``, one
     launch with ``pad_front = 0``.  Each output sums its window in the same
     k8 order wherever the chunk starts; where a cycle's window sits in the
-    block's span moves only the shared-memory address."""
-    _require_dense(bank)
+    block's span (or which row of a windowed launch it is) moves only the
+    shared-memory address."""
     T = xp.shape[-1]
     lead = xp.shape[:-1]
     n = num_cycles * bank.L
@@ -407,10 +522,28 @@ def resample_presliced_kernel(xp: torch.Tensor, bank: CycleBank,
     return y.reshape(*lead, n)
 
 
+def resample_banded_rows_kernel(xrows: torch.Tensor, bank: CycleBank) -> torch.Tensor:
+    """The windowed form on marshalled cycle rows ``(..., Q, row_width)`` of
+    a varispeed bank -> ``(..., Q, L)``: one launch whose cycle stride is
+    the row width (`f9tpu_torch.ops.resample.resample_banded_rows_pre`).
+    Row q's window holds the floats the flat form reads at ``q*M``, and the
+    taps past a row's width meet zero columns of the packed bank."""
+    lead, Q, w = xrows.shape[:-2], xrows.shape[-2], xrows.shape[-1]
+    if w != _rows_width(bank):
+        raise ValueError(f"cycle-row width {w} != plan {_rows_width(bank)}")
+    if Q == 0:
+        return xrows.new_zeros((*lead, 0, bank.L))
+    y = _launch(xrows.reshape(-1, Q * w).contiguous(), bank, Q, Q * bank.L, Q * bank.L,
+                pad_front=0, in_stride=w)
+    return y.reshape(*lead, Q, bank.L)
+
+
 def resample_auto(x: torch.Tensor, bank: CycleBank,
                   out_len: int | None = None) -> torch.Tensor:
-    """The kernel where `kernel_applicable`, the unfold + matmul `resample`
-    otherwise (the JAX package's dispatch)."""
+    """The kernel where `kernel_applicable`, `resample` otherwise (the JAX
+    package's dispatch): the unfold + matmul form for a dense bank with
+    L < 8, the float64 gather form for a varispeed bank whose window does
+    not fit the kernel."""
     if kernel_applicable(bank):
         return resample_kernel(x, bank, out_len=out_len)
     return resample(x, bank, out_len=out_len)

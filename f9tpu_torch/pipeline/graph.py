@@ -10,9 +10,11 @@ One fixed-shape batch ``(files, channels, frames)`` runs, in order:
     routed-silent channels to zero -> byte packing
 
 PyTorch runs it eagerly on the tensors' device; there is no jit.  Per-file
-lengths ride through as masks, as in the JAX graph.  Not ported yet, each
+lengths ride through as masks, as in the JAX graph, and the per-file
+loudness-normalization gains as a device vector.  Varispeed rates reach the
+SRC through the same dispatch (`resample_auto`).  Not ported yet, each
 raising NotImplementedError that names its ROADMAP item: channel-axis
-sharding, meshes, the rows layout, loudness normalization.
+sharding, meshes, the rows layout.
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ NOT_PORTED = {
     "channel_axis": "ROADMAP Queue 1 'Multi-device' (parallel/)",
     "mesh": "ROADMAP Queue 1 'Multi-device' (parallel/)",
     "rows_layout": "ROADMAP Queue 1, the rows layout (_process_impl_rows)",
-    "normalize_lufs": "ROADMAP Queue 1 'Loudness' (ops/loudness.py)",
     "native_loader": "left out of the port (measured slower than Python decode)",
 }
 
@@ -105,7 +106,8 @@ def _exact_out_valid(frames_valid: torch.Tensor, bank, out_total: int) -> torch.
 
 def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
                   rate_in, rate_out, cfg_key, static_zero_latency=False,
-                  raw_in=None, packed_out=False, chain=None, channel_axis=None):
+                  raw_in=None, packed_out=False, chain=None, channel_axis=None,
+                  gain_lin=None):
     (quality, kind, bits, do_dither, remove_dc, gain_db, trim_enabled,
      reverb_mode, margin_pct, tail_mode, tail_window_ms, tail_hop_ms,
      tail_consecutive, pad_frames, routing, out_channels) = cfg_key
@@ -158,12 +160,20 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
              < out_frames[:, None, None])
     ym = torch.where(vmask, y, zero)
     if remove_dc:
-        # mean over each file's valid span only (masked samples add 0)
-        mean = (torch.sum(ym, dim=-1, keepdim=True)
-                / torch.clamp(out_frames, min=1).reshape(files, 1, 1).to(torch.float32))
+        # mean over each file's valid span only (masked samples add 0),
+        # accumulated in float64 and rounded once: a float32 reduction's
+        # order follows the row's alignment in the batch, and that moved a
+        # file's mean by an ulp, and a few of its samples by 1 LSB, with its
+        # place in the batch (which follows the decode threads' timing)
+        mean = (torch.sum(ym, dim=-1, keepdim=True, dtype=torch.float64)
+                / torch.clamp(out_frames, min=1).reshape(files, 1, 1)).to(torch.float32)
     else:
         mean = torch.zeros((files, 1, 1), dtype=torch.float32, device=dev)
     g = 10.0 ** (gain_db / 20.0) if gain_db else 1.0
+    if gain_lin is not None:
+        # per-file loudness-normalization gain: float32(static) * float32
+        # per file, the product the stream composes for the same file
+        g = float(np.float32(g)) * gain_lin.reshape(files, 1, 1)
     z = torch.where(vmask, (ym - mean) * g, zero)
 
     pk_db, level_db = _metrics(z, out_frames)
@@ -260,6 +270,25 @@ def _latency(latency_frames, device):
     return _as_tensor(latency_frames, torch.int64, device), static_zero
 
 
+def gain_lin_f32(gain_db) -> np.ndarray:
+    """Per-file dB -> ``(n,)`` float32 linear gains: ``10 ** (float32 dB /
+    20)`` evaluated in float32 on the host, as the JAX graph evaluates it.
+    The batch graph and the stream both come here (the stream with one
+    element), so a file's factor is the same float32 on either path."""
+    db = np.atleast_1d(np.asarray(gain_db, np.float32))
+    return np.power(np.float32(10.0), db / np.float32(20.0)).astype(np.float32)
+
+
+def _gain_vector(per_file_gain_db, files: int, device):
+    """``(files,)`` float32 linear gains on ``device`` (None stays None)."""
+    if per_file_gain_db is None:
+        return None
+    lin = gain_lin_f32(per_file_gain_db)
+    if lin.shape != (files,):
+        raise ValueError(f"expected ({files},) per-file gains, got {lin.shape}")
+    return torch.from_numpy(lin).to(device)
+
+
 def _noise_floor(cfg: ProcessingConfig, noise_floor_db, device) -> torch.Tensor:
     """The tail detector's noise floor: the argument, else the config's,
     else 1.0 (any value >= 0 selects the -80 dB fallback threshold)."""
@@ -272,14 +301,15 @@ def _noise_floor(cfg: ProcessingConfig, noise_floor_db, device) -> torch.Tensor:
 def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
                   latency_frames=0, pad_frames: int | None = None,
                   noise_floor_db: float | None = None, rows_layout: bool = False,
-                  device=None) -> ProcessResult:
+                  per_file_gain_db=None, device=None) -> ProcessResult:
     """Run one fixed-shape batch of float32 ``x (files, channels, frames)``
     (zero-padded per file to the bucket length; ``frames_valid`` holds the
     true lengths) on ``device`` (default: ``x``'s device if it is a tensor,
     else CUDA).  ``seeds`` is the per-file int32 dither seed vector.
     ``pad_frames`` overrides the capture head-room (`_default_pad_frames`);
     ``noise_floor_db`` overrides ``cfg.noise_floor_db`` for the reverb-tail
-    threshold."""
+    threshold.  ``per_file_gain_db``: optional ``(files,)`` per-file output
+    gain in dB (loudness normalization), composed with ``cfg.gain_db``."""
     if rows_layout:
         raise not_ported("rows_layout")
     dev = _pick_device(x, device)
@@ -292,7 +322,7 @@ def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
         _noise_floor(cfg, noise_floor_db, dev), _seed_vector(seeds, x.shape[0], dev),
         rate_in=rate_in, rate_out=cfg.target_rate,
         cfg_key=_cfg_key(cfg, pad_frames), static_zero_latency=static_zero,
-        chain=cfg.chain)
+        chain=cfg.chain, gain_lin=_gain_vector(per_file_gain_db, x.shape[0], dev))
     return ProcessResult(codes=codes, out_frames=out_frames,
                          tail_terminated=terminated, peak_db=pk, rms_db=level,
                          noise_floor_db=nf_est)
@@ -302,7 +332,8 @@ def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
                       seeds, in_channels: int, in_bits: int,
                       in_big_endian: bool = False, latency_frames=0,
                       noise_floor_db: float | None = None,
-                      rows_layout: bool = False, device=None) -> ProcessResult:
+                      rows_layout: bool = False, per_file_gain_db=None,
+                      device=None) -> ProcessResult:
     """Raw-bytes path: uint8 interleaved PCM ``(files, bucket_frames *
     in_channels * in_bits // 8)`` in, packed payload out.  ``codes`` holds
     the uint8 payload ``(files, out_total * out_channels * cfg.bits // 8)``;
@@ -321,7 +352,7 @@ def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
         rate_in=rate_in, rate_out=cfg.target_rate,
         cfg_key=_cfg_key(cfg, pad_frames), static_zero_latency=static_zero,
         raw_in=(in_channels, in_bits, in_big_endian), packed_out=True,
-        chain=cfg.chain)
+        chain=cfg.chain, gain_lin=_gain_vector(per_file_gain_db, raw.shape[0], dev))
     return ProcessResult(codes=payload, out_frames=out_frames,
                          tail_terminated=terminated, peak_db=pk, rms_db=level,
                          noise_floor_db=nf_est)

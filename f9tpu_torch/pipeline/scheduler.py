@@ -14,8 +14,21 @@ Without reverb mode, files longer than the largest bucket take the
 constant-memory streaming path (`pipeline/stream.py`) on the processor's
 device, after the batches, with the group's calibrated latency.
 
+Loudness normalization (``cfg.normalize_lufs``): each decode worker meters
+its file with the chunk-exact streamed meter on the processor's device
+(`ops.loudness.meter_source_streamed`, the function the streaming path
+calls, so a file gets the same gain either way) and the per-file gains ride
+to the graph as one vector.  The meter needs decoded floats, so
+normalization turns the raw-bytes upload off.  The workers are threads:
+their device work is queued on the default CUDA stream beside the batches',
+the kernel's launch count is raised under a lock, and the kernel library,
+the packed banks and the K-weighting spectrum are built once behind locks
+or idempotent caches.  One worker meters at a time (the others go on
+decoding): a meter is thousands of small launches, and four threads making
+them through one interpreter lock took twice as long as one.
+
 Not ported yet, each refused when the processor is built: multi-device
-meshes, loudness normalization, the rows layout and the native loader.
+meshes, the rows layout and the native loader.
 """
 
 from __future__ import annotations
@@ -89,6 +102,7 @@ class _Decoded:
     entry_path: str
     data: np.ndarray      # (channels, frames) float32, or the raw uint8 payload
     rate: int
+    gain_db: float = 0.0  # per-file loudness-normalization gain
 
 
 class BatchProcessor:
@@ -107,7 +121,6 @@ class BatchProcessor:
     ):
         cfg.validate()
         for what, on in (("mesh", mesh is not None),
-                         ("normalize_lufs", cfg.normalize_lufs is not None),
                          ("rows_layout", cfg.device_layout == "rows"),
                          ("native_loader", cfg.native_loader)):
             if on:
@@ -123,6 +136,7 @@ class BatchProcessor:
         self.decode_workers = decode_workers
         self.encode_workers = encode_workers
         self.throughput = Throughput()
+        self._meter_lock = threading.Lock()
 
     # ------------------------------------------------------------------- run
 
@@ -184,7 +198,9 @@ class BatchProcessor:
                         if (not info.is_float
                             and info.container in ("wav", "aiff", "flac", "au")
                             and info.bit_depth in (16, 24)
-                            and cfg.bits in (16, 24))
+                            and cfg.bits in (16, 24)
+                            # the loudness meter needs decoded floats
+                            and cfg.normalize_lufs is None)
                         else 0)
             raw_be = bool(raw_bits) and info.byte_order == "big"
             groups.setdefault(
@@ -277,6 +293,37 @@ class BatchProcessor:
                 f"{cal.latency_frames} frames, noise floor {cal.noise_floor_db:.1f} dB")
         return latencies, noise_floors
 
+    def _normalization_gain(self, path: str, data: np.ndarray, rate: int,
+                            norm_info: dict) -> float:
+        """A decode worker's meter: the chunk-exact streamed meter on the
+        processor's device and the shared gain rule (the functions the
+        streaming path uses, so a file gets the bit-identical gain either
+        way).  Logs and records ``source_lufs`` / ``applied_gain_db``; a
+        file too short or silent to meter keeps 0 dB."""
+        from ..ops.loudness import (array_reader, meter_source_streamed,
+                                    normalization_gain_db, surround_weights)
+
+        cfg = self.cfg
+        with self._meter_lock:
+            m = meter_source_streamed(
+                array_reader(data), data.shape[0], data.shape[-1], rate,
+                want_tp=cfg.normalize_tp_db is not None,
+                weights=(surround_weights(data.shape[0])
+                         if cfg.surround_weights else None),
+                device=self.device)
+        lufs = m["lufs"]
+        if lufs <= -199.0:
+            return 0.0
+        gain_db, note = normalization_gain_db(
+            cfg.normalize_lufs, lufs, cfg.gain_db, cfg.normalize_tp_db,
+            m["true_peak_db"])
+        norm_info[path] = {"source_lufs": round(lufs, 2),
+                           "applied_gain_db": round(gain_db, 2)}
+        self.log.append(
+            f"Normalize: {os.path.basename(path)} {lufs:.1f} LUFS -> "
+            f"{cfg.normalize_lufs:.1f} ({gain_db:+.1f} dB{note})")
+        return gain_db
+
     def _group_noise_floor(self, rate_in: int, noise_floors) -> float | None:
         """Reverb mode's tail threshold base for one rate: the configured
         floor, else the measured one if usable, else None (-80 dB)."""
@@ -307,6 +354,7 @@ class BatchProcessor:
         stop_event = threading.Event()
         errors: list[str] = []
         per_file_metrics: dict[str, dict] = {}
+        norm_info: dict[str, dict] = {}
         # per-file dither seeds from (cfg.seed, path): reruns are
         # byte-identical whatever the decode order; None = wall clock
         base_seed = (cfg.seed if cfg.seed is not None
@@ -402,9 +450,14 @@ class BatchProcessor:
                             data, rate = codec.read_audio(info.path)
                             audio_s = data.shape[-1] / rate
                         self.throughput.add("decode", audio_s, time.time() - t0)
+                        gain_db = 0.0
+                        if cfg.normalize_lufs is not None and not buckets[bi]["raw_bits"]:
+                            gain_db = self._normalization_gain(info.path, data, rate,
+                                                               norm_info)
                         manifest.update(info.path, FileStatus.PROCESSING,
                                         progress=0.3)
-                        dec_q.put((bi, _Decoded(info.path, data, rate)))
+                        dec_q.put((bi, _Decoded(info.path, data, rate,
+                                                gain_db=gain_db)))
                     except Exception as err:
                         manifest.update(info.path, FileStatus.FAILED,
                                         error=str(err))
@@ -529,6 +582,7 @@ class BatchProcessor:
                         "rms_db": round(float(rms[i]), 2),
                         "noise_floor_db": round(float(nf[i]), 2),
                         "tail_terminated": bool(term[i]),
+                        **norm_info.get(p, {}),
                     }
                     delivered = put_enc(
                         (p, codes[i], int(out_frames[i]), cfg.target_rate,
@@ -554,8 +608,11 @@ class BatchProcessor:
             bs = b["bs"]
             valid = np.zeros(bs, np.int32)
             seeds = np.zeros(bs, np.int32)
+            gains = np.zeros(bs, np.float32)
             for i, d in enumerate(batch_x):
                 seeds[i] = _file_seed(base_seed, d.entry_path)
+                gains[i] = d.gain_db
+            norm_gains = gains if cfg.normalize_lufs is not None else None
             if raw_bits:
                 bpf = channels * (raw_bits // 8)
                 x = np.zeros((bs, blen * bpf), np.uint8)
@@ -584,7 +641,7 @@ class BatchProcessor:
                     res = process_batch(
                         x, valid, cfg, b["rate_in"], seeds,
                         latency_frames=b["lat"], noise_floor_db=b["group_nf"],
-                        device=dev)
+                        per_file_gain_db=norm_gains, device=dev)
             except Exception as err:
                 stop_event.set()
                 manifest.fail_remaining(f"device step failed: {err}", paths=listed)

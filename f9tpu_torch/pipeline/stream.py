@@ -23,9 +23,19 @@ output's mean after the chain.  For a linear chain the two agree; a
 nonlinear stage sees the offset one way and not the other (as in the JAX
 package).
 
-Not ported here, each raising NotImplementedError that names its ROADMAP
-item: meshes (the sharded stream), varispeed banks (the rows form) and
-loudness normalization.
+Loudness normalization (``cfg.normalize_lufs``) runs a pre-pass before the
+DC pre-pass: the source goes through the chunk-exact streamed meter
+(`ops.loudness.meter_source_streamed`, on its own fixed grid, never the
+audio path's chunk size) and the shared gain rule, the functions the batch
+scheduler uses, so a file gets the same gain, bit for bit, on either path.
+
+Varispeed banks stream like any other: the card takes the flat haloed chunk
+(`resample_presliced`, the kernel's windowed form), as it does for dense
+banks.  The JAX package marshals varispeed chunks into cycle rows on the
+host to spare its device a retiling pass that this kernel never makes.
+
+Not ported here, raising NotImplementedError that names its ROADMAP item:
+meshes (the sharded stream).
 """
 
 from __future__ import annotations
@@ -48,8 +58,8 @@ from ..device import resolve_device
 from ..ops import dither
 from ..ops.chain import Chain
 from ..ops.devcodec import pack24_interleaved, unpack_pcm_interleaved
-from ..ops.resample import _require_dense, resample_presliced
-from .graph import not_ported
+from ..ops.resample import resample_presliced
+from .graph import gain_lin_f32, not_ported
 
 __all__ = ["stream_resample_file", "stream_chunk_plan", "streaming_exclusions"]
 
@@ -349,10 +359,13 @@ def stream_resample_file(
     latency_frames: int | None = None,
     noise_floor_db: float | None = None,
     device: torch.device | str | None = None,
+    norm_info: dict | None = None,
 ) -> int:
     """Resample ``in_path`` -> ``out_path`` at ``cfg.target_rate`` in
     constant memory on ``device`` (default CUDA, raising without a GPU);
     returns the output frames written.  See `_stream_resample_impl`.
+    Under ``cfg.normalize_lufs`` a ``norm_info`` dict receives the measured
+    ``source_lufs`` and the ``applied_gain_db`` (and ``gain_note``).
 
     Refuses out == in before any pre-pass reads the file, and owns the
     ``.part`` file: any failure (device error, Ctrl-C) removes it."""
@@ -363,7 +376,7 @@ def stream_resample_file(
     try:
         return _stream_resample_impl(
             in_path, out_path, cfg, chunk_seconds, progress_cb, mesh,
-            latency_frames, noise_floor_db, resolve_device(device))
+            latency_frames, noise_floor_db, resolve_device(device), norm_info)
     except BaseException:
         try:
             os.unlink(out_path + ".part")
@@ -373,7 +386,8 @@ def stream_resample_file(
 
 
 def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
-                          mesh, latency_frames, noise_floor_db, dev) -> int:
+                          mesh, latency_frames, noise_floor_db, dev,
+                          norm_info=None) -> int:
     """The output has exactly ``ceil(in_frames * L / M)`` frames, as the
     whole-file path (plus the tail in reverb mode).
 
@@ -392,8 +406,6 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
     """
     if mesh is not None:
         raise not_ported("mesh")
-    if cfg.normalize_lufs is not None:
-        raise not_ported("normalize_lufs")
     if cfg.chain is not None and not isinstance(cfg.chain, Chain):
         raise TypeError(
             "cfg.chain must be an f9tpu_torch.ops.chain.Chain (convert a "
@@ -411,7 +423,6 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
         rate_in = reader.sample_rate
         bank = design_cycle_bank(rate_in, cfg.target_rate,
                                  quality=cfg.quality, kind=cfg.kind)
-        _require_dense(bank)          # varispeed: before any output exists
         M, W = bank.M, bank.W
         halo_left = bank.pad_front
         halo_right = max(0, W - M - halo_left)
@@ -461,8 +472,36 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
 
             check_aiff_capacity(out_limit, out_ch, cfg.bits)
 
-        # the gain as one float32 factor, composed as the batch graph does
-        gain = float(np.float32(10.0 ** (cfg.gain_db / 20.0) if cfg.gain_db else 1.0))
+        # loudness-normalization pre-pass: the source (before routing, as
+        # the batch scheduler meters the decoded input) through the shared
+        # streamed meter on its own default grid; the audio path's
+        # chunk_seconds must not leak in, or the gain and every byte after
+        # it would depend on it
+        norm_gain_db = 0.0
+        if cfg.normalize_lufs is not None and T > 0:
+            from ..ops.loudness import (meter_source_streamed,
+                                        normalization_gain_db, surround_weights)
+
+            m = meter_source_streamed(
+                reader.read, C_in, T, rate_in,
+                want_tp=cfg.normalize_tp_db is not None,
+                weights=surround_weights(C_in) if cfg.surround_weights else None,
+                device=dev)
+            if m["lufs"] > -199.0:
+                norm_gain_db, note = normalization_gain_db(
+                    cfg.normalize_lufs, m["lufs"], cfg.gain_db,
+                    cfg.normalize_tp_db, m["true_peak_db"])
+                if norm_info is not None:
+                    norm_info.update(source_lufs=m["lufs"],
+                                     applied_gain_db=norm_gain_db, gain_note=note)
+
+        # the gain as one float32 factor, composed as the batch graph
+        # composes g_static * gain_lin, so the product is the same float32
+        g_static = 10.0 ** (cfg.gain_db / 20.0) if cfg.gain_db else 1.0
+        if cfg.normalize_lufs is not None:
+            gain = float(np.float32(g_static) * gain_lin_f32(norm_gain_db)[0])
+        else:
+            gain = float(np.float32(g_static))
 
         # DC pre-pass: the whole-file mean per routed channel, accumulated
         # on the fixed DC_GRID (a chunk-sized grid would make the mean, and

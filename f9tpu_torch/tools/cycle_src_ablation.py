@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
 """What holds the cycle_src kernel back: time it with parts cut out.
 
-    python3 -m f9tpu_torch.tools.cycle_src_ablation
+    python3 -m f9tpu_torch.tools.cycle_src_ablation [--bank IN:OUT[:QUALITY]] [--warps N]
 
 Runs on one CUDA GPU from the root of a checkout.  It builds copies of
 `f9tpu_torch/csrc/cycle_src.cu` with one part of the work removed each
 (nvcc, all at once, into `f9tpu_torch/_build/ablation/`), launches every
 copy through the same C entry point and launch plan as the port on 32
-signals x 2^20 frames of the default 44.1k->48k high bank, and prints the
-median CUDA-event time of each beside the whole kernel's, with the card's
-name and power limit.  A copy that skips loads computes on stale shared
+signals x 2^20 frames of ``--bank`` (default 44100:48000:high; a varispeed
+pair such as 44100:44056 times the windowed form, where ``--warps``
+overrides the plan's warps per block), and prints the median CUDA-event
+time of each beside the whole kernel's, with the card's name and power
+limit.  A copy that skips loads computes on stale shared
 memory: only its time means anything.  The whole kernel is also read
 through `torch.profiler` as a cross-check of the event times.
 
 The cuts: `one_pass` keeps only the xh*gh mma of the three; `plain_sum`
 adds each fragment to the sum with no compensation; `no_span` and `no_ring`
-skip the signal span's and the bank ring's loads; `no_math` skips every
+skip the signal span's (or the windows') and the bank ring's loads; `no_math` skips every
 shared-memory read, split and mma (loads and stores only); `math_only` skips
 both loads (math and stores only).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -35,7 +38,10 @@ _MMA = """                mma_acc(nc[n], ah, b0l, b1l);   // + xh * gl
 _JOIN = """                    const float tk = __fadd_rn(sum[n][r], d);
                     nc[n][r] = __fsub_rn(d, __fsub_rn(tk, sum[n][r]));
                     sum[n][r] = tk;"""
-_SPAN = "    for (int k = tid; k < n4; k += nthreads) {"
+_SPAN = "        for (int k = tid; k < n4; k += nthreads) {"
+_NO_SPAN = "        for (int k = tid; k < 0; k += nthreads) {"
+_WINS = "        for (int rho = warp; rho < TQ; rho += nwarps) {"
+_NO_WINS = "        for (int rho = warp; rho < 0; rho += nwarps) {"
 _RING = "        for (int i = tid; i < STAGE_F4; i += nthreads) cp_async16(dst + i, src + i);"
 _MATH = """#pragma unroll
         for (int kk = 0; kk < KC8; ++kk) {"""
@@ -49,14 +55,14 @@ CUTS = {
     "one_pass": [(_MMA, "")],
     "plain_sum": [(_JOIN, """                    sum[n][r] = __fadd_rn(sum[n][r], d);
                     nc[n][r] = 0.f;""")],
-    "no_span": [(_SPAN, "    for (int k = tid; k < 0; k += nthreads) {")],
+    "no_span": [(_SPAN, _NO_SPAN), (_WINS, _NO_WINS)],
     "no_ring": [(_RING, "")],
     "no_math": [(_MATH, "#if 0\n" + _MATH), (_MATH_END, """            }
         }
 #endif
     }
     // ---- the block's (TQ, 8*NT) outputs""")],
-    "math_only": [(_SPAN, "    for (int k = tid; k < 0; k += nthreads) {"), (_RING, "")],
+    "math_only": [(_SPAN, _NO_SPAN), (_WINS, _NO_WINS), (_RING, "")],
 }
 
 
@@ -90,7 +96,19 @@ def _build_all(out_dir: str) -> dict:
     return libs
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="python3 -m f9tpu_torch.tools.cycle_src_ablation")
+    ap.add_argument("--bank", default="44100:48000:high", metavar="IN:OUT[:QUALITY]",
+                    help="rate pair and quality of the bank (a varispeed pair "
+                         "such as 44100:44056 times the windowed form)")
+    ap.add_argument("--warps", type=int, default=None, choices=[1, 2, 4, 8],
+                    help="warps per block of the windowed form (default: the plan's)")
+    args = ap.parse_args(argv)
+    parts = args.bank.split(":")
+    if len(parts) not in (2, 3):
+        ap.error(f"--bank expects IN:OUT[:QUALITY], got {args.bank!r}")
+    rate_in, rate_out, quality = int(parts[0]), int(parts[1]), (parts + ["high"])[2]
+
     import numpy as np
     import torch
 
@@ -107,8 +125,15 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = resolve_device("cuda")
     libs = _build_all(os.path.join(ROOT, "f9tpu_torch", "_build", "ablation"))
-    bank = design_cycle_bank(44100, 48000)
+    bank = design_cycle_bank(rate_in, rate_out, quality=quality)
     plan = sk.kernel_plan(bank)
+    if plan is None:
+        print(f"cycle_src_ablation: the kernel does not take bank {args.bank}",
+              file=sys.stderr)
+        return 1
+    if args.warps is not None and not plan.pitch:
+        ap.error("--warps applies to the windowed form (a varispeed bank)")
+    warps = args.warps or plan.warps
     gp, tiles = sk._device_bank(bank, dev)
     n_sig, frames = 32, 1 << 20
     rng = np.random.default_rng(0)
@@ -119,11 +144,18 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib):
-        err = lib.f9_cycle_src(
-            x.data_ptr(), gp.data_ptr(), tiles.data_ptr(), y.data_ptr(), n_sig, frames,
-            frames, bank.pad_front, bank.M, bank.L, Q, out_len, out_len, plan.nt,
-            len(plan.bands), plan.warps, plan.skew, plan.rowmap, plan.ring_off,
-            plan.smem_bytes, stream)
+        if plan.pitch:
+            ring_off, smem = sk._window_smem(plan.nt, warps, plan.pitch)
+            err = lib.f9_cycle_src_win(
+                x.data_ptr(), gp.data_ptr(), tiles.data_ptr(), y.data_ptr(), n_sig,
+                frames, frames, bank.pad_front, bank.M, bank.L, Q, out_len, out_len,
+                plan.nt, len(plan.bands), warps, plan.pitch, ring_off, smem, stream)
+        else:
+            err = lib.f9_cycle_src(
+                x.data_ptr(), gp.data_ptr(), tiles.data_ptr(), y.data_ptr(), n_sig, frames,
+                frames, bank.pad_front, bank.M, bank.L, Q, out_len, out_len, plan.nt,
+                len(plan.bands), plan.warps, plan.skew, plan.rowmap, plan.ring_off,
+                plan.smem_bytes, stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
 
@@ -140,8 +172,11 @@ def main() -> int:
         return float(np.median(ts))
 
     print(card, flush=True)
-    print(f"44.1k->48k high, {n_sig} x 2^20 frames, plan nt={plan.nt} warps={plan.warps} "
-          f"smem={plan.smem_bytes} B", flush=True)
+    print(f"{rate_in}->{rate_out} {quality} (L={bank.L} M={bank.M}), {n_sig} x 2^20 frames, "
+          f"{'windowed' if plan.pitch else 'span'} form, plan nt={plan.nt} warps={warps} "
+          f"pitch={plan.pitch} smem="
+          f"{sk._window_smem(plan.nt, warps, plan.pitch)[1] if plan.pitch else plan.smem_bytes}"
+          f" B", flush=True)
     times = {}
     for turn in range(2):
         for name, (lib, _) in libs.items():

@@ -10,8 +10,10 @@ properties, run on a device (the port's twin of the JAX package's
    0 ULP;
 3. random end-to-end configs through `stream_resample_file` (WAV, AIFF and
    FLAC in and out, routing and fan-out, latency, reverb tails, 16 and 24
-   bits, a 2x upsampling bank the kernel does not take), each written at
-   two chunk sizes: identical bytes and the exact frame count.
+   bits, a 2x upsampling bank the kernel does not take; every third trial
+   the varispeed pair 44.1k -> 44056, every third a loudness-normalized
+   one), each written at two chunk sizes: identical bytes and the exact
+   frame count.
 
     python -m f9tpu_torch.tools.hw_soak [--seed S] [--chain-trials N] \\
         [--stream-trials N] [--device cuda|cpu]
@@ -131,7 +133,11 @@ def chain_fuzz(seed: int, trials: int, device=None) -> None:
 def stream_fuzz(seed: int, trials: int, work: str, device=None) -> None:
     """Part 3: random configs through `stream_resample_file` at chunk
     0.11 s and 0.34 s: identical bytes, the exact frame count (within the
-    tail cap in reverb mode), routed-silent channels zero."""
+    tail cap in reverb mode), routed-silent channels zero.  Trial 1 of
+    every three streams the varispeed pair 44.1k -> 44056 at chunks of
+    0.26 s and 0.8 s (one and three cycles of 11025 frames), trial 2
+    normalizes to a LUFS target (and, half the time, under a dBTP
+    ceiling)."""
     from ..config import ProcessingConfig
     from ..io import codec
     from ..io.aiff import write_aiff
@@ -144,7 +150,9 @@ def stream_fuzz(seed: int, trials: int, work: str, device=None) -> None:
     for t in range(trials):
         rng = np.random.default_rng(seed + 13 * t)
         ch = int(rng.choice([1, 2, 4]))
-        frames = int(rng.integers(3000, 30_000))
+        vari, norm = t % 3 == 1, t % 3 == 2
+        frames = int(rng.integers(40_000, 60_000) if (vari or norm)
+                     else rng.integers(3000, 30_000))
         x = (0.3 * rng.standard_normal((ch, frames))).astype(np.float32)
         container = str(rng.choice(["wav", "aiff", "flac"]))
         src = os.path.join(work, f"s{t}.{container}")
@@ -155,9 +163,7 @@ def stream_fuzz(seed: int, trials: int, work: str, device=None) -> None:
         else:
             (write_wav if container == "wav" else write_aiff)(src, x, 44100, bits=24)
         kw = dict(output_dir=work, quality="low",
-                  # 44056 Hz, the JAX fuzz's varispeed pair, waits for the
-                  # banded SRC (ROADMAP Queue 1 'Varispeed')
-                  target_rate=int(rng.choice([48000, 32000, 88200])),
+                  target_rate=44056 if vari else int(rng.choice([48000, 32000, 88200])),
                   kind=str(rng.choice(["sinc", "minphase"])),
                   bits=int(rng.choice([16, 24])),
                   dither=bool(rng.integers(2)),
@@ -170,6 +176,10 @@ def stream_fuzz(seed: int, trials: int, work: str, device=None) -> None:
             kw["output_channels"] = 2
         elif ch == 4 and rng.integers(2):
             kw["channel_routing"] = [3, 0, -1, 1]
+        if norm:
+            kw["normalize_lufs"] = float(rng.choice([-23.0, -16.0]))
+            if rng.integers(2):
+                kw["normalize_tp_db"] = -1.0
         reverb = bool(rng.integers(3) == 0)
         if reverb:
             kw.update(reverb_mode=True, noise_floor_db=-85.0, max_tail_seconds=0.3)
@@ -178,7 +188,7 @@ def stream_fuzz(seed: int, trials: int, work: str, device=None) -> None:
         outs = [os.path.join(work, f"o{t}_{i}.{ext}") for i in range(2)]
         n1, n2 = (stream_resample_file(src, o, cfg, chunk_seconds=cs,
                                        latency_frames=lat, device=dev)
-                  for o, cs in zip(outs, (0.11, 0.34)))
+                  for o, cs in zip(outs, (0.26, 0.8) if vari else (0.11, 0.34)))
         assert n1 == n2, (t, kw, lat, n1, n2)
         with open(outs[0], "rb") as f1, open(outs[1], "rb") as f2:
             assert f1.read() == f2.read(), (t, kw, lat, "bytes depend on the chunk size")
@@ -193,6 +203,7 @@ def stream_fuzz(seed: int, trials: int, work: str, device=None) -> None:
         if "channel_routing" in kw:
             assert not y[2].any()
         print(f"  stream trial {t}: {container} -> {ext} {kw['bits']} bit, "
+              f"rate {cfg.target_rate}, normalize {cfg.normalize_lufs}, "
               f"latency {lat}, reverb {reverb}: bytes chunk-size invariant", flush=True)
 
 

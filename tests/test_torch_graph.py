@@ -174,3 +174,33 @@ def test_unported_options_name_their_roadmap_item(what):
                                  rate_in=44100, rate_out=48000,
                                  cfg_key=tgraph._cfg_key(cfg, 0),
                                  channel_axis="channels")
+
+
+def test_a_file_s_codes_do_not_depend_on_its_row_in_the_batch():
+    """The same files in another order (so at other rows, and with an odd
+    bucket length at other alignments) give each file the same codes and the
+    same DC mean: the mean is accumulated in float64 and rounded once.  On
+    the card a float32 reduction moved a file's mean by an ulp with its row,
+    and a few samples in millions by 1 LSB, so reruns (whose decode order
+    varies) were not byte-identical."""
+    rng = np.random.default_rng(31)
+    blen = 30001
+    x = (0.2 * rng.standard_normal((5, 2, blen)) + 0.013).astype(np.float32)
+    valid = np.array([blen, 29999, 12345, 30000, 7], np.int32)
+    seeds = np.array([11, 22, 33, 44, 55], np.int32)
+    cfg = TConfig(output_dir="unused", target_rate=48000, gain_db=-1.0)
+    base = tgraph.process_batch(x, valid, cfg, 44100, seeds, device="cpu")
+    order = np.array([3, 0, 4, 2, 1])
+    moved = tgraph.process_batch(x[order], valid[order], cfg, 44100, seeds[order], device="cpu")
+    assert np.array_equal(moved.codes.numpy(), base.codes.numpy()[order])
+    assert np.array_equal(moved.out_frames.numpy(), base.out_frames.numpy()[order])
+    # and the mean that came off is the float64 mean of the resampled span
+    keep = TConfig(output_dir="unused", target_rate=48000, gain_db=-1.0, remove_dc=False,
+                   dither=False)
+    raw = tgraph.process_batch(x[:1], valid[:1], keep, 44100, seeds[:1], device="cpu")
+    nodc = TConfig(output_dir="unused", target_rate=48000, gain_db=-1.0, dither=False)
+    got = tgraph.process_batch(x[:1], valid[:1], nodc, 44100, seeds[:1], device="cpu")
+    n = int(raw.out_frames[0])
+    shift = (raw.codes[0, :, :n].double() - got.codes[0, :, :n].double()).mean(dim=-1)
+    want = raw.codes[0, :, :n].double().mean(dim=-1)
+    assert torch.allclose(shift, want, atol=0.51)

@@ -131,8 +131,14 @@ def test_oversized_file_fails_alone(tmp_path):
     {"mesh": object()}, {"normalize_lufs": -14.0}, {"device_layout": "rows"},
     {"native_loader": True}])
 def test_unported_options_are_refused(tmp_path, kw):
+    """Meshes, the rows layout and the native loader are refused when the
+    processor is built; loudness normalization was, and now builds."""
+    kw = dict(kw)
     mesh = kw.pop("mesh", None)
     cfg = TConfig(output_dir=str(tmp_path), **kw)
+    if "normalize_lufs" in kw:
+        assert tsched.BatchProcessor(cfg, device="cpu").cfg.normalize_lufs == -14.0
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         tsched.BatchProcessor(cfg, mesh=mesh, device="cpu")
 

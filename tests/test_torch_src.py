@@ -147,10 +147,18 @@ def test_non_cpu_tensor_launches_or_raises():
 
 
 def test_varispeed_bank_names_its_roadmap_item():
+    """A varispeed bank waited for its ROADMAP item; now `resample_auto`
+    takes it: on the CPU through the float64 gather twin, with no launch,
+    and a dense-only helper says which forms serve the bank."""
     bank = design_cycle_bank(44100, 44056)
-    assert bank.G is None
-    with pytest.raises(NotImplementedError, match="Varispeed"):
-        sk.resample_auto(torch.zeros((1, 500)), bank)
+    assert bank.G is None and sk.kernel_applicable(bank)
+    x = torch.from_numpy(_signal(44100, seed=2)[:, :500])
+    y = sk.resample_auto(x, bank)
+    assert y.shape == (2, bank.out_len(500)) and sk.launches == 0
+    ref = resample_oracle(x.numpy().astype(np.float64), 44100, 44056)
+    assert np.abs(y.numpy() - ref).max() <= 2e-6
+    with pytest.raises(RuntimeError, match="resample_banded"):
+        sk.stacked_bank_f32(bank)
 
 
 def test_bank_to_torch_is_the_jax_cycle_matrix():

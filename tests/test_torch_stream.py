@@ -139,9 +139,12 @@ def test_resample_presliced_refuses():
     bank = design_cycle_bank(44100, 48000)
     with pytest.raises(ValueError, match="too short"):
         t_presliced(torch.zeros(2, bank.W - 1), bank, 1)
-    vari = design_cycle_bank(44100, 44056)
-    with pytest.raises(NotImplementedError, match="Varispeed"):
-        t_presliced(torch.zeros(2, 100000), vari, 2)
+    # a varispeed bank streams: two cycles of a haloed chunk, and the same
+    # length check
+    vari = design_cycle_bank(44100, 44056, quality="low")
+    assert t_presliced(torch.zeros(2, 100000), vari, 2).shape == (2, 2 * vari.L)
+    with pytest.raises(ValueError, match="too short"):
+        t_presliced(torch.zeros(2, vari.M + vari.W - 1), vari, 2)
 
 
 # -------------------------------------------------------- whole stream
@@ -320,16 +323,23 @@ def test_failed_stream_removes_part_and_refuses_out_equals_in(tmp_path, monkeypa
 
 @pytest.mark.parametrize("what", ["mesh", "normalize_lufs", "varispeed"])
 def test_unported_stream_options_raise(tmp_path, what):
-    src = _write_src(tmp_path, 2, 5000)
-    kw = dict(output_dir=str(tmp_path), target_rate=44056 if what == "varispeed" else 48000)
+    """A mesh still raises with its ROADMAP item; loudness normalization and
+    a varispeed rate, which used to, now stream to the exact frame count."""
+    src = _write_src(tmp_path, 2, 25000)
+    kw = dict(output_dir=str(tmp_path), quality="low",
+              target_rate=44056 if what == "varispeed" else 48000)
     if what == "normalize_lufs":
         kw["normalize_lufs"] = -14.0
-    item = {"mesh": "Multi-device", "normalize_lufs": "Loudness",
-            "varispeed": "Varispeed"}[what]
     out = str(tmp_path / "o.wav")
-    with pytest.raises(NotImplementedError, match=item):
-        tstream.stream_resample_file(src, out, TConfig(**kw), device="cpu",
-                                     mesh=object() if what == "mesh" else None)
+    if what == "mesh":
+        with pytest.raises(NotImplementedError, match="Multi-device"):
+            tstream.stream_resample_file(src, out, TConfig(**kw), device="cpu", mesh=object())
+    else:
+        norm = {}
+        n = tstream.stream_resample_file(src, out, TConfig(**kw), chunk_seconds=0.3,
+                                         device="cpu", norm_info=norm)
+        assert n == design_cycle_bank(44100, kw["target_rate"], quality="low").out_len(25000)
+        assert os.path.exists(out) and bool(norm) == (what == "normalize_lufs")
     assert not os.path.exists(out + ".part")
 
 
@@ -337,10 +347,17 @@ def test_unported_stream_options_raise(tmp_path, what):
                                         (["--normalize-lufs=-14"], "Loudness")],
                          ids=["frames_shards", "normalize_lufs"])
 def test_cli_stream_unported_flags_exit_2(tmp_path, capsys, flags, item):
-    src = _write_src(tmp_path, 2, 5000)
+    """``--frames-shards 2`` exits 2 with its ROADMAP item; ``--normalize-lufs``
+    did and now runs, reporting the measured loudness and the gain."""
+    src = _write_src(tmp_path, 2, 25000)
     rc = cli.main(["stream", src, "--out", str(tmp_path / "o.wav"), "--device", "cpu",
-                   *flags])
-    assert rc == 2 and item in capsys.readouterr().err
+                   "--json", *flags])
+    cap = capsys.readouterr()
+    if item == "Loudness":
+        res = json.loads(cap.out)
+        assert rc == 0 and abs(res["source_lufs"] + res["applied_gain_db"] + 14.0) <= 0.011
+    else:
+        assert rc == 2 and item in cap.err
 
 
 def test_cli_stream_matches_jax(tmp_path, capsys):
