@@ -28,8 +28,8 @@ its results, any failure exiting non-zero:
    zero (calibration and batches), the 2 shortest outputs within 16 LSB of
    the port's CPU path, wall time and x real time, one batch's device graph
    split by CUDA events into SRC, each chain stage and the rest, and the 2
-   shortest files run again as a 2-file batch on the card (how many samples
-   differ from the 8-file batch is printed, not checked);
+   shortest files run again as a 2-file batch on the card: 0 samples may
+   differ from the 8-file batch (the UPOLS sum's order is fixed);
 6. the streaming path: (a) `cycle_src` on a 2^22-frame stereo signal whole
    and as haloed chunks of 6000 and 1777 cycles, equal bit for bit, each
    chunk within `TWIN_TOL` of its plain twin, four banks; (b) `cli process`
@@ -65,7 +65,23 @@ its results, any failure exiting non-zero:
    -16 LUFS unless its log line says capped or clamped, source LUFS and
    gain on the card within 0.01 of the port's CPU path and bytes <= 2 LSB,
    the same gain from `cli stream` and from the meter on a file reader,
-   `cli probe --loudness`, and one file's meter split by CUDA events.
+   `cli probe --loudness`, and one file's meter split by CUDA events;
+8. the tool path: the kernel against its twin at the new callers' shapes
+   (the 0.5 s parity noise and the 1 s loop tone, three banks; haloed
+   chunks of 1, 2, 3 and 97 cycles, dense and windowed); (a) `cli selftest
+   --parity` on four banks: loop detected, <= -120 dB; (c) `cli devices`:
+   the card, count 1; (d) `cli watch` while the slice's 8 files land in two
+   waves and one is dropped again with new content: each processed once,
+   the new one again, every output's sha256 equal to `cli process` of the
+   same files, then `cli verify`: all ok, and exit 1 with `crc_mismatch`
+   after one byte flips; (b) `cli measure` without and with a 10 ms delay:
+   480 frames apart, the chainless latency the one (d) cached; (e) `cli
+   preview` of 6 items at 44.1k, 96k, 48k and 44,056 Hz onto an 8-channel
+   bus with a monitor mix, in memory and `--stream`: identical sha256 of
+   the main and monitor files, two items within 2 LSB of the CPU path, and
+   a `--loops 3` programme routed to the stream by itself; (f) `cli process
+   --profile` names the kernel, `--save-config` then `--config` gives the
+   same bytes.  Kernel launches are counted from zero for (a), (b), (d), (e).
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -669,8 +685,8 @@ def phase_insert_loop(card: str, work: str, dev) -> tuple[int, int]:
         if not same or int(diff.max()) > LOOP_LSB_TOL:
             raise AssertionError(f"loop: {name}: card vs CPU path differ")
 
-    # does a file's output depend on the batch's width on the card?  The
-    # same 2 files as a 2-file batch (printed, not checked)
+    # a file's bytes must not depend on the batch's width: the same 2 files
+    # as a 2-file batch on the card, 0 samples apart
     out_gpu2 = os.path.join(work, "out_gpu2")
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["process", *srcs, "--out", out_gpu2, *flags, "--batch-size", "2"])
@@ -685,7 +701,9 @@ def phase_insert_loop(card: str, work: str, dev) -> tuple[int, int]:
         d = np.abs(g8 - g2)
         print(f"loop: {name} 2-file batch vs 8-file batch on the card: "
               f"{int((d != 0).sum())} of {d.size} samples differ, max {int(d.max())} LSB "
-              f"[{card}]", flush=True)
+              f"(must be 0) [{card}]", flush=True)
+        if int((d != 0).sum()):
+            raise AssertionError(f"loop: {name}: the bytes follow the batch width")
 
     with open(os.path.join(out_gpu, ".calibration.json")) as f:
         (cal,) = json.load(f).values()
@@ -1325,7 +1343,6 @@ def phase_normalize(card: str, work: str, dev) -> tuple[int, int]:
     import numpy as np
     import torch
 
-    from f9tpu_torch import cli
     from f9tpu_torch.io import codec, wav
     from f9tpu_torch.ops import loudness as ld
 
@@ -1346,16 +1363,10 @@ def phase_normalize(card: str, work: str, dev) -> tuple[int, int]:
           f"-20 dB of the -12 dBFS signal, take6 with 0.6 clicks, in "
           f"{time.time() - t0:.1f} s", flush=True)
 
-    def run(argv):
-        out, err = io.StringIO(), io.StringIO()
-        t1 = time.time()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli.main(argv)
-        return rc, out.getvalue(), err.getvalue(), time.time() - t1
-
     out_gpu = os.path.join(work, "out_gpu")
     _zero_counts()
-    rc, out, log, wall = run(["process", in_dir, "--out", out_gpu, *NORMALIZE_FLAGS, "--json"])
+    rc, out, log, wall = _run_cli(["process", in_dir, "--out", out_gpu, *NORMALIZE_FLAGS,
+                                   "--json"])
     launches, windowed = _read_counts()
     summary = json.loads(out) if rc == 0 else {}
     print(f"normalize: cli process {' '.join(NORMALIZE_FLAGS)} rc={rc} completed="
@@ -1391,8 +1402,9 @@ def phase_normalize(card: str, work: str, dev) -> tuple[int, int]:
     # the meter's share of the job: the same files without normalization
     # (raw upload, no meter), and the normalized job again with one decode
     # worker, so that a single thread makes the meter's launches
-    rc, out, _log, wall_plain = run(["process", in_dir, "--out", os.path.join(work, "out_plain"),
-                                     "--rate", "48000", "--json"])
+    rc, out, _log, wall_plain = _run_cli(["process", in_dir, "--out",
+                                          os.path.join(work, "out_plain"),
+                                          "--rate", "48000", "--json"])
     if rc != 0:
         raise AssertionError(f"normalize: the job without normalization rc={rc}")
     from f9tpu_torch.config import ProcessingConfig
@@ -1422,8 +1434,8 @@ def phase_normalize(card: str, work: str, dev) -> tuple[int, int]:
     names = ["take0.wav", "take6.wav"]
     srcs = [os.path.join(in_dir, n) for n in names]
     out_cpu = os.path.join(work, "out_cpu")
-    rc, out, log_c, wall_c = run(["process", *srcs, "--out", out_cpu, *NORMALIZE_FLAGS,
-                                  "--batch-size", "2", "--device", "cpu", "--json"])
+    rc, out, log_c, wall_c = _run_cli(["process", *srcs, "--out", out_cpu, *NORMALIZE_FLAGS,
+                                       "--batch-size", "2", "--device", "cpu", "--json"])
     if rc != 0:
         raise AssertionError(f"normalize: CPU run rc={rc}\n{log_c[-2000:]}")
     cpu = json.loads(out)["per_file"]
@@ -1447,8 +1459,8 @@ def phase_normalize(card: str, work: str, dev) -> tuple[int, int]:
 
     # the same file through the stream: the same gain, from the same meter
     src = srcs[1]
-    rc, out, _log, wall_s = run(["stream", src, "--out", os.path.join(work, "s6.wav"),
-                                 *NORMALIZE_FLAGS, "--json"])
+    rc, out, _log, wall_s = _run_cli(["stream", src, "--out", os.path.join(work, "s6.wav"),
+                                      *NORMALIZE_FLAGS, "--json"])
     res = json.loads(out) if rc == 0 else {}
     mb = summary["per_file"][src]
     x, rate = codec.read_audio(src)
@@ -1465,7 +1477,7 @@ def phase_normalize(card: str, work: str, dev) -> tuple[int, int]:
             or res["applied_gain_db"] != mb["applied_gain_db"] or m_file != m_arr):
         raise AssertionError("normalize: batch and stream gains differ")
 
-    rc, out, _log, wall_p = run(["probe", srcs[0], "--loudness", "--json"])
+    rc, out, _log, wall_p = _run_cli(["probe", srcs[0], "--loudness", "--json"])
     row = json.loads(out)[0] if rc == 0 else {}
     print(f"normalize: cli probe --loudness take0.wav rc={rc} in {wall_p:.3f} s: "
           f"{row.get('lufs')} LUFS, {row.get('true_peak_db')} dBTP, LRA {row.get('lra_lu')} LU "
@@ -1478,6 +1490,398 @@ def phase_normalize(card: str, work: str, dev) -> tuple[int, int]:
     _meter_split(card, srcs[0], dev)
     torch.cuda.empty_cache()
     return launches, windowed
+
+
+def _slice_takes(rng):
+    """The slice's 8 stereo 44.1 kHz takes of 50-60 s (phase 4's files,
+    made from the same seed): a list of float32 arrays."""
+    return [_signal(rng, 2, int(rng.integers(50 * 44100, 60 * 44100)), 44100)
+            for _ in range(8)]
+
+
+#: the length range of phase 8e's preview items, seconds
+PREVIEW_SECONDS = (20.0, 40.0)
+#: the banks `cli selftest --parity` runs in phase 8a: the JAX CLI's
+#: default pair first
+SELFTEST_BANKS = [(48000, 44100, "high"), (44100, 48000, "high"),
+                  (44100, 48000, "ultra"), (96000, 48000, "high")]
+
+
+def _tool_kernel_check(card: str, dev) -> float:
+    """The kernel against its plain twin at the tool path's new shapes: the
+    0.5 s parity noise and the 1 s mono loop tone of `selftest` (whole
+    form, the three banks of `SELFTEST_BANKS` the kernel takes), and haloed
+    chunks of 1, 2, 3 and 97 cycles of `preview` (presliced form; the dense
+    44.1 -> 48 k bank and the varispeed 44.1 k -> 44,056 bank, the windowed
+    form).  Tolerance: `TWIN_TOL` for signals peaking near 0.5,
+    scaled by the peak above that (an ulp grows with the value; the parity
+    noise peaks near 1.2).  Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import resample as tr
+    from f9tpu_torch.ops import src_kernel as sk
+    from f9tpu_torch.ops.signal import sine
+
+    worst = 0.0
+    for ri, ro, q in SELFTEST_BANKS:
+        bank = design_cycle_bank(ri, ro, quality=q)
+        if not sk.kernel_applicable(bank):
+            # 96 -> 48 k is L/M = 1/2: `resample_auto` takes the plain form
+            print(f"tool kernel {ri}->{ro} {q}: L={bank.L}, below the kernel's L >= 8; "
+                  f"selftest runs the plain unfold + matmul form", flush=True)
+            continue
+        noise = (0.25 * np.random.default_rng(0).standard_normal(ri // 2)).astype(np.float32)
+        for label, x in (("parity noise 0.5 s", torch.from_numpy(noise).to(dev)),
+                         ("loop tone 1 s", sine(ri, ri, device=dev)[0])):
+            n0 = sk.launches
+            y = sk.resample_kernel(x, bank)
+            torch.cuda.synchronize()
+            yt = sk.resample_rows_reference(x, bank)[0].reshape(-1)[:y.shape[-1]]
+            err = float((y - yt).abs().max())
+            tol = TWIN_TOL * max(1.0, 2.0 * float(x.abs().max()))
+            worst = max(worst, err)
+            print(f"tool kernel {ri}->{ro} {q}: {label} mono, {x.numel()} frames: "
+                  f"{sk.launches - n0} launch, max_abs_vs_twin={err:.3e} (tol {tol:.2e}) "
+                  f"[{card}]", flush=True)
+            if sk.launches != n0 + 1 or not err <= tol:
+                raise AssertionError(f"tool kernel {ri}->{ro} {q} {label}: {err:.3e}")
+    rng = np.random.default_rng(SEED + 80)
+    for ri, ro, q in [(44100, 48000, "high"), (44100, 44056, "high")]:
+        bank = design_cycle_bank(ri, ro, quality=q)
+        twin = ((lambda sp, n, b=bank: tr._gather_core(sp, b, n * b.L)) if bank.G is None
+                else (lambda sp, n, b=bank: tr._presliced_fold(sp, b, n)))
+        for cycles in (1, 2, 3, 97):
+            span = torch.from_numpy(_signal(rng, 2, (cycles - 1) * bank.M + bank.W, ri)).to(dev)
+            n0, w0 = sk.launches, sk.launches_windowed
+            y = tr.resample_presliced(span, bank, cycles)
+            torch.cuda.synchronize()
+            err = float((y - twin(span, cycles)).abs().max())
+            worst = max(worst, err)
+            print(f"tool kernel {ri}->{ro} {q}: presliced chunk of {cycles} cycles "
+                  f"({sk.launches - n0} launch, {sk.launches_windowed - w0} windowed): "
+                  f"max_abs_vs_twin={err:.3e} (tol {TWIN_TOL:g}) [{card}]", flush=True)
+            if sk.launches != n0 + 1 or not err <= TWIN_TOL:
+                raise AssertionError(f"tool kernel {ri}->{ro} {q}: {cycles} cycles {err:.3e}")
+    return worst
+
+
+def _run_cli(argv: list[str]) -> tuple[int, str, str, float]:
+    """(rc, stdout, stderr, wall seconds) of one in-process CLI run."""
+    from f9tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue(), time.time() - t0
+
+
+def _selftest_path(card: str) -> None:
+    """8a: `cli selftest --parity` on four banks."""
+    for ri, ro, q in SELFTEST_BANKS:
+        rc, out, err, wall = _run_cli(["selftest", "--rate-in", str(ri), "--rate", str(ro),
+                                       "--quality", q, "--parity"])
+        verdict = out.split(":")[0]
+        db = float(out.split("parity: ")[1].split(" dB")[0]) if "parity: " in out else 0.0
+        print(f"tool 8a: cli selftest --parity {ri}->{ro} {q}: rc={rc} verdict={verdict} "
+              f"parity {db:.1f} dB (max {ORACLE_DB_MAX:g}) in {wall:.2f} s [{card}]",
+              flush=True)
+        if rc != 0 or verdict != "loop_detected" or not db <= ORACLE_DB_MAX:
+            raise AssertionError(f"tool 8a: selftest {ri}->{ro} {q}: {out}{err[-2000:]}")
+
+
+def _watch_path(card: str, work: str) -> dict:
+    """8d: `cli watch` while the slice's 8 files land in two waves of 4,
+    then one file is dropped again with new content.  Returns the watch's
+    output folder and its inputs."""
+    import threading
+
+    import numpy as np
+
+    from f9tpu_torch.io import wav
+
+    drop, stage = os.path.join(work, "drop"), os.path.join(work, "stage")
+    out = os.path.join(work, "watch_out")
+    os.makedirs(drop)
+    os.makedirs(stage)
+    takes = _slice_takes(np.random.default_rng(SEED + 1))
+    t0 = time.time()
+    for i, x in enumerate(takes):
+        wav.write_wav(os.path.join(stage, f"take{i}.wav"), x, 44100, bits=24)
+    redrop = os.path.join(stage, "take0.wav.new")
+    wav.write_wav(redrop, _signal(np.random.default_rng(SEED + 81), 2, 52 * 44100, 44100),
+                  44100, bits=24)
+    print(f"tool 8d: wrote the slice's 8 stereo 24-bit 44.1 kHz WAVs of 50-60 s and a "
+          f"replacement for take0 in {time.time() - t0:.1f} s", flush=True)
+
+    def land(names):
+        for n in names:      # a rename: the watcher never sees half a file
+            os.replace(os.path.join(stage, n), os.path.join(drop, n))
+
+    def processed(n) -> bool:
+        return os.path.exists(os.path.join(out, n.replace(".wav", "_processed.wav")))
+
+    events, failure = [], []
+
+    def dropper():
+        try:
+            for wave in (["take0.wav", "take1.wav", "take2.wav", "take3.wav"],
+                         ["take4.wav", "take5.wav", "take6.wav", "take7.wav"]):
+                land(wave)
+                events.append((time.time(), f"landed {len(wave)}"))
+                deadline = time.time() + 60
+                while not all(processed(n) for n in wave):
+                    if time.time() > deadline:
+                        raise TimeoutError(f"wave {wave} not processed")
+                    time.sleep(0.1)
+            first = os.stat(os.path.join(out, "take0_processed.wav")).st_mtime_ns
+            os.replace(redrop, os.path.join(drop, "take0.wav"))
+            events.append((time.time(), "re-dropped take0"))
+            deadline = time.time() + 60
+            while os.stat(os.path.join(out, "take0_processed.wav")).st_mtime_ns == first:
+                if time.time() > deadline:
+                    raise TimeoutError("re-dropped take0 not processed")
+                time.sleep(0.1)
+        except Exception as e:           # reported by the main thread
+            failure.append(e)
+
+    th = threading.Thread(target=dropper, daemon=True)
+    _zero_counts()
+    th.start()
+    rc, log, err, wall = _run_cli(["watch", drop, "--out", out, "--rate", "48000",
+                                   "--interval", "0.5", "--sweeps", "24"])
+    th.join(timeout=5)
+    launches = _read_counts()
+    sweeps = [ln for ln in log.splitlines() if "watch sweep" in ln]
+    completed = [ln.split("Completed: ")[1].split()[0] for ln in log.splitlines()
+                 if "Completed: " in ln]
+    print(f"tool 8d: cli watch --interval 0.5 --sweeps 24: rc={rc} in {wall:.3f} s, "
+          f"kernel launches {launches[0]} ({launches[1]} windowed); sweeps that ran a "
+          f"batch: {sweeps}; completions {completed} [{card}]", flush=True)
+    if rc != 0 or failure or th.is_alive():
+        raise AssertionError(f"tool 8d: watch rc={rc} {failure}\n{log[-3000:]}{err[-2000:]}")
+    want = sorted([f"take{i}_processed.wav" for i in range(8)] + ["take0_processed.wav"])
+    if sorted(completed) != want:
+        raise AssertionError(f"tool 8d: completions {completed}, want each once and take0 twice")
+    return {"out": out, "drop": drop, "launches": launches, "wall": wall}
+
+
+def _verify_and_process_match(card: str, work: str, w: dict) -> None:
+    """8d, continued: the watch's outputs against `cli process` of the same
+    files and seed (sha256), then `cli verify` on the watch's manifest."""
+    out_p = os.path.join(work, "process_out")
+    rc, _out, err, wall = _run_cli(["process", w["drop"], "--out", out_p, "--rate", "48000"])
+    if rc != 0:
+        raise AssertionError(f"tool 8d: cli process rc={rc}\n{err[-2000:]}")
+    same = {n: _sha256(os.path.join(w["out"], n)) == _sha256(os.path.join(out_p, n))
+            for n in sorted(os.listdir(out_p)) if n.endswith(".wav")}
+    print(f"tool 8d: watch outputs vs cli process of the same 8 files ({wall:.3f} s): "
+          f"sha256 equal {sum(same.values())} of {len(same)} [{card}]", flush=True)
+    if len(same) != 8 or not all(same.values()):
+        raise AssertionError(f"tool 8d: watch and process outputs differ: {same}")
+    man = os.path.join(w["out"], ".manifest.json")
+    rc, out, _err, _ = _run_cli(["verify", man, "--json"])
+    counts = json.loads(out)["counts"] if out.strip() else {}
+    print(f"tool 8d: cli verify on the watch's manifest: rc={rc} {counts}", flush=True)
+    if rc != 0 or counts.get("ok") != 8:
+        raise AssertionError(f"tool 8d: verify {rc} {counts}")
+    victim = os.path.join(w["out"], "take5_processed.wav")
+    with open(victim, "r+b") as f:
+        f.seek(-1000, os.SEEK_END)
+        b = f.read(1)
+        f.seek(-1000, os.SEEK_END)
+        f.write(bytes([b[0] ^ 0x10]))
+    rc, out, _err, _ = _run_cli(["verify", man, "--json"])
+    rows = {os.path.basename(r["output"]): r["status"] for r in json.loads(out)["files"]}
+    print(f"tool 8d: one byte of take5_processed.wav flipped: rc={rc} "
+          f"take5={rows.get('take5_processed.wav')}", flush=True)
+    if rc != 1 or rows.get("take5_processed.wav") != "crc_mismatch":
+        raise AssertionError(f"tool 8d: verify after the flip: rc={rc} {rows}")
+
+
+def _measure_path(card: str, cal_path: str) -> None:
+    """8b: `cli measure` without a chain and with a 10 ms delay."""
+    lat = {}
+    for label, extra in (("SRC", []), ("SRC + 10 ms delay", ["--chain-delay-ms", "10"])):
+        rc, out, err, wall = _run_cli(["measure", "--rate-in", "44100", "--rate", "48000",
+                                       *extra])
+        lat[label] = int(out.split("latency ")[1].split(" frames")[0]) if rc == 0 else None
+        print(f"tool 8b: cli measure {label}: rc={rc} latency {lat[label]} frames in "
+              f"{wall:.2f} s: {out.strip()} [{card}]", flush=True)
+        if rc != 0:
+            raise AssertionError(f"tool 8b: measure {label}: {out}{err[-2000:]}")
+    with open(cal_path) as f:
+        cached = {k: v["latency_frames"] for k, v in json.load(f).items()}
+    print(f"tool 8b: the watch's calibration cache: {cached}", flush=True)
+    if lat["SRC + 10 ms delay"] - lat["SRC"] != 480:
+        raise AssertionError(f"tool 8b: a 10 ms delay measured {lat}")
+    if cached.get("44100->48000:sinc:high:") != lat["SRC"]:
+        raise AssertionError(f"tool 8b: measure {lat['SRC']} vs the cache {cached}")
+
+
+def _preview_path(card: str, work: str) -> tuple[int, int]:
+    """8e: `cli preview` of 6 mixed-rate items onto an 8-channel bus with a
+    monitor mix, in memory and streamed (the same bytes), the CPU path on
+    two items, and a looped programme that routes itself to the stream.
+    Returns the kernel launches of the in-memory and streamed runs."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.pipeline.preview import playlist_item_frames
+
+    rng = np.random.default_rng(SEED + 82)
+    items = []
+    t0 = time.time()
+    for i, rate in enumerate([44100, 44100, 96000, 96000, 48000, 44056]):
+        n = int(rng.uniform(*PREVIEW_SECONDS) * rate)
+        t = np.arange(n) / rate
+        f = rng.uniform(150.0, 4000.0, size=(2, 2))
+        x = (0.1 * np.sin(2 * np.pi * f[:, :1] * t) + 0.05 * np.sin(2 * np.pi * f[:, 1:] * t)
+             + 0.01 * rng.standard_normal((2, n)))      # about -20 dBFS RMS
+        items.append(os.path.join(work, f"item{i}_{rate}.wav"))
+        wav.write_wav(items[-1], x.astype(np.float32), rate, bits=24)
+    audio_s = sum(playlist_item_frames(p, 48000) for p in items) / 48000
+    print(f"tool 8e: wrote 6 stereo 24-bit items of 20-40 s at 44.1k, 44.1k, 96k, 96k, "
+          f"48k and 44,056 Hz in {time.time() - t0:.1f} s", flush=True)
+    flags = ["--rate", "48000", "--channels", "8", "--target-channels", "2,3", "--monitor"]
+    shas, launches = {}, [0, 0]
+    for form, extra in (("in memory", []), ("streamed", ["--stream"])):
+        tag = form.split()[-1]
+        main_p, mon_p = os.path.join(work, f"bus_{tag}.wav"), os.path.join(work, f"mon_{tag}.wav")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        rc, out, err, wall = _run_cli(["preview", *items, "--out", main_p,
+                                       "--monitor-out", mon_p, *flags, *extra])
+        n, nw = _read_counts()
+        launches = [launches[0] + n, launches[1] + nw]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        shas[form] = (_sha256(main_p), _sha256(mon_p)) if rc == 0 else ("", "")
+        print(f"tool 8e: cli preview {form}: rc={rc} wall={wall:.3f} s for {audio_s:.1f} s "
+              f"of programme ({audio_s / wall:.1f}x real time), kernel launches {n} ({nw} "
+              f"windowed), peak device memory {peak:.3f} GB, sha256 main "
+              f"{shas[form][0][:16]} monitor {shas[form][1][:16]} [{card}]", flush=True)
+        if rc != 0:
+            raise AssertionError(f"tool 8e: preview {form} rc={rc}\n{err[-2000:]}")
+    if shas["in memory"] != shas["streamed"]:
+        raise AssertionError("tool 8e: the streamed preview's bytes differ from the render's")
+    # the card against the port's CPU path on two items (a dense and a
+    # varispeed bank), both in memory
+    pair = [items[0], items[5]]
+    got = {}
+    for d in ("cuda", "cpu"):
+        p = os.path.join(work, f"pair_{d}.wav")
+        rc, _out, err, wall = _run_cli(["preview", *pair, "--out", p, *flags, "--device", d])
+        if rc != 0:
+            raise AssertionError(f"tool 8e: preview pair on {d} rc={rc}\n{err[-2000:]}")
+        got[d] = _read_codes(p)[0]
+    same = got["cuda"].shape == got["cpu"].shape
+    diff = np.abs(got["cuda"] - got["cpu"]) if same else None
+    print(f"tool 8e: two items (44.1k, 44,056 Hz), card vs CPU: "
+          f"{int((diff != 0).sum()) if same else -1} of {got['cuda'].size} samples differ, "
+          f"max {int(diff.max()) if same else -1} LSB (tol {LSB_TOL}) [{card}]", flush=True)
+    if not same or int(diff.max()) > LSB_TOL:
+        raise AssertionError("tool 8e: preview card vs CPU path differ")
+    # three loops project past 512 MB of float32: the CLI streams by itself
+    loop_p = os.path.join(work, "loops.wav")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rc, out, err, wall = _run_cli(["preview", *items, "--out", loop_p, "--rate", "48000",
+                                   "--channels", "8", "--loops", "3"])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"tool 8e: cli preview --loops 3 --channels 8: rc={rc} wall={wall:.3f} s "
+          f"({3 * audio_s / wall:.1f}x real time), peak device memory {peak:.3f} GB, "
+          f"{os.path.getsize(loop_p) / 1e6:.0f} MB written; note: "
+          f"{err.strip().splitlines()[0] if err.strip() else 'none'} [{card}]", flush=True)
+    if rc != 0 or "(streamed)" not in out or "in-memory budget" not in err:
+        raise AssertionError(f"tool 8e: --loops 3 did not stream: {out}{err[-2000:]}")
+    return launches[0], launches[1]
+
+
+def _profile_and_config(card: str, work: str, in_dir: str) -> None:
+    """8f: `cli process --profile` names the kernel; `--save-config` then
+    `--config` gives the same bytes."""
+    names = sorted(os.listdir(in_dir))[:2]
+    srcs = [os.path.join(in_dir, n) for n in names]
+    prof = os.path.join(work, "prof")
+    cfg = os.path.join(work, "settings.json")
+    rc, _out, err, wall = _run_cli(["process", *srcs, "--out", os.path.join(work, "pa"),
+                                    "--rate", "48000", "--gain", "-3", "--seed", "11",
+                                    "--profile", prof, "--save-config", cfg])
+    if rc != 0:
+        raise AssertionError(f"tool 8f: process --profile rc={rc}\n{err[-2000:]}")
+    with open(os.path.join(prof, "trace.json")) as f:
+        trace = json.load(f)
+    kernels = sorted({e.get("name", "") for e in trace.get("traceEvents", [])
+                      if e.get("cat") == "kernel" and "cycle_src" in e.get("name", "")})
+    print(f"tool 8f: cli process --profile ({wall:.3f} s): trace.json "
+          f"{os.path.getsize(os.path.join(prof, 'trace.json')) / 1e6:.1f} MB, kernels named "
+          f"cycle_src: {kernels} [{card}]", flush=True)
+    if not kernels:
+        raise AssertionError("tool 8f: the profile names no cycle_src kernel")
+    rc, _out, err, _ = _run_cli(["process", *srcs, "--out", os.path.join(work, "pb"),
+                                 "--config", cfg])
+    same = all(_sha256(os.path.join(work, "pa", n.replace(".wav", "_processed.wav")))
+               == _sha256(os.path.join(work, "pb", n.replace(".wav", "_processed.wav")))
+               for n in names)
+    print(f"tool 8f: --save-config then --config: rc={rc} same bytes {same}", flush=True)
+    if rc != 0 or not same:
+        raise AssertionError("tool 8f: --config did not reproduce the saved job")
+
+
+def phase_tools(card: str, work: str, dev) -> dict:
+    """Phase 8, the tool path: the kernel at the new callers' shapes, then
+    `selftest`, `devices`, `watch` with `verify`, `measure`, `preview`,
+    `process --profile` and the config file.  Returns the kernel launches
+    of each path as (every launch, the windowed form's)."""
+    t0 = time.time()
+    _tool_kernel_check(card, dev)
+    print(f"tool kernel check: {time.time() - t0:.1f} s", flush=True)
+    counts = {}
+
+    t0 = time.time()
+    _zero_counts()
+    _selftest_path(card)
+    counts["selftest"] = _read_counts()
+    print(f"tool 8a: {time.time() - t0:.1f} s", flush=True)
+
+    rc, out, err, _ = _run_cli(["devices"])
+    print(f"tool 8c: cli devices rc={rc}: {out.strip()} [{card}]", flush=True)
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    if rc != 0 or name not in out or "GiB" not in out or "1 device(s)" not in out:
+        raise AssertionError(f"tool 8c: devices rc={rc}: {out}{err}")
+
+    t0 = time.time()
+    w = _watch_path(card, work)
+    counts["watch"] = w["launches"]
+    _verify_and_process_match(card, work, w)
+    print(f"tool 8d: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    _zero_counts()
+    _measure_path(card, os.path.join(w["out"], ".calibration.json"))
+    counts["measure"] = _read_counts()
+    print(f"tool 8b: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    counts["preview"] = _preview_path(card, work)
+    print(f"tool 8e: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    _profile_and_config(card, work, w["drop"])
+    print(f"tool 8f: {time.time() - t0:.1f} s", flush=True)
+    print(f"tool: kernel launches by path (all, windowed) {counts} [{card}]", flush=True)
+    for path, (n, nw) in counts.items():
+        if n - nw < 1:
+            raise AssertionError(f"tool: {path} launched no dense kernel")
+    if counts["preview"][1] < 1:
+        raise AssertionError("tool: preview launched no windowed kernel")
+    return counts
 
 
 def main() -> int:
@@ -1530,6 +1934,15 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase {n} ({path}): {time.time() - t0:.1f} s", flush=True)
+
+    work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+    t0 = time.time()
+    try:
+        for path, (total, win) in phase_tools(card, work, dev).items():
+            dense[path], windowed[path] = total - win, win
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 8 (tool path): {time.time() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",

@@ -7,13 +7,16 @@ JAX package: it keeps its own copies of the JAX package's jax-free modules,
 under the same names (`config`, `io` with every codec, `models` with filter
 design, `CycleBank` and the float64 oracle, and `native`, the g++ twins).
 
-What runs today is the default batch job (`python -m f9tpu_torch.cli
-process`): integer-PCM or float files in, resampled 16/24/32-bit files out,
-the insert loop (`--reverb`, `--routing`, `--chain-*`), and the
-constant-memory stream of files of any length (`cli stream`, and `process`
-for files past the largest bucket), with the cycle-matrix SRC as a
-hand-written CUDA kernel (`f9tpu_torch/csrc/cycle_src.cu`).  See ROADMAP.md
-for what is still to port.
+What runs today is every subcommand of the JAX CLI on one device
+(`python -m f9tpu_torch.cli`): the batch job (`process`: integer-PCM or
+float files in, resampled 16/24/32-bit files out, the insert loop with
+`--reverb`, `--routing` and `--chain-*`, varispeed rates, loudness
+normalization), the constant-memory stream of files of any length
+(`stream`), the playlist preview (`preview`), the drop-folder daemon
+(`watch`), and `selftest`, `measure`, `probe`, `verify` and `devices`, with
+the cycle-matrix SRC as a hand-written CUDA kernel
+(`f9tpu_torch/csrc/cycle_src.cu`).  See ROADMAP.md for what is still to
+port (more than one device, the rows layout).
 """
 
 from .device import resolve_device  # noqa: F401

@@ -1,26 +1,33 @@
-"""Command-line interface of the port (counterpart of `f9tpu/cli.py`).
+"""Command-line interface of the port (counterpart of `f9tpu/cli.py`): every
+subcommand of the JAX CLI, on ``--device`` (default ``cuda``; ``cpu`` runs
+the plain PyTorch path and is never taken unless asked for).
 
-The batch job, with reverb mode, channel routing and the insert chain, and
-the constant-memory stream of one file of any length:
+    process   batch resample files (insert loop, varispeed, normalization)
+    stream    constant-memory resample of one long file
+    preview   render a gapless playlist onto a bus, with a monitor mix
+    measure   latency through SRC and the --chain-* chain (impulse test)
+    selftest  the 1 kHz loop test through the device's SRC [--parity]
+    probe     file metadata [--loudness]
+    watch     process files as they land in a folder (polling daemon)
+    verify    audit a manifest's outputs by size and CRC-32
+    devices   list the CUDA devices
 
     python -m f9tpu_torch.cli process ./stems --out ./out --rate 48000 [--device cuda]
     python -m f9tpu_torch.cli process ./stems --out ./out --reverb --routing 1,0 \
         --chain-delay-ms 5 --chain-eq peaking:1000:1:3 --chain-comp=-18:3 \
         --chain-ir hall.wav --chain-limit=-0.3
-    python -m f9tpu_torch.cli stream long.wav --out long_48k.wav --rate 48000 \
-        [--chunk-seconds 20] [--latency N] [--reverb] [--chain-* ...]
-    python -m f9tpu_torch.cli process ./stems --out ./out --rate 44056
-    python -m f9tpu_torch.cli process ./stems --out ./out --normalize-lufs=-16 \
-        --normalize-tp=-1 [--surround-weights]
-    python -m f9tpu_torch.cli probe ./stems --loudness [--json]
+    python -m f9tpu_torch.cli stream long.wav --out long_48k.wav --rate 48000
+    python -m f9tpu_torch.cli preview a.wav b.wav --out bus.wav --channels 8 \
+        --target-channels 2,3 --monitor --monitor-out mon.wav [--stream]
+    python -m f9tpu_torch.cli watch ./drop --out ./out --rate 48000 --interval 2
+    python -m f9tpu_torch.cli selftest --parity
 
-Varispeed rates (``--rate 44056``, the NTSC pull-down) and loudness
-normalization run on `process` and `stream` alike.  `stream` takes the JAX
-CLI's flags plus ``--device`` and every ``--chain-*`` flag of `process`;
-``--frames-shards`` above 1 exits 2 with the ROADMAP item it waits for.
-`probe` prints file metadata and, with ``--loudness``, LUFS, dBTP and LRA
-measured on ``--device``.  Every other `f9tpu` subcommand prints "not yet
-ported" and exits 2.
+``--config FILE`` loads `process` defaults from JSON (the JAX CLI's format
+and keys) and ``--save-config FILE`` writes the resolved settings back.
+Options that need more than one device (``--files-shards``,
+``--channel-shards``, ``--frames-shards`` above 1) and ``--device-layout
+rows`` exit 2 naming the ROADMAP item each waits for.  Without a GPU a
+command on ``cuda`` exits 1 with a one-line error.
 """
 
 from __future__ import annotations
@@ -37,15 +44,27 @@ import numpy as np
 from .config import ProcessingConfig
 from .io import codec
 
-from .pipeline.calibration import CalibrationCache
+from .device import NoDeviceError, resolve_device
+from .pipeline.calibration import CalibrationCache, measure_latency
 from .pipeline.graph import not_ported
 from .pipeline.logbook import StatusLog
 from .pipeline.scheduler import BatchProcessor
 
 __all__ = ["main"]
 
-#: `f9tpu` subcommands the port does not have yet (ROADMAP Queue 1).
-UNPORTED = ("preview", "measure", "selftest", "watch", "verify", "devices")
+#: `process` options persisted by --save-config and applied by --config,
+#: under their CLI names (the JAX CLI's keys, so either reads the other's
+#: file).
+_CONFIG_KEYS = (
+    "rate", "quality", "kind", "bits", "postfix", "output_format",
+    "no_dither", "keep_dc", "normalize_lufs", "normalize_tp_db",
+    "surround_weights", "keep_metadata",
+    "gain", "reverb", "noise_floor", "margin", "require_rate", "batch_size",
+    "routing", "channels", "device_layout", "seed", "latency",
+    "chain_ir", "chain_wet", "chain_dry", "chain_fir", "chain_delay_ms",
+    "chain_eq", "chain_comp", "chain_sat", "chain_width",
+    "chain_gate", "chain_limit",
+)
 
 
 def _expand_inputs(inputs: list[str]) -> list[str]:
@@ -188,7 +207,48 @@ def _build_chain(args):
     return Chain(*stages) if stages else None
 
 
+def _apply_config_file(parser, argv) -> None:
+    """Install the JSON file of ``--config`` as the parser's defaults, so a
+    flag given on the command line still wins."""
+    path = None
+    for i, a in enumerate(argv):
+        if a == "--config" and i + 1 < len(argv):
+            path = argv[i + 1]
+        elif a.startswith("--config="):
+            path = a.split("=", 1)[1]
+    if not path:
+        return
+    try:
+        with open(path) as f:
+            data = json.load(f)
+        if not isinstance(data, dict):
+            raise ValueError("top level must be a JSON object")
+        vals = {k: v for k, v in data.items() if k in _CONFIG_KEYS}
+    except (OSError, ValueError) as err:
+        print(f"error: cannot load --config {path}: {err}", file=sys.stderr)
+        raise SystemExit(2)
+    # an append option given on the command line replaces the file's list
+    if any(a == "--chain-eq" or a.startswith("--chain-eq=") for a in argv):
+        vals.pop("chain_eq", None)
+    parser.set_defaults(**vals)
+
+
+def _save_config(args) -> None:
+    if not args.save_config:
+        return
+    with open(args.save_config, "w") as f:
+        json.dump({k: getattr(args, k) for k in _CONFIG_KEYS}, f, indent=1)
+    print(f"settings saved -> {args.save_config}")
+
+
+def _refuse_shards(args) -> None:
+    """The multi-device options exit 2 until `parallel/` is ported."""
+    if args.files_shards > 1 or args.channel_shards > 1:
+        raise not_ported("mesh")
+
+
 def _batch_cfg_from_args(args) -> ProcessingConfig:
+    """The one ProcessingConfig of `process` and `watch`."""
     return ProcessingConfig(
         target_rate=args.rate,
         quality=args.quality,
@@ -199,6 +259,9 @@ def _batch_cfg_from_args(args) -> ProcessingConfig:
         output_dir=args.out,
         postfix=args.postfix,
         output_format=args.output_format,
+        keep_metadata=args.keep_metadata,
+        require_input_rate=args.require_rate,
+        device_layout=args.device_layout,
         batch_size=args.batch_size,
         gain_db=args.gain,
         normalize_lufs=args.normalize_lufs,
@@ -220,15 +283,23 @@ def cmd_process(args) -> int:
     if not files:
         print("error: no input files", file=sys.stderr)
         return 2
+    _refuse_shards(args)
     cfg = _batch_cfg_from_args(args)
+    _save_config(args)
     # --json: the summary is the only stdout; the log goes to stderr
     log_out = sys.stderr if args.json else sys.stdout
-    log = StatusLog(sink=lambda line: print(line, file=log_out, flush=True))
+    log = StatusLog(sink=lambda line: print(line, file=log_out, flush=True),
+                    jsonl_path=args.log_jsonl)
     cal = CalibrationCache(os.path.join(args.out, ".calibration.json"))
     os.makedirs(args.out, exist_ok=True)
     bp = BatchProcessor(cfg, log=log, calibration=cal, device=args.device)
     manifest_path = os.path.join(args.out, ".manifest.json") if args.resume else None
-    res = bp.run(files, manifest_path=manifest_path)
+    if args.profile:
+        res = _profiled(args.profile, bp.device,
+                        lambda: bp.run(files, manifest_path=manifest_path))
+        print(f"profiler trace -> {args.profile}", file=log_out)
+    else:
+        res = bp.run(files, manifest_path=manifest_path)
     if args.json:
         print(json.dumps({
             "completed": res.completed,
@@ -244,6 +315,22 @@ def cmd_process(args) -> int:
             "device": str(bp.device),
         }, indent=1))
     return 0 if (res.failed == 0 and res.invalid == 0) else 1
+
+
+def _profiled(path: str, device, fn):
+    """``fn()`` under `torch.profiler`, its trace written as Chrome JSON
+    to ``path/trace.json``: the card's kernels and copies when ``device`` is
+    CUDA, the host's operators otherwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(path, exist_ok=True)
+    with profile(activities=acts) as prof:
+        out = fn()
+    prof.export_chrome_trace(os.path.join(path, "trace.json"))
+    return out
 
 
 def cmd_stream(args) -> int:
@@ -426,44 +513,367 @@ def cmd_probe(args) -> int:
     return code
 
 
-def main(argv: list[str] | None = None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in UNPORTED:
-        print(f"f9tpu-torch: '{argv[0]}' is not yet ported "
-              f"(use the JAX package: python -m f9tpu.cli {argv[0]})",
+def cmd_preview(args) -> int:
+    """A gapless playlist onto a bus (the JAX CLI's `cmd_preview`, on
+    ``--device``): in memory, or through the constant-memory renderer with
+    ``--stream`` or when the programme would pass 512 MB of float32."""
+    from .pipeline.preview import projected_frames, render_playlist, stream_playlist
+
+    files = _expand_inputs(args.inputs)
+    if not files:
+        print("error: no input files", file=sys.stderr)
+        return 2
+    # --monitor-out implies the dual render; in bus mode the main file is
+    # a sink of the mixdown too
+    want_monitor = args.monitor or bool(args.monitor_out)
+    if args.monitor and not args.monitor_out and not args.target_channels:
+        print("note: --monitor without --monitor-out has no sink in plain "
+              "mode (no --target-channels); pass --monitor-out PATH",
+              file=sys.stderr)
+    try:
+        mon_ch = tuple(int(c) for c in args.monitor_channels.split(","))
+    except ValueError:
+        print(f"error: --monitor-channels must be two integers, got "
+              f"{args.monitor_channels!r}", file=sys.stderr)
+        return 2
+    if len(mon_ch) != 2:
+        print(f"error: --monitor-channels needs exactly two channels, got "
+              f"{args.monitor_channels!r}", file=sys.stderr)
+        return 2
+    try:
+        target_ch = ([int(c) for c in args.target_channels.split(",")]
+                     if args.target_channels else None)
+    except ValueError:
+        print(f"error: --target-channels must be integers, got "
+              f"{args.target_channels!r}", file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    stream_mode = args.stream
+    if not stream_mode:
+        try:
+            proj = projected_frames(files, args.rate, silence_ms=args.silence_ms,
+                                    loops=args.loops)
+        except (OSError, ValueError):
+            proj = 0        # an unreadable item: the renderer reports it
+        if proj * max(args.channels, 2) * 4 > (1 << 29):
+            stream_mode = True
+            print(f"note: projected programme of {proj} frames exceeds "
+                  "the in-memory budget; using the streaming renderer",
+                  file=sys.stderr)
+    kw = dict(silence_ms=args.silence_ms, output_channels=args.channels,
+              monitor=want_monitor, loops=args.loops, target_channels=target_ch,
+              monitor_channels=mon_ch, quality=args.quality, kind=args.kind,
+              device=dev)
+    try:
+        if stream_mode:
+            items, frames = stream_playlist(files, args.rate, args.out,
+                                            monitor_out=args.monitor_out, **kw)
+            print(f"rendered {len(items)} item(s), {frames} frames -> "
+                  f"{args.out} (streamed)")
+            if want_monitor and args.monitor_out:
+                print(f"monitor mix -> {args.monitor_out}")
+        else:
+            main_mix, monitor, items = render_playlist(files, args.rate, **kw)
+            _write_render(args.out, main_mix, args.rate)
+            print(f"rendered {len(items)} item(s), {main_mix.shape[-1]} frames "
+                  f"-> {args.out}")
+            if monitor is not None and args.monitor_out:
+                _write_render(args.monitor_out, monitor, args.rate)
+                print(f"monitor mix -> {args.monitor_out}")
+    except ValueError as err:
+        # channel placement (duplicate or out-of-bus channels, monitor
+        # placement outside bus mode): a usage error
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+    for it in items:
+        print(f"  @{it.start_frame:>10} {os.path.basename(it.path)} "
+              f"({it.num_frames} frames)")
+    return 0
+
+
+def _write_render(path: str, x: np.ndarray, rate: int) -> None:
+    """A rendered programme as a 24-bit WAV in the container the streaming
+    renderer writes (`io.wav.WavWriter`, RF64-ready), with `write_wav`'s
+    quantization: the two forms of `preview` give the same file."""
+    from .io.wav import WavWriter
+
+    with WavWriter(path, x.shape[0], rate, bits=24) as w:
+        w.append_codes(np.clip(np.round(x * float(1 << 23)), -(1 << 23),
+                               (1 << 23) - 1).astype(np.int32))
+
+
+def cmd_measure(args) -> int:
+    """The latency of SRC and the ``--chain-*`` chain by an impulse on
+    ``--device``, with the capture and ring-out the scheduler's calibration
+    uses (the JAX CLI's `cmd_measure`)."""
+    from .ops.resample import resample_rates
+    from .pipeline.calibration import CAPTURE_FRAMES
+
+    chain = _build_chain(args)
+    chain_fn, capture, ringout = None, CAPTURE_FRAMES, 0
+    if chain is not None:
+        ringout = int(chain.tail_frames(args.rate))
+        capture = max(CAPTURE_FRAMES,
+                      -(-(3 * ringout + (1 << 15)) * args.rate_in // args.rate))
+
+        def chain_fn(x):
+            y = resample_rates(x, args.rate_in, args.rate,
+                               quality=args.quality, kind=args.kind)
+            return chain.apply(y, args.rate)
+
+    res = measure_latency(args.rate_in, args.rate, quality=args.quality,
+                          kind=args.kind, chain_fn=chain_fn,
+                          capture_frames=capture, ringout_frames=ringout,
+                          device=args.device)
+    status = "detected" if res.detected else "NOT DETECTED"
+    what = f"SRC+chain({chain!r})" if chain is not None else "SRC"
+    print(f"impulse {status} through {what}: latency {res.latency_frames} "
+          f"frames @ {args.rate} Hz, "
+          f"noise floor {res.noise_floor_db:.1f} dB, peak {res.peak_amplitude:.3f}")
+    return 0 if res.detected else 1
+
+
+def cmd_selftest(args) -> int:
+    """The loop test on ``--device``; ``--parity`` also holds the device's
+    SRC of 0.5 s of noise against the float64 oracle (<= -120 dB).  The
+    exit code follows the verdict."""
+    from .pipeline.selftest import run_loop_test
+
+    rep = run_loop_test(args.rate_in, args.rate, quality=args.quality,
+                        kind=args.kind, device=args.device)
+    print(f"{rep.verdict.value}: {rep.detail}")
+    ok = rep.verdict.value == "loop_detected"
+    if args.parity:
+        import torch
+
+        from .models.oracle import resample_oracle
+        from .ops.resample import resample_rates
+
+        rng = np.random.default_rng(0)
+        x = (0.25 * rng.standard_normal(args.rate_in // 2)).astype(np.float32)
+        y = resample_rates(torch.from_numpy(x).to(resolve_device(args.device)),
+                           args.rate_in, args.rate, quality=args.quality,
+                           kind=args.kind).cpu().numpy()
+        ref = resample_oracle(x, args.rate_in, args.rate,
+                              quality=args.quality, kind=args.kind)
+        err = y.astype(np.float64) - ref
+        db = 20 * np.log10(np.sqrt((err**2).mean())
+                           / np.sqrt((ref**2).mean()) + 1e-30)
+        good = db <= -120.0
+        print(f"parity: {db:.1f} dB RMS vs float64 oracle "
+              f"[{'OK' if good else 'FAIL (target -120)'}]")
+        ok = ok and good
+    return 0 if ok else 1
+
+
+def cmd_watch(args) -> int:
+    """Process files as they land in a folder (the JAX CLI's `cmd_watch`):
+    polling; a file is taken once its size and mtime held across two sweeps;
+    the manifest and the calibration cache in ``--out`` are shared by every
+    sweep and by restarts, so a file is processed once, and again when it is
+    dropped anew with other content.  A sweep whose batch raises is logged
+    with the error and its files retry on a later sweep; on the card a
+    fault the context keeps shows on every later sweep, never moved to the
+    CPU."""
+    cfg = _batch_cfg_from_args(args)
+    if args.interval <= 0:
+        print("watch: --interval must be positive", file=sys.stderr)
+        return 2
+    if os.path.realpath(args.out) == os.path.realpath(args.dir):
+        # outputs landing in the watched folder would be processed forever
+        print("watch: --out must differ from the watched folder",
               file=sys.stderr)
         return 2
+    try:
+        cfg.validate()
+    except ValueError as err:
+        print(f"watch: invalid config: {err}", file=sys.stderr)
+        return 2
+    # what a sweep's processor would refuse fails now, not at the first drop
+    _refuse_shards(args)
+    if cfg.device_layout == "rows":
+        raise not_ported("rows_layout")
+    dev = resolve_device(args.device)
+    os.makedirs(args.out, exist_ok=True)
+    # every line goes to the sink (and the JSONL file); memory keeps 1000
+    log = StatusLog(sink=lambda line: print(line, flush=True),
+                    jsonl_path=args.log_jsonl, max_lines=1000)
+    cal = CalibrationCache(os.path.join(args.out, ".calibration.json"))
+    manifest_path = os.path.join(args.out, ".manifest.json")
+    seen_sig: dict[str, tuple] = {}      # path -> (size, mtime) last sweep
+    done_sig: dict[str, tuple] = {}      # path -> signature when processed
+    sweeps = 0
+    idle = 0.0
+
+    log.append(f"watch: {args.dir} -> {args.out} (interval {args.interval}s)")
+    while True:
+        sweeps += 1
+        try:
+            names = sorted(os.listdir(args.dir))
+        except OSError as err:
+            if sweeps == 1:
+                print(f"watch: cannot list {args.dir}: {err}", file=sys.stderr)
+                return 2
+            log.append(f"watch sweep {sweeps}: cannot list {args.dir}: {err}")
+            time.sleep(args.interval)
+            continue
+        # forget files that left the folder
+        current = {os.path.join(args.dir, n) for n in names}
+        for d in (seen_sig, done_sig):
+            for stale in [p for p in d if p not in current]:
+                del d[stale]
+        ready = []
+        changing = False          # a candidate is still being copied in
+        for name in names:
+            path = os.path.join(args.dir, name)
+            if not codec.is_supported(name) or not os.path.isfile(path):
+                continue
+            try:
+                st = os.stat(path)
+                sig = (st.st_size, st.st_mtime_ns)
+            except OSError:
+                continue
+            if done_sig.get(path) == sig:
+                continue
+            if seen_sig.get(path) == sig:
+                ready.append(path)
+            else:
+                changing = True
+            seen_sig[path] = sig
+        if ready:
+            # the manifest processes new files, skips finished unchanged
+            # ones and reprocesses a file dropped again with new content
+            idle = 0.0
+            try:
+                bp = BatchProcessor(cfg, log=log, calibration=cal, device=dev)
+                res = bp.run(ready, manifest_path=manifest_path)
+            except Exception as err:
+                # the daemon keeps serving; the files stay unmarked and retry
+                log.append(f"watch sweep {sweeps} FAILED: {err}")
+            else:
+                if res.aborted:
+                    # only verified completions are done; the rest retry
+                    for p in ready:
+                        if p in res.per_file:
+                            done_sig[p] = seen_sig[p]
+                    log.append(f"watch sweep {sweeps}: ABORTED "
+                               f"({res.completed} completed, unprocessed "
+                               f"files will retry)")
+                else:
+                    # failed files are per-file errors and are not retried
+                    for p in ready:
+                        done_sig[p] = seen_sig[p]
+                    log.append(
+                        f"watch sweep {sweeps}: {res.completed} completed"
+                        + (f" ({res.skipped} resumed)" if res.skipped else "")
+                        + f", {res.failed} failed in {res.wall_seconds:.3f} s")
+        elif changing:
+            idle = 0.0
+        else:
+            idle += args.interval
+        if args.sweeps and sweeps >= args.sweeps:
+            break
+        if args.exit_after_idle and idle >= args.exit_after_idle:
+            log.append(f"watch: idle {idle:.0f}s, exiting")
+            break
+        time.sleep(args.interval)
+    return 0
+
+
+def cmd_verify(args) -> int:
+    """Audit a job manifest's completed outputs against their recorded size
+    and CRC-32, on the host (the JAX CLI's `cmd_verify`; the manifest
+    format is shared, so each package verifies the other's jobs)."""
+    from .pipeline.manifest import FileStatus, JobManifest, file_crc32
+
+    try:
+        m = JobManifest.load(args.manifest)
+    except (OSError, ValueError, KeyError) as err:
+        print(f"verify: cannot load manifest {args.manifest}: {err}",
+              file=sys.stderr)
+        return 2
+    rows = []
+    counts = {"ok": 0, "corrupt": 0, "missing": 0, "unverified": 0,
+              "not_completed": 0}
+    for e in m.entries():
+        if e.status != FileStatus.COMPLETED:
+            counts["not_completed"] += 1
+            continue
+        row = {"output": e.output_path, "source": e.path}
+        if not e.output_path or not os.path.exists(e.output_path):
+            counts["missing"] += 1
+            status = "missing"
+        elif e.output_size is not None and os.path.getsize(e.output_path) != e.output_size:
+            counts["corrupt"] += 1
+            status = "size_mismatch"
+        elif e.output_crc32 is None:
+            counts["unverified"] += 1
+            status = "no_hash"
+        elif file_crc32(e.output_path) == e.output_crc32:
+            counts["ok"] += 1
+            status = "ok"
+        else:
+            counts["corrupt"] += 1
+            status = "crc_mismatch"
+        rows.append({**row, "status": status})
+    if args.json:
+        print(json.dumps({"counts": counts, "files": rows}, indent=1))
+    else:
+        for r in rows:
+            if r["status"] != "ok" or args.verbose:
+                print(f"{r['status'].upper():14s} {r['output']}")
+        print(f"verified: {counts['ok']} ok, {counts['corrupt']} corrupt, "
+              f"{counts['missing']} missing, {counts['unverified']} "
+              f"without hash, {counts['not_completed']} not completed")
+    return 1 if (counts["corrupt"] or counts["missing"]) else 0
+
+
+def cmd_devices(args) -> int:
+    """The devices of ``--device``'s kind: each CUDA device's index, name,
+    memory and compute capability, then the count.  Unlike the JAX CLI,
+    which lists the CPU when it finds no accelerator, this exits 1 when
+    there is no GPU: the CPU is listed only with ``--device cpu``."""
+    import torch
+
+    if torch.device(args.device).type == "cpu":
+        print(f"[0] cpu (platform cpu, {os.cpu_count()} cores)")
+        print("1 device(s)")
+        return 0
+    if not torch.cuda.is_available():
+        print("devices: no CUDA GPU available (--device cpu lists the CPU)",
+              file=sys.stderr)
+        return 1
+    n = torch.cuda.device_count()
+    for i in range(n):
+        p = torch.cuda.get_device_properties(i)
+        print(f"[{i}] {p.name} (platform cuda, {p.total_memory / 2**30:.1f} GiB, "
+              f"compute capability {p.major}.{p.minor})")
+    print(f"{n} device(s)")
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    from .version import __version__
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(
         prog="f9tpu-torch", allow_abbrev=False,
         description="Batch audio resampler on an NVIDIA GPU (PyTorch port of f9tpu)")
+    ap.add_argument("--version", action="version", version=f"f9tpu-torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("process", help="batch resample files")
+    process_parser = p
     p.add_argument("inputs", nargs="+", help="files, globs or directories")
-    p.add_argument("--out", required=True, help="output directory (mandatory)")
-    _add_src_args(p)
-    p.add_argument("--bits", type=int, default=24, choices=[16, 24, 32])
-    p.add_argument("--no-dither", action="store_true")
-    p.add_argument("--keep-dc", action="store_true", help="skip DC offset removal")
-    p.add_argument("--gain", type=float, default=0.0, help="gain dB")
-    _add_normalize_args(p)
-    p.add_argument("--latency", type=int, default=None,
-                   help="known delay in output frames: skip calibration and "
-                        "trim exactly this (negative = zero head)")
-    p.add_argument("--postfix", default="_processed")
-    p.add_argument("--format", dest="output_format", default="wav",
-                   choices=["wav", "aiff", "flac"])
-    p.add_argument("--batch-size", type=int, default=8)
-    p.add_argument("--seed", type=int, default=0,
-                   help="dither seed (per-file keys derive from seed+path; "
-                        "-1 = wall clock)")
+    _add_batch_args(p)
     p.add_argument("--resume", action="store_true",
                    help="persist a manifest in --out and skip completed files")
     p.add_argument("--json", action="store_true", help="print summary JSON")
-    p.add_argument("--reverb", action="store_true",
-                   help="reverb mode: keep tails until below noise floor")
-    _add_tail_args(p)
-    _add_routing_args(p)
-    _add_chain_args(p)
+    p.add_argument("--config", default=None, help="load settings JSON")
+    p.add_argument("--save-config", default=None, help="save resolved settings JSON")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the job to DIR/trace.json "
+                        "(the card's kernels on cuda, host operators on cpu)")
     p.set_defaults(fn=cmd_process)
 
     p = sub.add_parser("stream", help="constant-memory resample of one long file")
@@ -504,6 +914,62 @@ def main(argv: list[str] | None = None) -> int:
                    help="machine-readable result on stdout")
     p.set_defaults(fn=cmd_stream)
 
+    p = sub.add_parser("watch", help="watch a folder, process files as they land")
+    p.add_argument("dir", help="input folder to watch")
+    _add_batch_args(p)
+    p.add_argument("--interval", type=float, default=2.0, help="sweep interval seconds")
+    p.add_argument("--sweeps", type=int, default=0,
+                   help="stop after N sweeps (0 = run until killed)")
+    p.add_argument("--exit-after-idle", type=float, default=0.0,
+                   help="stop after this many idle seconds (0 = never)")
+    p.set_defaults(fn=cmd_watch)
+
+    p = sub.add_parser("verify", help="audit a manifest's outputs (size + CRC-32)")
+    p.add_argument("manifest", help="job manifest JSON (process --resume, watch)")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--verbose", action="store_true",
+                   help="also list files that verified ok")
+    p.set_defaults(fn=cmd_verify)
+
+    p = sub.add_parser("devices", help="list the CUDA devices")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) lists the GPUs, 'cpu' the CPU")
+    p.set_defaults(fn=cmd_devices)
+
+    p = sub.add_parser("preview", help="render a gapless playlist")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("--out", required=True, help="output WAV path")
+    _add_src_args(p)
+    p.add_argument("--silence-ms", type=int, default=150)
+    p.add_argument("--channels", type=int, default=2)
+    p.add_argument("--monitor", action="store_true")
+    p.add_argument("--monitor-out", default=None)
+    p.add_argument("--loops", type=int, default=1,
+                   help="render the playlist N times (wrap-around looping)")
+    p.add_argument("--target-channels", default=None,
+                   help="render into these bus channels, e.g. '4,5' "
+                        "(others stay silent)")
+    p.add_argument("--monitor-channels", default="0,1",
+                   help="bus channels carrying the monitor mix (dual render)")
+    p.add_argument("--stream", action="store_true",
+                   help="constant-memory renderer (one block at a time; "
+                        "chosen by itself past 512 MB of programme)")
+    p.set_defaults(fn=cmd_preview)
+
+    p = sub.add_parser("measure", help="measure chain latency (impulse test)")
+    p.add_argument("--rate-in", type=int, default=44100)
+    _add_src_args(p)
+    _add_chain_args(p)
+    p.set_defaults(fn=cmd_measure)
+
+    p = sub.add_parser("selftest", help="device loop test (1 kHz tone)")
+    p.add_argument("--rate-in", type=int, default=48000)
+    p.add_argument("--parity", action="store_true",
+                   help="also hold the device's SRC against the float64 "
+                        "oracle (<= -120 dB)")
+    _add_src_args(p)
+    p.set_defaults(fn=cmd_selftest)
+
     p = sub.add_parser("probe", help="print file metadata")
     p.add_argument("inputs", nargs="+")
     p.add_argument("--require-rate", type=int, default=None)
@@ -521,14 +987,60 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device of the --loudness meter (default cuda)")
     p.set_defaults(fn=cmd_probe)
+    _apply_config_file(process_parser, argv)
     args = ap.parse_args(argv)
     try:
         return args.fn(args)
+    except NoDeviceError as err:
+        # asked for the card on a machine without one: no fallback to the CPU
+        print(f"error: {err}", file=sys.stderr)
+        return 1
     except (ValueError, NotImplementedError) as err:
         # the CLI boundary: usage and validation errors raised before any
         # work, and options not ported yet (naming their ROADMAP item)
         print(f"error: {err}", file=sys.stderr)
         return 2
+
+
+def _add_batch_args(p: argparse.ArgumentParser) -> None:
+    """The options `process` and `watch` share (watch is the serving form
+    of a batch run and takes the whole surface)."""
+    p.add_argument("--out", required=True, help="output directory (mandatory)")
+    p.add_argument("--log-jsonl", default=None, metavar="PATH",
+                   help="append every status-log event to PATH as one JSON "
+                        "object per line")
+    _add_src_args(p)
+    p.add_argument("--bits", type=int, default=24, choices=[16, 24, 32])
+    p.add_argument("--no-dither", action="store_true")
+    p.add_argument("--keep-dc", action="store_true", help="skip DC offset removal")
+    p.add_argument("--gain", type=float, default=0.0, help="gain dB")
+    _add_normalize_args(p)
+    p.add_argument("--latency", type=int, default=None,
+                   help="known delay in output frames: skip calibration and "
+                        "trim exactly this (negative = zero head)")
+    p.add_argument("--postfix", default="_processed")
+    p.add_argument("--keep-metadata", action="store_true",
+                   help="carry metadata chunks into same-container outputs, "
+                        "sample positions rescaled to the output rate")
+    p.add_argument("--format", dest="output_format", default="wav",
+                   choices=["wav", "aiff", "flac"])
+    p.add_argument("--require-rate", type=int, default=None,
+                   help="strict mode: reject inputs not at this rate")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--device-layout", default="packed", choices=["packed", "rows"],
+                   help="packed (the port's layout); rows is not ported yet")
+    p.add_argument("--seed", type=int, default=0,
+                   help="dither seed (per-file keys derive from seed+path; "
+                        "-1 = wall clock)")
+    p.add_argument("--reverb", action="store_true",
+                   help="reverb mode: keep tails until below noise floor")
+    p.add_argument("--files-shards", type=int, default=1,
+                   help="shard batches over N devices (not ported yet)")
+    p.add_argument("--channel-shards", type=int, default=1,
+                   help="shard channel buses over N devices (not ported yet)")
+    _add_tail_args(p)
+    _add_routing_args(p)
+    _add_chain_args(p)
 
 
 def _add_src_args(p: argparse.ArgumentParser) -> None:

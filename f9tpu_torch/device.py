@@ -15,7 +15,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["NoDeviceError", "resolve_device"]
+
+
+class NoDeviceError(RuntimeError):
+    """CUDA was asked for and no GPU is present."""
 
 
 def _warm_cpu_transcendentals() -> None:
@@ -40,13 +44,14 @@ _warm_cpu_transcendentals()
 def resolve_device(name: str | torch.device | None = "cuda") -> torch.device:
     """``name`` (default ``"cuda"``) as a ``torch.device``.
 
-    Raises RuntimeError when CUDA is asked for and no GPU is present: the
-    port never carries on quietly on the CPU.  CPU runs pass ``"cpu"``."""
+    Raises `NoDeviceError` (a RuntimeError) when CUDA is asked for and no
+    GPU is present: the port never carries on quietly on the CPU.  CPU runs
+    pass ``"cpu"``."""
     dev = torch.device("cuda" if name is None else name)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise NoDeviceError(
             f"device {str(dev)!r} requested but no CUDA GPU is available "
             "(pass device='cpu' to run the plain PyTorch path)")
     return dev

@@ -178,11 +178,14 @@ def _partition_ir(ir: np.ndarray, B: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _spectrum(parts: list[tuple[np.ndarray, np.ndarray]], device) -> torch.Tensor:
-    """Partitioned spectra of C IRs as one complex64 ``(K, C, 1, Nf)``
-    tensor on ``device`` (the trailing 1 broadcasts over signal rows)."""
+    """Partitioned spectra of C IRs as one ``(K, C, 1, Nf)`` tensor on
+    ``device`` (the trailing 1 broadcasts over signal rows): complex64 on
+    the card, complex128 on the CPU, where `_upols_step`'s product needs
+    it (the values are the same float32 numbers)."""
     re = np.stack([p[0] for p in parts], axis=1)[:, :, None, :]
     im = np.stack([p[1] for p in parts], axis=1)[:, :, None, :]
-    return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+    H = torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+    return H.to(torch.complex128) if H.device.type == "cpu" else H
 
 
 def _cached_spectrum(cache: dict, key, irs, B: int, device) -> torch.Tensor:
@@ -197,6 +200,20 @@ def _cached_spectrum(cache: dict, key, irs, B: int, device) -> torch.Tensor:
     return H
 
 
+def _delay_line_sum(p: torch.Tensor) -> torch.Tensor:
+    """``p.sum(0)`` in a fixed order: a halving tree, in place.  While n
+    rows remain, rows ``[0, n - h)`` add rows ``[h, n)``, ``h = ceil(n /
+    2)``; an odd n leaves row ``h - 1`` as it is for the next level.  The
+    order depends on K alone, never on the rows behind it: ceil(log2 K)
+    elementwise launches where a library reduction was one."""
+    n = p.shape[0]
+    while n > 1:
+        h = (n + 1) // 2
+        p[:n - h].add_(p[h:n])
+        n = h
+    return p[0]
+
+
 def _upols_step(fdl: torch.Tensor, win: torch.Tensor, H: torch.Tensor, B: int):
     """One block of uniform-partitioned overlap-save.  ``win (..., 2B)`` is
     the previous and the current input block; ``fdl (K, ..., Nf)`` the
@@ -205,18 +222,22 @@ def _upols_step(fdl: torch.Tensor, win: torch.Tensor, H: torch.Tensor, B: int):
     alias-free output frames.
 
     The window is made contiguous, so the batch and the streamed forms hand
-    the FFT the same layout.  The K-deep sum ``sum_k fdl[k] * H[k]`` is one
-    ``torch.sum`` over the delay-line axis (k = 0, the newest block, first
-    in memory), in the order the backend picks for that shape.  Every block
-    of a run has the same shape and so rounds alike, as does the streamed
-    form (`_upols_stream`), which calls this step with the same rows; with
-    another row count the CPU picks another order (a file's output moves by
-    an ulp between an 8-file and a 2-file batch).  cuFFT, MKL and pocketfft
-    round apart, so the card, the CPU and the JAX package agree to a bound,
-    not bitwise."""
+    the FFT the same layout.  Each row's output is the same bits whatever
+    rows run beside it, so a file's bytes do not follow the batch width:
+    the K-deep sum ``sum_k fdl[k] * H[k]`` is `_delay_line_sum`, whose order
+    depends on K alone (a library reduction picks its order by the whole
+    shape), and each product is one device function per element on the
+    card.  On the CPU, a float32 complex product rounds apart in torch's
+    vector body and in a thread's scalar tail (which contracts to an FMA),
+    and the tails move with the row count; so there ``H`` is complex128,
+    every product of two float32 numbers is exact and the one rounding of
+    ``ac - bd`` is the same in either code, the tree adds in float64 and
+    ``Y`` is rounded to complex64 once.  cuFFT, MKL and pocketfft round
+    apart, so the card, the CPU and the JAX package agree to a bound, not
+    bitwise."""
     Xi = torch.fft.rfft(win.contiguous(), n=2 * B, dim=-1)
     fdl = torch.cat([Xi[None], fdl[:-1]], dim=0)
-    Y = torch.sum(fdl * H, dim=0)
+    Y = _delay_line_sum(fdl * H).to(torch.complex64)
     return fdl, torch.fft.irfft(Y, n=2 * B, dim=-1)[..., B:]
 
 

@@ -61,15 +61,26 @@ def fan_out_mono(x: torch.Tensor, num_channels: int) -> torch.Tensor:
 
 def mixdown_monitor(x: torch.Tensor) -> torch.Tensor:
     """``(..., channels, frames)`` -> ``(..., 2, frames)``: the first two
-    channels pass; more than two are averaged in pairs onto L/R."""
+    channels pass; more than two are averaged in pairs onto L/R, the even
+    channels onto L and the odd onto R.
+
+    Each mean is explicit adds in channel order and one division, so every
+    frame takes the same operations whatever the frame count (a library
+    reduction's order can follow the tensor's shape): a block's mixdown
+    equals the whole programme's frames bit for bit."""
     c = x.shape[-2]
     if c == 1:
         return fan_out_mono(x[..., 0, :], 2)
     if c == 2:
         return x
-    left = torch.mean(x[..., 0::2, :], dim=-2)
-    right = torch.mean(x[..., 1::2, :], dim=-2)
-    return torch.stack([left, right], dim=-2)
+
+    def mean(rows: range) -> torch.Tensor:
+        acc = x[..., rows[0], :]
+        for i in rows[1:]:
+            acc = acc + x[..., i, :]
+        return acc / len(rows)
+
+    return torch.stack([mean(range(0, c, 2)), mean(range(1, c, 2))], dim=-2)
 
 
 def interleave(x: torch.Tensor) -> torch.Tensor:

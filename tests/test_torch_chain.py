@@ -506,3 +506,60 @@ def test_stream_state_on_cpu_and_grid_errors():
     rev = tchain.ConvolutionReverb(np.ones(100, np.float32))
     with pytest.raises(ValueError, match="whole 4096-frame blocks"):
         rev.apply_stream(torch.zeros(2, 1000), rev.stream_state(RATE, 2, "cpu"), RATE, 0)
+
+
+# ------------------------------------------- UPOLS against the batch width
+
+_UPOLS_B = 1024
+
+
+def _upols_case(form: str):
+    """A K = 7 partitioned IR (mono, or one per channel) and 12 blocks of
+    16 input rows: the delay-line product holds 7 x rows x 1025 complex
+    numbers, several of torch's 32768-element grains from 5 rows on."""
+    rng = np.random.default_rng(11)
+    n = 7 * _UPOLS_B - 37
+    decay = np.exp(-np.arange(n) / 2000.0)
+    irs = (rng.standard_normal((2, n)) * decay).astype(np.float32)
+    x = torch.from_numpy(_sig((16, 12 * _UPOLS_B + 100), seed=12))
+    if form == "mono":
+        H = tchain._spectrum([tchain._partition_ir(irs[0], _UPOLS_B)], "cpu")[:, 0]
+        return x, 1, lambda v: tchain._upols_rows(v, H, _UPOLS_B)
+    H = tchain._spectrum([tchain._partition_ir(r, _UPOLS_B) for r in irs], "cpu")
+    T = x.shape[-1]
+    return x, 2, lambda v: tchain._upols_channels(v.reshape(-1, 2, T), H, _UPOLS_B).reshape(-1, T)
+
+
+@pytest.mark.parametrize("form", ["mono", "true_stereo"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 5, 8, 13, 16])
+def test_upols_row_does_not_depend_on_the_row_count(form, rows):
+    """0 ULP: each row of an N-row `_upols` (mono IR through `_upols_rows`,
+    one IR per channel through `_upols_channels`) equals that row run
+    alone, on 8 threads, K = 7.  The delay-line sum was a ``torch.sum``
+    whose order followed the row count, and torch's CPU float32 complex
+    product rounds apart in a thread's scalar tail: both moved a file's
+    bytes with the batch width."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        x, step, fn = _upols_case(form)
+        assert tchain._partition_ir(np.zeros(7 * _UPOLS_B - 37, np.float32),
+                                    _UPOLS_B)[0].shape[0] == 7
+        m = rows * step if rows * step <= 16 else 16
+        y = fn(x[:m])
+        for r in range(0, m, step):
+            assert torch.equal(fn(x[r:r + step]), y[r:r + step]), (rows, r)
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("K", [1, 2, 5, 7, 8, 30])
+def test_delay_line_sum_order(K):
+    """The halving tree adds in an order set by K alone, and sums what
+    ``torch.sum`` sums (exactly, on small integers)."""
+    p = torch.arange(K * 3, dtype=torch.float64).reshape(K, 3) + 1
+    want = p.sum(0)
+    assert torch.equal(tchain._delay_line_sum(p.clone()), want)
+    v = torch.arange(1, K + 1, dtype=torch.float64).reshape(K, 1).expand(K, 4).clone()
+    assert torch.equal(tchain._delay_line_sum(v), torch.full((4,), K * (K + 1) / 2.0,
+                                                             dtype=torch.float64))

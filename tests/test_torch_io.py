@@ -77,6 +77,13 @@ def test_oracle_copy_is_bitwise(ri, ro, quality):
     assert t.dtype == j.dtype and np.array_equal(t, j)
 
 
+def test_version_copy_is_the_same():
+    from f9tpu import version as jversion
+    from f9tpu_torch import version as tversion
+
+    assert tversion.__version__ == jversion.__version__ == "0.3.0"
+
+
 def test_config_copy_has_the_same_fields_and_defaults():
     j = jconfig.ProcessingConfig(output_dir="o")
     t = tconfig.ProcessingConfig(output_dir="o")

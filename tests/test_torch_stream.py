@@ -113,14 +113,15 @@ def test_resample_presliced_matches_jax(ri, ro, q):
 @pytest.mark.parametrize("ri,ro,q", _BANKS, ids=_BANK_IDS)
 def test_resample_presliced_chunked_equals_whole(ri, ro, q):
     """Bitwise: the whole padded signal in one call against haloed chunks
-    of 1, 37 and 250 cycles (each output sums its window in a fixed
-    order); and the whole form within half an ulp of the oracle's SRC."""
+    of 1, 2, 3, 37 and 250 cycles (each output sums its window in a fixed
+    order; the preview's last chunk of an item holds any count down to 1);
+    and the whole form within half an ulp of the oracle's SRC."""
     bank = design_cycle_bank(ri, ro, quality=q)
     x = _sig(2, 300 * bank.M + 777, seed=5, rate=ri, level=0.5)
     out_len = bank.out_len(x.shape[-1])
     Q = -(-out_len // bank.L)
     whole = t_presliced(torch.from_numpy(_haloed(x, bank, Q)), bank, Q)
-    for cycles in (1, 37, 250):
+    for cycles in (1, 2, 3, 37, 250):
         outs = []
         for q0 in range(0, Q, cycles):
             n = min(cycles, Q - q0)
@@ -408,11 +409,15 @@ def _no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["measure_latency", "get_or_measure", "impulse",
-                                   "stream_resample_file", "stream_init"])
+                                   "stream_resample_file", "stream_init", "sine",
+                                   "log_sweep", "run_loop_test", "render_playlist",
+                                   "stream_playlist"])
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch, entry):
     """With no device given each entry point asks for CUDA and, without a
     GPU, raises instead of running on the CPU."""
-    from f9tpu_torch.ops.signal import impulse
+    from f9tpu_torch.ops.signal import impulse, log_sweep, sine
+    from f9tpu_torch.pipeline.preview import render_playlist, stream_playlist
+    from f9tpu_torch.pipeline.selftest import run_loop_test
 
     _no_cuda(monkeypatch)
     src = _write_src(tmp_path, 2, 3000)
@@ -423,6 +428,11 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch, entry):
         "stream_resample_file": lambda: tstream.stream_resample_file(
             src, str(tmp_path / "o.wav"), TConfig(output_dir=str(tmp_path))),
         "stream_init": lambda: tchain.Chain(tchain.Delay(0.01)).stream_init(48000, 2),
+        "sine": lambda: sine(64, 48000),
+        "log_sweep": lambda: log_sweep(64, 48000),
+        "run_loop_test": lambda: run_loop_test(48000, 44100, seconds=0.01),
+        "render_playlist": lambda: render_playlist([src], 48000),
+        "stream_playlist": lambda: stream_playlist([src], 48000, str(tmp_path / "o.wav")),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         call()
