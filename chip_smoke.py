@@ -19,7 +19,13 @@ its results, any failure exiting non-zero:
 4. the default batch job, `f9tpu_torch.cli process --rate 48000` on 8
    stereo 24-bit 44.1 kHz WAVs of 50-60 s: 8 completed, kernel launches
    counted from zero, outputs <= -120 dB against the oracle and within
-   2 LSB of the port's CPU path, wall time and x real time;
+   2 LSB of the port's CPU path, wall time and x real time; one batch's
+   graph split; the link in turns: a pageable upload and `.cpu()` of the
+   batch's six results against the pinned upload and the side-stream
+   `link.Download` (same bytes); the collector's blocking ms and the
+   dispatch thread's ms per batch (with its pinned allocations, uploads and
+   the downloads' start) for this job and for 32 takes in four batches
+   (wall, x real time);
 5. the insert loop, `cli process --rate 48000 --reverb --routing 1,0
    --chain-delay-ms 5 --chain-eq peaking:1000:1:3 --chain-comp=-18:3
    --chain-ir IR.wav --chain-limit=-0.3` on 8 stereo 24-bit 44.1 kHz WAVs
@@ -50,12 +56,15 @@ its results, any failure exiting non-zero:
    (varispeed banks, no dense matrix) against its plain twin, the float64
    gather, on 32 signals x 2^20 frames for 44.1k->44056 high, 44056->44.1k
    high and 44.1k->44056 ultra: max abs and 24-bit LSB error against the
-   twin, dB against the float64 oracle, launch plan, median CUDA-event
-   times of kernel, twin and the library form (one fp32 `torch.matmul` per
-   128-output segment of the cycle rows, which the port never calls), and
-   the bound; (b) a 2^22-frame stereo signal whole and as haloed chunks of
-   100 and 37 cycles, and flat against marshalled cycle rows: 0 outputs
-   differ; (c) `cli process --rate 44056` on 8 stereo 24-bit 44.1 kHz WAVs
+   twin, dB against the float64 oracle, launch plan, the MB it stages
+   from L2 (windows, band; counted from the plan), median CUDA-event times of kernel, twin and the
+   library form (one fp32 `torch.matmul` per 128-output segment of the
+   cycle rows, which the port never calls), and the bound; the output's
+   sha256 equal to the first design's (`WINDOWED_DIGESTS`); (b) a 2^22-frame
+   stereo signal whole and as haloed chunks of 100, 37 and 29 cycles (29: a
+   smaller tile group), and flat against marshalled cycle rows: 0 outputs
+   differ; one launch's device time
+   at the stream's chunk shapes (2 x 80 and 2 x 29 cycles); (c) `cli process --rate 44056` on 8 stereo 24-bit 44.1 kHz WAVs
    of 50-60 s (8 completed, launches from zero, <= 2 LSB against the CPU
    path, <= -120 dB against the oracle) and `cli stream --rate 44056` on a
    10-minute file at 20 s and 7.3 s chunks (identical sha256, peak device
@@ -85,7 +94,10 @@ its results, any failure exiting non-zero:
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA GPU it exits 1 and prints no result.
+CUDA GPU it exits 1 and prints no result.  ``python3 chip_smoke.py
+--windowed-digests`` only prints 7a's digests, and ``--chunk-times`` only
+7b's times of one launch at the stream's chunk shapes, for the checkout it
+sits in (a parent tree unpacked by `git archive` beside this script's copy).
 """
 
 from __future__ import annotations
@@ -332,6 +344,40 @@ def _read_codes(path: str):
     return np.round(np.asarray(x, np.float64) * (1 << 23)).astype(np.int64), rate
 
 
+@contextlib.contextmanager
+def _dispatch_clock():
+    """Host seconds the batch job's dispatch thread spends in its calls
+    while the block runs: ``host_empty`` (the pinned batch buffer),
+    ``graph`` (`process_batch` / `process_batch_raw`, the uploads inside
+    included), ``upload`` and ``download`` (`Download.__init__`: the pinned
+    result buffers and the copies' enqueue)."""
+    from f9tpu_torch.pipeline import link
+    from f9tpu_torch.pipeline import scheduler
+
+    spent = {"host_empty": 0.0, "graph": 0.0, "upload": 0.0, "download": 0.0}
+    saved = link.host_empty, link.upload, link.Download.__init__
+    graphs = scheduler.process_batch, scheduler.process_batch_raw
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    link.host_empty, link.upload = timed("host_empty", saved[0]), timed("upload", saved[1])
+    link.Download.__init__ = timed("download", saved[2])
+    scheduler.process_batch = timed("graph", graphs[0])
+    scheduler.process_batch_raw = timed("graph", graphs[1])
+    try:
+        yield spent
+    finally:
+        link.host_empty, link.upload, link.Download.__init__ = saved
+        scheduler.process_batch, scheduler.process_batch_raw = graphs
+
+
 def phase_slice(card: str, work: str, rate: int = 48000, tag: str = "slice",
                 oracle_files: int = 2, dev=None) -> tuple[int, int]:
     """The default batch job through the port's CLI at ``--rate`` (phase 4;
@@ -361,7 +407,7 @@ def phase_slice(card: str, work: str, rate: int = 48000, tag: str = "slice",
     buf = io.StringIO()
     _zero_counts()
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _dispatch_clock() as link_s:
         rc = cli.main(["process", in_dir, "--out", out_gpu, "--rate", str(rate),
                        "--json"])
     wall = time.time() - t0
@@ -415,7 +461,117 @@ def phase_slice(card: str, work: str, rate: int = 48000, tag: str = "slice",
             raise AssertionError(f"{tag}: {name}: {db:.1f} dB vs oracle")
     if dev is not None:
         _slice_graph_split(card, in_dir, dev)
+        _slice_link(card, in_dir, dev)
+        _slice_steady(card, in_dir, work, summary, link_s)
     return launches, windowed
+
+
+def _slice_link(card: str, in_dir: str, dev) -> None:
+    """One 8-file batch of the default job (raw 24-bit PCM in, packed
+    payload out) through the graph on the card, then its link in turns
+    (pageable, pinned, pinned, pageable; host clock, median of 5, the card
+    idle at each start): the upload as a pageable `torch.as_tensor` of the
+    numpy batch against `link.upload` of the pinned buffer the scheduler
+    builds it in, and the six result tensors as the collector's former
+    pageable `.cpu()` each against `link.Download` on a side stream.  Both
+    downloads must give the same bytes."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.io import codec
+    from f9tpu_torch.pipeline import calibration, graph, link
+
+    cfg = ProcessingConfig(output_dir="unused", target_rate=48000)
+    blen, bpf = 1 << 22, 6
+    xt = link.host_empty((8, blen * bpf), torch.uint8, dev)
+    x = xt.numpy()
+    x[:] = 0
+    valid = np.zeros(8, np.int32)
+    for i in range(8):
+        data, _ = codec.read_raw_pcm(os.path.join(in_dir, f"take{i}.wav"))
+        x[i, :data.size] = data
+        valid[i] = data.size // bpf
+    seeds = np.arange(1, 9, dtype=np.int32)
+    lat = calibration.measure_latency(44100, 48000, device=dev).latency_frames
+    res = graph.process_batch_raw(xt, valid, cfg, 44100, seeds, in_channels=2, in_bits=24,
+                                  latency_frames=lat, device=dev)
+    torch.cuda.synchronize()
+    outs = (res.codes, res.out_frames, res.peak_db, res.rms_db, res.noise_floor_db,
+            res.tail_terminated)
+    side = link.side_stream(dev)
+
+    def host_ms(fn, runs=5):
+        ts, out = [], None
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return out, float(np.median(ts))
+
+    x_pageable = np.array(x)        # the numpy batch the scheduler used to build
+    legs = {"upload": (lambda: torch.as_tensor(x_pageable, device=dev),
+                       lambda: link.upload(xt, dev)),
+            "download": (lambda: [t.cpu().numpy() for t in outs],
+                         lambda: link.Download(*outs, side=side).get())}
+    nbytes = {"upload": x.nbytes, "download": sum(t.numel() * t.element_size() for t in outs)}
+    for leg, (pageable, pinned) in legs.items():
+        t = {"pageable": [], "pinned": []}
+        got = {}
+        for key in ("pageable", "pinned", "pinned", "pageable"):
+            got[key], ms = host_ms(pageable if key == "pageable" else pinned)
+            t[key].append(ms)
+        if leg == "download":
+            if not all(np.array_equal(a, b) for a, b in zip(got["pageable"], got["pinned"])):
+                raise AssertionError("slice link: the pinned download differs from .cpu()")
+        elif not torch.equal(got["pageable"], got["pinned"]):
+            raise AssertionError("slice link: the pinned upload differs")
+        mb = nbytes[leg] / 1e6
+        print(f"slice link: {leg} of one 8-file batch ({mb:.1f} MB): pageable "
+              f"{t['pageable'][0]:.2f}/{t['pageable'][1]:.2f} ms, pinned"
+              f"{' side-stream' if leg == 'download' else ''} {t['pinned'][0]:.2f}/"
+              f"{t['pinned'][1]:.2f} ms ({mb / min(t['pinned']):.1f} GB/s against "
+              f"{mb / min(t['pageable']):.1f}) [{card}]", flush=True)
+
+
+def _slice_steady(card: str, in_dir: str, work: str, one: dict, one_link: dict) -> None:
+    """The default job on 32 of the slice's takes (each of the 8 files
+    under four names: four 8-file batches), beside phase 4's one batch:
+    wall, x real time, the collector's blocking time per batch (the
+    "device" stage's thread-seconds over its batches) and the dispatch
+    thread's (the "dispatch" stage: build, upload, graph enqueue and the
+    downloads' start), split by `_dispatch_clock`."""
+    from f9tpu_torch import cli
+
+    many = os.path.join(work, "in32")
+    os.makedirs(many)
+    for k in range(4):
+        for i in range(8):
+            os.link(os.path.join(in_dir, f"take{i}.wav"), os.path.join(many, f"take{i}_{k}.wav"))
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf), _dispatch_clock() as many_link:
+        rc = cli.main(["process", many, "--out", os.path.join(work, "out32"), "--rate",
+                       "48000", "--json"])
+    wall = time.time() - t0
+    summary = json.loads(buf.getvalue())
+    if rc != 0 or summary["completed"] != 32 or summary["failed"] != 0:
+        raise AssertionError(f"slice 4 batches: expected 32 completed, got {summary}")
+    for n_batches, s, w, ln in ((1, one, None, one_link), (4, summary, wall, many_link)):
+        dev_s = s["throughput"]["device"]["wall_seconds"]
+        disp_s = s["throughput"]["dispatch"]["wall_seconds"]
+        per = {k: 1e3 * v / n_batches for k, v in ln.items()}
+        disp = 1e3 * disp_s / n_batches
+        build = disp - per["host_empty"] - per["graph"] - per["download"]
+        print(f"slice link: {n_batches} batch(es) of 8 files: collector blocking "
+              f"{1e3 * dev_s / n_batches:.1f} ms per batch (device stage {dev_s:.3f} thread-s); "
+              f"dispatch thread {disp:.1f} ms per batch: host_empty {per['host_empty']:.1f}, "
+              f"batch build {build:.1f}, graph enqueue {per['graph'] - per['upload']:.1f} + "
+              f"upload {per['upload']:.1f}, Download {per['download']:.1f} ms"
+              + (f"; wall {w:.3f} s, {s['audio_seconds_out'] / w:.1f}x real time"
+                 if w else "") + f" [{card}]", flush=True)
 
 
 def _stereo_ir(rng, rate: int = 48000, seconds: float = 2.5):
@@ -841,6 +997,7 @@ def _stream_chunk_split(card: str, ir_path: str, lat: int, dev) -> None:
     from f9tpu_torch.ops import dither
     from f9tpu_torch.ops.chain import _ring_stream
     from f9tpu_torch.ops.resample import resample_presliced
+    from f9tpu_torch.pipeline import link
     from f9tpu_torch.pipeline import stream as st
 
     chain = cli._build_chain(argparse.Namespace(**_chain_args(ir_path)))
@@ -880,7 +1037,7 @@ def _stream_chunk_split(card: str, ir_path: str, lat: int, dev) -> None:
         z = z_next
     codes, t_fin = _timed(lambda: finish(z))
     rows.append(("finish (gain, dither, pack24)", t_fin))
-    _, t_dl = _timed(lambda: st._Download(codes).get())
+    _, t_dl = _timed(lambda: link.Download(codes).get())
     rows.append(("pinned copy to the host", t_dl))
     _, t_all = _timed(step)
     print(f"stream chunk: 20 s chunk = {cycles} cycles, {cycles * bank.L} output frames "
@@ -1105,6 +1262,107 @@ def phase_stream(card: str, work: str, dev) -> tuple[int, int]:
     return launches_c, windowed_c
 
 
+#: sha256[:16] of the windowed form's output on 7a's seeded signal, per bank,
+#: as its first design (one window per row and tile, 4-byte copies) wrote
+#: it: tile groups and bulk copies keep every output's summation order, so
+#: its bytes too.
+#: `python3 chip_smoke.py --windowed-digests` prints them for a checkout.
+WINDOWED_DIGESTS = {
+    (44100, 44056, "high"): "655bbac27c013816",
+    (44056, 44100, "high"): "69e89177a6f01f0d",
+    (44100, 44056, "ultra"): "619c9645cad39057",
+}
+
+
+def _digest(y) -> str:
+    return hashlib.sha256(y.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _windowed_signal(ri: int, dev):
+    """7a's seeded input: 32 signals x 2^20 frames at ``ri``."""
+    import numpy as np
+    import torch
+
+    x_np = _signal(np.random.default_rng(SEED + 70), 32, 1 << 20, ri)
+    return x_np, torch.from_numpy(x_np).to(dev)
+
+
+def windowed_digests(dev) -> dict:
+    """`_digest` of the windowed form's output on 7a's signal, per bank."""
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import src_kernel as sk
+
+    out = {}
+    for ri, ro, q in VARISPEED_BANKS:
+        _, x = _windowed_signal(ri, dev)
+        out[f"{ri}:{ro}:{q}"] = _digest(sk.resample_kernel(x, design_cycle_bank(ri, ro, quality=q)))
+    return out
+
+
+#: cycles of one varispeed stream launch at 20 s and 7.3 s chunks
+STREAM_CHUNK_CYCLES = (80, 29)
+
+
+def windowed_chunk_ms(dev) -> dict:
+    """Device ms of one presliced windowed launch at the stream's chunk
+    shapes (2 haloed signals of 80 and 29 cycles), per bank: 20 launches
+    queued behind a device sleep between two CUDA events, so the host's
+    launch cost does not count; median of 5.  Uses only what every
+    checkout since the windowed form has, so `--chunk-times` reads a
+    parent tree too."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import src_kernel as sk
+
+    out = {}
+    for ri, ro, q in VARISPEED_BANKS:
+        bank = design_cycle_bank(ri, ro, quality=q)
+        for cycles in STREAM_CHUNK_CYCLES:
+            x = torch.from_numpy(_signal(np.random.default_rng(SEED + 72), 2,
+                                         (cycles - 1) * bank.M + bank.W, ri)).to(dev)
+            sk.resample_presliced_kernel(x, bank, cycles)
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(5):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(20_000_000)
+                a.record()
+                for _ in range(20):
+                    sk.resample_presliced_kernel(x, bank, cycles)
+                b.record()
+                torch.cuda.synchronize()
+                ts.append(a.elapsed_time(b) / 20)
+            out[f"{ri}:{ro}:{q}:{cycles}"] = float(np.median(ts))
+    return out
+
+
+def _windowed_chunk_check(card: str, dev) -> None:
+    """7b: `windowed_chunk_ms` with the group and grid `_win_launch` gives
+    each shape (a launch of few rows takes a smaller group), and the blocks
+    per SM the card reports for it beside `_win_launch`'s count."""
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import _build
+    from f9tpu_torch.ops import src_kernel as sk
+
+    lib = _build.load_library()
+    for key, ms in windowed_chunk_ms(dev).items():
+        ri, ro, q, cycles = key.split(":")
+        bank = design_cycle_bank(int(ri), int(ro), quality=q)
+        plan = sk.kernel_plan(bank)
+        n_rows = 2 * int(cycles)
+        warps, _, group, pitch, smem = sk._win_launch(plan, n_rows, sk._sm_count(dev))
+        blocks = -(-n_rows // (16 * warps)) * -(-len(plan.bands) // group)
+        per_sm = lib.f9_cycle_src_win_blocks_per_sm(plan.nt, warps, smem)
+        print(f"stream kernel {ri}->{ro} {q}: one presliced launch of 2 x {cycles} cycles: "
+              f"{ms:.4f} ms (device, mean of 20 queued, median of 5); group={group} "
+              f"(plan {plan.group}) warps={warps} pitch={pitch} smem={smem} B, {blocks} "
+              f"blocks on {sk._sm_count(dev)} SMs at {per_sm} blocks/SM (counted "
+              f"{sk._win_blocks_per_sm(smem)}) [{card}]", flush=True)
+
+
 def phase_windowed_kernel(card: str, dev) -> dict:
     """7a: the kernel's windowed form on three varispeed banks against its
     plain twin (the float64 gather) and the float64 oracle, timed beside the
@@ -1124,9 +1382,7 @@ def phase_windowed_kernel(card: str, dev) -> dict:
     lib = _build.load_library()
     per_bank = []
     for ri, ro, q in VARISPEED_BANKS:
-        rng = np.random.default_rng(SEED + 70)
-        x_np = _signal(rng, n_sig, frames, ri)
-        x = torch.from_numpy(x_np).to(dev)
+        x_np, x = _windowed_signal(ri, dev)
         bank = design_cycle_bank(ri, ro, quality=q)
         if bank.G is not None or not sk.kernel_applicable(bank):
             raise AssertionError(f"{ri}->{ro} {q}: not a varispeed bank the kernel takes")
@@ -1181,13 +1437,17 @@ def phase_windowed_kernel(card: str, dev) -> dict:
                               ("ms", lambda: sk.resample_kernel(x, bank), 10)):
             t[key].append(_median_ms(fn, runs))
         bound_ms, bound_by = _src_bound(bank, n_sig, frames, out_len)
-        smem = sk._window_smem(plan.nt, plan.warps, plan.pitch)[1]
-        blocks = lib.f9_cycle_src_win_blocks_per_sm(plan.nt, plan.warps, smem)
+        blocks = lib.f9_cycle_src_win_blocks_per_sm(plan.nt, plan.warps, plan.smem_bytes)
         packed_mb = sk.packed_bank_f32(bank)[0].nbytes / 1e6
+        moved = sk.window_traffic(bank, n_sig, frames, sk._sm_count(dev))
+        digest = _digest(y)
         print(f"windowed kernel {ri}->{ro} {q} (L={L} M={bank.M} W={bank.W} "
-              f"K={bank.taps_per_phase}; plan nt={plan.nt} warps={plan.warps} "
-              f"pitch={plan.pitch} tiles={len(plan.bands)} smem={smem} B, {blocks} blocks/SM, "
-              f"packed bank {packed_mb:.1f} MB; {n_sig * Q} rows) {n_sig}x2^20: "
+              f"K={bank.taps_per_phase}; plan nt={plan.nt} group={moved['group']} "
+              f"warps={moved['warps']} pitch={plan.pitch} tiles={len(plan.bands)} "
+              f"smem={plan.smem_bytes} B, {blocks} blocks/SM, packed bank {packed_mb:.1f} MB; "
+              f"{n_sig * Q} rows; L2 -> shared counted from the plan, not measured: windows "
+              f"{moved['windows']:.1f} MB, band {moved['band']:.1f} MB) "
+              f"{n_sig}x2^20: sha256 {digest} (first design {WINDOWED_DIGESTS[(ri, ro, q)]}) "
               f"max_abs_vs_twin={err:.3e} (tol {TWIN_TOL:g}) "
               f"vs_twin_24bit_lsb rms={lsb_rms:.4f} max={lsb_max:.3f} "
               f"oracle={db:.1f} dB (max {ORACLE_DB_MAX:g}) library_vs_twin={lib_err:.3e} "
@@ -1200,6 +1460,8 @@ def phase_windowed_kernel(card: str, dev) -> dict:
             raise AssertionError(f"{ri}->{ro} {q}: windowed kernel vs twin {err:.3e}")
         if not db <= ORACLE_DB_MAX:
             raise AssertionError(f"{ri}->{ro} {q}: {db:.1f} dB vs oracle")
+        if digest != WINDOWED_DIGESTS[(ri, ro, q)]:
+            raise AssertionError(f"{ri}->{ro} {q}: output bytes differ from the first design's")
         per_bank.append({"bank": f"{ri}->{ro} {q}", "max_abs_err": err, "lsb_rms": lsb_rms,
                          "lsb_max": lsb_max, "oracle_db": db, "ms": min(t["ms"]),
                          "plain_ms": min(t["plain_ms"]),
@@ -1249,7 +1511,8 @@ def phase_varispeed(card: str, work: str, dev) -> tuple[int, int]:
     from f9tpu_torch.ops import src_kernel as sk
 
     t0 = time.time()
-    _stream_kernel_check(card, dev, banks=VARISPEED_BANKS, cycle_counts=(100, 37))
+    _stream_kernel_check(card, dev, banks=VARISPEED_BANKS, cycle_counts=(100, 37, 29))
+    _windowed_chunk_check(card, dev)
     print(f"varispeed 7b: {time.time() - t0:.1f} s", flush=True)
 
     t0 = time.time()
@@ -1894,6 +2157,12 @@ def main() -> int:
     from f9tpu_torch import resolve_device
     from f9tpu_torch.ops import _build
 
+    if sys.argv[1:] == ["--windowed-digests"]:
+        print(json.dumps(windowed_digests(resolve_device("cuda"))), flush=True)
+        return 0
+    if sys.argv[1:] == ["--chunk-times"]:
+        print(json.dumps(windowed_chunk_ms(resolve_device("cuda"))), flush=True)
+        return 0
     card = _card()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "

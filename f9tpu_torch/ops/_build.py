@@ -56,7 +56,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                  i32, vp]
     lib.f9_cycle_src.restype = i32
     lib.f9_cycle_src_win.argtypes = [vp, vp, vp, vp, i32, i64, i64, i32, i32, i32,
-                                     i32, i64, i64, i32, i32, i32, i32, i32, i32, vp]
+                                     i32, i64, i64, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.f9_cycle_src_win.restype = i32
     lib.f9_cycle_src_geometry.argtypes = []
     lib.f9_cycle_src_geometry.restype = i32

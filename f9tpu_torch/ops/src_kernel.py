@@ -17,11 +17,16 @@ the kernel's fragments read them.  Both are plain numpy, so the CPU tests
 can replay the kernel's arithmetic on them.
 
 Varispeed banks (``bank.G is None``, no dense matrix) take the kernel's
-windowed launch form: each (signal, cycle) row stages only its column
-tile's window of the signal, and the packed bank is built from the phase
-bank ``H`` and the cycle tables, never from a dense ``G``.  The JAX package
-has no kernel of its own for them (XLA evaluates `_banded_eval_rows`, one
-matmul per 128-output segment).
+windowed form (`cycle_src_win`): a block owns a group of neighbouring
+column tiles and a group of (signal, cycle) rows, a producer warp stages
+each row's union window of the group's bands once by a TMA bulk copy, and
+each tile reads its band's part of it; the packed bank is built from the
+phase bank ``H`` and the cycle tables, never from a dense ``G``.
+`_window_plan` picks the group and warps (two blocks per SM first),
+`_win_launch` fits them to a launch's rows (fewer warps for few rows, a
+smaller group while its grid still fits on the card at once), `window_traffic`
+counts from the plan what a launch stages.  The JAX package has no kernel of its own for them (XLA
+evaluates `_banded_eval_rows`, one matmul per 128-output segment).
 
 The wrapper rule: on a CUDA tensor `resample_rows` / `resample_kernel`
 launch the kernel or raise; on a CPU tensor they run the plain PyTorch twin
@@ -52,7 +57,7 @@ __all__ = ["kernel_applicable", "kernel_plan", "packed_bank_f32", "tf32_rna",
            "resample_rows", "resample_rows_reference", "resample_kernel",
            "resample_auto", "resample_presliced_kernel",
            "resample_banded_rows_kernel", "rows_marshal_plan",
-           "stacked_bank_f32", "launches", "launches_windowed"]
+           "stacked_bank_f32", "window_traffic", "launches", "launches_windowed"]
 
 #: CUDA kernel launches since the count was last reset (a plain integer:
 #: callers set it to 0 and read it back to prove a path ran the kernel).
@@ -87,11 +92,12 @@ class KernelPlan:
     in shared memory stores logical float ``j`` at ``j + skew*(j // 32)``;
     ``rowmap`` orders a warp's cycles (see `cycle_of`).
 
-    ``pitch > 0`` is the windowed form of a varispeed bank: the span holds
-    one window of ``pitch`` floats per row (``pitch % 32 == 4``, at least
-    the widest band), unskewed, rows in order; ``warps`` is then the most a
-    launch uses (a launch with few rows takes fewer) and ``ring_off`` /
-    ``smem_bytes`` are those of a launch at ``warps`` (`_window_smem`)."""
+    ``pitch > 0`` is the windowed form of a varispeed bank (`_window_plan`):
+    a block owns ``group`` neighbouring column tiles and ``16*warps``
+    (signal, cycle) rows, and stages each row's union window (the group's
+    bands) once, in ``16*warps`` slots of ``pitch`` floats; ``group`` and
+    ``warps`` are the most a launch uses (`_win_launch` takes fewer for few
+    rows) and ``ring_off`` / ``smem_bytes`` are those of a launch at both."""
     nt: int
     warps: int
     skew: int
@@ -100,6 +106,7 @@ class KernelPlan:
     ring_off: int
     smem_bytes: int
     pitch: int = 0
+    group: int = 0
 
 
 def _choose_nt(L: int) -> int:
@@ -183,33 +190,140 @@ def _bands_phase(bank: CycleBank, nt: int) -> tuple[tuple[int, int], ...]:
     return tuple(out)
 
 
+#: bytes of the windowed form's mbarrier at the start of shared memory
+_WIN_BARRIERS = 16
+#: the windowed form's sizes, tried in order: (tiles per group, consumer
+#: warps).  Measured on the card (PERF.md): blocks per SM count most, then
+#: fewer staged floats; more warps cost a block per SM and were slower.
+_WIN_PREFS = ((4, 4), (2, 4), (1, 4), (1, 2), (1, 1))
+#: shared memory up to which two blocks of the windowed form share an SM
+_WIN_BUDGET = 113 * 1024
+
+
 def _window_smem(nt: int, warps: int, pitch: int) -> tuple[int, int]:
-    """(ring_off, smem_bytes) of the windowed form at ``warps``: 16*warps
-    windows of ``pitch`` floats (which the output tile reuses), then the
-    ring."""
-    tile = 16 * warps * (8 * nt + 1)
-    ring_off = max(16 * warps * pitch, 4 * -(-tile // 4))
+    """(ring_off, smem_bytes) of the windowed form at ``warps``: the
+    barrier, 16*warps windows of ``pitch`` floats, then the ring (the
+    kernel's `win_smem_bytes`)."""
+    ring_off = _WIN_BARRIERS // 4 + 16 * warps * pitch
     return ring_off, 4 * ring_off + STAGES * KC8 * nt * 32 * 16
 
 
+def _union_floats(bands, group: int) -> int:
+    """The longest union window of ``group`` neighbouring tiles' bands."""
+    return max(max(lo + 8 * nk for lo, nk in bands[i:i + group]) - bands[i][0]
+               for i in range(0, len(bands), group))
+
+
+def _win_pitch(bands, group: int) -> int:
+    """Window slot pitch: the longest union window behind a shift of up to
+    3 floats, in whole float4s, rounded up to 4 mod 32 floats (a slot
+    group's 8 rows x 4 taps then fall in 32 different banks)."""
+    need = 4 * -(-(3 + _union_floats(bands, group)) // 4)
+    return need + (4 - need) % 32
+
+
 def _window_plan(bank: CycleBank) -> KernelPlan | None:
-    """The windowed form's geometry: the window pitch is the widest band
-    rounded up to 4 mod 32 floats (an A load's 8 rows x 4 taps then hit 32
-    different banks whatever M is); warps: the most of (8, 4, 2, 1) whose
-    windows fit `_SPAN_BUDGET` (several blocks then share an SM), else the
-    most that fit shared memory at all; None if one warp's do not."""
+    """The windowed form's geometry: the first of `_WIN_PREFS` whose
+    windows and ring leave room for two blocks per SM, else the first that
+    fits a block's shared memory at all; None if none does."""
     if bank.L * bank.M >= 2**31:
         return None
     nt = _choose_nt(bank.L)
     bands = _bands_phase(bank, nt)
-    rows = 8 * max(nk for _, nk in bands)
-    pitch = rows + (4 - rows) % 32
-    fit = [w for w in (8, 4, 2, 1) if _window_smem(nt, w, pitch)[1] <= _SMEM_MAX]
-    if not fit:
-        return None
-    warps = next((w for w in fit if 4 * 16 * w * pitch <= _SPAN_BUDGET), fit[-1])
-    ring_off, smem = _window_smem(nt, warps, pitch)
-    return KernelPlan(nt, warps, 0, 0, bands, ring_off, smem, pitch)
+    if any(b[0] < a[0] for a, b in zip(bands, bands[1:])):
+        raise AssertionError("a varispeed band starts before its left neighbour's")
+    for budget in (_WIN_BUDGET, _SMEM_MAX):
+        for g, w in _WIN_PREFS:
+            pitch = _win_pitch(bands, g)
+            ring_off, smem = _window_smem(nt, w, pitch)
+            if smem <= budget:
+                return KernelPlan(nt, w, 0, int(w > 1), bands, ring_off, smem, pitch, g)
+    return None
+
+
+#: shared memory of one SM that blocks can take, and what the card keeps
+#: per block beside its own (Hopper)
+_SM_SMEM, _BLOCK_SMEM_RESERVED = 233472, 1024
+
+
+def _win_blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes one SM holds by shared memory alone."""
+    return _SM_SMEM // (smem + _BLOCK_SMEM_RESERVED)
+
+
+@functools.lru_cache(maxsize=256)
+def _win_launch(plan: KernelPlan, n_rows: int, sms: int) -> tuple[int, int, int, int, int]:
+    """(warps, rowmap, group, pitch, smem_bytes) of one windowed launch of
+    ``n_rows`` rows on a card of ``sms`` SMs: fewer warps while half of them
+    hold every row, then half the group while the smaller group's grid (row
+    blocks x tile groups) still fits on the card at once, so a launch of
+    few rows spreads its tiles over every SM rather than walking them in a
+    few blocks (a grid past one wave measured slower, PERF.md).  A smaller
+    group stages a shorter union window per row; no output's order changes."""
+    warps = plan.warps
+    while warps > 1 and 16 * (warps // 2) >= n_rows:
+        warps //= 2
+    row_blocks = -(-n_rows // (16 * warps))
+    group, pitch = plan.group, plan.pitch
+    while group > 1:
+        half_pitch = _win_pitch(plan.bands, group // 2)
+        slots = sms * _win_blocks_per_sm(_window_smem(plan.nt, warps, half_pitch)[1])
+        if row_blocks * -(-len(plan.bands) // (group // 2)) > slots:
+            break
+        group, pitch = group // 2, half_pitch
+    return warps, int(warps > 1), group, pitch, _window_smem(plan.nt, warps, pitch)[1]
+
+
+def _win_slot_row(rowmap: int, s):
+    """Block-local row held by window slot ``s = warp*16 + h*8 + g``."""
+    return cycle_of(rowmap, s >> 4, (s >> 3) & 1, s & 7)
+
+
+def _win_a_load_wavefronts(stride: int, warps: int, pitch: int, rowmap: int,
+                           offsets=range(4)) -> float:
+    """Mean shared-memory wavefronts per A-fragment load of the windowed
+    form (1 = no bank conflict), over every warp, fragment half, alignment
+    of the first row's window (its shift), the tile's offset inside the
+    union window, k8 step phase and the +4 half: row ``rho``'s window sits
+    in its slot behind a shift of ``(s0 + rho*stride) % 4`` floats."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    loads = []
+    for s0 in range(4):
+        for w in range(warps):
+            for h in range(2):
+                slot = w * 16 + h * 8 + g
+                shift = (s0 + _win_slot_row(rowmap, slot) * stride) % 4
+                loads.append(slot * pitch + shift + t)
+    base = np.array(loads)                                    # (loads, 32)
+    off = np.array([o + 8 * k + e for o in offsets for k in range(4) for e in (0, 4)])
+    j = (base[None, :, :] + off[:, None, None]).reshape(-1, 32)
+    p = np.sort(j, axis=1)
+    new = np.ones_like(p, dtype=bool)
+    new[:, 1:] = p[:, 1:] != p[:, :-1]
+    cnt = np.zeros((p.shape[0], 32), np.int64)
+    r, c = np.nonzero(new)
+    np.add.at(cnt, (r, p[r, c] % 32), 1)
+    return float(cnt.max(axis=1).mean())
+
+
+def window_traffic(bank: CycleBank, signals: int, frames: int, sms: int) -> dict:
+    """What one windowed launch over ``signals`` x ``frames`` on a card of
+    ``sms`` SMs stages from L2 into shared memory, counted from the plan
+    (no counter of the card's): ``windows`` (each row block's union windows,
+    in whole float4s behind a mean shift of 1.5 floats) and ``band`` (each
+    tile's packed band, once per row block), in MB, with the launch's warps
+    and group."""
+    plan = kernel_plan(bank)
+    out_len = bank.out_len(frames)
+    n_rows = signals * -(-out_len // bank.L)
+    warps, _, group, _, _ = _win_launch(plan, n_rows, sms)
+    row_blocks = -(-n_rows // (16 * warps))
+    win = sum(16 * warps * 4 * -(-(2 + _union_floats(plan.bands[i:i + group], group)) // 4) * 4
+              for i in range(0, len(plan.bands), group))
+    band = sum(nk * plan.nt * 32 * 16 for _, nk in plan.bands)
+    return {"windows": row_blocks * win / 1e6, "band": row_blocks * band / 1e6,
+            "warps": warps, "group": group}
 
 
 @functools.lru_cache(maxsize=256)
@@ -250,8 +364,8 @@ def kernel_applicable(bank: CycleBank) -> bool:
     integer-ratio banks with L in {1, 2, 4}, most of it would idle and the
     unfold + matmul form serves them) and, for a dense bank, a signal span
     of 16 cycles that fits a block's shared memory (M up to ~3,000), for a
-    varispeed bank 16 windows of one column tile that do: `kernel_plan` is
-    not None.  Unlike the Pallas
+    varispeed bank 16 union windows of one column tile and the ring that
+    do: `kernel_plan` is not None.  Unlike the Pallas
     gate (`pallas_applicable`: R <= 8, M >= 16, both TPU VMEM tiling rules)
     it does not bound R: G streams through the ring in 16-row chunks.  Every
     bank `pallas_applicable` accepts at the standard rates is accepted here."""
@@ -355,6 +469,11 @@ def _stacked_bank_f64(bank: CycleBank, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(stacked_bank_f32(bank)).to(device, torch.float64)
 
 
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
             out_stride: int, pad_front: int | None = None,
             in_stride: int | None = None) -> torch.Tensor:
@@ -365,8 +484,8 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
 
     A varispeed bank launches the windowed form: ``in_stride`` replaces M as
     the input's cycle stride (marshalled cycle rows), and a launch of few
-    rows takes fewer warps than the plan's; neither moves an output's
-    summation order."""
+    rows takes fewer warps or a smaller group than the plan's
+    (`_win_launch`); neither moves an output's summation order."""
     global launches, launches_windowed
     if xf.dtype != torch.float32:
         raise TypeError(f"cycle_src kernel takes float32, got {xf.dtype}")
@@ -400,14 +519,12 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
             n_rows = bc * Q
             if n_rows > 2**31 - 256:
                 raise ValueError(f"{n_rows} (signal, cycle) rows exceed the kernel's grid")
-            warps = plan.warps
-            while warps > 1 and 16 * (warps // 2) >= n_rows:
-                warps //= 2
-            ring_off, smem = _window_smem(plan.nt, warps, plan.pitch)
+            warps, rowmap, group, pitch, smem = _win_launch(plan, n_rows,
+                                                            _sm_count(xf.device))
             err = lib.f9_cycle_src_win(
                 *ptrs, bc, T, T, pf, bank.M if in_stride is None else in_stride,
                 bank.L, Q, out_len, out_stride, plan.nt, len(plan.bands), warps,
-                plan.pitch, ring_off, smem, stream)
+                pitch, group, rowmap, smem, stream)
         else:
             err = lib.f9_cycle_src(
                 *ptrs, bc, T, T, pf, bank.M, bank.L, Q, out_len, out_stride,

@@ -36,6 +36,7 @@ from ..ops.devcodec import pack_interleaved, unpack_pcm_interleaved
 from ..ops.routing import route_channels
 from ..ops.src_kernel import resample_auto
 from ..ops.trim import detect_tail_end, mask_beyond, trim_latency
+from . import link
 
 __all__ = ["ProcessResult", "process_batch", "process_batch_raw", "not_ported"]
 
@@ -253,9 +254,13 @@ def _pick_device(a, device) -> torch.device:
 
 
 def _as_tensor(a, dtype, device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
+    """``a`` as a ``dtype`` tensor on ``device``; host data goes up through
+    `link.upload` (a pinned buffer, or ``a`` itself when the caller built it
+    in one, as the scheduler does), converted on the host first."""
+    if isinstance(a, torch.Tensor) and a.device.type != "cpu":
         return a.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    return link.upload(t.to(dtype), device)
 
 
 def _seed_vector(seeds, files: int, device) -> torch.Tensor:
@@ -286,7 +291,7 @@ def _gain_vector(per_file_gain_db, files: int, device):
     lin = gain_lin_f32(per_file_gain_db)
     if lin.shape != (files,):
         raise ValueError(f"expected ({files},) per-file gains, got {lin.shape}")
-    return torch.from_numpy(lin).to(device)
+    return link.upload(lin, device)
 
 
 def _noise_floor(cfg: ProcessingConfig, noise_floor_db, device) -> torch.Tensor:
@@ -294,8 +299,8 @@ def _noise_floor(cfg: ProcessingConfig, noise_floor_db, device) -> torch.Tensor:
     else 1.0 (any value >= 0 selects the -80 dB fallback threshold)."""
     if noise_floor_db is None:
         noise_floor_db = cfg.noise_floor_db
-    return torch.tensor(noise_floor_db if noise_floor_db is not None else 1.0,
-                        dtype=torch.float32, device=device)
+    return link.upload(np.array(noise_floor_db if noise_floor_db is not None else 1.0,
+                                np.float32), device)
 
 
 def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,

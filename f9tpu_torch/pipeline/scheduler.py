@@ -51,6 +51,7 @@ from ..ops.chain import Chain
 from ..ops.dither import file_seed as _file_seed
 from ..ops.resample import resample_rates
 from .calibration import CAPTURE_FRAMES, CalibrationCache
+from . import link
 from .graph import not_ported, process_batch, process_batch_raw
 from .logbook import StatusLog, Throughput
 from .manifest import FileStatus, JobManifest, file_crc32
@@ -418,6 +419,7 @@ class BatchProcessor:
         dec_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
         enc_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
         res_q: queue.Queue = queue.Queue(maxsize=2)
+        side = link.side_stream(dev)
 
         def decode_worker(work_q):
             # the finally-sentinel is load-bearing: the main loop counts one
@@ -551,18 +553,14 @@ class BatchProcessor:
                 item = res_q.get()
                 if item is None:
                     return
-                bi, c_paths, res, c_valid, c_rate_in = item
+                bi, c_paths, dl, c_valid, c_rate_in = item
                 b = buckets[bi]
                 # stage wall = the collector's blocking time materialising
-                # this batch (device work still outstanding + the copy)
+                # this batch (device work still outstanding + the copies,
+                # which the dispatch thread started)
                 t_blk = time.time()
                 try:
-                    codes = res.codes.cpu().numpy()
-                    out_frames = res.out_frames.cpu().numpy()
-                    pk = res.peak_db.cpu().numpy()
-                    rms = res.rms_db.cpu().numpy()
-                    nf = res.noise_floor_db.cpu().numpy()
-                    term = res.tail_terminated.cpu().numpy()
+                    codes, out_frames, pk, rms, nf, term = dl.get()
                 except Exception as err:
                     stop_event.set()
                     manifest.fail_remaining(f"device step failed: {err}", paths=listed)
@@ -613,19 +611,29 @@ class BatchProcessor:
                 seeds[i] = _file_seed(base_seed, d.entry_path)
                 gains[i] = d.gain_db
             norm_gains = gains if cfg.normalize_lufs is not None else None
+            # stage wall = the dispatch thread's time on this batch: build,
+            # upload, graph enqueue and the start of its downloads
+            t_disp = time.time()
+            # the batch is built in place in a (pinned) host buffer, each
+            # byte written once: data, then zeros to the bucket's end
             if raw_bits:
                 bpf = channels * (raw_bits // 8)
-                x = np.zeros((bs, blen * bpf), np.uint8)
+                xt = link.host_empty((bs, blen * bpf), torch.uint8, dev)
+                x = xt.numpy()
                 for i, d in enumerate(batch_x):
                     nb = min(len(d.data), blen * bpf)
                     x[i, :nb] = d.data[:nb]
+                    x[i, nb:] = 0
                     valid[i] = nb // bpf
             else:
-                x = np.zeros((bs, channels, blen), np.float32)
+                xt = link.host_empty((bs, channels, blen), torch.float32, dev)
+                x = xt.numpy()
                 for i, d in enumerate(batch_x):
                     n = min(d.data.shape[-1], blen)
                     x[i, :, :n] = d.data[:, :n]
+                    x[i, :, n:] = 0
                     valid[i] = n
+            x[len(batch_x):] = 0
             for d in batch_x:
                 manifest.set_progress(d.entry_path, 0.4)
             try:
@@ -633,15 +641,19 @@ class BatchProcessor:
                 # and copies the results while the next batch is staged
                 if raw_bits:
                     res = process_batch_raw(
-                        x, valid, cfg, b["rate_in"], seeds,
+                        xt, valid, cfg, b["rate_in"], seeds,
                         in_channels=channels, in_bits=raw_bits,
                         in_big_endian=b["raw_be"], latency_frames=b["lat"],
                         noise_floor_db=b["group_nf"], device=dev)
                 else:
                     res = process_batch(
-                        x, valid, cfg, b["rate_in"], seeds,
+                        xt, valid, cfg, b["rate_in"], seeds,
                         latency_frames=b["lat"], noise_floor_db=b["group_nf"],
                         per_file_gain_db=norm_gains, device=dev)
+                # every result copy starts now, behind the graph on the side
+                # stream: this batch's copy overlaps the next batch's graph
+                dl = link.Download(res.codes, res.out_frames, res.peak_db, res.rms_db,
+                                   res.noise_floor_db, res.tail_terminated, side=side)
             except Exception as err:
                 stop_event.set()
                 manifest.fail_remaining(f"device step failed: {err}", paths=listed)
@@ -649,7 +661,9 @@ class BatchProcessor:
                 errors.append(str(err))
                 pending[bi] = []
                 return
-            res_q.put((bi, paths, res, valid.copy(), b["rate_in"]))
+            self.throughput.add("dispatch", float(valid.sum()) / b["rate_in"],
+                                max(time.time() - t_disp, 1e-3))
+            res_q.put((bi, paths, dl, valid.copy(), b["rate_in"]))
             pending[bi] = []
 
         dec_threads = []

@@ -60,6 +60,7 @@ from ..ops.chain import Chain
 from ..ops.devcodec import pack24_interleaved, unpack_pcm_interleaved
 from ..ops.resample import resample_presliced
 from .graph import gain_lin_f32, not_ported
+from .link import Download, upload
 
 __all__ = ["stream_resample_file", "stream_chunk_plan", "streaming_exclusions"]
 
@@ -304,37 +305,6 @@ class _Emitter:
         return self.written >= self.out_limit
 
 
-def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host array -> ``dev``; to the card through a pinned buffer, without
-    waiting for the work already queued (the caching host allocator keeps
-    the buffer until the copy is done)."""
-    t = torch.from_numpy(arr)
-    if dev.type != "cuda":
-        return t
-    return t.pin_memory().to(dev, non_blocking=True)
-
-
-class _Download:
-    """Device tensors queued for the host: on the card, copies into pinned
-    buffers behind an event; `get` waits for the event and returns numpy
-    arrays (None stays None)."""
-
-    def __init__(self, *tensors):
-        self._event = None
-        if any(t is not None and t.is_cuda for t in tensors):
-            tensors = tuple(
-                None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                .copy_(t, non_blocking=True) for t in tensors)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        self._tensors = tensors
-
-    def get(self) -> list:
-        if self._event is not None:
-            self._event.synchronize()
-        return [None if t is None else t.numpy() for t in self._tensors]
-
-
 def _emit_acausal_head(em: _Emitter, lat: int, out_ch: int, seeds_c, gain, cfg,
                        want_env: bool, env_rms: bool, wire, silent, dev) -> bool:
     """Negative latency (an acausal chain, or a caller's compensation):
@@ -345,7 +315,7 @@ def _emit_acausal_head(em: _Emitter, lat: int, out_ch: int, seeds_c, gain, cfg,
         torch.zeros((out_ch, -int(lat)), device=dev), None, seeds_c, 0, gain,
         rate_out=cfg.target_rate, bits=cfg.bits, do_dither=cfg.dither,
         silent=silent, want_env=want_env, env_rms=env_rms, wire=wire)
-    codes, env = _Download(codes, env).get()
+    codes, env = Download(codes, env).get()
     return em.emit_head(codes, env)
 
 
@@ -569,25 +539,25 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
             buf[pad_l * bpf_in:pad_l * bpf_in + span_b.size] = span_b
             return buf, pad_l, pad_l + span_b.size // bpf_in
 
-        def dispatch(k: int) -> _Download:
+        def dispatch(k: int) -> Download:
             # chunk k reads input at k*chunk_in and emits pre-trim output
             # positions k*chunk_out: the geometry is fixed, so dispatch runs
             # ahead of emission; `carry` threads through dispatch order
             nonlocal carry
             if in_wire is not None:
                 buf, a, b = read_chunk_raw(k * chunk_in)
-                xp = _raw_front(_upload(buf, dev), in_wire=in_wire,
+                xp = _raw_front(upload(buf, dev), in_wire=in_wire,
                                 in_channels=C_in, fanout=fanout, route=route,
                                 mean=mean_dev, valid=(a, b))
             else:
-                xp = _upload(read_chunk(k * chunk_in), dev)
+                xp = upload(read_chunk(k * chunk_in), dev)
             y = resample_presliced(xp, bank, cycles)
             codes, env, carry = _finish_chunk(
                 y, carry, seeds_c, k * chunk_out - lat, gain,
                 rate_out=cfg.target_rate, bits=cfg.bits, do_dither=cfg.dither,
                 chain=cfg.chain, chain_pos=k * chunk_out, silent=silent,
                 want_env=want_env, env_rms=env_rms, wire=wire)
-            return _Download(codes, env)
+            return Download(codes, env)
 
         # atomic publish: stream into .part, os.replace at the end
         part = out_path + ".part"

@@ -252,6 +252,92 @@ def test_windowed_plan_and_packed_bank(ri, ro, q):
         assert np.array_equal(val != 0, want != 0)
 
 
+WINDOWED_BANKS = PAIRS + [(44100, 44056, "high"), (44056, 44100, "high"), (192000, 44056, "high")]
+
+
+def _launch_groups(plan):
+    """(group, pitch) of every group a launch can take: the plan's, then
+    each halving `_win_launch` may make for a launch of few rows."""
+    out, g = [], plan.group
+    while g >= 1:
+        out.append((g, plan.pitch if g == plan.group else sk._win_pitch(plan.bands, g)))
+        g //= 2
+    return out
+
+
+@pytest.mark.parametrize("ri,ro,q", WINDOWED_BANKS)
+def test_windowed_tile_groups_cover_every_tile_once(ri, ro, q):
+    """Each column tile belongs to exactly one group of ``group``
+    neighbours, at the plan's group and at every smaller one a launch can
+    take; the group's union window, from its first tile's band start, holds
+    every band of the group, and a slot of ``pitch`` floats holds the union
+    behind a shift of up to 3 in whole float4s."""
+    bank = design_cycle_bank(ri, ro, quality=q)
+    plan = sk.kernel_plan(bank)
+    n = len(plan.bands)
+    assert plan.group in (1, 2, 4) and bank.G is None
+    for group, pitch in _launch_groups(plan):
+        owner = [c // group for c in range(n)]
+        groups = [list(range(i, min(n, i + group))) for i in range(0, n, group)]
+        assert sorted(c for g in groups for c in g) == list(range(n))
+        assert all(owner[c] == gi for gi, g in enumerate(groups) for c in g)
+        for g in groups:
+            u_lo = plan.bands[g[0]][0]
+            u_hi = max(lo + 8 * nk for lo, nk in (plan.bands[c] for c in g))
+            assert all(u_lo <= plan.bands[c][0]
+                       and plan.bands[c][0] + 8 * plan.bands[c][1] <= u_hi for c in g)
+            assert 4 * -(-(3 + u_hi - u_lo) // 4) <= pitch
+        assert pitch % 32 == 4 and pitch <= plan.pitch
+
+
+@pytest.mark.parametrize("ri,ro,q", WINDOWED_BANKS)
+def test_windowed_a_loads_take_one_wavefront(ri, ro, q):
+    """With the rows of a slot group 4 cycles apart (rowmap 1) every row of
+    an A load has the same shift into its window, so a pitch of 4 mod 32
+    keeps each load in 32 banks: one wavefront, counted over every warp,
+    shift, tile offset in the union and k8 step, at the flat signal's cycle
+    stride and at the cycle rows' width.  Rows in order (one-warp launches)
+    would conflict."""
+    bank = design_cycle_bank(ri, ro, quality=q)
+    plan = sk.kernel_plan(bank)
+    for group, pitch in _launch_groups(plan):
+        offsets = {(lo - plan.bands[c - c % group][0]) % 32 for c, (lo, _) in enumerate(plan.bands)}
+        for stride in (bank.M, tres._rows_width(bank)):
+            for warps in (2, 4, 8):
+                assert sk._win_a_load_wavefronts(stride, warps, pitch, 1, offsets) == 1.0
+        if bank.M % 4:
+            assert sk._win_a_load_wavefronts(bank.M, 2, pitch, 0, offsets) > 1.0
+
+
+@pytest.mark.parametrize("ri,ro,q", WINDOWED_BANKS)
+@pytest.mark.parametrize("signals,cycles", [(1, 1), (2, 80), (1, 17), (32, 96), (64, 3000)])
+@pytest.mark.parametrize("sms", [132, 114], ids=["h100_sxm", "h100_pcie"])
+def test_windowed_launch_fits_shared_memory_at_every_size(ri, ro, q, signals, cycles, sms):
+    """A launch of 1 signal x 1 cycle, the stream's 2-signal chunk of 80
+    cycles, the kernel phase's 32 x 96 and a large one, on cards of 132 and
+    114 SMs: warps shrink to the rows; the group halves only into a grid
+    that fits on the card at once, and as far as that goes; the pitch holds
+    the group's union window; shared memory stays within the plan's and a
+    block's 232,448 bytes; a one-warp launch takes rows in order."""
+    bank = design_cycle_bank(ri, ro, quality=q)
+    plan = sk.kernel_plan(bank)
+    n_rows = signals * cycles
+    warps, rowmap, group, pitch, smem = sk._win_launch(plan, n_rows, sms)
+    assert smem <= plan.smem_bytes <= 232448 and 1 <= warps <= plan.warps
+    assert (group, pitch) in _launch_groups(plan) and smem == sk._window_smem(plan.nt, warps, pitch)[1]
+    assert rowmap == int(warps > 1)
+    assert warps == 1 or 16 * (warps // 2) < n_rows
+    row_blocks = -(-n_rows // (16 * warps))
+
+    pitches = dict(_launch_groups(plan))
+
+    def fits(g):
+        slots = sms * sk._win_blocks_per_sm(sk._window_smem(plan.nt, warps, pitches[g])[1])
+        return row_blocks * -(-len(plan.bands) // g) <= slots
+    assert group == plan.group or fits(group)
+    assert group == 1 or not fits(group // 2)
+
+
 #: kernel_plan and packed_bank_f32 of the dense banks the card's kernel phase
 #: runs, as they were before the windowed form was added: (nt, warps, skew,
 #: rowmap, ring_off, smem_bytes), sha256[:16] of repr(bands), of the packed
@@ -282,24 +368,32 @@ def test_dense_plans_and_packed_banks_are_unchanged(key):
     assert got == DENSE_RECORDED[key] and p.pitch == 0
 
 
-def _kernel_order(x, bank, Q):
+def _kernel_order(x, bank, Q, group=None):
     """The windowed form's arithmetic in numpy float32, ``(Q, L)`` outputs of
     ``x`` from `kernel_plan` and `packed_bank_f32` as the kernel reads them:
-    per column tile, each row's window from ``q*M + w_lo``; per 8-row step x
-    split into TF32 high and low parts (round to nearest, ties away), a
-    fresh fragment that starts from the negated compensation and adds
-    xh*gl, xl*gh, then xh*gh (8 products each, in order), joined to the
-    running sum by Fast2Sum."""
+    per group of ``group`` column tiles (the plan's by default), each row's
+    union window from
+    ``q*M`` plus the group's first band start; per tile, its band at its
+    offset inside that window; per 8-row step x split into TF32 high and
+    low parts (round to nearest, ties away), a fresh fragment that starts
+    from the negated compensation and adds xh*gl, xl*gh, then xh*gh (8
+    products each, in order), joined to the running sum by Fast2Sum."""
     plan = sk.kernel_plan(bank)
+    group = group or plan.group
+    pitch = dict(_launch_groups(plan))[group]
     packed, tiles = sk.packed_bank_f32(bank)
     L, M, nt = bank.L, bank.M, plan.nt
-    xp = np.zeros((Q - 1) * M + int(tiles[:, 0].max()) + plan.pitch + 8, np.float32)
+    xp = np.zeros((Q - 1) * M + int(tiles[:, 0].max()) + pitch + 8, np.float32)
     n = min(x.size, xp.size - bank.pad_front)
     xp[bank.pad_front:bank.pad_front + n] = x[:n]
     xh = sk.tf32_rna(xp)
     xl = sk.tf32_rna(xp - xh)
     y = np.zeros((Q, L), np.float32)
     for c, (w_lo, nk, o) in enumerate(tiles[:, :3]):
+        u_lo = int(tiles[c - c % group, 0])
+        win = np.arange(Q)[:, None] * M + u_lo + np.arange(pitch - 3)[None, :]
+        wh, wl = xh[win], xl[win]                     # the rows' union windows
+        a_off = int(w_lo) - u_lo
         cols = np.arange(8 * nt * c, min(L, 8 * nt * (c + 1)))
         quad = packed[o:o + nk * nt * 32].reshape(nk, nt, 8, 4, 4)
         gh, gl = (np.concatenate([quad[..., i], quad[..., i + 1]], axis=3)
@@ -308,8 +402,8 @@ def _kernel_order(x, bank, Q):
         total = np.zeros((Q, cols.size), np.float32)
         nc = np.zeros_like(total)
         for s in range(nk):
-            idx = np.arange(Q)[:, None] * M + w_lo + 8 * s + np.arange(8)[None, :]
-            ah, al = xh[idx], xl[idx]
+            k8 = a_off + 8 * s + np.arange(8)
+            ah, al = wh[:, k8], wl[:, k8]
             d = nc
             for a, b in ((ah, gl[s]), (al, gh[s]), (ah, gh[s])):
                 for k in range(8):
@@ -331,6 +425,8 @@ def test_windowed_kernel_order_meets_the_accuracy_gate(ri, ro, q):
     x = (0.3 * np.sin(2 * np.pi * f[0] * t) + 0.15 * np.sin(2 * np.pi * f[1] * t + 0.7)
          + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
     y = _kernel_order(x, bank, Q)
+    # a launch of few rows takes a smaller group: only addresses move
+    assert np.array_equal(_kernel_order(x, bank, Q, group=1), y)
     # the exact sum: float64 over the float32 taps
     hrev = tres._h_rev_f32_cached(bank).astype(np.float64)
     off, ph = tres._phase_tables(bank)
