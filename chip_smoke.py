@@ -90,7 +90,25 @@ its results, any failure exiting non-zero:
    the main and monitor files, two items within 2 LSB of the CPU path, and
    a `--loops 3` programme routed to the stream by itself; (f) `cli process
    --profile` names the kernel, `--save-config` then `--config` gives the
-   same bytes.  Kernel launches are counted from zero for (a), (b), (d), (e).
+   same bytes.  Kernel launches are counted from zero for (a), (b), (d), (e);
+9. the multi-device path (`f9tpu_torch.parallel`) on the one card: each mesh
+   names cuda:0 four times, so its shards share the card and the times
+   record the shard threads' overhead, not a scaling.  (a) Phase 4's 8
+   files through `BatchProcessor(mesh=4 files shards)` in turns with the
+   one-device job: each output's sha256 equal to phase 4's, wall, x real
+   time and the collector's blocking; (b) 4 files x 60 s on a 16-channel
+   bus over 2 files x 2 channels shards (dither, DC removal, reverb mode, a
+   bus-local routing map, delay and EQ): codes, out_frames, tail_terminated,
+   peak and floor equal to the unsharded graph, rms_db within 1e-5, and the
+   scheduler's logged fallback for a cross-shard map with the one-device
+   job's bytes; (c) `resample_frames_sharded` on 32 x 2^20 frames over 4
+   frames shards, default bank and 176.4k -> 48k high: bitwise the
+   unsharded kernel's output, device ms of both; (d) the 10-minute file
+   through `stream_resample_file(mesh=4 frames shards)` without a chain,
+   with phase 5's chain and at 44,056 Hz (cycle rows): sha256 equal to the
+   one-device stream, wall and x real time; and `cli process --files-shards
+   2` on the one card exits non-zero with the mesh's size.  Kernel launches
+   are counted from zero for (a)-(d).
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -2147,6 +2165,307 @@ def phase_tools(card: str, work: str, dev) -> dict:
     return counts
 
 
+#: phase 9's meshes name the one card several times: its shards share that
+#: card (each on a stream of its own), so their times record the shard
+#: threads' overhead and are no scaling figure
+ONE_CARD_NOTE = ("the mesh names cuda:0 {n} times: {n} shards share one card, "
+                 "so times show the shard threads' overhead, not scaling")
+
+
+def _files_axis(card: str, slice_work: str, dev) -> tuple[int, int]:
+    """9a: phase 4's 8 files through `BatchProcessor(mesh=4 files shards)`,
+    in turns with the one-device job: each output's sha256 equal to phase
+    4's `cli process` output; wall, x real time, the collector's blocking."""
+    from f9tpu_torch import cli
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.parallel import make_mesh
+    from f9tpu_torch.pipeline import BatchProcessor, build_output_path
+
+    in_dir = os.path.join(slice_work, "in")
+    paths = cli._expand_inputs([in_dir])      # phase 4's paths: they key the dither
+    want = {p: _sha256(build_output_path(p, os.path.join(slice_work, "out_gpu"),
+                                         "_processed")) for p in paths}
+    mesh = make_mesh(4, devices=[dev] * 4)
+    print(f"files 9a: {ONE_CARD_NOTE.format(n=4)}", flush=True)
+    counts = None
+    for turn, m in enumerate((None, mesh, mesh, None)):
+        out = os.path.join(slice_work, f"out_9a_{turn}")
+        # phase 4's `cli process` settings (its defaults)
+        cfg = ProcessingConfig(output_dir=out, target_rate=48000, quality="high",
+                               batch_size=8, seed=0, postfix="_processed")
+        bp = BatchProcessor(cfg, mesh=m, device=dev)
+        if turn == 1:
+            _zero_counts()
+        t0 = time.time()
+        res = bp.run(paths)
+        wall = time.time() - t0
+        if turn == 1:
+            counts = _read_counts()
+        same = sum(_sha256(build_output_path(p, out, "_processed")) == want[p] for p in paths)
+        dev_stage = res.throughput.get("device", {})
+        print(f"files 9a: {'mesh 4x1x1' if m is not None else 'one device'} "
+              f"completed={res.completed} sha256 equal to phase 4: {same} of {len(paths)} "
+              f"wall={wall:.3f} s x_realtime={res.audio_seconds_out / wall:.1f} collector "
+              f"blocking {1e3 * dev_stage.get('wall_seconds', 0.0):.1f} ms "
+              f"[{card}]", flush=True)
+        if res.completed != len(paths) or same != len(paths):
+            raise AssertionError(f"files 9a: {same} of {len(paths)} outputs equal")
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"files 9a: kernel launches of the sharded job (all, windowed) {counts}", flush=True)
+    if counts[0] - counts[1] < 4:
+        raise AssertionError(f"files 9a: {counts} launches, expected one per shard")
+    return counts
+
+
+def _channels_axis(card: str, work: str, dev) -> tuple[int, int]:
+    """9b: 4 files x 60 s on a 16-channel bus over 2 files x 2 channels
+    shards with dither, DC removal, reverb mode, a bus-local routing map and
+    the delay and EQ stages: codes, out_frames and tail_terminated equal
+    to the unsharded graph, rms_db within 1e-5; then the scheduler's
+    fallback for a cross-shard map, logged, with the same bytes."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.ops.chain import Biquad, Chain, Delay
+    from f9tpu_torch.parallel import make_mesh, process_batch_channels_sharded
+    from f9tpu_torch.pipeline import BatchProcessor, build_output_path, process_batch
+
+    rng = np.random.default_rng(SEED + 20)
+    files, C, T = 4, 16, 60 * 44100
+    x = np.empty((files, C, T), np.float32)
+    for f in range(files):
+        x[f] = _signal(rng, C, T, 44100)
+    x[:, 3] = 0.0                         # a silent input channel
+    valid = np.array([T, T - 441000, T, T - 1234567], np.int32)
+    seeds = np.arange(101, 101 + files, dtype=np.int32)
+    # outputs 0-7 draw from 0-7, 8-15 from 8-15: bus-local on 2 shards
+    routing = [1, 0, 2, 3, 4, 5, 7, 6, 9, 8, -1, 11, 12, 13, 15, 14]
+    cfg = ProcessingConfig(output_dir="unused", target_rate=48000, seed=0,
+                           reverb_mode=True, channel_routing=routing,
+                           chain=Chain(Delay(0.005), Biquad("peaking", 1000, 1, 3)))
+    mesh = make_mesh(2, 1, 2, devices=[dev] * 4)
+    xd = torch.from_numpy(x).to(dev)
+    print(f"channels 9b: {ONE_CARD_NOTE.format(n=4)}", flush=True)
+
+    def unsharded():
+        return process_batch(xd, valid, cfg, 44100, seeds, latency_frames=240, device=dev)
+
+    def sharded():
+        return process_batch_channels_sharded(xd, valid, cfg, 44100, seeds, mesh,
+                                              latency_frames=240)
+
+    unsharded()
+    ref, t_ref = _timed(unsharded, runs=2)
+    _zero_counts()
+    got = sharded()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    got, t_got = _timed(sharded, runs=2)
+    for name in ("codes", "out_frames", "tail_terminated", "peak_db", "noise_floor_db"):
+        if not torch.equal(getattr(got, name), getattr(ref, name)):
+            raise AssertionError(f"channels 9b: {name} differs from the unsharded graph")
+    rel = ((got.rms_db - ref.rms_db).abs() / ref.rms_db.abs()).max().item()
+    silent_ok = not bool(got.codes[:, 10].any())
+    print(f"channels 9b: 4 files x 16 ch x 60 s, reverb + DC + dither + routing + "
+          f"delay/EQ: codes, out_frames {got.out_frames.tolist()}, tail_terminated "
+          f"{got.tail_terminated.tolist()}, peak and floor equal to the unsharded graph; "
+          f"rms_db max rel diff {rel:.2e} (tol 1e-5); routed-silent channel zero: {silent_ok}; "
+          f"graph {t_ref:.1f} ms unsharded, {t_got:.1f} ms on 2x2 shards; kernel launches "
+          f"(all, windowed) {counts} [{card}]", flush=True)
+    if rel > 1e-5 or not silent_ok or counts[0] - counts[1] < 4:
+        raise AssertionError(f"channels 9b: rms {rel}, silent {silent_ok}, launches {counts}")
+    del xd, ref, got
+    torch.cuda.empty_cache()
+
+    # the scheduler: a cross-shard map falls back to the files axis, logged
+    in_dir = os.path.join(work, "bus")
+    os.makedirs(in_dir)
+    paths = []
+    for i in range(4):
+        p = os.path.join(in_dir, f"bus{i}.wav")
+        wav.write_wav(p, _signal(rng, 16, 2 * 44100 + 7 * i, 44100), 44100, bits=32)
+        paths.append(p)
+    for label, rmap, fallback in (("bus-local", routing, False),
+                                  ("cross-shard", [8] + list(range(1, 16)), True)):
+        outs = []
+        for m in (None, mesh):
+            out = os.path.join(work, f"bus_{label}_{m is not None}")
+            bp = BatchProcessor(ProcessingConfig(output_dir=out, target_rate=48000, seed=0,
+                                                 batch_size=4, channel_routing=rmap),
+                                mesh=m, device=dev)
+            res = bp.run(paths)
+            if res.completed != 4:
+                raise AssertionError(f"channels 9b: {label}: {res.completed} completed")
+            outs.append((out, bp.log.lines))
+        logged = any("Channel sharding unavailable: routing crosses channel shards" in ln
+                     for ln in outs[1][1])
+        same = sum(_sha256(build_output_path(p, outs[0][0], "_processed"))
+                   == _sha256(build_output_path(p, outs[1][0], "_processed")) for p in paths)
+        print(f"channels 9b: scheduler, {label} map on 2x2 shards: fallback logged "
+              f"{logged}; sha256 equal to the one-device job {same} of 4 [{card}]",
+              flush=True)
+        if logged != fallback or same != 4:
+            raise AssertionError(f"channels 9b: {label}: logged {logged}, same {same}")
+    return counts
+
+
+def _frames_axis(card: str, dev) -> tuple[int, int]:
+    """9c: `resample_frames_sharded` on 32 x 2^20 frames over 4 frames
+    shards, the default bank and 176.4k -> 48k high (R = 4): bitwise the
+    unsharded kernel's output; device ms of both."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops.resample import resample_presliced
+    from f9tpu_torch.parallel import make_mesh, required_frames_padding, resample_frames_sharded
+    from f9tpu_torch.parallel import shard_halos
+
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    print(f"frames 9c: {ONE_CARD_NOTE.format(n=4)}", flush=True)
+    rng = np.random.default_rng(SEED + 21)
+    total = [0, 0]
+    for rate_in, rate_out, q in ((44100, 48000, "high"), (176400, 48000, "high")):
+        bank = design_cycle_bank(rate_in, rate_out, quality=q)
+        T = (1 << 20) + required_frames_padding(1 << 20, bank, 4)
+        x = torch.from_numpy(_signal(rng, 32, T, rate_in)).to(dev)
+        hl, hr = shard_halos(bank)
+        xp = F.pad(x, (hl, hr))
+
+        def whole():
+            return resample_presliced(xp, bank, T // bank.M)
+
+        def sharded():
+            return resample_frames_sharded(x, rate_in, rate_out, mesh, quality=q)
+
+        ref = whole()
+        _zero_counts()
+        got = sharded()
+        torch.cuda.synchronize()
+        a, w = _read_counts()
+        total[0] += a
+        total[1] += w
+        equal = torch.equal(got, ref)
+        t_whole = _median_ms(whole)
+        t_shard = _median_ms(sharded)
+        print(f"frames 9c: {rate_in}->{rate_out} {q} (L={bank.L} M={bank.M}) 32 x {T} frames "
+              f"over 4 shards: bitwise equal to the unsharded kernel: {equal}; device ms "
+              f"unsharded {t_whole:.3f}, sharded {t_shard:.3f} (launches {a}) [{card}]",
+              flush=True)
+        if not equal or a < 4:
+            raise AssertionError(f"frames 9c: {rate_in}->{rate_out}: equal {equal}, {a} launches")
+        del x, xp, ref, got
+    return total[0], total[1]
+
+
+def _sharded_stream(card: str, work: str, dev) -> tuple[int, int]:
+    """9d: a 10-minute stereo file through `stream_resample_file(mesh=1 x 4
+    frames shards)` without a chain, with phase 5's chain and at 44,056 Hz
+    (cycle rows): sha256 equal to the one-device stream each time; wall
+    and x real time of both."""
+    import numpy as np
+
+    from f9tpu_torch import cli
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.ops.resample import resample_rates
+    from f9tpu_torch.parallel import make_mesh
+    from f9tpu_torch.pipeline import calibration
+    from f9tpu_torch.pipeline.stream import stream_resample_file
+
+    long_path = os.path.join(work, "long.wav")
+    n_long = _write_long_wav(long_path, 600.0, SEED + 8)
+    rng = np.random.default_rng(SEED + 2)
+    ir_path = os.path.join(work, "IR.wav")
+    wav.write_wav(ir_path, _stereo_ir(rng), 48000, bits=32)
+    chain = cli._build_chain(argparse.Namespace(**_chain_args(ir_path)))
+    ring = chain.tail_frames(48000)
+    lat = calibration.measure_latency(
+        44100, 48000, chain_fn=lambda v: chain.apply(resample_rates(v, 44100, 48000), 48000),
+        capture_frames=max(calibration.CAPTURE_FRAMES,
+                           -(-(3 * ring + (1 << 15)) * 44100 // 48000)),
+        ringout_frames=ring, device=dev).latency_frames
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    print(f"stream 9d: {ONE_CARD_NOTE.format(n=4)}", flush=True)
+    total = [0, 0]
+    for label, kw in (("no chain", dict(target_rate=48000)),
+                      ("phase 5 chain", dict(target_rate=48000, chain=chain,
+                                             latency_frames=lat)),
+                      ("44056 (cycle rows)", dict(target_rate=44056))):
+        shas = []
+        for m in (None, mesh):
+            out = os.path.join(work, f"long_{len(shas)}.wav")
+            cfg = ProcessingConfig(output_dir=work, seed=0, **kw)
+            if m is not None:
+                _zero_counts()
+            t0 = time.time()
+            n = stream_resample_file(long_path, out, cfg, mesh=m, device=dev)
+            wall = time.time() - t0
+            if m is not None:
+                a, w = _read_counts()
+                total[0] += a
+                total[1] += w
+            shas.append(_sha256(out))
+            print(f"stream 9d: {label}, {'mesh 1x4x1' if m is not None else 'one device'}: "
+                  f"{n} frames wall={wall:.3f} s x_realtime={n / kw['target_rate'] / wall:.1f} "
+                  f"sha256={shas[-1][:16]}"
+                  + (f" launches (all, windowed) {(a, w)}" if m is not None else "")
+                  + f" [{card}]", flush=True)
+            os.unlink(out)
+        if shas[0] != shas[1]:
+            raise AssertionError(f"stream 9d: {label}: the sharded stream's bytes differ")
+    print(f"stream 9d: {n_long} frames in; 3 of 3 forms sha256-equal [{card}]", flush=True)
+    if total[1] < 4 or total[0] - total[1] < 8:
+        raise AssertionError(f"stream 9d: launches {total}")
+    return total[0], total[1]
+
+
+def _shards_cli_check(card: str, work: str) -> None:
+    """The CLI on one card: ``process --files-shards 2`` fails with the
+    mesh's size, non-zero, writing nothing; it never runs on one shard."""
+    import torch
+
+    in_dir = os.path.join(work, "cli_in")
+    os.makedirs(in_dir)
+    from f9tpu_torch.io import wav
+    import numpy as np
+
+    wav.write_wav(os.path.join(in_dir, "a.wav"),
+                  _signal(np.random.default_rng(SEED + 22), 2, 44100, 44100), 44100, bits=24)
+    out = os.path.join(work, "cli_out")
+    rc, _, err, _ = _run_cli(["process", in_dir, "--out", out, "--files-shards", "2"])
+    n = torch.cuda.device_count()
+    msg = f"mesh 2x1x1 != {n} devices"
+    wrote = os.path.isdir(out) and any(f.endswith(".wav") for f in os.listdir(out))
+    print(f"cli 9: process --files-shards 2 on {n} card(s): rc={rc} "
+          f"message {'found' if msg in err else 'missing'} ({err.strip()[:80]}); "
+          f"outputs written: {wrote} [{card}]", flush=True)
+    if n == 2:
+        return
+    if rc == 0 or msg not in err or wrote:
+        raise AssertionError(f"cli 9: --files-shards 2 rc={rc}: {err}")
+
+
+def phase_multi_device(card: str, work: str, slice_work: str, dev) -> dict:
+    """Phase 9, the multi-device path on one card; returns the kernel
+    launches of each sub-phase as (every launch, the windowed form's)."""
+    counts = {}
+    for path, fn in (("files_axis", lambda: _files_axis(card, slice_work, dev)),
+                     ("channels_axis", lambda: _channels_axis(card, work, dev)),
+                     ("frames_axis", lambda: _frames_axis(card, dev)),
+                     ("sharded_stream", lambda: _sharded_stream(card, work, dev))):
+        t0 = time.time()
+        counts[path] = fn()
+        print(f"multi-device {path}: {time.time() - t0:.1f} s", flush=True)
+    _shards_cli_check(card, work)
+    print(f"multi-device: kernel launches by path (all, windowed) {counts} [{card}]",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2181,6 +2500,7 @@ def main() -> int:
     dense = {}
     windowed = {}
     kw = None
+    slice_work = None
     for n, path, phase in ((4, "default_job", lambda c, w: phase_slice(c, w, dev=dev)),
                            (5, "insert_loop", lambda c, w: phase_insert_loop(c, w, dev)),
                            (6, "stream", lambda c, w: phase_stream(c, w, dev)),
@@ -2200,8 +2520,11 @@ def main() -> int:
             # unless it was counted as the windowed form's
             total, windowed[path] = phase(card, work)
             dense[path] = total - windowed[path]
+            if path == "default_job":
+                slice_work, work = work, None    # phase 9a holds its outputs to these
         finally:
-            shutil.rmtree(work, ignore_errors=True)
+            if work is not None:
+                shutil.rmtree(work, ignore_errors=True)
         print(f"phase {n} ({path}): {time.time() - t0:.1f} s", flush=True)
 
     work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
@@ -2212,6 +2535,16 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 8 (tool path): {time.time() - t0:.1f} s", flush=True)
+
+    work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+    t0 = time.time()
+    try:
+        for path, (total, win) in phase_multi_device(card, work, slice_work, dev).items():
+            dense[path], windowed[path] = total - win, win
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(slice_work, ignore_errors=True)
+    print(f"phase 9 (multi-device): {time.time() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",

@@ -15,8 +15,10 @@ normalization), the constant-memory stream of files of any length
 (`stream`), the playlist preview (`preview`), the drop-folder daemon
 (`watch`), and `selftest`, `measure`, `probe`, `verify` and `devices`, with
 the cycle-matrix SRC as a hand-written CUDA kernel
-(`f9tpu_torch/csrc/cycle_src.cu`).  See ROADMAP.md for what is still to
-port (more than one device, the rows layout).
+(`f9tpu_torch/csrc/cycle_src.cu`); and `process`, `watch` and `stream` over a
+mesh of devices (`f9tpu_torch.parallel`: files, channels and frames
+sharding, one process driving a thread and a CUDA stream per shard).  See ROADMAP.md
+for what is still to port (the rows layout).
 """
 
 from .device import resolve_device  # noqa: F401

@@ -24,9 +24,12 @@ the plain PyTorch path and is never taken unless asked for).
 
 ``--config FILE`` loads `process` defaults from JSON (the JAX CLI's format
 and keys) and ``--save-config FILE`` writes the resolved settings back.
-Options that need more than one device (``--files-shards``,
-``--channel-shards``, ``--frames-shards`` above 1) and ``--device-layout
-rows`` exit 2 naming the ROADMAP item each waits for.  Without a GPU a
+``--files-shards`` / ``--channel-shards`` (`process`, `watch`) and
+``--frames-shards`` (`stream`) run the job on a mesh
+(`f9tpu_torch.parallel`) over every card of the machine, or over n CPU
+shards with ``--device cpu``; a mesh larger than the machine's cards fails
+with its size (``mesh 2x1x1 != 1 devices``), it never runs on fewer shards.
+``--device-layout rows`` exits 2 naming its ROADMAP item.  Without a GPU a
 command on ``cuda`` exits 1 with a one-line error.
 """
 
@@ -241,10 +244,18 @@ def _save_config(args) -> None:
     print(f"settings saved -> {args.save_config}")
 
 
-def _refuse_shards(args) -> None:
-    """The multi-device options exit 2 until `parallel/` is ported."""
-    if args.files_shards > 1 or args.channel_shards > 1:
-        raise not_ported("mesh")
+def _mesh(device: str, files: int = 1, frames: int = 1, channels: int = 1):
+    """The mesh of the shard options (None when every count is 1): over
+    every card of the machine, each once, or over ``files * frames *
+    channels`` CPU shards with ``--device cpu``.  A count the machine cannot
+    hold raises `make_mesh`'s error."""
+    if files * frames * channels <= 1:
+        return None
+    from .parallel import make_mesh
+
+    dev = resolve_device(device)
+    return make_mesh(files, frames, channels,
+                     devices=None if dev.type == "cuda" else [dev] * (files * frames * channels))
 
 
 def _batch_cfg_from_args(args) -> ProcessingConfig:
@@ -283,7 +294,7 @@ def cmd_process(args) -> int:
     if not files:
         print("error: no input files", file=sys.stderr)
         return 2
-    _refuse_shards(args)
+    mesh = _mesh(args.device, args.files_shards, channels=args.channel_shards)
     cfg = _batch_cfg_from_args(args)
     _save_config(args)
     # --json: the summary is the only stdout; the log goes to stderr
@@ -292,7 +303,7 @@ def cmd_process(args) -> int:
                     jsonl_path=args.log_jsonl)
     cal = CalibrationCache(os.path.join(args.out, ".calibration.json"))
     os.makedirs(args.out, exist_ok=True)
-    bp = BatchProcessor(cfg, log=log, calibration=cal, device=args.device)
+    bp = BatchProcessor(cfg, log=log, calibration=cal, mesh=mesh, device=args.device)
     manifest_path = os.path.join(args.out, ".manifest.json") if args.resume else None
     if args.profile:
         res = _profiled(args.profile, bp.device,
@@ -343,8 +354,7 @@ def cmd_stream(args) -> int:
         print(f"error: lossy output format '{out_ext}' is not supported; "
               "deliverables are WAV/AIFF/FLAC", file=sys.stderr)
         return 2
-    if args.frames_shards > 1:
-        raise not_ported("mesh")
+    mesh = _mesh(args.device, frames=args.frames_shards)
     cfg = ProcessingConfig(
         target_rate=args.rate,
         quality=args.quality,
@@ -397,7 +407,7 @@ def cmd_stream(args) -> int:
                                  chunk_seconds=args.chunk_seconds,
                                  progress_cb=progress,
                                  latency_frames=args.latency,
-                                 device=args.device, norm_info=norm)
+                                 mesh=mesh, device=args.device, norm_info=norm)
     except Exception as err:
         # every stream_start gets a terminal event; the error still surfaces
         if jlog:
@@ -690,8 +700,9 @@ def cmd_watch(args) -> int:
     except ValueError as err:
         print(f"watch: invalid config: {err}", file=sys.stderr)
         return 2
-    # what a sweep's processor would refuse fails now, not at the first drop
-    _refuse_shards(args)
+    # what a sweep's processor would refuse fails now, not at the first drop;
+    # the mesh is built once and serves every sweep
+    mesh = _mesh(args.device, args.files_shards, channels=args.channel_shards)
     if cfg.device_layout == "rows":
         raise not_ported("rows_layout")
     dev = resolve_device(args.device)
@@ -746,7 +757,7 @@ def cmd_watch(args) -> int:
             # ones and reprocesses a file dropped again with new content
             idle = 0.0
             try:
-                bp = BatchProcessor(cfg, log=log, calibration=cal, device=dev)
+                bp = BatchProcessor(cfg, log=log, calibration=cal, mesh=mesh, device=dev)
                 res = bp.run(ready, manifest_path=manifest_path)
             except Exception as err:
                 # the daemon keeps serving; the files stay unmarked and retry
@@ -909,7 +920,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--chunk-seconds", type=float, default=20.0,
                    help="chunk length (the bytes do not depend on it)")
     p.add_argument("--frames-shards", type=int, default=1,
-                   help="shard each step over N devices (not ported yet)")
+                   help="split each step's frames over N devices (the cards, "
+                        "or N CPU shards with --device cpu)")
     p.add_argument("--json", action="store_true",
                    help="machine-readable result on stdout")
     p.set_defaults(fn=cmd_stream)
@@ -1035,9 +1047,11 @@ def _add_batch_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--reverb", action="store_true",
                    help="reverb mode: keep tails until below noise floor")
     p.add_argument("--files-shards", type=int, default=1,
-                   help="shard batches over N devices (not ported yet)")
+                   help="split each batch's files over N devices (the cards, "
+                        "or N CPU shards with --device cpu)")
     p.add_argument("--channel-shards", type=int, default=1,
-                   help="shard channel buses over N devices (not ported yet)")
+                   help="split channel buses over N devices (files x "
+                        "channels shards in all)")
     _add_tail_args(p)
     _add_routing_args(p)
     _add_chain_args(p)

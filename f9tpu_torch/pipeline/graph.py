@@ -12,9 +12,15 @@ One fixed-shape batch ``(files, channels, frames)`` runs, in order:
 PyTorch runs it eagerly on the tensors' device; there is no jit.  Per-file
 lengths ride through as masks, as in the JAX graph, and the per-file
 loudness-normalization gains as a device vector.  Varispeed rates reach the
-SRC through the same dispatch (`resample_auto`).  Not ported yet, each
-raising NotImplementedError that names its ROADMAP item: channel-axis
-sharding, meshes, the rows layout.
+SRC through the same dispatch (`resample_auto`).
+
+Under channel-axis sharding (`f9tpu_torch.parallel.process_batch_channels_sharded`)
+each shard runs this graph on its channels, ``channel_axis`` carries the
+shard's collectives, and the per-file reductions over channels (the reverb
+detector's and the tail floor's loudest-channel envelopes, the peak and the
+sum of squares) span every shard; dither is keyed by the global channel.
+Not ported yet, raising NotImplementedError that names its ROADMAP item:
+the rows layout.
 """
 
 from __future__ import annotations
@@ -43,8 +49,6 @@ __all__ = ["ProcessResult", "process_batch", "process_batch_raw", "not_ported"]
 #: Options of the JAX package the port does not have yet, with the ROADMAP
 #: item each waits for (the graph's and the scheduler's).
 NOT_PORTED = {
-    "channel_axis": "ROADMAP Queue 1 'Multi-device' (parallel/)",
-    "mesh": "ROADMAP Queue 1 'Multi-device' (parallel/)",
     "rows_layout": "ROADMAP Queue 1, the rows layout (_process_impl_rows)",
     "native_loader": "left out of the port (measured slower than Python decode)",
 }
@@ -112,8 +116,6 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
     (quality, kind, bits, do_dither, remove_dc, gain_db, trim_enabled,
      reverb_mode, margin_pct, tail_mode, tail_window_ms, tail_hop_ms,
      tail_consecutive, pad_frames, routing, out_channels) = cfg_key
-    if channel_axis is not None:
-        raise not_ported("channel_axis")
     if chain is not None and not isinstance(chain, Chain):
         raise TypeError(
             f"cfg.chain must be an f9tpu_torch.ops.chain.Chain, got "
@@ -143,8 +145,13 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
     if reverb_mode:
         # loudest-channel envelope; quiet windows count only once each
         # file's source span has played (min_frames = out_valid)
+        mono_detect = torch.amax(torch.abs(y), dim=1)
+        if channel_axis is not None:
+            # the loudest channel may live on another shard: every shard
+            # reaches the same per-file verdict
+            mono_detect = channel_axis.pmax(mono_detect)
         end_frame, terminated = detect_tail_end(
-            torch.amax(torch.abs(y), dim=1), noise_floor_db, margin_pct,
+            mono_detect, noise_floor_db, margin_pct,
             rate=rate_out, window_ms=tail_window_ms, hop_ms=tail_hop_ms,
             consecutive=tail_consecutive, min_frames=out_valid, mode=tail_mode)
         # the tail may run past the source but not past the capture; a tail
@@ -177,10 +184,21 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
         g = float(np.float32(g)) * gain_lin.reshape(files, 1, 1)
     z = torch.where(vmask, (ym - mean) * g, zero)
 
-    pk_db, level_db = _metrics(z, out_frames)
+    if channel_axis is None:
+        pk_db, level_db = _metrics(z, out_frames)
+    else:
+        # per-file metrics over every shard's channels
+        flat = z.reshape(files, -1)
+        c_total = z.shape[1] * channel_axis.size
+        sumsq = channel_axis.psum(torch.sum(torch.square(flat), dim=-1))
+        n_valid = (out_frames.to(torch.float32) * c_total).clamp(min=1.0)
+        level_db = analysis._amp_to_db(torch.sqrt(sumsq / n_valid))
+        pk_db = analysis._amp_to_db(channel_axis.pmax(torch.amax(torch.abs(flat), dim=-1)))
     # noise floor: RMS of the last tail window of each file's valid span
     win = max(1, rate_out * tail_window_ms // 1000)
     mono = torch.amax(torch.abs(z), dim=1)                       # (files, out_total)
+    if channel_axis is not None:
+        mono = channel_axis.pmax(mono)
     raw_pos = (out_frames[:, None].to(torch.int64) - win
                + torch.arange(win, dtype=torch.int64, device=dev)[None, :])
     in_range = raw_pos >= 0            # short files have < win valid samples
@@ -190,9 +208,13 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
     nf_est = analysis._amp_to_db(tail_rms)
 
     if do_dither:
-        # noise keyed by (file seed, channel, absolute output frame): bytes
-        # do not depend on batching, devices or the package that made them
-        cs = dither.channel_seeds(dither.noise_seeds(seeds, files), z.shape[1])
+        # noise keyed by (file seed, global channel, absolute output frame):
+        # bytes do not depend on batching, sharding, devices or the package
+        # that made them; a channel shard offsets its local channel index
+        cid = torch.arange(z.shape[1], dtype=torch.int64, device=dev)
+        if channel_axis is not None:
+            cid = cid + channel_axis.index * z.shape[1]
+        cs = dither.channel_seeds(dither.noise_seeds(seeds, files), cid)
         pos_t = torch.arange(out_total, dtype=torch.int64, device=dev)[None, None, :]
         codes = dither.quantize_noise(z, bits, cs[:, :, None], pos_t)
     else:

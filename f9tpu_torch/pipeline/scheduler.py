@@ -27,8 +27,16 @@ or idempotent caches.  One worker meters at a time (the others go on
 decoding): a meter is thousands of small launches, and four threads making
 them through one interpreter lock took twice as long as one.
 
-Not ported yet, each refused when the processor is built: multi-device
-meshes, the rows layout and the native loader.
+On a mesh (`f9tpu_torch.parallel.make_mesh`) each batch is split over the
+files axis, one shard per device, each shard's results downloaded on its
+device's side stream and put back in file order by the collector.  A group
+whose channel count, routing and chain allow it (`channels_shardable`) is
+split over the channels axis too; the raw-bytes upload and loudness
+normalization take the files axis only, and every fallback is logged.
+Files past the largest bucket stream on the processor's device alone.
+
+Not ported yet, each refused when the processor is built: the rows layout
+and the native loader.
 """
 
 from __future__ import annotations
@@ -107,8 +115,13 @@ class _Decoded:
 
 
 class BatchProcessor:
-    """Orchestrates a whole batch on one device: probe -> validate ->
-    calibrate -> pipeline."""
+    """Orchestrates a whole batch: probe -> validate -> calibrate ->
+    pipeline, on ``device`` or over ``mesh``.
+
+    ``mesh``: batches are split over its files axis (``cfg.batch_size``
+    must be a multiple of it) and, where a group allows it, its channels
+    axis.  ``device`` (default: the mesh's first device, else CUDA) runs
+    calibration, the meter and the streamed oversized files."""
 
     def __init__(
         self,
@@ -118,11 +131,10 @@ class BatchProcessor:
         decode_workers: int = 4,
         encode_workers: int = 4,
         mesh=None,
-        device: torch.device | str = "cuda",
+        device: torch.device | str | None = None,
     ):
         cfg.validate()
-        for what, on in (("mesh", mesh is not None),
-                         ("rows_layout", cfg.device_layout == "rows"),
+        for what, on in (("rows_layout", cfg.device_layout == "rows"),
                          ("native_loader", cfg.native_loader)):
             if on:
                 raise not_ported(what)
@@ -131,6 +143,15 @@ class BatchProcessor:
                 "cfg.chain must be an f9tpu_torch.ops.chain.Chain (convert a "
                 "JAX chain with f9tpu_torch.ops.chain.chain_from_jax)")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            n = mesh.shape["files"]
+            if cfg.batch_size % n:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} not divisible by the mesh's "
+                    f"files axis ({n})")
+            if device is None:
+                device = mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.log = log or StatusLog()
         self.calibration = calibration or CalibrationCache()
@@ -325,6 +346,27 @@ class BatchProcessor:
             f"{cfg.normalize_lufs:.1f} ({gain_db:+.1f} dB{note})")
         return gain_db
 
+    def _channel_sharding(self, cfg: ProcessingConfig, channels: int, raw_bits: int) -> bool:
+        """Does this group run channel-sharded?  Decided per group, since it
+        depends on the input's channel count; a group that cannot keeps the
+        files axis, and the log says why."""
+        if self.mesh is None or self.mesh.shape["channels"] <= 1:
+            return False
+        from ..parallel import channels_shardable
+
+        if raw_bits:
+            self.log.append("Channel sharding: raw-bytes path has no channel "
+                            "axis; files-axis sharding for this group")
+            return False
+        if cfg.normalize_lufs is not None:
+            self.log.append("Channel sharding: loudness normalization uses "
+                            "per-file gains (files-axis sharding only)")
+            return False
+        ok, reason = channels_shardable(cfg, channels, self.mesh)
+        if not ok:
+            self.log.append(f"Channel sharding unavailable: {reason}")
+        return ok
+
     def _group_noise_floor(self, rate_in: int, noise_floors) -> float | None:
         """Reverb mode's tail threshold base for one rate: the configured
         floor, else the measured one if usable, else None (-80 dB)."""
@@ -365,6 +407,7 @@ class BatchProcessor:
         # bucket stream instead (an exact-fit bucket at batch width would
         # stage batch_size x the file on the host and the card) ----
         max_bucket = max(cfg.bucket_frames)
+        mesh_files = self.mesh.shape["files"] if self.mesh is not None else 1
         stream_jobs: list[tuple] = []          # (info, rate_in, latency)
         buckets: list[dict] = []
         for (rate_in, channels, raw_bits, raw_be), infos in groups.items():
@@ -394,6 +437,7 @@ class BatchProcessor:
                 blen = next((b for b in sorted(cfg.bucket_frames) if n <= b), n)
                 by_bucket.setdefault(blen if cap is None else min(max(blen, n), cap),
                                      []).append(info)
+            use_cp = self._channel_sharding(cfg, channels, raw_bits)
             # output channel count after in-graph routing / mono fan-out
             out_ch = (len(cfg.channel_routing)
                       if cfg.channel_routing is not None
@@ -404,22 +448,29 @@ class BatchProcessor:
                 bs = cfg.batch_size
                 if blen > max_bucket:
                     # a capped reverb capture past the largest bucket: a
-                    # narrower batch keeps host staging within the budget
+                    # narrower batch keeps host staging within the budget,
+                    # still a whole number of file shards wide
                     bs = min(max(1, cfg.batch_size * max_bucket // blen),
                              cfg.batch_size)
+                    bs = min(-(-bs // mesh_files) * mesh_files, cfg.batch_size)
                     self.log.append(
                         f"Oversized bucket {blen} frames: batch width "
                         f"reduced to {bs} (memory budget)")
                 buckets.append(dict(
                     rate_in=rate_in, channels=channels, raw_bits=raw_bits,
                     raw_be=raw_be, lat=latencies[rate_in], group_nf=group_nf,
-                    out_ch=out_ch, blen=blen, infos=binfos, bs=bs))
+                    use_cp=use_cp, out_ch=out_ch, blen=blen, infos=binfos, bs=bs))
 
         work = [(bi, info) for bi, b in enumerate(buckets) for info in b["infos"]]
         dec_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
         enc_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
         res_q: queue.Queue = queue.Queue(maxsize=2)
-        side = link.side_stream(dev)
+        # one download stream per card the batches run on, by card index
+        sides: dict[int, torch.cuda.Stream] = {}
+        for d in (self.mesh.devices.flat if self.mesh is not None else (dev,)):
+            if d.type == "cuda":
+                i = d.index if d.index is not None else torch.cuda.current_device()
+                sides.setdefault(i, link.side_stream(torch.device("cuda", i)))
 
         def decode_worker(work_q):
             # the finally-sentinel is load-bearing: the main loop counts one
@@ -560,7 +611,10 @@ class BatchProcessor:
                 # which the dispatch thread started)
                 t_blk = time.time()
                 try:
-                    codes, out_frames, pk, rms, nf, term = dl.get()
+                    # a files-sharded batch comes as one download per shard,
+                    # in file order; file i is row i % rows of part i // rows
+                    # (no host copy joins the parts)
+                    parts = [d.get() for d in (dl if isinstance(dl, list) else [dl])]
                 except Exception as err:
                     stop_event.set()
                     manifest.fail_remaining(f"device step failed: {err}", paths=listed)
@@ -570,26 +624,36 @@ class BatchProcessor:
                 self.throughput.add(
                     "device", float(c_valid.sum()) / c_rate_in,
                     max(time.time() - t_blk, 1e-3))
+                rows = len(parts[0][1])
                 for i, p in enumerate(c_paths):
+                    codes, out_frames, pk, rms, nf, term = (
+                        a[i % rows] for a in parts[i // rows])
                     manifest.set_progress(p, 0.7)
                     audio_in += c_valid[i] / c_rate_in
-                    audio_out += int(out_frames[i]) / cfg.target_rate
+                    audio_out += int(out_frames) / cfg.target_rate
                     per_file_metrics[p] = {
-                        "out_frames": int(out_frames[i]),
-                        "peak_db": round(float(pk[i]), 2),
-                        "rms_db": round(float(rms[i]), 2),
-                        "noise_floor_db": round(float(nf[i]), 2),
-                        "tail_terminated": bool(term[i]),
+                        "out_frames": int(out_frames),
+                        "peak_db": round(float(pk), 2),
+                        "rms_db": round(float(rms), 2),
+                        "noise_floor_db": round(float(nf), 2),
+                        "tail_terminated": bool(term),
                         **norm_info.get(p, {}),
                     }
                     delivered = put_enc(
-                        (p, codes[i], int(out_frames[i]), cfg.target_rate,
-                         {"peak_db": float(pk[i]), "rate_in": c_rate_in,
+                        (p, codes, int(out_frames), cfg.target_rate,
+                         {"peak_db": float(pk), "rate_in": c_rate_in,
                           "payload": bool(b["raw_bits"]),
                           "out_channels": b["out_ch"]}))
                     if not delivered:
                         manifest.update(p, FileStatus.FAILED,
                                         error="aborted before encode")
+
+        def _download(res) -> link.Download:
+            # every result copy starts now, behind the graph on the side
+            # stream: this batch's copy overlaps the next batch's graph
+            return link.Download(res.codes, res.out_frames, res.peak_db, res.rms_db,
+                                 res.noise_floor_db, res.tail_terminated,
+                                 side=sides.get(res.codes.device.index))
 
         pending: dict[int, list] = {bi: [] for bi in range(len(buckets))}
         total = {bi: len(b["infos"]) for bi, b in enumerate(buckets)}
@@ -636,24 +700,39 @@ class BatchProcessor:
             x[len(batch_x):] = 0
             for d in batch_x:
                 manifest.set_progress(d.entry_path, 0.4)
-            try:
+            def step(x, v, sd, g, device=dev):
                 # enqueue only: the collector thread waits for the device
                 # and copies the results while the next batch is staged
                 if raw_bits:
                     res = process_batch_raw(
-                        xt, valid, cfg, b["rate_in"], seeds,
+                        x, v, cfg, b["rate_in"], sd,
                         in_channels=channels, in_bits=raw_bits,
                         in_big_endian=b["raw_be"], latency_frames=b["lat"],
-                        noise_floor_db=b["group_nf"], device=dev)
+                        noise_floor_db=b["group_nf"], device=device)
                 else:
                     res = process_batch(
-                        xt, valid, cfg, b["rate_in"], seeds,
+                        x, v, cfg, b["rate_in"], sd,
                         latency_frames=b["lat"], noise_floor_db=b["group_nf"],
-                        per_file_gain_db=norm_gains, device=dev)
-                # every result copy starts now, behind the graph on the side
-                # stream: this batch's copy overlaps the next batch's graph
-                dl = link.Download(res.codes, res.out_frames, res.peak_db, res.rms_db,
-                                   res.noise_floor_db, res.tail_terminated, side=side)
+                        per_file_gain_db=g, device=device)
+                return _download(res)
+
+            try:
+                if b["use_cp"]:
+                    from ..parallel import process_batch_channels_sharded
+
+                    dl = _download(process_batch_channels_sharded(
+                        xt, valid, cfg, b["rate_in"], seeds, self.mesh,
+                        latency_frames=b["lat"], noise_floor_db=b["group_nf"]))
+                elif self.mesh is not None:
+                    from ..parallel import process_files_sharded
+
+                    # each shard on its device; the per-file vectors split
+                    # with the batch
+                    dl = process_files_sharded(
+                        self.mesh, lambda x, v, sd, g: step(x, v, sd, g, device=x.device),
+                        xt, valid, seeds, norm_gains, gather=False)
+                else:
+                    dl = step(xt, valid, seeds, norm_gains)
             except Exception as err:
                 stop_event.set()
                 manifest.fail_remaining(f"device step failed: {err}", paths=listed)

@@ -34,8 +34,17 @@ Varispeed banks stream like any other: the card takes the flat haloed chunk
 banks.  The JAX package marshals varispeed chunks into cycle rows on the
 host to spare its device a retiling pass that this kernel never makes.
 
-Not ported here, raising NotImplementedError that names its ROADMAP item:
-meshes (the sharded stream).
+On a mesh with a frames axis (``mesh=``) each step is a super-chunk of
+n_shards chunks split over the frames axis (`run_sharded`): each shard
+decodes its part of the container bytes, trades filter halos with its
+neighbours (`f9tpu_torch.parallel.sharding.frames_local`; the super-chunk's
+outer halos are read from the file), resamples, and, without a chain, runs
+the finish with its positions offset.  Varispeed banks go as cycle rows
+marshalled on the host and split over the cycle axis, with no halo to
+trade.  A chain's state is sequential over frames, so with a chain the
+super-chunk's SRC output is gathered on the first device and finished
+there.  The host writes the super-chunks in file order through the same
+`_Emitter`, so the bytes equal the one-device stream's.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from ..ops import dither
 from ..ops.chain import Chain
 from ..ops.devcodec import pack24_interleaved, unpack_pcm_interleaved
 from ..ops.resample import resample_presliced
-from .graph import gain_lin_f32, not_ported
+from .graph import gain_lin_f32
 from .link import Download, upload
 
 __all__ = ["stream_resample_file", "stream_chunk_plan", "streaming_exclusions"]
@@ -216,13 +225,15 @@ def _finish_chunk(y, carry, seeds_c, pos0: int, gain: float, *, rate_out, bits,
 
 
 def _raw_front(raw, *, in_wire, in_channels, fanout=0, route=None,
-               mean=None, valid=(0, 0)):
+               mean=None, valid=(0, 0), idx_offset=0):
     """The on-device input front of the raw wire: container bytes ->
     float32 ``(channels, frames)``, mono fan-out, the routing gather
     (``route`` = (source index, silent mask) tensors) and the DC mean
     subtracted over the real span ``valid`` only (zero-padded halos stay
     exactly zero, as on the float wire's host path).  Integer to float
-    scaling is a power of two, so the floats equal the host decode's."""
+    scaling is a power of two, so the floats equal the host decode's.
+    ``idx_offset`` is the frame of ``raw``'s first byte in ``valid``'s
+    coordinates (a frames shard's place in its super-chunk)."""
     in_bits, in_be = in_wire
     x = unpack_pcm_interleaved(raw, in_channels, in_bits, big_endian=in_be)
     if fanout:
@@ -231,7 +242,7 @@ def _raw_front(raw, *, in_wire, in_channels, fanout=0, route=None,
         idx, silent = route
         x = x.index_select(0, idx).masked_fill(silent[:, None], 0.0)
     if mean is not None:
-        i = torch.arange(x.shape[-1], device=x.device)
+        i = torch.arange(x.shape[-1], device=x.device) + idx_offset
         real = (i >= valid[0]) & (i < valid[1])
         x = x - torch.where(real, mean, torch.zeros((), device=x.device))
     return x
@@ -332,8 +343,10 @@ def stream_resample_file(
     norm_info: dict | None = None,
 ) -> int:
     """Resample ``in_path`` -> ``out_path`` at ``cfg.target_rate`` in
-    constant memory on ``device`` (default CUDA, raising without a GPU);
-    returns the output frames written.  See `_stream_resample_impl`.
+    constant memory on ``device`` (default: the mesh's first device, else
+    CUDA, raising without a GPU); returns the output frames written.  See
+    `_stream_resample_impl`.  ``mesh`` (with a frames axis of 2 or more)
+    splits each step over its frames axis.
     Under ``cfg.normalize_lufs`` a ``norm_info`` dict receives the measured
     ``source_lufs`` and the ``applied_gain_db`` (and ``gain_note``).
 
@@ -346,7 +359,9 @@ def stream_resample_file(
     try:
         return _stream_resample_impl(
             in_path, out_path, cfg, chunk_seconds, progress_cb, mesh,
-            latency_frames, noise_floor_db, resolve_device(device), norm_info)
+            latency_frames, noise_floor_db,
+            resolve_device(device if device is not None or mesh is None
+                           else mesh.devices.flat[0]), norm_info)
     except BaseException:
         try:
             os.unlink(out_path + ".part")
@@ -374,8 +389,8 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
     - Per-file dither seeds come from ``(cfg.seed, in_path)`` as in the
       batch scheduler, so a file streamed or batched carries the same noise.
     """
-    if mesh is not None:
-        raise not_ported("mesh")
+    if mesh is not None and mesh.shape["frames"] < 2:
+        raise ValueError("mesh has no frames axis to shard over")
     if cfg.chain is not None and not isinstance(cfg.chain, Chain):
         raise TypeError(
             "cfg.chain must be an f9tpu_torch.ops.chain.Chain (convert a "
@@ -516,48 +531,63 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
             route = (torch.from_numpy(np.where(r < 0, 0, r)).to(dev),
                      torch.from_numpy(r < 0).to(dev))
 
-        def read_chunk(start: int) -> np.ndarray:
-            """The chunk's span with its halos, DC-corrected, zero-padded
-            past both ends of the file (the mean comes off the real samples
-            only: a -mean step in the halos would smear an edge through the
-            filter)."""
-            lo = start - halo_left
-            hi = start + chunk_in + halo_right
+        def read_span(lo: int, length: int) -> np.ndarray:
+            """Frames ``[lo, lo + length)`` routed and DC-corrected,
+            zero-padded past both ends of the file (the mean comes off the
+            real samples only: a -mean step in the halos would smear an edge
+            through the filter)."""
+            hi = lo + length
             span = routed(reader.read(max(0, lo), hi - max(0, lo)))
             if cfg.remove_dc:
                 span = span - mean
             pad_l = max(0, -lo)
-            pad_r = (hi - lo) - pad_l - span.shape[1]
+            pad_r = length - pad_l - span.shape[1]
             return np.pad(span, ((0, 0), (pad_l, max(0, pad_r))))
 
-        def read_chunk_raw(start: int):
-            lo = start - halo_left
-            hi = start + chunk_in + halo_right
+        def read_span_raw(lo: int, length: int):
+            """The container bytes of frames ``[lo, lo + length)``,
+            zero-padded past both ends, and the real frames' span in it."""
+            hi = lo + length
             span_b = reader.read_raw(max(0, lo), hi - max(0, lo))
             pad_l = max(0, -lo)
-            buf = np.zeros((hi - lo) * bpf_in, np.uint8)
+            buf = np.zeros(length * bpf_in, np.uint8)
             buf[pad_l * bpf_in:pad_l * bpf_in + span_b.size] = span_b
             return buf, pad_l, pad_l + span_b.size // bpf_in
+
+        def finish(y, pos0: int, chain_pos: int) -> tuple:
+            """Everything after the SRC for the chunk ``y`` whose first
+            output sits at pre-trim position ``chain_pos``, on ``y``'s
+            device; ``carry`` (the chain's state) threads through."""
+            nonlocal carry
+            codes, env, carry = _finish_chunk(
+                y, carry, seeds_c.to(y.device), pos0, gain,
+                rate_out=cfg.target_rate, bits=cfg.bits, do_dither=cfg.dither,
+                chain=cfg.chain, chain_pos=chain_pos,
+                silent=None if silent is None else silent.to(y.device),
+                want_env=want_env, env_rms=env_rms, wire=wire)
+            return codes, env
 
         def dispatch(k: int) -> Download:
             # chunk k reads input at k*chunk_in and emits pre-trim output
             # positions k*chunk_out: the geometry is fixed, so dispatch runs
             # ahead of emission; `carry` threads through dispatch order
-            nonlocal carry
+            span = chunk_in + halo_left + halo_right
             if in_wire is not None:
-                buf, a, b = read_chunk_raw(k * chunk_in)
+                buf, a, b = read_span_raw(k * chunk_in - halo_left, span)
                 xp = _raw_front(upload(buf, dev), in_wire=in_wire,
                                 in_channels=C_in, fanout=fanout, route=route,
                                 mean=mean_dev, valid=(a, b))
             else:
-                xp = upload(read_chunk(k * chunk_in), dev)
+                xp = upload(read_span(k * chunk_in - halo_left, span), dev)
             y = resample_presliced(xp, bank, cycles)
-            codes, env, carry = _finish_chunk(
-                y, carry, seeds_c, k * chunk_out - lat, gain,
-                rate_out=cfg.target_rate, bits=cfg.bits, do_dither=cfg.dither,
-                chain=cfg.chain, chain_pos=k * chunk_out, silent=silent,
-                want_env=want_env, env_rms=env_rms, wire=wire)
-            return Download(codes, env)
+            return Download(*finish(y, k * chunk_out - lat, k * chunk_out))
+
+        step_out = chunk_out
+        if mesh is not None:
+            step_out, dispatch = _sharded_dispatch(
+                mesh, bank, cycles, lat, read_span, read_span_raw, finish,
+                in_wire=in_wire, raw_args=(C_in, fanout, route, mean_dev),
+                shard_finish=cfg.chain is None)
 
         # atomic publish: stream into .part, os.replace at the end
         part = out_path + ".part"
@@ -571,7 +601,7 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
             # stream's length depends on the data, and at most one queued
             # chunk is discarded when the detector fires
             n_chunks = (None if detector is not None
-                        else -(-(out_limit + lat) // chunk_out))
+                        else -(-(out_limit + lat) // step_out))
             k = 0
             pending = None
             done = out_limit == 0
@@ -590,6 +620,90 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
         _carry_metadata(in_path, part, cfg, rate_in)
         os.replace(part, out_path)
         return em.written
+
+
+def _sharded_dispatch(mesh, bank, cycles: int, lat: int, read_span, read_span_raw, finish,
+                      *, in_wire, raw_args, shard_finish: bool):
+    """The step of the sharded stream: ``(super_out, dispatch)``, where
+    ``dispatch(k)`` queues super-chunk k, ``n`` chunks of ``cycles`` cycles
+    split over the mesh's frames axis, and returns its `Download`.
+
+    Dense banks: each shard takes its chunk (container bytes decoded on the
+    shard when ``in_wire``, else host floats), trades halos with its
+    neighbours (`frames_local`), and the outermost shards take the halos
+    read from the file.  Varispeed banks: the super-chunk is marshalled into
+    cycle rows on the host and split over the cycle axis; a row carries its
+    own overlap, so nothing is traded.  ``shard_finish``: each shard also
+    runs ``finish`` (gain, dither at its absolute positions, packing) and
+    the codes are gathered; otherwise (a chain, whose state is sequential)
+    the SRC output is gathered and finished on the first device."""
+    from ..ops.resample import (banded_rows_applicable, banded_rows_plan,
+                                marshal_banded_rows, resample_banded_rows_pre)
+    from ..parallel import P, run_sharded, shard_halos
+    from ..parallel.sharding import frames_local
+
+    sub = mesh.sub(("frames",))
+    n = sub.shape["frames"]
+    M, L = bank.M, bank.L
+    chunk_in, chunk_out = cycles * M, cycles * L
+    super_in, super_out = n * chunk_in, n * chunk_out
+    halo_left, halo_right = shard_halos(bank)
+    if max(halo_left, halo_right) > chunk_in:
+        raise ValueError(
+            f"chunk of {chunk_in} frames is smaller than the filter halo "
+            f"({max(halo_left, halo_right)}); raise chunk_seconds")
+    rows_form = banded_rows_applicable(bank)
+    if rows_form:
+        w_rows = banded_rows_plan(bank, 0)[1]
+        rows_need = (n * cycles - 1) * M + w_rows
+    C_in, fanout, route, mean_dev = raw_args
+    frames = P(None, "frames")
+
+    def local(ctx, xc, ol, orr, k, raw_valid):
+        idx = ctx.axis_index("frames")
+        if rows_form:
+            y = resample_banded_rows_pre(xc, bank).reshape(xc.shape[0], chunk_out)
+        else:
+            if raw_valid is not None:
+                xc = _raw_front(xc, in_wire=in_wire, in_channels=C_in, fanout=fanout,
+                                route=(None if route is None
+                                       else tuple(t.to(ctx.device) for t in route)),
+                                mean=None if mean_dev is None else mean_dev.to(ctx.device),
+                                valid=raw_valid, idx_offset=idx * chunk_in)
+            y = frames_local(ctx, xc, ol, orr, bank)
+        if not shard_finish:
+            return (y,)
+        # positions of this shard's outputs in the whole stream
+        return finish(y, k * super_out + idx * chunk_out - lat, k * super_out)
+
+    def dispatch(k: int) -> Download:
+        start = k * super_in
+        raw_valid = None
+        if rows_form:
+            x = marshal_banded_rows(read_span(start - bank.pad_front, rows_need), bank,
+                                    n_rows=n * cycles)
+            ol = orr = None
+            spec = P(None, "frames", None)
+        else:
+            if in_wire is not None:
+                x, a, b = read_span_raw(start, super_in)
+                raw_valid, spec = (a, b), P("frames")
+            else:
+                x, spec = read_span(start, super_in), frames
+            ol = read_span(start - halo_left, halo_left)
+            orr = read_span(start + super_in, halo_right)
+        out = run_sharded(sub, local, (x, ol, orr, k, raw_valid),
+                          (spec, P(), P(), None, None),
+                          (frames,) if not shard_finish else None)
+        if not shard_finish:
+            return Download(*finish(out[0], k * super_out - lat, k * super_out))
+        codes = [o[0] for o in out]
+        env = [o[1] for o in out]
+        dev0 = sub.devices.flat[0]
+        return Download(torch.cat([c.to(dev0) for c in codes], dim=-1),
+                        None if env[0] is None else torch.cat([e.to(dev0) for e in env]))
+
+    return super_out, dispatch
 
 
 def _carry_metadata(in_path: str, out_path: str, cfg, rate_in: int) -> None:

@@ -331,12 +331,28 @@ def test_cli_process_profile_writes_a_trace(tmp_path, capsys):
     (["--channel-shards", "4"], "Multi-device"),
 ])
 def test_cli_unported_process_options_exit_2(tmp_path, capsys, flags, item):
-    paths = make_files(tmp_path, 1)
+    """``--device-layout rows`` exits 2 naming its ROADMAP item.  The
+    multi-device options did too and now run on a CPU mesh of that many
+    shards, each file's bytes those of the one-device run."""
+    paths = make_files(tmp_path, 2)
     for sub in (["process", *paths], ["watch", str(tmp_path)]):
-        extra = ["--sweeps", "1", "--interval", "0.05"] if sub[0] == "watch" else []
-        rc, _, err = _run(cli.main, [*sub, "--out", str(tmp_path / "o"), *flags, *extra, *CPU],
-                          capsys)
-        assert rc == 2 and item in err and "ROADMAP" in err, (sub[0], err)
+        # a watched file is taken once its size held over two sweeps
+        extra = ["--sweeps", "2", "--interval", "0.05"] if sub[0] == "watch" else []
+        out = str(tmp_path / f"o_{sub[0]}")
+        rc, _, err = _run(cli.main, [*sub, "--out", out, "--quality", "low", *flags, *extra,
+                                     *CPU], capsys)
+        if item != "Multi-device":
+            assert rc == 2 and item in err and "ROADMAP" in err, (sub[0], err)
+            continue
+        one = str(tmp_path / f"one_{sub[0]}")
+        assert rc == 0, (sub[0], err)
+        assert _run(cli.main, [*sub, "--out", one, "--quality", "low", *extra, *CPU],
+                    capsys)[0] == 0
+        for p in paths:
+            stem = os.path.splitext(os.path.basename(p))[0]
+            with open(os.path.join(out, f"{stem}_processed.wav"), "rb") as a, \
+                    open(os.path.join(one, f"{stem}_processed.wav"), "rb") as b:
+                assert a.read() == b.read(), (sub[0], p)
 
 
 def test_cli_device_layout_packed_and_version(tmp_path, capsys):

@@ -159,21 +159,37 @@ def test_exact_length_math_and_its_guard():
 
 @pytest.mark.parametrize("what", ["rows_layout", "channel_axis"])
 def test_unported_options_name_their_roadmap_item(what):
-    """The graph's remaining refusals name their ROADMAP item; the insert
-    chain, reverb mode and channel routing are ported and refuse nothing."""
-    assert not set(tgraph.NOT_PORTED) & {"chain", "reverb_mode", "channel_routing"}
-    cfg = TConfig(output_dir="/tmp/x", target_rate=48000)
+    """The graph's remaining refusal (the rows layout) names its ROADMAP
+    item; the insert chain, reverb mode, channel routing and the channel
+    axis are ported and refuse nothing.  A graph run on two channel shards
+    (`run_sharded`, the channel axis's collectives) gives the one-device
+    graph's codes and metrics."""
+    assert not set(tgraph.NOT_PORTED) & {"chain", "reverb_mode", "channel_routing",
+                                         "channel_axis", "mesh"}
+    cfg = TConfig(output_dir="/tmp/x", target_rate=48000, quality="low", reverb_mode=True)
     x = torch.zeros((1, 2, 100))
     if what == "rows_layout":
         with pytest.raises(NotImplementedError, match="rows layout"):
             tgraph.process_batch(x, [100], cfg, 44100, [1], rows_layout=True)
-    else:
-        with pytest.raises(NotImplementedError, match="Multi-device"):
-            tgraph._process_impl(x, torch.tensor([100], dtype=torch.int32), 0,
-                                 torch.tensor(1.0), torch.tensor([1], dtype=torch.int32),
-                                 rate_in=44100, rate_out=48000,
-                                 cfg_key=tgraph._cfg_key(cfg, 0),
-                                 channel_axis="channels")
+        return
+    from f9tpu_torch.parallel import P, make_mesh, run_sharded
+
+    x = torch.from_numpy(_float_batch(4, seed=5))
+    args = (x, torch.from_numpy(VALID), torch.zeros(FILES, dtype=torch.int64),
+            torch.tensor(1.0), torch.from_numpy(SEEDS))
+    kw = dict(rate_in=44100, rate_out=48000, cfg_key=tgraph._cfg_key(cfg, 2000),
+              static_zero_latency=True)
+    want = tgraph._process_impl(*args, **kw)
+    got = run_sharded(
+        make_mesh(1, 1, 2, devices=["cpu"] * 2),
+        lambda ctx, *a: tgraph._process_impl(*a, channel_axis=ctx.axis("channels"), **kw),
+        args, (P(None, "channels"), P(), P(), P(), P()),
+        (P(None, "channels"), P(), P(), P(), P(), P()))
+    for k, (g, w) in enumerate(zip(got, want)):
+        if k == 4:          # rms: a sum of two shards' partial sums
+            assert torch.allclose(g, w, rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(g, w), k
 
 
 def test_a_file_s_codes_do_not_depend_on_its_row_in_the_batch():

@@ -133,19 +133,27 @@ def test_oversized_file_fails_alone(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"normalize_lufs": -14.0}, {"device_layout": "rows"},
+    {"mesh": 2}, {"normalize_lufs": -14.0}, {"device_layout": "rows"},
     {"native_loader": True}])
 def test_unported_options_are_refused(tmp_path, kw):
-    """Meshes, the rows layout and the native loader are refused when the
-    processor is built; loudness normalization was, and now builds."""
+    """The rows layout and the native loader are refused when the processor
+    is built; loudness normalization and a mesh were, and now build (a mesh
+    of 2 CPU shards; the processor's device is then the mesh's first)."""
     kw = dict(kw)
-    mesh = kw.pop("mesh", None)
+    shards = kw.pop("mesh", None)
     cfg = TConfig(output_dir=str(tmp_path), **kw)
     if "normalize_lufs" in kw:
         assert tsched.BatchProcessor(cfg, device="cpu").cfg.normalize_lufs == -14.0
         return
+    if shards:
+        from f9tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(shards, devices=["cpu"] * shards)
+        bp = tsched.BatchProcessor(cfg, mesh=mesh)
+        assert bp.mesh is mesh and bp.device.type == "cpu"
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        tsched.BatchProcessor(cfg, mesh=mesh, device="cpu")
+        tsched.BatchProcessor(cfg, device="cpu")
 
 
 def _write_irs(d) -> tuple[str, str]:

@@ -324,8 +324,9 @@ def test_failed_stream_removes_part_and_refuses_out_equals_in(tmp_path, monkeypa
 
 @pytest.mark.parametrize("what", ["mesh", "normalize_lufs", "varispeed"])
 def test_unported_stream_options_raise(tmp_path, what):
-    """A mesh still raises with its ROADMAP item; loudness normalization and
-    a varispeed rate, which used to, now stream to the exact frame count."""
+    """A mesh, loudness normalization and a varispeed rate, which used to
+    raise, now stream to the exact frame count; on a mesh of 2 frames
+    shards the bytes are the one-device stream's."""
     src = _write_src(tmp_path, 2, 25000)
     kw = dict(output_dir=str(tmp_path), quality="low",
               target_rate=44056 if what == "varispeed" else 48000)
@@ -333,8 +334,15 @@ def test_unported_stream_options_raise(tmp_path, what):
         kw["normalize_lufs"] = -14.0
     out = str(tmp_path / "o.wav")
     if what == "mesh":
-        with pytest.raises(NotImplementedError, match="Multi-device"):
-            tstream.stream_resample_file(src, out, TConfig(**kw), device="cpu", mesh=object())
+        from f9tpu_torch.parallel import make_mesh
+
+        one = str(tmp_path / "one.wav")
+        n = tstream.stream_resample_file(src, out, TConfig(**kw), chunk_seconds=0.3,
+                                         mesh=make_mesh(1, 2, devices=["cpu"] * 2))
+        assert n == tstream.stream_resample_file(src, one, TConfig(**kw), chunk_seconds=0.3,
+                                                 device="cpu")
+        assert n == design_cycle_bank(44100, 48000, quality="low").out_len(25000)
+        assert _bytes(out) == _bytes(one)
     else:
         norm = {}
         n = tstream.stream_resample_file(src, out, TConfig(**kw), chunk_seconds=0.3,
@@ -348,8 +356,9 @@ def test_unported_stream_options_raise(tmp_path, what):
                                         (["--normalize-lufs=-14"], "Loudness")],
                          ids=["frames_shards", "normalize_lufs"])
 def test_cli_stream_unported_flags_exit_2(tmp_path, capsys, flags, item):
-    """``--frames-shards 2`` exits 2 with its ROADMAP item; ``--normalize-lufs``
-    did and now runs, reporting the measured loudness and the gain."""
+    """``--frames-shards 2`` and ``--normalize-lufs`` exited 2 and now run:
+    the first on a CPU mesh of 2 frames shards, with the one-device run's
+    bytes; the second reporting the measured loudness and the gain."""
     src = _write_src(tmp_path, 2, 25000)
     rc = cli.main(["stream", src, "--out", str(tmp_path / "o.wav"), "--device", "cpu",
                    "--json", *flags])
@@ -358,7 +367,11 @@ def test_cli_stream_unported_flags_exit_2(tmp_path, capsys, flags, item):
         res = json.loads(cap.out)
         assert rc == 0 and abs(res["source_lufs"] + res["applied_gain_db"] + 14.0) <= 0.011
     else:
-        assert rc == 2 and item in cap.err
+        assert rc == 0, cap.err
+        assert cli.main(["stream", src, "--out", str(tmp_path / "one.wav"), "--device",
+                         "cpu", "--json"]) == 0
+        capsys.readouterr()
+        assert _bytes(str(tmp_path / "o.wav")) == _bytes(str(tmp_path / "one.wav"))
 
 
 def test_cli_stream_matches_jax(tmp_path, capsys):
