@@ -62,8 +62,7 @@ its results, any failure exiting non-zero:
    cycle rows, which the port never calls), and the bound; the output's
    sha256 equal to the first design's (`WINDOWED_DIGESTS`); (b) a 2^22-frame
    stereo signal whole and as haloed chunks of 100, 37 and 29 cycles (29: a
-   smaller tile group), and flat against marshalled cycle rows: 0 outputs
-   differ; one launch's device time
+   smaller tile group): 0 outputs differ; one launch's device time
    at the stream's chunk shapes (2 x 80 and 2 x 29 cycles); (c) `cli process --rate 44056` on 8 stereo 24-bit 44.1 kHz WAVs
    of 50-60 s (8 completed, launches from zero, <= 2 LSB against the CPU
    path, <= -120 dB against the oracle) and `cli stream --rate 44056` on a
@@ -105,8 +104,10 @@ its results, any failure exiting non-zero:
    frames shards, default bank and 176.4k -> 48k high: bitwise the
    unsharded kernel's output, device ms of both; (d) the 10-minute file
    through `stream_resample_file(mesh=4 frames shards)` without a chain,
-   with phase 5's chain and at 44,056 Hz (cycle rows): sha256 equal to the
-   one-device stream, wall and x real time; and `cli process --files-shards
+   with phase 5's chain and at 44,056 Hz (the varispeed bank's haloed
+   chunks, as for dense banks): sha256 equal to the one-device stream, wall
+   and x real time; the host's cost of one `run_sharded` call on 4 shards
+   (a no-op, one `psum`, two `ppermute`s); and `cli process --files-shards
    2` on the one card exits non-zero with the mesh's size.  Kernel launches
    are counted from zero for (a)-(d).
 
@@ -940,8 +941,7 @@ def _stream_kernel_check(card: str, dev, frames: int = 1 << 22, banks=DENSE_BANK
     pad) against the same signal cut into haloed chunks
     (`resample_presliced`, pad 0) of two cycle counts: equal bit for bit,
     and every chunk within `TWIN_TOL` of its plain twin (the float64 fold;
-    for a varispeed bank the float64 gather).  A varispeed bank also runs
-    on marshalled cycle rows: equal to the flat form bit for bit."""
+    for a varispeed bank the float64 gather)."""
     import numpy as np
     import torch
 
@@ -963,19 +963,6 @@ def _stream_kernel_check(card: str, dev, frames: int = 1 << 22, banks=DENSE_BANK
         # halos as the stream reads them
         xp = torch.zeros((2, (Q + max(cycle_counts)) * bank.M + bank.W), device=dev)
         xp[:, bank.pad_front:bank.pad_front + frames] = x
-        if bank.G is None:
-            n0 = sk.launches_windowed
-            w_rows = tr.banded_rows_plan(bank, frames)[1]
-            rows = xp[:, :(Q - 1) * bank.M + w_rows].unfold(-1, w_rows, bank.M).contiguous()
-            got = tr.resample_banded_rows_pre(rows, bank).reshape(2, -1)[:, :out_len]
-            torch.cuda.synchronize()
-            n_diff = int((got != whole).sum())
-            print(f"stream kernel {ri}->{ro} {q}: flat vs {Q} marshalled cycle rows of "
-                  f"{w_rows} floats ({sk.launches_windowed - n0} windowed launch): {n_diff} "
-                  f"of {got.numel()} outputs differ [{card}]", flush=True)
-            if n_diff or sk.launches_windowed != n0 + 1:
-                raise AssertionError(f"stream kernel {ri}->{ro} {q}: rows form differs")
-            del rows, got
         for cycles in cycle_counts:
             outs, twin_err, n0 = [], 0.0, sk.launches
             for q0 in range(0, Q, cycles):
@@ -2364,7 +2351,7 @@ def _frames_axis(card: str, dev) -> tuple[int, int]:
 def _sharded_stream(card: str, work: str, dev) -> tuple[int, int]:
     """9d: a 10-minute stereo file through `stream_resample_file(mesh=1 x 4
     frames shards)` without a chain, with phase 5's chain and at 44,056 Hz
-    (cycle rows): sha256 equal to the one-device stream each time; wall
+    (a varispeed bank): sha256 equal to the one-device stream each time; wall
     and x real time of both."""
     import numpy as np
 
@@ -2394,7 +2381,7 @@ def _sharded_stream(card: str, work: str, dev) -> tuple[int, int]:
     for label, kw in (("no chain", dict(target_rate=48000)),
                       ("phase 5 chain", dict(target_rate=48000, chain=chain,
                                              latency_frames=lat)),
-                      ("44056 (cycle rows)", dict(target_rate=44056))):
+                      ("44056 (varispeed)", dict(target_rate=44056))):
         shas = []
         for m in (None, mesh):
             out = os.path.join(work, f"long_{len(shas)}.wav")
@@ -2421,6 +2408,39 @@ def _sharded_stream(card: str, work: str, dev) -> tuple[int, int]:
     if total[1] < 4 or total[0] - total[1] < 8:
         raise AssertionError(f"stream 9d: launches {total}")
     return total[0], total[1]
+
+
+def _run_sharded_cost(card: str, dev, calls: int = 200) -> None:
+    """The host's cost of one `run_sharded` call on 4 frames shards of the
+    card: median ms over ``calls`` calls of a no-op, of one ``psum`` and of
+    two ``ppermute``s (a frames shard's halo trade) on (2, 4096) floats,
+    synchronized after each call."""
+    import torch
+
+    from f9tpu_torch.parallel import P, make_mesh, run_sharded
+
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    x = torch.ones((2, 4 * 4096), device=dev)
+    right = [(i, i + 1) for i in range(3)]
+    left = [(i + 1, i) for i in range(3)]
+    bodies = {
+        "no-op": lambda ctx, a: a,
+        "psum": lambda ctx, a: ctx.psum(a, "frames"),
+        "2 ppermutes": lambda ctx, a: (ctx.ppermute(a, "frames", right)
+                                       + ctx.ppermute(a, "frames", left)),
+    }
+    parts = []
+    for name, fn in bodies.items():
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            run_sharded(mesh, fn, (x,), (P(None, "frames"),), P(None, "frames"))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        times.sort()
+        parts.append(f"{name} {1e3 * times[len(times) // 2]:.3f} ms")
+    print(f"run_sharded 9: 4 shards on one card, host ms per call (median of {calls}): "
+          f"{', '.join(parts)} [{card}]", flush=True)
 
 
 def _shards_cli_check(card: str, work: str) -> None:
@@ -2460,6 +2480,7 @@ def phase_multi_device(card: str, work: str, slice_work: str, dev) -> dict:
         t0 = time.time()
         counts[path] = fn()
         print(f"multi-device {path}: {time.time() - t0:.1f} s", flush=True)
+    _run_sharded_cost(card, dev)
     _shards_cli_check(card, work)
     print(f"multi-device: kernel launches by path (all, windowed) {counts} [{card}]",
           flush=True)

@@ -71,8 +71,8 @@
 // only a window of ~170-300 floats of each cycle.  The TPU gets this form
 // from XLA as one matmul per 128-output segment (f9tpu/ops/resample.py:202).
 // Rows are (signal, cycle) pairs of the whole launch, signal-major, so no
-// block idles at a signal's end; the cycle stride of the input is a
-// parameter (a flat signal, stride M, or marshalled cycle rows).  Its floor
+// block idles at a signal's end; the input is the flat signal, read at
+// cycle stride M.  Its floor
 // is memory as well (signal, output and the phase bank once: 0.082 ms for
 // 32 x 2^20 frames of 44.1k -> 44056 high).  What held its first design
 // (one window per row and tile, by 4-byte cp.async, then the math) at
@@ -752,9 +752,8 @@ int f9_cycle_src(const float* x, const void* gp, const int* tiles, float* y,
     return launch_nt<false>(nt, a, grid, 32 * warps, smem_bytes, (cudaStream_t)stream);
 }
 
-// The windowed form, for banks with no dense matrix.  As f9_cycle_src, but M
-// is the input's cycle stride (the bank's M on a flat signal, the row width
-// on marshalled cycle rows); a block owns `group` (1-4) neighbouring column
+// The windowed form, for banks with no dense matrix.  As f9_cycle_src; a
+// block owns `group` (1-4) neighbouring column
 // tiles and 16*warps rows, with 16*warps window slots of `pitch` floats
 // (pitch % 32 == 4, at least every group's union window plus a shift of 3,
 // in float4s); rowmap 1 (warps even) orders the rows of a slot group 4

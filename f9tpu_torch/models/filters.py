@@ -268,9 +268,9 @@ class CycleBank:
     ``y[q*L + p] = sum_w G[w, p] * x_padded[q*M + w]`` and
     ``x_padded = [zeros(pad_front), x, zeros(...)]``.  For varispeed ratios
     whose dense matrix would exceed `DENSE_MAX_ELEMS`, ``G`` is ``None`` and
-    execution uses the phase bank ``H`` directly — production dispatch is
-    the banded MXU path (`resample_banded` / `resample_banded_rows_pre`);
-    the gather path survives only as the slow cross-check.
+    execution uses the phase bank ``H`` directly: on a CUDA tensor the
+    kernel's windowed form (`resample_banded`), on a CPU tensor the float64
+    gather form.
     """
 
     L: int                 # upsampling factor (output samples per cycle)

@@ -18,11 +18,11 @@ Varispeed banks (``bank.G is None``: 44.1k -> 44056 reduces to L/M =
 phase bank.  The JAX package evaluates them as one matmul per 128-output
 segment (`_banded_eval_rows`); a library matmul picks its summation order by
 shape, which a streamed path must not depend on, so the port's forms are:
-on a CUDA tensor the `cycle_src` kernel's windowed launch form (flat,
-presliced or on marshalled cycle rows), and on a CPU tensor the plain twin
+on a CUDA tensor the `cycle_src` kernel's windowed launch form (flat or
+presliced), and on a CPU tensor the plain twin
 `_gather_core`: K passes, k ascending, ``y += x[base(n) + k] * Hrev[ph(n),
 k]`` in float64, rounded to float32 once.  Each output sums its own taps in
-one fixed order, so flat == rows and chunked == whole bit for bit on either
+one fixed order, so chunked == whole bit for bit on either
 device.  A varispeed bank whose window does not fit the kernel's shared
 memory takes the twin on both devices.
 """
@@ -38,9 +38,7 @@ import torch.nn.functional as F
 from ..models.filters import CycleBank, _cycle_tables, design_cycle_bank
 
 __all__ = ["resample", "resample_banded", "resample_gather", "resample_rates",
-           "resample_presliced", "cycle_matrix_f32", "bank_to_torch",
-           "banded_rows_applicable", "banded_rows_plan", "marshal_banded_rows",
-           "resample_banded_rows_pre"]
+           "resample_presliced", "cycle_matrix_f32", "bank_to_torch"]
 
 #: Cap on the (rows x W) window matrix `resample` materialises per matmul.
 _WINDOW_ELEMS = 1 << 26
@@ -51,7 +49,7 @@ def _require_dense(bank: CycleBank) -> None:
         raise RuntimeError(
             f"dense cycle matrix disabled for ratio {bank.L}/{bank.M} "
             f"(would be {bank.W}x{bank.L}); this bank runs via the banded "
-            "forms (resample_banded / resample_banded_rows_pre, dispatched "
+            "forms (resample_banded / resample_presliced, dispatched "
             "by resample / resample_auto)")
 
 
@@ -255,20 +253,6 @@ def _gather_core(xp: torch.Tensor, bank: CycleBank, n_out: int) -> torch.Tensor:
     return y.to(xp.dtype).reshape(*lead, n_out)
 
 
-def _gather_rows(rows: torch.Tensor, bank: CycleBank) -> torch.Tensor:
-    """`_gather_core` on cycle rows ``(..., Q, w_rows)`` -> ``(..., Q, L)``:
-    row q's output p sums ``rows[..., q, off[p] + k] * Hrev[ph[p], k]`` in
-    the same k order, so it equals the flat form bit for bit."""
-    K = bank.taps_per_phase
-    lead, Q, w = rows.shape[:-2], rows.shape[-2], rows.shape[-1]
-    r64 = rows.reshape(-1, Q, w).to(torch.float64)
-    hrev_t, off, ph = _phase_bank_f64(bank, rows.device)
-    y = torch.zeros((r64.shape[0], Q, bank.L), dtype=torch.float64, device=rows.device)
-    for k in range(K):
-        y.addcmul_(r64.index_select(2, off + k), hrev_t[k].index_select(0, ph))
-    return y.to(rows.dtype).reshape(*lead, Q, bank.L)
-
-
 def resample_gather(x: torch.Tensor, bank: CycleBank,
                     out_len: int | None = None) -> torch.Tensor:
     """Drop-in equivalent of `resample` through the phase-table gather form,
@@ -282,8 +266,8 @@ def resample_gather(x: torch.Tensor, bank: CycleBank,
 
 
 #: Outputs per banded segment and the alignment of a segment's first input
-#: (the JAX package's MXU lane tile; kept so `_banded_plan`, and with it the
-#: cycle rows' width, equal the JAX package's).
+#: (the JAX package's MXU lane tile; kept so `_banded_plan` equals the JAX
+#: package's).
 _BAND_SEG = 128
 _LANE = 128
 
@@ -292,8 +276,8 @@ _LANE = 128
 def _banded_geometry(bank: CycleBank) -> tuple[tuple[int, ...], int, int, int]:
     """``(in0, w, seg, w_rows)``: the JAX package's banded decomposition of
     a cycle into S overlapping 128-output segments over lane-aligned input
-    windows of ``w`` floats; ``w_rows`` is the width of a marshalled cycle
-    row (`banded_rows_plan`)."""
+    windows of ``w`` floats; ``w_rows`` is the width of the JAX package's
+    marshalled cycle row, kept so the plan's tuple equals that package's."""
     L, K = bank.L, bank.taps_per_phase
     seg = min(_BAND_SEG, L)
     off, _ph = _phase_tables(bank)
@@ -325,38 +309,6 @@ def _banded_plan(bank: CycleBank):
     return in0, w, seg, w_rows, G
 
 
-def _rows_width(bank: CycleBank) -> int:
-    return _banded_geometry(bank)[3]
-
-
-def banded_rows_applicable(bank: CycleBank) -> bool:
-    """Can this bank run on marshalled cycle rows?  Meant for varispeed
-    banks (no dense matrix); dense banks have `resample_rows`."""
-    return bank.G is None and bank.L >= 8 and bank.L * bank.M < 2**31
-
-
-def banded_rows_plan(bank: CycleBank, frames: int) -> tuple[int, int, int]:
-    """``(n_rows, row_width, pad_front)`` for marshalling a ``frames``-long
-    signal into overlapping cycle rows: row q holds ``padded[q*M : q*M +
-    row_width]`` of the zero-padded signal (zeros outside ``[pad_front,
-    pad_front + frames)``)."""
-    n_out = bank.out_len(frames)
-    return -(-n_out // bank.L), _rows_width(bank), bank.pad_front
-
-
-def marshal_banded_rows(flat: np.ndarray, bank: CycleBank,
-                        n_rows: int | None = None) -> np.ndarray:
-    """Overlapping cycle rows from zero-padded flat staging ``(..., total)``
-    (numpy): one strided window view and one contiguous copy.  ``flat``
-    holds the signal at offset ``pad_front`` (`banded_rows_plan`);
-    ``n_rows`` caps the row count when the staging has room to spare."""
-    v = np.lib.stride_tricks.sliding_window_view(
-        flat, _rows_width(bank), axis=-1)[..., ::bank.M, :]
-    if n_rows is not None:
-        v = v[..., :n_rows, :]
-    return np.ascontiguousarray(v)
-
-
 def _kernel_takes(t: torch.Tensor, bank: CycleBank) -> bool:
     """Does ``t`` go to the kernel's wrapper?  Only a CPU tensor takes the
     plain twin of a bank the kernel takes; the wrapper raises on any other
@@ -366,21 +318,6 @@ def _kernel_takes(t: torch.Tensor, bank: CycleBank) -> bool:
     from .src_kernel import kernel_applicable
 
     return kernel_applicable(bank)
-
-
-def resample_banded_rows_pre(xrows: torch.Tensor, bank: CycleBank) -> torch.Tensor:
-    """Varispeed SRC on rows-marshalled input ``(..., Q, row_width)`` ->
-    ``(..., Q, L)`` cycle rows (output sample t at ``[..., t // L, t % L]``).
-    On a CUDA tensor the kernel reads row q's window at stride
-    ``row_width`` in place of M; the same floats as `resample_banded` bit
-    for bit, on either device."""
-    if xrows.shape[-1] != _rows_width(bank):
-        raise ValueError(f"cycle-row width {xrows.shape[-1]} != plan {_rows_width(bank)}")
-    if _kernel_takes(xrows, bank):
-        from .src_kernel import resample_banded_rows_kernel
-
-        return resample_banded_rows_kernel(xrows, bank)
-    return _gather_rows(xrows, bank)
 
 
 def resample_banded(x: torch.Tensor, bank: CycleBank,

@@ -51,12 +51,12 @@ import torch
 from ..models.filters import CycleBank
 
 from .resample import (_gather_core, _h_rev_f32_cached, _pad_for_cycles,
-                       _phase_tables, _rows_width, cycle_matrix_f32, resample)
+                       _phase_tables, cycle_matrix_f32, resample)
 
 __all__ = ["kernel_applicable", "kernel_plan", "packed_bank_f32", "tf32_rna",
            "resample_rows", "resample_rows_reference", "resample_kernel",
            "resample_auto", "resample_presliced_kernel",
-           "resample_banded_rows_kernel", "rows_marshal_plan",
+           "rows_marshal_plan",
            "stacked_bank_f32", "window_traffic", "launches", "launches_windowed"]
 
 #: CUDA kernel launches since the count was last reset (a plain integer:
@@ -475,17 +475,15 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
-            out_stride: int, pad_front: int | None = None,
-            in_stride: int | None = None) -> torch.Tensor:
+            out_stride: int, pad_front: int | None = None) -> torch.Tensor:
     """One kernel launch over ``xf (bc, T)``: ``(bc, out_stride)`` float32 of
     which samples ``[0, out_len)`` are written.  Output cycle q reads
     ``xf[:, q*M - pad_front + w]`` (zero outside ``[0, T)``); ``pad_front``
     defaults to the bank's, 0 reads an already haloed chunk.
 
-    A varispeed bank launches the windowed form: ``in_stride`` replaces M as
-    the input's cycle stride (marshalled cycle rows), and a launch of few
-    rows takes fewer warps or a smaller group than the plan's
-    (`_win_launch`); neither moves an output's summation order."""
+    A varispeed bank launches the windowed form: a launch of few rows takes
+    fewer warps or a smaller group than the plan's (`_win_launch`); neither
+    moves an output's summation order."""
     global launches, launches_windowed
     if xf.dtype != torch.float32:
         raise TypeError(f"cycle_src kernel takes float32, got {xf.dtype}")
@@ -502,8 +500,6 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
     if plan is None:
         raise ValueError(f"the cycle_src kernel does not take bank L={bank.L} "
                          f"M={bank.M} W={bank.W}")
-    if in_stride is not None and not plan.pitch:
-        raise ValueError("a cycle stride other than M needs the windowed form")
     from ._build import load_library
 
     lib = load_library()
@@ -522,9 +518,8 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
             warps, rowmap, group, pitch, smem = _win_launch(plan, n_rows,
                                                             _sm_count(xf.device))
             err = lib.f9_cycle_src_win(
-                *ptrs, bc, T, T, pf, bank.M if in_stride is None else in_stride,
-                bank.L, Q, out_len, out_stride, plan.nt, len(plan.bands), warps,
-                pitch, group, rowmap, smem, stream)
+                *ptrs, bc, T, T, pf, bank.M, bank.L, Q, out_len, out_stride, plan.nt,
+                len(plan.bands), warps, pitch, group, rowmap, smem, stream)
         else:
             err = lib.f9_cycle_src(
                 *ptrs, bc, T, T, pf, bank.M, bank.L, Q, out_len, out_stride,
@@ -637,22 +632,6 @@ def resample_presliced_kernel(xp: torch.Tensor, bank: CycleBank,
     n = num_cycles * bank.L
     y = _launch(xp.reshape(-1, T).contiguous(), bank, num_cycles, n, n, pad_front=0)
     return y.reshape(*lead, n)
-
-
-def resample_banded_rows_kernel(xrows: torch.Tensor, bank: CycleBank) -> torch.Tensor:
-    """The windowed form on marshalled cycle rows ``(..., Q, row_width)`` of
-    a varispeed bank -> ``(..., Q, L)``: one launch whose cycle stride is
-    the row width (`f9tpu_torch.ops.resample.resample_banded_rows_pre`).
-    Row q's window holds the floats the flat form reads at ``q*M``, and the
-    taps past a row's width meet zero columns of the packed bank."""
-    lead, Q, w = xrows.shape[:-2], xrows.shape[-2], xrows.shape[-1]
-    if w != _rows_width(bank):
-        raise ValueError(f"cycle-row width {w} != plan {_rows_width(bank)}")
-    if Q == 0:
-        return xrows.new_zeros((*lead, 0, bank.L))
-    y = _launch(xrows.reshape(-1, Q * w).contiguous(), bank, Q, Q * bank.L, Q * bank.L,
-                pad_front=0, in_stride=w)
-    return y.reshape(*lead, Q, bank.L)
 
 
 def resample_auto(x: torch.Tensor, bank: CycleBank,

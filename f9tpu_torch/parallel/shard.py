@@ -16,6 +16,11 @@ over a mesh axis.
   result's bytes do not depend on which thread came first.
 - ``ppermute`` hands each member the tensor of the member that sends to it
   (zeros if none does), as ``jax.lax.ppermute``.
+- A tensor given to a collective, and a reduction's result, may be written
+  in place once the collective returns: a ``psum`` / ``pmax`` member returns
+  only after the first shard's reads of its tensor (the result's event
+  follows them), and the first shard's result and a ``ppermute``'d tensor
+  are offered as copies made on the giver's stream.
 
 Every wait in a collective has a timeout.  A shard that raises aborts the
 run: the others raise `ShardAborted` from their next or current wait, and
@@ -148,9 +153,12 @@ class ShardContext:
         self._seq[name] += 1
         return group.exchange(seq, self.coord[a], item)
 
-    def _post(self, t: torch.Tensor):
-        """A tensor offered to the group, with an event after the work that
-        made it."""
+    def _post(self, t: torch.Tensor, copy: bool = False):
+        """``t`` (or, with ``copy``, a copy of it that the poster never
+        writes) offered to the group, with an event after the work that made
+        it."""
+        if copy:
+            t = t.clone()
         ev = torch.cuda.current_stream(t.device).record_event() if t.is_cuda else None
         return t, ev
 
@@ -172,7 +180,8 @@ class ShardContext:
             acc = t
             for item in items[1:]:
                 acc = op(acc, self._take(item))
-        out = self._exchange(name, self._post(acc) if first else None)[0]
+        # the others read acc after this shard has returned it: a copy
+        out = self._exchange(name, self._post(acc, copy=True) if first else None)[0]
         return acc if first else self._take(out)
 
     def psum(self, t: torch.Tensor, name: str) -> torch.Tensor:
@@ -186,8 +195,10 @@ class ShardContext:
     def ppermute(self, t: torch.Tensor, name: str, perm) -> torch.Tensor:
         """``perm`` is a list of (source, destination) axis indices: each
         member gets its source's tensor, or zeros if none sends to it."""
-        items = self._exchange(name, self._post(t))
         me = self.axis_index(name)
+        sends = any(s == me for s, _ in perm)
+        # the receiver reads after this shard has returned: a copy
+        items = self._exchange(name, self._post(t, copy=True) if sends else None)
         src = [s for s, d in perm if d == me]
         return self._take(items[src[0]]) if src else torch.zeros_like(t)
 

@@ -40,17 +40,15 @@ __all__ = [
 ]
 
 
-def process_files_sharded(mesh: Mesh, fn, x, *args, gather: bool = True):
+def process_files_sharded(mesh: Mesh, fn, x, *args) -> list:
     """Run ``fn(x, *args)`` with ``x (files, ...)`` split over the mesh's
     files axis, each shard on its device (the other axes keep their first
     device: files are independent, one copy of each is enough).  An
     argument that is an array with ``x``'s files dimension (per-file
     lengths, seeds, gains) is split with it; any other is passed whole.
 
-    Returns ``fn``'s output gathered in file order on the mesh's first
-    device (a tensor, a tuple of tensors or a dataclass of them), or with
-    ``gather=False`` the shards' outputs as they are, in file order (the
-    scheduler downloads each shard's results itself)."""
+    Returns the shards' outputs as they are, on their devices, in file
+    order (the scheduler downloads each shard's results itself)."""
     sub = mesh.sub(("files",))
     files = x.shape[0]
 
@@ -59,26 +57,8 @@ def process_files_sharded(mesh: Mesh, fn, x, *args, gather: bool = True):
                     and a.shape[0] == files)
         return P("files") if per_file else P()
 
-    outs = run_sharded(sub, lambda ctx, *a: fn(*a), (x, *args),
+    return run_sharded(sub, lambda ctx, *a: fn(*a), (x, *args),
                        (P("files"), *(split(a) for a in args)), None)
-    if not gather:
-        return outs
-    dev = sub.devices.flat[0]
-
-    def cat(parts):
-        first = parts[0]
-        if isinstance(first, torch.Tensor):
-            return torch.cat([p.to(dev) for p in parts])
-        if isinstance(first, tuple):
-            return tuple(cat(list(z)) for z in zip(*parts))
-        if dataclasses.is_dataclass(first):
-            return dataclasses.replace(first, **{
-                f.name: cat([getattr(p, f.name) for p in parts])
-                for f in dataclasses.fields(first)
-                if isinstance(getattr(first, f.name), torch.Tensor)})
-        raise TypeError(f"cannot gather a {type(first).__name__}")
-
-    return cat(outs)
 
 
 def channels_shardable(cfg, num_channels: int, mesh: Mesh) -> tuple[bool, str]:

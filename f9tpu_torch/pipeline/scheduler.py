@@ -730,7 +730,7 @@ class BatchProcessor:
                     # with the batch
                     dl = process_files_sharded(
                         self.mesh, lambda x, v, sd, g: step(x, v, sd, g, device=x.device),
-                        xt, valid, seeds, norm_gains, gather=False)
+                        xt, valid, seeds, norm_gains)
                 else:
                     dl = step(xt, valid, seeds, norm_gains)
             except Exception as err:

@@ -39,9 +39,8 @@ n_shards chunks split over the frames axis (`run_sharded`): each shard
 decodes its part of the container bytes, trades filter halos with its
 neighbours (`f9tpu_torch.parallel.sharding.frames_local`; the super-chunk's
 outer halos are read from the file), resamples, and, without a chain, runs
-the finish with its positions offset.  Varispeed banks go as cycle rows
-marshalled on the host and split over the cycle axis, with no halo to
-trade.  A chain's state is sequential over frames, so with a chain the
+the finish with its positions offset; varispeed banks too, as on one
+device.  A chain's state is sequential over frames, so with a chain the
 super-chunk's SRC output is gathered on the first device and finished
 there.  The host writes the super-chunks in file order through the same
 `_Emitter`, so the bytes equal the one-device stream's.
@@ -628,17 +627,13 @@ def _sharded_dispatch(mesh, bank, cycles: int, lat: int, read_span, read_span_ra
     ``dispatch(k)`` queues super-chunk k, ``n`` chunks of ``cycles`` cycles
     split over the mesh's frames axis, and returns its `Download`.
 
-    Dense banks: each shard takes its chunk (container bytes decoded on the
-    shard when ``in_wire``, else host floats), trades halos with its
-    neighbours (`frames_local`), and the outermost shards take the halos
-    read from the file.  Varispeed banks: the super-chunk is marshalled into
-    cycle rows on the host and split over the cycle axis; a row carries its
-    own overlap, so nothing is traded.  ``shard_finish``: each shard also
+    Each shard takes its chunk (container bytes decoded on the shard when
+    ``in_wire``, else host floats), trades halos with its neighbours
+    (`frames_local`), and the outermost shards take the halos read from the
+    file; dense and varispeed banks alike.  ``shard_finish``: each shard also
     runs ``finish`` (gain, dither at its absolute positions, packing) and
     the codes are gathered; otherwise (a chain, whose state is sequential)
     the SRC output is gathered and finished on the first device."""
-    from ..ops.resample import (banded_rows_applicable, banded_rows_plan,
-                                marshal_banded_rows, resample_banded_rows_pre)
     from ..parallel import P, run_sharded, shard_halos
     from ..parallel.sharding import frames_local
 
@@ -652,25 +647,18 @@ def _sharded_dispatch(mesh, bank, cycles: int, lat: int, read_span, read_span_ra
         raise ValueError(
             f"chunk of {chunk_in} frames is smaller than the filter halo "
             f"({max(halo_left, halo_right)}); raise chunk_seconds")
-    rows_form = banded_rows_applicable(bank)
-    if rows_form:
-        w_rows = banded_rows_plan(bank, 0)[1]
-        rows_need = (n * cycles - 1) * M + w_rows
     C_in, fanout, route, mean_dev = raw_args
     frames = P(None, "frames")
 
     def local(ctx, xc, ol, orr, k, raw_valid):
         idx = ctx.axis_index("frames")
-        if rows_form:
-            y = resample_banded_rows_pre(xc, bank).reshape(xc.shape[0], chunk_out)
-        else:
-            if raw_valid is not None:
-                xc = _raw_front(xc, in_wire=in_wire, in_channels=C_in, fanout=fanout,
-                                route=(None if route is None
-                                       else tuple(t.to(ctx.device) for t in route)),
-                                mean=None if mean_dev is None else mean_dev.to(ctx.device),
-                                valid=raw_valid, idx_offset=idx * chunk_in)
-            y = frames_local(ctx, xc, ol, orr, bank)
+        if raw_valid is not None:
+            xc = _raw_front(xc, in_wire=in_wire, in_channels=C_in, fanout=fanout,
+                            route=(None if route is None
+                                   else tuple(t.to(ctx.device) for t in route)),
+                            mean=None if mean_dev is None else mean_dev.to(ctx.device),
+                            valid=raw_valid, idx_offset=idx * chunk_in)
+        y = frames_local(ctx, xc, ol, orr, bank)
         if not shard_finish:
             return (y,)
         # positions of this shard's outputs in the whole stream
@@ -679,19 +667,13 @@ def _sharded_dispatch(mesh, bank, cycles: int, lat: int, read_span, read_span_ra
     def dispatch(k: int) -> Download:
         start = k * super_in
         raw_valid = None
-        if rows_form:
-            x = marshal_banded_rows(read_span(start - bank.pad_front, rows_need), bank,
-                                    n_rows=n * cycles)
-            ol = orr = None
-            spec = P(None, "frames", None)
+        if in_wire is not None:
+            x, a, b = read_span_raw(start, super_in)
+            raw_valid, spec = (a, b), P("frames")
         else:
-            if in_wire is not None:
-                x, a, b = read_span_raw(start, super_in)
-                raw_valid, spec = (a, b), P("frames")
-            else:
-                x, spec = read_span(start, super_in), frames
-            ol = read_span(start - halo_left, halo_left)
-            orr = read_span(start + super_in, halo_right)
+            x, spec = read_span(start, super_in), frames
+        ol = read_span(start - halo_left, halo_left)
+        orr = read_span(start + super_in, halo_right)
         out = run_sharded(sub, local, (x, ol, orr, k, raw_valid),
                           (spec, P(), P(), None, None),
                           (frames,) if not shard_finish else None)

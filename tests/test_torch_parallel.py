@@ -26,6 +26,7 @@ Torch runs on one CPU thread per shard (`_one_thread`): the suite runs
 files in parallel processes.
 """
 
+import dataclasses
 import hashlib
 import os
 import sys
@@ -95,6 +96,15 @@ def _codes(path):
 def _sha(path) -> str:
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
+
+
+def _cat(parts):
+    """The per-shard results of `process_files_sharded` (graph results,
+    files on dimension 0) as one, in file order."""
+    return dataclasses.replace(parts[0], **{
+        f.name: torch.cat([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(parts[0])
+        if isinstance(getattr(parts[0], f.name), torch.Tensor)})
 
 
 def _check_metrics(got, ref, rms_rtol=1e-5):
@@ -196,6 +206,42 @@ def test_collectives_reduce_in_shard_order():
         sys.setswitchinterval(old)
 
 
+@pytest.mark.parametrize("op", ["ppermute", "psum"])
+def test_a_shard_may_write_what_it_gave(monkeypatch, op):
+    """Shard 0 writes in place, once the collective has returned, the
+    tensor it gave to a ``ppermute`` (or the ``psum`` result it holds as
+    the group's first shard) before shard 1 has taken its copy: shard 1
+    still gets the values as they were given."""
+    import threading
+
+    written = threading.Event()
+    take = tshard.ShardContext._take
+
+    def late_take(self, item):
+        if self.axis_index("frames") == 1:
+            assert written.wait(5.0)
+        return take(self, item)
+
+    monkeypatch.setattr(tshard.ShardContext, "_take", late_take)
+    mesh = tpar.make_mesh(1, 2, 1, devices=["cpu"] * 2)
+
+    def fn(ctx, x):
+        x = x.clone()
+        if op == "ppermute":
+            y = ctx.ppermute(x, "frames", [(0, 1)])
+            held = x
+        else:
+            y = held = ctx.psum(x, "frames")
+        if ctx.axis_index("frames") == 0:
+            held.zero_()
+            written.set()
+        return y
+
+    x = torch.arange(1.0, 5.0)
+    y = tshard.run_sharded(mesh, fn, (x,), (P("frames"),), None, timeout=10.0)[1]
+    assert torch.equal(y, x[:2] if op == "ppermute" else x[:2] + x[2:])
+
+
 @pytest.mark.parametrize("fault", ["raises", "stalls"])
 def test_run_sharded_fails_and_never_hangs(fault):
     """A shard that raises before a psum aborts the others at once, and the
@@ -235,9 +281,9 @@ def test_files_dp_matches_single_device():
     kw = dict(output_dir="/tmp/x", quality="low", dither=False, remove_dc=False)
     tcfg = TConfig(**kw)
     ref = tgraph.process_batch(x, valid, tcfg, 44100, seeds, device="cpu")
-    got = tpar.process_files_sharded(
+    got = _cat(tpar.process_files_sharded(
         _tmesh(), lambda a, v, s: tgraph.process_batch(a, v, tcfg, 44100, s, device=a.device),
-        x, valid, seeds)
+        x, valid, seeds))
     _check_metrics(got, ref, rms_rtol=0)
     xs = jax.device_put(jnp.asarray(x), jpar.files_sharding(_jmesh()))
     jres = jprocess_batch(xs, valid, JConfig(**kw), 44100, jax.random.PRNGKey(0))
@@ -247,13 +293,13 @@ def test_files_dp_matches_single_device():
 
 def test_process_files_sharded_helper():
     x = np.ones((8, 1, 147 * 4), np.float32)
-    y = tpar.process_files_sharded(
-        _tmesh(), lambda a: resample_rates(a, 44100, 48000, quality="low"), x)
+    y = torch.cat(tpar.process_files_sharded(
+        _tmesh(), lambda a: resample_rates(a, 44100, 48000, quality="low"), x))
     jy = jpar.process_files_sharded(
         _jmesh(), lambda a: jresample_rates(a, 44100, 48000, quality="low"), x)
     assert tuple(y.shape) == np.asarray(jy).shape == (8, 1, 160 * 4)
     assert np.abs(y.numpy() - np.asarray(jy)).max() <= 2e-6
-    parts = tpar.process_files_sharded(_tmesh(4, 2), lambda a: a * 2, x, gather=False)
+    parts = tpar.process_files_sharded(_tmesh(4, 2), lambda a: a * 2, x)
     assert len(parts) == 4 and all(tuple(p.shape) == (2, 1, 588) for p in parts)
 
 
@@ -706,17 +752,17 @@ def test_stream_sharded_matches_single_chip(tmp_path, case):
         assert abs(y.mean()) < 1e-3
 
 
-@pytest.mark.parametrize("form", ["varispeed_rows", "raw_wire", "fft_chain", "reverb_tail",
+@pytest.mark.parametrize("form", ["varispeed", "raw_wire", "fft_chain", "reverb_tail",
                                   "latency_16bit"])
 def test_stream_sharded_forms_equal_one_device(tmp_path, form):
     """The sharded stream's other forms give the one-device stream's bytes:
-    cycle rows split over the cycle axis (varispeed), container bytes
+    a varispeed bank's haloed chunks (the form of dense banks), container bytes
     decoded per shard, an FFT chain finished on one device, a reverb tail
     detected on the host, a trimmed latency at 16 bits."""
     ir = (0.04 * np.random.default_rng(8).standard_normal((1, 4800))
           * np.exp(-np.arange(4800) / 700.0)).astype(np.float32)
     cfgs = {
-        "varispeed_rows": dict(target_rate=44056, seed=3),
+        "varispeed": dict(target_rate=44056, seed=3),
         "raw_wire": dict(seed=3, remove_dc=True, channel_routing=[1, -1]),
         "fft_chain": dict(seed=3, latency_frames=240, chain=tchain.Chain(
             tchain.Delay(0.005), tchain.ConvolutionReverb(ir, wet=0.8),

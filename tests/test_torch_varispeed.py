@@ -5,13 +5,13 @@ Tolerances, each with its reason:
 
 - `_banded_plan`, `_h_rev_f32_cached` and the banks' geometry: bitwise (the
   port's copies of host-side numpy code).
-- `resample_gather`, `resample_banded`, `resample_banded_rows_pre` against
+- `resample_gather` and `resample_banded` against
   `f9tpu.ops.resample.resample_banded`: <= 2e-6 abs (the port sums each
   output in float64 and rounds once, JAX in float32 per 128-output segment;
   measured 2.4e-7), and <= -120 dB against the float64 oracle on the five
   pairs of `tests/test_varispeed.py` (measured -148 dB).
-- flat == rows and presliced chunks == whole: bitwise (every output sums
-  its own taps in one fixed order).
+- presliced chunks == whole: bitwise (every output sums its own taps in one
+  fixed order).
 - The batch job and the stream at 44056 Hz against the JAX package: equal
   frame counts, <= 2 LSB at 24 bits (inputs near -20 dBFS, dither off: the
   JAX forms' own float32 error is the larger part).
@@ -78,15 +78,6 @@ def _db(err, ref):
     return 20 * np.log10(max(np.sqrt(np.mean(err ** 2)), 1e-300) / np.sqrt(np.mean(ref ** 2)))
 
 
-def _marshal(x, bank):
-    """The signal as zero-padded cycle rows, as `banded_rows_plan` says."""
-    n_rows, w, pf = tres.banded_rows_plan(bank, x.shape[-1])
-    flat = np.zeros((x.shape[0], (n_rows - 1) * bank.M + w), np.float32)
-    keep = min(x.shape[-1], flat.shape[-1] - pf)
-    flat[:, pf:pf + keep] = x[:, :keep]
-    return tres.marshal_banded_rows(flat, bank, n_rows)
-
-
 @pytest.mark.parametrize("ri,ro,q", PAIRS)
 def test_plan_and_tables_are_the_jax_package_s(ri, ro, q):
     bank, jb = design_cycle_bank(ri, ro, quality=q), jbank(ri, ro, quality=q)
@@ -94,13 +85,6 @@ def test_plan_and_tables_are_the_jax_package_s(ri, ro, q):
     assert np.array_equal(tres._h_rev_f32_cached(bank), jres._h_rev_f32_cached(jb))
     tp, jp = tres._banded_plan(bank), jres._banded_plan(jb)
     assert tp[:4] == jp[:4] and np.array_equal(tp[4], jp[4])
-    assert tres.banded_rows_applicable(bank) and jres.banded_rows_applicable(jb)
-    assert tres.banded_rows_plan(bank, 30001) == jres.banded_rows_plan(jb, 30001)
-    x = _noise(2, 3 * bank.M + 5, 1)
-    assert np.array_equal(_marshal(x, bank), jres.marshal_banded_rows(
-        np.pad(x, ((0, 0), (bank.pad_front, 2 * bank.W)))[
-            :, :(tp[3] + (tres.banded_rows_plan(bank, x.shape[-1])[0] - 1) * bank.M)],
-        jb, tres.banded_rows_plan(bank, x.shape[-1])[0]))
 
 
 @pytest.mark.parametrize("ri,ro,q", PAIRS)
@@ -120,12 +104,6 @@ def test_varispeed_forms_match_jax_and_oracle(ri, ro, q):
         assert np.abs(got - want).max() <= ABS_TOL, (name, np.abs(got - want).max())
         assert _db(got - ref, ref) <= -120.0, (name, _db(got - ref, ref))
         assert np.array_equal(got, flat.numpy()), name          # one twin behind all
-    rows = tres.resample_banded_rows_pre(torch.from_numpy(_marshal(x, bank)), bank)
-    assert rows.shape[-1] == bank.L
-    # flat == rows bitwise: each output sums the same taps in the same order
-    assert np.array_equal(rows.numpy().reshape(2, -1)[:, :want.shape[-1]], flat.numpy())
-    jrows = np.asarray(jres.resample_banded_rows_pre(jnp.asarray(_marshal(x, bank)), jb))
-    assert np.abs(rows.numpy() - jrows).max() <= ABS_TOL
     assert sk.launches == 0
 
 
@@ -189,8 +167,6 @@ def test_empty_and_short_inputs():
     assert y.shape == (1, 5) and torch.isfinite(y).all()
     rows, out_len = sk.resample_rows(torch.from_numpy(_noise(1, 500, 2)), bank)
     assert out_len == bank.out_len(500) and rows.shape == (1, 1, bank.L)
-    with pytest.raises(ValueError, match="cycle-row width"):
-        tres.resample_banded_rows_pre(torch.zeros((1, 2, 100)), bank)
 
 
 def test_non_cpu_varispeed_tensor_launches_or_raises():
@@ -206,9 +182,6 @@ def test_non_cpu_varispeed_tensor_launches_or_raises():
     for fn in (tres.resample, tres.resample_banded, sk.resample_auto):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(x, bank)
-    w = tres.banded_rows_plan(bank, 30000)[1]
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        sk.resample_banded_rows_kernel(torch.empty((2, 3, w), device="meta"), bank)
     assert sk.launches == 0 and sk.launches_windowed == 0
 
 
@@ -296,15 +269,13 @@ def test_windowed_a_loads_take_one_wavefront(ri, ro, q):
     an A load has the same shift into its window, so a pitch of 4 mod 32
     keeps each load in 32 banks: one wavefront, counted over every warp,
     shift, tile offset in the union and k8 step, at the flat signal's cycle
-    stride and at the cycle rows' width.  Rows in order (one-warp launches)
-    would conflict."""
+    stride.  Rows in order (one-warp launches) would conflict."""
     bank = design_cycle_bank(ri, ro, quality=q)
     plan = sk.kernel_plan(bank)
     for group, pitch in _launch_groups(plan):
         offsets = {(lo - plan.bands[c - c % group][0]) % 32 for c, (lo, _) in enumerate(plan.bands)}
-        for stride in (bank.M, tres._rows_width(bank)):
-            for warps in (2, 4, 8):
-                assert sk._win_a_load_wavefronts(stride, warps, pitch, 1, offsets) == 1.0
+        for warps in (2, 4, 8):
+            assert sk._win_a_load_wavefronts(bank.M, warps, pitch, 1, offsets) == 1.0
         if bank.M % 4:
             assert sk._win_a_load_wavefronts(bank.M, 2, pitch, 0, offsets) > 1.0
 
@@ -564,8 +535,7 @@ def test_soak_streams_a_varispeed_and_a_normalized_trial(tmp_path, capsys):
 
 @pytest.mark.cuda
 def test_windowed_kernel_matches_twin_on_card():
-    """On an NVIDIA GPU: the windowed form against the float64 gather, flat,
-    presliced and on cycle rows."""
+    """On an NVIDIA GPU: the windowed form against the float64 gather."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     for ri, ro, q in PAIRS:
@@ -576,6 +546,3 @@ def test_windowed_kernel_matches_twin_on_card():
         torch.cuda.synchronize()
         assert sk.launches_windowed == n0 + 1
         assert (y - tres.resample_gather(x, bank)).abs().max().item() <= 5e-7
-        rows = torch.from_numpy(_marshal(x.cpu().numpy(), bank)).cuda()
-        yr = tres.resample_banded_rows_pre(rows, bank).reshape(2, -1)[:, :y.shape[-1]]
-        assert torch.equal(yr, y)
