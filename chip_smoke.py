@@ -109,7 +109,21 @@ its results, any failure exiting non-zero:
    and x real time; the host's cost of one `run_sharded` call on 4 shards
    (a no-op, one `psum`, two `ppermute`s); and `cli process --files-shards
    2` on the one card exits non-zero with the mesh's size.  Kernel launches
-   are counted from zero for (a)-(d).
+   are counted from zero for (a)-(d);
+10. the rows layout (`device_layout="rows"`): (a) `bench.py`'s job, 16
+   files x 2 channels x 2^20 frames, through `process_batch(rows_layout=
+   True)` on the resident bucket and on the host-marshalled rows (route 2 at
+   48 kHz, the varispeed rows of route 3 at 44,056), beside the packed graph
+   on the same input: `torch.equal` on codes and metrics, one kernel launch
+   per graph, each graph's device ms (CUDA events, median of 10), the ms of
+   route 3's un-marshal copy, peak device memory; (b) `bench.py`'s six
+   accuracy gates and its varispeed gate through the rows dispatch, each <=
+   -120 dB against the float64 oracle; (c) `cli process --device-layout
+   rows` on phase 4's 8 files as 24-bit WAVs (the raw wire) and as float32
+   WAVs at 48 kHz and 44,056 Hz: every output's sha256 equal to the packed
+   run's, wall and x real time, kernel launches counted from zero for each
+   rows run; (e) `examples/demo_torch.py`'s 13 configurations on the card,
+   with their asserts, and its wall.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -127,6 +141,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2487,6 +2502,263 @@ def phase_multi_device(card: str, work: str, slice_work: str, dev) -> dict:
     return counts
 
 
+#: phase 10a's batch, `bench.py`'s job: 16 files x 2 channels x 2^20 frames
+ROWS_JOB = (16, 2, 1 << 20)
+
+
+def _rows_equal(rows, packed) -> bool:
+    """rows == packed bitwise: the tiling read flat up to the packed length,
+    zeros past it, and every metric."""
+    import torch
+
+    flat = rows.codes.reshape(*rows.codes.shape[:2], -1)
+    n = packed.codes.shape[-1]
+    return (rows.layout == "rows" and torch.equal(flat[..., :n], packed.codes)
+            and not bool(flat[..., n:].any())
+            and all(torch.equal(getattr(rows, k), getattr(packed, k))
+                    for k in ("out_frames", "peak_db", "rms_db", "noise_floor_db")))
+
+
+def _staging(x, bank, frames: int):
+    """The JAX package's host-marshalled rows of ``x (files, C, frames)``
+    for ``bank``, built on x's device: dense rows a view of their staging,
+    varispeed rows a contiguous copy of the overlapping window view (as the
+    JAX marshal makes them)."""
+    import torch
+
+    from f9tpu_torch.pipeline import graph as tg
+
+    total, pf = tg.rows_staging_plan(bank, frames)
+    st = torch.zeros((*x.shape[:2], total), device=x.device)
+    st[..., pf:pf + frames] = x
+    rows = tg.marshalled_rows(st, bank)
+    return rows if bank.G is not None else rows.contiguous()
+
+
+def _rows_graphs(card: str, dev) -> None:
+    """10a: `bench.py`'s job through `process_batch(rows_layout=True)` and
+    packed on the same resident input (the bucket, and the host-marshalled
+    rows of route 2), 44.1k -> 48k high, dither and DC removal on:
+    `torch.equal` on codes and metrics; each graph's device ms (CUDA events,
+    median of 10 after warm-up); the same at 44,056 with the varispeed rows
+    of route 3 and the ms of their un-marshal copy; one kernel launch per
+    rows graph (no CPU twin); each graph's peak device memory above its
+    resident inputs."""
+    import torch
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import src_kernel as sk
+    from f9tpu_torch.pipeline import graph as tg
+
+    files, C, frames = ROWS_JOB
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = 0.25 * torch.randn((files, C, frames), generator=gen, device=dev)
+    valid = torch.full((files,), frames, dtype=torch.int32, device=dev)
+    seeds = torch.arange(1, files + 1, dtype=torch.int32, device=dev)
+    for rate, route in ((48000, "route 2, dense rows"), (44056, "route 3, varispeed rows")):
+        cfg = ProcessingConfig(output_dir="/nonexistent", target_rate=rate, quality="high")
+        bank = design_cycle_bank(44100, rate, quality="high")
+        rows4 = _staging(x, bank, frames)
+        graphs = {
+            "packed": lambda: tg.process_batch(x, valid, cfg, 44100, seeds),
+            "rows": lambda: tg.process_batch(x, valid, cfg, 44100, seeds, rows_layout=True),
+            "staged": lambda: tg.process_batch(rows4, valid, cfg, 44100, seeds,
+                                               rows_layout=True),
+        }
+        res, launched, peak = {}, {}, {}
+        for name, fn in graphs.items():
+            n0 = sk.launches
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            res[name] = fn()
+            torch.cuda.synchronize()
+            peak[name] = round((torch.cuda.max_memory_allocated(dev) - base) / 1e9, 3)
+            launched[name] = sk.launches - n0
+        eq = {k: _rows_equal(res[k], res["packed"]) for k in ("rows", "staged")}
+        del res
+        for fn in graphs.values():
+            for _ in range(2):
+                fn()
+        # in turns: packed, rows, staged, staged, rows, packed
+        ms = {name: [] for name in graphs}
+        for name in ("packed", "rows", "staged", "staged", "rows", "packed"):
+            ms[name].append(_median_ms(graphs[name]))
+        ms_s = " ".join(f"{k} {a:.3f}/{b:.3f}" for k, (a, b) in ms.items())
+        unmarshal = (f" un-marshal copy {_median_ms(lambda: tg._rows_staging(rows4, bank)):.3f} ms"
+                     if bank.G is None else "")
+        print(f"rows 10a: 44100->{rate} high {files}x{C}x2^20 ({route}): rows == packed "
+              f"{eq['rows']}, staged == packed {eq['staged']}; device ms {ms_s}{unmarshal} "
+              f"(median of 10, two turns); kernel launches per graph {launched}; each graph's "
+              f"peak device memory above its inputs {peak} GB [{card}]", flush=True)
+        if not all(eq.values()):
+            raise AssertionError(f"rows 10a: rows layout differs from packed at {rate}: {eq}")
+        if any(n != 1 for n in launched.values()):
+            raise AssertionError(f"rows 10a: kernel launches {launched}, expected 1 each")
+        del rows4
+    del x
+    torch.cuda.empty_cache()
+
+
+def _rows_gates(card: str, dev) -> None:
+    """10b: `bench.py`'s six accuracy gates and its varispeed gate through
+    the port's rows dispatch (the scheduler's: host-marshalled rows where the
+    bank takes them, the raw wire's rows route for the 24-bit gate), each
+    <= -120 dB RMS against `f9tpu_torch.models.oracle`, dither and DC removal
+    off, 2^15 frames of white noise at 0.125 RMS."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.models import design_cycle_bank, resample_oracle
+    from f9tpu_torch.ops import resample as tr
+    from f9tpu_torch.pipeline import graph as tg
+
+    n_acc = 1 << 15
+    xa = (0.125 * np.random.default_rng(0).standard_normal((1, 1, n_acc))).astype(np.float32)
+    valid = np.array([n_acc], np.int32)
+
+    def graph_case(r_in, r_out, quality="high", kind="sinc"):
+        cfg = ProcessingConfig(output_dir="/nonexistent", target_rate=r_out, quality=quality,
+                               kind=kind, dither=False, remove_dc=False)
+        bank = design_cycle_bank(r_in, r_out, quality=quality, kind=kind)
+        x = torch.from_numpy(xa).to(dev)
+        if tr.rows_pre_applicable(bank) or tr.banded_rows_applicable(bank):
+            x = _staging(x, bank, n_acc)
+        res = tg.process_batch(x, valid, cfg, r_in, [1], rows_layout=True)
+        n = int(res.out_frames[0])
+        got = res.codes.reshape(-1)[:n].cpu().numpy().astype(np.float64) / (1 << 23)
+        return got, resample_oracle(xa[0, 0], r_in, r_out, quality=quality, kind=kind)
+
+    def raw_case(r_in, r_out):
+        cfg = ProcessingConfig(output_dir="/nonexistent", target_rate=r_out, quality="high",
+                               dither=False, remove_dc=False)
+        q = np.clip(np.round(xa[0, 0] * (1 << 23)), -(1 << 23), (1 << 23) - 1).astype(np.int64)
+        u = (q & 0xFFFFFF).astype(np.uint32)
+        b = np.stack([u & 0xFF, (u >> 8) & 0xFF, (u >> 16) & 0xFF], -1).astype(np.uint8)
+        res = tg.process_batch_raw(torch.from_numpy(b.reshape(1, -1)).to(dev), valid, cfg,
+                                   r_in, [1], in_channels=1, in_bits=24, rows_layout=True)
+        n = int(res.out_frames[0])
+        pb = res.codes[0, :3 * n].cpu().numpy().astype(np.int64)
+        v = pb[0::3] | (pb[1::3] << 8) | (pb[2::3] << 16)
+        v = np.where(v >= 1 << 23, v - (1 << 24), v)
+        return (v.astype(np.float64) / (1 << 23),
+                resample_oracle(q.astype(np.float64) / (1 << 23), r_in, r_out, quality="high"))
+
+    gates = {
+        "up_44k_to_48k_rows": lambda: graph_case(44100, 48000),
+        "down_96k_to_44k_rows": lambda: graph_case(96000, 44100),
+        "raw24_44k_to_48k_rows": lambda: raw_case(44100, 48000),
+        "ultra_44k_to_48k": lambda: graph_case(44100, 48000, "ultra"),
+        "down_176k_to_48k": lambda: graph_case(176400, 48000),
+        "minphase_44k_to_48k": lambda: graph_case(44100, 48000, kind="minphase"),
+        "varispeed_44k_to_44056_rows": lambda: graph_case(44100, 44056),
+    }
+    failed = []
+    for name, case in gates.items():
+        got, ref = case()
+        db = _db(got - ref[:got.shape[-1]], ref[:got.shape[-1]])
+        print(f"rows 10b: accuracy[{name}] {db:.1f} dB RMS vs the float64 oracle "
+              f"(max {ORACLE_DB_MAX:g}) [{card}]", flush=True)
+        if not db <= ORACLE_DB_MAX:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"rows 10b: gates failed: {failed}")
+
+
+def _rows_cli(card: str, work: str, slice_work: str) -> tuple[int, int]:
+    """10c: `cli process --device-layout rows` on phase 4's 8 files: as
+    24-bit WAVs (the raw wire, route 1) against phase 4's own outputs, and
+    as float32 WAVs at 48 kHz (dense host-marshalled rows, route 2) and at
+    44,056 Hz (varispeed rows, route 3) against the packed run of the same
+    files: every output's sha256 equal; wall and x real time.  Returns the
+    kernel launches of the rows runs at 48 kHz and at 44,056, counted from 0
+    around each."""
+    from f9tpu_torch import cli
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.pipeline import build_output_path
+
+    in24 = os.path.join(slice_work, "in")
+    paths24 = cli._expand_inputs([in24])          # phase 4's paths: they key the dither
+    in32 = os.path.join(work, "in32")
+    os.makedirs(in32)
+    for p in paths24:
+        x, rate = wav.read_wav(p)
+        wav.write_wav(os.path.join(in32, os.path.basename(p)), x, rate, bits=32)
+    paths32 = cli._expand_inputs([in32])
+    runs = (("24-bit, route 1", in24, paths24, "48000", os.path.join(slice_work, "out_gpu")),
+            ("float32, route 2", in32, paths32, "48000", None),
+            ("float32, route 3", in32, paths32, "44056", None))
+    counts = {"rows_layout": [0, 0], "rows_varispeed": [0, 0]}
+    for k, (tag, in_dir, paths, rate, want_dir) in enumerate(runs):
+        if want_dir is None:
+            want_dir = os.path.join(work, f"packed_{rate}")
+            rc, _, wall = _cli_json(["process", in_dir, "--out", want_dir, "--rate", rate,
+                                     "--json"])
+            if rc != 0:
+                raise AssertionError(f"rows 10c: packed run at {rate} rc={rc}")
+        out = os.path.join(work, f"rows_{k}")
+        _zero_counts()
+        rc, summary, wall = _cli_json(["process", in_dir, "--out", out, "--rate", rate,
+                                       "--device-layout", "rows", "--json"])
+        launched = _read_counts()
+        key = "rows_varispeed" if rate == "44056" else "rows_layout"
+        counts[key] = [a + b for a, b in zip(counts[key], launched)]
+        same = sum(_sha256(build_output_path(p, out, "_processed"))
+                   == _sha256(build_output_path(p, want_dir, "_processed")) for p in paths)
+        print(f"rows 10c: cli process --device-layout rows --rate {rate} ({tag}): rc={rc} "
+              f"completed={summary.get('completed')} sha256 equal to packed: {same} of "
+              f"{len(paths)} kernel launches (all, windowed) {launched} wall={wall:.3f} s "
+              f"x_realtime={summary.get('audio_seconds_out', 0.0) / wall:.1f} [{card}]",
+              flush=True)
+        if rc != 0 or same != len(paths):
+            raise AssertionError(f"rows 10c: {tag}: {same} of {len(paths)} outputs equal")
+        if launched[0] < 2 or (rate == "44056") != (launched[1] > 0):
+            raise AssertionError(f"rows 10c: {tag}: kernel launches {launched}")
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def _demo(card: str, work: str) -> None:
+    """10e: `examples/demo_torch.py`, `examples/demo.py`'s 13
+    configurations through the port's CLI on the card, with its asserts."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "demo_torch", os.path.join(ROOT, "examples", "demo_torch.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        demo.run(os.path.join(work, "demo"), "cuda")
+    wall = time.time() - t0
+    done = [ln for ln in buf.getvalue().splitlines() if re.match(r"\[\d+\] ", ln)]
+    print(f"rows 10e: examples/demo_torch.py on the card: {len(done)} configurations, "
+          f"wall {wall:.1f} s [{card}]", flush=True)
+    for ln in done:
+        print(f"rows 10e:   {ln}", flush=True)
+    if len(done) != 13:
+        raise AssertionError(f"rows 10e: {len(done)} of 13 configurations ran")
+
+
+def phase_rows(card: str, work: str, slice_work: str, dev) -> dict:
+    """Phase 10, the rows layout; returns the kernel launches of its CLI
+    runs (all, windowed) by path."""
+    t0 = time.time()
+    _rows_graphs(card, dev)
+    print(f"rows 10a: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    _rows_gates(card, dev)
+    print(f"rows 10b: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    counts = _rows_cli(card, work, slice_work)
+    print(f"rows 10c: {time.time() - t0:.1f} s", flush=True)
+    _demo(card, work)
+    print(f"rows: kernel launches by path (all, windowed) {counts} [{card}]", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2557,15 +2829,26 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 8 (tool path): {time.time() - t0:.1f} s", flush=True)
 
-    work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
-    t0 = time.time()
     try:
-        for path, (total, win) in phase_multi_device(card, work, slice_work, dev).items():
-            dense[path], windowed[path] = total - win, win
+        work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        t0 = time.time()
+        try:
+            for path, (total, win) in phase_multi_device(card, work, slice_work, dev).items():
+                dense[path], windowed[path] = total - win, win
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(f"phase 9 (multi-device): {time.time() - t0:.1f} s", flush=True)
+
+        work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        t0 = time.time()
+        try:
+            for path, (total, win) in phase_rows(card, work, slice_work, dev).items():
+                dense[path], windowed[path] = total - win, win
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(f"phase 10 (rows layout): {time.time() - t0:.1f} s", flush=True)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(slice_work, ignore_errors=True)
-    print(f"phase 9 (multi-device): {time.time() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",

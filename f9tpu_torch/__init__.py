@@ -17,8 +17,10 @@ normalization), the constant-memory stream of files of any length
 the cycle-matrix SRC as a hand-written CUDA kernel
 (`f9tpu_torch/csrc/cycle_src.cu`); and `process`, `watch` and `stream` over a
 mesh of devices (`f9tpu_torch.parallel`: files, channels and frames
-sharding, one process driving a thread and a CUDA stream per shard).  See ROADMAP.md
-for what is still to port (the rows layout).
+sharding, one process driving a thread and a CUDA stream per shard), in the
+packed or the rows device layout (``--device-layout rows``, the same bytes).
+It leaves out only what ROADMAP.md lists as TPU workarounds (the native
+loader among them).
 """
 
 from .device import resolve_device  # noqa: F401

@@ -29,8 +29,9 @@ and keys) and ``--save-config FILE`` writes the resolved settings back.
 (`f9tpu_torch.parallel`) over every card of the machine, or over n CPU
 shards with ``--device cpu``; a mesh larger than the machine's cards fails
 with its size (``mesh 2x1x1 != 1 devices``), it never runs on fewer shards.
-``--device-layout rows`` exits 2 naming its ROADMAP item.  Without a GPU a
-command on ``cuda`` exits 1 with a one-line error.
+``--device-layout rows`` (`process`, `watch`) runs the JAX package's rows
+layout, whose bytes are the packed layout's.  Without a GPU a command on
+``cuda`` exits 1 with a one-line error.
 """
 
 from __future__ import annotations
@@ -49,7 +50,6 @@ from .io import codec
 
 from .device import NoDeviceError, resolve_device
 from .pipeline.calibration import CalibrationCache, measure_latency
-from .pipeline.graph import not_ported
 from .pipeline.logbook import StatusLog
 from .pipeline.scheduler import BatchProcessor
 
@@ -703,8 +703,6 @@ def cmd_watch(args) -> int:
     # what a sweep's processor would refuse fails now, not at the first drop;
     # the mesh is built once and serves every sweep
     mesh = _mesh(args.device, args.files_shards, channels=args.channel_shards)
-    if cfg.device_layout == "rows":
-        raise not_ported("rows_layout")
     dev = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
     # every line goes to the sink (and the JSONL file); memory keeps 1000
@@ -1009,7 +1007,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     except (ValueError, NotImplementedError) as err:
         # the CLI boundary: usage and validation errors raised before any
-        # work, and options not ported yet (naming their ROADMAP item)
+        # work, and the option the port leaves out (the native loader)
         print(f"error: {err}", file=sys.stderr)
         return 2
 
@@ -1040,7 +1038,8 @@ def _add_batch_args(p: argparse.ArgumentParser) -> None:
                    help="strict mode: reject inputs not at this rate")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--device-layout", default="packed", choices=["packed", "rows"],
-                   help="packed (the port's layout); rows is not ported yet")
+                   help="packed, or rows: the SRC's (n_rows, L) tiling with host-"
+                        "marshalled rows (no reverb/chain/latency; the same bytes)")
     p.add_argument("--seed", type=int, default=0,
                    help="dither seed (per-file keys derive from seed+path; "
                         "-1 = wall clock)")

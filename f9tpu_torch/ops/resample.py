@@ -38,7 +38,9 @@ import torch.nn.functional as F
 from ..models.filters import CycleBank, _cycle_tables, design_cycle_bank
 
 __all__ = ["resample", "resample_banded", "resample_gather", "resample_rates",
-           "resample_presliced", "cycle_matrix_f32", "bank_to_torch"]
+           "resample_presliced", "cycle_matrix_f32", "bank_to_torch",
+           "rows_pre_applicable", "rows_marshal_plan", "banded_rows_applicable",
+           "banded_rows_plan"]
 
 #: Cap on the (rows x W) window matrix `resample` materialises per matmul.
 _WINDOW_ELEMS = 1 << 26
@@ -307,6 +309,41 @@ def _banded_plan(bank: CycleBank):
             row = int(off[pp] - in0[s])
             G[s, row: row + K, c] = hrev[ph[pp]]
     return in0, w, seg, w_rows, G
+
+
+def _overlap_rows(bank: CycleBank) -> int:
+    """R: how many cycle rows past its own an output cycle reads."""
+    return max(1, -(-(bank.taps_per_phase - 1) // bank.M))
+
+
+def rows_pre_applicable(bank: CycleBank) -> bool:
+    """Does a dense bank take the host-marshalled ``(n_rows, M)`` staging of
+    the rows layout (`f9tpu.ops.pallas_src.rows_pre_applicable`)?  Tiny L or
+    M and varispeed banks stage the flat bucket instead."""
+    return bank.dense_ok and _overlap_rows(bank) <= 8 and bank.L >= 8 and bank.M >= 8
+
+
+def rows_marshal_plan(bank: CycleBank, frames: int) -> tuple[int, int]:
+    """(n_rows, pad_front) for rows marshalling of a ``frames``-long signal:
+    the samples sit at flat offset ``pad_front`` of a zero ``(n_rows, M)``
+    buffer, ``n_rows = ceil(out_len / L) + R``."""
+    n_out = -(-bank.out_len(frames) // bank.L)
+    return n_out + _overlap_rows(bank), bank.pad_front
+
+
+def banded_rows_applicable(bank: CycleBank) -> bool:
+    """Does a varispeed bank take the host-marshalled cycle rows of the rows
+    layout (`f9tpu.ops.resample.banded_rows_applicable`)?"""
+    return bank.G is None and bank.L >= 8 and bank.L * bank.M < 2**31
+
+
+def banded_rows_plan(bank: CycleBank, frames: int) -> tuple[int, int, int]:
+    """``(n_rows, row_width, pad_front)`` of the JAX package's overlapping
+    cycle rows for a ``frames``-long signal: row ``q`` holds ``padded[q*M :
+    q*M + row_width]`` of the zero-padded signal.  The flat staging they
+    are cut from is ``(n_rows - 1)*M + row_width`` long."""
+    w_rows = _banded_geometry(bank)[3]
+    return -(-bank.out_len(frames) // bank.L), w_rows, bank.pad_front
 
 
 def _kernel_takes(t: torch.Tensor, bank: CycleBank) -> bool:

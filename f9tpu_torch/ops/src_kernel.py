@@ -50,12 +50,13 @@ import torch
 
 from ..models.filters import CycleBank
 
-from .resample import (_gather_core, _h_rev_f32_cached, _pad_for_cycles,
-                       _phase_tables, cycle_matrix_f32, resample)
+from .resample import (_gather_core, _h_rev_f32_cached, _overlap_rows,
+                       _pad_for_cycles, _phase_tables, cycle_matrix_f32, resample,
+                       rows_marshal_plan)
 
 __all__ = ["kernel_applicable", "kernel_plan", "packed_bank_f32", "tf32_rna",
            "resample_rows", "resample_rows_reference", "resample_kernel",
-           "resample_auto", "resample_presliced_kernel",
+           "resample_auto", "resample_presliced_kernel", "resample_staged",
            "rows_marshal_plan",
            "stacked_bank_f32", "window_traffic", "launches", "launches_windowed"]
 
@@ -76,11 +77,6 @@ _SPAN_BUDGET = 96 * 1024
 #: shared memory one block may use on Hopper
 _SMEM_MAX = 232448
 _SKEWS = (0, 4)
-
-
-def _overlap_rows(bank: CycleBank) -> int:
-    """R: how many cycle rows past its own an output cycle reads."""
-    return max(1, -(-(bank.taps_per_phase - 1) // bank.M))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -456,14 +452,6 @@ def stacked_bank_f32(bank: CycleBank) -> np.ndarray:
     return _stacked_bank_cached(bank)
 
 
-def rows_marshal_plan(bank: CycleBank, frames: int) -> tuple[int, int]:
-    """(n_rows, pad_front) for rows marshalling of a ``frames``-long signal:
-    the samples sit at flat offset ``pad_front`` of a zero ``(n_rows, M)``
-    buffer."""
-    n_out = -(-bank.out_len(frames) // bank.L)
-    return n_out + _overlap_rows(bank), bank.pad_front
-
-
 @functools.lru_cache(maxsize=64)
 def _stacked_bank_f64(bank: CycleBank, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(stacked_bank_f32(bank)).to(device, torch.float64)
@@ -533,13 +521,42 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
     return y
 
 
+def _rows_marshal(x: torch.Tensor, bank: CycleBank, Q: int) -> torch.Tensor:
+    """The twin's marshal step: ``x (bc, T)`` at flat offset ``pad_front`` of
+    a float64 zero ``(bc, Q + R, M)`` cycle-row tiling (the samples past its
+    end are dropped, as the kernel never reads them)."""
+    bc, T = x.shape
+    n_rows = Q + _overlap_rows(bank)
+    pf = bank.pad_front
+    keep = max(0, min(T, n_rows * bank.M - pf))
+    xp = torch.zeros((bc, n_rows * bank.M), dtype=torch.float64, device=x.device)
+    xp[:, pf:pf + keep] = x[:, :keep]
+    return xp.view(bc, n_rows, bank.M)
+
+
+def _rows_core(xp3: torch.Tensor, bank: CycleBank) -> torch.Tensor:
+    """The twin's rows-input core (`f9tpu.ops.pallas_src.resample_rows_pre`'s
+    math): float64 cycle rows ``(bc, n_rows, M)`` -> float64 ``(bc, n_rows -
+    R, L)``, one matmul by the stacked bank plus R row-shifted adds (the
+    callers round to float32 once)."""
+    L = bank.L
+    R = _overlap_rows(bank)
+    Q = xp3.shape[1] - R
+    gs = _stacked_bank_f64(bank, xp3.device)            # ((R+1)*L, M)
+    P = torch.matmul(xp3, gs.T)                          # (bc, Q+R, (R+1)*L)
+    y = P[:, :Q, :L].clone()
+    for r in range(1, R + 1):
+        y += P[:, r:r + Q, r * L:(r + 1) * L]
+    return y
+
+
 def resample_rows_reference(x: torch.Tensor, bank: CycleBank,
                             out_len: int | None = None
                             ) -> tuple[torch.Tensor, int]:
     """Plain PyTorch twin of the kernel: ``(y (..., Q, L), out_len)`` with
     output sample ``t`` at ``y[..., t // L, t % L]``.  Marshals the signal
-    into zero-padded ``(Q + R, M)`` cycle rows, multiplies by the stacked
-    bank once and adds R row-shifted blocks (`resample_rows_pre`'s math).
+    into zero-padded ``(Q + R, M)`` cycle rows (`_rows_marshal`), multiplies
+    by the stacked bank once and adds R row-shifted blocks (`_rows_core`).
 
     The float32 signal and bank are multiplied and summed in float64 and the
     result rounded to float32 once, so the twin is the exact sum to within
@@ -549,36 +566,51 @@ def resample_rows_reference(x: torch.Tensor, bank: CycleBank,
 
     A varispeed bank has no stacked bank: its twin is the float64 gather
     form (`f9tpu_torch.ops.resample._gather_core`) over whole cycles."""
+    lead = x.shape[:-1]
+    if out_len is None:
+        out_len = bank.out_len(x.shape[-1])
+    Q = -(-out_len // bank.L)
     if bank.G is None:
-        lead = x.shape[:-1]
-        if out_len is None:
-            out_len = bank.out_len(x.shape[-1])
-        Q = -(-out_len // bank.L)
         _, xp = _pad_for_cycles(x, bank, out_len)
         if xp is None:
             return x.new_zeros((*lead, 0, bank.L)), out_len
         return _gather_core(xp, bank, Q * bank.L).reshape(*lead, Q, bank.L), out_len
-    L, M = bank.L, bank.M
-    R = _overlap_rows(bank)
     T = x.shape[-1]
-    lead = x.shape[:-1]
-    if out_len is None:
-        out_len = bank.out_len(T)
-    Q = -(-out_len // L)
     if T == 0 or out_len == 0:
-        return x.new_zeros((*lead, 0, L)), out_len
-    bc = int(np.prod(lead)) if lead else 1
-    n_rows = Q + R
-    pf = bank.pad_front
-    keep = max(0, min(T, n_rows * M - pf))
-    xp = torch.zeros((bc, n_rows * M), dtype=torch.float64, device=x.device)
-    xp[:, pf:pf + keep] = x.reshape(bc, T)[:, :keep]
-    gs = _stacked_bank_f64(bank, x.device)            # ((R+1)*L, M)
-    P = torch.matmul(xp.view(bc, n_rows, M), gs.T)     # (bc, Q+R, (R+1)*L)
-    y = P[:, :Q, :L].clone()
-    for r in range(1, R + 1):
-        y += P[:, r:r + Q, r * L:(r + 1) * L]
-    return y.to(x.dtype).reshape(*lead, Q, L), out_len
+        return x.new_zeros((*lead, 0, bank.L)), out_len
+    y = _rows_core(_rows_marshal(x.reshape(-1, T), bank, Q), bank)
+    return y.to(x.dtype).reshape(*lead, Q, bank.L), out_len
+
+
+def resample_staged(xs: torch.Tensor, bank: CycleBank, num_cycles: int) -> torch.Tensor:
+    """SRC of the rows layout's host-marshalled staging: ``xs (..., T)``, the
+    signal at offset ``pad_front`` of a zero buffer that holds every input
+    the first ``num_cycles`` output cycles read (``(num_cycles + R)*M`` floats
+    for a dense bank, `rows_marshal_plan`; ``(num_cycles - 1)*M + row_width``
+    for a varispeed bank, `banded_rows_plan`) -> ``(..., num_cycles * L)``.
+
+    Each output equals bit for bit what `resample_auto` gives for the same
+    signal with ``out_len = num_cycles * L``, on either device: on a CUDA
+    tensor the kernel's presliced launch (``pad_front = 0``; its outputs are
+    the whole form's, `chip_smoke.py` phases 6a and 7b), on a CPU tensor the
+    twin's core on the staging itself (`_rows_core`, the packed path's own
+    float64 function on the same ``(bc, Q + R, M)`` rows) or the gather
+    form; a bank the kernel does not take runs the packed path's plain form
+    on both."""
+    lead, T = xs.shape[:-1], xs.shape[-1]
+    n = num_cycles * bank.L
+    if xs.is_cuda and kernel_applicable(bank):
+        return resample_presliced_kernel(xs, bank, num_cycles)
+    if bank.G is None:
+        return _gather_core(xs, bank, n)
+    if not kernel_applicable(bank):
+        return resample(xs[..., bank.pad_front:], bank, out_len=n)
+    n_rows = num_cycles + _overlap_rows(bank)
+    if T != n_rows * bank.M:
+        raise ValueError(f"staging of {T} floats != (num_cycles + R) * M = "
+                         f"{n_rows * bank.M}")
+    xp3 = xs.reshape(-1, n_rows, bank.M).to(torch.float64)
+    return _rows_core(xp3, bank).to(torch.float32).reshape(*lead, n)
 
 
 def resample_rows(x: torch.Tensor, bank: CycleBank,

@@ -3,7 +3,8 @@ graph, calibration, the manifest and log, the batch scheduler, the
 constant-memory stream, the playlist preview and the loop self-test."""
 
 from .calibration import CalibrationCache, CalibrationResult, measure_latency  # noqa: F401
-from .graph import ProcessResult, process_batch, process_batch_raw  # noqa: F401
+from .graph import (ProcessResult, build_process_fn, process_batch,  # noqa: F401
+                    process_batch_raw)
 from .logbook import StatusLog, Throughput  # noqa: F401
 from .manifest import FileStatus, JobEntry, JobManifest  # noqa: F401
 from .preview import PlaylistItem, render_playlist, stream_playlist  # noqa: F401

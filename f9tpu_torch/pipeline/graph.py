@@ -1,5 +1,5 @@
 """The per-batch device graph: decode buffers in, PCM codes + metrics out
-(port of `f9tpu/pipeline/graph.py`, flat "packed" layout).
+(port of `f9tpu/pipeline/graph.py`).
 
 One fixed-shape batch ``(files, channels, frames)`` runs, in order:
 
@@ -19,8 +19,25 @@ each shard runs this graph on its channels, ``channel_axis`` carries the
 shard's collectives, and the per-file reductions over channels (the reverb
 detector's and the tail floor's loudest-channel envelopes, the peak and the
 sum of squares) span every shard; dither is keyed by the global channel.
-Not ported yet, raising NotImplementedError that names its ROADMAP item:
-the rows layout.
+
+The rows layout (``rows_layout=True``; no reverb, no chain, zero latency)
+returns int32 codes ``(files, channels, Q, L)``, output sample ``t`` at
+``[..., t // L, t % L]`` (`_process_impl_rows`).  On the card the kernel
+reads the flat signal and writes whole cycles, so the tiling is a view of
+a contiguous ``(files, channels, Q*L)`` tensor and the layout is not a
+second graph: the front end, the SRC dispatch and the epilogue
+(`_epilogue`) are the packed path's.  Its input may be the bucket, the raw
+wire (packed on the card, so ``layout == "flat"``), or the JAX package's
+host-marshalled rows: dense ``(files, C, n_rows, M)`` (`rows_marshal_plan`)
+or varispeed overlapping cycle rows ``(files, C, Q, row_width)``
+(`banded_rows_plan`), which the SRC reads as the flat staging they were cut
+from (`resample_staged`).
+
+Rows and packed give the same codes, ``out_frames`` and metrics bit for
+bit.  A packed batch that the rows layout would admit also computes whole
+cycles and runs its epilogue over ``Q*L`` samples, keeping the first
+``out_len`` codes: both layouts then reduce (DC mean, RMS) over tensors of
+one shape, whose order of summation is the same.
 """
 
 from __future__ import annotations
@@ -40,16 +57,18 @@ from ..ops import analysis, dither
 from ..ops.chain import Chain
 from ..ops.devcodec import pack_interleaved, unpack_pcm_interleaved
 from ..ops.routing import route_channels
-from ..ops.src_kernel import resample_auto
+from ..ops.resample import (_banded_geometry, _overlap_rows, banded_rows_plan,
+                            rows_marshal_plan)
+from ..ops.src_kernel import resample_auto, resample_staged
 from ..ops.trim import detect_tail_end, mask_beyond, trim_latency
 from . import link
 
-__all__ = ["ProcessResult", "process_batch", "process_batch_raw", "not_ported"]
+__all__ = ["ProcessResult", "build_process_fn", "process_batch", "process_batch_raw",
+           "not_ported"]
 
-#: Options of the JAX package the port does not have yet, with the ROADMAP
-#: item each waits for (the graph's and the scheduler's).
+#: Options of the JAX package the port leaves out, with the reason (the
+#: scheduler's).
 NOT_PORTED = {
-    "rows_layout": "ROADMAP Queue 1, the rows layout (_process_impl_rows)",
     "native_loader": "left out of the port (measured slower than Python decode)",
 }
 
@@ -64,13 +83,16 @@ def not_ported(what: str) -> NotImplementedError:
 class ProcessResult:
     """Device outputs for one batch (tensors on the batch's device)."""
 
-    codes: Any          # int32 codes (files, channels, out_total), or the uint8
-                        # payload (files, out_total * channels * bits // 8)
+    codes: Any          # layout "flat": int32 codes (files, channels, out_total),
+                        # or the uint8 payload (files, out_total * channels * bits // 8);
+                        # layout "rows": int32 (files, channels, Q, L), sample t at
+                        # [..., t // L, t % L] (a view of whole cycles)
     out_frames: Any     # (files,) int32 — valid output length per file
     tail_terminated: Any  # (files,) bool
     peak_db: Any        # (files,) float32, pre-quantize
     rms_db: Any         # (files,) float32
     noise_floor_db: Any  # (files,) float32 (tail window RMS)
+    layout: str = "flat"
 
 
 def _metrics(y: torch.Tensor, out_frames: torch.Tensor):
@@ -81,19 +103,22 @@ def _metrics(y: torch.Tensor, out_frames: torch.Tensor):
     return analysis.peak_db(flat), analysis._amp_to_db(rms)
 
 
+def _channels(x, routing, out_channels):
+    """Mono fan-out, then channel routing, as in the JAX graph."""
+    if out_channels is not None and x.shape[1] == 1 and out_channels != 1:
+        x = x.expand(x.shape[0], out_channels, x.shape[-1])
+    if routing is not None:
+        x = route_channels(x, list(routing))
+    return x
+
+
 def _front_end(x, frames_valid, routing, out_channels, raw_in):
-    """On-device raw decode, mono fan-out, channel routing (after the
-    fan-out, as in the JAX graph) and zeroing beyond each file's true
-    length."""
+    """On-device raw decode, fan-out and routing (`_channels`) and zeroing
+    beyond each file's true length."""
     if raw_in is not None:
         in_channels, in_bits, in_big = raw_in
         x = unpack_pcm_interleaved(x, in_channels, in_bits, big_endian=in_big)
-    files = x.shape[0]
-    if out_channels is not None and x.shape[1] == 1 and out_channels != 1:
-        x = x.expand(files, out_channels, x.shape[-1])
-    if routing is not None:
-        x = route_channels(x, list(routing))
-    return mask_beyond(x, frames_valid)
+    return mask_beyond(_channels(x, routing, out_channels), frames_valid)
 
 
 def _exact_out_valid(frames_valid: torch.Tensor, bank, out_total: int) -> torch.Tensor:
@@ -130,7 +155,13 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
         # reverb tail detector, as explicit silence
         x = F.pad(x, (0, pad_frames))
 
-    y = resample_auto(x, bank)
+    out_len = bank.out_len(x.shape[-1])
+    # a batch the rows layout would admit (nothing reads the SRC past the
+    # source: no chain, no trim, no tail detection) computes whole cycles
+    # and keeps the first out_len codes, so that its epilogue reduces over
+    # the rows layout's shape
+    whole = chain is None and not reverb_mode and (static_zero_latency or not trim_enabled)
+    y = resample_auto(x, bank, out_len=-(-out_len // bank.L) * bank.L if whole else None)
 
     if chain is not None:
         # the insert loop: the processor stack runs on the resampled signal,
@@ -138,9 +169,10 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
         y = chain.apply(y, rate_out)
 
     out_total = y.shape[-1]
+    keep = out_len if whole else out_total
     if trim_enabled and not static_zero_latency:
         y = trim_latency(y, latency_frames, out_total)
-    out_valid = _exact_out_valid(frames_valid, bank, out_total)
+    out_valid = _exact_out_valid(frames_valid, bank, keep)
 
     if reverb_mode:
         # loudest-channel envelope; quiet windows count only once each
@@ -163,6 +195,27 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
         terminated = torch.ones((files,), dtype=torch.bool, device=dev)
         out_frames = out_valid
 
+    codes, pk_db, level_db, nf_est = _epilogue(
+        y, out_frames, seeds, bits=bits, do_dither=do_dither, remove_dc=remove_dc,
+        gain_db=gain_db, gain_lin=gain_lin, rate_out=rate_out,
+        tail_window_ms=tail_window_ms, routing=routing, keep=keep,
+        channel_axis=channel_axis)
+    if packed_out:
+        codes = pack_interleaved(codes, bits)
+    return codes, out_frames, terminated, pk_db, level_db, nf_est
+
+
+def _epilogue(y, out_frames, seeds, *, bits, do_dither, remove_dc, gain_db, gain_lin,
+              rate_out, tail_window_ms, routing, keep, channel_axis=None):
+    """The graph's epilogue over the SRC (or chain) output ``y (files, C,
+    out_total)`` and each file's valid length, shared by both layouts: mask,
+    float64 DC mean, gain, peak / RMS / tail-floor metrics, dither keyed by
+    (file, global channel, absolute frame), quantize.  Returns ``(codes,
+    peak_db, rms_db, noise_floor_db)`` with int32 codes ``(files, C,
+    keep)``: the first ``keep`` positions, zero past each file's end and on
+    routed-silent channels."""
+    dev = y.device
+    files, _, out_total = y.shape
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     vmask = (torch.arange(out_total, dtype=torch.int32, device=dev)[None, None, :]
              < out_frames[:, None, None])
@@ -209,8 +262,9 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
 
     if do_dither:
         # noise keyed by (file seed, global channel, absolute output frame):
-        # bytes do not depend on batching, sharding, devices or the package
-        # that made them; a channel shard offsets its local channel index
+        # bytes do not depend on batching, sharding, devices, the layout or
+        # the package that made them; a channel shard offsets its local
+        # channel index
         cid = torch.arange(z.shape[1], dtype=torch.int64, device=dev)
         if channel_axis is not None:
             cid = cid + channel_axis.index * z.shape[1]
@@ -219,14 +273,113 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
         codes = dither.quantize_noise(z, bits, cs[:, :, None], pos_t)
     else:
         codes = dither.quantize_noise(z, bits)
-    codes = torch.where(vmask, codes, torch.zeros((), dtype=torch.int32, device=dev))
+    kept = vmask[..., :keep]
     if routing is not None and any(r < 0 for r in routing):
         # routed-silent channels stay digital zero even under dither
         silent = torch.tensor([r < 0 for r in routing], device=dev).reshape(1, -1, 1)
-        codes = torch.where(silent, torch.zeros((), dtype=torch.int32, device=dev), codes)
+        kept = kept & ~silent
+    codes = torch.where(kept, codes[..., :keep],
+                        torch.zeros((), dtype=torch.int32, device=dev))
+    return codes, pk_db, level_db, nf_est
+
+
+def _process_impl_rows(x, frames_valid, seeds, *, rate_in, rate_out, cfg_key,
+                       raw_in=None, packed_out=False, gain_lin=None, num_cycles=None):
+    """The rows layout (no reverb, no chain, zero latency): int32 codes
+    ``(files, C, Q, L)``, a view of whole cycles, with the out_frames and
+    metrics of the packed path bit for bit.
+
+    ``x`` is the bucket ``(files, C, frames)`` (or the raw wire with
+    ``raw_in``), or with ``num_cycles`` the flat staging of the JAX
+    package's host-marshalled rows (`_rows_staging`): the signal at offset
+    ``pad_front`` of a buffer zero outside each file's valid samples, read
+    by `resample_staged` (no front-end mask: the staging is the contract).
+    With ``packed_out`` the codes are packed on the device, as the packed
+    path packs them."""
+    (quality, kind, bits, do_dither, remove_dc, gain_db, _trim_enabled,
+     _reverb_mode, _margin_pct, _tail_mode, tail_window_ms, _tail_hop_ms,
+     _tail_consecutive, _pad_frames, routing, out_channels) = cfg_key
+    bank = design_cycle_bank(rate_in, rate_out, quality=quality, kind=kind)
+    files = x.shape[0]
+    if num_cycles is not None:
+        Q = num_cycles
+        y = resample_staged(_channels(x, routing, out_channels), bank, Q)
+    else:
+        x = _front_end(x, frames_valid, routing, out_channels, raw_in)
+        Q = -(-bank.out_len(x.shape[-1]) // bank.L)
+        y = resample_auto(x, bank, out_len=Q * bank.L)
+    out_total = Q * bank.L
+    out_valid = _exact_out_valid(frames_valid, bank, out_total)
+    codes, pk_db, level_db, nf_est = _epilogue(
+        y, out_valid, seeds, bits=bits, do_dither=do_dither, remove_dc=remove_dc,
+        gain_db=gain_db, gain_lin=gain_lin, rate_out=rate_out,
+        tail_window_ms=tail_window_ms, routing=routing, keep=out_total)
+    terminated = torch.ones((files,), dtype=torch.bool, device=x.device)
     if packed_out:
         codes = pack_interleaved(codes, bits)
-    return codes, out_frames, terminated, pk_db, level_db, nf_est
+    else:
+        codes = codes.view(files, codes.shape[1], Q, bank.L)
+    return codes, out_valid, terminated, pk_db, level_db, nf_est
+
+
+def rows_staging_plan(bank, frames: int) -> tuple[int, int]:
+    """``(length, pad_front)`` of the flat staging the JAX package's
+    host-marshalled rows of a ``frames``-long signal are cut from: the
+    signal at ``pad_front`` of a zero buffer of ``length`` floats, which
+    holds every input the rows' output cycles read (`rows_marshal_plan`'s
+    ``n_rows * M`` for a dense bank, ``(Q - 1)*M + row_width`` for a
+    varispeed bank, `banded_rows_plan`)."""
+    if bank.G is None:
+        q, w_rows, pf = banded_rows_plan(bank, frames)
+        return (q - 1) * bank.M + w_rows, pf
+    n_rows, pf = rows_marshal_plan(bank, frames)
+    return n_rows * bank.M, pf
+
+
+def marshalled_rows(xs: torch.Tensor, bank) -> torch.Tensor:
+    """The JAX package's 4-D host-marshalled rows as a view of their flat
+    staging ``xs (files, C, length)`` (`rows_staging_plan`): dense ``(n_rows,
+    M)`` tiles, or varispeed cycle rows ``row_width`` wide every M floats,
+    overlapping.  `_rows_staging` reads them back without a copy."""
+    files, C, total = xs.shape
+    if bank.G is not None:
+        return xs.view(files, C, total // bank.M, bank.M)
+    w_rows = _banded_geometry(bank)[3]
+    return xs.as_strided((files, C, (total - w_rows) // bank.M + 1, w_rows),
+                         (xs.stride(0), xs.stride(1), bank.M, 1))
+
+
+def _rows_staging(x: torch.Tensor, bank) -> tuple[torch.Tensor, int]:
+    """The JAX package's host-marshalled rows as the flat staging they were
+    cut from, and the output cycle count.  Dense ``(files, C, n_rows, M)``
+    rows are the staging (a view; ``Q = n_rows - R``).  Varispeed rows
+    ``(files, C, Q, row_width)`` overlap: row q is ``staging[q*M : q*M +
+    row_width]``, so the staging is the first M floats of every row but the
+    last, then the last whole: a view where the rows are a window view of it
+    (`marshalled_rows`, the scheduler's), one copy otherwise."""
+    files, C, n_rows, width = x.shape
+    M = bank.M
+    if bank.G is not None:
+        if width != M:
+            raise ValueError(f"rows width {width} != M {M}")
+        Q = n_rows - _overlap_rows(bank)
+        if Q <= 0:
+            raise ValueError(f"need more than R={_overlap_rows(bank)} rows, got {n_rows}")
+        return x.reshape(files, C, n_rows * M), Q
+    w_rows = _banded_geometry(bank)[3]
+    if width != w_rows:
+        raise ValueError(f"cycle-row width {width} != plan {w_rows}")
+    if w_rows < M:
+        raise ValueError(f"cycle-row width {w_rows} < M {M}: the rows leave gaps")
+    total = (n_rows - 1) * M + w_rows
+    if (x.stride(-1) == 1 and x.stride(-2) == M and x.stride(1) >= total
+            and x.stride(0) >= C * total):
+        return x.as_strided((files, C, total), (x.stride(0), x.stride(1), 1)), n_rows
+    flat = x.new_empty((files, C, total))
+    head = (n_rows - 1) * M
+    flat[..., :head].view(files, C, n_rows - 1, M).copy_(x[..., :n_rows - 1, :M])
+    flat[..., head:].copy_(x[..., n_rows - 1, :])
+    return flat, n_rows
 
 
 def _cfg_key(cfg: ProcessingConfig, pad_frames: int) -> tuple:
@@ -325,6 +478,13 @@ def _noise_floor(cfg: ProcessingConfig, noise_floor_db, device) -> torch.Tensor:
                                 np.float32), device)
 
 
+def _rows_ok(cfg: ProcessingConfig, rows_layout: bool, latency_frames) -> bool:
+    """The JAX package's rule: the rows layout applies with no reverb, no
+    chain and a static zero latency; anything else runs packed."""
+    return (rows_layout and not cfg.reverb_mode and cfg.chain is None
+            and isinstance(latency_frames, int) and latency_frames == 0)
+
+
 def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
                   latency_frames=0, pad_frames: int | None = None,
                   noise_floor_db: float | None = None, rows_layout: bool = False,
@@ -336,10 +496,38 @@ def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
     ``pad_frames`` overrides the capture head-room (`_default_pad_frames`);
     ``noise_floor_db`` overrides ``cfg.noise_floor_db`` for the reverb-tail
     threshold.  ``per_file_gain_db``: optional ``(files,)`` per-file output
-    gain in dB (loudness normalization), composed with ``cfg.gain_db``."""
-    if rows_layout:
-        raise not_ported("rows_layout")
+    gain in dB (loudness normalization), composed with ``cfg.gain_db``.
+
+    ``rows_layout=True`` (no reverb, no chain, zero latency; otherwise the
+    batch runs packed) returns the rows layout (`_process_impl_rows`), and
+    then ``x`` may also be the JAX package's 4-D host-marshalled rows
+    (`rows_marshal_plan`, `banded_rows_plan`), zero outside each file's
+    valid samples; a 4-D ``x`` anywhere else raises ValueError."""
+    rows_ok = _rows_ok(cfg, rows_layout, latency_frames)
+    if getattr(x, "ndim", 0) == 4 and not rows_ok:
+        raise ValueError(
+            "4-D rows-marshalled input requires the rows layout "
+            "(rows_layout=True, no reverb/chain, zero latency)")
     dev = _pick_device(x, device)
+    gain_lin = _gain_vector(per_file_gain_db, len(x), dev)
+    if rows_ok:
+        num_cycles = None
+        if x.ndim == 4:
+            # the staging is found where the rows are, before the upload: a
+            # window view of host staging goes up as the staging itself
+            bank = design_cycle_bank(rate_in, cfg.target_rate, quality=cfg.quality,
+                                     kind=cfg.kind)
+            t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x, np.float32))
+            x, num_cycles = _rows_staging(t, bank)
+        x = _as_tensor(x, torch.float32, dev)
+        codes, out_frames, terminated, pk, level, nf_est = _process_impl_rows(
+            x, _as_tensor(frames_valid, torch.int32, dev),
+            _seed_vector(seeds, x.shape[0], dev), rate_in=rate_in,
+            rate_out=cfg.target_rate, cfg_key=_cfg_key(cfg, 0), gain_lin=gain_lin,
+            num_cycles=num_cycles)
+        return ProcessResult(codes=codes, out_frames=out_frames,
+                             tail_terminated=terminated, peak_db=pk, rms_db=level,
+                             noise_floor_db=nf_est, layout="rows")
     x = _as_tensor(x, torch.float32, dev)
     if pad_frames is None:
         pad_frames = _default_pad_frames(cfg, rate_in, latency_frames)
@@ -349,7 +537,7 @@ def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
         _noise_floor(cfg, noise_floor_db, dev), _seed_vector(seeds, x.shape[0], dev),
         rate_in=rate_in, rate_out=cfg.target_rate,
         cfg_key=_cfg_key(cfg, pad_frames), static_zero_latency=static_zero,
-        chain=cfg.chain, gain_lin=_gain_vector(per_file_gain_db, x.shape[0], dev))
+        chain=cfg.chain, gain_lin=gain_lin)
     return ProcessResult(codes=codes, out_frames=out_frames,
                          tail_terminated=terminated, peak_db=pk, rms_db=level,
                          noise_floor_db=nf_est)
@@ -364,22 +552,39 @@ def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
     """Raw-bytes path: uint8 interleaved PCM ``(files, bucket_frames *
     in_channels * in_bits // 8)`` in, packed payload out.  ``codes`` holds
     the uint8 payload ``(files, out_total * out_channels * cfg.bits // 8)``;
-    slice each file to ``out_frames[i] * out_channels * cfg.bits // 8``."""
+    slice each file to ``out_frames[i] * out_channels * cfg.bits // 8``.
+    With ``rows_layout`` (where it applies) the rows layout's whole cycles
+    are packed on the device, so the result's layout is "flat" as well and
+    its first ``out_len`` frames are the packed path's bytes."""
     if cfg.bits not in (16, 24):
         raise ValueError("packed output path requires bits in (16, 24)")
-    if rows_layout:
-        raise not_ported("rows_layout")
     dev = _pick_device(raw, device)
     raw = _as_tensor(raw, torch.uint8, dev)
-    pad_frames = _default_pad_frames(cfg, rate_in, latency_frames)
-    lat, static_zero = _latency(latency_frames, dev)
-    payload, out_frames, terminated, pk, level, nf_est = _process_impl(
-        raw, _as_tensor(frames_valid, torch.int32, dev), lat,
-        _noise_floor(cfg, noise_floor_db, dev), _seed_vector(seeds, raw.shape[0], dev),
-        rate_in=rate_in, rate_out=cfg.target_rate,
-        cfg_key=_cfg_key(cfg, pad_frames), static_zero_latency=static_zero,
-        raw_in=(in_channels, in_bits, in_big_endian), packed_out=True,
-        chain=cfg.chain, gain_lin=_gain_vector(per_file_gain_db, raw.shape[0], dev))
+    frames = _as_tensor(frames_valid, torch.int32, dev)
+    sd = _seed_vector(seeds, raw.shape[0], dev)
+    gain_lin = _gain_vector(per_file_gain_db, raw.shape[0], dev)
+    raw_in = (in_channels, in_bits, in_big_endian)
+    if _rows_ok(cfg, rows_layout, latency_frames):
+        payload, out_frames, terminated, pk, level, nf_est = _process_impl_rows(
+            raw, frames, sd, rate_in=rate_in, rate_out=cfg.target_rate,
+            cfg_key=_cfg_key(cfg, 0), raw_in=raw_in, packed_out=True, gain_lin=gain_lin)
+    else:
+        lat, static_zero = _latency(latency_frames, dev)
+        payload, out_frames, terminated, pk, level, nf_est = _process_impl(
+            raw, frames, lat, _noise_floor(cfg, noise_floor_db, dev), sd,
+            rate_in=rate_in, rate_out=cfg.target_rate,
+            cfg_key=_cfg_key(cfg, _default_pad_frames(cfg, rate_in, latency_frames)),
+            static_zero_latency=static_zero, raw_in=raw_in, packed_out=True,
+            chain=cfg.chain, gain_lin=gain_lin)
     return ProcessResult(codes=payload, out_frames=out_frames,
                          tail_terminated=terminated, peak_db=pk, rms_db=level,
                          noise_floor_db=nf_est)
+
+
+def build_process_fn(cfg: ProcessingConfig, rate_in: int, device=None):
+    """A `process_batch` for one config and input rate:
+    ``fn(x, frames_valid, seeds, latency_frames=0)``."""
+    def fn(x, frames_valid, seeds, latency_frames=0):
+        return process_batch(x, frames_valid, cfg, rate_in, seeds, latency_frames,
+                             device=device)
+    return fn

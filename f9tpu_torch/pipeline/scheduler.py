@@ -35,8 +35,14 @@ split over the channels axis too; the raw-bytes upload and loudness
 normalization take the files axis only, and every fallback is logged.
 Files past the largest bucket stream on the processor's device alone.
 
-Not ported yet, each refused when the processor is built: the rows layout
-and the native loader.
+The rows layout (``cfg.device_layout == "rows"``) asks every group for
+it; where it applies (no reverb, no chain, zero latency, not channel-
+sharded) a float group whose bank takes the JAX package's host marshalling
+(`rows_pre_applicable`, `banded_rows_applicable`) is staged as the flat
+buffer those rows are cut from, each byte written once in the pinned batch
+buffer, and handed to the graph as the JAX package's 4-D rows (a view);
+the collector reads a ``"rows"`` result flat.  Its bytes are the packed
+layout's.  The native loader is refused when the processor is built.
 """
 
 from __future__ import annotations
@@ -57,10 +63,12 @@ from ..io import aiff, codec, flac, wav
 from ..device import resolve_device
 from ..ops.chain import Chain
 from ..ops.dither import file_seed as _file_seed
-from ..ops.resample import resample_rates
+from ..models.filters import design_cycle_bank
+from ..ops.resample import banded_rows_applicable, resample_rates, rows_pre_applicable
 from .calibration import CAPTURE_FRAMES, CalibrationCache
 from . import link
-from .graph import not_ported, process_batch, process_batch_raw
+from .graph import (marshalled_rows, not_ported, process_batch, process_batch_raw,
+                    rows_staging_plan)
 from .logbook import StatusLog, Throughput
 from .manifest import FileStatus, JobManifest, file_crc32
 from .stream import stream_resample_file, streaming_exclusions
@@ -134,10 +142,8 @@ class BatchProcessor:
         device: torch.device | str | None = None,
     ):
         cfg.validate()
-        for what, on in (("rows_layout", cfg.device_layout == "rows"),
-                         ("native_loader", cfg.native_loader)):
-            if on:
-                raise not_ported(what)
+        if cfg.native_loader:
+            raise not_ported("native_loader")
         if cfg.chain is not None and not isinstance(cfg.chain, Chain):
             raise TypeError(
                 "cfg.chain must be an f9tpu_torch.ops.chain.Chain (convert a "
@@ -367,6 +373,21 @@ class BatchProcessor:
             self.log.append(f"Channel sharding unavailable: {reason}")
         return ok
 
+    def _rows_bank(self, rate_in: int, raw_bits: int, use_cp: bool, latency):
+        """The bank whose host-marshalled rows a float group of the rows
+        layout stages (the JAX scheduler's rule), else None: the bucket
+        itself goes to the graph (and the layout, where it does not apply,
+        runs packed)."""
+        cfg = self.cfg
+        if (cfg.device_layout != "rows" or raw_bits or use_cp or cfg.reverb_mode
+                or cfg.chain is not None or latency != 0):
+            return None
+        bank = design_cycle_bank(rate_in, cfg.target_rate, quality=cfg.quality,
+                                 kind=cfg.kind)
+        if rows_pre_applicable(bank) or banded_rows_applicable(bank):
+            return bank
+        return None
+
     def _group_noise_floor(self, rate_in: int, noise_floors) -> float | None:
         """Reverb mode's tail threshold base for one rate: the configured
         floor, else the measured one if usable, else None (-80 dB)."""
@@ -438,6 +459,7 @@ class BatchProcessor:
                 by_bucket.setdefault(blen if cap is None else min(max(blen, n), cap),
                                      []).append(info)
             use_cp = self._channel_sharding(cfg, channels, raw_bits)
+            rows_bank = self._rows_bank(rate_in, raw_bits, use_cp, latencies[rate_in])
             # output channel count after in-graph routing / mono fan-out
             out_ch = (len(cfg.channel_routing)
                       if cfg.channel_routing is not None
@@ -459,7 +481,8 @@ class BatchProcessor:
                 buckets.append(dict(
                     rate_in=rate_in, channels=channels, raw_bits=raw_bits,
                     raw_be=raw_be, lat=latencies[rate_in], group_nf=group_nf,
-                    use_cp=use_cp, out_ch=out_ch, blen=blen, infos=binfos, bs=bs))
+                    use_cp=use_cp, rows_bank=rows_bank, out_ch=out_ch, blen=blen,
+                    infos=binfos, bs=bs))
 
         work = [(bi, info) for bi, b in enumerate(buckets) for info in b["infos"]]
         dec_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
@@ -628,6 +651,9 @@ class BatchProcessor:
                 for i, p in enumerate(c_paths):
                     codes, out_frames, pk, rms, nf, term = (
                         a[i % rows] for a in parts[i // rows])
+                    if codes.ndim == 3:
+                        # the rows layout's (C, Q, L) tiling, read flat
+                        codes = codes.reshape(codes.shape[0], -1)
                     manifest.set_progress(p, 0.7)
                     audio_in += c_valid[i] / c_rate_in
                     audio_out += int(out_frames) / cfg.target_rate
@@ -689,6 +715,19 @@ class BatchProcessor:
                     x[i, :nb] = d.data[:nb]
                     x[i, nb:] = 0
                     valid[i] = nb // bpf
+            elif b["rows_bank"] is not None:
+                # the flat staging of the JAX package's host-marshalled
+                # rows: each file at pad_front of a zero buffer as long as
+                # the rows' last read (the samples past it are never read)
+                total, pf = rows_staging_plan(b["rows_bank"], blen)
+                xt = link.host_empty((bs, channels, total), torch.float32, dev)
+                x = xt.numpy()
+                for i, d in enumerate(batch_x):
+                    valid[i] = min(d.data.shape[-1], blen)
+                    n = min(int(valid[i]), total - pf)
+                    x[i, :, :pf] = 0
+                    x[i, :, pf:pf + n] = d.data[:, :n]
+                    x[i, :, pf + n:] = 0
             else:
                 xt = link.host_empty((bs, channels, blen), torch.float32, dev)
                 x = xt.numpy()
@@ -700,6 +739,8 @@ class BatchProcessor:
             x[len(batch_x):] = 0
             for d in batch_x:
                 manifest.set_progress(d.entry_path, 0.4)
+            use_rows = cfg.device_layout == "rows"
+
             def step(x, v, sd, g, device=dev):
                 # enqueue only: the collector thread waits for the device
                 # and copies the results while the next batch is staged
@@ -708,12 +749,15 @@ class BatchProcessor:
                         x, v, cfg, b["rate_in"], sd,
                         in_channels=channels, in_bits=raw_bits,
                         in_big_endian=b["raw_be"], latency_frames=b["lat"],
-                        noise_floor_db=b["group_nf"], device=device)
+                        noise_floor_db=b["group_nf"], rows_layout=use_rows,
+                        device=device)
                 else:
+                    if b["rows_bank"] is not None:
+                        x = marshalled_rows(x, b["rows_bank"])
                     res = process_batch(
                         x, v, cfg, b["rate_in"], sd,
                         latency_frames=b["lat"], noise_floor_db=b["group_nf"],
-                        per_file_gain_db=g, device=device)
+                        rows_layout=use_rows, per_file_gain_db=g, device=device)
                 return _download(res)
 
             try:

@@ -331,9 +331,10 @@ def test_cli_process_profile_writes_a_trace(tmp_path, capsys):
     (["--channel-shards", "4"], "Multi-device"),
 ])
 def test_cli_unported_process_options_exit_2(tmp_path, capsys, flags, item):
-    """``--device-layout rows`` exits 2 naming its ROADMAP item.  The
-    multi-device options did too and now run on a CPU mesh of that many
-    shards, each file's bytes those of the one-device run."""
+    """``--device-layout rows`` and the multi-device options exited 2
+    naming their ROADMAP items; they now run (the multi-device options on a
+    CPU mesh of that many shards), each file's bytes those of the packed,
+    one-device run."""
     paths = make_files(tmp_path, 2)
     for sub in (["process", *paths], ["watch", str(tmp_path)]):
         # a watched file is taken once its size held over two sweeps
@@ -341,9 +342,6 @@ def test_cli_unported_process_options_exit_2(tmp_path, capsys, flags, item):
         out = str(tmp_path / f"o_{sub[0]}")
         rc, _, err = _run(cli.main, [*sub, "--out", out, "--quality", "low", *flags, *extra,
                                      *CPU], capsys)
-        if item != "Multi-device":
-            assert rc == 2 and item in err and "ROADMAP" in err, (sub[0], err)
-            continue
         one = str(tmp_path / f"one_{sub[0]}")
         assert rc == 0, (sub[0], err)
         assert _run(cli.main, [*sub, "--out", one, "--quality", "low", *extra, *CPU],

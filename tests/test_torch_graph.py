@@ -159,18 +159,26 @@ def test_exact_length_math_and_its_guard():
 
 @pytest.mark.parametrize("what", ["rows_layout", "channel_axis"])
 def test_unported_options_name_their_roadmap_item(what):
-    """The graph's remaining refusal (the rows layout) names its ROADMAP
-    item; the insert chain, reverb mode, channel routing and the channel
-    axis are ported and refuse nothing.  A graph run on two channel shards
-    (`run_sharded`, the channel axis's collectives) gives the one-device
-    graph's codes and metrics."""
+    """The graph refuses nothing of the JAX package: the insert chain,
+    reverb mode, channel routing, the channel axis and the rows layout are
+    ported.  A reverb-mode batch asked for the rows layout runs packed, as
+    in the JAX package, and a 4-D rows input there raises ValueError.  A
+    graph run on two channel shards (`run_sharded`, the channel axis's
+    collectives) gives the one-device graph's codes and metrics."""
     assert not set(tgraph.NOT_PORTED) & {"chain", "reverb_mode", "channel_routing",
-                                         "channel_axis", "mesh"}
+                                         "channel_axis", "mesh", "rows_layout"}
     cfg = TConfig(output_dir="/tmp/x", target_rate=48000, quality="low", reverb_mode=True)
     x = torch.zeros((1, 2, 100))
     if what == "rows_layout":
-        with pytest.raises(NotImplementedError, match="rows layout"):
-            tgraph.process_batch(x, [100], cfg, 44100, [1], rows_layout=True)
+        x = torch.from_numpy(_float_batch(2, seed=9)[:1])
+        got = tgraph.process_batch(x, [4000], cfg, 44100, [1], rows_layout=True)
+        want = tgraph.process_batch(x, [4000], cfg, 44100, [1])
+        assert got.layout == want.layout == "flat"
+        for name in ("codes", "out_frames", "tail_terminated", "peak_db", "rms_db"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        with pytest.raises(ValueError, match="rows layout"):
+            tgraph.process_batch(torch.zeros((1, 2, 9, 147)), [100], cfg, 44100, [1],
+                                 rows_layout=True)
         return
     from f9tpu_torch.parallel import P, make_mesh, run_sharded
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `f9tpu_torch`, and not
-`chip_smoke.py`, imports the JAX package or jax.
+"""The port stands alone: no module of `f9tpu_torch`, and neither
+`chip_smoke.py` nor `examples/demo_torch.py`, imports the JAX package or
+jax.
 
 `tests/conftest.py` imports jax into the test process, so the import check
 runs in a fresh interpreter; the scan reads every source file's import
@@ -18,13 +19,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "f9tpu_torch")
 SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), REPO) for d, _, fs in os.walk(PKG)
-     for f in fs if f.endswith(".py")] + ["chip_smoke.py"])
+     for f in fs if f.endswith(".py")]
+    + ["chip_smoke.py", os.path.join("examples", "demo_torch.py")])
 
 
 def _modules() -> list[str]:
     out = []
     for rel in SOURCES:
-        if rel == "chip_smoke.py":
+        if not rel.startswith("f9tpu_torch"):
             continue
         mod = rel[:-3].replace(os.sep, ".")
         out.append(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)

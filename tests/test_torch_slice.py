@@ -136,14 +136,17 @@ def test_oversized_file_fails_alone(tmp_path):
     {"mesh": 2}, {"normalize_lufs": -14.0}, {"device_layout": "rows"},
     {"native_loader": True}])
 def test_unported_options_are_refused(tmp_path, kw):
-    """The rows layout and the native loader are refused when the processor
-    is built; loudness normalization and a mesh were, and now build (a mesh
+    """The native loader is refused when the processor is built; loudness
+    normalization, a mesh and the rows layout were, and now build (a mesh
     of 2 CPU shards; the processor's device is then the mesh's first)."""
     kw = dict(kw)
     shards = kw.pop("mesh", None)
     cfg = TConfig(output_dir=str(tmp_path), **kw)
     if "normalize_lufs" in kw:
         assert tsched.BatchProcessor(cfg, device="cpu").cfg.normalize_lufs == -14.0
+        return
+    if "device_layout" in kw:
+        assert tsched.BatchProcessor(cfg, device="cpu").cfg.device_layout == "rows"
         return
     if shards:
         from f9tpu_torch.parallel import make_mesh

@@ -12,8 +12,7 @@ contracts, on the CPU.
 - Within the port, the bytes do not depend on the chunk size (three sizes)
   for routing, fan-out, latency either way, reverb tails, 16 and 24 bits,
   WAV, AIFF and FLAC, and the raw wire equals the float wire.
-- The entry points run on CUDA unless asked for the CPU, and the options
-  not ported yet raise, naming their ROADMAP item.
+- The entry points run on CUDA unless asked for the CPU.
 
 Every test here runs torch on one CPU thread (`_one_thread`): the suite
 runs files in parallel processes, and an OpenMP pool that spin-waits after
