@@ -20,7 +20,7 @@ its results, any failure exiting non-zero:
    stereo 24-bit 44.1 kHz WAVs of 50-60 s: 8 completed, kernel launches
    counted from zero, outputs <= -120 dB against the oracle and within
    2 LSB of the port's CPU path, wall time and x real time; one batch's
-   graph split; the link in turns: a pageable upload and `.cpu()` of the
+   graph split (whole graph, SRC, the epilogue pair, peak memory); the link in turns: a pageable upload and `.cpu()` of the
    batch's six results against the pinned upload and the side-stream
    `link.Download` (same bytes); the collector's blocking ms and the
    dispatch thread's ms per batch (with its pinned allocations, uploads and
@@ -123,14 +123,26 @@ its results, any failure exiting non-zero:
    WAVs at 48 kHz and 44,056 Hz: every output's sha256 equal to the packed
    run's, wall and x real time, kernel launches counted from zero for each
    rows run; (e) `examples/demo_torch.py`'s 13 configurations on the card,
-   with their asserts, and its wall.
+   with their asserts, and its wall;
+11. the epilogue kernel pair (`f9tpu_torch/csrc/epilogue.cu`): (a) at
+   `bench.py`'s shape (16 x 2 x 2^20) and the slice's (8 x 2 x 2^22), the
+   kernel against its twin run on the card over a flag grid (dither, DC,
+   gains, 16 / 24 / 32 bits, int32 codes and payloads, a silent channel,
+   keep < total, the stream's form): `torch.equal` on codes or payload, sum
+   of squares, peak and mean; (b) each pass's device ms, the pair's and the
+   twin's (CUDA events, median of 10), the bound (y read once) and the
+   two-read floor, the launches per graph (1, packed and rows, with the twin
+   made to raise); (c) phase 4's and 10a's graph ms and peak memory beside
+   the eager epilogue's figures; the pair's launches by path over phases
+   4-10, each at least one.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA GPU it exits 1 and prints no result.  ``python3 chip_smoke.py
 --windowed-digests`` only prints 7a's digests, and ``--chunk-times`` only
 7b's times of one launch at the stream's chunk shapes, for the checkout it
-sits in (a parent tree unpacked by `git archive` beside this script's copy).
+sits in (a parent tree unpacked by `git archive` beside this script's copy);
+``--epilogue`` runs phase 11 alone.
 """
 
 from __future__ import annotations
@@ -248,18 +260,28 @@ def _src_bound(bank, signals: int, frames: int, out_len: int) -> tuple[float, st
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+#: the epilogue pair's launches of each main-path drive, as `_read_counts`
+#: read them (`main` sums them by phase)
+EPILOGUE_READS: list[int] = []
+
+
 def _zero_counts() -> None:
-    """Set both launch counts to 0, just before a main path is driven."""
+    """Set every launch count to 0, just before a main path is driven."""
+    from f9tpu_torch.ops import epilogue as ep
     from f9tpu_torch.ops import src_kernel as sk
 
     sk.launches = sk.launches_windowed = 0
+    ep.launches = 0
 
 
 def _read_counts() -> tuple[int, int]:
-    """(every launch, those of the windowed form) since `_zero_counts`, read
-    just after a main path was driven."""
+    """(every `cycle_src` launch, those of the windowed form) since
+    `_zero_counts`, read just after a main path was driven; the epilogue
+    pair's count is read at the same moment into `EPILOGUE_READS`."""
+    from f9tpu_torch.ops import epilogue as ep
     from f9tpu_torch.ops import src_kernel as sk
 
+    EPILOGUE_READS.append(ep.launches)
     return sk.launches, sk.launches_windowed
 
 
@@ -638,18 +660,38 @@ def _timed(fn, runs: int = 3):
     return out, float(np.median(ts))
 
 
+#: this run's graph readings (phase 4's slice batch, phase 10a's graphs),
+#: printed again by phase 11 beside `PERF.md` section 5's eager figures
+GRAPH_READINGS: dict = {}
+
+
+def _peak_gb(fn, dev) -> float:
+    """Peak device memory in GB that ``fn()`` allocates above what is
+    allocated when it starts."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize()
+    return round((torch.cuda.max_memory_allocated(dev) - base) / 1e9, 3)
+
+
 def _slice_graph_split(card: str, in_dir: str, dev) -> None:
     """One 8-file batch of the default job on the card, every file in the
     2^22-frame bucket, on device-resident input by CUDA events (median of 3
-    after one warm-up): the whole graph, the SRC alone, and the epilogue's
-    DC-mean reduction over the graph's output accumulated in float64 (what
-    the graph does) beside the float32 reduction it replaced."""
+    after one warm-up): the whole graph, the SRC alone, the epilogue pair
+    alone on the SRC output, and the graph's peak device memory above its
+    inputs."""
     import numpy as np
     import torch
 
     from f9tpu_torch.config import ProcessingConfig
     from f9tpu_torch.io import codec
     from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import dither
+    from f9tpu_torch.ops import epilogue as ep
     from f9tpu_torch.ops.src_kernel import resample_auto
     from f9tpu_torch.pipeline import calibration, graph
 
@@ -669,16 +711,21 @@ def _slice_graph_split(card: str, in_dir: str, dev) -> None:
     def whole():
         return graph.process_batch(xd, vd, cfg, 44100, seeds, latency_frames=lat,
                                    device=dev)
-    whole()
+    res = whole()
+    peak = _peak_gb(whole, dev)
     _, t_all = _timed(whole)
     y, t_src = _timed(lambda: resample_auto(xd, design_cycle_bank(44100, 48000)))
-    _, t_f64 = _timed(lambda: torch.sum(y, dim=-1, keepdim=True, dtype=torch.float64))
-    _, t_f32 = _timed(lambda: torch.sum(y, dim=-1, keepdim=True))
+    cs = dither.channel_seeds(torch.from_numpy(seeds).to(dev).to(torch.int64), 2)
+    _, t_ep = _timed(lambda: ep.epilogue(y, res.out_frames, cs, bits=24, remove_dc=True,
+                                         gain=1.0))
     audio_s = float(valid.sum()) / 44100
+    GRAPH_READINGS["slice"] = {"graph_ms": t_all, "src_ms": t_src, "epilogue_ms": t_ep,
+                               "peak_gb": peak}
     print(f"slice graph: 8 files x 2 ch x 2^22 input frames ({audio_s:.1f} s of source), "
           f"latency {lat}: whole graph {t_all:.2f} ms ({audio_s / (t_all / 1000):.0f}x real "
-          f"time), SRC alone {t_src:.3f} ms, the DC sum over {tuple(y.shape)} in float64 "
-          f"{t_f64:.3f} ms, in float32 {t_f32:.3f} ms [{card}]", flush=True)
+          f"time), SRC alone {t_src:.3f} ms, the epilogue pair alone over {tuple(y.shape)} "
+          f"{t_ep:.3f} ms; the graph's peak device memory above its inputs {peak} GB "
+          f"[{card}]", flush=True)
 
 
 def _loop_graph_split(card: str, in_dir: str, names: list[str], ir_path: str,
@@ -2586,6 +2633,7 @@ def _rows_graphs(card: str, dev) -> None:
         for name in ("packed", "rows", "staged", "staged", "rows", "packed"):
             ms[name].append(_median_ms(graphs[name]))
         ms_s = " ".join(f"{k} {a:.3f}/{b:.3f}" for k, (a, b) in ms.items())
+        GRAPH_READINGS[f"rows 10a {rate}"] = {"graph_ms": ms, "peak_gb": peak}
         unmarshal = (f" un-marshal copy {_median_ms(lambda: tg._rows_staging(rows4, bank)):.3f} ms"
                      if bank.G is None else "")
         print(f"rows 10a: 44100->{rate} high {files}x{C}x2^20 ({route}): rows == packed "
@@ -2730,8 +2778,12 @@ def _demo(card: str, work: str) -> None:
     spec.loader.exec_module(demo)
     buf = io.StringIO()
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
-        demo.run(os.path.join(work, "demo"), "cuda")
+    try:
+        with contextlib.redirect_stdout(buf):
+            demo.run(os.path.join(work, "demo"), "cuda")
+    except BaseException:
+        print(buf.getvalue()[-4000:], flush=True)
+        raise
     wall = time.time() - t0
     done = [ln for ln in buf.getvalue().splitlines() if re.match(r"\[\d+\] ", ln)]
     print(f"rows 10e: examples/demo_torch.py on the card: {len(done)} configurations, "
@@ -2759,6 +2811,230 @@ def phase_rows(card: str, work: str, slice_work: str, dev) -> dict:
     return counts
 
 
+#: phase 11's shapes: `bench.py`'s job and the slice's batch, as the
+#: epilogue sees them (the SRC output of 44.1k -> 48k high, whole cycles)
+EPILOGUE_SHAPES = (("bench.py's job", 16, 2, 1 << 20), ("the slice's batch", 8, 2, 1 << 22))
+#: and mono, and buses whose payload a block stages in 48 KB or more (C = 4,
+#: 16) or writes in place (C = 24: past the 192 KB it stages), held to the
+#: twin only
+EPILOGUE_BUSES = (("mono", 3, 1, 1 << 16), ("a 4-channel bus", 3, 4, 1 << 16),
+                  ("a 16-channel bus", 2, 16, 1 << 16), ("a 24-channel bus", 2, 24, 1 << 15))
+#: the graphs with the eager epilogue this kernel pair replaced, as `PERF.md`
+#: section 5 records them (NVIDIA H100 80GB HBM3, 700 W), printed beside this
+#: run's readings
+EAGER_GRAPHS = ("slice batch 13.21-13.36 ms (SRC 0.94-1.07); bench.py's job packed "
+                "6.747-6.789 ms, rows 6.596-6.602, staged 6.372-6.387; each graph's peak "
+                "1.57-1.70 GB above its inputs")
+#: phase 11a's flag grid: (label, `epilogue` keywords); "stream" drops the
+#: mask and the statistics and keys the noise at pos0, as `_finish_chunk` does
+EPILOGUE_GRID = (
+    ("24-bit, dither, DC", dict(bits=24, dither=True, remove_dc=True)),
+    ("24-bit payload, dither, DC", dict(bits=24, dither=True, remove_dc=True, packed=24)),
+    ("16-bit payload, -3 dB, per-file gain, no DC, keep < total (rows not 16-byte aligned)",
+     dict(bits=16, dither=True, remove_dc=False, packed=16, gain=10 ** (-3 / 20),
+          per_file=True, cut=1001)),
+    ("24-bit, no dither, DC, silent channel 1, keep < total",
+     dict(bits=24, dither=False, remove_dc=True, silent=(1,), cut=1000)),
+    ("32-bit, dither, DC, per-file gain", dict(bits=32, dither=True, remove_dc=True,
+                                               per_file=True)),
+    ("stream: 24-bit payload, pos0, silent channel 0",
+     dict(bits=24, dither=True, remove_dc=False, packed=24, silent=(0,), stream=True)),
+    ("stream: int16 codes, pos0", dict(bits=16, dither=True, remove_dc=False,
+                                       dtype="int16", stream=True)),
+)
+
+
+def _epilogue_case(y, out_frames, seeds, opts: dict) -> tuple[tuple, dict]:
+    """(positional, keyword) arguments of `ops.epilogue` for a grid case."""
+    import torch
+
+    from f9tpu_torch.ops import dither
+
+    files, C, total = y.shape
+    stream = opts.get("stream", False)
+    cs = dither.channel_seeds(seeds.to(torch.int64), C) if opts["dither"] else None
+    gain_lin = None
+    if opts.get("per_file"):
+        gain_lin = torch.linspace(0.5, 1.5, files, device=y.device, dtype=torch.float32)
+    kw = dict(bits=opts["bits"], remove_dc=opts["remove_dc"], gain=opts.get("gain", 1.0),
+              gain_lin=gain_lin, keep=total - opts.get("cut", 0),
+              silent=tuple(c for c in opts.get("silent", ()) if c < C),
+              packed=opts.get("packed"),
+              pos0=123456789 if stream else 0, stats=not stream,
+              codes_dtype=torch.int16 if opts.get("dtype") == "int16" else torch.int32)
+    return (y, None if stream else out_frames, cs), kw
+
+
+def _epilogue_inputs(files: int, C: int, frames: int, dev):
+    """The SRC output of ``frames`` input frames (whole cycles of 44.1k ->
+    48k high) as normal noise at 0.25 plus 0.01 of DC, and valid lengths
+    from whole down to 0 (within a tile, shorter than a tile, shorter than
+    the tail window)."""
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank
+
+    bank = design_cycle_bank(44100, 48000)
+    total = -(-bank.out_len(frames) // bank.L) * bank.L
+    gen = torch.Generator(device=dev).manual_seed(SEED + files)
+    y = 0.25 * torch.randn((files, C, total), generator=gen, device=dev) + 0.01
+    lengths = [total, total - 1, total - 4095, total // 3 + 7, 4097, 4095, 1000, 0]
+    out_frames = torch.tensor([lengths[i % len(lengths)] for i in range(files)],
+                              dtype=torch.int32, device=dev)
+    seeds = torch.arange(1, files + 1, dtype=torch.int32, device=dev)
+    return y, out_frames, seeds
+
+
+def _epilogue_bound_ms(files: int, C: int, keep: int, out_bytes: int, reads: int = 1) -> float:
+    """The least time of the epilogue's traffic: ``reads`` reads of the
+    float32 input and one write of ``out_bytes`` per sample, at the card's
+    memory rate (one read is the function's; two are a DC-removing design's
+    floor, since the mean precedes the first code and y outgrows L2)."""
+    return 1e3 * files * C * keep * (4 * reads + out_bytes) / HBM_BYTES_PER_S
+
+
+def _graph_profile(card: str, graph, runs: int = 5) -> None:
+    """11c: where `bench.py`'s packed graph spends its time now: the host
+    wall per graph (host clock around ``runs`` calls ended by a synchronize,
+    no profiler), and from `torch.profiler` the device's busy time per graph
+    (kernels and copies) and its launches, the largest by name."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        graph()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / runs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            graph()
+        torch.cuda.synchronize()
+    by_name, count = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
+    busy_ms = sum(by_name.values()) / 1e3 / runs
+    if busy_ms <= 0:
+        print(f"epilogue 11c: the packed graph's device busy time not measured (the profiler "
+              f"saw no device time); host wall {wall_ms:.3f} ms per graph [{card}]", flush=True)
+        return
+    print(f"epilogue 11c: bench.py's packed graph: host wall {wall_ms:.3f} ms per graph "
+          f"(host clock, {runs} calls), device busy {busy_ms:.3f} ms per graph in "
+          f"{sum(count.values()) / runs:.0f} kernels and copies (torch.profiler): "
+          f"{100.0 - 100.0 * busy_ms / wall_ms:.1f} % idle [{card}]", flush=True)
+    for name, us in by_name.most_common(8):
+        print(f"epilogue 11c:   {us / 1e3 / runs:.4f} ms in {count[name] / runs:.1f} launches "
+              f"per graph: {name[:90]}", flush=True)
+
+
+def phase_epilogue(card: str, dev) -> dict:
+    """Phase 11, the epilogue kernel pair: (a) kernel == twin on the card
+    (`torch.equal` on codes or payload, sum of squares, peak and mean) over
+    the flag grid at both shapes; (b) each pass's device ms (CUDA events,
+    median of 10 after warm-up), the pair's, the twin's, the bounds, the
+    launches per graph and that `_epilogue` on the card never runs the twin;
+    (c) phase 4's and phase 10a's graph ms and peak memory beside the eager
+    figures.  Returns the numbers for the JSON summary."""
+    import torch
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.ops import epilogue as ep
+    from f9tpu_torch.pipeline import graph as tg
+
+    per_shape = []
+    max_err = 0.0
+    for label, files, C, frames in EPILOGUE_SHAPES + EPILOGUE_BUSES:
+        y, out_frames, seeds = _epilogue_inputs(files, C, frames, dev)
+        total = y.shape[-1]
+        for name, opts in EPILOGUE_GRID:
+            args, kw = _epilogue_case(y, out_frames, seeds, opts)
+            got = ep.epilogue(*args, **kw)
+            want = ep.epilogue_reference(*args, **kw)
+            torch.cuda.synchronize()
+            same = {k: (g is None and w is None) or (g is not None and w is not None
+                                                     and torch.equal(g, w))
+                    for k, g, w in zip(("codes", "sumsq", "peak", "mean"), got, want)}
+            err = max((float((g.double() - w.double()).abs().max()) for g, w in zip(got, want)
+                       if g is not None and w is not None and g.numel()), default=0.0)
+            max_err = max(max_err, err)
+            print(f"epilogue 11a: {label} {files}x{C}x{total} [{name}]: kernel == twin "
+                  f"{same}, max abs difference {err:g} [{card}]", flush=True)
+            if not all(same.values()):
+                raise AssertionError(f"epilogue 11a: {label} [{name}]: kernel != twin {same}")
+            del got, want
+        if (label, files, C, frames) in EPILOGUE_BUSES:
+            continue
+        # (b) each pass alone, the pair and the twin, int32 codes and the payload
+        row = {"shape": f"{files}x{C}x2^{frames.bit_length() - 1}", "outputs": total}
+        for form, opts, out_bytes in (("int32", EPILOGUE_GRID[0][1], 4),
+                                      ("payload24", EPILOGUE_GRID[1][1], 3)):
+            args, kw = _epilogue_case(y, out_frames, seeds, opts)
+            for _ in range(3):
+                ep.epilogue(*args, **kw)
+                ep.epilogue_reference(*args, **kw)
+            torch.cuda.synchronize()
+            t = {"pass1_ms": _median_ms(lambda: ep._launch(*args, **kw, passes=1)),
+                 "pass2_ms": _median_ms(lambda: ep._launch(*args, **kw, passes=2)),
+                 "ms": _median_ms(lambda: ep.epilogue(*args, **kw)),
+                 "plain_ms": _median_ms(lambda: ep.epilogue_reference(*args, **kw))}
+            t["bound_ms"] = _epilogue_bound_ms(files, C, total, out_bytes)
+            t["two_read_floor_ms"] = _epilogue_bound_ms(files, C, total, out_bytes, reads=2)
+            row[form] = t
+            print(f"epilogue 11b: {label} {files}x{C}x{total} {form}: pass 1 (DC sum) "
+                  f"{t['pass1_ms']:.4f} ms, pass 2 (finish) {t['pass2_ms']:.4f} ms, the pair "
+                  f"{t['ms']:.4f} ms, twin {t['plain_ms']:.3f} ms; bound {t['bound_ms']:.4f} "
+                  f"ms (y read once, bytes), two-read floor {t['two_read_floor_ms']:.4f} ms "
+                  f"(median of 10) [{card}]", flush=True)
+        per_shape.append(row)
+        del y
+        torch.cuda.empty_cache()
+
+    # launches per graph, and no twin on the card
+    files, C, frames = ROWS_JOB
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = 0.25 * torch.randn((files, C, frames), generator=gen, device=dev)
+    valid = torch.full((files,), frames, dtype=torch.int32, device=dev)
+    seeds = torch.arange(1, files + 1, dtype=torch.int32, device=dev)
+    cfg = ProcessingConfig(output_dir="/nonexistent", target_rate=48000, quality="high")
+    twin = ep.epilogue_reference
+
+    def no_twin(*a, **k):
+        raise AssertionError("_epilogue ran the twin on a CUDA tensor")
+    per_graph = {}
+    ep.epilogue_reference = no_twin
+    try:
+        for name, kw in (("packed", {}), ("rows", {"rows_layout": True})):
+            n0 = ep.launches
+            tg.process_batch(x, valid, cfg, 44100, seeds, **kw)
+            torch.cuda.synchronize()
+            per_graph[name] = ep.launches - n0
+    finally:
+        ep.epilogue_reference = twin
+    print(f"epilogue 11b: launches per graph {per_graph} (the twin never ran) [{card}]",
+          flush=True)
+    _graph_profile(card, lambda: tg.process_batch(x, valid, cfg, 44100, seeds))
+    if any(n != 1 for n in per_graph.values()):
+        raise AssertionError(f"epilogue 11b: launches per graph {per_graph}, expected 1")
+    del x
+    torch.cuda.empty_cache()
+
+    # (c) this run's graphs beside the eager epilogue's
+    for key, r in GRAPH_READINGS.items():
+        print(f"epilogue 11c: {key}: {json.dumps(r)} [{card}]", flush=True)
+    print(f"epilogue 11c: the eager epilogue's graphs (PERF.md section 5): {EAGER_GRAPHS}",
+          flush=True)
+    head = per_shape[0]["int32"]
+    return {"max_abs_err": max_err, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "per_shape": per_shape, "per_graph": per_graph}
+
+
 def main() -> int:
     import torch
 
@@ -2774,6 +3050,13 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--chunk-times"]:
         print(json.dumps(windowed_chunk_ms(resolve_device("cuda"))), flush=True)
+        return 0
+    if sys.argv[1:] == ["--epilogue"]:
+        _build.load_library()
+        print(_build.build_log.strip(), flush=True)
+        out = phase_epilogue(_card(), resolve_device("cuda"))
+        print(json.dumps({k: out[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}),
+              flush=True)
         return 0
     card = _card()
     print(card, flush=True)
@@ -2792,6 +3075,7 @@ def main() -> int:
     print(f"phase 3 (kernel): {time.time() - t0:.1f} s", flush=True)
     dense = {}
     windowed = {}
+    epilogue_by_path = {}
     kw = None
     slice_work = None
     for n, path, phase in ((4, "default_job", lambda c, w: phase_slice(c, w, dev=dev)),
@@ -2807,11 +3091,13 @@ def main() -> int:
             print(f"phase 7a (windowed kernel): {time.time() - t0:.1f} s", flush=True)
         work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
         t0 = time.time()
+        reads = len(EPILOGUE_READS)
         try:
-            # each phase sets both counts to 0 just before it drives its
-            # path and reads both just after: a launch is the dense form's
+            # each phase sets the counts to 0 just before it drives its
+            # path and reads them just after: a launch is the dense form's
             # unless it was counted as the windowed form's
             total, windowed[path] = phase(card, work)
+            epilogue_by_path[path] = sum(EPILOGUE_READS[reads:])
             dense[path] = total - windowed[path]
             if path == "default_job":
                 slice_work, work = work, None    # phase 9a holds its outputs to these
@@ -2822,9 +3108,11 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
     t0 = time.time()
+    reads = len(EPILOGUE_READS)
     try:
         for path, (total, win) in phase_tools(card, work, dev).items():
             dense[path], windowed[path] = total - win, win
+        epilogue_by_path["tools"] = sum(EPILOGUE_READS[reads:])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 8 (tool path): {time.time() - t0:.1f} s", flush=True)
@@ -2832,23 +3120,35 @@ def main() -> int:
     try:
         work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
         t0 = time.time()
+        reads = len(EPILOGUE_READS)
         try:
             for path, (total, win) in phase_multi_device(card, work, slice_work, dev).items():
                 dense[path], windowed[path] = total - win, win
+            epilogue_by_path["multi_device"] = sum(EPILOGUE_READS[reads:])
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase 9 (multi-device): {time.time() - t0:.1f} s", flush=True)
 
         work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
         t0 = time.time()
+        reads = len(EPILOGUE_READS)
         try:
             for path, (total, win) in phase_rows(card, work, slice_work, dev).items():
                 dense[path], windowed[path] = total - win, win
+            epilogue_by_path["rows_layout"] = sum(EPILOGUE_READS[reads:])
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase 10 (rows layout): {time.time() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(slice_work, ignore_errors=True)
+
+    print(f"epilogue: launches by path {epilogue_by_path} [{card}]", flush=True)
+    idle = [p for p, n in epilogue_by_path.items() if n < 1]
+    if idle:
+        raise AssertionError(f"epilogue: no launch on the paths {idle}")
+    t0 = time.time()
+    ke = phase_epilogue(card, dev)
+    print(f"phase 11 (epilogue): {time.time() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",
@@ -2882,6 +3182,23 @@ def main() -> int:
         "bound_by": kw["bound_by"],
         "library_ms": kw["library_ms"],
         "per_bank": kw["per_bank"],
+    }, {
+        # no TPU kernel computes it: XLA fuses the JAX graph's epilogue
+        "name": "epilogue",
+        "route": "cuda",
+        "source": "f9tpu_torch/csrc/epilogue.cu",
+        "replaces": "f9tpu/pipeline/graph.py:188",
+        "also_replaces": "f9tpu/ops/devcodec.py:100",
+        "launches": sum(epilogue_by_path.values()),
+        "launches_by_path": epilogue_by_path,
+        "max_abs_err": ke["max_abs_err"],
+        "ms": ke["ms"],
+        "plain_ms": ke["plain_ms"],
+        "bound_ms": ke["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "per_shape": ke["per_shape"],
+        "per_graph": ke["per_graph"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

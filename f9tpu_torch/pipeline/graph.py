@@ -5,9 +5,9 @@ One fixed-shape batch ``(files, channels, frames)`` runs, in order:
 
     on-device unpack -> mono fan-out -> channel routing -> mask ->
     [capture head-room pad] -> SRC (CUDA kernel) -> [insert chain] ->
-    [latency trim] -> [reverb-tail detection] -> masked DC/gain epilogue ->
-    peak/RMS/tail-floor metrics -> position-keyed TPDF dither + quantize ->
-    routed-silent channels to zero -> byte packing
+    [latency trim] -> [reverb-tail detection] -> the epilogue kernel pair
+    (masked DC mean and gain, peak/RMS, position-keyed TPDF dither +
+    quantize, routed-silent channels to zero, byte packing) -> tail floor
 
 PyTorch runs it eagerly on the tensors' device; there is no jit.  Per-file
 lengths ride through as masks, as in the JAX graph, and the per-file
@@ -36,8 +36,10 @@ from (`resample_staged`).
 Rows and packed give the same codes, ``out_frames`` and metrics bit for
 bit.  A packed batch that the rows layout would admit also computes whole
 cycles and runs its epilogue over ``Q*L`` samples, keeping the first
-``out_len`` codes: both layouts then reduce (DC mean, RMS) over tensors of
-one shape, whose order of summation is the same.
+``out_len`` codes.  The epilogue (`f9tpu_torch.ops.epilogue`: a CUDA kernel
+pair on the card, its plain twin on the CPU) sums in an order set by each
+file's own valid samples, so neither the layout, the bucket length, the
+file's row nor the batch width moves a file's mean, RMS or codes.
 """
 
 from __future__ import annotations
@@ -53,9 +55,9 @@ from ..config import ProcessingConfig, recording_length
 from ..models.filters import design_cycle_bank
 
 from ..device import resolve_device
-from ..ops import analysis, dither
+from ..ops import analysis, dither, epilogue
 from ..ops.chain import Chain
-from ..ops.devcodec import pack_interleaved, unpack_pcm_interleaved
+from ..ops.devcodec import unpack_pcm_interleaved
 from ..ops.routing import route_channels
 from ..ops.resample import (_banded_geometry, _overlap_rows, banded_rows_plan,
                             rows_marshal_plan)
@@ -93,14 +95,6 @@ class ProcessResult:
     rms_db: Any         # (files,) float32
     noise_floor_db: Any  # (files,) float32 (tail window RMS)
     layout: str = "flat"
-
-
-def _metrics(y: torch.Tensor, out_frames: torch.Tensor):
-    # RMS over each file's valid length, not the padded bucket
-    flat = y.reshape(y.shape[0], -1)
-    n_valid = (out_frames.to(torch.float32) * y.shape[1]).clamp(min=1.0)
-    rms = torch.sqrt(torch.sum(torch.square(flat), dim=-1) / n_valid)
-    return analysis.peak_db(flat), analysis._amp_to_db(rms)
 
 
 def _channels(x, routing, out_channels):
@@ -199,88 +193,75 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
         y, out_frames, seeds, bits=bits, do_dither=do_dither, remove_dc=remove_dc,
         gain_db=gain_db, gain_lin=gain_lin, rate_out=rate_out,
         tail_window_ms=tail_window_ms, routing=routing, keep=keep,
-        channel_axis=channel_axis)
-    if packed_out:
-        codes = pack_interleaved(codes, bits)
+        channel_axis=channel_axis, packed=bits if packed_out else None)
     return codes, out_frames, terminated, pk_db, level_db, nf_est
 
 
 def _epilogue(y, out_frames, seeds, *, bits, do_dither, remove_dc, gain_db, gain_lin,
-              rate_out, tail_window_ms, routing, keep, channel_axis=None):
+              rate_out, tail_window_ms, routing, keep, channel_axis=None, packed=None):
     """The graph's epilogue over the SRC (or chain) output ``y (files, C,
-    out_total)`` and each file's valid length, shared by both layouts: mask,
-    float64 DC mean, gain, peak / RMS / tail-floor metrics, dither keyed by
-    (file, global channel, absolute frame), quantize.  Returns ``(codes,
-    peak_db, rms_db, noise_floor_db)`` with int32 codes ``(files, C,
-    keep)``: the first ``keep`` positions, zero past each file's end and on
-    routed-silent channels."""
-    dev = y.device
-    files, _, out_total = y.shape
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    vmask = (torch.arange(out_total, dtype=torch.int32, device=dev)[None, None, :]
-             < out_frames[:, None, None])
-    ym = torch.where(vmask, y, zero)
-    if remove_dc:
-        # mean over each file's valid span only (masked samples add 0),
-        # accumulated in float64 and rounded once: a float32 reduction's
-        # order follows the row's alignment in the batch, and that moved a
-        # file's mean by an ulp, and a few of its samples by 1 LSB, with its
-        # place in the batch (which follows the decode threads' timing)
-        mean = (torch.sum(ym, dim=-1, keepdim=True, dtype=torch.float64)
-                / torch.clamp(out_frames, min=1).reshape(files, 1, 1)).to(torch.float32)
-    else:
-        mean = torch.zeros((files, 1, 1), dtype=torch.float32, device=dev)
+    out_total)`` and each file's valid length, shared by both layouts: one
+    call of `ops.epilogue` (the kernel pair on the card, its twin on the
+    CPU; never one for the other) does the mask, the float64 DC mean, gain,
+    the sum of squares and peak, dither keyed by (file, global channel,
+    absolute frame) and quantize.  Returns ``(codes, peak_db, rms_db,
+    noise_floor_db)`` with int32 codes ``(files, C, keep)``, zero past each
+    file's end and on routed-silent channels, or with ``packed`` (16 or 24)
+    their interleaved payload.  Out of the kernel stays only what is per
+    file and tiny: the dB conversions, the channel axis's collectives and
+    the tail floor."""
+    files, C, _ = y.shape
     g = 10.0 ** (gain_db / 20.0) if gain_db else 1.0
-    if gain_lin is not None:
-        # per-file loudness-normalization gain: float32(static) * float32
-        # per file, the product the stream composes for the same file
-        g = float(np.float32(g)) * gain_lin.reshape(files, 1, 1)
-    z = torch.where(vmask, (ym - mean) * g, zero)
-
-    if channel_axis is None:
-        pk_db, level_db = _metrics(z, out_frames)
-    else:
-        # per-file metrics over every shard's channels
-        flat = z.reshape(files, -1)
-        c_total = z.shape[1] * channel_axis.size
-        sumsq = channel_axis.psum(torch.sum(torch.square(flat), dim=-1))
-        n_valid = (out_frames.to(torch.float32) * c_total).clamp(min=1.0)
-        level_db = analysis._amp_to_db(torch.sqrt(sumsq / n_valid))
-        pk_db = analysis._amp_to_db(channel_axis.pmax(torch.amax(torch.abs(flat), dim=-1)))
-    # noise floor: RMS of the last tail window of each file's valid span
-    win = max(1, rate_out * tail_window_ms // 1000)
-    mono = torch.amax(torch.abs(z), dim=1)                       # (files, out_total)
-    if channel_axis is not None:
-        mono = channel_axis.pmax(mono)
-    raw_pos = (out_frames[:, None].to(torch.int64) - win
-               + torch.arange(win, dtype=torch.int64, device=dev)[None, :])
-    in_range = raw_pos >= 0            # short files have < win valid samples
-    gathered = torch.gather(mono, -1, raw_pos.clamp(0, out_total - 1))
-    n_tail = torch.clamp(torch.clamp(out_frames, max=win).to(torch.float32), min=1.0)
-    tail_rms = torch.sqrt(torch.sum(torch.square(gathered) * in_range, dim=-1) / n_tail)
-    nf_est = analysis._amp_to_db(tail_rms)
-
+    cs = None
     if do_dither:
         # noise keyed by (file seed, global channel, absolute output frame):
         # bytes do not depend on batching, sharding, devices, the layout or
         # the package that made them; a channel shard offsets its local
         # channel index
-        cid = torch.arange(z.shape[1], dtype=torch.int64, device=dev)
+        cid = torch.arange(C, dtype=torch.int64, device=y.device)
         if channel_axis is not None:
-            cid = cid + channel_axis.index * z.shape[1]
+            cid = cid + channel_axis.index * C
         cs = dither.channel_seeds(dither.noise_seeds(seeds, files), cid)
-        pos_t = torch.arange(out_total, dtype=torch.int64, device=dev)[None, None, :]
-        codes = dither.quantize_noise(z, bits, cs[:, :, None], pos_t)
-    else:
-        codes = dither.quantize_noise(z, bits)
-    kept = vmask[..., :keep]
-    if routing is not None and any(r < 0 for r in routing):
-        # routed-silent channels stay digital zero even under dither
-        silent = torch.tensor([r < 0 for r in routing], device=dev).reshape(1, -1, 1)
-        kept = kept & ~silent
-    codes = torch.where(kept, codes[..., :keep],
-                        torch.zeros((), dtype=torch.int32, device=dev))
+    # routed-silent channels stay digital zero even under dither
+    silent = [c for c, r in enumerate(routing or ()) if r < 0]
+    codes, sumsq, peak, mean = epilogue.epilogue(
+        y.contiguous(), out_frames, cs, bits=bits, remove_dc=remove_dc, gain=g,
+        gain_lin=gain_lin, keep=keep, silent=silent, packed=packed)
+    c_total = C
+    if channel_axis is not None:
+        # per-file metrics over every shard's channels
+        sumsq = channel_axis.psum(sumsq)
+        peak = channel_axis.pmax(peak)
+        c_total *= channel_axis.size
+    n_valid = (out_frames.to(torch.float32) * c_total).clamp(min=1.0)
+    level_db = analysis._amp_to_db(torch.sqrt(sumsq.to(torch.float32) / n_valid))
+    pk_db = analysis._amp_to_db(peak)
+    nf_est = _tail_floor(y, out_frames, mean, epilogue.gain_factor(g, gain_lin),
+                         max(1, rate_out * tail_window_ms // 1000), channel_axis)
     return codes, pk_db, level_db, nf_est
+
+
+def _tail_floor(y, out_frames, mean, g, win: int, channel_axis=None):
+    """Noise floor: the RMS of the loudest channel's ``|z|`` over the last
+    ``win`` samples of each file's valid span, ``z = (y - mean) * g``
+    recomputed at those positions only (the kernel never writes ``z``)."""
+    dev = y.device
+    files, C, out_total = y.shape
+    raw_pos = (out_frames[:, None].to(torch.int64) - win
+               + torch.arange(win, dtype=torch.int64, device=dev)[None, :])
+    in_range = raw_pos >= 0            # short files have < win valid samples
+    pos = raw_pos.clamp(0, out_total - 1)
+    yw = torch.gather(y, -1, pos[:, None, :].expand(files, C, win))
+    if mean is not None:
+        yw = yw - mean[..., None]
+    valid = (pos < out_frames[:, None].to(torch.int64))[:, None, :]
+    zw = torch.where(valid, yw * g, torch.zeros((), device=dev))
+    mono = torch.amax(torch.abs(zw), dim=1)                      # (files, win)
+    if channel_axis is not None:
+        mono = channel_axis.pmax(mono)
+    n_tail = torch.clamp(torch.clamp(out_frames, max=win).to(torch.float32), min=1.0)
+    tail_rms = torch.sqrt(torch.sum(torch.square(mono) * in_range, dim=-1) / n_tail)
+    return analysis._amp_to_db(tail_rms)
 
 
 def _process_impl_rows(x, frames_valid, seeds, *, rate_in, rate_out, cfg_key,
@@ -313,11 +294,10 @@ def _process_impl_rows(x, frames_valid, seeds, *, rate_in, rate_out, cfg_key,
     codes, pk_db, level_db, nf_est = _epilogue(
         y, out_valid, seeds, bits=bits, do_dither=do_dither, remove_dc=remove_dc,
         gain_db=gain_db, gain_lin=gain_lin, rate_out=rate_out,
-        tail_window_ms=tail_window_ms, routing=routing, keep=out_total)
+        tail_window_ms=tail_window_ms, routing=routing, keep=out_total,
+        packed=bits if packed_out else None)
     terminated = torch.ones((files,), dtype=torch.bool, device=x.device)
-    if packed_out:
-        codes = pack_interleaved(codes, bits)
-    else:
+    if not packed_out:
         codes = codes.view(files, codes.shape[1], Q, bank.L)
     return codes, out_valid, terminated, pk_db, level_db, nf_est
 

@@ -6,8 +6,9 @@ frames), each read from the file with the filter's halo on both sides.  Per
 chunk, on the device: the raw-PCM decode (integer WAV/AIFF/FLAC sources ship
 their container bytes), mono fan-out, routing and DC removal, the SRC
 (`resample_presliced`: the `cycle_src` kernel with no implicit padding), the
-insert chain's streamed form with its carried state, gain, dither keyed by
-absolute output position, and the 24-bit packing.  The host writes each
+insert chain's streamed form with its carried state, then gain, dither keyed
+by absolute output position and the 24-bit packing in one pass (the epilogue
+kernel's second pass, `ops.epilogue`).  The host writes each
 chunk as it comes, so memory is one chunk whatever the file's length, and
 the output is byte-identical across chunk sizes.
 
@@ -63,9 +64,9 @@ from ..io.wav import WavWriter
 from ..models.filters import design_cycle_bank, resolve_ratio
 
 from ..device import resolve_device
-from ..ops import dither
+from ..ops import dither, epilogue
 from ..ops.chain import Chain
-from ..ops.devcodec import pack24_interleaved, unpack_pcm_interleaved
+from ..ops.devcodec import unpack_pcm_interleaved
 from ..ops.resample import resample_presliced
 from .graph import gain_lin_f32
 from .link import Download, upload
@@ -190,36 +191,31 @@ class _TailDetector:
 
 
 def _finish_chunk(y, carry, seeds_c, pos0: int, gain: float, *, rate_out, bits,
-                  do_dither, chain=None, chain_pos=0, silent=None,
+                  do_dither, chain=None, chain_pos=0, silent=(),
                   want_env=False, env_rms=False, wire=None):
     """Everything after the SRC for one chunk: the chain's streamed form
     (``carry`` its state, ``chain_pos`` the chunk's absolute pre-trim
-    position), gain, the tail detector's statistic of the post-gain float
-    signal, dither keyed by absolute output position ``pos0 + j`` (so the
-    bytes do not depend on the chunk size), routed-silent channels
-    (``silent``, a bool tensor) to zero, and the download wire: ``"pack24"``
-    packs 24-bit codes into interleaved bytes on the device, ``"i16"``
-    narrows 16-bit codes.  Returns ``(codes, env or None, carry)``."""
+    position), the tail detector's statistic of the post-gain float
+    signal, then one call of `ops.epilogue` with no mask and no statistics
+    (the kernel's pass 2 on the card): gain, dither keyed by absolute output
+    position ``pos0 + j`` (so the bytes do not depend on the chunk size),
+    routed-silent channels (``silent``, their indices) to zero, and the
+    download wire: ``"pack24"`` the interleaved 24-bit payload, ``"i16"``
+    int16 codes.  Returns ``(codes, env or None, carry)``."""
     if chain is not None:
         y, carry = chain.apply_stream(y, carry, rate_out, chain_pos)
-    y = y * gain
     env = None
     if want_env:
         # detecting on the float signal, not the codes: at 16 bits the TPDF
         # floor's window peak sits near -90 dBFS, above usable thresholds
-        env = (torch.mean(torch.square(y), dim=0) if env_rms
-               else torch.amax(torch.abs(y), dim=0))
-    if do_dither:
-        pos = pos0 + torch.arange(y.shape[-1], dtype=torch.int64, device=y.device)
-        codes = dither.quantize_noise(y, bits, seeds_c[:, None], pos[None, :])
-    else:
-        codes = dither.quantize_noise(y, bits)
-    if silent is not None:
-        codes = codes.masked_fill(silent[:, None], 0)
-    if wire == "pack24":
-        codes = pack24_interleaved(codes)
-    elif wire == "i16":
-        codes = codes.to(torch.int16)
+        yg = y * gain
+        env = (torch.mean(torch.square(yg), dim=0) if env_rms
+               else torch.amax(torch.abs(yg), dim=0))
+    codes = epilogue.epilogue(
+        y.contiguous()[None], None, seeds_c[None] if do_dither else None, bits=bits,
+        remove_dc=False, gain=gain, silent=silent, packed=24 if wire == "pack24" else None,
+        pos0=pos0, stats=False,
+        codes_dtype=torch.int16 if wire == "i16" else torch.int32)[0][0]
     return codes, env, carry
 
 
@@ -438,12 +434,7 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
         out_ch = (len(routing) if routing is not None
                   else (cfg.output_channels
                         if (cfg.output_channels and C_in == 1) else C_in))
-        silent_idx = [i for i, r in enumerate(routing or ()) if r < 0]
-        silent = None
-        if silent_idx:
-            silent = torch.zeros(out_ch, dtype=torch.bool)
-            silent[silent_idx] = True
-            silent = silent.to(dev)
+        silent = tuple(i for i, r in enumerate(routing or ()) if r < 0)
 
         reverb = bool(cfg.reverb_mode)
         cap_extra = (int(cfg.max_tail_seconds * cfg.target_rate)
@@ -561,8 +552,7 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
             codes, env, carry = _finish_chunk(
                 y, carry, seeds_c.to(y.device), pos0, gain,
                 rate_out=cfg.target_rate, bits=cfg.bits, do_dither=cfg.dither,
-                chain=cfg.chain, chain_pos=chain_pos,
-                silent=None if silent is None else silent.to(y.device),
+                chain=cfg.chain, chain_pos=chain_pos, silent=silent,
                 want_env=want_env, env_rms=env_rms, wire=wire)
             return codes, env
 
