@@ -2815,10 +2815,12 @@ def phase_rows(card: str, work: str, slice_work: str, dev) -> dict:
 #: epilogue sees them (the SRC output of 44.1k -> 48k high, whole cycles)
 EPILOGUE_SHAPES = (("bench.py's job", 16, 2, 1 << 20), ("the slice's batch", 8, 2, 1 << 22))
 #: and mono, and buses whose payload a block stages in 48 KB or more (C = 4,
-#: 16) or writes in place (C = 24: past the 192 KB it stages), held to the
-#: twin only
+#: 16) or writes in place (C = 24, 72: past the 192 KB it stages; channel 70
+#: of 72 silent), and more files than a grid's second axis holds, held to
+#: the twin only
 EPILOGUE_BUSES = (("mono", 3, 1, 1 << 16), ("a 4-channel bus", 3, 4, 1 << 16),
-                  ("a 16-channel bus", 2, 16, 1 << 16), ("a 24-channel bus", 2, 24, 1 << 15))
+                  ("a 16-channel bus", 2, 16, 1 << 16), ("a 24-channel bus", 2, 24, 1 << 15),
+                  ("a 72-channel bus", 2, 72, 1 << 13), ("65,600 mono files", 65600, 1, 64))
 #: the graphs with the eager epilogue this kernel pair replaced, as `PERF.md`
 #: section 5 records them (NVIDIA H100 80GB HBM3, 700 W), printed beside this
 #: run's readings
@@ -2833,12 +2835,12 @@ EPILOGUE_GRID = (
     ("16-bit payload, -3 dB, per-file gain, no DC, keep < total (rows not 16-byte aligned)",
      dict(bits=16, dither=True, remove_dc=False, packed=16, gain=10 ** (-3 / 20),
           per_file=True, cut=1001)),
-    ("24-bit, no dither, DC, silent channel 1, keep < total",
-     dict(bits=24, dither=False, remove_dc=True, silent=(1,), cut=1000)),
+    ("24-bit, no dither, DC, silent channels 1 and 70 (those the bus has), keep < total",
+     dict(bits=24, dither=False, remove_dc=True, silent=(1, 70), cut=1000)),
     ("32-bit, dither, DC, per-file gain", dict(bits=32, dither=True, remove_dc=True,
                                                per_file=True)),
-    ("stream: 24-bit payload, pos0, silent channel 0",
-     dict(bits=24, dither=True, remove_dc=False, packed=24, silent=(0,), stream=True)),
+    ("stream: 24-bit payload, pos0, silent channels 0 and 70 (those the bus has)",
+     dict(bits=24, dither=True, remove_dc=False, packed=24, silent=(0, 70), stream=True)),
     ("stream: int16 codes, pos0", dict(bits=16, dither=True, remove_dc=False,
                                        dtype="int16", stream=True)),
 )
@@ -2857,7 +2859,7 @@ def _epilogue_case(y, out_frames, seeds, opts: dict) -> tuple[tuple, dict]:
     if opts.get("per_file"):
         gain_lin = torch.linspace(0.5, 1.5, files, device=y.device, dtype=torch.float32)
     kw = dict(bits=opts["bits"], remove_dc=opts["remove_dc"], gain=opts.get("gain", 1.0),
-              gain_lin=gain_lin, keep=total - opts.get("cut", 0),
+              gain_lin=gain_lin, keep=total - min(opts.get("cut", 0), total // 3),
               silent=tuple(c for c in opts.get("silent", ()) if c < C),
               packed=opts.get("packed"),
               pos0=123456789 if stream else 0, stats=not stream,
@@ -2869,7 +2871,7 @@ def _epilogue_inputs(files: int, C: int, frames: int, dev):
     """The SRC output of ``frames`` input frames (whole cycles of 44.1k ->
     48k high) as normal noise at 0.25 plus 0.01 of DC, and valid lengths
     from whole down to 0 (within a tile, shorter than a tile, shorter than
-    the tail window)."""
+    the tail window; none past the output)."""
     import torch
 
     from f9tpu_torch.models import design_cycle_bank
@@ -2879,8 +2881,8 @@ def _epilogue_inputs(files: int, C: int, frames: int, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + files)
     y = 0.25 * torch.randn((files, C, total), generator=gen, device=dev) + 0.01
     lengths = [total, total - 1, total - 4095, total // 3 + 7, 4097, 4095, 1000, 0]
-    out_frames = torch.tensor([lengths[i % len(lengths)] for i in range(files)],
-                              dtype=torch.int32, device=dev)
+    out_frames = torch.tensor([min(max(lengths[i % len(lengths)], 0), total)
+                               for i in range(files)], dtype=torch.int32, device=dev)
     seeds = torch.arange(1, files + 1, dtype=torch.int32, device=dev)
     return y, out_frames, seeds
 
@@ -2891,6 +2893,28 @@ def _epilogue_bound_ms(files: int, C: int, keep: int, out_bytes: int, reads: int
     memory rate (one read is the function's; two are a DC-removing design's
     floor, since the mean precedes the first code and y outgrows L2)."""
     return 1e3 * files * C * keep * (4 * reads + out_bytes) / HBM_BYTES_PER_S
+
+
+def _pass_ms(fn, runs: int = 10) -> dict:
+    """Each pass's device ms in ``runs`` calls of ``fn`` (one launch of
+    the pair each): the median of `torch.profiler`'s kernel events by name;
+    None where the profiler saw none."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    times = {"pass1_ms": [], "pass2_ms": []}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for key, name in (("pass1_ms", "dc_pass"), ("pass2_ms", "finish_pass")):
+                if name in e.name:
+                    times[key].append(e.time_range.elapsed_us() / 1e3)
+    return {k: float(np.median(v)) if v else None for k, v in times.items()}
 
 
 def _graph_profile(card: str, graph, runs: int = 5) -> None:
@@ -2937,9 +2961,11 @@ def _graph_profile(card: str, graph, runs: int = 5) -> None:
 def phase_epilogue(card: str, dev) -> dict:
     """Phase 11, the epilogue kernel pair: (a) kernel == twin on the card
     (`torch.equal` on codes or payload, sum of squares, peak and mean) over
-    the flag grid at both shapes; (b) each pass's device ms (CUDA events,
-    median of 10 after warm-up), the pair's, the twin's, the bounds, the
-    launches per graph and that `_epilogue` on the card never runs the twin;
+    the flag grid at both shapes and on the buses; (b) on whole files,
+    each pass's device ms and the pair's (`torch.profiler`, median of 10
+    after warm-up), one call's and the twin's (CUDA events), the bounds,
+    the launches per graph and that `_epilogue` on the card never runs the
+    twin;
     (c) phase 4's and phase 10a's graph ms and peak memory beside the eager
     figures.  Returns the numbers for the JSON summary."""
     import torch
@@ -2971,27 +2997,38 @@ def phase_epilogue(card: str, dev) -> dict:
             del got, want
         if (label, files, C, frames) in EPILOGUE_BUSES:
             continue
-        # (b) each pass alone, the pair and the twin, int32 codes and the payload
+        # (b) on whole files, as bench.py's job and the slice's batch give
+        # them (every sample read, so the bound counts them all), int32
+        # codes and the payload: each pass's device time (the profiler's
+        # kernel events) and their sum, the pair's device time; one call
+        # of the wrapper and one of the twin (CUDA events: the call's
+        # allocations and launch gaps included)
+        full = torch.full_like(out_frames, total)
         row = {"shape": f"{files}x{C}x2^{frames.bit_length() - 1}", "outputs": total}
         for form, opts, out_bytes in (("int32", EPILOGUE_GRID[0][1], 4),
                                       ("payload24", EPILOGUE_GRID[1][1], 3)):
-            args, kw = _epilogue_case(y, out_frames, seeds, opts)
+            args, kw = _epilogue_case(y, full, seeds, opts)
             for _ in range(3):
                 ep.epilogue(*args, **kw)
                 ep.epilogue_reference(*args, **kw)
             torch.cuda.synchronize()
-            t = {"pass1_ms": _median_ms(lambda: ep._launch(*args, **kw, passes=1)),
-                 "pass2_ms": _median_ms(lambda: ep._launch(*args, **kw, passes=2)),
-                 "ms": _median_ms(lambda: ep.epilogue(*args, **kw)),
+            t = {"call_ms": _median_ms(lambda: ep.epilogue(*args, **kw)),
                  "plain_ms": _median_ms(lambda: ep.epilogue_reference(*args, **kw))}
+            t.update(_pass_ms(lambda: ep.epilogue(*args, **kw)))
+            seen = [t[k] for k in ("pass1_ms", "pass2_ms") if t[k] is not None]
+            t["ms"] = sum(seen) if len(seen) == 2 else t["call_ms"]
             t["bound_ms"] = _epilogue_bound_ms(files, C, total, out_bytes)
             t["two_read_floor_ms"] = _epilogue_bound_ms(files, C, total, out_bytes, reads=2)
             row[form] = t
-            print(f"epilogue 11b: {label} {files}x{C}x{total} {form}: pass 1 (DC sum) "
-                  f"{t['pass1_ms']:.4f} ms, pass 2 (finish) {t['pass2_ms']:.4f} ms, the pair "
-                  f"{t['ms']:.4f} ms, twin {t['plain_ms']:.3f} ms; bound {t['bound_ms']:.4f} "
-                  f"ms (y read once, bytes), two-read floor {t['two_read_floor_ms']:.4f} ms "
-                  f"(median of 10) [{card}]", flush=True)
+            passes = ", ".join(
+                f"{name} {'not measured' if t[k] is None else f'{t[k]:.4f} ms'}"
+                for k, name in (("pass1_ms", "pass 1 (DC sum)"), ("pass2_ms", "pass 2 (finish)")))
+            print(f"epilogue 11b: {label} {files}x{C}x{total} whole files {form}: {passes}, "
+                  f"the pair {t['ms']:.4f} ms (torch.profiler; the call's CUDA events if it "
+                  f"saw no kernel); one call {t['call_ms']:.4f} ms, twin {t['plain_ms']:.3f} "
+                  f"ms (CUDA events); bound {t['bound_ms']:.4f} ms (y read once, bytes), "
+                  f"two-read floor {t['two_read_floor_ms']:.4f} ms (median of 10) [{card}]",
+                  flush=True)
         per_shape.append(row)
         del y
         torch.cuda.empty_cache()

@@ -45,8 +45,13 @@
 //     interleaved, in shared memory (4096 * C * 3 bytes, up to 192 KB) and
 //     writes them out as contiguous 16-byte stores; past 192 KB it stores
 //     each sample's bytes in place.
-//   * Pass 2 walks the tiles in reverse order of pass 1, so its first
-//     blocks read what pass 1 read last, while it is still in L2.
+//   * Both grids are one-dimensional, block b owning tile b % n_tiles of
+//     row (or file) b / n_tiles, so no count of files or channels meets the
+//     65,535 limit of a grid's second axis.  Pass 2 walks the blocks in
+//     reverse order of pass 1, so its first blocks read what pass 1 read
+//     last, while it is still in L2.
+//   * Routed-silent channels come as a (C,) byte mask on the card: any
+//     channel of any bus may be silent.
 //   * The stream's chunk finish is pass 2 with no mask, no statistics and
 //     its absolute position as the noise's base (pos0).
 // Why CUDA and not Triton: bitwise control of every rounding (the twin is
@@ -186,7 +191,7 @@ __device__ __forceinline__ double warp_fold(const double* src, long long n)
     return acc;
 }
 
-// Pass 1: grid (n_tiles, rows).  tiles: (rows, n_tiles) float64; mean:
+// Pass 1: grid (rows * n_tiles,).  tiles: (rows, n_tiles) float64; mean:
 // (rows,) float32; tickets: (rows,) zeroed.
 __global__ void __launch_bounds__(THREADS)
 dc_pass(const float* __restrict__ y, const int* __restrict__ out_frames,
@@ -196,11 +201,12 @@ dc_pass(const float* __restrict__ y, const int* __restrict__ out_frames,
 {
     __shared__ double red[THREADS];
     __shared__ bool last;
-    const int row = blockIdx.y;
+    const int row = blockIdx.x / n_tiles;
+    const int tile = blockIdx.x - row * n_tiles;
     const int tid = threadIdx.x;
     const int frames = out_frames[row / C];
     const long long n = min((long long)frames, keep);
-    const long long t0 = (long long)blockIdx.x * TILE;
+    const long long t0 = (long long)tile * TILE;
     if (t0 < n) {
         const float* yr = y + (long long)row * stride;
         double v[PER];
@@ -210,7 +216,7 @@ dc_pass(const float* __restrict__ y, const int* __restrict__ out_frames,
             v[k] = t < n ? (double)__ldg(yr + t) : 0.0;
         }
         const double s = tile_sum(v, red);
-        if (tid == 0) tiles[(long long)row * n_tiles + blockIdx.x] = s;
+        if (tid == 0) tiles[(long long)row * n_tiles + tile] = s;
     }
     if (tid == 0) {
         __threadfence();
@@ -231,6 +237,7 @@ struct FinishArgs {
     const long long* seeds;       // (files * C,) uint32 values, or null: no dither
     const float* gain_lin;        // (files,) or null
     const float* mean;            // (files * C,) or null: no DC removal
+    const unsigned char* silent;  // (C,), nonzero = written as zeros; or null
     void* out;
     double* sq_tiles;             // (files * C, n_tiles)
     float* pk_tiles;              // (files * C, n_tiles)
@@ -244,13 +251,12 @@ struct FinishArgs {
     float scale;
     float clip_hi;
     float gain;
-    unsigned long long silent;
     long long pos0;
     int stats;
     int stage;
 };
 
-// Pass 2: grid (n_tiles, files), walked from the last tile of the last file.
+// Pass 2: grid (files * n_tiles,), walked from the last tile of the last file.
 // MODE 0: int32 codes (files, C, keep); 1: int16 codes; 2 and 3: the 16- and
 // 24-bit interleaved payload (files, keep * C * nb).
 template <int MODE>
@@ -262,8 +268,9 @@ finish_pass(const FinishArgs a)
     __shared__ double red[THREADS];
     __shared__ float redf[THREADS];
     __shared__ bool last;
-    const int f = gridDim.y - 1 - blockIdx.y;
-    const int tile = gridDim.x - 1 - blockIdx.x;
+    const int b = gridDim.x - 1 - blockIdx.x;
+    const int f = b / a.n_tiles;
+    const int tile = b - f * a.n_tiles;
     const int tid = threadIdx.x;
     const int C = a.C;
     const long long t0 = (long long)tile * TILE;
@@ -277,7 +284,7 @@ finish_pass(const FinishArgs a)
         const float* yr = a.y + row * a.stride;
         const float mu = a.mean ? a.mean[row] : 0.f;
         const uint32_t sh = a.seeds ? splitmix32((uint32_t)a.seeds[row]) : 0u;
-        const bool mute = c < 64 && ((a.silent >> c) & 1ull);
+        const bool mute = a.silent && a.silent[c];
         // every load first: the stores below may alias y as far as the
         // compiler knows, and would otherwise hold each load back
         float yv[PER];
@@ -320,7 +327,7 @@ finish_pass(const FinishArgs a)
                     ? staged + ((t - t0) * C + c) * NB
                     : payload + (t * C + c) * NB;
 #pragma unroll
-                for (int b = 0; b < NB; ++b) dst[b] = (unsigned char)((unsigned)q >> (8 * b));
+                for (int j = 0; j < NB; ++j) dst[j] = (unsigned char)((unsigned)q >> (8 * j));
             }
         }
         if (a.stats) {
@@ -421,32 +428,31 @@ extern "C" {
 // and the partials when `stats`; mean (files * C,) and dc_tiles when
 // `remove_dc`; tickets: files * C + files zeroed ints.  scale = 2^(bits-1),
 // clip_hi the largest code as a float, gain the float32 static gain, silent
-// a bit per channel (0..63) written as zeros, pos0 the noise position of
-// sample 0.  passes: 1 = pass 1 only, 2 = pass 2 only, 3 = both (the
-// single passes exist to time them).
+// (C,) bytes, nonzero for a channel written as zeros, or null; pos0 the
+// noise position of sample 0.
 int f9_epilogue(const float* y, const int* out_frames, const long long* seeds,
-                const float* gain_lin, void* out, double* sumsq, float* peak, float* mean,
-                double* dc_tiles, double* sq_tiles, float* pk_tiles, unsigned int* tickets,
-                int files, int C, long long stride, long long keep, int n_tiles,
-                float scale, float clip_hi, float gain, unsigned long long silent,
-                long long pos0, int mode, int remove_dc, int stats, int passes,
-                void* stream)
+                const float* gain_lin, const unsigned char* silent, void* out, double* sumsq,
+                float* peak, float* mean, double* dc_tiles, double* sq_tiles, float* pk_tiles,
+                unsigned int* tickets, int files, int C, long long stride, long long keep,
+                int n_tiles, float scale, float clip_hi, float gain, long long pos0, int mode,
+                int remove_dc, int stats, void* stream)
 {
     cudaStream_t s = (cudaStream_t)stream;
     const int rows = files * C;
-    if (remove_dc && (passes & 1)) {
-        dc_pass<<<dim3(n_tiles, rows), THREADS, 0, s>>>(y, out_frames, dc_tiles, mean,
-                                                         tickets, C, stride, keep, n_tiles);
+    if ((long long)rows * n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+    if (remove_dc) {
+        dc_pass<<<rows * n_tiles, THREADS, 0, s>>>(y, out_frames, dc_tiles, mean, tickets, C,
+                                                    stride, keep, n_tiles);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
-    if (!(passes & 2)) return 0;
     FinishArgs a;
     a.y = y;
     a.out_frames = out_frames;
     a.seeds = seeds;
     a.gain_lin = gain_lin;
     a.mean = remove_dc ? mean : nullptr;
+    a.silent = silent;
     a.out = out;
     a.sq_tiles = sq_tiles;
     a.pk_tiles = pk_tiles;
@@ -460,7 +466,6 @@ int f9_epilogue(const float* y, const int* out_frames, const long long* seeds,
     a.scale = scale;
     a.clip_hi = clip_hi;
     a.gain = gain;
-    a.silent = silent;
     a.pos0 = pos0;
     a.stats = stats;
     const int nb = mode == 3 ? 3 : 2;
@@ -470,7 +475,7 @@ int f9_epilogue(const float* y, const int* out_frames, const long long* seeds,
         const cudaError_t e = raise_smem(mode);
         if (e != cudaSuccess) return (int)e;
     }
-    const dim3 grid(n_tiles, files);
+    const int grid = files * n_tiles;
     switch (mode) {
     case 0: finish_pass<0><<<grid, THREADS, smem, s>>>(a); break;
     case 1: finish_pass<1><<<grid, THREADS, smem, s>>>(a); break;

@@ -64,9 +64,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.f9_cycle_src_blocks_per_sm.restype = i32
     lib.f9_cycle_src_win_blocks_per_sm.argtypes = [i32, i32, i32]
     lib.f9_cycle_src_win_blocks_per_sm.restype = i32
-    f32, u64 = ctypes.c_float, ctypes.c_ulonglong
-    lib.f9_epilogue.argtypes = [vp] * 12 + [i32, i32, i64, i64, i32, f32, f32, f32, u64,
-                                            i64, i32, i32, i32, i32, vp]
+    f32 = ctypes.c_float
+    lib.f9_epilogue.argtypes = [vp] * 13 + [i32, i32, i64, i64, i32, f32, f32, f32, i64,
+                                            i32, i32, i32, vp]
     lib.f9_epilogue.restype = i32
     return lib
 

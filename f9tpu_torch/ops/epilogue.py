@@ -50,8 +50,6 @@ _launch_lock = threading.Lock()
 
 #: the kernel's output forms: planar int32 / int16 codes, interleaved payload
 _OUT_MODES = {(None, torch.int32): 0, (None, torch.int16): 1, (16, None): 2, (24, None): 3}
-#: silent channels the kernel takes (one bit each in a 64-bit mask)
-MAX_SILENT_CHANNEL = 63
 
 
 def gain_factor(gain: float, gain_lin: torch.Tensor | None):
@@ -158,19 +156,15 @@ def _check(y, out_frames, seeds_c, gain_lin, keep, silent, packed, bits, remove_
                 or not t.is_contiguous():
             raise ValueError(f"epilogue {name}: expected contiguous {dtype} {shape} on "
                              f"{y.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if any(not 0 <= c < C for c in silent) or any(c > MAX_SILENT_CHANNEL for c in silent):
-        raise ValueError(f"silent channels {silent} outside the kernel's 0..{min(C - 1, 63)}")
+    if any(not 0 <= c < C for c in silent):
+        raise ValueError(f"silent channels {silent} outside 0..{C - 1}")
 
 
 def _launch(y, out_frames, seeds_c, *, bits, remove_dc, gain, gain_lin, keep, silent,
-            packed, pos0, stats, codes_dtype, passes=3):
-    """One launch of the pair on ``y``'s device and current stream.
-    ``passes`` 1 or 2 launches that pass alone (to time it; pass 2 alone
-    then reads whatever the mean buffer holds)."""
+            packed, pos0, stats, codes_dtype):
+    """One launch of the pair on ``y``'s device and current stream."""
     global launches
     files, C, total = y.shape
-    if not 0 < files <= 65535 or not 0 < files * C <= 65535:
-        raise ValueError(f"epilogue kernel takes 1..65535 files and rows, got {files} x {C}")
     dev = y.device
     if packed is not None:
         codes = torch.empty((files, keep * C * (packed // 8)), dtype=torch.uint8, device=dev)
@@ -180,7 +174,7 @@ def _launch(y, out_frames, seeds_c, *, bits, remove_dc, gain, gain_lin, keep, si
             if remove_dc else None)
     sumsq = torch.empty((files,), dtype=torch.float64, device=dev) if stats else None
     peak = torch.empty((files,), dtype=torch.float32, device=dev) if stats else None
-    if keep == 0:
+    if keep == 0 or files * C == 0:
         # no sample to reduce or write: the results of an empty span
         for t in (mean, sumsq, peak):
             if t is not None:
@@ -199,9 +193,11 @@ def _launch(y, out_frames, seeds_c, *, bits, remove_dc, gain, gain_lin, keep, si
                            device=dev)
     tickets = torch.zeros((rows + files,), dtype=torch.int32, device=dev)
     s = float(1 << (bits - 1))
-    mask = 0
-    for c in silent:
-        mask |= 1 << c
+    mute = None
+    if silent:
+        mute = torch.zeros((C,), dtype=torch.uint8)
+        mute[list(silent)] = 1
+        mute = mute.to(dev)
     from ._build import load_library
 
     lib = load_library()
@@ -212,12 +208,12 @@ def _launch(y, out_frames, seeds_c, *, bits, remove_dc, gain, gain_lin, keep, si
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = lib.f9_epilogue(
-            ptr(y), ptr(out_frames), ptr(seeds_c), ptr(gain_lin), ptr(codes), ptr(sumsq),
-            ptr(peak), ptr(mean), ptr(dc_tiles), ptr(sq_tiles), ptr(pk_tiles), ptr(tickets),
-            files, C, total, keep, n_tiles, s, float(dither._clip_hi(s)),
-            float(np.float32(gain)), mask, int(pos0),
+            ptr(y), ptr(out_frames), ptr(seeds_c), ptr(gain_lin), ptr(mute), ptr(codes),
+            ptr(sumsq), ptr(peak), ptr(mean), ptr(dc_tiles), ptr(sq_tiles), ptr(pk_tiles),
+            ptr(tickets), files, C, total, keep, n_tiles, s, float(dither._clip_hi(s)),
+            float(np.float32(gain)), int(pos0),
             _OUT_MODES[(packed, None if packed else codes_dtype)], int(remove_dc),
-            int(stats), passes, stream)
+            int(stats), stream)
     if err != 0:
         raise RuntimeError(f"epilogue kernel launch failed: CUDA error {err}")
     with _launch_lock:

@@ -75,6 +75,9 @@ GRAPH_CASES = {
     "bits16": ({"bits": 16}, 2, None),
     "bits32": ({"bits": 32}, 2, None),
     "silent_routed_channel": ({"channel_routing": [1, -1, 0]}, 2, None),
+    # a bus of 72 outputs whose channel 70 is silent
+    "silent_channel_70_of_72": ({"channel_routing": [-1 if c == 70 else c % 2
+                                                     for c in range(72)]}, 2, None),
     "mono_fanout": ({"output_channels": 2}, 1, None),
     "mono": ({}, 1, None),
     "eight_channels": ({"gain_db": -2.0}, 8, [0.0, -1.0, 4.0]),
@@ -92,8 +95,9 @@ def test_graph_epilogue_matches_jax(case):
                                per_file_gain_db=gains)
     bits = kw.get("bits", 24)
     _check(got, want, got.codes.numpy(), np.asarray(want.codes), bits)
-    if "channel_routing" in extra:
-        assert not got.codes[:, 1].any()
+    for c, r in enumerate(extra.get("channel_routing", ())):
+        if r < 0:
+            assert not got.codes[:, c].any()
 
 
 def _payload_codes(payload: np.ndarray, bits: int) -> np.ndarray:
@@ -347,15 +351,23 @@ def test_kernel_matches_twin_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     dev = torch.device("cuda")
-    # C = 4 and 16 stage a payload past 48 KB of shared memory, C = 24 past
-    # the 192 KB a block stages (written in place)
-    for C in (2, 4, 16, 24):         # silent=(1,) needs C >= 2
-        y = torch.from_numpy(_noise((3, C, 3 * ep.TILE + 11), seed=C)).to(dev)
-        of = torch.tensor([y.shape[-1], 5000, 0], dtype=torch.int32, device=dev)
-        cs = dither.channel_seeds(torch.tensor([1, 2, 3], device=dev), C)
+    # C = 4 and 16 stage a payload past 48 KB of shared memory, C = 24 and
+    # 72 past the 192 KB a block stages (written in place); channel 70 of 72
+    # is silent; 65,600 one-channel files make more rows and files than a
+    # grid's second axis holds
+    for files, C, total in ((3, 2, 3 * ep.TILE + 11), (3, 4, 3 * ep.TILE + 11),
+                            (3, 16, 3 * ep.TILE + 11), (3, 24, 3 * ep.TILE + 11),
+                            (3, 72, ep.TILE + 11), (65600, 1, 300)):
+        y = torch.from_numpy(_noise((files, C, total), seed=C)).to(dev)
+        of = torch.tensor(np.random.default_rng(C).integers(0, total + 1, files),
+                          dtype=torch.int32, device=dev)
+        of[0] = total
+        cs = dither.channel_seeds(torch.arange(1, files + 1, device=dev), C)
+        silent = tuple(c for c in (1, 70) if c < C)
+        keep = min(total, 5001)
         for kw in (dict(bits=24, remove_dc=True), dict(bits=24, remove_dc=True, packed=24),
-                   dict(bits=16, remove_dc=False, packed=16, silent=(1,), keep=5001),
-                   dict(bits=32, remove_dc=True, keep=5000)):
+                   dict(bits=16, remove_dc=False, packed=16, silent=silent, keep=keep),
+                   dict(bits=32, remove_dc=True, keep=keep - 1, silent=silent)):
             n0 = ep.launches
             got = ep.epilogue(y, of, cs, gain=0.8, **kw)
             torch.cuda.synchronize()
