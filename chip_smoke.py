@@ -129,12 +129,21 @@ its results, any failure exiting non-zero:
    kernel against its twin run on the card over a flag grid (dither, DC,
    gains, 16 / 24 / 32 bits, int32 codes and payloads, a silent channel,
    keep < total, the stream's form): `torch.equal` on codes or payload, sum
-   of squares, peak and mean; (b) each pass's device ms, the pair's and the
+   of squares, peak and mean, also on buses of 1 to 72 channels, 65,600
+   mono files, and the persistent design's edges (row strides 1, 2, 3 and 0
+   mod 4 floats, valid lengths a float before and after a 16-byte boundary,
+   fewer units than blocks, a unit count no grid divides, the stream's
+   chunk shapes); (b) on whole files each pass's device ms and bytes per
+   second and the pair's (`torch.profiler`), one call's and the
    twin's (CUDA events, median of 10), the bound (y read once) and the
    two-read floor, the launches per graph (1, packed and rows, with the twin
-   made to raise); (c) phase 4's and 10a's graph ms and peak memory beside
-   the eager epilogue's figures; the pair's launches by path over phases
-   4-10, each at least one.
+   made to raise); (c) `bench.py`'s packed graph traced five times in a
+   process of its own (``--graph-profile``), the trace checked (every kernel a multiple of 5 times, the SRC kernel and the
+   pair as often as their counters say; traced again once, then the phase
+   fails), the device's busy time as the union of its events' intervals and
+   the idle share of the profiled wall; phase 4's and 10a's graph ms and
+   peak memory beside the eager epilogue's figures; the pair's launches by
+   path over phases 4-10, each at least one.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -142,7 +151,7 @@ CUDA GPU it exits 1 and prints no result.  ``python3 chip_smoke.py
 --windowed-digests`` only prints 7a's digests, and ``--chunk-times`` only
 7b's times of one launch at the stream's chunk shapes, for the checkout it
 sits in (a parent tree unpacked by `git archive` beside this script's copy);
-``--epilogue`` runs phase 11 alone.
+``--epilogue`` runs phase 11 alone, and ``--graph-profile`` only 11c's trace.
 """
 
 from __future__ import annotations
@@ -2814,13 +2823,28 @@ def phase_rows(card: str, work: str, slice_work: str, dev) -> dict:
 #: phase 11's shapes: `bench.py`'s job and the slice's batch, as the
 #: epilogue sees them (the SRC output of 44.1k -> 48k high, whole cycles)
 EPILOGUE_SHAPES = (("bench.py's job", 16, 2, 1 << 20), ("the slice's batch", 8, 2, 1 << 22))
-#: and mono, and buses whose payload a block stages in 48 KB or more (C = 4,
-#: 16) or writes in place (C = 24, 72: past the 192 KB it stages; channel 70
-#: of 72 silent), and more files than a grid's second axis holds, held to
-#: the twin only
+#: and mono, and buses whose payload a block stages beside its ring (C = 4,
+#: and 16 at 16 bits) or writes in place (C = 16 at 24 bits, 24, 72: past
+#: the ~184 KB it stages; channel 70 of 72 silent), in both payload widths,
+#: and more files than a grid's second axis holds, held to the twin only
 EPILOGUE_BUSES = (("mono", 3, 1, 1 << 16), ("a 4-channel bus", 3, 4, 1 << 16),
                   ("a 16-channel bus", 2, 16, 1 << 16), ("a 24-channel bus", 2, 24, 1 << 15),
                   ("a 72-channel bus", 2, 72, 1 << 13), ("65,600 mono files", 65600, 1, 64))
+#: and the edges of the persistent, TMA-fed design, held to the twin only:
+#: row strides (the output length) 1, 2, 3 and 0 mod 4 floats, so a bulk
+#: copy's head and tail fall anywhere; fewer units than blocks; a unit count
+#: no grid divides (337 tiles a row); the stream's chunk shapes (the grid's
+#: "stream" cases: pos0, no mask, no statistics).  Valid lengths cycle
+#: through `_edge_lengths`.
+EPILOGUE_EDGES = (("row stride 1 mod 4", 4, 2, 3 * 4096 + 1),
+                  ("row stride 2 mod 4", 4, 2, 3 * 4096 + 2),
+                  ("row stride 3 mod 4", 4, 2, 3 * 4096 + 3),
+                  ("row stride 0 mod 4", 4, 2, 3 * 4096 + 4),
+                  ("one file of 5,000 frames: fewer units than blocks", 1, 2, 5000),
+                  ("337 tiles a row: units no grid divides", 3, 2, 337 * 4096 - 1),
+                  ("a stream chunk of 20 s at 48k", 1, 2, 960000),
+                  ("a stream chunk of 7.3 s at 48k", 1, 2, 350400),
+                  ("a stream chunk of 12,345 frames", 1, 2, 12345))
 #: the graphs with the eager epilogue this kernel pair replaced, as `PERF.md`
 #: section 5 records them (NVIDIA H100 80GB HBM3, 700 W), printed beside this
 #: run's readings
@@ -2887,6 +2911,27 @@ def _epilogue_inputs(files: int, C: int, frames: int, dev):
     return y, out_frames, seeds
 
 
+def _edge_lengths(total: int) -> list[int]:
+    """Valid lengths for 11a's edges: whole, one element before and one
+    after a 16-byte boundary of an aligned row, the boundary itself, 0."""
+    b = 4 * (total // 8)
+    return [total, b - 1, b + 1, b, 0]
+
+
+def _edge_inputs(files: int, C: int, total: int, dev):
+    """Normal noise at 0.25 plus 0.01 of DC, ``(files, C, total)``, with
+    `_edge_lengths` as the valid lengths, cycled over the files."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + total)
+    y = 0.25 * torch.randn((files, C, total), generator=gen, device=dev) + 0.01
+    lengths = _edge_lengths(total)
+    out_frames = torch.tensor([lengths[i % len(lengths)] for i in range(files)],
+                              dtype=torch.int32, device=dev)
+    seeds = torch.arange(1, files + 1, dtype=torch.int32, device=dev)
+    return y, out_frames, seeds
+
+
 def _epilogue_bound_ms(files: int, C: int, keep: int, out_bytes: int, reads: int = 1) -> float:
     """The least time of the epilogue's traffic: ``reads`` reads of the
     float32 input and one write of ``out_bytes`` per sample, at the card's
@@ -2917,57 +2962,143 @@ def _pass_ms(fn, runs: int = 10) -> dict:
     return {k: float(np.median(v)) if v else None for k, v in times.items()}
 
 
-def _graph_profile(card: str, graph, runs: int = 5) -> None:
-    """11c: where `bench.py`'s packed graph spends its time now: the host
-    wall per graph (host clock around ``runs`` calls ended by a synchronize,
-    no profiler), and from `torch.profiler` the device's busy time per graph
-    (kernels and copies) and its launches, the largest by name."""
+def _busy_union_us(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals (us): copies on
+    the side stream that overlap kernels count once."""
+    busy, hi = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > hi:
+            busy += b - max(a, hi)
+            hi = b
+    return busy
+
+
+def _trace_faults(count, runs: int, expect: dict) -> list[str]:
+    """What is wrong with a trace of ``runs`` graphs: a name seen a count
+    that is not a multiple of ``runs``, or a kernel (by a part of its name)
+    seen other than ``runs`` times its launches per graph in ``expect``."""
+    bad = [f"{n[:60]} x{k}" for n, k in count.items() if k % runs]
+    for part, per_graph in expect.items():
+        seen = sum(k for n, k in count.items() if part in n)
+        if seen != runs * per_graph:
+            bad.append(f"{part} x{seen} != {runs} x {per_graph}")
+    return bad
+
+
+def _graph_profile(card: str, graph, remove_dc: bool, runs: int = 5) -> dict:
+    """11c: where `bench.py`'s packed graph spends its time: the host wall
+    per graph (host clock around ``runs`` calls ended by a synchronize,
+    without and with the profiler), and from `torch.profiler`'s device
+    events of the profiled calls the device's busy time per graph (the
+    union of the kernels' and copies' intervals), its launches and the
+    largest by name.  The idle share is 1 - busy / the profiled wall: both
+    from the same calls.  The trace is checked first: every name a multiple
+    of ``runs`` times, the SRC kernel and the pair ``runs`` times their
+    launches per graph as the kernels' counters read them around one graph;
+    a trace that fails is taken once more, then the phase raises."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from f9tpu_torch.ops import epilogue as ep
+    from f9tpu_torch.ops import src_kernel as sk
+
     graph()
     torch.cuda.synchronize()
+    src0, pair0 = sk.launches, ep.launches
+    graph()
+    torch.cuda.synchronize()
+    pair = ep.launches - pair0
+    expect = {"cycle_src": sk.launches - src0, "finish_pass": pair,
+              "dc_pass": pair if remove_dc else 0}
     t0 = time.perf_counter()
     for _ in range(runs):
         graph()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / runs
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            graph()
-        torch.cuda.synchronize()
-    by_name, count = collections.Counter(), collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                graph()
+            torch.cuda.synchronize()
+            prof_wall_ms = 1e3 * (time.perf_counter() - t0) / runs
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name, count = collections.Counter(), collections.Counter()
+        for e in events:
             by_name[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
-    busy_ms = sum(by_name.values()) / 1e3 / runs
-    if busy_ms <= 0:
-        print(f"epilogue 11c: the packed graph's device busy time not measured (the profiler "
-              f"saw no device time); host wall {wall_ms:.3f} ms per graph [{card}]", flush=True)
-        return
-    print(f"epilogue 11c: bench.py's packed graph: host wall {wall_ms:.3f} ms per graph "
-          f"(host clock, {runs} calls), device busy {busy_ms:.3f} ms per graph in "
-          f"{sum(count.values()) / runs:.0f} kernels and copies (torch.profiler): "
-          f"{100.0 - 100.0 * busy_ms / wall_ms:.1f} % idle [{card}]", flush=True)
+        bad = _trace_faults(count, runs, expect)
+        if not bad:
+            break
+        print(f"epilogue 11c: trace {attempt} of {runs} graphs fails its count check: "
+              f"{bad} [{card}]", flush=True)
+    else:
+        raise AssertionError(f"epilogue 11c: two traces failed the count check: {bad}")
+    busy_ms = _busy_union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / runs
+    sum_ms = sum(by_name.values()) / 1e3 / runs
+    idle = 100.0 - 100.0 * busy_ms / prof_wall_ms
+    print(f"epilogue 11c: bench.py's packed graph: trace check passed on trace {attempt} "
+          f"(every name a multiple of {runs}; per graph {expect}); host wall "
+          f"{wall_ms:.3f} ms per graph without the profiler, {prof_wall_ms:.3f} with it; "
+          f"device busy {busy_ms:.3f} ms per graph (union of intervals; {sum_ms:.3f} as a "
+          f"sum of durations) in {len(events) / runs:.0f} kernels and copies: {idle:.1f} % "
+          f"idle over the profiled wall (torch.profiler) [{card}]", flush=True)
     for name, us in by_name.most_common(8):
         print(f"epilogue 11c:   {us / 1e3 / runs:.4f} ms in {count[name] / runs:.1f} launches "
               f"per graph: {name[:90]}", flush=True)
+    return {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms, "busy_ms": busy_ms,
+            "busy_sum_ms": sum_ms, "idle_pct": idle, "per_graph": expect, "trace": attempt}
+
+
+def graph_profile_main(dev) -> dict:
+    """11c itself: `bench.py`'s packed graph (`ROWS_JOB`, resident) traced
+    by `_graph_profile`."""
+    import torch
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.pipeline import graph as tg
+
+    files, C, frames = ROWS_JOB
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = 0.25 * torch.randn((files, C, frames), generator=gen, device=dev)
+    valid = torch.full((files,), frames, dtype=torch.int32, device=dev)
+    seeds = torch.arange(1, files + 1, dtype=torch.int32, device=dev)
+    cfg = ProcessingConfig(output_dir="/nonexistent", target_rate=48000, quality="high")
+    return _graph_profile(_card(), lambda: tg.process_batch(x, valid, cfg, 44100, seeds),
+                          cfg.remove_dc)
+
+
+def _graph_profile_fresh() -> dict:
+    """11c in a process of its own (``--graph-profile``), its lines passed
+    through: after the earlier phases, this process's traces came out a
+    whole graph short every time (both attempts, run after run), while a
+    fresh process's were whole.  Raises if it fails."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--graph-profile"],
+                          capture_output=True, text=True, timeout=600)
+    out = [line for line in proc.stdout.splitlines() if line.startswith("epilogue 11c")]
+    for line in out:
+        print(line, flush=True)
+    result = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or not result:
+        raise AssertionError(f"epilogue 11c: the traced process failed (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    return json.loads(result[-1])
 
 
 def phase_epilogue(card: str, dev) -> dict:
     """Phase 11, the epilogue kernel pair: (a) kernel == twin on the card
     (`torch.equal` on codes or payload, sum of squares, peak and mean) over
-    the flag grid at both shapes and on the buses; (b) on whole files,
-    each pass's device ms and the pair's (`torch.profiler`, median of 10
-    after warm-up), one call's and the twin's (CUDA events), the bounds,
-    the launches per graph and that `_epilogue` on the card never runs the
-    twin;
-    (c) phase 4's and phase 10a's graph ms and peak memory beside the eager
-    figures.  Returns the numbers for the JSON summary."""
+    the flag grid at both shapes, on the buses and on the edges; (b) on
+    whole files, each pass's device ms and bytes per second and the pair's
+    (`torch.profiler`, median of 10 after warm-up), one call's and the
+    twin's (CUDA events), the bounds, the launches per graph and that
+    `_epilogue` on the card never runs the twin; (c) the packed graph's
+    checked trace and idle share, and phase 4's and phase 10a's graph ms
+    and peak memory beside the eager figures.  Returns the numbers for the
+    JSON summary."""
     import torch
 
     from f9tpu_torch.config import ProcessingConfig
@@ -2976,8 +3107,11 @@ def phase_epilogue(card: str, dev) -> dict:
 
     per_shape = []
     max_err = 0.0
-    for label, files, C, frames in EPILOGUE_SHAPES + EPILOGUE_BUSES:
-        y, out_frames, seeds = _epilogue_inputs(files, C, frames, dev)
+    shapes = [(label, files, C, frames, False) for label, files, C, frames
+              in EPILOGUE_SHAPES + EPILOGUE_BUSES]
+    shapes += [(label, files, C, total, True) for label, files, C, total in EPILOGUE_EDGES]
+    for label, files, C, frames, edge in shapes:
+        y, out_frames, seeds = (_edge_inputs if edge else _epilogue_inputs)(files, C, frames, dev)
         total = y.shape[-1]
         for name, opts in EPILOGUE_GRID:
             args, kw = _epilogue_case(y, out_frames, seeds, opts)
@@ -2995,7 +3129,7 @@ def phase_epilogue(card: str, dev) -> dict:
             if not all(same.values()):
                 raise AssertionError(f"epilogue 11a: {label} [{name}]: kernel != twin {same}")
             del got, want
-        if (label, files, C, frames) in EPILOGUE_BUSES:
+        if edge or (label, files, C, frames) in EPILOGUE_BUSES:
             continue
         # (b) on whole files, as bench.py's job and the slice's batch give
         # them (every sample read, so the bound counts them all), int32
@@ -3019,10 +3153,17 @@ def phase_epilogue(card: str, dev) -> dict:
             t["ms"] = sum(seen) if len(seen) == 2 else t["call_ms"]
             t["bound_ms"] = _epilogue_bound_ms(files, C, total, out_bytes)
             t["two_read_floor_ms"] = _epilogue_bound_ms(files, C, total, out_bytes, reads=2)
+            # each pass's bytes (y read once; pass 2 also writes the codes)
+            # over its profiler time
+            for k, nbytes in (("pass1", 4), ("pass2", 4 + out_bytes)):
+                ms = t[f"{k}_ms"]
+                t[f"{k}_tb_per_s"] = (None if not ms
+                                      else files * C * total * nbytes / (ms * 1e-3) / 1e12)
             row[form] = t
             passes = ", ".join(
-                f"{name} {'not measured' if t[k] is None else f'{t[k]:.4f} ms'}"
-                for k, name in (("pass1_ms", "pass 1 (DC sum)"), ("pass2_ms", "pass 2 (finish)")))
+                f"{name} not measured" if t[f"{k}_ms"] is None else
+                f"{name} {t[f'{k}_ms']:.4f} ms = {t[f'{k}_tb_per_s']:.3f} TB/s"
+                for k, name in (("pass1", "pass 1 (DC sum)"), ("pass2", "pass 2 (finish)")))
             print(f"epilogue 11b: {label} {files}x{C}x{total} whole files {form}: {passes}, "
                   f"the pair {t['ms']:.4f} ms (torch.profiler; the call's CUDA events if it "
                   f"saw no kernel); one call {t['call_ms']:.4f} ms, twin {t['plain_ms']:.3f} "
@@ -3056,7 +3197,7 @@ def phase_epilogue(card: str, dev) -> dict:
         ep.epilogue_reference = twin
     print(f"epilogue 11b: launches per graph {per_graph} (the twin never ran) [{card}]",
           flush=True)
-    _graph_profile(card, lambda: tg.process_batch(x, valid, cfg, 44100, seeds))
+    graph_prof = _graph_profile_fresh()
     if any(n != 1 for n in per_graph.values()):
         raise AssertionError(f"epilogue 11b: launches per graph {per_graph}, expected 1")
     del x
@@ -3069,7 +3210,8 @@ def phase_epilogue(card: str, dev) -> dict:
           flush=True)
     head = per_shape[0]["int32"]
     return {"max_abs_err": max_err, "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "per_shape": per_shape, "per_graph": per_graph}
+            "bound_ms": head["bound_ms"], "per_shape": per_shape, "per_graph": per_graph,
+            "graph_profile": graph_prof}
 
 
 def main() -> int:
@@ -3087,6 +3229,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--chunk-times"]:
         print(json.dumps(windowed_chunk_ms(resolve_device("cuda"))), flush=True)
+        return 0
+    if sys.argv[1:] == ["--graph-profile"]:
+        print(json.dumps(graph_profile_main(resolve_device("cuda"))), flush=True)
         return 0
     if sys.argv[1:] == ["--epilogue"]:
         _build.load_library()

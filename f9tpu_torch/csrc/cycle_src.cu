@@ -314,49 +314,8 @@ cycle_src_tc(const float* __restrict__ x, const float4* __restrict__ gp,
 
 // ---- the windowed form ------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p)
-{
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count)
-{
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar)
-{
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// one arrival that also announces `bytes` of bulk copies to come
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes)
-{
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity)
-{
-    uint32_t done;
-    do {
-        asm volatile("{\n .reg .pred p;\n"
-                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     " selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    } while (!done);
-}
-
-// the TMA's 1-D bulk copy global -> shared (16-byte aligned ends), completion
-// counted in bytes on `bar`
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
-                                         uint64_t* bar)
-{
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                 "[%0], [%1], %2, [%3];\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
+// smem_u32, mbar_*, bulk_g2s
+#include "tma.cuh"
 
 // the consumer warps' barrier (named barrier 1; the producer warp never joins)
 __device__ __forceinline__ void consumer_sync(int nthreads)

@@ -9,53 +9,77 @@
 // is f9tpu_torch/ops/epilogue.py:epilogue_reference, which this kernel
 // matches bit for bit (codes, payload, sums of squares, peaks, means).
 //
-// What bounds it.  Per output sample it does ~30 integer and float
-// operations (the SplitMix32 hash is five of them) against 8 bytes of
-// traffic, so it is bound by memory.  The function must read y once and
-// write the codes once: at bench.py's shape (32 rows x 1,141,440 outputs,
-// 146.1 MB of float32) that is 292.2 MB = 0.087 ms at 3.35 TB/s with int32
-// codes, 255.7 MB = 0.076 ms with the 24-bit payload.  The DC mean has to be
-// known before the first code, and y (146 MB) does not fit in the 50 MB L2,
-// so a DC-removing epilogue reads y twice: 0.131 ms (int32) and 0.120 ms
-// (payload) is this design's floor.
+// What bounds it.  The function must read y once and write the codes
+// once: at bench.py's shape (32 rows x 1,141,440 outputs, 146.1 MB of
+// float32) that is 292.2 MB = 0.087 ms at 3.35 TB/s with int32 codes,
+// 255.7 MB = 0.076 ms with the 24-bit payload.  The DC mean has to be known
+// before the first code, and y (146 MB) outgrows the 50 MB L2, so a
+// DC-removing epilogue reads y twice: 0.131 ms (int32) and 0.120 ms
+// (payload) is this design's floor.  Measured on an H100 (PERF.md section
+// 6), neither pass is at the memory rate: pass 1 reads at the rate torch's
+// own reductions reach on this card (~2.2 TB/s), and pass 2 is bound by its
+// consumers' instructions (about 36 a sample: the noise hash, the rounding,
+// the clamp, the staging store), not by bytes in flight: its producer
+// waits for a free stage three quarters of the time.
 //
-// Design.
-//   * Pass 1 (only when the DC is removed): a block owns one tile of TILE =
-//     4096 samples of one (file, channel) row, reads it once (positions at
-//     or past the file's out_frames read as 0.0 and a tile wholly past them
-//     is not read at all) and writes its float64 sum.  The last block of a
-//     row to finish (an integer atomic ticket; no atomic ever adds a float)
-//     folds the row's tile sums in ascending order and writes the float32
-//     mean, __ddiv_rn then __double2float_rn, as the twin rounds it.
-//   * Pass 2: a block owns TILE frames of one file across all C channels.
-//     Per channel it reads y once, forms z in registers (mask, __fsub_rn,
-//     __fmul_rn by the float32 gain), quantizes (z * 2^(bits-1) is exact,
-//     plus the noise, rintf = half to even, clamp, truncate) and stores;
-//     with statistics it also writes the tile's float64 sum of z^2 and
-//     float32 max |z|, and the file's last block folds them: tiles in
-//     ascending order, then channels in ascending order.
-//   * The reductions' order is the twin's halving tree: thread t holds tile
-//     elements t + 256k (loads strided by the block width, coalesced), halves
-//     its 16 registers (k + 8, + 4, + 2, + 1), then shared memory over thread
-//     index (128, 64, 32), then warp shuffles (16 ... 1).  So a row's mean,
-//     sums and codes depend on its own samples only, not on the bucket
-//     length, the row or the batch width.  Every float operation is an _rn
-//     intrinsic, so no FMA contraction moves a rounding.
-//   * The payload is written directly: a block stages its frames' bytes,
-//     interleaved, in shared memory (4096 * C * 3 bytes, up to 192 KB) and
-//     writes them out as contiguous 16-byte stores; past 192 KB it stores
-//     each sample's bytes in place.
-//   * Both grids are one-dimensional, block b owning tile b % n_tiles of
-//     row (or file) b / n_tiles, so no count of files or channels meets the
-//     65,535 limit of a grid's second axis.  Pass 2 walks the blocks in
-//     reverse order of pass 1, so its first blocks read what pass 1 read
-//     last, while it is still in L2.
-//   * Routed-silent channels come as a (C,) byte mask on the card: any
-//     channel of any bus may be silent.
-//   * The stream's chunk finish is pass 2 with no mask, no statistics and
-//     its absolute position as the noise's base (pos0).
+// Design: how bytes reach and leave the SMs.
+//   * Persistent blocks.  Each pass launches k blocks per SM (k from the
+//     occupancy of its shared memory, the SM count from the device), block
+//     b walking units b, b + G, b + 2G, ...: a unit is one TILE = 4096
+//     samples of one (file, channel) row in pass 1, TILE frames of one file
+//     across its C channels in pass 2.  Pass 2 walks the units from the
+//     last, so it starts on what pass 1 read last.
+//   * A ring of shared-memory stages filled by the TMA.  A block is 8
+//     consumer warps and one producer warp; one producer thread walks the
+//     block's units ahead of the consumers and keeps up to NS (2-4) row
+//     tiles of 16 KB in flight by 1-D bulk copies (full and empty
+//     mbarriers, parity waits), across channels and across units, so the
+//     next tiles arrive while the consumers run a tile's trees and stores.
+//     A bulk copy needs 16-byte-aligned ends: it carries the aligned middle
+//     of a tile's valid span, and the consumers load the (at most 3 + 3)
+//     head and tail elements themselves; past the valid span they read 0.
+//   * Stores through shared memory.  Pass 2 builds a row tile's int32 or
+//     int16 codes (two buffers, so a store overlaps the next tile), or a
+//     unit's interleaved payload bytes across all C channels (a 16-bit and
+//     an 8-bit store a 24-bit sample, by address parity), in a staging
+//     buffer at the output's own alignment, and writes its aligned middle
+//     with one TMA bulk store (bulk groups; a buffer is written again only
+//     after its store has read it); the few bytes outside the aligned
+//     middle are stored by the threads.  A payload whose unit does not fit
+//     beside a ring of 2 (4096 * C * bytes past ~184 KB: 24-bit buses of 16
+//     channels and up, 16-bit of 23 and up) is stored by each thread in
+//     place.
+//   * L2 hints, not an access-policy window.  Pass 1 reads the units it
+//     reaches last, about half the L2's bytes, with an evict_last policy and
+//     the rest with evict_first; pass 2 reads y and writes the codes with
+//     evict_first, which also drops the evict_last lines as it reads them,
+//     so nothing stays in L2 past the pair and no stream attribute is set.
+//   * Few instructions a sample: one rounding conversion (round to an int,
+//     clamp as ints), the noise's 16-bit halves made floats by their bits,
+//     and no checks on a tile whose samples are all valid and staged.
+//
+// What the design keeps, and why the results are the twin's bits.
+//   * The reductions' order is the twin's halving tree: consumer thread t
+//     holds tile elements t + 256k (read from the ring stage) and halves its
+//     16 registers (k + 8, + 4, + 2, + 1); after one barrier warp 0 halves
+//     over thread index (128, 64, 32) and shuffles (16 ... 1).  Every float
+//     operation is an _rn intrinsic, so no FMA contraction moves a rounding.
+//     A row's mean, sums and codes depend on its own samples only.
+//   * Tile partials are folded without float atomics, behind integer
+//     tickets per row (pass 1) and per file (pass 2).  A block takes the
+//     tickets of all the units it walked at the end of its walk, after one
+//     fence (a ticket per tile, fence and atomic in the consumers' path,
+//     cost ~6 us a tile on an H100), and folds the rows or files it completed: each
+//     row's partials in ascending order from +0.0 by one thread, streamed
+//     through shared memory, then a file's channels in ascending order.
+//     The strided walk spreads every row over every block, so the block
+//     that finishes last folds them all; the folds run in parallel.
+//   * Routed-silent channels come as a (C,) byte mask.  The stream's chunk
+//     finish is pass 2 with no mask, no statistics and its absolute
+//     position as the noise's base (pos0).
 // Why CUDA and not Triton: bitwise control of every rounding (the twin is
-// the specification) and the ctypes build the SRC kernel already uses.
+// the specification), the TMA ring, and the ctypes build the SRC kernel
+// already uses.
 
 #include <cuda_runtime.h>
 
@@ -64,12 +88,23 @@
 
 namespace {
 
+#include "tma.cuh"
+
 constexpr int TILE = 4096;
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;             // the consumer threads: 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int BLOCK = THREADS + 32;      // and the producer warp
 constexpr int PER = TILE / THREADS;      // tile elements per thread
 static_assert(PER == 16, "the register halving steps are written for 16");
-constexpr int STAGE_MAX = 192 * 1024;    // payload bytes a block stages
+constexpr int NS_MAX = 4;                // ring stages
+constexpr int STAGE_FLOATS = TILE + 4;   // a tile at any 4-byte alignment
+constexpr int STAGE_BYTES = STAGE_FLOATS * 4;
 constexpr int MAX_DEVICES = 64;
+
+template <bool B>
+struct Bool {
+    static constexpr bool value = B;
+};
 
 __device__ __forceinline__ uint32_t splitmix32(uint32_t h)
 {
@@ -81,40 +116,62 @@ __device__ __forceinline__ uint32_t splitmix32(uint32_t h)
     return h;
 }
 
+// x < 2^16 as a float (exact) by its bits: 2^23 + x, less 2^23, both exact;
+// no conversion instruction (they issue at a quarter of the float rate)
+__device__ __forceinline__ float u16_to_float(uint32_t x)
+{
+    return __fsub_rn(__uint_as_float(0x4B000000u | x), 8388608.0f);
+}
+
+// The NB low bytes of q, little-endian, at b: one 16-bit store (and one
+// byte for NB = 3) where b is even, else the byte first.  For a stereo bus
+// the parity is the same across a warp.
+template <int NB>
+__device__ __forceinline__ void store_le(unsigned char* b, uint32_t q)
+{
+    const bool even = (reinterpret_cast<uintptr_t>(b) & 1) == 0;
+    if constexpr (NB == 2) {
+        if (even) {
+            *reinterpret_cast<unsigned short*>(b) = (unsigned short)q;
+        } else {
+            b[0] = (unsigned char)q;
+            b[1] = (unsigned char)(q >> 8);
+        }
+    } else {
+        if (even) {
+            *reinterpret_cast<unsigned short*>(b) = (unsigned short)q;
+            b[2] = (unsigned char)(q >> 16);
+        } else {
+            b[0] = (unsigned char)q;
+            *reinterpret_cast<unsigned short*>(b + 1) = (unsigned short)(q >> 8);
+        }
+    }
+}
+
+// rint, clamp to [lo, hi] and truncate, as float32 and then int, in one
+// conversion: round half to even to an int (saturating), clamped as ints.
+// A NaN gives lo, as fmaxf(NaN, lo) did.  Equal for every float: an
+// integral float outside [lo, hi] clamps to the same end either way.
+__device__ __forceinline__ int round_clip(float v, int lo, int hi)
+{
+    return v != v ? lo : min(max(__float2int_rn(v), lo), hi);
+}
+
 // max that keeps a NaN, as torch.amax does
 __device__ __forceinline__ float fmax_nan(float m, float x)
 {
     return (x > m || x != x) ? x : m;
 }
 
-// The block's part of the halving tree: thread t holds the sum of tile
-// elements t + 256k; shared memory over thread index (128, 64, then 32 by
-// warp 0), then warp shuffles (16 ... 1).  The sum lands in thread 0.
-// `red` holds THREADS doubles.
-__device__ __forceinline__ double block_tree(double x, double* red)
+// the consumer warps' barrier (named barrier 1; the producer never joins)
+__device__ __forceinline__ void consumer_sync()
 {
-    const int tid = threadIdx.x;
-    red[tid] = x;
-    __syncthreads();
-    if (tid < 128) red[tid] = __dadd_rn(red[tid], red[tid + 128]);
-    __syncthreads();
-    if (tid < 64) red[tid] = __dadd_rn(red[tid], red[tid + 64]);
-    __syncthreads();
-    double s = 0.0;
-    if (tid < 32) {
-        s = __dadd_rn(red[tid], red[tid + 32]);
-#pragma unroll
-        for (int off = 16; off >= 1; off >>= 1)
-            s = __dadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
-    }
-    __syncthreads();             // the caller writes `red` again
-    return s;
+    asm volatile("bar.sync 1, %0;\n" :: "n"(THREADS) : "memory");
 }
 
-// The halving tree of one tile whose element t + THREADS*k is thread t's
-// v[k]: the thread halves its registers (k + 8, + 4, + 2, + 1), then
-// `block_tree`.
-__device__ __forceinline__ double tile_sum(const double (&v)[PER], double* red)
+// A thread's part of the halving tree of one tile whose element t + 256k is
+// thread t's v[k]: it halves its registers (k + 8, + 4, + 2, + 1).
+__device__ __forceinline__ double thread_sum(const double (&v)[PER])
 {
     double w[8];
 #pragma unroll
@@ -123,12 +180,12 @@ __device__ __forceinline__ double tile_sum(const double (&v)[PER], double* red)
     for (int k = 0; k < 4; ++k) w[k] = __dadd_rn(w[k], w[k + 4]);
     w[0] = __dadd_rn(w[0], w[2]);
     w[1] = __dadd_rn(w[1], w[3]);
-    return block_tree(__dadd_rn(w[0], w[1]), red);
+    return __dadd_rn(w[0], w[1]);
 }
 
-// tile_sum of the squares of z[k] (each exact in float64), squared as the
+// thread_sum of the squares of z[k] (each exact in float64), squared as the
 // first halving step reads them.
-__device__ __forceinline__ double tile_sumsq(const float (&z)[PER], double* red)
+__device__ __forceinline__ double thread_sumsq(const float (&z)[PER])
 {
     double w[8];
 #pragma unroll
@@ -140,94 +197,328 @@ __device__ __forceinline__ double tile_sumsq(const float (&z)[PER], double* red)
     for (int k = 0; k < 4; ++k) w[k] = __dadd_rn(w[k], w[k + 4]);
     w[0] = __dadd_rn(w[0], w[2]);
     w[1] = __dadd_rn(w[1], w[3]);
-    return block_tree(__dadd_rn(w[0], w[1]), red);
+    return __dadd_rn(w[0], w[1]);
 }
 
-// The block's largest value (any order: max is exact); lands in thread 0.
-__device__ __forceinline__ float block_max(float m, float* red)
+// The rest of the tree, by warp 0 after one barrier of the consumers that
+// follows every thread t's red[t] = thread_sum: halving over thread index
+// (t + 128, then t + 64, then t + 32: lane l adds the pairs of l, l + 32,
+// l + 64 and l + 96 in that order), then warp shuffles (16 ... 1).  The sum
+// lands in lane 0.  The caller alternates two `red` arrays, so no second
+// barrier guards this read.
+__device__ __forceinline__ double warp0_tree(const double* red)
 {
-    const int tid = threadIdx.x;
-    red[tid] = m;
-    __syncthreads();
+    const int l = threadIdx.x;
+    const double r0 = __dadd_rn(red[l], red[l + 128]);
+    const double r1 = __dadd_rn(red[l + 32], red[l + 160]);
+    const double r2 = __dadd_rn(red[l + 64], red[l + 192]);
+    const double r3 = __dadd_rn(red[l + 96], red[l + 224]);
+    double s = __dadd_rn(__dadd_rn(r0, r2), __dadd_rn(r1, r3));
 #pragma unroll
-    for (int h = THREADS / 2; h >= 64; h >>= 1) {
-        if (tid < h) red[tid] = fmax_nan(red[tid], red[tid + h]);
-        __syncthreads();
-    }
-    if (tid < 32) {
-        m = fmax_nan(red[tid], red[tid + 32]);
+    for (int off = 16; off >= 1; off >>= 1)
+        s = __dadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
+    return s;
+}
+
+// warp0_tree's largest value (any order: max is exact).
+__device__ __forceinline__ float warp0_max(const float* red)
+{
+    const int l = threadIdx.x;
+    float m = fmax_nan(fmax_nan(red[l], red[l + 128]), fmax_nan(red[l + 32], red[l + 160]));
+    m = fmax_nan(m, fmax_nan(fmax_nan(red[l + 64], red[l + 192]),
+                             fmax_nan(red[l + 96], red[l + 224])));
 #pragma unroll
-        for (int off = 16; off >= 1; off >>= 1)
-            m = fmax_nan(m, __shfl_down_sync(0xffffffffu, m, off));
-    }
-    __syncthreads();
+    for (int off = 16; off >= 1; off >>= 1)
+        m = fmax_nan(m, __shfl_down_sync(0xffffffffu, m, off));
     return m;
 }
 
-// ((0 + src[0]) + src[1]) + ... + src[n-1] in float64, by one warp: the
-// lanes load 256 values at a time from L2 (one round trip), the adds run in
-// order through shuffles.  Every lane returns the sum.
-__device__ __forceinline__ double warp_fold(const double* src, long long n)
+// an asynchronous copy global -> shared of 8 bytes (no register round
+// trip, so a thread's copies all go out before it waits once)
+__device__ __forceinline__ void copy8_async(void* dst, const void* src)
 {
-    const int lane = threadIdx.x & 31;
-    double acc = 0.0;
-    for (long long base = 0; base < n; base += 256) {
-        double v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const long long i = base + 32 * j + lane;
-            v[j] = i < n ? __ldcg(src + i) : 0.0;
-        }
-        const long long m = min(n - base, 256LL);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int l = 0; l < 32; ++l) {
-                const double x = __shfl_sync(0xffffffffu, v[j], l);
-                if (32 * j + l < m) acc = __dadd_rn(acc, x);
-            }
-        }
-    }
-    return acc;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(smem_u32(dst)), "l"(src)
+                 : "memory");
 }
 
-// Pass 1: grid (rows * n_tiles,).  tiles: (rows, n_tiles) float64; mean:
-// (rows,) float32; tickets: (rows,) zeroed.
-__global__ void __launch_bounds__(THREADS)
-dc_pass(const float* __restrict__ y, const int* __restrict__ out_frames,
-        double* __restrict__ tiles, float* __restrict__ mean,
-        unsigned int* __restrict__ tickets, int C, long long stride, long long keep,
-        int n_tiles)
+__device__ __forceinline__ void copies_commit()
 {
-    __shared__ double red[THREADS];
-    __shared__ bool last;
-    const int row = blockIdx.x / n_tiles;
-    const int tile = blockIdx.x - row * n_tiles;
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every copy this thread started has landed
+__device__ __forceinline__ void copies_wait()
+{
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// all but the last committed group of this thread's copies have landed
+__device__ __forceinline__ void copies_wait_prior()
+{
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One row of tile partials to fold: `cnt` float64 sums at d.
+struct FoldRow {
+    const double* d;
+    int cnt;
+};
+
+// Fold rows 0 .. nr-1 (nr <= THREADS; `row_of(i)` gives row i, at most
+// `per` partials each) by the consumers: thread i adds row i's partials in
+// ascending order from +0.0, ((0 + d[0]) + d[1]) + ..., into sums[i].  The
+// partials stream through the free shared memory `buf` in chunks of w
+// columns of every row, two chunks in flight by asynchronous copies, so a
+// chunk's adds run while the next one lands.
+template <typename RowOf>
+__device__ __forceinline__ void fold_rows(int nr, RowOf row_of, int per, FoldRow* rows,
+                                          unsigned char* buf, int buf_bytes, double* sums)
+{
     const int tid = threadIdx.x;
-    const int frames = out_frames[row / C];
-    const long long n = min((long long)frames, keep);
-    const long long t0 = (long long)tile * TILE;
-    if (t0 < n) {
-        const float* yr = y + (long long)row * stride;
-        double v[PER];
-#pragma unroll
-        for (int k = 0; k < PER; ++k) {
-            const long long t = t0 + tid + THREADS * k;
-            v[k] = t < n ? (double)__ldg(yr + t) : 0.0;
+    if (tid < nr) rows[tid] = row_of(tid);
+    consumer_sync();
+    if (nr == 0) return;
+    // w = 2^lw columns a chunk, rows w + 1 apart (fewer bank conflicts)
+    int lw = 0;
+    while (((2LL << lw) + 1) * nr * 8 * 2 <= buf_bytes && (1 << lw) < per) ++lw;
+    const int w = 1 << lw;
+    double* region[2] = {reinterpret_cast<double*>(buf),
+                         reinterpret_cast<double*>(buf) + (long long)(w + 1) * nr};
+    // chunk c: columns [c * w, c * w + w) of every row
+    auto load = [&](int c) {
+        double* dst = region[c & 1];
+        for (int idx = tid; idx < (nr << lw); idx += THREADS) {
+            const int i = idx >> lw, j = idx & (w - 1);
+            if ((c << lw) + j < rows[i].cnt)
+                copy8_async(dst + i * (w + 1) + j, rows[i].d + (c << lw) + j);
         }
-        const double s = tile_sum(v, red);
-        if (tid == 0) tiles[(long long)row * n_tiles + tile] = s;
+        copies_commit();
+    };
+    const int chunks = (per + w - 1) >> lw;
+    double acc = 0.0;
+    const int cnt = tid < nr ? rows[tid].cnt : 0;
+    load(0);
+    for (int c = 0; c < chunks; ++c) {
+        if (c + 1 < chunks) {
+            load(c + 1);
+            copies_wait_prior();                 // chunk c has landed
+        } else {
+            copies_wait();
+        }
+        consumer_sync();
+        const double* src = region[c & 1] + tid * (w + 1);
+        const int n = min(w, cnt - (c << lw));
+#pragma unroll 8
+        for (int j = 0; j < n; ++j) acc = __dadd_rn(acc, src[j]);
+        consumer_sync();                         // the region is loaded again
     }
-    if (tid == 0) {
-        __threadfence();
-        last = atomicAdd(tickets + row, 1u) == (unsigned int)(n_tiles - 1);
+    if (tid < nr) sums[tid] = acc;
+    consumer_sync();
+}
+
+// What the TMA carries of a row tile's valid elements [0, cnt) at `src`:
+// the bulk copy lands element e at stage[sh + e] for e in [e0, e1) (its
+// 16-byte-aligned middle); the rest are loaded by the consumers.  e1 == e0:
+// nothing by TMA.  Producer and consumers compute it alike.
+struct Span {
+    int sh, e0, e1;
+};
+
+__device__ __forceinline__ Span span_of(const float* src, long long cnt)
+{
+    Span s;
+    s.sh = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    s.e0 = (4 - s.sh) & 3;
+    const long long m = cnt - s.e0;
+    s.e1 = m >= 4 ? s.e0 + (int)(m & ~3LL) : s.e0;
+    return s;
+}
+
+// the producer's part for one row tile: wait for the stage, announce the
+// bytes, start the copy.  Returns whether it used a stage.
+__device__ __forceinline__ bool produce(float* ring, uint64_t* full, uint64_t* empty, int ns,
+                                        int& slot, const float* src, long long cnt,
+                                        uint64_t policy)
+{
+    if (cnt <= 0) return false;
+    const Span sp = span_of(src, cnt);
+    if (sp.e1 <= sp.e0) return false;
+    const int s = slot % ns;
+    const int round = slot / ns;
+    if (round > 0) mbar_wait(empty + s, (uint32_t)((round + 1) & 1));
+    const uint32_t bytes = 4u * (uint32_t)(sp.e1 - sp.e0);
+    mbar_arrive_expect_tx(full + s, bytes);
+    bulk_g2s_hint(ring + (long long)s * STAGE_FLOATS + sp.sh + sp.e0, src + sp.e0, bytes,
+                  full + s, policy);
+    ++slot;
+    return true;
+}
+
+// The consumers' loads of one row tile (valid elements [0, cnt) at `src`,
+// 0 past them): thread t's element t + 256k as float, from the ring stage
+// or, for the head and tail, from memory.  Returns whether a stage holds
+// the tile: the caller releases it (`release`) once it has used every
+// value, not before.
+template <typename T, bool STREAMING>
+__device__ __forceinline__ bool consume(T (&v)[PER], const float* ring, uint64_t* full, int ns,
+                                        int slot, const float* src, long long cnt)
+{
+    const int tid = threadIdx.x;
+    Span sp{0, 0, 0};
+    if (cnt > 0) sp = span_of(src, cnt);
+    const bool staged = sp.e1 > sp.e0;
+    const int s = slot % ns;
+    if (staged) mbar_wait(full + s, (uint32_t)((slot / ns) & 1));
+    const float* st = ring + (long long)s * STAGE_FLOATS + sp.sh;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+        const int e = tid + THREADS * k;
+        float x = 0.f;
+        if (e >= sp.e0 && e < sp.e1) x = st[e];
+        else if (e < cnt) x = STREAMING ? __ldcs(src + e) : __ldg(src + e);
+        v[k] = (T)x;
+    }
+    return staged;
+}
+
+// Hand a stage back to the producer, after every value read from it has
+// been used: an instruction that uses a loaded register waits for the load,
+// so no read is still in flight when the next bulk copy overwrites the
+// stage (releasing right after issuing the reads let a warp's last read
+// meet the next tile's bytes on a 72-channel bus).  The proxy fence orders
+// the reads (generic proxy) before that copy's writes (async proxy).
+__device__ __forceinline__ void release(uint64_t* empty, int ns, int& slot, bool staged)
+{
+    if (!staged) return;
+    fence_proxy_async_smem();
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + slot % ns);
+    ++slot;
+}
+
+// Set up the ring's barriers (full: the producer's arrival plus the
+// bytes; empty: one arrival per consumer warp).
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int ns)
+{
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < ns; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, WARPS);
+        }
+        fence_mbarrier_init();
     }
     __syncthreads();
-    if (last && tid < 32) {
-        __threadfence();
-        // later tiles add +0.0
-        const double acc = warp_fold(tiles + (long long)row * n_tiles, (n + TILE - 1) / TILE);
-        if (tid == 0) mean[row] = __double2float_rn(__ddiv_rn(acc, (double)max(frames, 1)));
+}
+
+// The tickets of the block's walk steps base, base + G, ... (up to THREADS
+// of them, one per consumer thread; step i is unit i, or unit units-1-i in
+// a reverse walk): the counter `tickets[unit / per]` of each is raised by
+// one after a fence of the partials this block wrote, and a counter that
+// reaches `per` (its last ticket) is done: its index lands in `done`.
+// Returns how many are done (block-uniform).
+__device__ __forceinline__ int take_tickets(unsigned int* tickets, int per, long long base,
+                                            int units, bool reverse, int* done, int& n_last)
+{
+    const int tid = threadIdx.x;
+    if (tid == 0) n_last = 0;
+    __threadfence();
+    consumer_sync();
+    const long long step = base + (long long)tid * gridDim.x;
+    if (step < units) {
+        const int i = (int)((reverse ? units - 1 - step : step) / per);
+        if (atomicAdd(tickets + i, 1u) == (unsigned int)(per - 1))
+            done[atomicAdd(&n_last, 1)] = i;
+    }
+    consumer_sync();
+    const int n = n_last;
+    if (n) __threadfence();                      // before the partials are read
+    return n;
+}
+
+struct DcArgs {
+    const float* y;
+    const int* out_frames;
+    double* tiles;                // (rows, n_tiles)
+    float* mean;                  // (rows,)
+    unsigned int* tickets;        // (rows,) zeroed
+    int C;
+    long long stride;
+    long long keep;
+    int n_tiles;
+    int units;                    // rows * n_tiles
+    int hot_from;                 // units from here on are read evict_last
+    int ns;
+};
+
+// Pass 1: unit u = tile u % n_tiles of row u / n_tiles, read once (positions
+// at or past the file's out_frames read as 0.0; a tile wholly past them is
+// not read); its float64 sum goes to `tiles`, and the block that takes the
+// row's last ticket folds the row into the float32 mean, __ddiv_rn then
+// __double2float_rn, as the twin rounds it.
+__global__ void __launch_bounds__(BLOCK, 3)
+dc_pass(const DcArgs a)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ double red[2][THREADS];           // alternate tiles
+    __shared__ __align__(8) uint64_t full[NS_MAX], empty[NS_MAX];
+    __shared__ int done[THREADS], n_last;
+    __shared__ FoldRow rows[THREADS];
+    float* ring = reinterpret_cast<float*>(smem);
+    const int tid = threadIdx.x;
+    ring_init(full, empty, a.ns);
+
+    if (tid >= THREADS) {                        // the producer warp
+        if (tid == THREADS) {
+            const uint64_t keep_l2 = policy_evict_last(), drop_l2 = policy_evict_first();
+            int slot = 0;
+            for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+                const int row = u / a.n_tiles;
+                const long long t0 = (long long)(u - row * a.n_tiles) * TILE;
+                const long long n = min((long long)a.out_frames[row / a.C], a.keep);
+                produce(ring, full, empty, a.ns, slot, a.y + row * a.stride + t0,
+                        min((long long)TILE, n - t0), u >= a.hot_from ? keep_l2 : drop_l2);
+            }
+        }
+        return;
+    }
+
+    int slot = 0, par = 0;
+    for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+        const int row = u / a.n_tiles;
+        const int tile = u - row * a.n_tiles;
+        const long long n = min((long long)a.out_frames[row / a.C], a.keep);
+        const long long t0 = (long long)tile * TILE;
+        if (t0 < n) {                            // block-uniform
+            double v[PER];
+            const bool staged = consume<double, false>(
+                v, ring, full, a.ns, slot, a.y + row * a.stride + t0, min((long long)TILE, n - t0));
+            red[par][tid] = thread_sum(v);
+            release(empty, a.ns, slot, staged);
+            consumer_sync();
+            if (tid < 32) {
+                const double s = warp0_tree(red[par]);
+                if (tid == 0) a.tiles[(long long)row * a.n_tiles + tile] = s;
+            }
+            par ^= 1;
+        }
+    }
+    // the row's tickets, one per unit walked, all after the walk; the rows
+    // this block completed are folded here, a thread each, from the ring
+    for (long long base = blockIdx.x; base < a.units; base += (long long)THREADS * gridDim.x) {
+        const int n_done = take_tickets(a.tickets, a.n_tiles, base, a.units, false, done, n_last);
+        // a row's tiles past its file's end add +0.0: only the valid ones
+        auto row_of = [&](int i) {
+            const int row = done[i];
+            const long long n = min((long long)a.out_frames[row / a.C], a.keep);
+            return FoldRow{a.tiles + (long long)row * a.n_tiles, (int)((n + TILE - 1) / TILE)};
+        };
+        fold_rows(n_done, row_of, a.n_tiles, rows, smem, a.ns * STAGE_BYTES, red[0]);
+        if (tid < n_done) {
+            const int row = done[tid];
+            const int frames = a.out_frames[row / a.C];
+            a.mean[row] = __double2float_rn(__ddiv_rn(red[0][tid], (double)max(frames, 1)));
+        }
+        consumer_sync();                         // `done` is written again
     }
 }
 
@@ -248,172 +539,372 @@ struct FinishArgs {
     long long stride;
     long long keep;
     int n_tiles;
+    int units;                    // files * n_tiles
     float scale;
-    float clip_hi;
+    int lo, hi;                   // the codes' range: -scale, and clip_hi as an int
     float gain;
     long long pos0;
     int stats;
-    int stage;
+    int ns;                       // ring stages
+    int nbuf;                     // staging buffers; 0: the payload is stored in place
+    int buf_bytes;                // one staging buffer (a multiple of 16)
 };
 
-// Pass 2: grid (files * n_tiles,), walked from the last tile of the last file.
-// MODE 0: int32 codes (files, C, keep); 1: int16 codes; 2 and 3: the 16- and
-// 24-bit interleaved payload (files, keep * C * nb).
+// Pass 2: unit u = frame tile u % n_tiles of file u / n_tiles across its C
+// channels, walked from the last unit.  MODE 0: int32 codes (files, C,
+// keep); 1: int16 codes; 2 and 3: the 16- and 24-bit interleaved payload
+// (files, keep * C * nb).
 template <int MODE>
-__global__ void __launch_bounds__(THREADS, 3)
+__global__ void __launch_bounds__(BLOCK, 2)
 finish_pass(const FinishArgs a)
 {
-    constexpr int NB = MODE == 3 ? 3 : 2;
-    extern __shared__ __align__(16) unsigned char staged[];
-    __shared__ double red[THREADS];
-    __shared__ float redf[THREADS];
-    __shared__ bool last;
-    const int b = gridDim.x - 1 - blockIdx.x;
-    const int f = b / a.n_tiles;
-    const int tile = b - f * a.n_tiles;
+    constexpr int NB = MODE == 3 ? 3 : 2;        // payload bytes per sample
+    constexpr int ES = MODE == 0 ? 4 : 2;        // planar code bytes
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ double red[2][THREADS];           // alternate tiles
+    __shared__ float redf[2][THREADS];
+    __shared__ __align__(8) uint64_t full[NS_MAX], empty[NS_MAX];
+    __shared__ int done[THREADS], n_last;
+    __shared__ FoldRow rows[THREADS];
+    float* ring = reinterpret_cast<float*>(smem);
+    unsigned char* staging = smem + (long long)a.ns * STAGE_BYTES;
     const int tid = threadIdx.x;
     const int C = a.C;
-    const long long t0 = (long long)tile * TILE;
-    const long long n = a.out_frames ? min((long long)a.out_frames[f], a.keep) : a.keep;
-    const float g = a.gain_lin ? __fmul_rn(a.gain, a.gain_lin[f]) : a.gain;
+    ring_init(full, empty, a.ns);
+
+    if (tid >= THREADS) {                        // the producer warp
+        if (tid == THREADS) {
+            const uint64_t drop_l2 = policy_evict_first();
+            int slot = 0;
+            for (int i = blockIdx.x; i < a.units; i += gridDim.x) {
+                const int u = a.units - 1 - i;
+                const int f = u / a.n_tiles;
+                const long long t0 = (long long)(u - f * a.n_tiles) * TILE;
+                const long long n =
+                    a.out_frames ? min((long long)a.out_frames[f], a.keep) : a.keep;
+                for (int c = 0; c < C; ++c)
+                    produce(ring, full, empty, a.ns, slot,
+                            a.y + ((long long)f * C + c) * a.stride + t0,
+                            min((long long)TILE, n - t0), drop_l2);
+            }
+        }
+        return;
+    }
+
+    const uint64_t drop_l2 = policy_evict_first();
     const long long row_bytes = a.keep * C * NB;
-    unsigned char* payload = (unsigned char*)a.out + (long long)f * row_bytes;
-
-    for (int c = 0; c < C; ++c) {
-        const long long row = (long long)f * C + c;
-        const float* yr = a.y + row * a.stride;
-        const float mu = a.mean ? a.mean[row] : 0.f;
-        const uint32_t sh = a.seeds ? splitmix32((uint32_t)a.seeds[row]) : 0u;
-        const bool mute = a.silent && a.silent[c];
-        // every load first: the stores below may alias y as far as the
-        // compiler knows, and would otherwise hold each load back
-        float yv[PER];
-#pragma unroll
-        for (int k = 0; k < PER; ++k) {
-            const long long t = t0 + tid + THREADS * k;
-            yv[k] = t < n ? __ldcs(yr + t) : 0.f;
-        }
-        float m = 0.f;
-#pragma unroll
-        for (int k = 0; k < PER; ++k) {
-            const long long t = t0 + tid + THREADS * k;
-            float z = 0.f;
-            if (t < n) {
-                float v = yv[k];
-                if (a.mean) v = __fsub_rn(v, mu);
-                z = __fmul_rn(v, g);
-            }
-            yv[k] = z;                // z from here on
-            m = fmax_nan(m, fabsf(z));
-            if (t >= a.keep) continue;
-            int q = 0;
-            if (t < n && !mute) {
-                float v = __fmul_rn(z, a.scale);
-                if (a.seeds) {
-                    const uint32_t h = splitmix32((uint32_t)(a.pos0 + t) ^ sh);
-                    const float u1 = __fmul_rn(__uint2float_rn(h & 0xFFFFu), 1.0f / 65536.0f);
-                    const float u2 = __fmul_rn(__uint2float_rn(h >> 16), 1.0f / 65536.0f);
-                    v = __fadd_rn(v, __fsub_rn(u1, u2));
+    int slot = 0, sidx = 0, par = 0;
+    for (int i = blockIdx.x; i < a.units; i += gridDim.x) {
+        const int u = a.units - 1 - i;
+        const int f = u / a.n_tiles;
+        const int tile = u - f * a.n_tiles;
+        const long long t0 = (long long)tile * TILE;
+        const long long n = a.out_frames ? min((long long)a.out_frames[f], a.keep) : a.keep;
+        const int span = (int)min((long long)TILE, a.keep - t0);   // codes written
+        const float g = a.gain_lin ? __fmul_rn(a.gain, a.gain_lin[f]) : a.gain;
+        // the payload's unit: bytes [0, nbytes) at dst, staged at pay + p
+        unsigned char* dst = (unsigned char*)a.out + (long long)f * row_bytes
+                             + t0 * C * NB;
+        unsigned char* pay = nullptr;
+        if constexpr (MODE >= 2) {
+            if (a.nbuf) {                        // block-uniform
+                pay = staging + (long long)(sidx % a.nbuf) * a.buf_bytes
+                      + (reinterpret_cast<uintptr_t>(dst) & 15);
+                if (a.nbuf == 1) {               // its last store has read it
+                    if (tid == 0) bulk_wait_read_all();
+                    consumer_sync();
                 }
-                v = fminf(fmaxf(rintf(v), -a.scale), a.clip_hi);
-                q = __float2int_rz(v);
             }
-            if constexpr (MODE == 0) {
-                ((int*)a.out)[row * a.keep + t] = q;
-            } else if constexpr (MODE == 1) {
-                ((short*)a.out)[row * a.keep + t] = (short)q;
-            } else {
-                unsigned char* dst = a.stage
-                    ? staged + ((t - t0) * C + c) * NB
-                    : payload + (t * C + c) * NB;
+        }
+
+        for (int c = 0; c < C; ++c) {
+            const long long row = (long long)f * C + c;
+            const float mu = a.mean ? a.mean[row] : 0.f;
+            const uint32_t sh = a.seeds ? splitmix32((uint32_t)a.seeds[row]) : 0u;
+            const bool mute = a.silent && a.silent[c];
+            float yv[PER];
+            const bool staged = consume<float, true>(
+                yv, ring, full, a.ns, slot, a.y + row * a.stride + t0, min((long long)TILE, n - t0));
+            // planar codes: element e at stg + e * ES, bytes [h0, h1) of the
+            // tile's output by one bulk store, the rest by the threads
+            unsigned char* out_row = (unsigned char*)a.out + (row * a.keep + t0) * ES;
+            const int r = (int)(reinterpret_cast<uintptr_t>(out_row) & 15);
+            const int h0 = (16 - r) & 15;
+            const int h1 = max(((r + span * ES) & ~15) - r, h0);
+            unsigned char* stg = staging + (long long)(sidx & 1) * a.buf_bytes + r;
+            float m = 0.f;
+            // every element valid, written and (planar codes) staged: no
+            // checks per element (block-uniform)
+            const bool whole = t0 + TILE <= n && span == TILE
+                               && (MODE >= 2 || (h0 == 0 && h1 == TILE * ES));
+            auto tile_codes = [&](auto whole_tile) {
+                constexpr bool WHOLE = decltype(whole_tile)::value;
 #pragma unroll
-                for (int j = 0; j < NB; ++j) dst[j] = (unsigned char)((unsigned)q >> (8 * j));
+                for (int k = 0; k < PER; ++k) {
+                    const int e = tid + THREADS * k;
+                    const long long t = t0 + e;
+                    float z = 0.f;
+                    if (WHOLE || t < n) {
+                        float v = yv[k];
+                        if (a.mean) v = __fsub_rn(v, mu);
+                        z = __fmul_rn(v, g);
+                    }
+                    yv[k] = z;            // z from here on
+                    m = fmax_nan(m, fabsf(z));
+                    if (!WHOLE && e >= span) continue;
+                    int q = 0;
+                    if ((WHOLE || t < n) && !mute) {
+                        float v = __fmul_rn(z, a.scale);
+                        if (a.seeds) {
+                            const uint32_t h = splitmix32((uint32_t)(a.pos0 + t) ^ sh);
+                            const float u1 =
+                                __fmul_rn(u16_to_float(h & 0xFFFFu), 1.0f / 65536.0f);
+                            const float u2 = __fmul_rn(u16_to_float(h >> 16), 1.0f / 65536.0f);
+                            v = __fadd_rn(v, __fsub_rn(u1, u2));
+                        }
+                        q = round_clip(v, a.lo, a.hi);
+                    }
+                    if constexpr (MODE <= 1) {
+                        const int off = e * ES;
+                        const bool bulk = WHOLE || (off >= h0 && off < h1);
+                        if constexpr (MODE == 0) {
+                            if (bulk) *(int*)(stg + off) = q;
+                            else __stcs((int*)(out_row + off), q);
+                        } else {
+                            if (bulk) *(short*)(stg + off) = (short)q;
+                            else __stcs((short*)(out_row + off), (short)q);
+                        }
+                    } else {
+                        unsigned char* b = pay ? pay + ((long long)e * C + c) * NB
+                                               : dst + ((long long)e * C + c) * NB;
+                        store_le<NB>(b, (uint32_t)q);
+                    }
+                }
+            };
+            if (whole) tile_codes(Bool<true>());
+            else tile_codes(Bool<false>());
+            release(empty, a.ns, slot, staged);          // every yv is used
+            // the codes in shared memory before any bulk store reads them;
+            // the buffer the next tile writes is the one the previous store
+            // read: its read is waited for before the barrier
+            if constexpr (MODE <= 1) {
+                fence_proxy_async_smem();
+                if (tid == 0) bulk_wait_read_all();
+            }
+            // block-uniform: a tile past the end sums to 0; the tree's one
+            // barrier also orders the codes before the store
+            const bool tree = a.stats && t0 < n;
+            if (tree) {
+                red[par][tid] = thread_sumsq(yv);
+                redf[par][tid] = m;
+            }
+            if (tree || MODE <= 1) consumer_sync();
+            if constexpr (MODE <= 1) {
+                if (tid == 0 && h1 > h0) {
+                    bulk_s2g_hint(out_row + h0, stg + h0, (uint32_t)(h1 - h0), drop_l2);
+                    bulk_commit();
+                }
+                ++sidx;
+            }
+            if (a.stats && tid < 32) {
+                const double s = tree ? warp0_tree(red[par]) : 0.0;
+                const float mx = tree ? warp0_max(redf[par]) : 0.f;
+                if (tid == 0) {
+                    a.sq_tiles[row * a.n_tiles + tile] = s;
+                    a.pk_tiles[row * a.n_tiles + tile] = mx;
+                }
+            }
+            par ^= tree;
+        }
+
+        if constexpr (MODE >= 2) {
+            if (a.nbuf) {                        // the unit's bytes, staged
+                const int nbytes = span * C * NB;
+                const int r = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
+                const int h0 = min((16 - r) & 15, nbytes);
+                const int h1 = max(((r + nbytes) & ~15) - r, h0);
+                fence_proxy_async_smem();
+                if (a.nbuf == 2 && tid == 0) bulk_wait_read_all();
+                consumer_sync();
+                for (int p = tid; p < h0; p += THREADS) dst[p] = pay[p];
+                for (int p = h1 + tid; p < nbytes; p += THREADS) dst[p] = pay[p];
+                if (tid == 0 && h1 > h0) {
+                    bulk_s2g_hint(dst + h0, pay + h0, (uint32_t)(h1 - h0), drop_l2);
+                    bulk_commit();
+                }
+                ++sidx;
             }
         }
-        if (a.stats) {
-            double s = 0.0;
-            float mx = 0.f;
-            if (t0 < n) {             // block-uniform: a tile past the end sums to 0
-                s = tile_sumsq(yv, red);
-                mx = block_max(m, redf);
+    }
+    if (!a.stats) {
+        if (tid == 0) bulk_wait_all();           // the stores are done
+        return;
+    }
+    // the files' tickets, one per unit walked, all after the walk.  The
+    // files this block completed are folded here: a thread per (file,
+    // channel) folds the channel's tiles and takes their peak, staged in
+    // the block's shared memory (its stores have read it), then thread 0
+    // adds the channels of each file in ascending order
+    if (tid == 0) bulk_wait_read_all();
+    const int smem_bytes = a.ns * STAGE_BYTES + a.nbuf * a.buf_bytes;
+    for (long long base = blockIdx.x; base < a.units; base += (long long)THREADS * gridDim.x) {
+        const int n_done = take_tickets(a.tickets, a.n_tiles, base, a.units, true, done, n_last);
+        double acc = 0.0;                        // thread 0's, of the current file
+        float mx = 0.f;
+        for (long long k0 = 0; k0 < (long long)n_done * C; k0 += THREADS) {
+            const int nk = (int)min((long long)THREADS, (long long)n_done * C - k0);
+            auto row_of = [&](int i) {
+                const long long k = k0 + i;
+                const int f = done[k / C];
+                const long long row = (long long)f * C + k % C;
+                const long long n =
+                    a.out_frames ? min((long long)a.out_frames[f], a.keep) : a.keep;
+                return FoldRow{a.sq_tiles + row * a.n_tiles, (int)((n + TILE - 1) / TILE)};
+            };
+            fold_rows(nk, row_of, a.n_tiles, rows, smem, smem_bytes, red[0]);
+            // the rows' peaks (any order: max is exact), a warp per row
+            for (int j = tid >> 5; j < nk; j += WARPS) {
+                const FoldRow r = rows[j];
+                const float* pk = a.pk_tiles + (r.d - a.sq_tiles);
+                float m = 0.f;
+                for (int i0 = 0; i0 < r.cnt; i0 += 32 * 8) {
+                    float v[8];                  // the loads first, then the maxima
+#pragma unroll
+                    for (int u = 0; u < 8; ++u) {
+                        const int i = i0 + 32 * u + (tid & 31);
+                        v[u] = i < r.cnt ? __ldcg(pk + i) : 0.f;
+                    }
+#pragma unroll
+                    for (int u = 0; u < 8; ++u) m = fmax_nan(m, v[u]);
+                }
+#pragma unroll
+                for (int off = 16; off >= 1; off >>= 1)
+                    m = fmax_nan(m, __shfl_down_sync(0xffffffffu, m, off));
+                if ((tid & 31) == 0) redf[0][j] = m;
             }
+            consumer_sync();
             if (tid == 0) {
-                a.sq_tiles[row * a.n_tiles + tile] = s;
-                a.pk_tiles[row * a.n_tiles + tile] = mx;
+                for (int j = 0; j < nk; ++j) {
+                    acc = __dadd_rn(acc, red[0][j]);
+                    mx = fmax_nan(mx, redf[0][j]);
+                    const long long kk = k0 + j;
+                    if (kk % C == C - 1) {               // the file's last channel
+                        const int f = done[kk / C];
+                        a.sumsq[f] = acc;
+                        a.peak[f] = mx;
+                        acc = 0.0;
+                        mx = 0.f;
+                    }
+                }
             }
+            consumer_sync();
         }
     }
-
-    if (MODE >= 2 && a.stage) {       // block-uniform
-        __syncthreads();
-        const long long span = min((long long)TILE, a.keep - t0);
-        const long long nbytes = span * C * NB;
-        unsigned char* dst = payload + t0 * C * NB;
-        if ((((uintptr_t)dst) & 15) == 0 && (nbytes & 15) == 0) {
-            const uint4* s4 = (const uint4*)staged;
-            uint4* d4 = (uint4*)dst;
-            for (long long i = tid; i < nbytes / 16; i += THREADS) d4[i] = s4[i];
-        } else {
-            for (long long i = tid; i < nbytes; i += THREADS) dst[i] = staged[i];
-        }
-    }
-
-    if (!a.stats) return;
-    if (tid == 0) {
-        __threadfence();
-        last = atomicAdd(a.tickets + f, 1u) == (unsigned int)(a.n_tiles - 1);
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    const long long nvt = (n + TILE - 1) / TILE;
-    const int warp = tid >> 5;
-    double acc = 0.0;                 // thread 0's: channels in ascending order
-    for (int c0 = 0; c0 < C; c0 += THREADS / 32) {
-        const int c = c0 + warp;      // a warp folds a channel's tiles
-        if (c < C) {
-            const double s = warp_fold(a.sq_tiles + ((long long)f * C + c) * a.n_tiles, nvt);
-            if ((tid & 31) == 0) red[warp] = s;
-        }
-        __syncthreads();
-        if (tid == 0) {
-            const int nc = min(THREADS / 32, C - c0);
-            for (int i = 0; i < nc; ++i) acc = __dadd_rn(acc, red[i]);
-        }
-        __syncthreads();
-    }
-    float mx = 0.f;
-    for (long long i = tid; i < (long long)C * nvt; i += THREADS) {
-        const long long c = i / nvt, j = i - c * nvt;
-        mx = fmax_nan(mx, __ldcg(a.pk_tiles + ((long long)f * C + c) * a.n_tiles + j));
-    }
-    mx = block_max(mx, redf);
-    if (tid == 0) {
-        a.sumsq[f] = acc;
-        a.peak[f] = mx;
-    }
+    if (tid == 0) bulk_wait_all();               // the stores are done
 }
 
-std::mutex smem_mutex;
-bool smem_raised[2][MAX_DEVICES];
+// What a device offers the pair, read once per device; the kernels'
+// dynamic shared memory attribute is raised to all a block may have.
+struct DevInfo {
+    int sms;
+    int l2_bytes;
+    int dyn_max;                  // dynamic shared memory a block may ask for
+};
 
-// Allow the payload kernels STAGE_MAX bytes of dynamic shared memory on the
-// current device, once (the attribute is only ever raised).
-cudaError_t raise_smem(int mode)
+std::mutex info_mutex;
+bool info_ready[MAX_DEVICES];
+DevInfo infos[MAX_DEVICES];
+
+template <typename K>
+cudaError_t raise_smem(K kernel, int optin, int* dyn_max)
+{
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+    if (e != cudaSuccess) return e;
+    const int dyn = optin - (int)fa.sharedSizeBytes;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    *dyn_max = min(*dyn_max, dyn);
+    return e;
+}
+
+cudaError_t device_info(DevInfo* out)
 {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
     if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-    std::lock_guard<std::mutex> lock(smem_mutex);
-    if (smem_raised[mode - 2][dev]) return cudaSuccess;
-    e = mode == 2
-        ? cudaFuncSetAttribute(finish_pass<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               STAGE_MAX)
-        : cudaFuncSetAttribute(finish_pass<3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               STAGE_MAX);
-    if (e == cudaSuccess) smem_raised[mode - 2][dev] = true;
-    return e;
+    std::lock_guard<std::mutex> lock(info_mutex);
+    if (!info_ready[dev]) {
+        DevInfo d;
+        int optin = 0;
+        if ((e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev)) ||
+            (e = cudaDeviceGetAttribute(&d.l2_bytes, cudaDevAttrL2CacheSize, dev)) ||
+            (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
+            return e;
+        d.dyn_max = optin;
+        if ((e = raise_smem(dc_pass, optin, &d.dyn_max)) ||
+            (e = raise_smem(finish_pass<0>, optin, &d.dyn_max)) ||
+            (e = raise_smem(finish_pass<1>, optin, &d.dyn_max)) ||
+            (e = raise_smem(finish_pass<2>, optin, &d.dyn_max)) ||
+            (e = raise_smem(finish_pass<3>, optin, &d.dyn_max)))
+            return e;
+        infos[dev] = d;
+        info_ready[dev] = true;
+    }
+    *out = infos[dev];
+    return cudaSuccess;
+}
+
+// k blocks per SM times the SMs, at most one block per unit
+template <typename K>
+cudaError_t persistent_grid(K kernel, size_t smem, int sms, int units, int* grid)
+{
+    int k = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, kernel, BLOCK, smem);
+    if (e != cudaSuccess) return e;
+    if (k < 1) return cudaErrorInvalidConfiguration;
+    *grid = (int)min((long long)k * sms, (long long)units);
+    return cudaSuccess;
+}
+
+template <int MODE>
+cudaError_t launch_finish(FinishArgs a, int sms, int dyn_max, cudaStream_t s)
+{
+    // the ring and the staging: the most stages in flight on an SM (blocks
+    // per SM x stages), two staging buffers before one on a tie; a payload
+    // unit that fits with no ring of 2 is stored in place
+    constexpr int NB = MODE == 3 ? 3 : 2;
+    constexpr int ES = MODE == 0 ? 4 : 2;
+    const long long unit_bytes = MODE <= 1 ? (long long)TILE * ES : (long long)TILE * a.C * NB;
+    a.buf_bytes = (int)min((unit_bytes + 16 + 15) & ~15LL, 0x7FFFFFF0LL);
+    int best = 0, grid = 0;
+    size_t best_smem = 0;
+    for (int nbuf = 2; nbuf >= (MODE <= 1 ? 2 : 1); --nbuf) {   // planar codes: two
+        for (int ns = NS_MAX; ns >= 2; --ns) {
+            const long long smem = (long long)ns * STAGE_BYTES + (long long)nbuf * a.buf_bytes;
+            if (smem > dyn_max) continue;
+            int k = 0;
+            const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &k, finish_pass<MODE>, BLOCK, (size_t)smem);
+            if (e != cudaSuccess) return e;
+            if (k * ns > best) {
+                best = k * ns;
+                a.ns = ns;
+                a.nbuf = nbuf;
+                best_smem = (size_t)smem;
+            }
+        }
+    }
+    if (!best) {
+        if (MODE <= 1) return cudaErrorInvalidConfiguration;
+        a.ns = NS_MAX;
+        a.nbuf = 0;
+        best_smem = (size_t)NS_MAX * STAGE_BYTES;
+    }
+    const cudaError_t e = persistent_grid(finish_pass<MODE>, best_smem, sms, a.units, &grid);
+    if (e != cudaSuccess) return e;
+    finish_pass<MODE><<<grid, BLOCK, best_smem, s>>>(a);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -438,12 +929,33 @@ int f9_epilogue(const float* y, const int* out_frames, const long long* seeds,
                 int remove_dc, int stats, void* stream)
 {
     cudaStream_t s = (cudaStream_t)stream;
-    const int rows = files * C;
-    if ((long long)rows * n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+    const long long rows = (long long)files * C;
+    if (rows * n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+    if (mode < 0 || mode > 3) return (int)cudaErrorInvalidValue;
+    DevInfo d;
+    cudaError_t e = device_info(&d);
+    if (e != cudaSuccess) return (int)e;
     if (remove_dc) {
-        dc_pass<<<rows * n_tiles, THREADS, 0, s>>>(y, out_frames, dc_tiles, mean, tickets, C,
-                                                    stride, keep, n_tiles);
-        const cudaError_t e = cudaGetLastError();
+        DcArgs p;
+        p.y = y;
+        p.out_frames = out_frames;
+        p.tiles = dc_tiles;
+        p.mean = mean;
+        p.tickets = tickets;
+        p.C = C;
+        p.stride = stride;
+        p.keep = keep;
+        p.n_tiles = n_tiles;
+        p.units = (int)(rows * n_tiles);
+        // the units read last, about half the L2, stay for pass 2
+        p.hot_from = max(0, p.units - d.l2_bytes / 2 / (TILE * 4));
+        p.ns = NS_MAX;
+        const size_t smem = (size_t)NS_MAX * STAGE_BYTES;
+        int grid = 0;
+        e = persistent_grid(dc_pass, smem, d.sms, p.units, &grid);
+        if (e != cudaSuccess) return (int)e;
+        dc_pass<<<grid, BLOCK, smem, s>>>(p);
+        e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
     FinishArgs a;
@@ -463,27 +975,20 @@ int f9_epilogue(const float* y, const int* out_frames, const long long* seeds,
     a.stride = stride;
     a.keep = keep;
     a.n_tiles = n_tiles;
+    a.units = files * n_tiles;
     a.scale = scale;
-    a.clip_hi = clip_hi;
+    a.lo = (int)-scale;           // -2^(bits-1), an int for every bits <= 32
+    a.hi = (int)clip_hi;          // below 2^(bits-1), an int likewise
     a.gain = gain;
     a.pos0 = pos0;
     a.stats = stats;
-    const int nb = mode == 3 ? 3 : 2;
-    a.stage = mode >= 2 && (long long)TILE * C * nb <= STAGE_MAX;
-    const size_t smem = a.stage ? (size_t)TILE * C * nb : 0;
-    if (a.stage) {               // with the static arrays, past 48 KB from C = 4 on
-        const cudaError_t e = raise_smem(mode);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const int grid = files * n_tiles;
     switch (mode) {
-    case 0: finish_pass<0><<<grid, THREADS, smem, s>>>(a); break;
-    case 1: finish_pass<1><<<grid, THREADS, smem, s>>>(a); break;
-    case 2: finish_pass<2><<<grid, THREADS, smem, s>>>(a); break;
-    case 3: finish_pass<3><<<grid, THREADS, smem, s>>>(a); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 0: e = launch_finish<0>(a, d.sms, d.dyn_max, s); break;
+    case 1: e = launch_finish<1>(a, d.sms, d.dyn_max, s); break;
+    case 2: e = launch_finish<2>(a, d.sms, d.dyn_max, s); break;
+    default: e = launch_finish<3>(a, d.sms, d.dyn_max, s); break;
     }
-    return (int)cudaGetLastError();
+    return (int)e;
 }
 
 }  // extern "C"

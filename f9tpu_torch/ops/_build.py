@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``nvcc`` compiles every ``f9tpu_torch/csrc/*.cu`` into one shared library
-with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so a
-build takes seconds.  The library lands in ``f9tpu_torch/_build/<hash>/``,
+``nvcc`` compiles every ``f9tpu_torch/csrc/*.cu`` (one process per source,
+all started together) and links them into one shared library with a plain
+C interface, loaded with ``ctypes``: no PyTorch headers, so a build takes
+seconds.  The library lands in ``f9tpu_torch/_build/<hash>/``,
 keyed by a hash of the sources and flags, and is reused while they are
 unchanged.  Nothing is compiled or loaded when this module is imported;
 `load_library` does it at the first kernel launch.
@@ -24,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -79,7 +81,7 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         srcs = _sources()
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
         for s in srcs:
             with open(s, "rb") as f:
                 h.update(os.path.basename(s).encode() + b"\0" + f.read())
@@ -89,15 +91,26 @@ def load_library() -> ctypes.CDLL:
             os.makedirs(out_dir, exist_ok=True)
             tmp = f"{so}.tmp-{os.getpid()}"
             cu = [s for s in srcs if s.endswith(".cu")]
+            objs = [os.path.join(out_dir, f"{os.path.basename(c)}.{os.getpid()}.o")
+                    for c in cu]
             t0 = time.time()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
-                capture_output=True, text=True)
+            # one nvcc per source, all at once, then one link
+            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-I", CSRC, "-o", o, c],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True) for c, o in zip(cu, objs)]
+            logs = [proc.communicate()[1] for proc in procs]     # all end first
+            for c, proc, err in zip(cu, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {os.path.basename(c)} "
+                                       f"(exit {proc.returncode}):\n{err}")
+            proc = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", tmp, *objs],
+                                  capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+                raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n{proc.stderr}")
+            for o in objs:
+                os.remove(o)
             os.replace(tmp, so)
             build_seconds = time.time() - t0
-            build_log = proc.stderr
+            build_log = "".join(logs)
         _lib = _declare(ctypes.CDLL(so))
         return _lib

@@ -47,6 +47,10 @@ TILE = 4096
 #: kernel pair launches since the count was last reset
 launches = 0
 _launch_lock = threading.Lock()
+#: (device, C, silent channels) -> the kernel's (C,) uint8 mask on the device
+_mute_masks: dict = {}
+#: the most (row, tile) units the kernel indexes (32-bit ints)
+_MAX_UNITS = 2**31 - 1
 
 #: the kernel's output forms: planar int32 / int16 codes, interleaved payload
 _OUT_MODES = {(None, torch.int32): 0, (None, torch.int16): 1, (16, None): 2, (24, None): 3}
@@ -160,11 +164,31 @@ def _check(y, out_frames, seeds_c, gain_lin, keep, silent, packed, bits, remove_
         raise ValueError(f"silent channels {silent} outside 0..{C - 1}")
 
 
+def _mute_mask(dev, C: int, silent: tuple) -> torch.Tensor:
+    """The (C,) uint8 mask of the silent channels on ``dev``, built and
+    copied once per (device, C, channels) and kept (the copy is synchronous,
+    so any stream may read it)."""
+    key = (dev, C, silent)
+    with _launch_lock:
+        mask = _mute_masks.get(key)
+    if mask is None:
+        mask = torch.zeros((C,), dtype=torch.uint8)
+        mask[list(silent)] = 1
+        mask = mask.to(dev)
+        with _launch_lock:
+            mask = _mute_masks.setdefault(key, mask)
+    return mask
+
+
 def _launch(y, out_frames, seeds_c, *, bits, remove_dc, gain, gain_lin, keep, silent,
             packed, pos0, stats, codes_dtype):
     """One launch of the pair on ``y``'s device and current stream."""
     global launches
     files, C, total = y.shape
+    n_tiles = -(-keep // TILE)
+    if files * C * n_tiles > _MAX_UNITS:
+        raise ValueError(f"{files} x {C} rows of {n_tiles} tiles exceed the kernel's "
+                         f"{_MAX_UNITS} units")
     dev = y.device
     if packed is not None:
         codes = torch.empty((files, keep * C * (packed // 8)), dtype=torch.uint8, device=dev)
@@ -180,7 +204,6 @@ def _launch(y, out_frames, seeds_c, *, bits, remove_dc, gain, gain_lin, keep, si
             if t is not None:
                 t.zero_()
         return codes, sumsq, peak, mean
-    n_tiles = -(-keep // TILE)
     rows = files * C
     # float64 tile sums of pass 1 and of the statistics, float32 tile peaks,
     # and one ticket per row (pass 1) and per file (pass 2) for the last
@@ -193,11 +216,7 @@ def _launch(y, out_frames, seeds_c, *, bits, remove_dc, gain, gain_lin, keep, si
                            device=dev)
     tickets = torch.zeros((rows + files,), dtype=torch.int32, device=dev)
     s = float(1 << (bits - 1))
-    mute = None
-    if silent:
-        mute = torch.zeros((C,), dtype=torch.uint8)
-        mute[list(silent)] = 1
-        mute = mute.to(dev)
+    mute = _mute_mask(dev, C, silent) if silent else None
     from ._build import load_library
 
     lib = load_library()

@@ -8,7 +8,9 @@ granularity) and the `StatusLog`.  Calibration runs the impulse through the
 SRC and the insert chain; reverb mode takes its tail threshold from the
 measured noise floor (or -80 dB) and caps each capture at
 ``max_tail_seconds``; channel routing is checked per file before any
-output is written.
+output is written.  A device step that raises is dispatched once more from
+the same host buffer after 2 s; only a second failure aborts the job (every
+remaining file failed, ``BATCH ABORT`` in the log).
 
 Without reverb mode, files longer than the largest bucket take the
 constant-memory streaming path (`pipeline/stream.py`) on the processor's
@@ -760,30 +762,41 @@ class BatchProcessor:
                         rows_layout=use_rows, per_file_gain_db=g, device=device)
                 return _download(res)
 
-            try:
+            def dispatch():
                 if b["use_cp"]:
                     from ..parallel import process_batch_channels_sharded
 
-                    dl = _download(process_batch_channels_sharded(
+                    return _download(process_batch_channels_sharded(
                         xt, valid, cfg, b["rate_in"], seeds, self.mesh,
                         latency_frames=b["lat"], noise_floor_db=b["group_nf"]))
-                elif self.mesh is not None:
+                if self.mesh is not None:
                     from ..parallel import process_files_sharded
 
                     # each shard on its device; the per-file vectors split
                     # with the batch
-                    dl = process_files_sharded(
+                    return process_files_sharded(
                         self.mesh, lambda x, v, sd, g: step(x, v, sd, g, device=x.device),
                         xt, valid, seeds, norm_gains)
-                else:
-                    dl = step(xt, valid, seeds, norm_gains)
+                return step(xt, valid, seeds, norm_gains)
+
+            try:
+                dl = dispatch()
             except Exception as err:
-                stop_event.set()
-                manifest.fail_remaining(f"device step failed: {err}", paths=listed)
-                self.log.append(f"BATCH ABORT: device step failed: {err}")
-                errors.append(str(err))
-                pending[bi] = []
-                return
+                # one retry from the same host buffer before aborting, as
+                # the JAX package does: a transient device error passes; a
+                # deterministic one (a sticky CUDA error) fails the same
+                # way again and aborts
+                self.log.append(f"device step failed ({err}); retrying once")
+                time.sleep(2.0)
+                try:
+                    dl = dispatch()
+                except Exception as err2:
+                    stop_event.set()
+                    manifest.fail_remaining(f"device step failed: {err2}", paths=listed)
+                    self.log.append(f"BATCH ABORT: device step failed: {err2}")
+                    errors.append(str(err2))
+                    pending[bi] = []
+                    return
             self.throughput.add("dispatch", float(valid.sum()) / b["rate_in"],
                                 max(time.time() - t_disp, 1e-3))
             res_q.put((bi, paths, dl, valid.copy(), b["rate_in"]))

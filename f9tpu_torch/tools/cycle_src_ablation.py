@@ -98,7 +98,8 @@ def _build_all(out_dir: str, cuts_by_name: dict) -> dict:
             f.write(text)
         so = os.path.join(out_dir, f"lib_{name}.so")
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", _build.CSRC, "-o", so, cu,
+             os.path.join(_build.CSRC, "epilogue.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, p) in procs.items():

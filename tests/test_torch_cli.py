@@ -574,8 +574,9 @@ def test_cli_watch_growing_file_is_not_idle(tmp_path, capsys):
 
 
 def test_cli_watch_aborted_sweep_retries_files(tmp_path, capsys, monkeypatch):
-    """A batch that fails on the device aborts the run; the file is not
-    remembered as done, and the next sweep completes it."""
+    """A batch that fails on the device twice (the step and its one retry)
+    aborts the run; the file is not remembered as done, and the next sweep
+    completes it."""
     d = tmp_path / "drop"
     d.mkdir()
     _noise(str(d / "x.wav"), 2, 4000, level=0.1)
@@ -584,7 +585,7 @@ def test_cli_watch_aborted_sweep_retries_files(tmp_path, capsys, monkeypatch):
 
     def flaky(*a, **k):
         calls["n"] += 1
-        if calls["n"] == 1:
+        if calls["n"] <= 2:
             raise RuntimeError("CUDA error: unspecified launch failure")
         return real(*a, **k)
 

@@ -7,13 +7,21 @@
   2, 8: identical ``out_frames``, dB within 1e-3, codes within 2 LSB of
   24-bit resolution (`tests/test_torch_graph.py`'s bounds).
 - The twin's DC mean is the exact mean (``math.fsum`` in float64) within one
-  float32 ulp; its tile tree is the kernel's thread order, replayed here.
+  float32 ulp; its tile tree is the kernel's thread order, replayed here,
+  with warp 0's one-barrier form.  The kernel's persistent walk is replayed
+  for any grid (tickets at the end of each block's walk, the last taker
+  folding in ascending order) and gives the twin's mean, sum of squares and
+  peak bitwise; its one-conversion rounding and its int-to-float of the
+  noise's halves equal the forms they replaced on every edge.
 - A file's codes, mean, sum of squares and peak are bitwise the same when
   its bucket grows by whole or partial tiles, when it moves rows and when
   the batch width changes.
 - The payload is `pack_interleaved` of the int32 codes; the tail floor
   equals the full-size formula it replaced on the same ``z``; the stream's
   chunk finish equals its eager form.
+- Off the CPU the wrapper launches or raises, never the twin; 11c's trace
+  check (`chip_smoke.py`) fails a trace that lost a launch and counts busy
+  time as a union of intervals.
 - A `cuda`-marked test holds the kernel pair to the twin on the card; it
   skips here.
 """
@@ -185,6 +193,165 @@ def test_tile_tree_is_the_kernel_s_thread_order(seed):
     assert not np.array_equal(got[:, 0], np.array([sum(r[:ep.TILE]) for r in xp]))
 
 
+def _warp0_tree(w: np.ndarray) -> np.float64:
+    """The kernel's tree after its one barrier: ``w[t]`` is thread t's
+    register sum; lane l adds (l, l + 128), (l + 32, l + 160), (l + 64,
+    l + 192), (l + 96, l + 224), then (r0 + r2) + (r1 + r3), then shuffles
+    down 16 ... 1."""
+    r0, r1 = w[:32] + w[128:160], w[32:64] + w[160:192]
+    r2, r3 = w[64:96] + w[192:224], w[96:128] + w[224:256]
+    s = (r0 + r2) + (r1 + r3)
+    for off in (16, 8, 4, 2, 1):
+        s = s[:off] + s[off:2 * off]
+    return s[0]
+
+
+def _kernel_tile(seg: np.ndarray) -> np.float64:
+    """One tile's sum as the kernel takes it: a float64 segment of at most
+    TILE values, zero-padded; registers halved, then `_warp0_tree`."""
+    v = np.pad(seg, (0, ep.TILE - len(seg))).reshape(16, 256)
+    for h in (8, 4, 2, 1):
+        v = v[:h] + v[h:2 * h]
+    return _warp0_tree(v[0])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_one_barrier_tree_is_the_halving_tree(seed):
+    """Warp 0's tree after one barrier adds in the order of the halving over
+    thread index (128, 64, 32), so it is bitwise the twin's tile sum."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, ep.TILE)) * np.exp2(rng.integers(-30, 30, size=(4, ep.TILE)))
+    want = ep._tile_sums(torch.from_numpy(x)).numpy()[:, 0]
+    for r in range(4):
+        assert _kernel_tile(x[r]) == _kernel_tree(x[r]) == want[r]
+
+
+def _walk(units: int, grid: int, reverse: bool):
+    """Block b's units in the kernel's order: steps b, b + G, ...; step i
+    is unit i, or units - 1 - i walking in reverse."""
+    return [[units - 1 - i if reverse else i for i in range(b, units, grid)]
+            for b in range(grid)]
+
+
+#: (files, C, frames, out_frames): tile counts that no grid below divides,
+#: rows shorter than a tile, a file with no valid sample
+WALK_SHAPES = {"ragged": (3, 2, 5 * 4096 + 77, [5 * 4096 + 77, 9000, 17]),
+               "silent_file": (2, 3, 2 * 4096 + 1, [2 * 4096 + 1, 0])}
+
+
+@pytest.mark.parametrize("grid", [1, 7, 64, 1000])
+@pytest.mark.parametrize("shape", sorted(WALK_SHAPES))
+def test_persistent_walk_folds_to_the_twin(shape, grid):
+    """The kernel's persistent walk replayed: G blocks walk units b, b + G,
+    ... (pass 2 from the last), write each tile's partial, take the tickets
+    of all their units once the walk ends, in any order of the blocks, and
+    the block that takes a row's (file's) last ticket folds its tiles in
+    ascending order, a file's channels in ascending order.  Whatever the
+    grid, including one no tile count divides and one with more blocks than
+    units, the mean, the sum of squares and the peak are the twin's bits."""
+    files, C, T, lengths = WALK_SHAPES[shape]
+    rng = np.random.default_rng(grid)
+    y = _noise((files, C, T), seed=grid)
+    of = np.array(lengths, np.int32)
+    gain = np.float32(0.8)
+    _, sumsq, peak, mean = ep.epilogue_reference(torch.from_numpy(y), torch.from_numpy(of),
+                                                 None, bits=24, remove_dc=True, gain=0.8)
+    rows, n_tiles = files * C, -(-T // ep.TILE)
+
+    def fold_by_tickets(walks, per_counter, n_counters):
+        """The block that takes each counter's last ticket, blocks ending
+        in a random order."""
+        tickets, folder = np.zeros(n_counters, np.int64), {}
+        for b in rng.permutation(len(walks)):
+            for u in walks[b]:
+                tickets[u // per_counter] += 1
+                if tickets[u // per_counter] == per_counter:
+                    folder[u // per_counter] = b
+        return folder
+
+    # pass 1: a tile of a row per unit
+    units = rows * n_tiles
+    walks = _walk(units, min(grid, units), reverse=False)
+    assert sorted(u for w in walks for u in w) == list(range(units))
+    part = np.zeros((rows, n_tiles))
+    for w in walks:
+        for u in w:
+            row, tile = divmod(u, n_tiles)
+            n, t0 = min(int(of[row // C]), T), tile * ep.TILE
+            if t0 < n:
+                part[row, tile] = _kernel_tile(y[row // C, row % C, t0:min(t0 + ep.TILE, n)]
+                                               .astype(np.float64))
+    assert len(fold_by_tickets(walks, n_tiles, rows)) == rows
+    got_mean = np.zeros(rows, np.float32)
+    for row in range(rows):
+        n = min(int(of[row // C]), T)
+        acc = 0.0
+        for j in range(-(-n // ep.TILE)):
+            acc += part[row, j]
+        got_mean[row] = np.float32(acc / max(int(of[row // C]), 1))
+    assert np.array_equal(got_mean.reshape(files, C), mean.numpy())
+
+    # pass 2: a frame tile of a file across its channels per unit, reversed
+    units = files * n_tiles
+    walks = _walk(units, min(grid, units), reverse=True)
+    assert sorted(u for w in walks for u in w) == list(range(units))
+    sq, pk = np.zeros((rows, n_tiles)), np.zeros((rows, n_tiles), np.float32)
+    for w in walks:
+        for u in w:
+            f, tile = divmod(u, n_tiles)
+            n, t0 = min(int(of[f]), T), tile * ep.TILE
+            for c in range(C):
+                seg = y[f, c, t0:t0 + ep.TILE]
+                z = np.where(np.arange(t0, t0 + len(seg)) < n,
+                             (seg - got_mean[f * C + c]) * gain, np.float32(0))
+                if t0 < n:
+                    z64 = z.astype(np.float64)
+                    sq[f * C + c, tile] = _kernel_tile(z64 * z64)
+                    pk[f * C + c, tile] = np.abs(z).max()
+    assert len(fold_by_tickets(walks, n_tiles, files)) == files
+    for f in range(files):
+        nvt = -(-min(int(of[f]), T) // ep.TILE)
+        acc = 0.0
+        for c in range(C):
+            ch = 0.0
+            for j in range(nvt):
+                ch += sq[f * C + c, j]
+            acc += ch
+        assert acc == float(sumsq[f]), (f, acc, float(sumsq[f]))
+        assert np.float32(pk[f * C:(f + 1) * C, :nvt].max(initial=0)) == float(peak[f])
+
+
+@pytest.mark.parametrize("bits", [16, 24, 32])
+def test_round_clip_in_one_conversion_equals_the_float_clamp(bits):
+    """The kernel rounds to an int (half to even, saturating) and clamps as
+    ints; its first form rounded, clamped and truncated as floats
+    (``fminf(fmaxf(rintf(v), -s), clip_hi)``, NaN giving -s).  Replayed on
+    the edges of every width, the codes are the same."""
+    s = np.float32(2.0 ** (bits - 1))
+    hi = dither._clip_hi(float(s))
+    rng = np.random.default_rng(bits)
+    edges = [s, -s, s - 1, -s + 1, s - 0.5, -s - 0.5, hi, np.nextafter(hi, np.float32(np.inf)),
+             0.5, 1.5, 2.5, -0.5, -1.5, -0.0, 2.0 ** 31, -2.0 ** 31, 3e38, -3e38,
+             np.inf, -np.inf, np.nan]
+    v = np.concatenate([np.array(edges, np.float32),
+                        (rng.standard_normal(4096) * s * 1.2).astype(np.float32)])
+    with np.errstate(invalid="ignore"):
+        first = np.fmin(np.fmax(np.rint(v), -s), hi).astype(np.int64)
+        r = np.rint(v.astype(np.float64))
+        sat = np.clip(np.nan_to_num(r, nan=0.0), -2.0 ** 31, 2.0 ** 31 - 1).astype(np.int64)
+    lo_i, hi_i = int(-s), int(hi)
+    now = np.where(np.isnan(v), lo_i, np.clip(sat, lo_i, hi_i))
+    assert np.array_equal(first, now)
+
+
+def test_sixteen_bit_halves_become_floats_by_their_bits():
+    """The noise's halves (0 ... 65535) as floats without a conversion:
+    the bits of 2^23 + x, less 2^23, are float(x) exactly."""
+    x = np.arange(1 << 16, dtype=np.uint32)
+    by_bits = (np.uint32(0x4B000000) | x).view(np.float32) - np.float32(8388608.0)
+    assert np.array_equal(by_bits, x.astype(np.float32))
+
+
 def _file_results(res, f, n_codes):
     codes, sumsq, peak, mean = res
     return (codes[f, :, :n_codes], sumsq[f], peak[f], mean[f])
@@ -344,6 +511,69 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(bad):
     assert ep.launches == n0
 
 
+@pytest.mark.parametrize("case", ["units_past_int32", "build_fails"])
+def test_a_tensor_off_the_cpu_never_runs_the_twin(case, monkeypatch):
+    """Off the CPU the wrapper launches the kernel or raises: more (row,
+    tile) units than the kernel indexes, or a kernel library that does not
+    build, raise, and neither runs the twin nor counts a launch."""
+    def twin(*a, **k):
+        raise AssertionError("the wrapper ran the twin on a tensor off the CPU")
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    from f9tpu_torch.ops import _build
+
+    monkeypatch.setattr(ep, "epilogue_reference", twin)
+    monkeypatch.setattr(_build, "load_library", no_build)
+    files, C, total = (1 << 16, 1 << 10, 32 * ep.TILE + 1) if case == "units_past_int32" \
+        else (2, 3, 100)
+    y = torch.empty((files, C, total), device="meta")
+    of = torch.empty((files,), dtype=torch.int32, device="meta")
+    n0 = ep.launches
+    with pytest.raises(ValueError if case == "units_past_int32" else RuntimeError):
+        ep.epilogue(y, of, None, bits=24, remove_dc=True, gain=1.0, silent=(1,))
+    assert ep.launches == n0
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_11c", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_graph_profile_counts_busy_time_as_a_union():
+    """11c's busy time: overlapping intervals (a copy on the side stream
+    under a kernel) count once."""
+    busy = _chip_smoke()._busy_union_us
+    assert busy([]) == 0
+    assert busy([(0, 10), (5, 15), (20, 30)]) == 25
+    assert busy([(0, 100), (10, 20), (30, 40)]) == 100
+    assert busy([(5, 6), (0, 1), (0, 1)]) == 2
+
+
+def test_graph_profile_refuses_a_trace_with_missing_launches():
+    """11c's trace check: every name a multiple of the graphs traced, and
+    the SRC kernel and the pair as many times as their counters read per
+    graph; a trace that lost a launch fails."""
+    faults = _chip_smoke()._trace_faults
+    expect = {"cycle_src": 1, "finish_pass": 1, "dc_pass": 1}
+    good = {"cycle_src_tc<5>(...)": 5, "finish_pass<0>(...)": 5, "dc_pass(...)": 5,
+            "elementwise_kernel": 10, "Memcpy DtoH": 30}
+    assert faults(good, 5, expect) == []
+    lost = dict(good, **{"cycle_src_tc<5>(...)": 4})
+    assert faults(lost, 5, expect)
+    odd = dict(good, elementwise_kernel=9)
+    assert faults(odd, 5, expect)
+    assert faults(good, 5, dict(expect, dc_pass=0))
+
+
 @pytest.mark.cuda
 def test_kernel_matches_twin_on_card():
     """On an NVIDIA GPU: the kernel pair against the twin, bit for bit, over
@@ -351,10 +581,10 @@ def test_kernel_matches_twin_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     dev = torch.device("cuda")
-    # C = 4 and 16 stage a payload past 48 KB of shared memory, C = 24 and
-    # 72 past the 192 KB a block stages (written in place); channel 70 of 72
-    # is silent; 65,600 one-channel files make more rows and files than a
-    # grid's second axis holds
+    # C = 4 and 16 stage a payload beside the ring (16 at 16 bits only), C =
+    # 16 at 24 bits, 24 and 72 write it in place; channel 70 of 72 is
+    # silent; 65,600 one-channel files make more rows and files than a
+    # grid's second axis holds; 3 * TILE + 11 is a row stride 3 mod 4
     for files, C, total in ((3, 2, 3 * ep.TILE + 11), (3, 4, 3 * ep.TILE + 11),
                             (3, 16, 3 * ep.TILE + 11), (3, 24, 3 * ep.TILE + 11),
                             (3, 72, ep.TILE + 11), (65600, 1, 300)):
