@@ -143,7 +143,26 @@ its results, any failure exiting non-zero:
    fails), the device's busy time as the union of its events' intervals and
    the idle share of the profiled wall; phase 4's and 10a's graph ms and
    peak memory beside the eager epilogue's figures; the pair's launches by
-   path over phases 4-10, each at least one.
+   path over phases 4-10, each at least one;
+12. every rate pair, preset and filter kind (`phase_sweep`): (a) the 30
+   studio pairs at the four sinc presets, at minphase high and at lagrange,
+   and 44.1k <-> 44,056, 192k -> 44,056 and 44.1k -> 42,735 at the four
+   presets, each on 2 x 16384 frames of noise and a tone through
+   `resample_rates`: the exact length, <= -120 dB against the float64
+   oracle, the route read from the launch counters as `kernel_applicable`
+   says (dense, windowed, or no launch for L < 8), and each kernel bank
+   within `TWIN_TOL` of its twin; (b) every kernel bank whole against three
+   haloed chunks of unequal cycle counts (`resample_presliced`):
+   `torch.equal`; (c) the 72 studio sinc kernel banks at the slice's batch,
+   8 stereo signals x 60 s at the input rate: the kernel against the
+   float64 twin, its device time (CUDA events, median of 5), the bound and
+   the share of it, the slowest bank and the lowest share; (d)
+   `f9tpu_torch.tools.gen_quality` over its whole matrix, every figure
+   within its tolerance of `docs/QUALITY.md`; (e) the batch job
+   (`BatchProcessor.run`) on every studio pair at high, two stereo 24-bit
+   WAVs of 5 s and 7.3 s: exact lengths, <= 2 LSB from the port's CPU path.
+   Launches are counted from zero around each call of (a) and each job of
+   (e); the phase fails past `SWEEP_BUDGET_S`.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -151,7 +170,8 @@ CUDA GPU it exits 1 and prints no result.  ``python3 chip_smoke.py
 --windowed-digests`` only prints 7a's digests, and ``--chunk-times`` only
 7b's times of one launch at the stream's chunk shapes, for the checkout it
 sits in (a parent tree unpacked by `git archive` beside this script's copy);
-``--epilogue`` runs phase 11 alone, and ``--graph-profile`` only 11c's trace.
+``--epilogue`` runs phase 11 alone, ``--graph-profile`` only 11c's trace,
+and ``--sweep`` phase 12 alone.
 """
 
 from __future__ import annotations
@@ -3214,6 +3234,386 @@ def phase_epilogue(card: str, dev) -> dict:
             "graph_profile": graph_prof}
 
 
+#: phase 12's presets, and the pairs it adds to the studio rates' 30: the
+#: NTSC pull-down both ways, 192k down to it, and `tests/test_sweep.py`'s
+#: arbitrary varispeed ratio
+SWEEP_PRESETS = ("low", "medium", "high", "ultra")
+SWEEP_VARISPEED = ((44100, 44056), (44056, 44100), (192000, 44056), (44100, 42735))
+#: 12a's input: signals x frames
+SWEEP_SHAPE = (2, 16384)
+#: 12c's batch: files x channels x seconds at the input rate (the slice's)
+SWEEP_WIDTH = (8, 2, 60)
+#: 12e's two files, seconds
+SWEEP_JOB_SECONDS = (5.0, 7.3)
+#: phase 12's wall time on the card, at most
+SWEEP_BUDGET_S = 240.0
+
+
+def _sweep_pairs() -> list[tuple[int, int]]:
+    from f9tpu_torch.models.filters import STANDARD_RATES
+
+    return [(a, b) for a in STANDARD_RATES for b in STANDARD_RATES if a != b]
+
+
+def _sweep_banks() -> list[tuple[int, int, str, str]]:
+    """12a's banks, (rate_in, rate_out, quality, kind): the 30 studio pairs
+    at the four sinc presets, at minphase high and at lagrange, then the
+    varispeed pairs at the four presets."""
+    pairs = _sweep_pairs()
+    banks = [(a, b, q, "sinc") for a, b in pairs for q in SWEEP_PRESETS]
+    banks += [(a, b, "high", "minphase") for a, b in pairs]
+    banks += [(a, b, "high", "lagrange") for a, b in pairs]
+    banks += [(a, b, q, "sinc") for a, b in SWEEP_VARISPEED for q in SWEEP_PRESETS]
+    return banks
+
+
+def _bank_name(ri: int, ro: int, q: str, kind: str) -> str:
+    return f"{ri}->{ro} {q}" + ("" if kind == "sinc" else f" {kind}")
+
+
+def _plan_text(bank) -> str:
+    from f9tpu_torch.ops import src_kernel as sk
+
+    plan = sk.kernel_plan(bank)
+    geo = f"L={bank.L} M={bank.M} W={bank.W} R={sk._overlap_rows(bank)}"
+    if plan is None:
+        return geo + ", no plan"
+    form = (f"pitch={plan.pitch} group={plan.group}" if plan.pitch
+            else f"skew={plan.skew} rowmap={plan.rowmap}")
+    return (f"{geo}; nt={plan.nt} tiles={len(plan.bands)} warps={plan.warps} {form} "
+            f"smem={plan.smem_bytes} B")
+
+
+def _sweep_route(bank) -> tuple[str, tuple[int, int]]:
+    """The route `kernel_applicable` and the plan give a bank, and the
+    launch counts (every launch, the windowed form's) one call must read."""
+    from f9tpu_torch.ops import src_kernel as sk
+
+    if not sk.kernel_applicable(bank):
+        return ("gather" if bank.G is None else "plain (L < 8)"), (0, 0)
+    return ("windowed", (1, 1)) if sk.kernel_plan(bank).pitch else ("dense", (1, 0))
+
+
+def _sweep_input(ri: int, frames: int):
+    """12a's input at rate ``ri``: noise at 0.3 from `SEED` plus a 997 Hz
+    tone at 0.25, (2, frames) float32."""
+    import numpy as np
+
+    noise = np.random.default_rng(SEED + 12).standard_normal((SWEEP_SHAPE[0], frames))
+    t = np.arange(frames) / ri
+    return (0.3 * noise + 0.25 * np.sin(2 * np.pi * 997.0 * t)).astype(np.float32)
+
+
+def _twin_rows(x, bank):
+    """The kernel's plain twin on ``x``'s device, flat ``(signals, out_len)``."""
+    from f9tpu_torch.ops import src_kernel as sk
+
+    yt, out_len = sk.resample_rows_reference(x, bank)
+    return yt.reshape(x.shape[0], -1)[:, :out_len]
+
+
+def _sweep_accuracy(card: str, dev, banks: dict) -> dict:
+    """12a: every bank through `resample_rates` on the card: exact length,
+    <= -120 dB against the float64 oracle, the route read from the launch
+    counters (as `kernel_applicable` says), and each kernel bank within
+    `TWIN_TOL` of its plain twin on the card."""
+    import torch
+
+    from f9tpu_torch.models import resample_oracle
+    from f9tpu_torch.ops import resample as tr
+    from f9tpu_torch.ops import src_kernel as sk
+
+    frames = SWEEP_SHAPE[1]
+    routes: dict[str, int] = {}
+    launches = [0, 0]
+    worst_db, max_err = -1e9, {"dense": 0.0, "windowed": 0.0}
+    faults = []
+    for (ri, ro, q, kind), bank in banks.items():
+        name = _bank_name(ri, ro, q, kind)
+        x_np = _sweep_input(ri, frames)
+        x = torch.from_numpy(x_np).to(dev)
+        route, want = _sweep_route(bank)
+        _zero_counts()
+        y = tr.resample_rates(x, ri, ro, quality=q, kind=kind)
+        torch.cuda.synchronize()
+        got = (sk.launches, sk.launches_windowed)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        ref = resample_oracle(x_np, ri, ro, quality=q, kind=kind)
+        db = _db(y.cpu().numpy() - ref, ref) if tuple(y.shape) == ref.shape else 0.0
+        err = float((y - _twin_rows(x, bank)).abs().max()) if want[0] else None
+        print(f"sweep 12a: {name}: {_plan_text(bank)}; route {route}, launches {got} "
+              f"(want {want}); out_len {y.shape[-1]} (exact {bank.out_len(frames)}); "
+              f"oracle {db:.1f} dB; vs twin "
+              f"{'-' if err is None else f'{err:.3e}'}", flush=True)
+        if tuple(y.shape) != (SWEEP_SHAPE[0], bank.out_len(frames)):
+            faults.append(f"{name}: shape {tuple(y.shape)}")
+        if got != want:
+            faults.append(f"{name}: launches {got}, route {route} wants {want}")
+        if not db <= ORACLE_DB_MAX:
+            faults.append(f"{name}: {db:.1f} dB vs oracle")
+        if err is not None and not err <= TWIN_TOL:
+            faults.append(f"{name}: kernel vs twin {err:.3e}")
+        routes[f"{kind} {route}"] = routes.get(f"{kind} {route}", 0) + 1
+        worst_db = max(worst_db, db)
+        if err is not None:
+            max_err[route] = max(max_err[route], err)
+    print(f"sweep 12a: {len(banks)} banks of 2 x {frames} frames, routes {routes}, worst "
+          f"{worst_db:.1f} dB vs oracle, kernel vs twin max abs {max_err} (tol "
+          f"{TWIN_TOL:g}), launches (all, windowed) {tuple(launches)} [{card}]", flush=True)
+    _raise_faults("sweep 12a", faults)
+    return {"launches": tuple(launches), "max_abs_err": max_err}
+
+
+def _raise_faults(tag: str, faults: list[str]) -> None:
+    """Print every fault a sub-phase found, then fail it."""
+    for fault in faults:
+        print(f"{tag}: FAULT {fault}", flush=True)
+    if faults:
+        raise AssertionError(f"{tag}: {len(faults)} faults, the first: {faults[0]}")
+
+
+def _three_counts(Q: int) -> tuple[int, int, int]:
+    """Three unequal cycle counts that add up to ``Q >= 7``."""
+    a = max(1, Q // 6)
+    b = max(a + 1, Q // 3)
+    return a, b, Q - a - b
+
+
+def _sweep_chunks(card: str, dev, banks: dict) -> None:
+    """12b: for every kernel bank, `resample_presliced` of the whole padded
+    signal against three haloed chunks of unequal cycle counts:
+    `torch.equal` (the chunk-invariance contract on every plan variant).
+    The signal is 12a's, made long enough for at least 8 cycles."""
+    import torch
+
+    from f9tpu_torch.ops import src_kernel as sk
+    from f9tpu_torch.ops.resample import resample_presliced
+
+    n, faults = 0, []
+    for (ri, ro, q, kind), bank in banks.items():
+        if not sk.kernel_applicable(bank):
+            continue
+        frames = max(SWEEP_SHAPE[1], 8 * bank.M)
+        x = torch.from_numpy(_sweep_input(ri, frames)).to(dev)
+        Q = -(-bank.out_len(frames) // bank.L)
+        xp = torch.zeros((x.shape[0], (Q - 1) * bank.M + bank.W), device=dev)
+        keep = min(frames, xp.shape[-1] - bank.pad_front)
+        xp[:, bank.pad_front:bank.pad_front + keep] = x[:, :keep]
+        whole = resample_presliced(xp, bank, Q)
+        outs, q0 = [], 0
+        counts = _three_counts(Q)
+        for c in counts:
+            outs.append(resample_presliced(
+                xp[:, q0 * bank.M:q0 * bank.M + (c - 1) * bank.M + bank.W], bank, c))
+            q0 += c
+        got = torch.cat(outs, dim=-1)
+        torch.cuda.synchronize()
+        same = torch.equal(got, whole)
+        print(f"sweep 12b: {_bank_name(ri, ro, q, kind)}: {Q} cycles whole vs chunks of "
+              f"{counts}: equal {same}", flush=True)
+        if not same:
+            faults.append(f"{_bank_name(ri, ro, q, kind)}: chunks of {counts} differ from "
+                          f"whole ({int((got != whole).sum())} outputs)")
+        n += 1
+    print(f"sweep 12b: {n} kernel banks, chunked == whole on {n - len(faults)} [{card}]",
+          flush=True)
+    _raise_faults("sweep 12b", faults)
+
+
+def _sweep_full_width(card: str, dev, banks: dict) -> float:
+    """12c: every sinc kernel bank of the studio pairs at the slice's batch
+    shape, 8 stereo signals x 60 s at its input rate: the kernel against the
+    float64 twin on the card (over 4 signals at a time), its device time
+    (CUDA events, median of 5), `_src_bound` and the share of it.  Returns
+    the largest difference from the twin."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models.filters import STANDARD_RATES
+    from f9tpu_torch.ops import src_kernel as sk
+
+    files, C, seconds = SWEEP_WIDTH
+    signals = files * C
+    rows, faults = [], []
+    for ri in STANDARD_RATES:
+        mine = [(key, b) for key, b in banks.items()
+                if key[0] == ri and key[1] in STANDARD_RATES and key[3] == "sinc"
+                and sk.kernel_applicable(b)]
+        if not mine:
+            continue
+        frames = seconds * ri
+        gen = torch.Generator(device=dev).manual_seed(SEED + ri)
+        f = 80.0 + 5920.0 * torch.rand((signals, 1), generator=gen, device=dev,
+                                       dtype=torch.float64)
+        t = torch.arange(frames, device=dev, dtype=torch.float64) / ri
+        x = (0.3 * torch.sin(2 * np.pi * f * t) + 0.02 * torch.randn(
+            (signals, frames), generator=gen, device=dev, dtype=torch.float64)).float()
+        del f, t
+        for (_, ro, q, kind), bank in mine:
+            y = sk.resample_kernel(x, bank)
+            err = 0.0
+            for s in range(0, signals, 4):
+                err = max(err, float((y[s:s + 4] - _twin_rows(x[s:s + 4], bank)).abs().max()))
+            out_len = y.shape[-1]
+            del y
+            ms = _median_ms(lambda: sk.resample_kernel(x, bank), runs=5)
+            bound_ms, bound_by = _src_bound(bank, signals, frames, out_len)
+            row = {"bank": _bank_name(ri, ro, q, kind), "ms": ms, "share": bound_ms / ms,
+                   "max_abs_err": err}
+            rows.append(row)
+            print(f"sweep 12c: {row['bank']} {signals} x {frames} frames ({_plan_text(bank)}): "
+                  f"kernel {ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{100 * row['share']:.1f} % of it; vs twin {err:.3e} (tol {TWIN_TOL:g}) "
+                  f"[{card}]", flush=True)
+            if not err <= TWIN_TOL:
+                faults.append(f"{row['bank']}: kernel vs twin {err:.3e}")
+        del x
+        torch.cuda.empty_cache()
+    slow = max(rows, key=lambda r: r["ms"])
+    low = min(rows, key=lambda r: r["share"])
+    print(f"sweep 12c: {len(rows)} banks; slowest {slow['bank']} {slow['ms']:.4f} ms; lowest "
+          f"share {low['bank']} {100 * low['share']:.1f} % of its bound [{card}]", flush=True)
+    _raise_faults("sweep 12c", faults)
+    return max(r["max_abs_err"] for r in rows)
+
+
+def _sweep_quality(card: str, dev) -> None:
+    """12d: `f9tpu_torch.tools.gen_quality` on the card over its whole
+    matrix, every figure held to `docs/QUALITY.md` (parsed) within the
+    tool's tolerances (`gen_quality.compare`)."""
+    from f9tpu_torch.tools import gen_quality as gq
+
+    text = gq.render(dev)
+    for line in text.splitlines():
+        if line.startswith("## ") or (line.startswith("| ") and "·Nyq" in line):
+            print(f"quality 12d: {line}", flush=True)
+    got = gq.read_tables(text)
+    with open(os.path.join(ROOT, "docs", "QUALITY.md")) as fh:
+        want = gq.read_tables(fh.read())
+    faults = gq.compare(got, want)
+    n = sum(len(rows) for rows in got.values())
+    print(f"quality 12d: {n} rows in {len(got)} tables against docs/QUALITY.md: "
+          f"{len(faults)} outside the tolerances [{card}]", flush=True)
+    if n != len(gq.PAIRS) * len(gq.SECTIONS):
+        faults.append(f"{n} rows, not {len(gq.PAIRS) * len(gq.SECTIONS)}")
+    _raise_faults("quality 12d", faults)
+
+
+def _sweep_jobs(card: str, dev) -> dict:
+    """12e: per studio pair at high, one in-process `BatchProcessor.run` on
+    the card over two stereo 24-bit WAVs of 5 s and 7.3 s at the input rate
+    (calibration, the bucket, the SRC route, the epilogue pair), then the
+    same job on the port's CPU path: every output at the exact length and
+    within `LSB_TOL` of the CPU's bytes.  Returns the launches (every SRC
+    launch, the epilogue pair's)."""
+    import numpy as np
+
+    from f9tpu_torch import resolve_device
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import epilogue as ep
+    from f9tpu_torch.ops import src_kernel as sk
+    from f9tpu_torch.pipeline import BatchProcessor, build_output_path
+
+    rng = np.random.default_rng(SEED + 120)
+    cpu = resolve_device("cpu")
+    src_total, ep_total, worst = 0, 0, 0
+    faults = []
+    for ri, ro in _sweep_pairs():
+        bank = design_cycle_bank(ri, ro, quality="high")
+        work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        try:
+            paths = []
+            for i, sec in enumerate(SWEEP_JOB_SECONDS):
+                p = os.path.join(work, f"take{i}.wav")
+                wav.write_wav(p, _signal(rng, 2, int(sec * ri), ri), ri, bits=24)
+                paths.append(p)
+            outs = {}
+            for tag, d in (("card", dev), ("cpu", cpu)):
+                cfg = ProcessingConfig(output_dir=os.path.join(work, tag), target_rate=ro,
+                                       quality="high", batch_size=2, seed=0)
+                _zero_counts()
+                res = BatchProcessor(cfg, device=d).run(paths)
+                if tag == "card":
+                    n_src, n_ep = sk.launches, ep.launches
+                if res.completed != 2:
+                    raise AssertionError(f"sweep 12e: {ri}->{ro} {tag}: {res.completed} of 2")
+                outs[tag] = [_read_codes(build_output_path(p, cfg.output_dir, cfg.postfix))
+                             for p in paths]
+            lens, diffs = [], []
+            for p, (g, g_rate), (c, c_rate) in zip(paths, outs["card"], outs["cpu"]):
+                n_in = wav.read_wav(p)[0].shape[-1]
+                lens.append((g.shape[-1], bank.out_len(n_in)))
+                if g_rate != ro or c_rate != ro or g.shape != c.shape \
+                        or g.shape[-1] != bank.out_len(n_in):
+                    faults.append(f"{ri}->{ro}: frames {g.shape} / {c.shape}, exact "
+                                  f"{bank.out_len(n_in)}")
+                    continue
+                diffs.append(int(np.abs(g - c).max()))
+            worst = max([worst] + diffs)
+            src_total += n_src
+            ep_total += n_ep
+            want_src = sk.kernel_applicable(bank)
+            print(f"sweep 12e: {ri}->{ro} high: frames (got, exact) {lens}; card vs CPU max "
+                  f"{diffs} LSB (tol {LSB_TOL}); SRC launches {n_src}, epilogue {n_ep}",
+                  flush=True)
+            if max(diffs, default=0) > LSB_TOL:
+                faults.append(f"{ri}->{ro}: card vs CPU {diffs} LSB")
+            if n_ep < 1 or (n_src >= 1) != want_src:
+                faults.append(f"{ri}->{ro}: launches SRC {n_src}, epilogue {n_ep} (kernel "
+                              f"takes the bank: {want_src})")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    print(f"sweep 12e: {len(_sweep_pairs())} pairs, card vs CPU max {worst} LSB; launches SRC "
+          f"{src_total}, epilogue {ep_total} [{card}]", flush=True)
+    _raise_faults("sweep 12e", faults)
+    return {"src": src_total, "epilogue": ep_total}
+
+
+def phase_sweep(card: str, dev) -> dict:
+    """Phase 12, every rate pair, preset and filter kind on the card: 12a
+    accuracy and route, 12b chunked == whole, 12c full width, 12d the
+    quality tool, 12e the batch job per pair; each sub-phase's wall and the
+    total, held to `SWEEP_BUDGET_S`.  Returns the numbers for the JSON
+    summary."""
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import src_kernel as sk
+
+    t_all = time.time()
+    banks = {key: design_cycle_bank(key[0], key[1], quality=key[2], kind=key[3])
+             for key in _sweep_banks()}
+    walls = {"design": time.time() - t_all}
+    out, failed = {}, []
+    for sub, fn in (("12a", lambda: _sweep_accuracy(card, dev, banks)),
+                    ("12b", lambda: _sweep_chunks(card, dev, banks)),
+                    ("12c", lambda: _sweep_full_width(card, dev, banks)),
+                    ("12d", lambda: _sweep_quality(card, dev)),
+                    ("12e", lambda: _sweep_jobs(card, dev))):
+        t0 = time.time()
+        try:
+            out[sub] = fn()
+        except AssertionError as e:     # the other sub-phases still run
+            failed.append(f"{sub}: {e}")
+        walls[sub] = time.time() - t0
+        print(f"phase {sub}: {walls[sub]:.1f} s", flush=True)
+    total = time.time() - t_all
+    print(f"phase 12 (sweep): {total:.1f} s (budget {SWEEP_BUDGET_S:g}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
+    if total > SWEEP_BUDGET_S:
+        failed.append(f"{total:.1f} s > {SWEEP_BUDGET_S:g} s")
+    if failed:
+        raise AssertionError("phase 12: " + "; ".join(failed))
+    kernel = [b for b in banks.values() if sk.kernel_applicable(b)]
+    windowed = sum(bool(sk.kernel_plan(b).pitch) for b in kernel)
+    return {
+        "dense_banks": len(kernel) - windowed, "windowed_banks": windowed,
+        "dense_err": max(out["12a"]["max_abs_err"]["dense"], out["12c"]),
+        "windowed_err": out["12a"]["max_abs_err"]["windowed"],
+        "launches": out["12a"]["launches"], "job": out["12e"], "seconds": total}
+
+
 def main() -> int:
     import torch
 
@@ -3232,6 +3632,16 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--graph-profile"]:
         print(json.dumps(graph_profile_main(resolve_device("cuda"))), flush=True)
+        return 0
+    if sys.argv[1:] == ["--sweep"]:
+        card = _card()
+        print(card, flush=True)
+        _build.load_library()
+        print(_build.build_log.strip(), flush=True)
+        out = phase_sweep(card, resolve_device("cuda"))
+        print(json.dumps({k: out[k] for k in ("dense_banks", "windowed_banks", "dense_err",
+                                              "windowed_err", "launches", "job", "seconds")}),
+              flush=True)
         return 0
     if sys.argv[1:] == ["--epilogue"]:
         _build.load_library()
@@ -3331,6 +3741,13 @@ def main() -> int:
     t0 = time.time()
     ke = phase_epilogue(card, dev)
     print(f"phase 11 (epilogue): {time.time() - t0:.1f} s", flush=True)
+    # phase 12 drives two paths: 12a's `resample_rates` per bank and 12e's
+    # batch job per pair, each read around every call
+    ks = phase_sweep(card, dev)
+    dense["sweep_src"] = ks["launches"][0] - ks["launches"][1]
+    windowed["sweep_src"] = ks["launches"][1]
+    dense["sweep_job"] = ks["job"]["src"]
+    epilogue_by_path["sweep_job"] = ks["job"]["epilogue"]
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",
@@ -3347,6 +3764,8 @@ def main() -> int:
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
         "per_bank": k["per_bank"],
+        "sweep_banks": ks["dense_banks"],
+        "sweep_max_abs_err": ks["dense_err"],
     }, {
         # a second launch form of the same kernel, for banks with no dense
         # matrix; the JAX package has no TPU kernel for it (XLA evaluates
@@ -3364,6 +3783,8 @@ def main() -> int:
         "bound_by": kw["bound_by"],
         "library_ms": kw["library_ms"],
         "per_bank": kw["per_bank"],
+        "sweep_banks": ks["windowed_banks"],
+        "sweep_max_abs_err": ks["windowed_err"],
     }, {
         # no TPU kernel computes it: XLA fuses the JAX graph's epilogue
         "name": "epilogue",

@@ -27,7 +27,7 @@ from f9tpu.models import design_cycle_bank as jbank  # noqa: E402
 from f9tpu.models import resample_oracle  # noqa: E402
 from f9tpu.ops import pallas_src  # noqa: E402
 from f9tpu_torch.models import design_cycle_bank  # noqa: E402
-from f9tpu_torch.models.filters import QUALITY_PRESETS  # noqa: E402
+from f9tpu_torch.models.filters import QUALITY_PRESETS, STANDARD_RATES, resolve_ratio  # noqa: E402
 from f9tpu_torch.ops import resample as tres  # noqa: E402
 from f9tpu_torch.ops import src_kernel as sk  # noqa: E402
 
@@ -244,12 +244,25 @@ def _kernel_order(x: np.ndarray, bank, Q: int) -> np.ndarray:
     return y
 
 
-@pytest.mark.parametrize("ri,ro,q", CARD_BANKS)
-def test_kernel_order_meets_the_accuracy_gate(ri, ro, q):
+def _case(ri, ro, q, kind="sinc"):
+    """A bank as a test case; a sinc bank keeps the id of the (ri, ro, q)
+    cases this file had before it took the filter kind."""
+    return pytest.param(ri, ro, q, kind, id=f"{ri}-{ro}-{q}" + ("" if kind == "sinc" else f"-{kind}"))
+
+
+#: one bank of each plan variant the card's four banks do not cover: 2 and 4
+#: warps, R = 3 and 5, L = 640 (16 column tiles), lagrange's short W
+PLAN_VARIANTS = [(192000, 44100, "high"), (96000, 44100, "high"), (48000, 88200, "ultra"),
+                 (48000, 176400, "ultra"), (44100, 192000, "high"),
+                 (44100, 48000, "high", "lagrange")]
+
+
+@pytest.mark.parametrize("ri,ro,q,kind", [_case(*b) for b in CARD_BANKS + PLAN_VARIANTS])
+def test_kernel_order_meets_the_accuracy_gate(ri, ro, q, kind):
     """The kernel's summation order against the exact sum, in LSB at 24 bits
     on a -12 dBFS signal: RMS <= 0.2, max <= 1.5 (the design gate; a plain
     float32 running sum reads ~0.4 RMS, one TF32 pass ~500)."""
-    bank = design_cycle_bank(ri, ro, quality=q)
+    bank = design_cycle_bank(ri, ro, quality=q, kind=kind)
     Q = 1500 if bank.L < 100 else 300
     x = _tone(ri, Q * bank.M + bank.W, seed=ri % 977)
     y = _kernel_order(x, bank, Q)
@@ -264,40 +277,81 @@ def test_kernel_order_meets_the_accuracy_gate(ri, ro, q):
     assert np.abs(yt.numpy()[:Q] - exact).max() <= 2.0 ** -24
 
 
-@pytest.mark.parametrize("ri,ro,q", CARD_BANKS + [(48000, 44100, "low"), (8000, 44100, "ultra"),
-                                                  (44100, 8000, "ultra")])
-def test_packed_bank_and_plan(ri, ro, q):
-    """The launch plan and packed bank the kernel reads: every non-zero of G
-    inside its tile's band, hi + lo within 2^-21 of each G value (the split
-    keeps 22 bits), zeros outside G, shared memory within a block's limit and
-    A loads free of bank conflicts for the card's banks."""
-    bank = design_cycle_bank(ri, ro, quality=q)
+#: every bank the kernel takes in `chip_smoke.py` phase 12a: the 30 studio
+#: pairs at the four sinc presets, at minphase high and at lagrange, and the
+#: varispeed pairs at the four presets, where L >= 8
+_STUDIO = [(a, b) for a in STANDARD_RATES for b in STANDARD_RATES if a != b]
+SWEEP_KERNEL_BANKS = [
+    (a, b, q, kind)
+    for a, b, q, kind in ([(a, b, q, "sinc") for a, b in _STUDIO for q in QUALITY_PRESETS]
+                          + [(a, b, "high", k) for k in ("minphase", "lagrange")
+                             for a, b in _STUDIO]
+                          + [(a, b, q, "sinc") for a, b in ((44100, 44056), (44056, 44100),
+                                                            (192000, 44056), (44100, 42735))
+                             for q in QUALITY_PRESETS])
+    if resolve_ratio(a, b)[0] >= 8]
+PACKED_CASES = ([(*b, "sinc") for b in CARD_BANKS + [(48000, 44100, "low"), (8000, 44100, "ultra"),
+                                                     (44100, 8000, "ultra")]]
+                + [b for b in SWEEP_KERNEL_BANKS
+                   if b[3] != "sinc" or b[:3] not in CARD_BANKS + [(48000, 44100, "low")]])
+
+
+def _packed_entries(packed: np.ndarray, tiles: np.ndarray, nt: int):
+    """``(w, col, value)`` of every packed entry, flat: the bank row and
+    output phase each fragment value stands for, and its hi + lo (float64)."""
+    ws, cols, vals = [], [], []
+    s, n, g, t, k = np.ix_(np.arange(int(tiles[:, 1].max())), np.arange(nt), np.arange(8),
+                           np.arange(4), np.arange(2))
+    for c, (w_lo, nk, off) in enumerate(tiles[:, :3]):
+        quad = packed[off:off + nk * nt * 32].reshape(nk, nt, 8, 4, 4).astype(np.float64)
+        w, col = np.broadcast_arrays(w_lo + 8 * s[:nk] + t + 4 * k, 8 * nt * c + 8 * n + g)
+        ws.append(w.ravel())
+        cols.append(col[:nk].ravel())
+        vals.append((quad[..., 0:2] + quad[..., 2:4]).ravel())
+    return np.concatenate(ws), np.concatenate(cols), np.concatenate(vals)
+
+
+@pytest.mark.parametrize("ri,ro,q,kind", [_case(*b) for b in PACKED_CASES])
+def test_packed_bank_and_plan(ri, ro, q, kind):
+    """The launch plan and packed bank the kernel reads, for every bank the
+    card's phase 12a launches: the plan fits a block's shared memory, every
+    non-zero of G lies inside its tile's band with hi + lo within 2^-21 of
+    its value (the split keeps 22 bits) and zeros outside G; a varispeed
+    bank (no dense G) holds each phase's K taps of the phase bank exactly
+    once, in a window pitch of 4 mod 32 floats.  A loads are free of bank
+    conflicts for the card's four banks."""
+    bank = design_cycle_bank(ri, ro, quality=q, kind=kind)
     plan = sk.kernel_plan(bank)
+    assert plan is not None and sk.kernel_applicable(bank)
     packed, tiles = sk.packed_bank_f32(bank)
-    G = bank.G.astype(np.float32)
     L, nt = bank.L, plan.nt
     assert len(plan.bands) == len(tiles) == -(-L // (8 * nt))
     assert plan.smem_bytes <= 232448 and plan.ring_off % 4 == 0
+    assert np.all(tiles[:, 1] % sk.KC8 == 0)
     assert np.array_equal(sk.tf32_rna(packed), packed)              # all TF32 values
-    rebuilt = np.zeros((G.shape[0] + 8 * int(tiles[:, 1].max()) + 8, L))
-    for c, (w_lo, nk, off) in enumerate(tiles[:, :3]):
-        assert nk % sk.KC8 == 0
-        quad = packed[off:off + nk * nt * 32].reshape(nk, nt, 8, 4, 4).astype(np.float64)
-        for s in range(nk):
-            for n in range(nt):
-                for k in range(8):
-                    w = w_lo + 8 * s + k
-                    part = k // 4
-                    v = quad[s, n, :, k % 4, part] + quad[s, n, :, k % 4, part + 2]
-                    cols = 8 * nt * c + 8 * n + np.arange(8)
-                    ok = cols < L
-                    rebuilt[w, cols[ok]] += v[ok]
-                    if not (w < G.shape[0]):
-                        assert not v.any()
-    rebuilt = rebuilt[:G.shape[0]]
+    w, col, v = _packed_entries(packed, tiles, nt)
+    assert not v[col >= L].any()
+    if bank.G is None:
+        assert plan.pitch % 32 == 4 and plan.pitch >= 3 + sk._union_floats(plan.bands, plan.group)
+        assert plan.smem_bytes == sk._window_smem(nt, plan.warps, plan.pitch)[1]
+        off, ph = tres._phase_tables(bank)
+        hrev, K = tres._h_rev_f32_cached(bank), bank.taps_per_phase
+        c = np.minimum(col, L - 1)
+        tap = w - off[c]
+        inside = (col < L) & (tap >= 0) & (tap < K)
+        assert not v[~inside].any()
+        want = hrev[ph[c[inside]], tap[inside]]
+        assert np.abs(v[inside] - want).max() <= 2.0 ** -21 * np.abs(hrev).max()
+        assert np.array_equal(np.bincount(col[inside], minlength=L), np.full(L, K))
+        return
+    G = bank.G.astype(np.float32)
+    inside = (col < L) & (w < G.shape[0])
+    assert not v[~inside].any()
+    rebuilt = np.zeros(G.shape)
+    np.add.at(rebuilt, (w[inside], col[inside]), v[inside])
     assert np.abs(rebuilt - G).max() <= 2.0 ** -21 * np.abs(G).max()
     assert np.array_equal(rebuilt != 0, G != 0)
-    if (ri, ro, q) in CARD_BANKS:
+    if kind == "sinc" and (ri, ro, q) in CARD_BANKS:
         assert sk._a_load_wavefronts(bank.M, plan.warps, plan.skew, plan.rowmap) == 1.0
         assert plan.warps == 8
 
