@@ -162,7 +162,26 @@ its results, any failure exiting non-zero:
    (`BatchProcessor.run`) on every studio pair at high, two stereo 24-bit
    WAVs of 5 s and 7.3 s: exact lengths, <= 2 LSB from the port's CPU path.
    Launches are counted from zero around each call of (a) and each job of
-   (e); the phase fails past `SWEEP_BUDGET_S`.
+   (e); the phase fails past `SWEEP_BUDGET_S`;
+13. the config-interaction fuzz at card scale (`phase_fuzz`), the
+   configurations of `tests/test_torch_fuzz_configs.py` and
+   `tests/test_torch_fuzz_stream.py` drawn from the same seeds: (a) the 24
+   batch configurations (routing, dither, 16 / 24 / 32 bits, WAV / AIFF,
+   the chain, reverb with the peak or RMS rule, packed / rows, fan-out,
+   normalization with and without a true-peak cap, the oversized file that
+   streams) through `BatchProcessor.run` over 2-4 mono and stereo WAVs of
+   5-20 s on the card and on the port's CPU path: the same completions,
+   names and frame counts, card vs CPU <= 2 LSB (<= 16 with a chain or
+   reverb); (b) the 8 stream configurations (WAV, AIFF, FLAC and MP3 or its
+   FLAC fallback; latency, routing, fan-out, normalization, reverb, both
+   filter kinds, every output format) on the card at two chunk sizes, equal
+   sha256, and against the CPU path as in (a); (c) the 5 sharded-stream
+   configurations on a mesh naming the card four times: sha256 equal to the
+   one-device stream; (d) a transient device failure and a resume after a
+   flipped output byte on the card: the retried and reprocessed bytes equal
+   a clean run's.  Launches are counted from zero around every card run and
+   each run must launch the kernels its bank takes; the phase fails past
+   `FUZZ_BUDGET_S`.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -171,7 +190,7 @@ CUDA GPU it exits 1 and prints no result.  ``python3 chip_smoke.py
 7b's times of one launch at the stream's chunk shapes, for the checkout it
 sits in (a parent tree unpacked by `git archive` beside this script's copy);
 ``--epilogue`` runs phase 11 alone, ``--graph-profile`` only 11c's trace,
-and ``--sweep`` phase 12 alone.
+``--sweep`` phase 12 alone and ``--fuzz`` phase 13 alone.
 """
 
 from __future__ import annotations
@@ -3614,6 +3633,564 @@ def phase_sweep(card: str, dev) -> dict:
         "launches": out["12a"]["launches"], "job": out["12e"], "seconds": total}
 
 
+#: phase 13, the config-interaction fuzz at card scale: the seeds of
+#: `tests/test_torch_fuzz_configs.py` (batch), `tests/test_torch_fuzz_stream.py`
+#: (stream, sharded stream); each draws its configuration as the JAX test
+#: does, then its sources at card scale from a second generator
+FUZZ_BATCH_SEEDS = tuple(range(1000, 1024))
+FUZZ_STREAM_SEEDS = tuple(range(7000, 7008))
+FUZZ_SHARDED_SEEDS = tuple(range(9000, 9005))
+#: 13a: files of 5-20 s, the buckets scaled as the JAX test's (2048, 8192)
+#: are to its files of 500-6000 frames, and an oversized file of 30 s past
+#: the largest bucket (the JAX test's 12,000 frames past 8192)
+FUZZ_SECONDS = (5.0, 20.0)
+FUZZ_BUCKETS = (1 << 19, 1 << 20)
+FUZZ_OVERSIZED_S = 30.0
+#: 13b / 13c: the JAX tests' source lengths times these, and their chunk
+#: sizes (0.11 and 0.34 s; 0.4 and 0.1 s sharded) times 10
+FUZZ_STREAM_SCALE = 30
+FUZZ_SHARDED_SCALE = 20
+FUZZ_STREAM_CHUNKS = (1.1, 3.4)
+FUZZ_SHARDED_CHUNKS = (4.0, 1.0)
+#: phase 13 alone took 95 s on an H100 (13a 87 s, 75 of them the CPU path); the whole
+#: script ran phase 12 23 % slower than alone
+FUZZ_BUDGET_S = 150.0
+
+
+def _fuzz_cfg(rng) -> dict:
+    """`tests/test_fuzz_configs.py::_random_cfg`, draw for draw (the chain as
+    the flag ``"chain"``)."""
+    kw = dict(quality="low", batch_size=4, bucket_frames=(2048, 8192))
+    kw["target_rate"] = int(rng.choice([44100, 48000, 32000, 44056]))
+    kw["bits"] = int(rng.choice([16, 24, 32]))
+    kw["dither"] = bool(rng.integers(2))
+    kw["remove_dc"] = bool(rng.integers(2))
+    kw["gain_db"] = float(rng.choice([0.0, -6.0, 3.0]))
+    kw["seed"] = int(rng.integers(100))
+    kw["output_format"] = str(rng.choice(["wav", "aiff"]))
+    if kw["output_format"] == "aiff" and kw["bits"] == 32:
+        kw["bits"] = 24
+    kw["device_layout"] = str(rng.choice(["packed", "rows"]))
+    if rng.integers(2):
+        kw.update(reverb_mode=True, noise_floor_db=-90.0,
+                  tail_mode=str(rng.choice(["peak", "rms"])))
+    kw["chain"] = bool(rng.integers(3) == 0)
+    if rng.integers(3) == 0:
+        kw["output_channels"] = 2
+    if rng.integers(3) == 0:
+        kw["normalize_lufs"] = float(rng.choice([-14.0, -20.0, -24.0]))
+        if rng.integers(2):
+            kw["normalize_tp_db"] = -1.0
+        kw["surround_weights"] = bool(rng.integers(2))
+    return kw
+
+
+def _fuzz_batch_draw(seed: int):
+    """The JAX batch trial's draws: ``(files, kw)``, each file ``(name,
+    channels, bits, dc)``; the config is the CPU test's for this seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    files = []
+    for i in range(int(rng.integers(2, 5))):
+        ch = int(rng.choice([1, 2]))
+        rng.standard_normal((ch, int(rng.integers(500, 6000))))
+        dc = bool(rng.integers(2))
+        files.append((f"f{i}.wav", ch, int(rng.choice([16, 24, 32])), dc))
+    kw = _fuzz_cfg(rng)
+    kw["oversized"] = bool(rng.integers(3) == 0 and not kw.get("reverb_mode", False))
+    if kw["oversized"]:
+        files.append(("big.wav", 2, 24, False))
+    return files, kw
+
+
+def _fuzz_draw_stream(seed: int, sharded: bool):
+    """The JAX stream (or sharded-stream) trial's draws: ``(channels, frames,
+    container, kw, latency)``; the chain, for the sharded draws, as a flag."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ch = int(rng.choice([1, 2, 4]))
+    frames = int(rng.integers(20_000, 50_000) if sharded else rng.integers(3000, 30_000))
+    rng.standard_normal((ch, frames))
+    container = str(rng.choice(["wav", "aiff"] if sharded else ["wav", "aiff", "flac", "mp3"]))
+    kw = dict(quality="low", target_rate=int(rng.choice([48000, 32000, 44056])))
+    if not sharded:
+        kw["kind"] = str(rng.choice(["sinc", "minphase"]))
+    kw.update(bits=int(rng.choice([16, 24])), dither=bool(rng.integers(2)),
+              remove_dc=bool(rng.integers(2)), seed=int(rng.integers(100)),
+              gain_db=float(rng.choice([0.0, -3.0])))
+    if not sharded:
+        kw["output_format"] = str(rng.choice(["wav", "aiff", "flac"]))
+    lat = int(rng.integers(1, 300)) if rng.integers(2) else 0
+    if ch == 1 and rng.integers(2):
+        kw["output_channels"] = 2
+    elif ch == 4 and rng.integers(2):
+        kw["channel_routing"] = [3, 0, -1, 1]
+    if rng.integers(3) == 0:
+        kw["normalize_lufs"] = -18.0
+    if sharded:
+        kw["chain"] = bool(rng.integers(2))
+    if rng.integers(3) == 0:
+        kw.update(reverb_mode=True, noise_floor_db=-85.0, max_tail_seconds=0.3)
+    return ch, frames, container, kw, lat
+
+
+def _fuzz_config(kw: dict, out_dir: str, chain_kind: str):
+    """The port's config for drawn keywords; the chain is the JAX test's
+    (``"saturator"``: Gain + Saturator; ``"delay"``: Gain + Delay)."""
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.ops import chain as tc
+
+    kw = {k: v for k, v in kw.items() if k != "oversized"}
+    if kw.pop("chain", False):
+        kw["chain"] = tc.Chain(tc.Gain(-1.5), tc.Saturator("soft", 3.0, 0.7)
+                               if chain_kind == "saturator" else tc.Delay(0.002))
+    return ProcessingConfig(output_dir=out_dir, **kw)
+
+
+def _fuzz_codes(path: str, bits: int):
+    """(channels, frames) codes at ``bits`` and the rate of any output file;
+    32-bit WAV data read as int32 (a float32 decode would round it)."""
+    import numpy as np
+
+    from f9tpu_torch.io import codec
+
+    y, rate = codec.read_audio(path)
+    if bits == 32:
+        with open(path, "rb") as f:
+            blob = f.read()
+        start = blob.index(b"data") + 8
+        c = np.frombuffer(blob[start:start + 4 * y.size], "<i4").reshape(-1, y.shape[0]).T
+        return c.astype(np.int64), rate
+    return np.round(np.asarray(y, np.float64) * (1 << (bits - 1))).astype(np.int64), rate
+
+
+def _lsb24(card_codes, cpu_codes, bits: int) -> tuple[float, float, float]:
+    """Card against CPU codes in LSB at 24-bit resolution (a 32-bit code is
+    1/256 of one; a 16-bit code one, as the batch tests count it): the
+    largest gap, the largest below -12 dBFS, and the level (|y|, 1 at full
+    scale) where the largest sits."""
+    import numpy as np
+
+    if card_codes.size == 0:
+        return 0.0, 0.0, 0.0
+    unit = float(1 << max(0, bits - 24))
+    gap = np.abs(card_codes - cpu_codes)
+    quiet = np.abs(cpu_codes) < (1 << (bits - 3))
+    at = np.unravel_index(int(np.argmax(gap)), gap.shape)
+    return (float(gap.max()) / unit, float(gap[quiet].max(initial=0)) / unit,
+            float(abs(cpu_codes[at])) / (1 << (bits - 1)))
+
+
+def _fuzz_counts() -> tuple[int, int, int]:
+    """(dense, windowed, epilogue) launches since `_zero_counts`."""
+    from f9tpu_torch.ops import epilogue as ep
+    from f9tpu_torch.ops import src_kernel as sk
+
+    return sk.launches - sk.launches_windowed, sk.launches_windowed, ep.launches
+
+
+def _route_faults(tag: str, bank, counts) -> list[str]:
+    """A run must launch the epilogue pair, and the SRC form that
+    ``bank`` takes (`kernel_applicable`, a windowed plan or a dense one)."""
+    from f9tpu_torch.ops import src_kernel as sk
+
+    dense, win, ep = counts
+    faults = [] if ep >= 1 else [f"{tag}: no epilogue launch"]
+    if sk.kernel_applicable(bank):
+        windowed = bool(sk.kernel_plan(bank).pitch)
+        if (win if windowed else dense) < 1:
+            faults.append(f"{tag}: no {'windowed' if windowed else 'dense'} SRC launch "
+                          f"(launches dense, windowed, epilogue {counts})")
+    return faults
+
+
+def _fuzz_noise(rng, ch: int, frames: int, level: float, dc: bool = False):
+    import numpy as np
+
+    x = (level * rng.standard_normal((ch, frames))).astype(np.float32)
+    return x + np.float32(0.05) if dc else x
+
+
+def _fuzz_batch(card: str, dev, cpu) -> dict:
+    """13a: each of the 24 batch configurations through `BatchProcessor.run`
+    on the card and on the port's CPU path over the same 5-20 s files: the
+    same completions, names and frame counts, each card output at the target
+    rate, card vs CPU <= `LSB_TOL` (<= `LOOP_LSB_TOL` with a chain or
+    reverb), and the launches of the route the bank takes.  Returns the
+    launches (dense, windowed, epilogue) and the worst gap."""
+    import numpy as np
+
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.pipeline import BatchProcessor
+
+    total, faults = [0, 0, 0], []
+    worst = {"plain": 0.0, "chain or reverb": 0.0, "below -12 dBFS": 0.0}
+    for seed in FUZZ_BATCH_SEEDS:
+        files, kw = _fuzz_batch_draw(seed)
+        rng = np.random.default_rng(SEED + seed)
+        work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        try:
+            paths = []
+            for name, ch, bits, dc in files:
+                frames = (int(FUZZ_OVERSIZED_S * 44100) if name == "big.wav" else
+                          int(rng.integers(FUZZ_SECONDS[0] * 44100, FUZZ_SECONDS[1] * 44100)))
+                p = os.path.join(work, name)
+                wav.write_wav(p, _fuzz_noise(rng, ch, frames, 0.2 if name == "big.wav" else 0.3,
+                                             dc), 44100, bits=bits)
+                paths.append(p)
+            runs = {}
+            for side, d in (("card", dev), ("cpu", cpu)):
+                cfg = _fuzz_config(dict(kw, bucket_frames=FUZZ_BUCKETS),
+                                   os.path.join(work, side), "saturator")
+                if side == "card":
+                    _zero_counts()
+                t0 = time.time()
+                res = BatchProcessor(cfg, device=d).run(paths)
+                wall = time.time() - t0
+                if side == "card":
+                    counts = _fuzz_counts()
+                outs = sorted(f for f in os.listdir(cfg.output_dir)
+                              if f.endswith((".wav", ".aiff")))
+                runs[side] = (res, outs, wall)
+            loose = kw["chain"] or kw.get("reverb_mode", False)
+            tol = LOOP_LSB_TOL if loose else LSB_TOL
+            gaps, tag = [], f"seed {seed}"
+            for name in ("card", "cpu"):
+                res, outs, _ = runs[name]
+                if res.completed != len(paths) or res.failed:
+                    faults.append(f"{tag} {name}: {res.completed} of {len(paths)} completed, "
+                                  f"{res.failed} failed")
+            if runs["card"][1] != runs["cpu"][1] or len(runs["card"][1]) != len(paths):
+                faults.append(f"{tag}: outputs {runs['card'][1]} vs {runs['cpu'][1]}")
+            streamed = [p for p in paths if runs["card"][0].per_file.get(p, {}).get("streamed")]
+            if streamed != (paths[-1:] if kw["oversized"] else []):
+                faults.append(f"{tag}: streamed {streamed}, oversized drawn {kw['oversized']}")
+            for f in runs["card"][1]:
+                g, g_rate = _fuzz_codes(os.path.join(work, "card", f), kw["bits"])
+                try:
+                    c, c_rate = _fuzz_codes(os.path.join(work, "cpu", f), kw["bits"])
+                except (OSError, ValueError) as e:
+                    faults.append(f"{tag} {f}: no CPU output ({e})")
+                    continue
+                if g_rate != kw["target_rate"] or c_rate != g_rate or g.shape != c.shape:
+                    faults.append(f"{tag} {f}: card {g.shape} at {g_rate}, CPU {c.shape} "
+                                  f"at {c_rate}")
+                    continue
+                gaps.append(_lsb24(g, c, kw["bits"]))
+            gap, quiet, level = max(gaps, default=(0.0, 0.0, 0.0))
+            quiet = max((q for _, q, _ in gaps), default=0.0)
+            key = "chain or reverb" if loose else "plain"
+            worst[key] = max(worst[key], gap)
+            worst["below -12 dBFS"] = max(worst["below -12 dBFS"], quiet)
+            bank = design_cycle_bank(44100, kw["target_rate"], quality="low")
+            faults += _route_faults(tag, bank, counts)
+            total = [a + b for a, b in zip(total, counts)]
+            print(f"fuzz 13a: {tag}: {len(paths)} files -> {kw['target_rate']} Hz "
+                  f"{kw['bits']}-bit {kw['output_format']} {kw['device_layout']}"
+                  f"{' dither' if kw['dither'] else ''}{' dc' if kw['remove_dc'] else ''}"
+                  f" gain {kw['gain_db']:+.0f}{' chain' if kw['chain'] else ''}"
+                  f"{' reverb/' + kw['tail_mode'] if kw.get('reverb_mode') else ''}"
+                  f"{' fan-out' if kw.get('output_channels') else ''}"
+                  f"{' lufs ' + str(kw['normalize_lufs']) if kw.get('normalize_lufs') else ''}"
+                  f"{' tp' if kw.get('normalize_tp_db') else ''}"
+                  f"{' oversized' if kw['oversized'] else ''}: card {runs['card'][2]:.2f} s, "
+                  f"CPU {runs['cpu'][2]:.2f} s; card vs CPU max {gap:g} LSB (tol {tol}) at |y| "
+                  f"{level:.3f}, below -12 dBFS {quiet:g}; "
+                  f"launches (dense, windowed, epilogue) {counts} [{card}]", flush=True)
+            if gap > tol:
+                faults.append(f"{tag}: card vs CPU {gap:g} LSB > {tol}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    print(f"fuzz 13a: {len(FUZZ_BATCH_SEEDS)} configurations; card vs CPU worst {worst} LSB; "
+          f"launches {tuple(total)} [{card}]", flush=True)
+    _raise_faults("fuzz 13a", faults)
+    return {"launches": total, "worst": worst}
+
+
+def _fuzz_source(work: str, x, container: str) -> str:
+    """The source in ``container``; MP3 through the test-only `avref`
+    encoder where the machine has it, else FLAC (as the JAX test falls back)."""
+    import numpy as np
+
+    codes24 = np.clip(np.round(x.astype(np.float64) * (1 << 23)), -(1 << 23), (1 << 23) - 1)
+    if container == "mp3":
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        try:
+            import avref
+
+            ok = avref.available()
+        except ImportError:
+            ok = False
+        finally:
+            sys.path.pop(0)
+        if ok and x.shape[0] <= 2:
+            src = os.path.join(work, "s.mp3")
+            avref.encode_file_opts("libmp3lame", src, "mp3", codes24.astype(np.int32), 44100,
+                                   24, bit_rate=192000)
+            return src
+        container = "flac"
+    src = os.path.join(work, f"s.{container}")
+    if container == "flac":
+        from f9tpu_torch.io.flac import write_flac_codes
+
+        write_flac_codes(src, codes24.astype(np.int64), 44100, bits=24)
+    elif container == "aiff":
+        from f9tpu_torch.io.aiff import write_aiff
+
+        write_aiff(src, x, 44100, bits=24)
+    else:
+        from f9tpu_torch.io import wav
+
+        wav.write_wav(src, x, 44100, bits=24)
+    return src
+
+
+def _fuzz_stream(card: str, dev, cpu) -> dict:
+    """13b: each stream configuration on the card at two chunk sizes
+    (`FUZZ_STREAM_CHUNKS`): the same frame count and sha256; then on the
+    port's CPU path: the same frame count, card vs CPU <= `LSB_TOL`
+    (<= `LOOP_LSB_TOL` in reverb mode).  Returns the launches and the worst
+    gap."""
+    import numpy as np
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.pipeline.stream import stream_resample_file
+
+    total, worst, faults = [0, 0, 0], 0.0, []
+    for seed in FUZZ_STREAM_SEEDS:
+        ch, frames, container, kw, lat = _fuzz_draw_stream(seed, sharded=False)
+        rng = np.random.default_rng(SEED + seed)
+        work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        try:
+            x = _fuzz_noise(rng, ch, frames * FUZZ_STREAM_SCALE, 0.3)
+            src = _fuzz_source(work, x, container)
+            cfg = _fuzz_config(kw, work, "saturator")
+            ext = {"aiff": "aiff", "flac": "flac"}.get(cfg.output_format, "wav")
+            ns, shas, walls, counts = [], [], [], [0, 0, 0]
+            for cs in FUZZ_STREAM_CHUNKS:
+                out = os.path.join(work, f"card_{cs}.{ext}")
+                _zero_counts()
+                t0 = time.time()
+                ns.append(stream_resample_file(src, out, cfg, chunk_seconds=cs,
+                                               latency_frames=lat, device=dev))
+                walls.append(time.time() - t0)
+                counts = [a + b for a, b in zip(counts, _fuzz_counts())]
+                shas.append(_sha256(out))
+            cpu_out = os.path.join(work, f"cpu.{ext}")
+            n_cpu = stream_resample_file(src, cpu_out, cfg, chunk_seconds=FUZZ_STREAM_CHUNKS[-1],
+                                         latency_frames=lat, device=cpu)
+            tag = f"seed {seed}"
+            g, g_rate = _fuzz_codes(out, cfg.bits)
+            c, _ = _fuzz_codes(cpu_out, cfg.bits)
+            gap, quiet, level = (_lsb24(g, c, cfg.bits) if g.shape == c.shape
+                                 else (float("inf"),) * 3)
+            tol = LOOP_LSB_TOL if cfg.reverb_mode else LSB_TOL
+            worst = max(worst, gap)
+            bank = design_cycle_bank(44100, cfg.target_rate, quality="low", kind=cfg.kind)
+            faults += _route_faults(tag, bank, counts)
+            total = [a + b for a, b in zip(total, counts)]
+            print(f"fuzz 13b: {tag}: {container} ({src.rsplit('.', 1)[1]}) {ch} ch x "
+                  f"{x.shape[1]} frames -> {cfg.target_rate} Hz {cfg.kind} {cfg.bits}-bit {ext}"
+                  f" latency {lat}{' fan-out' if cfg.output_channels else ''}"
+                  f"{' routing' if cfg.channel_routing else ''}"
+                  f"{' lufs' if cfg.normalize_lufs is not None else ''}"
+                  f"{' reverb' if cfg.reverb_mode else ''}: frames {ns} (CPU {n_cpu}), walls "
+                  f"{[round(w, 2) for w in walls]} s, sha256 {[s[:12] for s in shas]}; card vs "
+                  f"CPU max {gap:g} LSB (tol {tol}) at |y| {level:.3f}, below -12 dBFS "
+                  f"{quiet:g}; launches {tuple(counts)} [{card}]",
+                  flush=True)
+            if ns[0] != ns[1] or shas[0] != shas[1]:
+                faults.append(f"{tag}: chunk sizes {FUZZ_STREAM_CHUNKS} give {ns} frames, "
+                              f"sha256 equal {shas[0] == shas[1]}")
+            if n_cpu != ns[0] or g_rate != cfg.target_rate or gap > tol:
+                faults.append(f"{tag}: card {ns[0]} frames at {g_rate}, CPU {n_cpu}; "
+                              f"{gap:g} LSB")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    print(f"fuzz 13b: {len(FUZZ_STREAM_SEEDS)} configurations; card vs CPU worst {worst:g} "
+          f"LSB; launches {tuple(total)} [{card}]", flush=True)
+    _raise_faults("fuzz 13b", faults)
+    return {"launches": total, "worst": worst}
+
+
+def _fuzz_sharded(card: str, dev) -> dict:
+    """13c: each sharded-stream configuration on a mesh that names the card
+    four times (frames shards) and on the card alone: the same frame count
+    and sha256.  Returns the mesh runs' launches."""
+    import numpy as np
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.parallel import make_mesh
+    from f9tpu_torch.pipeline.stream import stream_resample_file
+
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    total, faults = [0, 0, 0], []
+    for seed in FUZZ_SHARDED_SEEDS:
+        ch, frames, container, kw, lat = _fuzz_draw_stream(seed, sharded=True)
+        rng = np.random.default_rng(SEED + seed)
+        work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        try:
+            x = _fuzz_noise(rng, ch, frames * FUZZ_SHARDED_SCALE, 0.3)
+            src = _fuzz_source(work, x, container)
+            cfg = _fuzz_config(kw, work, "delay")
+            ns, shas, walls = [], [], []
+            for m, cs in zip((None, mesh), FUZZ_SHARDED_CHUNKS):
+                out = os.path.join(work, f"{'one' if m is None else 'mesh'}.wav")
+                _zero_counts()
+                t0 = time.time()
+                ns.append(stream_resample_file(src, out, cfg, chunk_seconds=cs, mesh=m,
+                                               latency_frames=lat, device=dev))
+                walls.append(time.time() - t0)
+                if m is not None:
+                    counts = _fuzz_counts()
+                shas.append(_sha256(out))
+            tag = f"seed {seed}"
+            bank = design_cycle_bank(44100, cfg.target_rate, quality="low")
+            faults += _route_faults(tag, bank, counts)
+            total = [a + b for a, b in zip(total, counts)]
+            print(f"fuzz 13c: {tag}: {container} {ch} ch x {x.shape[1]} frames -> "
+                  f"{cfg.target_rate} Hz {cfg.bits}-bit latency {lat}"
+                  f"{' chain' if cfg.chain is not None else ''}"
+                  f"{' fan-out' if cfg.output_channels else ''}"
+                  f"{' routing' if cfg.channel_routing else ''}"
+                  f"{' lufs' if cfg.normalize_lufs is not None else ''}"
+                  f"{' reverb' if cfg.reverb_mode else ''}: one device {ns[0]} frames "
+                  f"{walls[0]:.2f} s, mesh 1x4x1 {ns[1]} frames {walls[1]:.2f} s; sha256 "
+                  f"{[s[:12] for s in shas]}; mesh launches {counts} [{card}]", flush=True)
+            if ns[0] != ns[1] or shas[0] != shas[1]:
+                faults.append(f"{tag}: one device {ns[0]} frames, mesh {ns[1]}; sha256 equal "
+                              f"{shas[0] == shas[1]}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    print(f"fuzz 13c: {len(FUZZ_SHARDED_SEEDS)} configurations, {ONE_CARD_NOTE.format(n=4)}; "
+          f"launches {tuple(total)} [{card}]", flush=True)
+    _raise_faults("fuzz 13c", faults)
+    return {"launches": total}
+
+
+def _fuzz_robust(card: str, dev) -> dict:
+    """13d: the scheduler's robustness on the card over two stereo 24-bit
+    WAVs of 10 s: a clean run; a run whose first device step raises (the
+    retry, with the sleep patched out); a resume after an output's byte is
+    flipped at the same size (the file is reprocessed).  The retried and the
+    reprocessed bytes equal the clean run's.  Returns the launches."""
+    import numpy as np
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.pipeline import scheduler as sched
+
+    rng = np.random.default_rng(SEED + 130)
+    work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+    total, faults = [0, 0, 0], []
+    try:
+        paths = []
+        for i in range(2):
+            p = os.path.join(work, f"r{i}.wav")
+            wav.write_wav(p, _signal(rng, 2, int((10.0 + i) * 44100), 44100), 44100, bits=24)
+            paths.append(p)
+
+        def run(tag, manifest=None):
+            cfg = ProcessingConfig(output_dir=os.path.join(work, tag), target_rate=48000,
+                                   seed=3, batch_size=2)
+            _zero_counts()
+            bp = sched.BatchProcessor(cfg, device=dev)
+            res = bp.run(paths, manifest_path=manifest)
+            counts = _fuzz_counts()
+            nonlocal total
+            total = [a + b for a, b in zip(total, counts)]
+            if counts[0] < 1 or counts[2] < 1:
+                faults.append(f"{tag}: launches {counts}")
+            shas = {os.path.basename(p): _sha256(sched.build_output_path(
+                p, cfg.output_dir, cfg.postfix)) for p in paths}
+            return bp, res, shas
+
+        _, res, clean = run("clean")
+        calls = {"n": 0}
+        real = sched.process_batch_raw
+
+        def flaky(*a, **k):
+            calls["n"] += 1
+            if calls["n"] == 1:
+                raise RuntimeError("injected device step failure")
+            return real(*a, **k)
+
+        saved_sleep = sched.time.sleep
+        sched.process_batch_raw, sched.time.sleep = flaky, lambda s: None
+        try:
+            bp, res_r, retried = run("retried")
+        finally:
+            sched.process_batch_raw, sched.time.sleep = real, saved_sleep
+        log = bp.log.text()
+        print(f"fuzz 13d: transient device failure: {res_r.completed} of 2 completed after "
+              f"{calls['n']} graph calls, retry logged {'retrying once' in log}, bytes equal "
+              f"to the clean run {retried == clean} [{card}]", flush=True)
+        if not (res.completed == res_r.completed == 2 and calls["n"] == 2
+                and "retrying once" in log and "BATCH ABORT" not in log and retried == clean):
+            faults.append(f"retry: {res_r.completed} completed, {calls['n']} calls, equal "
+                          f"{retried == clean}")
+        mpath = os.path.join(work, "m.json")
+        _, res1, first = run("resume", mpath)
+        out = os.path.join(work, "resume", "r0_processed.wav")
+        with open(out, "r+b") as f:
+            f.seek(os.path.getsize(out) // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+        _, res2, again = run("resume", mpath)
+        print(f"fuzz 13d: resume after a flipped byte: {res2.completed} completed, "
+              f"{res2.skipped} skipped, bytes equal to the clean run {again == clean} "
+              f"[{card}]", flush=True)
+        if not (res1.completed == 2 and first == clean and res2.completed == 2
+                and res2.skipped == 1 and again == clean):
+            faults.append(f"resume: {res2.completed} completed, {res2.skipped} skipped, "
+                          f"equal {again == clean}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _raise_faults("fuzz 13d", faults)
+    return {"launches": total}
+
+
+def phase_fuzz(card: str, dev) -> dict:
+    """Phase 13, the config-interaction fuzz on the card: 13a the batch
+    configurations, 13b the stream's, 13c the sharded stream's, 13d the
+    scheduler's retry and resume; each sub-phase's wall and the total, held
+    to `FUZZ_BUDGET_S`.  Returns the launches by path and the worst gaps."""
+    from f9tpu_torch import resolve_device
+
+    cpu = resolve_device("cpu")
+    t_all = time.time()
+    walls, out, failed = {}, {}, []
+    for sub, fn in (("13a", lambda: _fuzz_batch(card, dev, cpu)),
+                    ("13b", lambda: _fuzz_stream(card, dev, cpu)),
+                    ("13c", lambda: _fuzz_sharded(card, dev)),
+                    ("13d", lambda: _fuzz_robust(card, dev))):
+        t0 = time.time()
+        try:
+            out[sub] = fn()
+        except AssertionError as e:     # the other sub-phases still run
+            failed.append(f"{sub}: {e}")
+        walls[sub] = time.time() - t0
+        print(f"phase {sub}: {walls[sub]:.1f} s", flush=True)
+    total = time.time() - t_all
+    print(f"phase 13 (fuzz): {total:.1f} s (budget {FUZZ_BUDGET_S:g}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
+    if total > FUZZ_BUDGET_S:
+        failed.append(f"{total:.1f} s > {FUZZ_BUDGET_S:g} s")
+    if failed:
+        raise AssertionError("phase 13: " + "; ".join(failed))
+    job = [a + b for a, b in zip(out["13a"]["launches"], out["13d"]["launches"])]
+    return {"launches": {"fuzz_job": job, "fuzz_stream": out["13b"]["launches"],
+                         "fuzz_sharded": out["13c"]["launches"]},
+            "worst": {"job": out["13a"]["worst"], "stream": out["13b"]["worst"]},
+            "trials": {"13a": len(FUZZ_BATCH_SEEDS), "13b": len(FUZZ_STREAM_SEEDS),
+                       "13c": len(FUZZ_SHARDED_SEEDS), "13d": 2},
+            "seconds": {**walls, "total": total}}
+
+
 def main() -> int:
     import torch
 
@@ -3641,6 +4218,15 @@ def main() -> int:
         out = phase_sweep(card, resolve_device("cuda"))
         print(json.dumps({k: out[k] for k in ("dense_banks", "windowed_banks", "dense_err",
                                               "windowed_err", "launches", "job", "seconds")}),
+              flush=True)
+        return 0
+    if sys.argv[1:] == ["--fuzz"]:
+        card = _card()
+        print(card, flush=True)
+        _build.load_library()
+        print(_build.build_log.strip(), flush=True)
+        out = phase_fuzz(card, resolve_device("cuda"))
+        print(json.dumps({k: out[k] for k in ("launches", "worst", "trials", "seconds")}),
               flush=True)
         return 0
     if sys.argv[1:] == ["--epilogue"]:
@@ -3748,6 +4334,10 @@ def main() -> int:
     windowed["sweep_src"] = ks["launches"][1]
     dense["sweep_job"] = ks["job"]["src"]
     epilogue_by_path["sweep_job"] = ks["job"]["epilogue"]
+    # phase 13 drives three paths, each read around every run on the card
+    kf = phase_fuzz(card, dev)
+    for path, (d, w, e) in kf["launches"].items():
+        dense[path], windowed[path], epilogue_by_path[path] = d, w, e
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",
