@@ -181,7 +181,28 @@ its results, any failure exiting non-zero:
    flipped output byte on the card: the retried and reprocessed bytes equal
    a clean run's.  Launches are counted from zero around every card run and
    each run must launch the kernels its bank takes; the phase fails past
-   `FUZZ_BUDGET_S`.
+   `FUZZ_BUDGET_S`;
+14. the insert chain's kernels (`phase_chain_kernels`; `f9tpu_torch/csrc/
+   upols.cu`, `fold.cu`): (a) cuFFT at n = 8192, 16384, 32768 and 6000
+   gives a row the same bits wherever it sits in the one batch shape UPOLS
+   calls on the card, (`UPOLS_GROUP`, `UPOLS_FFT_ROWS`), the premise of the
+   group form; each row the same bits in a batch of rows as in one of rows
+   x G (G = 1, 7, 32, 33; rows 1, 2, 16), a fault at n = 8192 and counted
+   elsewhere, as are G x rows against G x 16; (b)
+   bitwise against the twins: the delay-line multiply-sum (K = 1, 2, 7,
+   30, 64, mono and two-channel H, 1, 2 and 16 rows, groups of 1, 5 and
+   32), the fold (W = 2-1024) and the moving average (2-20,000) on rows
+   that start with +0.0 and -0.0 and on a 1-D row, and `_upols` at B =
+   4096, 8192 and 16384 streamed at 1, G - 1, G and G + 1 blocks (and at
+   4096 with groups of 1) equal to the whole by sha256 and two rows alone
+   equal to them in a batch of 16; (c) each kernel bitwise
+   against its twin at the insert loop's shapes, its ms there (CUDA
+   events, median of 10) beside its bound, its twin's ms and a library call
+   the port never makes (`torch.einsum`, `F.conv1d`, `F.avg_pool1d`), then
+   the UPOLS reverb, the EQ's fold, the compressor and the limiter; the
+   kernels' launches by path over phases 4-10 and 14c, each non-zero on the
+   insert loop and the stream, the multiply-sum also on normalize; the
+   phase fails past `CHAIN_KERNELS_BUDGET_S`.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -190,7 +211,8 @@ CUDA GPU it exits 1 and prints no result.  ``python3 chip_smoke.py
 7b's times of one launch at the stream's chunk shapes, for the checkout it
 sits in (a parent tree unpacked by `git archive` beside this script's copy);
 ``--epilogue`` runs phase 11 alone, ``--graph-profile`` only 11c's trace,
-``--sweep`` phase 12 alone and ``--fuzz`` phase 13 alone.
+``--sweep`` phase 12 alone, ``--fuzz`` phase 13 alone and ``--chain-kernels``
+phase 14 alone.
 """
 
 from __future__ import annotations
@@ -311,25 +333,33 @@ def _src_bound(bank, signals: int, frames: int, out_len: int) -> tuple[float, st
 #: the epilogue pair's launches of each main-path drive, as `_read_counts`
 #: read them (`main` sums them by phase)
 EPILOGUE_READS: list[int] = []
+#: the chain kernels' launches of each main-path drive, (MAC, fold, moving
+#: average) as `_read_counts` read them (`main` sums them by path)
+CHAIN_READS: list[tuple[int, int, int]] = []
 
 
 def _zero_counts() -> None:
     """Set every launch count to 0, just before a main path is driven."""
+    from f9tpu_torch.ops import chain_kernels as ck
     from f9tpu_torch.ops import epilogue as ep
     from f9tpu_torch.ops import src_kernel as sk
 
     sk.launches = sk.launches_windowed = 0
     ep.launches = 0
+    ck.launches_mac = ck.launches_fold = ck.launches_ma = 0
 
 
 def _read_counts() -> tuple[int, int]:
     """(every `cycle_src` launch, those of the windowed form) since
     `_zero_counts`, read just after a main path was driven; the epilogue
-    pair's count is read at the same moment into `EPILOGUE_READS`."""
+    pair's count is read at the same moment into `EPILOGUE_READS`, the
+    chain kernels' into `CHAIN_READS`."""
+    from f9tpu_torch.ops import chain_kernels as ck
     from f9tpu_torch.ops import epilogue as ep
     from f9tpu_torch.ops import src_kernel as sk
 
     EPILOGUE_READS.append(ep.launches)
+    CHAIN_READS.append((ck.launches_mac, ck.launches_fold, ck.launches_ma))
     return sk.launches, sk.launches_windowed
 
 
@@ -4191,6 +4221,363 @@ def phase_fuzz(card: str, dev) -> dict:
             "seconds": {**walls, "total": total}}
 
 
+#: phase 14 (the chain's kernels) fails past this many seconds
+CHAIN_KERNELS_BUDGET_S = 30.0
+#: 14c's shape: the insert loop's batch at 48 kHz, 8 stereo files in the 60 s
+#: capture bucket with its tail
+CHAIN_SHAPE = (8, 2, 2_903_040)
+#: 14a's FFT sizes: the insert loop's n, the next two `_fft_block_size`
+#: picks and one n that is not a power of two
+CHAIN_FFT_SIZES = (8192, 16384, 32768, 6000)
+#: the card's float64 and float32 instruction rates outside the tensor cores
+#: (NVIDIA H100 SXM data sheet, 700 W): 33.5 and 67 TFLOP/s count an FMA as
+#: two operations, and the MAC's, the fold's and the moving average's
+#: operations are separately rounded products and sums, one instruction each
+FP64_INSTR_PER_S = 16.75e12
+FP32_INSTR_PER_S = 33.5e12
+
+
+def _chain_sum(reads: int) -> tuple[int, int, int]:
+    """The chain kernels' launches read since `CHAIN_READS` held ``reads``
+    entries (the epilogue's `EPILOGUE_READS` keeps step with it)."""
+    return tuple(sum(r[i] for r in CHAIN_READS[reads:]) for i in range(3))
+
+
+def _bits(t):
+    """The integer view of a float or complex tensor: `torch.equal` on it is
+    bitwise (a -0.0 differs from +0.0, a NaN equals its own bits)."""
+    import torch
+
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(_bits(a), _bits(b)))
+
+
+def _chain_fft_premise(card: str, dev) -> list[str]:
+    """14a, cuFFT's bits against the batch at each n of `CHAIN_FFT_SIZES`,
+    rFFT and irFFT.  What the group form rests on, a fault at every n: in
+    the one batch shape the card's UPOLS calls, ``(UPOLS_GROUP,
+    UPOLS_FFT_ROWS)``, a row's bits do not depend on where it sits or on the
+    rows beside it (the batch rolled by 7 rows, half of it redrawn).  Each
+    row block's bits in a batch of ``rows`` against one of ``rows x G`` (G =
+    1, 7, 32, 33; rows 1, 2, 16): a fault at n = 8192, where 14b's groups
+    of one and `tools/upols_sum_ablation.py` compare group sizes; counted
+    elsewhere, as are the first rows of a batch of ``G x rows`` (rows 1, 2,
+    8) against one of ``G x 16``, which row tiles keep out of the path."""
+    import torch
+
+    from f9tpu_torch.ops import chain as ch
+
+    faults = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    G, R = ch.UPOLS_GROUP, ch.UPOLS_FFT_ROWS
+    for n in CHAIN_FFT_SIZES:
+        x = torch.randn((G, R, n), device=dev, generator=gen)
+        X = torch.fft.rfft(x, n=n, dim=-1)
+        xi = torch.fft.irfft(X, n=n, dim=-1)
+        x2 = x.reshape(G * R, n).roll(7, 0).reshape(G, R, n).clone()
+        X2 = X.reshape(G * R, -1).roll(7, 0).reshape(G, R, -1).clone()
+        keep = torch.zeros(G * R, dtype=torch.bool, device=dev)
+        keep[::2] = True
+        keep = keep.reshape(G, R)
+        x2[~keep] = torch.randn((int((~keep).sum()), n), device=dev, generator=gen)
+        X2[~keep] = torch.fft.rfft(x2[~keep], n=n, dim=-1)
+        want_r = _bits(X.reshape(G * R, -1).roll(7, 0).reshape(G, R, -1))
+        want_i = _bits(xi.reshape(G * R, n).roll(7, 0).reshape(G, R, n))
+        tiled = []
+        if not torch.equal(_bits(torch.fft.rfft(x2, n=n, dim=-1))[keep], want_r[keep]):
+            tiled.append(f"n={n} rfft: a row moved in the ({G}, {R}) batch")
+        if not torch.equal(_bits(torch.fft.irfft(X2, n=n, dim=-1))[keep], want_i[keep]):
+            tiled.append(f"n={n} irfft: a row moved in the ({G}, {R}) batch")
+        wide = []
+        x = torch.randn((G, 16, n), device=dev, generator=gen)
+        X = torch.fft.rfft(x, n=n, dim=-1)
+        wide_r, wide_i = _bits(X), _bits(torch.fft.irfft(X, n=n, dim=-1))
+        for rows in (1, 2, 8):
+            if not torch.equal(_bits(torch.fft.rfft(x[:, :rows].contiguous(), n=n, dim=-1)),
+                               wide_r[:, :rows]):
+                wide.append(f"rfft {G} x {rows}")
+            if not torch.equal(_bits(torch.fft.irfft(X[:, :rows].contiguous(), n=n, dim=-1)),
+                               wide_i[:, :rows]):
+                wide.append(f"irfft {G} x {rows}")
+        differ, cases = [], 0
+        for rows in (1, 2, 16):
+            x = torch.randn((rows * 33, n), device=dev, generator=gen)
+            X = torch.fft.rfft(x, n=n, dim=-1)
+            for g in (1, 7, 32, 33):
+                m = rows * g
+                big_r = torch.fft.rfft(x[:m], n=n, dim=-1)
+                big_i = torch.fft.irfft(X[:m], n=n, dim=-1)
+                for gi in range(g):
+                    sl = slice(gi * rows, (gi + 1) * rows)
+                    cases += 1
+                    if not _bitwise(big_r[sl], torch.fft.rfft(x[sl], n=n, dim=-1)):
+                        differ.append(f"n={n} rfft rows={rows} G={g} block {gi}")
+                    if not _bitwise(big_i[sl], torch.fft.irfft(X[sl], n=n, dim=-1)):
+                        differ.append(f"n={n} irfft rows={rows} G={g} block {gi}")
+        faults += tiled + (differ if n == 8192 else [])
+        print(f"chain 14a: cuFFT n={n}: rows moved and redrawn in the ({G}, {R}) batch: "
+              f"{len(tiled)} transforms differ; rows vs rows x G (G = 1, 7, 32, 33; rows 1, 2, "
+              f"16): {cases} blocks, {len(differ)} transforms differ {differ[:2]}"
+              f"{'' if n == 8192 else ' (counted)'}; {G} x rows vs {G} x 16 (rows 1, 2, 8): "
+              f"{len(wide)} differ {wide} (counted) [{card}]", flush=True)
+    return faults
+
+
+def _chain_twin_cases(card: str, dev) -> list[str]:
+    """14b: each kernel against its twin on the card, bitwise: the MAC at K
+    = 1, 2, 7, 30, 64, mono and two-channel H, 1, 2 and 16 rows, groups of
+    1, 5 and 32; the fold at W = 2, 3, 7, 351, 1024 and the moving average
+    at 2, 48, 73, 240, 4801 and 20,000 (past the staged span) on rows of
+    100,037 frames that start with +0.0 and -0.0, and on one 1-D row; the
+    whole `_upols` / `_upols_stream` at B = 4096, 8192 and 16384 chunked at
+    1, G - 1, G and G + 1 blocks, and at 4096 with groups of 1, by sha256,
+    and two rows alone against the same rows in a batch of 16."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.ops import chain as ch
+    from f9tpu_torch.ops import chain_kernels as ck
+
+    faults, n_mac = [], 0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 141)
+    t0 = time.time()
+    for K in (1, 2, 7, 30, 64):
+        for hrows in (1, 2):
+            for rows in (1, 2, 16):
+                for G in (1, 5, 32):
+                    lead = (rows,) if hrows == 1 else (2, rows)
+                    buf = torch.randn((K - 1 + G, *lead, 4097), dtype=torch.complex64,
+                                      device=dev, generator=gen)
+                    H = torch.randn((K, *((1,) if hrows == 1 else (2, 1)), 4097),
+                                    dtype=torch.complex64, device=dev, generator=gen)
+                    n_mac += 1
+                    if not _bitwise(ck.upols_mac(buf, H, G), ck.upols_mac_reference(buf, H, G)):
+                        faults.append(f"upols_mac K={K} H rows={hrows} rows={rows} G={G}")
+    print(f"chain 14b: upols_mac vs twin: {n_mac - len(faults)} of {n_mac} cases bitwise "
+          f"({time.time() - t0:.1f} s) [{card}]", flush=True)
+
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 142)
+    x = (0.3 * rng.standard_normal((3, 2, 100_037))).astype(np.float32)
+    x[0, :, :50] = 0.0
+    x[1, :, :50] = -0.0
+    xd = torch.from_numpy(x).to(dev)
+    n_fold = n_ma = 0
+    for sig, label in ((xd, "(3, 2, 100037)"), (xd[2, 1].contiguous(), "1-D")):
+        for W in (2, 3, 7, 351, 1024):
+            taps = (rng.standard_normal(W) / np.sqrt(W)).astype(np.float32)
+            n_fold += 1
+            if not _bitwise(ch._fir_fold(sig, taps), ch._fir_fold_reference(sig, taps)):
+                faults.append(f"fir_fold W={W} {label}")
+        for win in (2, 48, 73, 240, 4801, 20000):
+            n_ma += 1
+            if not _bitwise(ch._uniform_ma_past(sig, win),
+                            ch._uniform_ma_past_reference(sig, win)):
+                faults.append(f"ma_past win={win} {label}")
+    print(f"chain 14b: fir_fold {n_fold} and ma_past {n_ma} cases vs twins: "
+          f"{len([f for f in faults if not f.startswith('upols')])} faults "
+          f"({time.time() - t0:.1f} s) [{card}]", flush=True)
+
+    G = ch.UPOLS_GROUP
+    ir = _stereo_ir(np.random.default_rng(SEED + 143))
+    nb = 3 * G + 7
+    xs = torch.from_numpy((0.2 * rng.standard_normal((2, 1, nb * 16384))).astype(np.float32)).to(dev)
+    x16 = 0.2 * torch.randn((16, 8 * 16384), device=dev, generator=gen)
+    for B in (4096, 8192, 16384):    # the reverb's block, and the next two (n = 32768)
+        t0 = time.time()
+        H = ch._spectrum([ch._partition_ir(r, B) for r in ir], dev)   # (K, 2, 1, Nf)
+        h = H[:, 0]                                                   # (K, 1, Nf)
+        if not _bitwise(ch._upols_rows(x16, h, B)[:2], ch._upols_rows(x16[:2], h, B)):
+            faults.append(f"_upols_rows B={B}: 2 rows alone != in a batch of 16")
+        x = xs[..., :nb * B]
+        digest = _digest(ch._upols(x, H, B))
+        shas = {}
+        for blocks in (1, G - 1, G, G + 1):
+            state = ch._upols_state((2, 1), H.shape[0], B, dev)
+            out = []
+            for a in range(0, nb * B, blocks * B):
+                y, state = ch._upols_stream(x[..., a:a + blocks * B], state, H, B)
+                out.append(y)
+            shas[f"chunks of {blocks}"] = _digest(torch.cat(out, dim=-1))
+        if B == 4096:
+            ch.UPOLS_GROUP = 1
+            try:
+                shas["groups of 1"] = _digest(ch._upols(x, H, B))
+            finally:
+                ch.UPOLS_GROUP = G
+        bad = [k for k, v in shas.items() if v != digest]
+        faults += [f"_upols B={B} {k} != whole" for k in bad]
+        print(f"chain 14b: _upols on 2 x {nb} blocks (B={B}, K={H.shape[0]}, G={G}) whole "
+              f"sha256 {digest}; streamed and regrouped: {shas}; 2 rows alone vs in 16: "
+              f"{'differ' if any(f.startswith(f'_upols_rows B={B}:') for f in faults) else 'bitwise'}"
+              f" ({time.time() - t0:.1f} s) [{card}]", flush=True)
+    return faults
+
+
+def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
+    """14c: each kernel against its twin at the insert loop's shapes, bitwise
+    (a fault otherwise), its one-call time (CUDA events, median of 10), its
+    bound, its twin's time (median of 3) and a library yardstick the port
+    never calls, then the stages around them: `_fft_convolve_multi` of the
+    2.5 s stereo IR, the 351-tap EQ's fold, the compressor and the limiter.
+    Returns the JSON summary's numbers, with the launches of the stage calls
+    as the path "chain_stages", and the faults."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from f9tpu_torch import cli
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.ops import chain as ch
+    from f9tpu_torch.ops import chain_kernels as ck
+
+    files, C, T = CHAIN_SHAPE
+    rng = np.random.default_rng(SEED + 144)
+    work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+    try:
+        ir_path = os.path.join(work, "IR.wav")
+        wav.write_wav(ir_path, _stereo_ir(rng), 48000, bits=32)
+        chain = cli._build_chain(argparse.Namespace(**_chain_args(ir_path)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    delay, eq, comp, rev, lim = chain.stages
+    gen = torch.Generator(device=dev).manual_seed(SEED + 145)
+    y = 0.1 * torch.randn((files, C, T), device=dev, generator=gen)
+    out, faults = {}, []
+
+    # the MAC: one group of the reverb's true-stereo delay line
+    B = rev.stream_grid(48000)
+    H = rev._spectrum(B, dev).to(torch.complex64)                      # (30, 2, 1, Nf)
+    K, G, Nf = H.shape[0], ch.UPOLS_GROUP, B + 1
+    buf = torch.randn((K - 1 + G, C, files, Nf), dtype=torch.complex64, device=dev,
+                      generator=gen)
+    got = ck.upols_mac(buf, H, G)
+    want = ck.upols_mac_reference(buf, H, G)
+    err = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
+    if not _bitwise(got, want):
+        faults.append(f"upols_mac != twin at K={K}, G={G}, {C} x {files} rows (max {err:.3g})")
+    rows = C * files
+    t_ops = 8.0 * K * G * rows * Nf / FP64_INSTR_PER_S
+    t_bytes = 8.0 * Nf * ((K - 1 + G) * rows + K * C + G * rows) / HBM_BYTES_PER_S
+    Xw = buf.unfold(0, K, 1)                                  # (G, C, files, Nf, K)
+    Hr = H.flip(0).movedim(0, -1)                             # (C, 1, Nf, K)
+    lib = _median_ms(lambda: torch.einsum("gcrfk,crfk->gcrf", Xw, Hr.expand(C, files, Nf, K)))
+    out["upols_mac"] = dict(
+        ms=_median_ms(lambda: ck.upols_mac(buf, H, G)),
+        plain_ms=_median_ms(lambda: ck.upols_mac_reference(buf, H, G), runs=3),
+        bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+        library_ms=lib, max_abs_err=err,
+        shape=f"K={K}, G={G}, {C} x {files} rows, {Nf} bins")
+
+    # the fold: the EQ's IR on the whole batch
+    taps = eq._taps(48000)
+    W = int(taps.shape[0])
+    tp = torch.from_numpy(taps.copy()).to(dev)
+    got = ck.fir_fold(y, tp)
+    want = ch._fir_fold_reference(y, taps)
+    err = float((got - want).abs().max())
+    if not _bitwise(got, want):
+        faults.append(f"fir_fold != twin at W={W} on {files} x {C} x {T} (max {err:.3g})")
+    n_out = files * C * T
+    t_ops = (2 * W - 1) * n_out / FP32_INSTR_PER_S
+    t_bytes = (8.0 * n_out + 4 * W) / HBM_BYTES_PER_S
+    wt = torch.from_numpy(np.ascontiguousarray(taps[::-1])).to(dev).reshape(1, 1, W)
+    lib = _median_ms(lambda: F.conv1d(y.reshape(-1, 1, T), wt, padding=W - 1)[..., :T])
+    out["fir_fold"] = dict(
+        ms=_median_ms(lambda: ck.fir_fold(y, tp)),
+        plain_ms=_median_ms(lambda: ch._fir_fold_reference(y, taps), runs=3),
+        bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+        library_ms=lib, max_abs_err=err, shape=f"W={W}, {files} x {C} x {T}")
+
+    # the moving averages: the compressor's detector (1 ms) on both channels,
+    # its attack (5 ms) and the limiter's ramp (1.5 ms + 1) on the linked row
+    sq = torch.square(y)
+    link = sq[:, :1].contiguous()
+    per_win = {}
+    for win, v in ((48, sq), (240, link), (73, link)):
+        got = ck.ma_past(v, win)
+        want = ch._uniform_ma_past_reference(v, win)
+        e = float((got - want).abs().max())
+        if not _bitwise(got, want):
+            faults.append(f"ma_past != twin at win={win} on {tuple(v.shape)} (max {e:.3g})")
+        n_v = v.numel()
+        t_ops = win * n_v / FP32_INSTR_PER_S
+        t_bytes = 8.0 * n_v / HBM_BYTES_PER_S
+        vin = F.pad(v.reshape(-1, 1, v.shape[-1]), (win - 1, 0))
+        per_win[win] = dict(
+            ms=_median_ms(lambda: ck.ma_past(v, win)),
+            plain_ms=_median_ms(lambda: ch._uniform_ma_past_reference(v, win), runs=3),
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            library_ms=_median_ms(lambda: F.avg_pool1d(vin, win, stride=1)),
+            max_abs_err=e, shape=f"win={win}, {tuple(v.shape)}")
+    out["ma_past"] = dict(per_win[240], per_window=per_win)
+    for name in ("upols_mac", "fir_fold"):
+        print(f"chain 14c: {name} ({out[name]['shape']}): kernel {out[name]['ms']:.3f} ms, "
+              f"bound {out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']}), twin "
+              f"{out[name]['plain_ms']:.2f} ms, library {out[name]['library_ms']:.3f} ms, "
+              f"max |kernel - twin| {out[name]['max_abs_err']:.3g} [{card}]", flush=True)
+    for win, r in per_win.items():
+        print(f"chain 14c: ma_past ({r['shape']}): kernel {r['ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}), twin {r['plain_ms']:.2f} ms, "
+              f"avg_pool1d {r['library_ms']:.3f} ms, max |kernel - twin| "
+              f"{r['max_abs_err']:.3g} [{card}]", flush=True)
+
+    # the stages around them, on the same batch, their launches counted
+    _zero_counts()
+    stages = {}
+    for label, fn in (("_fft_convolve_multi, 2.5 s stereo IR (UPOLS)",
+                       lambda: ch._fft_convolve_multi(y, rev.ir)),
+                      (f"_fir_fold, the {W}-tap EQ", lambda: ch._fir_fold(y, taps)),
+                      ("Compressor -18:3", lambda: comp.apply(y, 48000)),
+                      ("Limiter -0.3", lambda: lim.apply(y, 48000))):
+        _, stages[label] = _timed(fn)
+    counts = (ck.launches_mac, ck.launches_fold, ck.launches_ma)
+    for label, ms in stages.items():
+        print(f"chain 14c: stage {label} on {files} x {C} x {T}: {ms:.2f} ms [{card}]",
+              flush=True)
+    print(f"chain 14c: launches in the stage calls (3 runs each): upols_mac {counts[0]}, "
+          f"fir_fold {counts[1]}, ma_past {counts[2]} [{card}]", flush=True)
+    out["stages_ms"] = stages
+    out["launches"] = counts
+    return out, faults
+
+
+def phase_chain_kernels(card: str, dev) -> dict:
+    """Phase 14, the insert chain's kernels: 14a cuFFT's bits against the
+    batch count, 14b each kernel against its twin and UPOLS chunked and
+    regrouped against whole, 14c each kernel against its twin at the
+    insert loop's shapes and the times; held to
+    `CHAIN_KERNELS_BUDGET_S`.  Returns 14c's numbers."""
+    t_all = time.time()
+    walls, faults = {}, []
+    t0 = time.time()
+    faults += _chain_fft_premise(card, dev)
+    walls["14a"] = time.time() - t0
+    t0 = time.time()
+    faults += _chain_twin_cases(card, dev)
+    walls["14b"] = time.time() - t0
+    t0 = time.time()
+    out, times_faults = _chain_times(card, dev)
+    faults += times_faults
+    walls["14c"] = time.time() - t0
+    total = time.time() - t_all
+    print(f"phase 14 (chain kernels): {total:.1f} s (budget {CHAIN_KERNELS_BUDGET_S:g}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
+    if total > CHAIN_KERNELS_BUDGET_S:
+        faults.append(f"{total:.1f} s > {CHAIN_KERNELS_BUDGET_S:g} s")
+    _raise_faults("phase 14", faults)
+    out["seconds"] = dict(walls, total=total)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4229,6 +4616,15 @@ def main() -> int:
         print(json.dumps({k: out[k] for k in ("launches", "worst", "trials", "seconds")}),
               flush=True)
         return 0
+    if sys.argv[1:] == ["--chain-kernels"]:
+        card = _card()
+        print(card, flush=True)
+        _build.load_library()
+        print(_build.build_log.strip(), flush=True)
+        out = phase_chain_kernels(card, resolve_device("cuda"))
+        print(json.dumps({k: {kk: vv for kk, vv in out[k].items() if kk != "per_window"}
+                          for k in ("upols_mac", "fir_fold", "ma_past")}), flush=True)
+        return 0
     if sys.argv[1:] == ["--epilogue"]:
         _build.load_library()
         print(_build.build_log.strip(), flush=True)
@@ -4254,6 +4650,7 @@ def main() -> int:
     dense = {}
     windowed = {}
     epilogue_by_path = {}
+    chain_by_path = {}
     kw = None
     slice_work = None
     for n, path, phase in ((4, "default_job", lambda c, w: phase_slice(c, w, dev=dev)),
@@ -4276,6 +4673,7 @@ def main() -> int:
             # unless it was counted as the windowed form's
             total, windowed[path] = phase(card, work)
             epilogue_by_path[path] = sum(EPILOGUE_READS[reads:])
+            chain_by_path[path] = _chain_sum(reads)
             dense[path] = total - windowed[path]
             if path == "default_job":
                 slice_work, work = work, None    # phase 9a holds its outputs to these
@@ -4291,6 +4689,7 @@ def main() -> int:
         for path, (total, win) in phase_tools(card, work, dev).items():
             dense[path], windowed[path] = total - win, win
         epilogue_by_path["tools"] = sum(EPILOGUE_READS[reads:])
+        chain_by_path["tools"] = _chain_sum(reads)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 8 (tool path): {time.time() - t0:.1f} s", flush=True)
@@ -4303,6 +4702,7 @@ def main() -> int:
             for path, (total, win) in phase_multi_device(card, work, slice_work, dev).items():
                 dense[path], windowed[path] = total - win, win
             epilogue_by_path["multi_device"] = sum(EPILOGUE_READS[reads:])
+            chain_by_path["multi_device"] = _chain_sum(reads)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase 9 (multi-device): {time.time() - t0:.1f} s", flush=True)
@@ -4314,6 +4714,7 @@ def main() -> int:
             for path, (total, win) in phase_rows(card, work, slice_work, dev).items():
                 dense[path], windowed[path] = total - win, win
             epilogue_by_path["rows_layout"] = sum(EPILOGUE_READS[reads:])
+            chain_by_path["rows_layout"] = _chain_sum(reads)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase 10 (rows layout): {time.time() - t0:.1f} s", flush=True)
@@ -4338,6 +4739,30 @@ def main() -> int:
     kf = phase_fuzz(card, dev)
     for path, (d, w, e) in kf["launches"].items():
         dense[path], windowed[path], epilogue_by_path[path] = d, w, e
+    t0 = time.time()
+    kc = phase_chain_kernels(card, dev)
+    print(f"phase 14 (chain kernels): {time.time() - t0:.1f} s", flush=True)
+    chain_by_path["chain_stages"] = kc["launches"]
+    chain_kernels = []
+    for i, (name, source, replaces) in enumerate((
+            ("upols_mac", "f9tpu_torch/csrc/upols.cu", "f9tpu/ops/chain.py:128"),
+            ("fir_fold", "f9tpu_torch/csrc/fold.cu", "f9tpu/ops/chain.py:85"),
+            ("ma_past", "f9tpu_torch/csrc/fold.cu", "f9tpu/ops/chain.py:873"))):
+        by_path = {p: n[i] for p, n in chain_by_path.items()}
+        print(f"{name}: launches by path {by_path} [{card}]", flush=True)
+        need = ("insert_loop", "stream") + (("normalize",) if name == "upols_mac" else ())
+        idle = [p for p in need if by_path.get(p, 0) < 1]
+        if idle:
+            raise AssertionError(f"{name}: no launch on the paths {idle}")
+        k14 = kc[name]
+        chain_kernels.append({
+            # no TPU kernel computes it: XLA compiles the scan or fuses the
+            # shifted terms (`replaces` names the JAX function)
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **{k: k14[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}})
+    chain_kernels[0]["also_replaces"] = "f9tpu/ops/chain.py:160"
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",
@@ -4392,7 +4817,7 @@ def main() -> int:
         "library_ms": None,
         "per_shape": ke["per_shape"],
         "per_graph": ke["per_graph"],
-    }]}), flush=True)
+    }, *chain_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

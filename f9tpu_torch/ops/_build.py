@@ -70,6 +70,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.f9_epilogue.argtypes = [vp] * 13 + [i32, i32, i64, i64, i32, f32, f32, f32, i64,
                                             i32, i32, i32, vp]
     lib.f9_epilogue.restype = i32
+    lib.f9_upols_mac.argtypes = [vp, vp, vp, i64, i64, i64, i32, i32, i32, vp]
+    lib.f9_upols_mac.restype = i32
+    lib.f9_fir_fold.argtypes = [vp, vp, vp, i64, i64, i32, vp]
+    lib.f9_fir_fold.restype = i32
+    lib.f9_ma_past.argtypes = [vp, vp, i64, i64, i32, f32, vp]
+    lib.f9_ma_past.restype = i32
     return lib
 
 

@@ -19,9 +19,10 @@ Numerics, as in the JAX package:
   association, so each output's float32 op sequence does not depend on its
   position in the buffer;
 - long convolutions (reverb IRs, long FIR/biquad IRs) run as
-  uniform-partitioned overlap-save (`_upols`): a loop over 2B-frame blocks
-  on ``torch.fft`` with a K-deep frequency-domain delay line, so memory is
-  O(K*N) whatever the capture length;
+  uniform-partitioned overlap-save (`_upols`) on ``torch.fft``: groups of
+  `UPOLS_GROUP` 2B-frame blocks, each group one batched rFFT, one launch of
+  the K-deep frequency-domain multiply-sum and one batched irFFT, so memory
+  is O((K + G) * N) whatever the capture length;
 - dynamics (compressor, expander, limiter) use causal moving averages
   (`_uniform_ma_past`, a fixed-order fold for every window), a slanted
   running maximum for the linear-in-dB release (`Compressor._slanted_cummax`)
@@ -37,6 +38,10 @@ on the absolute `_ENV_BLOCK` grid.  No library convolution runs anywhere in
 the chain: a convolution's algorithm, and so its rounding, is picked by
 shape.  On the CPU the transcendentals go through `_whole_vectors`, which
 keeps torch's scalar loop tails out of every call.
+
+On a card the fold, the moving average and UPOLS's multiply-sum are
+hand-written CUDA kernels (`ops/chain_kernels.py`, `csrc/fold.cu`,
+`csrc/upols.cu`), each equal bit for bit to the plain form the CPU runs.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from . import chain_kernels
+from .chain_kernels import _delay_line_sum  # noqa: F401  (the tree's one definition)
 
 __all__ = [
     "Chain",
@@ -122,7 +129,25 @@ def _whole_vectors(fn, x: torch.Tensor) -> torch.Tensor:
     return fn(flat)[:n].reshape(x.shape)
 
 
-def _fir_fold(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+def _fir_fold(x: torch.Tensor, taps: np.ndarray,
+              device_taps: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal FIR along the last axis, ``out[n] = sum_k taps[k] * x[n-k]``:
+    one multiply for a single tap; else `_fir_fold_reference` on a CPU
+    tensor and the fold kernel (`chain_kernels.fir_fold`, bitwise the same)
+    on any other, with ``device_taps`` (the same taps on ``x``'s device, as
+    a stage keeps them: `_FIRStage._fold_taps`) or a copy made for the
+    call."""
+    taps = np.asarray(taps, np.float32).reshape(-1)
+    if taps.shape[0] == 1:
+        return x * float(taps[0])
+    if x.device.type == "cpu":
+        return _fir_fold_reference(x, taps)
+    if device_taps is None:
+        device_taps = torch.from_numpy(taps.copy()).to(x.device)
+    return chain_kernels.fir_fold(x.contiguous(), device_taps)
+
+
+def _fir_fold_reference(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     """Causal FIR along the last axis, ``out[n] = sum_k taps[k] * x[n-k]``,
     with position-invariant numerics: W shifted scalar products combined in
     a fixed pairwise tree.  The node at level l, index i sums taps
@@ -180,8 +205,9 @@ def _partition_ir(ir: np.ndarray, B: int) -> tuple[np.ndarray, np.ndarray]:
 def _spectrum(parts: list[tuple[np.ndarray, np.ndarray]], device) -> torch.Tensor:
     """Partitioned spectra of C IRs as one ``(K, C, 1, Nf)`` tensor on
     ``device`` (the trailing 1 broadcasts over signal rows): complex64 on
-    the card, complex128 on the CPU, where `_upols_step`'s product needs
-    it (the values are the same float32 numbers)."""
+    the card, where the multiply-sum kernel reads it, complex128 on the
+    CPU, where its plain twin forms the products (the values are the same
+    float32 numbers)."""
     re = np.stack([p[0] for p in parts], axis=1)[:, :, None, :]
     im = np.stack([p[1] for p in parts], axis=1)[:, :, None, :]
     H = torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
@@ -200,68 +226,118 @@ def _cached_spectrum(cache: dict, key, irs, B: int, device) -> torch.Tensor:
     return H
 
 
-def _delay_line_sum(p: torch.Tensor) -> torch.Tensor:
-    """``p.sum(0)`` in a fixed order: a halving tree, in place.  While n
-    rows remain, rows ``[0, n - h)`` add rows ``[h, n)``, ``h = ceil(n /
-    2)``; an odd n leaves row ``h - 1`` as it is for the next level.  The
-    order depends on K alone, never on the rows behind it: ceil(log2 K)
-    elementwise launches where a library reduction was one."""
-    n = p.shape[0]
-    while n > 1:
-        h = (n + 1) // 2
-        p[:n - h].add_(p[h:n])
-        n = h
-    return p[0]
+#: UPOLS blocks transformed together and summed by one kernel launch
+UPOLS_GROUP = 32
+#: signal rows of one FFT call off the CPU: every transform there is of
+#: ``(UPOLS_GROUP, UPOLS_FFT_ROWS)`` windows (8 stereo files fill it)
+UPOLS_FFT_ROWS = 16
 
 
-def _upols_step(fdl: torch.Tensor, win: torch.Tensor, H: torch.Tensor, B: int):
-    """One block of uniform-partitioned overlap-save.  ``win (..., 2B)`` is
-    the previous and the current input block; ``fdl (K, ..., Nf)`` the
-    frequency-domain delay line, newest block first; ``H (K, ..., Nf)`` the
-    partitioned IR spectrum.  Returns the new delay line and the block's B
-    alias-free output frames.
+def _fft_rows(rows: int, device: torch.device) -> int:
+    """Rows of one UPOLS FFT call: all of them on the CPU, where MKL gives a
+    row the same bits in a batch of ``G x rows`` whatever ``rows`` is
+    (`tests/test_torch_chain_kernels.py`), and `UPOLS_FFT_ROWS` elsewhere:
+    cuFFT at n = 32768 rounds a row in a batch of 32 x 1 or 32 x 2 apart
+    from one of 32 x 16 (`chip_smoke.py` 14a), so a fixed batch keeps a
+    file's bytes off the rows beside it."""
+    return rows if device.type == "cpu" else UPOLS_FFT_ROWS
 
-    The window is made contiguous, so the batch and the streamed forms hand
-    the FFT the same layout.  Each row's output is the same bits whatever
-    rows run beside it, so a file's bytes do not follow the batch width:
-    the K-deep sum ``sum_k fdl[k] * H[k]`` is `_delay_line_sum`, whose order
-    depends on K alone (a library reduction picks its order by the whole
-    shape), and each product is one device function per element on the
-    card.  On the CPU, a float32 complex product rounds apart in torch's
-    vector body and in a thread's scalar tail (which contracts to an FMA),
-    and the tails move with the row count; so there ``H`` is complex128,
-    every product of two float32 numbers is exact and the one rounding of
-    ``ac - bd`` is the same in either code, the tree adds in float64 and
-    ``Y`` is rounded to complex64 once.  cuFFT, MKL and pocketfft round
-    apart, so the card, the CPU and the JAX package agree to a bound, not
-    bitwise."""
-    Xi = torch.fft.rfft(win.contiguous(), n=2 * B, dim=-1)
-    fdl = torch.cat([Xi[None], fdl[:-1]], dim=0)
-    Y = _delay_line_sum(fdl * H).to(torch.complex64)
-    return fdl, torch.fft.irfft(Y, n=2 * B, dim=-1)[..., B:]
+
+def _upols_core(wins: torch.Tensor, carried: torch.Tensor, H: torch.Tensor, B: int):
+    """Uniform-partitioned overlap-save over the windows ``wins (*lead, nb,
+    2B)`` (each the previous and the current B-frame input block) with the
+    partitioned IR spectrum ``H (K, ..., Nf)``, broadcast against ``lead``.
+    ``carried (K - 1, *lead, Nf)`` complex64 holds the spectra of the K - 1
+    blocks before the first window, oldest first.  Returns ``(y (*lead, nb *
+    B), carried')``, ``carried'`` the last K - 1 spectra, newest last.
+
+    The JAX package scans the blocks one at a time; the only state the scan
+    carries is the delay line, and a block's spectrum depends on its input
+    alone.  So a group of `UPOLS_GROUP` blocks runs as one batched rFFT of
+    its windows, written behind the K - 1 carried spectra in one buffer; one
+    `chain_kernels.upols_mac` for every block's ``Y_g = sum_k X[g-k] *
+    H[k]``; one batched irFFT; and the K - 1 newest spectra are copied to
+    the front of the next group's buffer.
+
+    Every FFT call has one shape, ``(G, R, 2B)`` with R = `_fft_rows`: the
+    last group is padded with windows that are never read back, and off the
+    CPU the rows are cut into tiles of R, the last padded.  The FFT
+    libraries pick their algorithm by the batch (MKL at n >= 16384 on
+    several threads, and at an n with a large prime factor, rounds a batch
+    of one row apart from one of two; cuFFT at n = 32768 a batch of 32 or 64
+    apart from one of 512), so a batch that followed the group's length or
+    the row count would make the streamed form depend on the chunk size and
+    a file's bytes on the files beside it.  What is left to rest on is that
+    a row's transform does not depend on where in the batch it sits
+    (`chip_smoke.py` 14a holds cuFFT to it).  The multiply-sum is formed in
+    float64 in `_delay_line_sum`'s order, fixed by K, on either device.
+    cuFFT, MKL and pocketfft round apart, so the card, the CPU and the JAX
+    package agree to a bound, not bitwise.  A float64 signal is transformed
+    in float64 (complex128 spectra, which the card's kernel refuses)."""
+    lead, nb = wins.shape[:-2], wins.shape[-2]
+    K, Nf, G = H.shape[0], B + 1, UPOLS_GROUP
+    rows = math.prod(lead)
+    R = max(1, _fft_rows(rows, wins.device))
+    whole = R == rows                # one tile: the FFTs read and write the buffers
+    if H.device.type != "cpu":
+        H = H.contiguous()
+    spec = torch.promote_types(wins.dtype, torch.complex64)
+    bufs = [torch.empty((K - 1 + G, rows, Nf), dtype=spec, device=wins.device)
+            for _ in range(2 if nb > G else 1)]
+    bufs[0][:K - 1] = carried.reshape(K - 1, rows, Nf)
+    win = wins.new_zeros((G, R, 2 * B))
+    Yt = None if whole else torch.zeros((G, R, Nf), dtype=torch.complex64, device=wins.device)
+    y = wins.new_empty((rows, nb, B))
+    for n, i0 in enumerate(range(0, nb, G)):
+        buf = bufs[n % len(bufs)]
+        g = min(G, nb - i0)
+        src = torch.movedim(wins[..., i0:i0 + g, :], -2, 0)          # (g, *lead, 2B)
+        if whole:
+            win[:g].view(g, *lead, 2 * B).copy_(src)
+            torch.fft.rfft(win, n=2 * B, dim=-1, out=buf[K - 1:])
+        else:
+            src = src.reshape(g, rows, 2 * B)
+            for r0 in range(0, rows, R):
+                r = min(R, rows - r0)
+                win[:g, :r] = src[:, r0:r0 + r]
+                buf[K - 1:, r0:r0 + r] = torch.fft.rfft(win, n=2 * B, dim=-1)[:, :r]
+        Y = chain_kernels.upols_mac(buf[:K - 1 + g].view(K - 1 + g, *lead, Nf), H, g)
+        Y = Y.view(g, rows, Nf)
+        for r0 in range(0, rows, R):
+            r = min(R, rows - r0)
+            if whole:
+                Yp = Y if g == G else torch.cat([Y, Y.new_zeros((G - g, rows, Nf))])
+            else:
+                Yt[:g, :r] = Y[:, r0:r0 + r]
+                Yp = Yt
+            z = torch.fft.irfft(Yp, n=2 * B, dim=-1)                 # (G, R, 2B)
+            y[r0:r0 + r, i0:i0 + g] = torch.movedim(z[:g, :r, B:], 0, 1)
+        if i0 + g < nb:
+            bufs[(n + 1) % len(bufs)][:K - 1] = buf[g:g + K - 1]
+    return (y.view(*lead, nb * B),
+            buf[g:g + K - 1].view(K - 1, *lead, Nf).clone())
 
 
 def _upols(x: torch.Tensor, H: torch.Tensor, B: int) -> torch.Tensor:
     """Causal convolution of ``x (..., T)`` with the partitioned IR ``H
     (K, ..., Nf)`` (broadcast against ``x``'s leading axes), truncated to
-    T.  A Python loop over ceil(T/B) blocks of `_upols_step`: work
-    O(T/B * K * N log N), memory O(K*N) beside the signal."""
+    T: `_upols_core` over ceil(T/B) blocks from zero state, one zero block
+    in front.  Work O(T/B * K * N log N), memory O((K + G) * N) beside the
+    signal."""
     T = x.shape[-1]
     nb = max(1, -(-T // B))
-    xp = F.pad(x, (B, nb * B - T))                  # one zero block in front
     lead = torch.broadcast_shapes(x.shape[:-1], H.shape[1:-1])
-    fdl, _ = _upols_state(lead, H.shape[0], B, x.device)
-    y = x.new_empty((*lead, nb * B))
-    for i in range(nb):
-        fdl, y[..., i * B:(i + 1) * B] = _upols_step(
-            fdl, xp[..., i * B:i * B + 2 * B], H, B)
-    return y[..., :T]
+    xp = F.pad(x, (B, nb * B - T)).expand(*lead, (nb + 1) * B)
+    carried, _ = _upols_state(lead, H.shape[0], B, x.device)
+    return _upols_core(xp.unfold(-1, 2 * B, B), carried, H, B)[0][..., :T]
 
 
 def _upols_state(lead, K: int, B: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The zero UPOLS state for rows ``lead``: the delay line ``(K, *lead,
-    B + 1)`` complex64 and the previous input block ``(*lead, B)``."""
-    return (torch.zeros((K, *lead, B + 1), dtype=torch.complex64, device=device),
+    """The zero UPOLS state for rows ``lead``: the spectra of the K - 1
+    blocks before the stream's start ``(K - 1, *lead, B + 1)`` complex64,
+    oldest first and newest last, and the previous input block ``(*lead,
+    B)``."""
+    return (torch.zeros((K - 1, *lead, B + 1), dtype=torch.complex64, device=device),
             torch.zeros((*lead, B), dtype=torch.float32, device=device))
 
 
@@ -269,20 +345,20 @@ def _upols_stream(x: torch.Tensor, state, H: torch.Tensor, B: int):
     """Streaming form of `_upols`, bitwise equal to it when the chunk ``x
     (..., T)`` starts on the absolute block grid and T is a multiple of B:
     each block's window holds the values the whole signal's window holds
-    and goes through the same `_upols_step` on the same rows.  ``state`` is
-    (delay line, previous input block); returns ``(y, state')``."""
-    fdl, prev = state
+    and goes through the same rFFT, multiply-sum and irFFT on the same rows,
+    however the blocks fall into groups.  ``state`` is (the last K - 1
+    spectra, previous input block); returns ``(y, state')``."""
+    carried, prev = state
     T = x.shape[-1]
     if T % B:
         raise ValueError(f"a streamed FFT stage takes chunks of whole "
                          f"{B}-frame blocks, got {T} frames")
-    y = torch.empty_like(x)
-    for i in range(T // B):
-        cur = x[..., i * B:(i + 1) * B]
-        fdl, y[..., i * B:(i + 1) * B] = _upols_step(
-            fdl, torch.cat([prev, cur], dim=-1), H, B)
-        prev = cur
-    return y, (fdl, prev.clone())
+    if T == 0:
+        return torch.empty_like(x), state
+    lead = torch.broadcast_shapes(x.shape[:-1], H.shape[1:-1])
+    z = torch.cat([prev.expand(*lead, B), x.expand(*lead, T)], dim=-1)
+    y, carried = _upols_core(z.unfold(-1, 2 * B, B), carried, H, B)
+    return y, (carried, z[..., T:].clone())
 
 
 def _upols_rows(x: torch.Tensor, H: torch.Tensor, B: int) -> torch.Tensor:
@@ -343,6 +419,18 @@ def _ring_stream(stage, x: torch.Tensor, ring: torch.Tensor, rate: int):
 
 
 def _uniform_ma_past(x: torch.Tensor, win: int) -> torch.Tensor:
+    """Causal moving average ``out[n] = (sum_{k<win} x[n-k]) / win``:
+    ``x`` itself for ``win <= 1``; else `_uniform_ma_past_reference` on a
+    CPU tensor and the moving-average kernel (`chain_kernels.ma_past`,
+    bitwise the same) on any other."""
+    if win <= 1:
+        return x
+    if x.device.type == "cpu":
+        return _uniform_ma_past_reference(x, win)
+    return chain_kernels.ma_past(x.contiguous(), win)
+
+
+def _uniform_ma_past_reference(x: torch.Tensor, win: int) -> torch.Tensor:
     """Causal moving average ``out[n] = (sum_{k<win} x[n-k]) / win`` as a
     fixed-order fold of ``win`` shifted copies (k = 0 first), so each
     output's float32 op sequence is independent of its position: the
@@ -441,10 +529,22 @@ class _FIRStage:
     def _spectrum(self, rate: int, B: int, device) -> torch.Tensor:
         return _cached_spectrum(self._spectra, rate, [self._taps(rate)], B, device)[:, 0]
 
+    def _fold_taps(self, rate: int, device) -> torch.Tensor | None:
+        """The fold kernel's taps on ``device``, copied once per (rate,
+        device) and kept beside the stage's spectra; None on the CPU, where
+        the fold reads them from the host."""
+        if torch.device(device).type == "cpu":
+            return None
+        k = ("fold", rate, str(device))
+        t = self._spectra.get(k)
+        if t is None:
+            t = self._spectra[k] = torch.from_numpy(self._taps(rate).copy()).to(device)
+        return t
+
     def apply(self, y: torch.Tensor, rate: int) -> torch.Tensor:
         h, B = self._block(rate)
         if not B:
-            return _fir_fold(y, h)
+            return _fir_fold(y, h, self._fold_taps(rate, y.device))
         return _upols_rows(y, self._spectrum(rate, B, y.device), B)
 
     def stream_grid(self, rate: int) -> int:

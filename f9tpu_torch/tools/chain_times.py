@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""The insert chain's device times, for this checkout or another.
+
+    python3 f9tpu_torch/tools/chain_times.py [--root DIR] [--tag NAME]
+
+Times, on the card, with the `f9tpu_torch` of the checkout at ``--root``
+(default: the one holding this file) and `chip_smoke.py` phase 5's chain
+(5 ms delay, peaking EQ 1 kHz / Q 1 / +3 dB, compressor -18:3, a stereo
+2.5 s IR, limiter -0.3): the insert loop's batch graph (8 stereo files in
+the 60 s capture bucket at 44.1 kHz, reverb mode) and each chain stage alone
+on its 48 kHz output; one 20 s chunk of the stream with the chain (SRC,
+chain, finish); and one 54.6 s stereo file's loudness meter
+(`meter_source_streamed` with the true peak, host clock) and its
+K-weighting of one 20 s chunk.  Device times are CUDA events, the median of
+5 calls after a warm-up.  It prints one JSON line with the card's name and
+power limit.  Run it as a script, not with ``-m``, so that ``--root``
+decides which ``f9tpu_torch`` is imported: comparing two trees takes one
+process each, in turns (parent, change, change, parent) on one card.
+Without a card it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def _card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError):
+        import torch
+
+        return torch.cuda.get_device_name(0)
+
+
+def _ms(fn, runs: int = 5) -> float:
+    """Median CUDA-event ms of ``fn()`` over ``runs`` calls after one."""
+    import numpy as np
+    import torch
+
+    fn()
+    ts = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def _stereo_ir(rng, rate: int = 48000, seconds: float = 2.5):
+    """`chip_smoke.py`'s IR: decaying noise, 90 dB down at its end, unit
+    energy per channel, behind a 0.5 direct-sound spike."""
+    import numpy as np
+
+    n = int(seconds * rate)
+    tau = seconds / (90.0 / (20.0 * np.log10(np.e)))
+    ir = rng.standard_normal((2, n)) * np.exp(-np.arange(n) / (tau * rate))
+    ir /= np.sqrt(np.sum(np.square(ir), axis=-1, keepdims=True))
+    ir[:, 0] = 0.5
+    return ir.astype(np.float32)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), help="the checkout whose f9tpu_torch is timed")
+    ap.add_argument("--tag", default="", help="a name for the checkout in the output")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chain_times: no CUDA GPU available", file=sys.stderr)
+        return 1
+    from f9tpu_torch import cli, resolve_device
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import dither
+    from f9tpu_torch.ops import loudness as ld
+    from f9tpu_torch.ops.resample import resample_presliced
+    from f9tpu_torch.ops.src_kernel import resample_auto
+    from f9tpu_torch.pipeline import graph
+    from f9tpu_torch.pipeline import stream as st
+
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(20260116)
+    with tempfile.TemporaryDirectory() as work:
+        ir_path = os.path.join(work, "IR.wav")
+        wav.write_wav(ir_path, _stereo_ir(rng), 48000, bits=32)
+        chain = cli._build_chain(argparse.Namespace(
+            rate=48000, chain_delay_ms=5.0, chain_gate=None, chain_eq=["peaking:1000:1:3"],
+            chain_fir=None, chain_comp="-18:3", chain_sat=None, chain_width=None,
+            chain_ir=ir_path, chain_wet=1.0, chain_dry=0.0, chain_limit="-0.3"))
+    out = {"tag": args.tag, "root": os.path.abspath(args.root), "card": _card()}
+
+    # the insert loop's batch graph, and each stage on its 48 kHz output
+    lat = 312
+    cfg = ProcessingConfig(output_dir="unused", target_rate=48000, reverb_mode=True,
+                           channel_routing=[1, 0], chain=chain)
+    blen = 60 * 44100
+    t = np.arange(blen) / 44100.0
+    valid = rng.integers(20 * 44100, 40 * 44100, 8).astype(np.int32)
+    x = np.where(np.arange(blen)[None, None, :] < valid[:, None, None],
+                 0.3 * np.sin(2 * np.pi * 441.0 * t)
+                 + 0.05 * rng.standard_normal((8, 2, blen)), 0.0).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    vd = torch.from_numpy(valid).to(dev)
+    seeds = np.arange(1, 9, dtype=np.int32)
+    out["insert_loop_graph_ms"] = _ms(lambda: graph.process_batch(
+        xd, vd, cfg, 44100, seeds, latency_frames=lat, device=dev))
+    pad = graph._default_pad_frames(cfg, 44100, lat)
+    y = resample_auto(torch.nn.functional.pad(xd[:, [1, 0]], (0, pad)),
+                      design_cycle_bank(44100, 48000))
+    out["stage_ms"] = {type(s).__name__: _ms(lambda s=s: s.apply(y, 48000))
+                       for s in chain.stages}
+    out["capture_frames_48k"] = int(y.shape[-1])
+
+    # one 20 s chunk of the stream with the chain
+    scfg = ProcessingConfig(output_dir="unused", target_rate=48000, chain=chain,
+                            latency_frames=lat)
+    bank = design_cycle_bank(44100, 48000)
+    cycles = st._chunk_cycles(bank, scfg, 20.0, 44100)
+    xp = torch.from_numpy(x[0, :, :(cycles - 1) * bank.M + bank.W].copy()).to(dev)
+    seeds_c = dither.channel_seeds(torch.tensor(12345, device=dev), 2)
+    states = chain.stream_init(48000, 2, dev)
+    out["stream_chunk_ms"] = _ms(lambda: st._finish_chunk(
+        resample_presliced(xp, bank, cycles), states, seeds_c, 0, 1.0, rate_out=48000,
+        bits=24, do_dither=True, chain=chain, wire="pack24")[0])
+    out["stream_chunk_frames"] = int(cycles * bank.L)
+
+    # one file's meter: the whole call (host clock) and one chunk's K-weighting
+    T = int(54.6 * 44100)
+    src = np.ascontiguousarray(x[1, :, :T])
+    read = ld.array_reader(src)
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ld.meter_source_streamed(read, 2, T, 44100, want_tp=True, device=dev)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.time() - t0))
+    out["meter_file_ms"] = float(np.median(walls[1:]))
+    z = torch.from_numpy(np.ascontiguousarray(x[2, :, :20 * 48000 + 5000])).to(dev)
+    out["k_weight_20s_ms"] = _ms(lambda: ld.k_weight(z))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""What the fixed-order delay-line sum costs the UPOLS block loop, and what
-the library sum it replaced did to a file's bytes.
+"""What UPOLS's group form and its multiply-sum kernel buy, and what they
+do to a file's bytes.
 
     python3 -m f9tpu_torch.tools.upols_sum_ablation [--rows 16] [--seconds 20] [--device cuda]
 
 Runs `ops.chain._fft_convolve_multi` (a stereo 2.5 s IR at 48 kHz: B =
 4096, K = 30, the insert loop's reverb) on ``--rows`` stereo signals of
-``--seconds`` twice over, in turns tree, sum, sum, tree: with
-`chain._delay_line_sum` (the halving tree of the port) and with a
-``torch.sum`` over the delay-line axis in its place (the form before it),
-and prints the median CUDA-event time of each with the card's name and
-power limit.  Then, for each form, how many output samples of the first
-signal differ between the ``--rows``-signal run and a 1-signal run (the
-tree's must be 0).  On the CPU it prints the counts and no times.
+``--seconds`` in three forms, in turns (group, block, twin, twin, block,
+group): ``group``, the port's form (`chain.UPOLS_GROUP` blocks a batched
+FFT pair and one `chain_kernels.upols_mac` launch); ``block``, the same
+with groups of one block (a launch a block, as the scan steps); ``twin``,
+the group form with the kernel replaced by its plain twin
+`chain_kernels.upols_mac_reference` on the same device.  It prints the
+median CUDA-event time of each with the card's name and power limit, and
+whether each form's output equals the group form's bit for bit (all must).
+Then, on the group form, how many output samples of the first signal
+differ between the ``--rows``-signal run and a 1-signal run (must be 0).
+On the CPU every form runs the twin: it prints the equalities and the
+count, and no times.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import chain
+from ..ops import chain, chain_kernels
 
 
 def _card(dev: torch.device) -> str:
@@ -38,10 +43,6 @@ def _card(dev: torch.device) -> str:
             capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError):
         return torch.cuda.get_device_name(dev)
-
-
-def _library_sum(p: torch.Tensor) -> torch.Tensor:
-    return torch.sum(p, dim=0)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -60,20 +61,21 @@ def main(argv: list[str] | None = None) -> int:
     x = torch.from_numpy((0.1 * rng.standard_normal((args.rows, 2, int(args.seconds * 48000))))
                          .astype(np.float32)).to(dev)
     blocks = -(-x.shape[-1] // 4096)
-    forms = {"tree": chain._delay_line_sum, "sum": _library_sum}
+    group, kernel = chain.UPOLS_GROUP, chain_kernels.upols_mac
+    forms = {"group": (group, kernel), "block": (1, kernel),
+             "twin": (group, chain_kernels.upols_mac_reference)}
 
     def run(form: str, v: torch.Tensor) -> torch.Tensor:
-        chain._delay_line_sum = forms[form]
+        chain.UPOLS_GROUP, chain_kernels.upols_mac = forms[form]
         try:
             return chain._fft_convolve_multi(v, ir)
         finally:
-            chain._delay_line_sum = forms["tree"]
+            chain.UPOLS_GROUP, chain_kernels.upols_mac = group, kernel
 
+    outs = {form: run(form, x) for form in forms}
     if dev.type == "cuda":
-        times = {"tree": [], "sum": []}
-        for form in ("tree", "sum"):
-            run(form, x)
-        for form in ("tree", "sum", "sum", "tree"):
+        times = {form: [] for form in forms}
+        for form in ("group", "block", "twin", "twin", "block", "group"):
             for _ in range(args.runs):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
@@ -85,15 +87,16 @@ def main(argv: list[str] | None = None) -> int:
         for form, ts in times.items():
             ms = float(np.median(ts))
             print(f"upols {args.rows} x 2 x {x.shape[-1]} frames, K=30 B=4096, {blocks} blocks, "
-                  f"{form}: {ms:.2f} ms ({1e3 * ms / blocks:.1f} us per block; "
-                  f"median of {len(ts)}) [{card}]", flush=True)
-    for form in forms:
-        t0 = time.time()
-        whole = run(form, x)[0]
-        alone = run(form, x[:1])[0]
-        n = int((whole != alone).sum())
-        print(f"upols {form}: signal 0 in a {args.rows}-signal run vs alone: {n} of "
-              f"{whole.numel()} samples differ ({time.time() - t0:.1f} s) [{card}]", flush=True)
+                  f"{form} (groups of {forms[form][0]}): {ms:.2f} ms ({1e3 * ms / blocks:.1f} us "
+                  f"per block; median of {len(ts)}) [{card}]", flush=True)
+    for form in ("block", "twin"):
+        same = torch.equal(outs[form].view(torch.int32), outs["group"].view(torch.int32))
+        print(f"upols {form} vs group: bitwise equal {same} [{card}]", flush=True)
+    t0 = time.time()
+    alone = run("group", x[:1])[0]
+    n = int((outs["group"][0] != alone).sum())
+    print(f"upols group: signal 0 in a {args.rows}-signal run vs alone: {n} of {alone.numel()} "
+          f"samples differ ({time.time() - t0:.1f} s) [{card}]", flush=True)
     return 0
 
 

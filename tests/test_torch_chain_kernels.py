@@ -1,0 +1,673 @@
+"""The insert chain's kernels (`f9tpu_torch/ops/chain_kernels.py`,
+`csrc/upols.cu`, `csrc/fold.cu`) and UPOLS's group form, on the CPU.
+
+- The group form (`chain._upols_core`: a group of blocks through one
+  batched rFFT, one multiply-sum, one batched irFFT) equals the per-block
+  loop it replaced, kept here as `_parent_upols`, bit for bit: every K,
+  row count, form (mono IR, one IR per channel) and group boundary, with
+  `UPOLS_GROUP` patched small.  Streamed chunks equal the whole signal bit
+  for bit however they cut the groups.
+- `upols_mac_reference` is `_delay_line_sum(X * H)` per block, bitwise.
+- The kernels' orders, replayed in numpy (the MAC's halving tree in
+  float64 with its first level fused, the fold's eight-tap unroll and counter, the moving
+  average's newest-first sum), equal the plain twins bit for bit: the CUDA
+  sources compute in these orders with one rounding per `_rn` intrinsic.
+- Port against the JAX package: `_upols` / `_upols_stream` against
+  `f9tpu/ops/chain.py:128,160` and `k_weight` against JAX's, <= -130 dB RMS,
+  the bound of `tests/test_torch_chain.py::test_fft_convolve_matches_jax`
+  (torch's CPU FFT is MKL's, JAX's pocketfft).
+- The wrapper rule: a CPU tensor never loads the kernel library and counts
+  no launch; a tensor off the CPU launches or raises, never the twin.
+- `cuda`-marked tests hold each kernel to its twin on the card; they skip
+  without one (`chip_smoke.py --chain-kernels` runs them at full size)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from f9tpu.ops import chain as jchain  # noqa: E402
+from f9tpu.ops import loudness as jloud  # noqa: E402
+from f9tpu_torch.ops import _build  # noqa: E402
+from f9tpu_torch.ops import chain as tchain  # noqa: E402
+from f9tpu_torch.ops import chain_kernels as ck  # noqa: E402
+from f9tpu_torch.ops import loudness as tloud  # noqa: E402
+
+B = 64
+
+
+def _sig(shape, seed, level=0.5):
+    rng = np.random.default_rng(seed)
+    t = np.arange(shape[-1]) / 48000.0
+    return (level * np.sin(2 * np.pi * 441.0 * t)
+            + 0.3 * level * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _irs(n_ir: int, channels: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    decay = np.exp(-np.arange(n_ir) / max(1.0, n_ir / 4))
+    return (0.3 * rng.standard_normal((channels, n_ir)) * decay).astype(np.float32)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+# ------------------------------------------- the parent's per-block loop
+
+def _parent_step(fdl, win, H, B):
+    Xi = torch.fft.rfft(win.contiguous(), n=2 * B, dim=-1)
+    fdl = torch.cat([Xi[None], fdl[:-1]], dim=0)
+    Y = tchain._delay_line_sum(fdl * H).to(torch.complex64)
+    return fdl, torch.fft.irfft(Y, n=2 * B, dim=-1)[..., B:]
+
+
+def _parent_upols(x, H, B):
+    T = x.shape[-1]
+    nb = max(1, -(-T // B))
+    xp = F.pad(x, (B, nb * B - T))
+    lead = torch.broadcast_shapes(x.shape[:-1], H.shape[1:-1])
+    fdl = torch.zeros((H.shape[0], *lead, B + 1), dtype=torch.complex64)
+    y = x.new_empty((*lead, nb * B))
+    for i in range(nb):
+        fdl, y[..., i * B:(i + 1) * B] = _parent_step(fdl, xp[..., i * B:i * B + 2 * B], H, B)
+    return y[..., :T]
+
+
+def _case(form: str, K: int, rows: int, nb: int, seed: int = 0):
+    """(x, H, the group form, the parent) for a K-deep IR: `rows` mono
+    signals through `_upols_rows`, or `rows` stereo files with one IR per
+    channel through `_upols_channels`; T = nb * B - 5 frames."""
+    T = nb * B - 5
+    if form == "mono":
+        ir = _irs(K * B - 7 if K > 1 else B - 7, 1, seed + K)
+        H = tchain._spectrum([tchain._partition_ir(ir[0], B)], "cpu")[:, 0]
+        x = torch.from_numpy(_sig((rows, T), seed + 1))
+        return x, H, (lambda v: tchain._upols_rows(v, H, B)), (lambda v: _parent_upols(v, H, B))
+    irs = _irs(K * B - 7 if K > 1 else B - 7, 2, seed + K)
+    H = tchain._spectrum([tchain._partition_ir(r, B) for r in irs], "cpu")
+    x = torch.from_numpy(_sig((rows, 2, T), seed + 1))
+
+    def parent(v):
+        y = _parent_upols(torch.movedim(v, -2, 0).reshape(2, -1, T), H, B)
+        return torch.movedim(y.reshape(2, *v.shape[:-2], T), 0, -2)
+
+    return x, H, (lambda v: tchain._upols_channels(v, H, B)), parent
+
+
+@pytest.mark.parametrize("form", ["mono", "true_stereo"])
+@pytest.mark.parametrize("K", [1, 2, 7, 30])
+@pytest.mark.parametrize("rows", [1, 3, 16])
+def test_group_form_is_the_per_block_loop(form, K, rows, monkeypatch):
+    """Bitwise, with groups of 3: 2 blocks (one short group), 3 (one whole
+    group), 4 (a group and one block) and 10 (many) blocks."""
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", 3)
+    assert tchain._partition_ir(np.zeros(K * B - 7 if K > 1 else B - 7, np.float32),
+                                B)[0].shape[0] == K
+    for nb in (2, 3, 4, 10):
+        x, _H, group, parent = _case(form, K, rows, nb)
+        assert _same(group(x), parent(x)), (form, K, rows, nb)
+
+
+@pytest.mark.parametrize("form", ["mono", "true_stereo"])
+@pytest.mark.parametrize("K", [1, 7, 30])
+@pytest.mark.parametrize("rows", [1, 3, 16])
+def test_row_tiles_are_the_per_block_loop(form, K, rows, monkeypatch):
+    """The card's form, FFT calls of a fixed number of rows (here 2: a short
+    last tile for 1, 3 and 3 x 2 rows), bitwise the per-block loop, with
+    groups of 3 over 2, 4 and 10 blocks; streamed chunks of 1 and 4 blocks
+    equal the whole."""
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", 3)
+    monkeypatch.setattr(tchain, "_fft_rows", lambda n, device: 2)
+    for nb in (2, 4, 10):
+        x, H, group, parent = _case(form, K, rows, nb)
+        whole = group(x)
+        assert _same(whole, parent(x)), (form, K, rows, nb)
+    x, H, _group, _parent = _case(form, K, rows, 11)
+    x = x[..., :10 * B].contiguous()
+    if form == "true_stereo":            # the reverb's streamed layout, one row per IR
+        x = x[0][:, None, :]
+    whole = tchain._upols(x, H, B)
+    for blocks in (1, 4):
+        state = tchain._upols_state(tuple(whole.shape[:-1]), K, B, "cpu")
+        out = []
+        for a in range(0, 10 * B, blocks * B):
+            y, state = tchain._upols_stream(x[..., a:a + blocks * B], state, H, B)
+            out.append(y)
+        assert _same(torch.cat(out, dim=-1), whole), (form, K, rows, blocks)
+
+
+def test_group_form_at_the_insert_loop_s_block(monkeypatch):
+    """Bitwise at B = 1024 (n = 2048 FFTs), K = 7, 16 rows, groups of 5
+    over 12 blocks, on 8 threads: the FFT gives each row the same bits in a
+    batch of 16 rows and of 80."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(8)
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", 5)
+    try:
+        b = 1024
+        ir = _irs(7 * b - 37, 1, 3)[0]
+        H = tchain._spectrum([tchain._partition_ir(ir, b)], "cpu")[:, 0]
+        x = torch.from_numpy(_sig((16, 12 * b + 100), 4))
+        assert _same(tchain._upols_rows(x, H, b), _parent_upols(x, H, b))
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("form", ["mono", "true_stereo"])
+@pytest.mark.parametrize("K", [1, 7, 30])
+def test_streamed_chunks_equal_the_whole(form, K, monkeypatch):
+    """Bitwise: chunks of 1, G - 1, G, G + 1 and 2G + 1 blocks (G = 3),
+    each from the state the last left, equal the whole signal's `_upols`;
+    the state keeps the last K - 1 spectra."""
+    G = 3
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", G)
+    nb = 23
+    x, H, _group, _parent = _case(form, K, 3, nb + 1)
+    x = x[..., :nb * B].contiguous()
+    if form == "true_stereo":            # the reverb's streamed layout, one row per IR
+        x = x[0][:, None, :]
+    whole = tchain._upols(x, H, B)
+    for blocks in (1, G - 1, G, G + 1, 2 * G + 1):
+        state = tchain._upols_state(tuple(whole.shape[:-1]), H.shape[0], B, "cpu")
+        out, a = [], 0
+        while a < nb * B:
+            b = min(nb * B, a + blocks * B)
+            y, state = tchain._upols_stream(x[..., a:b], state, H, B)
+            out.append(y)
+            a = b
+        assert state[0].shape[0] == K - 1
+        assert _same(torch.cat(out, dim=-1), whole), (form, K, blocks)
+
+
+def test_stage_streams_across_group_boundaries(monkeypatch):
+    """A stereo reverb and a long FIR streamed at 1, 2 and 5 blocks a chunk
+    equal their `apply` bit for bit, with groups of 2."""
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", 2)
+    rate = 48000
+    stages = [tchain.ConvolutionReverb(_irs(9000, 2, 5), wet=0.7),
+              tchain.ConvolutionReverb(_irs(9000, 1, 6)[0], wet=0.7, dry=0.5),
+              tchain.FIRInsert(_irs(5000, 1, 7)[0])]
+    x = torch.from_numpy(_sig((2, 11 * 4096), 8))
+    for st in stages:
+        grid = st.stream_grid(rate)
+        assert grid == 4096
+        whole = st.apply(x, rate)
+        for blocks in (1, 2, 5):
+            state = st.stream_state(rate, 2, "cpu")
+            out = []
+            for a in range(0, x.shape[-1], blocks * grid):
+                y, state = st.apply_stream(x[:, a:a + blocks * grid], state, rate, a)
+                out.append(y)
+            assert _same(torch.cat(out, dim=-1), whole), (type(st).__name__, blocks)
+
+
+@pytest.mark.parametrize("n", [8192, 16384, 32768, 6000])
+def test_fft_row_bits_do_not_depend_on_the_rows_beside_it(n):
+    """The group form's premise on the CPU, on 8 threads: the first ``rows``
+    rows of each block take the same bits in a batch of ``UPOLS_GROUP x
+    rows`` as in one of ``UPOLS_GROUP x 8``, rFFT and irFFT, at the
+    insert loop's n, the two next blocks `_fft_block_size` picks and one n
+    that is not a power of two."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        G = tchain.UPOLS_GROUP
+        x = torch.from_numpy(_sig((G, 8, n), n))
+        X = torch.fft.rfft(x, n=n, dim=-1)
+        wide_r, wide_i = _bits(X), _bits(torch.fft.irfft(X, n=n, dim=-1))
+        for rows in (1, 2, 3):
+            r = _bits(torch.fft.rfft(x[:, :rows].contiguous(), n=n, dim=-1))
+            i = _bits(torch.fft.irfft(X[:, :rows].contiguous(), n=n, dim=-1))
+            assert torch.equal(r, wide_r[:, :rows]), (n, rows)
+            assert torch.equal(i, wide_i[:, :rows]), (n, rows)
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("b", [8192, 4099])
+def test_streamed_equals_whole_where_one_row_transforms_apart(b, monkeypatch):
+    """Bitwise, one mono row on 8 threads, at blocks where MKL rounds a
+    batch of one row apart from a batch of several (n = 16384 on several
+    threads, n = 8198 = 2 x 4099 on any): chunks of 1 and 2 blocks equal
+    the whole signal, groups of 3, because every transform is of a whole
+    group."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(8)
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", 3)
+    try:
+        ir = _irs(2 * b - 11, 1, b)[0]
+        H = tchain._spectrum([tchain._partition_ir(ir, b)], "cpu")[:, 0]
+        nb = 7
+        x = torch.from_numpy(_sig((1, nb * b), b + 1))
+        whole = tchain._upols(x, H, b)
+        for blocks in (1, 2):
+            state = tchain._upols_state((1,), H.shape[0], b, "cpu")
+            out = []
+            for a in range(0, nb * b, blocks * b):
+                y, state = tchain._upols_stream(x[..., a:a + blocks * b], state, H, b)
+                out.append(y)
+            assert _same(torch.cat(out, dim=-1), whole), (b, blocks)
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_a_float64_signal_is_the_per_block_loop_s(monkeypatch):
+    """A float64 signal goes through complex128 spectra as the per-block
+    loop took it, bitwise, and `fft_convolve` returns float64."""
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", 3)
+    ir = _irs(7 * B - 7, 1, 9)[0]
+    H = tchain._spectrum([tchain._partition_ir(ir, B)], "cpu")[:, 0]
+    x = torch.from_numpy(_sig((3, 10 * B - 5), 10).astype(np.float64))
+    assert _same(tchain._upols_rows(x, H, B), _parent_upols(x, H, B))
+    y = tchain.fft_convolve(x, ir, block=B)
+    assert y.dtype == torch.float64 and _same(y, _parent_upols(x, H, B))
+
+
+@pytest.mark.parametrize("K,G", [(1, 1), (2, 3), (7, 4), (30, 2)])
+def test_mac_reference_is_the_delay_line_sum_per_block(K, G):
+    """`upols_mac_reference` equals ``_delay_line_sum(X * H)`` over each
+    block's newest-first delay line, bit for bit, mono and two-row H."""
+    rng = np.random.default_rng(K)
+    rows, Nf = 4, 33
+    parts = rng.standard_normal((2, K - 1 + G, rows, Nf)).astype(np.float32)
+    buf = torch.complex(torch.from_numpy(parts[0]), torch.from_numpy(parts[1]))
+    for hrows in (1, 2):
+        shape = (K, 1, Nf) if hrows == 1 else (K, 2, 1, Nf)
+        H = torch.complex(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)),
+                          torch.from_numpy(rng.standard_normal(shape).astype(np.float32)))
+        b = buf if hrows == 1 else buf.reshape(K - 1 + G, 2, 2, Nf)
+        got = ck.upols_mac_reference(b, H, G)
+        for g in range(G):
+            X = torch.stack([b[K - 1 + g - k] for k in range(K)])
+            want = tchain._delay_line_sum(X * H.to(torch.complex128)).to(torch.complex64)
+            assert _same(got[g], want), (K, G, hrows, g)
+
+
+# ------------------------------------------- the kernels' orders in numpy
+
+def _mac_kernel_order(prod, K: int):
+    """`csrc/upols.cu`'s evaluation for one bin: the tree's first level as
+    the products are formed (product i plus product i + ceil(K/2) while it
+    exists), then the halving levels over the ceil(K/2) partials."""
+    n = (K + 1) // 2
+    p = []
+    for i in range(n):
+        v = prod(i)
+        if i + n < K:
+            w = prod(i + n)
+            v = (v[0] + w[0], v[1] + w[1])
+        p.append(v)
+    while n > 1:
+        h = (n + 1) // 2
+        for i in range(n - h):
+            p[i] = (p[i][0] + p[i + h][0], p[i][1] + p[i + h][1])
+        n = h
+    return p[0]
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 7, 8, 30, 33, 64])
+def test_mac_kernel_order_is_the_twin_s(K):
+    """The MAC kernel's arithmetic in numpy float64 (each product component
+    ``ac - bd``, ``ad + bc`` rounded once, the first level fused, the rest
+    of the halving tree, one rounding to float32) equals
+    `upols_mac_reference` bit for bit."""
+    rng = np.random.default_rng(100 + K)
+    G, rows, Nf = 3, 2, 17
+    re = rng.standard_normal((K - 1 + G, rows, Nf)).astype(np.float32)
+    im = rng.standard_normal((K - 1 + G, rows, Nf)).astype(np.float32)
+    hre = (rng.standard_normal((K, 1, Nf)) * 3).astype(np.float32)
+    him = (rng.standard_normal((K, 1, Nf)) * 3).astype(np.float32)
+    want = ck.upols_mac_reference(torch.complex(torch.from_numpy(re), torch.from_numpy(im)),
+                                  torch.complex(torch.from_numpy(hre), torch.from_numpy(him)), G)
+    for g in range(G):
+        def prod(k, g=g):
+            a, b = re[K - 1 + g - k].astype(np.float64), im[K - 1 + g - k].astype(np.float64)
+            c, d = hre[k].astype(np.float64), him[k].astype(np.float64)
+            return a * c - b * d, a * d + b * c
+        vr, vi = _mac_kernel_order(prod, K)
+        got = torch.complex(torch.from_numpy(vr.astype(np.float32)),
+                            torch.from_numpy(vi.astype(np.float32)))
+        assert _same(got, want[g]), (K, g)
+
+
+def _fold_kernel_order(x: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """`csrc/fold.cu` fold_one for every output at once, in float32: the
+    taps in eights (a fixed tree each), a counter over the eights' levels,
+    the last W mod 8 taps in registers, the leftover merged smallest
+    first."""
+    W, T = taps.shape[0], x.shape[-1]
+    xp = np.concatenate([np.zeros(x.shape[:-1] + (W - 1,), np.float32), x], axis=-1)
+
+    def leaf(k):
+        return xp[..., W - 1 - k:W - 1 - k + T] * taps[k]
+
+    q, r = W >> 3, W & 7
+    hi = {}
+    for j in range(q):
+        a = [leaf(8 * j + u) for u in range(8)]
+        t = ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]))
+        lv = 0
+        while (j >> lv) & 1:
+            t = hi[lv] + t
+            lv += 1
+        hi[lv] = t
+    k = 8 * q
+    s = {}
+    if r > 0:
+        s[0] = leaf(k)
+    if r > 1:
+        s[1] = s[0] + leaf(k + 1)
+    if r > 2:
+        s[0] = leaf(k + 2)
+    if r > 3:
+        s[2] = s[1] + (s[0] + leaf(k + 3))
+    if r > 4:
+        s[0] = leaf(k + 4)
+    if r > 5:
+        s[1] = s[0] + leaf(k + 5)
+    if r > 6:
+        s[0] = leaf(k + 6)
+    acc = None
+    for lv in range(3):
+        if (r >> lv) & 1:
+            acc = s[lv] if acc is None else s[lv] + acc
+    lv = 0
+    while q >> lv:
+        if (q >> lv) & 1:
+            acc = hi[lv] if acc is None else hi[lv] + acc
+        lv += 1
+    return acc
+
+
+@pytest.mark.parametrize("W", [2, 3, 7, 8, 9, 15, 16, 17, 24, 64, 127, 351, 1024])
+def test_fold_kernel_order_is_the_twin_s(W):
+    """The fold kernel's order replayed in numpy float32 equals
+    `_fir_fold_reference` bit for bit, on a signal that starts with exact
+    zeros (+0.0 and -0.0) and taps of both signs: even a zero's sign."""
+    taps = _sig((W,), W, level=1.0 / np.sqrt(W))
+    taps[::3] *= -1.0
+    x = _sig((2, 1500), W + 1)
+    x[0, :40] = 0.0
+    x[1, :40] = -0.0
+    want = tchain._fir_fold_reference(torch.from_numpy(x), taps).numpy()
+    got = _fold_kernel_order(x, taps)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("win", [2, 48, 73, 240, 4801])
+def test_ma_kernel_order_is_the_twin_s(win):
+    """The moving-average kernel's order (x[n] first, then x[n-1] back to
+    x[n-win+1], +0.0 before the start, times f32(1/win)) equals
+    `_uniform_ma_past_reference` bit for bit, zeros of both signs at the
+    start included."""
+    x = np.square(_sig((2, 6000), win))
+    x[1, :100] = -0.0
+    T = x.shape[-1]
+    xp = np.concatenate([np.zeros((2, win - 1), np.float32), x], axis=-1)
+    acc = xp[:, win - 1:].copy()
+    for k in range(1, win):
+        acc = acc + xp[:, win - 1 - k:win - 1 - k + T]
+    got = acc * np.float32(1.0 / win)
+    want = tchain._uniform_ma_past_reference(torch.from_numpy(x), win).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_dispatch_keeps_the_eager_forms_on_the_cpu():
+    """On the CPU `_fir_fold` is the reference and `_uniform_ma_past` too,
+    bit for bit; one tap is one multiply and a window of 1 the input."""
+    x = torch.from_numpy(_sig((2, 3, 900), 1))
+    taps = _sig((51,), 2, level=0.1)
+    assert _same(tchain._fir_fold(x, taps), tchain._fir_fold_reference(x, taps))
+    assert _same(tchain._fir_fold(x, taps[:1]), x * float(taps[0]))
+    assert _same(tchain._uniform_ma_past(x, 37), tchain._uniform_ma_past_reference(x, 37))
+    assert tchain._uniform_ma_past(x, 1) is x
+
+
+# ------------------------------------------------------ against the JAX package
+
+def _db(got, want):
+    e = np.sqrt(np.mean(np.square(got.astype(np.float64) - want)))
+    r = np.sqrt(np.mean(np.square(want.astype(np.float64))))
+    return 20.0 * np.log10(max(e, 1e-300) / r)
+
+
+@pytest.mark.parametrize("K", [1, 7, 30])
+def test_upols_matches_jax(K, monkeypatch):
+    """`_upols` (groups of 4) against `f9tpu/ops/chain.py:128 _upols` on 3
+    rows: <= -130 dB RMS."""
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", 4)
+    ir = _irs(K * B - 3, 1, 20 + K)[0]
+    h_re, h_im = tchain._partition_ir(ir, B)
+    x = _sig((3, 11 * B + 17), 21)
+    want = np.asarray(jchain._upols(jnp.asarray(x), jnp.asarray(h_re), jnp.asarray(h_im), B))
+    H = tchain._spectrum([(h_re, h_im)], "cpu")[:, 0]
+    got = tchain._upols(torch.from_numpy(x), H, B).numpy()
+    assert got.shape == want.shape
+    assert _db(got, want) <= -130.0
+
+
+@pytest.mark.parametrize("K", [1, 7, 30])
+def test_upols_stream_matches_jax(K, monkeypatch):
+    """`_upols_stream` chunk by chunk (2, 5 and 3 blocks, groups of 2)
+    against `f9tpu/ops/chain.py:160 _upols_stream` from the same zero
+    state: <= -130 dB RMS, and the port's carried spectra are JAX's delay
+    line without its oldest entry, newest last, to the same bound."""
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", 2)
+    ir = _irs(K * B - 3, 1, 30 + K)[0]
+    h_re, h_im = tchain._partition_ir(ir, B)
+    x = _sig((2, 10 * B), 31)
+    H = tchain._spectrum([(h_re, h_im)], "cpu")[:, 0]
+    state = tchain._upols_state((2,), K, B, "cpu")
+    prev = jnp.zeros((2, B), jnp.float32)
+    fre = fim = jnp.zeros((K, 2, B + 1), jnp.float32)
+    got, want, a = [], [], 0
+    for blocks in (2, 5, 3):
+        seg = x[:, a:a + blocks * B]
+        y, state = tchain._upols_stream(torch.from_numpy(seg), state, H, B)
+        got.append(y.numpy())
+        yj, prev, fre, fim = jchain._upols_stream(jnp.asarray(seg), prev, fre, fim,
+                                                  jnp.asarray(h_re), jnp.asarray(h_im), B)
+        want.append(np.asarray(yj))
+        a += blocks * B
+    assert _db(np.concatenate(got, -1), np.concatenate(want, -1)) <= -130.0
+    assert np.array_equal(state[1].numpy(), np.asarray(prev))
+    if K > 1:
+        jd = np.asarray(fre)[:K - 1][::-1] + 1j * np.asarray(fim)[:K - 1][::-1]
+        err = np.sqrt(np.mean(np.abs(state[0].numpy() - jd) ** 2))
+        assert 20.0 * np.log10(err / np.sqrt(np.mean(np.abs(jd) ** 2))) <= -130.0
+
+
+def test_k_weight_matches_jax():
+    """The meter's K-weighting (~5k taps, B = 4096, K = 2) on 2 x 70,000
+    frames, past JAX's direct-form threshold: <= -130 dB RMS."""
+    x = _sig((2, 70000), 40, level=0.3)
+    want = np.asarray(jloud.k_weight(jnp.asarray(x)))
+    got = tloud.k_weight(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape
+    assert _db(got, want) <= -130.0
+
+
+# ------------------------------------------------------ the wrapper rule
+
+def _counts():
+    return ck.launches_mac, ck.launches_fold, ck.launches_ma
+
+
+def test_a_cpu_tensor_never_loads_the_library(monkeypatch):
+    """The UPOLS convolvers, the fold and the moving average on CPU tensors
+    run their twins: the library is never loaded and no launch counts."""
+    def no_build():
+        raise AssertionError("a CPU tensor loaded the kernel library")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    n0 = _counts()
+    x = torch.from_numpy(_sig((2, 2, 5000), 50))
+    tchain.fft_convolve(x, _irs(900, 1, 51)[0], block=128)
+    tchain._fft_convolve_multi(x, _irs(700, 2, 52), block=128)
+    tchain._fir_fold(x, _sig((33,), 53, level=0.1))
+    tchain._uniform_ma_past(x, 48)
+    tchain.Compressor(-24.0, 4.0).apply(x, 48000)
+    tchain.Limiter(-0.3).apply(x, 48000)
+    tloud.k_weight(x[0])
+    assert _counts() == n0
+
+
+@pytest.mark.parametrize("which", ["mac", "fold", "ma"])
+def test_a_tensor_off_the_cpu_never_runs_the_twin(which, monkeypatch):
+    """Off the CPU each wrapper launches or raises: with a library that does
+    not build, the call raises nvcc's error, runs no twin and counts no
+    launch."""
+    def twin(*a, **k):
+        raise AssertionError("the wrapper ran the twin on a tensor off the CPU")
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(ck, "upols_mac_reference", twin)
+    monkeypatch.setattr(tchain, "_fir_fold_reference", twin)
+    monkeypatch.setattr(tchain, "_uniform_ma_past_reference", twin)
+    monkeypatch.setattr(_build, "load_library", no_build)
+    n0 = _counts()
+    x = torch.empty((2, 2, 5000), device="meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        if which == "mac":
+            K, G = 7, 4
+            ck.upols_mac(torch.empty((K - 1 + G, 2, 2, 65), dtype=torch.complex64, device="meta"),
+                         torch.empty((K, 2, 1, 65), dtype=torch.complex64, device="meta"), G)
+        elif which == "fold":
+            tchain._fir_fold(x, np.ones(351, np.float32))
+        else:
+            tchain._uniform_ma_past(x, 240)
+    assert _counts() == n0
+
+
+@pytest.mark.parametrize("bad", ["K", "spectra", "dtype", "bins", "rows", "taps", "win"])
+def test_the_wrappers_refuse_what_the_kernels_do_not_take(bad, monkeypatch):
+    """Shapes, types and sizes a kernel does not take raise ValueError
+    before the library is asked for."""
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    c64 = dict(dtype=torch.complex64, device="meta")
+    K, G = 7, 3
+    buf, H = torch.empty((K - 1 + G, 4, 65), **c64), torch.empty((K, 1, 65), **c64)
+    n0 = _counts()
+    with pytest.raises(ValueError):
+        if bad == "K":
+            ck.upols_mac(torch.empty((65 - 1 + G, 4, 65), **c64),
+                         torch.empty((65, 1, 65), **c64), G)
+        elif bad == "spectra":
+            ck.upols_mac(buf[1:], H, G)
+        elif bad == "dtype":
+            ck.upols_mac(buf, H.to(torch.complex128), G)
+        elif bad == "bins":
+            ck.upols_mac(buf, H[..., :64], G)
+        elif bad == "rows":
+            ck.upols_mac(torch.empty((K - 1 + G, 4, 2, 65), **c64),
+                         torch.empty((K, 1, 2, 65), **c64), G)
+        elif bad == "taps":
+            ck.fir_fold(torch.empty((2, 100), device="meta"),
+                        torch.ones(ck.FOLD_MAX_W + 1, device="meta"))
+        else:
+            ck.ma_past(torch.empty((2, 100), dtype=torch.float64, device="meta"), 8)
+    assert _counts() == n0
+
+
+def test_h_rows_maps_signal_rows_onto_h():
+    """Row r takes H's row r // (rows / Hrows): a mono IR over every row,
+    one IR per channel over the channel-first rows and the streamed
+    layout."""
+    assert ck._h_rows((16,), (1,)) == 1
+    assert ck._h_rows((2, 8), (2, 1)) == 2
+    assert ck._h_rows((2, 1), (2, 1)) == 2
+    assert ck._h_rows((3, 2, 5), (1,)) == 1
+    with pytest.raises(ValueError):
+        ck._h_rows((4, 2), (1, 2))
+
+
+def test_upols_ablation_tool_on_the_cpu(capsys):
+    """`tools/upols_sum_ablation.py` on the CPU: the group form, groups of
+    one block and the twin give the same bits, and a signal's output does
+    not depend on the rows beside it."""
+    from f9tpu_torch.tools import upols_sum_ablation
+
+    assert upols_sum_ablation.main(["--device", "cpu", "--rows", "3", "--seconds", "0.5"]) == 0
+    out = capsys.readouterr().out
+    assert "block vs group: bitwise equal True" in out
+    assert "twin vs group: bitwise equal True" in out
+    assert "alone: 0 of 48000 samples differ" in out      # 2 channels x 0.5 s
+
+
+# ------------------------------------------------------ on the card
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_mac_kernel_matches_twin_on_card(card):
+    """Bitwise: every K the kernel takes at the edges, mono and two-channel
+    H, 1 and 16 rows, groups of 1 and 5."""
+    rng = np.random.default_rng(1)
+    for K in (1, 2, 7, 30, 64):
+        for hrows, rows in ((1, 1), (1, 16), (2, 16)):
+            for G in (1, 5):
+                shape = (K - 1 + G, hrows, rows // hrows, 129)
+                buf = torch.complex(*(torch.from_numpy(rng.standard_normal(shape)
+                                                       .astype(np.float32)) for _ in "ri")).to(card)
+                H = torch.complex(*(torch.from_numpy(rng.standard_normal((K, hrows, 1, 129))
+                                                     .astype(np.float32)) for _ in "ri")).to(card)
+                n0 = ck.launches_mac
+                got = ck.upols_mac(buf, H, G)
+                torch.cuda.synchronize()
+                assert ck.launches_mac == n0 + 1
+                assert _same(got, ck.upols_mac_reference(buf, H, G)), (K, hrows, rows, G)
+
+
+@pytest.mark.cuda
+def test_fold_and_ma_kernels_match_twins_on_card(card):
+    """Bitwise: the fold at W = 2, 3, 7, 351, 1024 and the moving average at
+    2, 48, 73, 240, 4801, on rows not a multiple of the tile that start with
+    exact zeros."""
+    x = _sig((3, 2, 5000 + 37), 7)
+    x[..., :50] = 0.0
+    xd = torch.from_numpy(x).to(card)
+    for W in (2, 3, 7, 351, 1024):
+        taps = _sig((W,), W, level=1.0 / np.sqrt(W))
+        got = tchain._fir_fold(xd, taps)
+        assert _same(got, tchain._fir_fold_reference(xd, taps)), W
+    for win in (2, 48, 73, 240, 4801):
+        got = tchain._uniform_ma_past(xd, win)
+        assert _same(got, tchain._uniform_ma_past_reference(xd, win)), win
+
+
+@pytest.mark.cuda
+def test_upols_chunked_equals_whole_on_card(card, monkeypatch):
+    """On the card the streamed `_upols` at 1, G - 1, G and G + 1 blocks a
+    chunk equals the whole signal, bitwise (groups of 4)."""
+    G = 4
+    monkeypatch.setattr(tchain, "UPOLS_GROUP", G)
+    x, H, _g, _p = _case("mono", 30, 4, 18)
+    x, H = x[..., :17 * B].contiguous().to(card), H.to(card, torch.complex64)
+    whole = tchain._upols(x, H, B)
+    for blocks in (1, G - 1, G, G + 1):
+        state = tchain._upols_state((4,), 30, B, card)
+        out = []
+        for a in range(0, 17 * B, blocks * B):
+            y, state = tchain._upols_stream(x[..., a:a + blocks * B], state, H, B)
+            out.append(y)
+        assert _same(torch.cat(out, -1), whole), blocks
