@@ -3009,10 +3009,12 @@ def _epilogue_bound_ms(files: int, C: int, keep: int, out_bytes: int, reads: int
     return 1e3 * files * C * keep * (4 * reads + out_bytes) / HBM_BYTES_PER_S
 
 
-def _pass_ms(fn, runs: int = 10) -> dict:
-    """Each pass's device ms in ``runs`` calls of ``fn`` (one launch of
-    the pair each): the median of `torch.profiler`'s kernel events by name;
-    None where the profiler saw none."""
+def _pass_ms(fn, runs: int = 10,
+             names=(("pass1_ms", "dc_pass"), ("pass2_ms", "finish_pass"))) -> dict:
+    """Each kernel's device ms in ``runs`` calls of ``fn`` (one launch of
+    each a call; by default the epilogue pair's passes): the median of
+    `torch.profiler`'s kernel events whose name holds ``names``' second
+    item, under its first; None where the profiler saw none."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -3022,10 +3024,10 @@ def _pass_ms(fn, runs: int = 10) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    times = {"pass1_ms": [], "pass2_ms": []}
+    times = {key: [] for key, _ in names}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            for key, name in (("pass1_ms", "dc_pass"), ("pass2_ms", "finish_pass")):
+            for key, name in names:
                 if name in e.name:
                     times[key].append(e.time_range.elapsed_us() / 1e3)
     return {k: float(np.median(v)) if v else None for k, v in times.items()}
@@ -4333,9 +4335,14 @@ def _chain_fft_premise(card: str, dev) -> list[str]:
 def _chain_twin_cases(card: str, dev) -> list[str]:
     """14b: each kernel against its twin on the card, bitwise: the MAC at K
     = 1, 2, 7, 30, 64, mono and two-channel H, 1, 2 and 16 rows, groups of
-    1, 5 and 32; the fold at W = 2, 3, 7, 351, 1024 and the moving average
-    at 2, 48, 73, 240, 4801 and 20,000 (past the staged span) on rows of
-    100,037 frames that start with +0.0 and -0.0, and on one 1-D row; the
+    1, 5 and 32, 4097 bins; at K = 2, 16, 17, 30, 31, 32 (the register
+    tree's edges) and 33 (the column form's first) on 33, 4097 and 8193
+    bins, groups of 1, 5, 32 and 37 (two output blocks); the fold at W = 2,
+    3, 7, 63-65 (8 outputs a thread x 8 taps +- 1), 351, 1024, 5631 and 5632
+    (the widest, past 48 KB of shared memory) and the moving average at 2,
+    48, 73, 240, 4801 and 20,000 (past the staged span) on rows of 100,037
+    frames that start with +0.0 and -0.0, and on one 1-D row, and the fold
+    on rows of 300 and 7 frames (less than a tile); the
     whole `_upols` / `_upols_stream` at B = 4096, 8192 and 16384 chunked at
     1, G - 1, G and G + 1 blocks, and at 4096 with groups of 1, by sha256,
     and two rows alone against the same rows in a batch of 16."""
@@ -4360,6 +4367,19 @@ def _chain_twin_cases(card: str, dev) -> list[str]:
                     n_mac += 1
                     if not _bitwise(ck.upols_mac(buf, H, G), ck.upols_mac_reference(buf, H, G)):
                         faults.append(f"upols_mac K={K} H rows={hrows} rows={rows} G={G}")
+    # the register tree's edges (K = 16, 17, 31, 32) and the column form's
+    # first (33), at odd bin counts, a short output block and two of them
+    for K in (2, 16, 17, 30, 31, 32, 33):
+        for Nf in (33, 4097, 8193):
+            for hrows, rows, G in ((1, 1, 1), (1, 3, 5), (2, 8, 32), (1, 2, 37)):
+                lead = (rows,) if hrows == 1 else (2, rows)
+                buf = torch.randn((K - 1 + G, *lead, Nf), dtype=torch.complex64, device=dev,
+                                  generator=gen)
+                H = torch.randn((K, *((1,) if hrows == 1 else (2, 1)), Nf),
+                                dtype=torch.complex64, device=dev, generator=gen)
+                n_mac += 1
+                if not _bitwise(ck.upols_mac(buf, H, G), ck.upols_mac_reference(buf, H, G)):
+                    faults.append(f"upols_mac K={K} Nf={Nf} H rows={hrows} rows={rows} G={G}")
     print(f"chain 14b: upols_mac vs twin: {n_mac - len(faults)} of {n_mac} cases bitwise "
           f"({time.time() - t0:.1f} s) [{card}]", flush=True)
 
@@ -4370,12 +4390,16 @@ def _chain_twin_cases(card: str, dev) -> list[str]:
     x[1, :, :50] = -0.0
     xd = torch.from_numpy(x).to(dev)
     n_fold = n_ma = 0
-    for sig, label in ((xd, "(3, 2, 100037)"), (xd[2, 1].contiguous(), "1-D")):
-        for W in (2, 3, 7, 351, 1024):
+    short = xd[:, :, :300].contiguous()
+    for sig, label in ((xd, "(3, 2, 100037)"), (xd[2, 1].contiguous(), "1-D"),
+                       (short, "(3, 2, 300)"), (short[..., :7].contiguous(), "(3, 2, 7)")):
+        for W in (2, 3, 7, 63, 64, 65, 351, 1024, 5631, 5632):
             taps = (rng.standard_normal(W) / np.sqrt(W)).astype(np.float32)
             n_fold += 1
             if not _bitwise(ch._fir_fold(sig, taps), ch._fir_fold_reference(sig, taps)):
                 faults.append(f"fir_fold W={W} {label}")
+        if sig.shape[-1] < 1000:         # the moving averages keep to the long rows
+            continue
         for win in (2, 48, 73, 240, 4801, 20000):
             n_ma += 1
             if not _bitwise(ch._uniform_ma_past(sig, win),
@@ -4421,22 +4445,122 @@ def _chain_twin_cases(card: str, dev) -> list[str]:
     return faults
 
 
+def _ptxas_stats(pattern: str):
+    """What ptxas reported for the first kernel whose mangled name holds
+    ``pattern`` (`_build.ptxas_report`); None when the library was not built
+    by this process."""
+    from f9tpu_torch.ops import _build
+
+    return next((v for k, v in _build.ptxas_report(_build.build_log).items() if pattern in k),
+                None)
+
+
+def _kernel_device_ms(fn, name: str, runs: int = 10) -> float | None:
+    """`_pass_ms` of one kernel after a warm-up call: a small launch's CUDA
+    events also time the host's launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    return _pass_ms(fn, runs, ((name, name),))[name]
+
+
+def _mac_times(buf, H, G: int, faults: list) -> dict:
+    """`upols_mac` on one group against its twin (a fault unless bitwise),
+    its one-call time (CUDA events, median of 10) and device time (profiler,
+    median of 10), the twin's (median of 3),
+    one `torch.einsum` over the same spectra (never called by the port), and
+    the bound: 6 separately rounded float64 instructions a complex
+    multiply-add (2 multiplies, 2 FMAs, the tree's 2 adds) against the
+    spectra and H read once and Y written once; beside it the first design's
+    count, 8 (4 multiplies, 2 sums, 2 adds)."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.ops import chain_kernels as ck
+
+    K, lead, Nf = H.shape[0], tuple(buf.shape[1:-1]), buf.shape[-1]
+    got = ck.upols_mac(buf, H, G)
+    want = ck.upols_mac_reference(buf, H, G)
+    err = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
+    same = _bitwise(got, want)
+    if not same:
+        faults.append(f"upols_mac != twin at K={K}, G={G}, rows {lead} (max {err:.3g})")
+    rows, h_rows = int(np.prod(lead)), int(np.prod(H.shape[1:-1]))
+    macs = K * G * rows * Nf
+    t_ops = 6.0 * macs / FP64_INSTR_PER_S
+    t_bytes = 8.0 * Nf * ((K - 1 + G) * rows + K * h_rows + G * rows) / HBM_BYTES_PER_S
+    Xw = buf.unfold(0, K, 1)                                  # (G, *lead, Nf, K), oldest first
+    Hx = H.flip(0).movedim(0, -1).expand(*lead, Nf, K)
+    return dict(
+        ms=_median_ms(lambda: ck.upols_mac(buf, H, G)),
+        device_ms=_kernel_device_ms(lambda: ck.upols_mac(buf, H, G), "upols_mac"),
+        plain_ms=_median_ms(lambda: ck.upols_mac_reference(buf, H, G), runs=3),
+        bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+        bound_ms_8_instructions=1e3 * max(8.0 * macs / FP64_INSTR_PER_S, t_bytes),
+        library_ms=_median_ms(lambda: torch.einsum("g...k,...k->g...", Xw, Hx)),
+        max_abs_err=err, bitwise=same)
+
+
+def _fold_times(x, taps, faults: list) -> dict:
+    """`fir_fold` of ``x`` with the float32 ``taps`` against its twin (a
+    fault unless bitwise), its one-call time (CUDA events, median of 10) and
+    device time (profiler, median of 5), the twin's (median of 3),
+    `F.conv1d` with TF32 off (never called by the
+    port), and the bound: 2W - 1 separately rounded float32 instructions an
+    output against x read once and y written once."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from f9tpu_torch.ops import chain as ch
+    from f9tpu_torch.ops import chain_kernels as ck
+
+    W, T, n_out = int(taps.shape[0]), x.shape[-1], x.numel()
+    tp = torch.from_numpy(taps.copy()).to(x.device)
+    got = ck.fir_fold(x, tp)
+    want = ch._fir_fold_reference(x, taps)
+    err = float((got - want).abs().max())
+    same = _bitwise(got, want)
+    if not same:
+        faults.append(f"fir_fold != twin at W={W} on {tuple(x.shape)} (max {err:.3g})")
+    t_ops = (2 * W - 1) * n_out / FP32_INSTR_PER_S
+    t_bytes = (8.0 * n_out + 4 * W) / HBM_BYTES_PER_S
+    wt = torch.from_numpy(np.ascontiguousarray(taps[::-1])).to(x.device).reshape(1, 1, W)
+    return dict(
+        ms=_median_ms(lambda: ck.fir_fold(x, tp)),
+        device_ms=_kernel_device_ms(lambda: ck.fir_fold(x, tp), "fir_fold", runs=5),
+        plain_ms=_median_ms(lambda: ch._fir_fold_reference(x, taps), runs=3),
+        bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+        library_ms=_median_ms(lambda: F.conv1d(x.reshape(-1, 1, T), wt, padding=W - 1)[..., :T]),
+        max_abs_err=err, bitwise=same)
+
+
 def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
-    """14c: each kernel against its twin at the insert loop's shapes, bitwise
-    (a fault otherwise), its one-call time (CUDA events, median of 10), its
-    bound, its twin's time (median of 3) and a library yardstick the port
-    never calls, then the stages around them: `_fft_convolve_multi` of the
-    2.5 s stereo IR, the 351-tap EQ's fold, the compressor and the limiter.
-    Returns the JSON summary's numbers, with the launches of the stage calls
-    as the path "chain_stages", and the faults."""
+    """14c: each kernel against its twin, bitwise (a fault otherwise), its
+    one-call time (CUDA events, median of 10), its bound, its twin's time
+    (median of 3), a library yardstick the port never calls and ptxas's
+    registers and spills: the MAC and the fold at the insert loop's shape,
+    a 20 s stream chunk's and a third (the meter's K-weighting for the MAC;
+    `FIR_FOLD_MAX` taps on the chunk for the fold), the moving averages at
+    the insert loop's windows; then the stages around them:
+    `_fft_convolve_multi` of the 2.5 s stereo IR, the 351-tap EQ's fold, the
+    compressor and the limiter.  Returns the JSON summary's numbers (the
+    insert loop's shape first, every shape under "per_shape"), with the
+    launches of the stage calls as the path "chain_stages", and the
+    faults."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from f9tpu_torch import cli
+    from f9tpu_torch.config import ProcessingConfig
     from f9tpu_torch.io import wav
+    from f9tpu_torch.models import design_cycle_bank
     from f9tpu_torch.ops import chain as ch
     from f9tpu_torch.ops import chain_kernels as ck
+    from f9tpu_torch.ops import loudness as ld
+    from f9tpu_torch.pipeline import stream as st
 
     files, C, T = CHAIN_SHAPE
     rng = np.random.default_rng(SEED + 144)
@@ -4452,49 +4576,45 @@ def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
     y = 0.1 * torch.randn((files, C, T), device=dev, generator=gen)
     out, faults = {}, []
 
-    # the MAC: one group of the reverb's true-stereo delay line
+    # the MAC at three shapes, one group each: the insert loop's reverb (an
+    # IR per channel over 8 files), a 20 s stream chunk's (one stereo file)
+    # and the meter's K-weighting (K = 2, one IR over both channels)
     B = rev.stream_grid(48000)
     H = rev._spectrum(B, dev).to(torch.complex64)                      # (30, 2, 1, Nf)
-    K, G, Nf = H.shape[0], ch.UPOLS_GROUP, B + 1
-    buf = torch.randn((K - 1 + G, C, files, Nf), dtype=torch.complex64, device=dev,
-                      generator=gen)
-    got = ck.upols_mac(buf, H, G)
-    want = ck.upols_mac_reference(buf, H, G)
-    err = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
-    if not _bitwise(got, want):
-        faults.append(f"upols_mac != twin at K={K}, G={G}, {C} x {files} rows (max {err:.3g})")
-    rows = C * files
-    t_ops = 8.0 * K * G * rows * Nf / FP64_INSTR_PER_S
-    t_bytes = 8.0 * Nf * ((K - 1 + G) * rows + K * C + G * rows) / HBM_BYTES_PER_S
-    Xw = buf.unfold(0, K, 1)                                  # (G, C, files, Nf, K)
-    Hr = H.flip(0).movedim(0, -1)                             # (C, 1, Nf, K)
-    lib = _median_ms(lambda: torch.einsum("gcrfk,crfk->gcrf", Xw, Hr.expand(C, files, Nf, K)))
-    out["upols_mac"] = dict(
-        ms=_median_ms(lambda: ck.upols_mac(buf, H, G)),
-        plain_ms=_median_ms(lambda: ck.upols_mac_reference(buf, H, G), runs=3),
-        bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
-        library_ms=lib, max_abs_err=err,
-        shape=f"K={K}, G={G}, {C} x {files} rows, {Nf} bins")
+    kw = ld.k_weighting_ir().astype(np.float32)
+    Bk = ch._fft_block_size(int(kw.shape[0]))
+    Hk = ch._spectrum([ch._partition_ir(kw, Bk)], dev)[:, 0].contiguous()   # (2, 1, Nf)
+    G = ch.UPOLS_GROUP
+    mac_shapes = (("insert loop", H, (C, files)), ("20 s stream chunk", H, (C, 1)),
+                  ("meter", Hk, (C,)))
+    per_mac = {}
+    for label, Hs, lead in mac_shapes:
+        K, Nf = Hs.shape[0], Hs.shape[-1]
+        buf = torch.randn((K - 1 + G, *lead, Nf), dtype=torch.complex64, device=dev,
+                          generator=gen)
+        per_mac[label] = r = _mac_times(buf, Hs, G, faults)
+        r["ptxas"] = _ptxas_stats(f"upols_mac_regILi{K}E" if K <= 32 else "upols_mac_col")
+        r["shape"] = f"K={K}, G={G}, {' x '.join(map(str, lead))} rows, {Nf} bins"
+    out["upols_mac"] = dict(per_mac["insert loop"], per_shape=per_mac)
 
-    # the fold: the EQ's IR on the whole batch
+    # the fold at three shapes: the EQ's 351 taps on the insert loop's batch
+    # and on a 20 s stream chunk, and the widest fold a stage runs
+    # (`FIR_FOLD_MAX` taps) on the chunk; the meter runs no fold
+    bank = design_cycle_bank(44100, 48000)
+    scfg = ProcessingConfig(output_dir="unused", target_rate=48000, chain=chain,
+                            latency_frames=312)
+    t_chunk = st._chunk_cycles(bank, scfg, 20.0, 44100) * bank.L
+    yc = 0.1 * torch.randn((C, t_chunk), device=dev, generator=gen)
     taps = eq._taps(48000)
     W = int(taps.shape[0])
-    tp = torch.from_numpy(taps.copy()).to(dev)
-    got = ck.fir_fold(y, tp)
-    want = ch._fir_fold_reference(y, taps)
-    err = float((got - want).abs().max())
-    if not _bitwise(got, want):
-        faults.append(f"fir_fold != twin at W={W} on {files} x {C} x {T} (max {err:.3g})")
-    n_out = files * C * T
-    t_ops = (2 * W - 1) * n_out / FP32_INSTR_PER_S
-    t_bytes = (8.0 * n_out + 4 * W) / HBM_BYTES_PER_S
-    wt = torch.from_numpy(np.ascontiguousarray(taps[::-1])).to(dev).reshape(1, 1, W)
-    lib = _median_ms(lambda: F.conv1d(y.reshape(-1, 1, T), wt, padding=W - 1)[..., :T])
-    out["fir_fold"] = dict(
-        ms=_median_ms(lambda: ck.fir_fold(y, tp)),
-        plain_ms=_median_ms(lambda: ch._fir_fold_reference(y, taps), runs=3),
-        bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
-        library_ms=lib, max_abs_err=err, shape=f"W={W}, {files} x {C} x {T}")
+    wide = (rng.standard_normal(ch.FIR_FOLD_MAX) / np.sqrt(ch.FIR_FOLD_MAX)).astype(np.float32)
+    per_fold = {}
+    for label, v, tp in (("insert loop", y, taps), ("20 s stream chunk", yc, taps),
+                         (f"20 s stream chunk, {ch.FIR_FOLD_MAX} taps", yc, wide)):
+        per_fold[label] = r = _fold_times(v, tp, faults)
+        r["ptxas"] = _ptxas_stats("fir_fold_kernel")
+        r["shape"] = f"W={tp.shape[0]}, {' x '.join(map(str, v.shape))}"
+    out["fir_fold"] = dict(per_fold["insert loop"], per_shape=per_fold)
 
     # the moving averages: the compressor's detector (1 ms) on both channels,
     # its attack (5 ms) and the limiter's ramp (1.5 ms + 1) on the linked row
@@ -4520,10 +4640,16 @@ def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
             max_abs_err=e, shape=f"win={win}, {tuple(v.shape)}")
     out["ma_past"] = dict(per_win[240], per_window=per_win)
     for name in ("upols_mac", "fir_fold"):
-        print(f"chain 14c: {name} ({out[name]['shape']}): kernel {out[name]['ms']:.3f} ms, "
-              f"bound {out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']}), twin "
-              f"{out[name]['plain_ms']:.2f} ms, library {out[name]['library_ms']:.3f} ms, "
-              f"max |kernel - twin| {out[name]['max_abs_err']:.3g} [{card}]", flush=True)
+        for label, r in out[name]["per_shape"].items():
+            old8 = (f" (old 8-instruction count {r['bound_ms_8_instructions']:.4f})"
+                    if name == "upols_mac" else "")
+            dev_ms = ("not read: the profiler saw no kernel" if r["device_ms"] is None
+                      else f"{r['device_ms']:.4f}")
+            print(f"chain 14c: {name}, {label} ({r['shape']}): kernel {r['ms']:.4f} ms (device "
+                  f"{dev_ms}), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}){old8}, twin {r['plain_ms']:.2f} ms, "
+                  f"library {r['library_ms']:.3f} ms, max |kernel - twin| {r['max_abs_err']:.3g}, "
+                  f"ptxas {r['ptxas']} [{card}]", flush=True)
     for win, r in per_win.items():
         print(f"chain 14c: ma_past ({r['shape']}): kernel {r['ms']:.3f} ms, bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']}), twin {r['plain_ms']:.2f} ms, "
@@ -4761,7 +4887,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **{k: k14[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}})
+                                   "library_ms")},
+            **{k: k14[k] for k in ("device_ms", "bound_ms_8_instructions", "per_shape")
+               if k in k14}})
     chain_kernels[0]["also_replaces"] = "f9tpu/ops/chain.py:160"
 
     print(json.dumps({"kernels": [{

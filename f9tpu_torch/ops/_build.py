@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 
-__all__ = ["load_library", "build_seconds"]
+__all__ = ["load_library", "build_seconds", "ptxas_report"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -34,6 +34,30 @@ _lib: ctypes.CDLL | None = None
 build_seconds = 0.0
 #: what ptxas reported for the last build (registers, shared memory, spills)
 build_log = ""
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas's ``-v`` lines read per kernel: {mangled name: {"registers",
+    "spill_stores", "spill_loads", "stack"}} (bytes but the registers)."""
+    import re
+
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            found.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.setdefault(name, {})["registers"] = int(m.group(1))
+    return found
 
 
 def _sources() -> list[str]:

@@ -10,9 +10,12 @@ port runs three kernels in their place:
 - `upols_mac` (`csrc/upols.cu`, ``f9_upols_mac``): the delay-line
   multiply-sum of a group of G UPOLS blocks in one launch, in float64 in
   `_delay_line_sum`'s halving-tree order, each component rounded to float32
-  once.  Its twin `upols_mac_reference` is that formula per block;
-- `fir_fold` and `ma_past` (`csrc/fold.cu`, ``f9_fir_fold``,
-  ``f9_ma_past``): one thread an output, the eager forms' float32 ops in
+  once; up to 32 taps a block stages H and the spectra in shared memory as
+  float64 and a lane walks the tree in registers for 2 outputs.  Its twin
+  `upols_mac_reference` is that formula per block;
+- `fir_fold` (``f9_fir_fold``: 8 consecutive outputs a thread, their
+  window of samples slid through registers) and `ma_past` (``f9_ma_past``:
+  one thread an output), in `csrc/fold.cu`, the eager forms' float32 ops in
   their order.  Their twins are `chain._fir_fold_reference` and
   `chain._uniform_ma_past_reference`, and `chain._fir_fold` /
   `chain._uniform_ma_past` dispatch between twin and kernel.
@@ -44,7 +47,8 @@ _launch_lock = threading.Lock()
 
 #: the deepest delay line the MAC kernel takes (`csrc/upols.cu` MAC_MAX_K)
 MAC_MAX_K = 64
-#: the fold kernel stages 2W - 1 + 1024 floats in 48 KB of shared memory
+#: the widest fold the kernel takes (`csrc/fold.cu` FOLD_MAX_W: its counter's
+#: depth and, past 2,559 taps, a shared-memory limit raised above 48 KB)
 FOLD_MAX_W = 5632
 
 

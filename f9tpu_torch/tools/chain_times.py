@@ -11,8 +11,17 @@ the 60 s capture bucket at 44.1 kHz, reverb mode) and each chain stage alone
 on its 48 kHz output; one 20 s chunk of the stream with the chain (SRC,
 chain, finish); and one 54.6 s stereo file's loudness meter
 (`meter_source_streamed` with the true peak, host clock) and its
-K-weighting of one 20 s chunk.  Device times are CUDA events, the median of
-5 calls after a warm-up.  It prints one JSON line with the card's name and
+K-weighting of one 20 s chunk; then the delay-line MAC and the fold kernel
+alone at three shapes each (the MAC: one group of the insert loop's reverb,
+of the stream chunk's and of the meter's K-weighting; the fold: the EQ's
+taps on the insert loop's batch and on the stream chunk, and `FIR_FOLD_MAX`
+taps on the chunk).  Device times are CUDA events, the median of 5 calls
+after a warm-up; the kernels also get the ms a call of a back-to-back loop
+and their device time from `torch.profiler` (a small launch's events time
+the host's launch too).  A
+sha256 of the graph's outputs, of the stream chunk's payload, of the
+meter's result and of the chunk's K-weighting shows whether two trees
+compute the same bytes.  It prints one JSON line with the card's name and
 power limit.  Run it as a script, not with ``-m``, so that ``--root``
 decides which ``f9tpu_torch`` is imported: comparing two trees takes one
 process each, in turns (parent, change, change, parent) on one card.
@@ -22,6 +31,7 @@ Without a card it exits 1.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -56,6 +66,55 @@ def _ms(fn, runs: int = 5) -> float:
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
     return float(np.median(ts))
+
+
+def _device_ms(fn, pattern: str, runs: int = 20) -> float:
+    """Device ms a call of the kernels whose names hold ``pattern``, from
+    `torch.profiler` over ``runs`` calls after one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+             for e in prof.key_averages() if pattern in e.key)
+    return us / 1e3 / runs
+
+
+def _loop_ms(fn, calls: int = 50) -> float:
+    """ms a call over ``calls`` back-to-back calls (CUDA events around the
+    loop): where a launch is shorter than its host work, the host's cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def _sha(*parts) -> str:
+    """sha256 (first 16 hex digits) of tensors' bytes and numbers as
+    float64, in order."""
+    import numpy as np
+    import torch
+
+    h = hashlib.sha256()
+    for v in parts:
+        if isinstance(v, torch.Tensor):
+            h.update(v.detach().contiguous().cpu().numpy().tobytes())
+        else:
+            h.update(np.asarray(np.nan if v is None else v, np.float64).tobytes())
+    return h.hexdigest()[:16]
 
 
 def _stereo_ir(rng, rate: int = 48000, seconds: float = 2.5):
@@ -121,8 +180,13 @@ def main(argv=None) -> int:
     xd = torch.from_numpy(x).to(dev)
     vd = torch.from_numpy(valid).to(dev)
     seeds = np.arange(1, 9, dtype=np.int32)
-    out["insert_loop_graph_ms"] = _ms(lambda: graph.process_batch(
-        xd, vd, cfg, 44100, seeds, latency_frames=lat, device=dev))
+    def run_graph():
+        return graph.process_batch(xd, vd, cfg, 44100, seeds, latency_frames=lat, device=dev)
+
+    r = run_graph()
+    out["insert_loop_graph_sha256"] = _sha(r.codes, r.out_frames, r.tail_terminated, r.peak_db,
+                                           r.rms_db, r.noise_floor_db)
+    out["insert_loop_graph_ms"] = _ms(run_graph)
     pad = graph._default_pad_frames(cfg, 44100, lat)
     y = resample_auto(torch.nn.functional.pad(xd[:, [1, 0]], (0, pad)),
                       design_cycle_bank(44100, 48000))
@@ -138,9 +202,14 @@ def main(argv=None) -> int:
     xp = torch.from_numpy(x[0, :, :(cycles - 1) * bank.M + bank.W].copy()).to(dev)
     seeds_c = dither.channel_seeds(torch.tensor(12345, device=dev), 2)
     states = chain.stream_init(48000, 2, dev)
-    out["stream_chunk_ms"] = _ms(lambda: st._finish_chunk(
-        resample_presliced(xp, bank, cycles), states, seeds_c, 0, 1.0, rate_out=48000,
-        bits=24, do_dither=True, chain=chain, wire="pack24")[0])
+
+    def run_chunk():
+        return st._finish_chunk(resample_presliced(xp, bank, cycles), states, seeds_c, 0, 1.0,
+                                rate_out=48000, bits=24, do_dither=True, chain=chain,
+                                wire="pack24")[0]
+
+    out["stream_chunk_sha256"] = _sha(run_chunk())
+    out["stream_chunk_ms"] = _ms(run_chunk)
     out["stream_chunk_frames"] = int(cycles * bank.L)
 
     # one file's meter: the whole call (host clock) and one chunk's K-weighting
@@ -151,12 +220,53 @@ def main(argv=None) -> int:
     for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.time()
-        ld.meter_source_streamed(read, 2, T, 44100, want_tp=True, device=dev)
+        m = ld.meter_source_streamed(read, 2, T, 44100, want_tp=True, device=dev)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.time() - t0))
+    out["meter_sha256"] = _sha(m["lufs"], m["true_peak_db"])
+    out["meter"] = m
     out["meter_file_ms"] = float(np.median(walls[1:]))
     z = torch.from_numpy(np.ascontiguousarray(x[2, :, :20 * 48000 + 5000])).to(dev)
+    out["k_weight_20s_sha256"] = _sha(ld.k_weight(z))
     out["k_weight_20s_ms"] = _ms(lambda: ld.k_weight(z))
+
+    # the two kernels alone, three shapes each
+    from f9tpu_torch.ops import chain as ch
+    from f9tpu_torch.ops import chain_kernels as ck
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rev, eq = chain.stages[3], chain.stages[1]
+    B = rev.stream_grid(48000)
+    H = rev._spectrum(B, dev).to(torch.complex64).contiguous()         # (30, 2, 1, Nf)
+    kw = ld.k_weighting_ir().astype(np.float32)
+    Bk = ch._fft_block_size(int(kw.shape[0]))
+    Hk = ch._spectrum([ch._partition_ir(kw, Bk)], dev)[:, 0].contiguous()   # (2, 1, Nf)
+    G = ch.UPOLS_GROUP
+    kernels = {}
+    for label, Hs, lead in (("upols_mac, insert loop", H, (2, 8)),
+                            ("upols_mac, 20 s stream chunk", H, (2, 1)),
+                            ("upols_mac, meter", Hk, (2,))):
+        buf = torch.randn((Hs.shape[0] - 1 + G, *lead, Hs.shape[-1]), dtype=torch.complex64,
+                          device=dev, generator=gen)
+        kernels[label] = dict(
+            shape=f"K={Hs.shape[0]}, G={G}, rows {lead}, {Hs.shape[-1]} bins",
+            sha256=_sha(ck.upols_mac(buf, Hs, G)),
+            ms=_ms(lambda: ck.upols_mac(buf, Hs, G)),
+            loop_ms=_loop_ms(lambda: ck.upols_mac(buf, Hs, G)),
+            device_ms=_device_ms(lambda: ck.upols_mac(buf, Hs, G), "upols_mac"))
+    chunk = y[0, :, :out["stream_chunk_frames"]].contiguous()
+    taps = eq._taps(48000)
+    wide = (rng.standard_normal(ch.FIR_FOLD_MAX) / np.sqrt(ch.FIR_FOLD_MAX)).astype(np.float32)
+    for label, v, tp in (("fir_fold, insert loop", y, taps),
+                         ("fir_fold, 20 s stream chunk", chunk, taps),
+                         (f"fir_fold, 20 s stream chunk, {ch.FIR_FOLD_MAX} taps", chunk, wide)):
+        td = torch.from_numpy(tp.copy()).to(dev)
+        kernels[label] = dict(
+            shape=f"W={tp.shape[0]}, {tuple(v.shape)}", sha256=_sha(ck.fir_fold(v, td)),
+            ms=_ms(lambda: ck.fir_fold(v, td)),
+            loop_ms=_loop_ms(lambda: ck.fir_fold(v, td), calls=10),
+            device_ms=_device_ms(lambda: ck.fir_fold(v, td), "fir_fold", runs=5))
+    out["kernels"] = kernels
     print(json.dumps(out), flush=True)
     return 0
 

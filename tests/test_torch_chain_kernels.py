@@ -8,10 +8,13 @@
   `UPOLS_GROUP` patched small.  Streamed chunks equal the whole signal bit
   for bit however they cut the groups.
 - `upols_mac_reference` is `_delay_line_sum(X * H)` per block, bitwise.
-- The kernels' orders, replayed in numpy (the MAC's halving tree in
-  float64 with its first level fused, the fold's eight-tap unroll and counter, the moving
-  average's newest-first sum), equal the plain twins bit for bit: the CUDA
-  sources compute in these orders with one rounding per `_rn` intrinsic.
+- The kernels' orders and indexing, replayed in numpy (the MAC's staged
+  blocks and two-output lanes walking the halving tree in float64, its
+  column form above 32 taps, the fold's eight-output windows, eights,
+  16s and counter, the moving average's newest-first sum), equal the
+  plain twins bit for bit: the CUDA sources compute in these orders with
+  one rounding per `_rn` intrinsic, and the MAC's FMA product is the
+  twin's (`test_fma_product_is_the_twin_s`).
 - Port against the JAX package: `_upols` / `_upols_stream` against
   `f9tpu/ops/chain.py:128,160` and `k_weight` against JAX's, <= -130 dB RMS,
   the bound of `tests/test_torch_chain.py::test_fft_convolve_matches_jax`
@@ -295,113 +298,278 @@ def test_mac_reference_is_the_delay_line_sum_per_block(K, G):
 
 # ------------------------------------------- the kernels' orders in numpy
 
-def _mac_kernel_order(prod, K: int):
-    """`csrc/upols.cu`'s evaluation for one bin: the tree's first level as
-    the products are formed (product i plus product i + ceil(K/2) while it
-    exists), then the halving levels over the ceil(K/2) partials."""
-    n = (K + 1) // 2
-    p = []
-    for i in range(n):
-        v = prod(i)
-        if i + n < K:
-            w = prod(i + n)
-            v = (v[0] + w[0], v[1] + w[1])
-        p.append(v)
-    while n > 1:
-        h = (n + 1) // 2
-        for i in range(n - h):
-            p[i] = (p[i][0] + p[i + h][0], p[i][1] + p[i + h][1])
-        n = h
-    return p[0]
+#: `csrc/upols.cu`'s geometry: bins a block, outputs a block, outputs a lane,
+#: rows a block, and the deepest delay line of the register-tree kernel
+MAC_TB, MAC_GB, MAC_GN, MAC_RB, MAC_REG_MAX_K = 32, 32, 2, 2, 32
+#: `csrc/fold.cu`'s geometry: outputs a thread, threads a block
+FOLD_R, FOLD_THREADS = 8, 128
 
 
-@pytest.mark.parametrize("K", [1, 2, 3, 5, 7, 8, 30, 33, 64])
+def _complex(re: np.ndarray, im: np.ndarray) -> np.ndarray:
+    """complex64 from its parts, signed zeros kept (``re + 1j * im`` turns
+    an imaginary -0.0 into +0.0)."""
+    z = np.empty(np.shape(re), np.complex64)
+    z.real, z.imag = re, im
+    return z
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """``a * b + c`` rounded once to float64, as the card's FMA does: the
+    exact value from `fractions.Fraction`, rounded by ``float()``; an exact
+    zero takes IEEE's sign (``-0`` only when the exact product and ``c`` are
+    both zeros of negative sign)."""
+    from fractions import Fraction
+
+    exact = Fraction(a) * Fraction(b) + Fraction(c)
+    if exact != 0:
+        return float(exact)
+    p = a * b                           # exact; a zero carries the product's sign
+    return -0.0 if (p == 0 and c == 0 and np.signbit(p) and np.signbit(c)) else 0.0
+
+
+def test_fma_product_is_the_twin_s():
+    """The kernel's product ``(fma(a, c, -b*d), fma(a, d, b*c))`` of float32
+    parts equals the twin's complex128 product bit for bit: every quadruple
+    of ±0.0, ±subnormals, ±1, ±3.4e38 and random values, and random
+    quadruples."""
+    f32 = np.finfo(np.float32)
+    special = [0.0, -0.0, float(f32.smallest_subnormal), -float(f32.smallest_subnormal),
+               float(np.float32(3e-39)), 1.0, -1.0, float(f32.max), -float(f32.max),
+               float(np.float32(1.5)), float(np.float32(-0.3))]
+    rng = np.random.default_rng(15)
+    quads = [(a, b, c, d) for a in special for b in special for c in special[::2]
+             for d in special[1::2]]
+    quads += [tuple(float(v) for v in q)
+              for q in (rng.standard_normal((3000, 4)) * 10.0 ** rng.integers(-30, 30, (3000, 1)))
+              .astype(np.float32)]
+    q = np.array(quads, np.float32)
+    x = torch.complex(torch.from_numpy(q[:, 0]), torch.from_numpy(q[:, 1]))
+    h = torch.complex(torch.from_numpy(q[:, 2]), torch.from_numpy(q[:, 3])).to(torch.complex128)
+    twin = _bits(x.to(torch.complex128) * h).numpy().reshape(-1, 2)
+    got = np.array([(_fma(a, c, -(b * d)), _fma(a, d, b * c)) for a, b, c, d in quads])
+    assert np.array_equal(got.view(np.int64), twin)
+
+
+def _mac_kernel_order(buf: np.ndarray, H: np.ndarray, G: int) -> np.ndarray:
+    """`csrc/upols.cu` for ``buf (K - 1 + G, rows, Nf)`` and ``H (K, Hrows,
+    Nf)`` complex64, in numpy float64, block by block as the card runs it.
+
+    K <= 32 (`upols_mac_reg`): a block stages 32 bins of H and of up to two
+    rows' ``K - 1 + 32`` spectra as float64 (+0.0 past the row and past its
+    outputs); a lane walks the halving tree depth first for 2 consecutive
+    outputs at once, reading output j's spectrum for tap k at ``K - 1 + g +
+    j - k``.  K > 32 (`upols_mac_col`): the tree's first level as the
+    products are formed, then the halving levels over the ceil(K/2)
+    partials.  A product ``ac - bd``, ``ad + bc`` of float64 copies of
+    float32 parts is exact before its one rounding, so numpy's form is the
+    kernel's FMA form (`test_fma_product_is_the_twin_s`)."""
+    K, rows, Nf = H.shape[0], buf.shape[1], buf.shape[2]
+    Hrows = H.shape[1]
+    rph = rows // Hrows
+    Y = np.full((G, rows, Nf), np.nan, np.complex64)
+
+    def prod(xr, xi, hr, hi):
+        return xr * hr - xi * hi, xr * hi + xi * hr
+
+    def add(p, q):
+        return p[0] + q[0], p[1] + q[1]
+
+    if K > MAC_REG_MAX_K:
+        X = buf.astype(np.complex128)
+        Hc = H.astype(np.complex128)[:, np.repeat(np.arange(Hrows), rph)]   # (K, rows, Nf)
+        for g in range(G):
+            def p_k(k, g=g):
+                x, h = X[K - 1 + g - k], Hc[k]
+                return prod(x.real, x.imag, h.real, h.imag)
+            n = (K + 1) // 2
+            p = [add(p_k(i), p_k(i + n)) if i + n < K else p_k(i) for i in range(n)]
+            while n > 1:
+                hh = (n + 1) // 2
+                for i in range(n - hh):
+                    p[i] = add(p[i], p[i + hh])
+                n = hh
+            Y[g] = _complex(p[0][0].astype(np.float32), p[0][1].astype(np.float32))
+        return Y
+
+    def width(L):
+        n = K
+        for _ in range(L):
+            n = (n + 1) // 2
+        return n
+
+    levels = 0
+    while width(levels) > 1:
+        levels += 1
+    XR = K - 1 + MAC_GB
+    tiles, chunks = -(-Nf // MAC_TB), -(-rph // MAC_RB)
+    for gb in range(-(-G // MAC_GB)):
+        for hr in range(Hrows):
+            for c in range(chunks):
+                for t in range(tiles):
+                    r0, g0, f0 = hr * rph + c * MAC_RB, gb * MAC_GB, t * MAC_TB
+                    rbv, gbv = min(MAC_RB, rph - c * MAC_RB), min(MAC_GB, G - g0)
+                    nf = min(MAC_TB, Nf - f0)
+                    hs = np.zeros((2, K, MAC_TB))
+                    hs[0, :, :nf] = H[:, hr, f0:f0 + nf].real
+                    hs[1, :, :nf] = H[:, hr, f0:f0 + nf].imag
+                    xs = np.zeros((2, rbv, XR, MAC_TB))
+                    part = buf[g0:g0 + K - 1 + gbv, r0:r0 + rbv, f0:f0 + nf].transpose(1, 0, 2)
+                    xs[0, :, :K - 1 + gbv, :nf] = part.real
+                    xs[1, :, :K - 1 + gbv, :nf] = part.imag
+                    per_row = -(-gbv // MAC_GN)
+                    for it in range(rbv * per_row):
+                        rr, g = divmod(it, per_row)
+                        g *= MAC_GN
+
+                        def node(L, i, rr=rr, g=g):
+                            if L == 0:          # (MAC_GN, lanes): output j's tap i
+                                a = K - 1 + g - i
+                                return prod(xs[0, rr, a:a + MAC_GN], xs[1, rr, a:a + MAC_GN],
+                                            hs[0, i], hs[1, i])
+                            left = node(L - 1, i)
+                            if i + width(L) < width(L - 1):
+                                return add(left, node(L - 1, i + width(L)))
+                            return left
+
+                        re, im = node(levels, 0)
+                        for j in range(min(MAC_GN, gbv - g)):
+                            Y[g0 + g + j, r0 + rr, f0:f0 + nf] = _complex(
+                                re[j, :nf].astype(np.float32), im[j, :nf].astype(np.float32))
+    return Y
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 7, 8, 16, 17, 30, 31, 32, 33, 64])
 def test_mac_kernel_order_is_the_twin_s(K):
-    """The MAC kernel's arithmetic in numpy float64 (each product component
-    ``ac - bd``, ``ad + bc`` rounded once, the first level fused, the rest
-    of the halving tree, one rounding to float32) equals
-    `upols_mac_reference` bit for bit."""
+    """The MAC kernels' arithmetic replayed in numpy float64 (the register
+    tree's staged blocks and 2-output lanes for K <= 32, the column form
+    above) equals `upols_mac_reference` bit for bit, with an H row shared by
+    3 signal rows (a row chunk of 2 and one of 1), groups of 3 and of 37 (two
+    output blocks, the last short), 17 and 40 bins (a short bin tile), and
+    exact zeros of both signs among the spectra."""
     rng = np.random.default_rng(100 + K)
-    G, rows, Nf = 3, 2, 17
-    re = rng.standard_normal((K - 1 + G, rows, Nf)).astype(np.float32)
-    im = rng.standard_normal((K - 1 + G, rows, Nf)).astype(np.float32)
-    hre = (rng.standard_normal((K, 1, Nf)) * 3).astype(np.float32)
-    him = (rng.standard_normal((K, 1, Nf)) * 3).astype(np.float32)
-    want = ck.upols_mac_reference(torch.complex(torch.from_numpy(re), torch.from_numpy(im)),
-                                  torch.complex(torch.from_numpy(hre), torch.from_numpy(him)), G)
-    for g in range(G):
-        def prod(k, g=g):
-            a, b = re[K - 1 + g - k].astype(np.float64), im[K - 1 + g - k].astype(np.float64)
-            c, d = hre[k].astype(np.float64), him[k].astype(np.float64)
-            return a * c - b * d, a * d + b * c
-        vr, vi = _mac_kernel_order(prod, K)
-        got = torch.complex(torch.from_numpy(vr.astype(np.float32)),
-                            torch.from_numpy(vi.astype(np.float32)))
-        assert _same(got, want[g]), (K, g)
+    for G, Nf in ((3, 17), (37, 40)):
+        shape = (K - 1 + G, 6, Nf)
+        re = rng.standard_normal(shape).astype(np.float32)
+        im = rng.standard_normal(shape).astype(np.float32)
+        re[0, :, :4], im[0, :, 2:6] = 0.0, -0.0
+        hre = (rng.standard_normal((K, 2, Nf)) * 3).astype(np.float32)
+        him = (rng.standard_normal((K, 2, Nf)) * 3).astype(np.float32)
+        him[0, 0, :3] = -0.0
+        buf, H = _complex(re, im), _complex(hre, him)
+        want = ck.upols_mac_reference(torch.from_numpy(buf).view(K - 1 + G, 2, 3, Nf),
+                                      torch.from_numpy(H).view(K, 2, 1, Nf), G)
+        got = _mac_kernel_order(buf, H, G)
+        assert _same(torch.from_numpy(got), want.view(G, 6, Nf)), (K, G)
 
 
 def _fold_kernel_order(x: np.ndarray, taps: np.ndarray) -> np.ndarray:
-    """`csrc/fold.cu` fold_one for every output at once, in float32: the
-    taps in eights (a fixed tree each), a counter over the eights' levels,
-    the last W mod 8 taps in registers, the leftover merged smallest
-    first."""
-    W, T = taps.shape[0], x.shape[-1]
-    xp = np.concatenate([np.zeros(x.shape[:-1] + (W - 1,), np.float32), x], axis=-1)
-
-    def leaf(k):
-        return xp[..., W - 1 - k:W - 1 - k + T] * taps[k]
-
+    """`csrc/fold.cu` fir_fold_kernel for ``x (rows, T)`` in numpy float32,
+    every thread of every block at once, as the card indexes it: a block
+    stages ``8q + 7`` samples before its 1024 outputs (+0.0 outside the row)
+    and the taps (+0.0 past W, ``8q + 8`` of them, q = W // 8); thread t
+    owns outputs ``8t .. 8t + 7`` and walks the taps in eights, the window
+    ``w[7 + i - u]`` of output i and tap 8j + u made of the eight samples
+    new in step j and the seven newest of step j - 1; two eights make a 16,
+    the 16s enter a binary counter (levels 0-2 in registers, 3-8 in shared
+    memory on the card: the same values), and the last eight
+    (odd q), the last W mod 8 taps and the counter's levels are merged from
+    the smallest up."""
+    W, (rows, T) = taps.shape[0], x.shape
     q, r = W >> 3, W & 7
-    hi = {}
-    for j in range(q):
-        a = [leaf(8 * j + u) for u in range(8)]
-        t = ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]))
+    qp = q >> 1
+    tile = FOLD_R * FOLD_THREADS
+    tiles = -(-T // tile)
+    pre = 8 * q + 7
+    tp = np.zeros(8 * q + 8, np.float32)
+    tp[:W] = taps
+    # the staged span of every block, (rows * tiles, pre + tile + 1)
+    xp = np.zeros((rows, pre + tiles * tile + 1), np.float32)
+    xp[:, pre:pre + T] = x
+    span = (np.arange(tiles)[:, None] * tile + np.arange(pre + tile + 1)[None, :])
+    xs = xp[:, span].reshape(rows * tiles, -1)
+    lanes = 8 * q + FOLD_R * np.arange(FOLD_THREADS)       # xw: step 0's window start
+
+    def load8(off):                                           # (blocks, threads, 8)
+        return xs[:, (lanes + off)[:, None] + np.arange(8)[None, :]]
+
+    def eight(now, last, j):
+        tk = tp[8 * j:8 * j + 8]
+        t = []
+        for i in range(FOLD_R):
+            a = [(now[..., 7 + i - u] if 7 + i - u < 8 else last[..., i - u - 1]) * tk[u]
+                 for u in range(8)]
+            t.append(((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7])))
+        return t
+
+    C = load8(8)
+    hp = {}
+    for ip in range(qp):
+        j = 2 * ip
+        A = load8(-8 * j)
+        te = eight(A, C, j)
+        C = load8(-8 * (j + 1))
+        t = [e + o for e, o in zip(te, eight(C, A, j + 1))]
         lv = 0
-        while (j >> lv) & 1:
-            t = hi[lv] + t
+        while (ip >> lv) & 1:
+            t = [h + v for h, v in zip(hp[lv], t)]
             lv += 1
-        hi[lv] = t
-    k = 8 * q
-    s = {}
-    if r > 0:
-        s[0] = leaf(k)
-    if r > 1:
-        s[1] = s[0] + leaf(k + 1)
-    if r > 2:
-        s[0] = leaf(k + 2)
-    if r > 3:
-        s[2] = s[1] + (s[0] + leaf(k + 3))
-    if r > 4:
-        s[0] = leaf(k + 4)
-    if r > 5:
-        s[1] = s[0] + leaf(k + 5)
-    if r > 6:
-        s[0] = leaf(k + 6)
-    acc = None
-    for lv in range(3):
-        if (r >> lv) & 1:
-            acc = s[lv] if acc is None else s[lv] + acc
-    lv = 0
-    while q >> lv:
-        if (q >> lv) & 1:
-            acc = hi[lv] if acc is None else hi[lv] + acc
-        lv += 1
-    return acc
+        hp[lv] = t
+    if q & 1:
+        A = load8(-8 * (q - 1))
+        lone = eight(A, C, q - 1)
+    w0, w1, tk = load8(-8 * q), load8(-8 * q + 8), tp[8 * q:8 * q + 8]
+    out = []
+    for i in range(FOLD_R):
+        def p(u, i=i):
+            m = 7 + i - u
+            return (w0[..., m] if m < 8 else w1[..., m - 8]) * tk[u]
+        s = {}
+        if r > 0:
+            s[0] = p(0)
+        if r > 1:
+            s[1] = s[0] + p(1)
+        if r > 2:
+            s[0] = p(2)
+        if r > 3:
+            s[2] = s[1] + (s[0] + p(3))
+        if r > 4:
+            s[0] = p(4)
+        if r > 5:
+            s[1] = s[0] + p(5)
+        if r > 6:
+            s[0] = p(6)
+        acc = None
+        for lv in range(3):
+            if (r >> lv) & 1:
+                acc = s[lv] if acc is None else s[lv] + acc
+        if q & 1:
+            acc = lone[i] if acc is None else lone[i] + acc
+        for lv in range(10):
+            if (qp >> lv) & 1:
+                acc = hp[lv][i] if acc is None else hp[lv][i] + acc
+        out.append(acc)
+    y = np.stack(out, axis=-1).reshape(rows, tiles * tile)
+    return y[:, :T]
 
 
-@pytest.mark.parametrize("W", [2, 3, 7, 8, 9, 15, 16, 17, 24, 64, 127, 351, 1024])
+@pytest.mark.parametrize("W", [2, 3, 7, 8, 9, 15, 16, 17, 24, 63, 64, 65, 127, 351, 1024, 5631,
+                               5632])
 def test_fold_kernel_order_is_the_twin_s(W):
-    """The fold kernel's order replayed in numpy float32 equals
-    `_fir_fold_reference` bit for bit, on a signal that starts with exact
-    zeros (+0.0 and -0.0) and taps of both signs: even a zero's sign."""
+    """The fold kernel's order and indexing replayed in numpy float32 equal
+    `_fir_fold_reference` bit for bit, on rows of 1500 frames (a whole tile
+    and a short one) and of 300 (less than a tile) that start with exact
+    zeros (+0.0 and -0.0), with taps of both signs: even a zero's sign.  W
+    covers the eights' edges, 16 (two eights), R * 8 +- 1 (R = 8 outputs a
+    thread) and `FOLD_MAX_W`."""
     taps = _sig((W,), W, level=1.0 / np.sqrt(W))
     taps[::3] *= -1.0
-    x = _sig((2, 1500), W + 1)
-    x[0, :40] = 0.0
-    x[1, :40] = -0.0
-    want = tchain._fir_fold_reference(torch.from_numpy(x), taps).numpy()
-    got = _fold_kernel_order(x, taps)
-    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    for T in (1500, 300):
+        x = _sig((2, T), W + 1)
+        x[0, :40] = 0.0
+        x[1, :40] = -0.0
+        want = tchain._fir_fold_reference(torch.from_numpy(x), taps).numpy()
+        got = _fold_kernel_order(x, taps)
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), T
 
 
 @pytest.mark.parametrize("win", [2, 48, 73, 240, 4801])
@@ -594,6 +762,42 @@ def test_h_rows_maps_signal_rows_onto_h():
     assert ck._h_rows((3, 2, 5), (1,)) == 1
     with pytest.raises(ValueError):
         ck._h_rows((4, 2), (1, 2))
+
+
+def test_chain_kernel_ablation_changes_apply():
+    """`tools/chain_kernel_ablation.py`'s copies of `csrc/upols.cu` and
+    `csrc/fold.cu` each change what they name (the tool raises if a kernel's
+    source moved away from a change), and without a card it exits 1."""
+    from f9tpu_torch.tools import chain_kernel_ablation as abl
+
+    src = abl.variant_sources()
+    assert set(src) == {(k, c) for k, (_name, copies) in abl.VARIANTS.items() for c in copies}
+    for (kernel, copy), text in src.items():
+        assert (text == src[(kernel, "whole")]) == (copy == "whole"), (kernel, copy)
+    if not torch.cuda.is_available():
+        assert abl.main([]) == 1
+
+
+def test_ptxas_report_reads_each_kernel():
+    """`_build.ptxas_report` reads ptxas's ``-v`` lines per kernel, as
+    `chip_smoke.py` 14c and the ablation tool print them."""
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_113upols_mac_regILi30EEEvNS_7MacArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__N_113upols_mac_regILi30EEEvNS_7MacArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_115fir_fold_kernelEPKfS1_Pfxxi' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__N_115fir_fold_kernelEPKfS1_Pfxxi
+    288 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 288 bytes cumulative stack size
+"""
+    rep = _build.ptxas_report(log)
+    assert rep == {
+        "_ZN4_GLOBAL__N_113upols_mac_regILi30EEEvNS_7MacArgsE":
+            dict(stack=0, spill_stores=0, spill_loads=0, registers=128),
+        "_ZN4_GLOBAL__N_115fir_fold_kernelEPKfS1_Pfxxi":
+            dict(stack=288, spill_stores=4, spill_loads=8, registers=56)}
+    assert _build.ptxas_report("") == {}
 
 
 def test_upols_ablation_tool_on_the_cpu(capsys):
