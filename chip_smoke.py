@@ -183,26 +183,34 @@ its results, any failure exiting non-zero:
    each run must launch the kernels its bank takes; the phase fails past
    `FUZZ_BUDGET_S`;
 14. the insert chain's kernels (`phase_chain_kernels`; `f9tpu_torch/csrc/
-   upols.cu`, `fold.cu`): (a) cuFFT at n = 8192, 16384, 32768 and 6000
-   gives a row the same bits wherever it sits in the one batch shape UPOLS
-   calls on the card, (`UPOLS_GROUP`, `UPOLS_FFT_ROWS`), the premise of the
-   group form; each row the same bits in a batch of rows as in one of rows
-   x G (G = 1, 7, 32, 33; rows 1, 2, 16), a fault at n = 8192 and counted
-   elsewhere, as are G x rows against G x 16; (b)
-   bitwise against the twins: the delay-line multiply-sum (K = 1, 2, 7,
-   30, 64, mono and two-channel H, 1, 2 and 16 rows, groups of 1, 5 and
-   32), the fold (W = 2-1024) and the moving average (2-20,000) on rows
-   that start with +0.0 and -0.0 and on a 1-D row, and `_upols` at B =
-   4096, 8192 and 16384 streamed at 1, G - 1, G and G + 1 blocks (and at
-   4096 with groups of 1) equal to the whole by sha256 and two rows alone
-   equal to them in a batch of 16; (c) each kernel bitwise
-   against its twin at the insert loop's shapes, its ms there (CUDA
-   events, median of 10) beside its bound, its twin's ms and a library call
-   the port never makes (`torch.einsum`, `F.conv1d`, `F.avg_pool1d`), then
-   the UPOLS reverb, the EQ's fold, the compressor and the limiter; the
-   kernels' launches by path over phases 4-10 and 14c, each non-zero on the
-   insert loop and the stream, the multiply-sum also on normalize; the
-   phase fails past `CHAIN_KERNELS_BUDGET_S`.
+   upols.cu`, `fold.cu`, `dynamics.cu`): (a) cuFFT at n = 8192, 16384, 32768
+   and 6000 gives a row the same bits wherever it sits in the one batch
+   shape UPOLS calls on the card, (`UPOLS_GROUP`, `UPOLS_FFT_ROWS`), the
+   premise of the group form; each row the same bits in a batch of rows as
+   in one of rows x G (G = 1, 7, 32, 33; rows 1, 2, 16), a fault at n = 8192
+   and counted elsewhere, as are G x rows against G x 16; (b) bitwise
+   against the twins: the delay-line multiply-sum (K = 1, 2, 7, 30, 64, mono
+   and two-channel H, 1, 2 and 16 rows, groups of 1, 5 and 32), the fold (W
+   = 2-5632) and the moving average (2-60,000: staged, staged past 48 KB,
+   and from device memory) on rows that start with +0.0 and -0.0, on a 1-D
+   row and on rows shorter than a tile; the release envelope with
+   `_ENV_BLOCK` patched to 256 and at 2^17 (chunks from mid-block, shorter
+   than a tile, ending on the grid, carried states, an empty chunk, a NaN)
+   and the windowed maximum (W = 2-30,000, signed input, zeros of both
+   signs); the compressor, expander and limiter streamed at two chunk sizes
+   equal to the whole by sha256; `_upols` at B = 4096, 8192 and 16384
+   streamed at 1, G - 1, G and G + 1 blocks (and at 4096 with groups of 1)
+   equal to the whole by sha256 and two rows alone equal to them in a batch
+   of 16; (c) each kernel bitwise against its twin at the insert loop's and
+   a 20 s stream chunk's shapes, its ms there (CUDA events, median of 10;
+   device ms from `torch.profiler` in a process of its own, ``--chain-
+   device-times``, a fault if it reads none) beside its bound, its twin's ms
+   and a library call the port never makes (`torch.einsum`, `F.conv1d`,
+   `F.avg_pool1d`, `torch.cummax`, `F.max_pool1d`), then the UPOLS reverb,
+   the EQ's fold, the compressor and the limiter; the kernels' launches by
+   path over phases 4-10 and 14c, each non-zero on the insert loop and the
+   stream, the multiply-sum also on normalize; the phase fails past
+   `CHAIN_KERNELS_BUDGET_S`.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -211,8 +219,9 @@ CUDA GPU it exits 1 and prints no result.  ``python3 chip_smoke.py
 7b's times of one launch at the stream's chunk shapes, for the checkout it
 sits in (a parent tree unpacked by `git archive` beside this script's copy);
 ``--epilogue`` runs phase 11 alone, ``--graph-profile`` only 11c's trace,
-``--sweep`` phase 12 alone, ``--fuzz`` phase 13 alone and ``--chain-kernels``
-phase 14 alone.
+``--sweep`` phase 12 alone, ``--fuzz`` phase 13 alone, ``--chain-kernels``
+phase 14 alone and ``--chain-device-times`` only 14c's profiled device
+times.
 """
 
 from __future__ import annotations
@@ -333,9 +342,13 @@ def _src_bound(bank, signals: int, frames: int, out_len: int) -> tuple[float, st
 #: the epilogue pair's launches of each main-path drive, as `_read_counts`
 #: read them (`main` sums them by phase)
 EPILOGUE_READS: list[int] = []
-#: the chain kernels' launches of each main-path drive, (MAC, fold, moving
-#: average) as `_read_counts` read them (`main` sums them by path)
-CHAIN_READS: list[tuple[int, int, int]] = []
+#: the chain kernels' launch counters (`f9tpu_torch/ops/chain_kernels.py`):
+#: the MAC, the fold, the moving average, the envelope, the windowed maximum
+CHAIN_COUNTERS = ("launches_mac", "launches_fold", "launches_ma", "launches_env",
+                  "launches_wmax")
+#: the chain kernels' launches of each main-path drive, in `CHAIN_COUNTERS`'
+#: order, as `_read_counts` read them (`main` sums them by path)
+CHAIN_READS: list[tuple[int, ...]] = []
 
 
 def _zero_counts() -> None:
@@ -346,7 +359,8 @@ def _zero_counts() -> None:
 
     sk.launches = sk.launches_windowed = 0
     ep.launches = 0
-    ck.launches_mac = ck.launches_fold = ck.launches_ma = 0
+    for name in CHAIN_COUNTERS:
+        setattr(ck, name, 0)
 
 
 def _read_counts() -> tuple[int, int]:
@@ -359,7 +373,7 @@ def _read_counts() -> tuple[int, int]:
     from f9tpu_torch.ops import src_kernel as sk
 
     EPILOGUE_READS.append(ep.launches)
-    CHAIN_READS.append((ck.launches_mac, ck.launches_fold, ck.launches_ma))
+    CHAIN_READS.append(tuple(getattr(ck, name) for name in CHAIN_COUNTERS))
     return sk.launches, sk.launches_windowed
 
 
@@ -4223,8 +4237,11 @@ def phase_fuzz(card: str, dev) -> dict:
             "seconds": {**walls, "total": total}}
 
 
-#: phase 14 (the chain's kernels) fails past this many seconds
-CHAIN_KERNELS_BUDGET_S = 30.0
+#: phase 14 (the chain's kernels) fails past this many seconds: 30 until the
+#: dynamics kernels, then 25 more for what they added (on one H100 the
+#: dynamics cases of 14b 0.9-1.0 s, 14c's envelope and windowed maximum 0.2,
+#: and 14c's profiled child process 22.5-23.4, 24.6 at most)
+CHAIN_KERNELS_BUDGET_S = 55.0
 #: 14c's shape: the insert loop's batch at 48 kHz, 8 stereo files in the 60 s
 #: capture bucket with its tail
 CHAIN_SHAPE = (8, 2, 2_903_040)
@@ -4239,10 +4256,10 @@ FP64_INSTR_PER_S = 16.75e12
 FP32_INSTR_PER_S = 33.5e12
 
 
-def _chain_sum(reads: int) -> tuple[int, int, int]:
+def _chain_sum(reads: int) -> tuple[int, ...]:
     """The chain kernels' launches read since `CHAIN_READS` held ``reads``
     entries (the epilogue's `EPILOGUE_READS` keeps step with it)."""
-    return tuple(sum(r[i] for r in CHAIN_READS[reads:]) for i in range(3))
+    return tuple(sum(r[i] for r in CHAIN_READS[reads:]) for i in range(len(CHAIN_COUNTERS)))
 
 
 def _bits(t):
@@ -4340,9 +4357,10 @@ def _chain_twin_cases(card: str, dev) -> list[str]:
     bins, groups of 1, 5, 32 and 37 (two output blocks); the fold at W = 2,
     3, 7, 63-65 (8 outputs a thread x 8 taps +- 1), 351, 1024, 5631 and 5632
     (the widest, past 48 KB of shared memory) and the moving average at 2,
-    48, 73, 240, 4801 and 20,000 (past the staged span) on rows of 100,037
-    frames that start with +0.0 and -0.0, and on one 1-D row, and the fold
-    on rows of 300 and 7 frames (less than a tile); the
+    48, 73, 240, 4801, 12,000 and 20,000 (staged past 48 KB) and 60,000
+    (past a block's 227 KB, unstaged) on rows of 100,037 frames that start
+    with +0.0 and -0.0, and on one 1-D row, and both on rows of 300 and 7
+    frames (less than a tile); the
     whole `_upols` / `_upols_stream` at B = 4096, 8192 and 16384 chunked at
     1, G - 1, G and G + 1 blocks, and at 4096 with groups of 1, by sha256,
     and two rows alone against the same rows in a batch of 16."""
@@ -4398,9 +4416,11 @@ def _chain_twin_cases(card: str, dev) -> list[str]:
             n_fold += 1
             if not _bitwise(ch._fir_fold(sig, taps), ch._fir_fold_reference(sig, taps)):
                 faults.append(f"fir_fold W={W} {label}")
-        if sig.shape[-1] < 1000:         # the moving averages keep to the long rows
-            continue
-        for win in (2, 48, 73, 240, 4801, 20000):
+        # windows past 48 KB of staged span (12,000, 20,000) and past a
+        # block's 227 KB (60,000, read from device memory); the short rows
+        # are less than a tile
+        wins = (2, 48, 73, 240, 4801, 12000, 20000, 60000) if sig.shape[-1] > 1000 else (2, 9, 240)
+        for win in wins:
             n_ma += 1
             if not _bitwise(ch._uniform_ma_past(sig, win),
                             ch._uniform_ma_past_reference(sig, win)):
@@ -4445,6 +4465,155 @@ def _chain_twin_cases(card: str, dev) -> list[str]:
     return faults
 
 
+def _env_chunks(B: int) -> list[tuple[int, int]]:
+    """14b's envelope chunks ``(pos, T)`` on the grid of ``B``-frame blocks:
+    from the grid's start and from mid-block (long: several blocks at B =
+    256), shorter than a tile, across one boundary, ending on the grid after
+    half a block and after two and a half, on the grid at both ends, and
+    one frame."""
+    return [(0, 100_037), (B // 2 + 13, 100_037), (5, 7), (B - 3, 5), (3 * B + B // 2, B // 2),
+            (3 * B + B // 2, 2 * B + B // 2), (7 * B, 3 * B), (11 * B + 77, 1)]
+
+
+def _dynamics_twin_cases(card: str, dev) -> list[str]:
+    """14b for the dynamics kernels, bitwise against their twins on the
+    card.  The envelope (`Compressor._slanted_cummax_stream` against
+    `_slanted_cummax_stream_reference`: env, m' and env_carry') with
+    `_ENV_BLOCK` patched to 256 and at 2^17 over `_env_chunks`, on 3 x 1 rows
+    and a 1-D row, levels that start with +0.0 and -0.0 and hold a plateau
+    of equal values, from the virgin state and from a carried one; an empty
+    chunk hands its state back; a NaN spreads as the twin's does.  The
+    windowed maximum (`_window_max_past` against the reference) at W = 2, 3,
+    8, 73, 1025, 27,009 (the widest staged) and 30,000 (level launches) on
+    signed noise with zeros of both signs and a plateau, rows of 100,037,
+    300 and 7 frames and a 1-D row.  Then the compressor, the expander and
+    the limiter streamed at two chunk sizes against the whole signal by
+    sha256, at both block lengths, each launching both kernels."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.ops import chain as ch
+    from f9tpu_torch.ops import chain_kernels as ck
+
+    faults = []
+    rng = np.random.default_rng(SEED + 146)
+    comp = ch.Compressor
+    B0 = comp._ENV_BLOCK
+    t0 = time.time()
+    n_env = 0
+    try:
+        for B in (256, B0):
+            comp._ENV_BLOCK = B
+            for pos, T in _env_chunks(B):
+                for lead in ((3, 1), ()):
+                    lv = rng.uniform(-90.0, 6.0, size=(*lead, T)).astype(np.float32)
+                    lv[..., :40] = 0.0
+                    lv[..., 1:40:3] = -0.0
+                    lv[..., T // 2:T // 2 + 500] = -12.5
+                    lvd = torch.from_numpy(lv).to(dev)
+                    for c, carried in ((80.0 / 48000, False), (300.0 / 48000, True)):
+                        if carried:
+                            m, ec = (torch.from_numpy(np.asarray(
+                                rng.uniform(-40.0, 0.0, size=lead), np.float32)).to(dev)
+                                for _ in "me")
+                        else:
+                            m = ec = torch.full(lead, -1e9, device=dev)
+                        got = comp._slanted_cummax_stream(lvd, c, pos, m, ec)
+                        want = comp._slanted_cummax_stream_reference(lvd, c, pos, m, ec)
+                        n_env += 1
+                        bad = [k for k, g, w in zip(("env", "m'", "env_carry'"), got, want)
+                               if not _bitwise(g, w)]
+                        if bad:
+                            faults.append(f"slanted_cummax B={B} pos={pos} T={T} rows={lead} "
+                                          f"{'carried' if carried else 'virgin'}: {bad} differ")
+        comp._ENV_BLOCK = B0
+        m = torch.full((3, 1), -5.0, device=dev)
+        got = comp._slanted_cummax_stream(torch.empty((3, 1, 0), device=dev), 0.01, 77, m, m)
+        if got[1] is not m or got[2] is not m or got[0].shape != (3, 1, 0):
+            faults.append("slanted_cummax: an empty chunk did not hand its state back")
+        lv = rng.uniform(-60.0, 0.0, size=(2, 1, 300_000)).astype(np.float32)
+        lv[0, 0, 1000] = np.nan
+        lvd = torch.from_numpy(lv).to(dev)
+        init = torch.full((2, 1), -1e9, device=dev)
+        got = comp._slanted_cummax_stream(lvd, 0.01, 12_345, init, init)
+        want = comp._slanted_cummax_stream_reference(lvd, 0.01, 12_345, init, init)
+        for k, g, w in zip(("env", "m'", "env_carry'"), got, want):
+            nan_g, nan_w = torch.isnan(g), torch.isnan(w)
+            if not torch.equal(nan_g, nan_w) or not _bitwise(g[~nan_g], w[~nan_w]):
+                faults.append(f"slanted_cummax with a NaN: {k} differs")
+    finally:
+        comp._ENV_BLOCK = B0
+    print(f"chain 14b: slanted_cummax vs twin: {n_env} cases (B = 256 and {B0}), "
+          f"{len(faults)} faults, an empty chunk and a NaN ({time.time() - t0:.1f} s) [{card}]",
+          flush=True)
+
+    t0 = time.time()
+    n_wmax, nf = 0, len(faults)
+    x = rng.standard_normal((3, 1, 100_037)).astype(np.float32)
+    x[0, :, :60] = 0.0
+    x[1, :, :60] = -0.0
+    x[2, :, 1000:1100] = -0.0
+    x[2, :, 1100:1200] = 0.0
+    x[:, :, 5000:5100] = 0.25
+    xd = torch.from_numpy(x).to(dev)
+    short = xd[..., :300].contiguous()
+    for sig, label in ((xd, "(3, 1, 100037)"), (xd[2, 0].contiguous(), "1-D"),
+                       (short, "(3, 1, 300)"), (short[..., :7].contiguous(), "(3, 1, 7)")):
+        for W in (2, 3, 8, 73, 1025) + ((27009, 30000) if sig.shape[-1] > 1000 else ()):
+            n_wmax += 1
+            if not _bitwise(ch._window_max_past(sig, W), ch._window_max_past_reference(sig, W)):
+                faults.append(f"window_max W={W} {label}")
+    print(f"chain 14b: window_max vs twin: {n_wmax} cases, {len(faults) - nf} faults "
+          f"({time.time() - t0:.1f} s) [{card}]", flush=True)
+    # torch's own tie rule for zeros of both signs on the card, which the
+    # twins inherit (reported, not held: the kernels replay it or never meet it)
+    z = torch.tensor([0.0, -0.0], device=dev)
+
+    def sign(t):
+        return "".join("-0" if b else "+0" for b in torch.signbit(t).tolist())
+
+    print(f"chain 14b: torch's ties on the card: maximum(+0, -0) {sign(torch.maximum(z[:1], z[1:]))}"
+          f", maximum(-0, +0) {sign(torch.maximum(z[1:], z[:1]))}, cummax([+0, -0]) "
+          f"{sign(torch.cummax(z, 0).values)}, cummax([-0, +0]) "
+          f"{sign(torch.cummax(z.flip(0), 0).values)} [{card}]", flush=True)
+
+    t0 = time.time()
+    nf = len(faults)
+    T = 384_000
+    t = np.arange(T) / 48000.0
+    y = (0.5 * np.sin(2 * np.pi * 220.0 * t) * np.where((t > 2.0) & (t < 4.5), 0.01, 1.0)
+         + 0.05 * rng.standard_normal((2, T))).astype(np.float32)
+    yd = torch.from_numpy(y).to(dev)
+    stages = (("compressor", ch.Compressor(-20.0, 4.0, 2.0, 200.0)),
+              ("expander", ch.Expander(-25.0, 2.0, 0.0, 300.0)),
+              ("limiter", ch.Limiter(-4.0, 1.0, 250.0)))
+    shas = {}
+    try:
+        for B in (256, B0):
+            comp._ENV_BLOCK = B
+            for name, stage in stages:
+                env0, wmax0 = ck.launches_env, ck.launches_wmax
+                whole = _digest(stage.apply(yd, 48000))
+                for chunk in (31_415, 100_000):
+                    state, out = stage.stream_state(48000, 2, dev), []
+                    for a in range(0, T, chunk):
+                        o, state = stage.apply_stream(yd[..., a:a + chunk], state, 48000, a)
+                        out.append(o)
+                    got = _digest(torch.cat(out, dim=-1))
+                    shas[f"{name} B={B} chunks of {chunk}"] = got == whole
+                    if got != whole:
+                        faults.append(f"{name} B={B} chunks of {chunk}: sha256 {got} != whole "
+                                      f"{whole}")
+                if ck.launches_env == env0 or (name == "limiter" and ck.launches_wmax == wmax0):
+                    faults.append(f"{name} B={B}: the dynamics kernels were not launched")
+    finally:
+        comp._ENV_BLOCK = B0
+    print(f"chain 14b: compressor, expander, limiter on 2 x {T} streamed at 31,415 and 100,000 "
+          f"frames vs whole, sha256 equal: {sum(shas.values())} of {len(shas)}, "
+          f"{len(faults) - nf} faults ({time.time() - t0:.1f} s) [{card}]", flush=True)
+    return faults
+
+
 def _ptxas_stats(pattern: str):
     """What ptxas reported for the first kernel whose mangled name holds
     ``pattern`` (`_build.ptxas_report`); None when the library was not built
@@ -4455,100 +4624,30 @@ def _ptxas_stats(pattern: str):
                 None)
 
 
-def _kernel_device_ms(fn, name: str, runs: int = 10) -> float | None:
-    """`_pass_ms` of one kernel after a warm-up call: a small launch's CUDA
-    events also time the host's launch."""
-    import torch
+def _chain_cases(dev) -> tuple[list[dict], dict]:
+    """14c's kernel calls at the path's shapes, built the same way in this
+    process and in the profiled child (``--chain-device-times``): a list of
+    {kernel, label, shape, run, twin, library, bound_ms, bound_by,
+    patterns, per_call} (the first case of each kernel is its insert-loop
+    shape), and the chain's stages with the batch ``y`` they run on.
 
-    fn()
-    torch.cuda.synchronize()
-    return _pass_ms(fn, runs, ((name, name),))[name]
-
-
-def _mac_times(buf, H, G: int, faults: list) -> dict:
-    """`upols_mac` on one group against its twin (a fault unless bitwise),
-    its one-call time (CUDA events, median of 10) and device time (profiler,
-    median of 10), the twin's (median of 3),
-    one `torch.einsum` over the same spectra (never called by the port), and
-    the bound: 6 separately rounded float64 instructions a complex
-    multiply-add (2 multiplies, 2 FMAs, the tree's 2 adds) against the
-    spectra and H read once and Y written once; beside it the first design's
-    count, 8 (4 multiplies, 2 sums, 2 adds)."""
-    import numpy as np
-    import torch
-
-    from f9tpu_torch.ops import chain_kernels as ck
-
-    K, lead, Nf = H.shape[0], tuple(buf.shape[1:-1]), buf.shape[-1]
-    got = ck.upols_mac(buf, H, G)
-    want = ck.upols_mac_reference(buf, H, G)
-    err = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
-    same = _bitwise(got, want)
-    if not same:
-        faults.append(f"upols_mac != twin at K={K}, G={G}, rows {lead} (max {err:.3g})")
-    rows, h_rows = int(np.prod(lead)), int(np.prod(H.shape[1:-1]))
-    macs = K * G * rows * Nf
-    t_ops = 6.0 * macs / FP64_INSTR_PER_S
-    t_bytes = 8.0 * Nf * ((K - 1 + G) * rows + K * h_rows + G * rows) / HBM_BYTES_PER_S
-    Xw = buf.unfold(0, K, 1)                                  # (G, *lead, Nf, K), oldest first
-    Hx = H.flip(0).movedim(0, -1).expand(*lead, Nf, K)
-    return dict(
-        ms=_median_ms(lambda: ck.upols_mac(buf, H, G)),
-        device_ms=_kernel_device_ms(lambda: ck.upols_mac(buf, H, G), "upols_mac"),
-        plain_ms=_median_ms(lambda: ck.upols_mac_reference(buf, H, G), runs=3),
-        bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
-        bound_ms_8_instructions=1e3 * max(8.0 * macs / FP64_INSTR_PER_S, t_bytes),
-        library_ms=_median_ms(lambda: torch.einsum("g...k,...k->g...", Xw, Hx)),
-        max_abs_err=err, bitwise=same)
-
-
-def _fold_times(x, taps, faults: list) -> dict:
-    """`fir_fold` of ``x`` with the float32 ``taps`` against its twin (a
-    fault unless bitwise), its one-call time (CUDA events, median of 10) and
-    device time (profiler, median of 5), the twin's (median of 3),
-    `F.conv1d` with TF32 off (never called by the
-    port), and the bound: 2W - 1 separately rounded float32 instructions an
-    output against x read once and y written once."""
-    import numpy as np
-    import torch
-    import torch.nn.functional as F
-
-    from f9tpu_torch.ops import chain as ch
-    from f9tpu_torch.ops import chain_kernels as ck
-
-    W, T, n_out = int(taps.shape[0]), x.shape[-1], x.numel()
-    tp = torch.from_numpy(taps.copy()).to(x.device)
-    got = ck.fir_fold(x, tp)
-    want = ch._fir_fold_reference(x, taps)
-    err = float((got - want).abs().max())
-    same = _bitwise(got, want)
-    if not same:
-        faults.append(f"fir_fold != twin at W={W} on {tuple(x.shape)} (max {err:.3g})")
-    t_ops = (2 * W - 1) * n_out / FP32_INSTR_PER_S
-    t_bytes = (8.0 * n_out + 4 * W) / HBM_BYTES_PER_S
-    wt = torch.from_numpy(np.ascontiguousarray(taps[::-1])).to(x.device).reshape(1, 1, W)
-    return dict(
-        ms=_median_ms(lambda: ck.fir_fold(x, tp)),
-        device_ms=_kernel_device_ms(lambda: ck.fir_fold(x, tp), "fir_fold", runs=5),
-        plain_ms=_median_ms(lambda: ch._fir_fold_reference(x, taps), runs=3),
-        bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
-        library_ms=_median_ms(lambda: F.conv1d(x.reshape(-1, 1, T), wt, padding=W - 1)[..., :T]),
-        max_abs_err=err, bitwise=same)
-
-
-def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
-    """14c: each kernel against its twin, bitwise (a fault otherwise), its
-    one-call time (CUDA events, median of 10), its bound, its twin's time
-    (median of 3), a library yardstick the port never calls and ptxas's
-    registers and spills: the MAC and the fold at the insert loop's shape,
-    a 20 s stream chunk's and a third (the meter's K-weighting for the MAC;
-    `FIR_FOLD_MAX` taps on the chunk for the fold), the moving averages at
-    the insert loop's windows; then the stages around them:
-    `_fft_convolve_multi` of the 2.5 s stereo IR, the 351-tap EQ's fold, the
-    compressor and the limiter.  Returns the JSON summary's numbers (the
-    insert loop's shape first, every shape under "per_shape"), with the
-    launches of the stage calls as the path "chain_stages", and the
-    faults."""
+    The MAC: one group of the insert loop's reverb, of a 20 s stream
+    chunk's and of the meter's K-weighting; bound 6 separately rounded
+    float64 instructions a complex multiply-add against the spectra and H
+    read once and Y written once (beside it the first design's 8); library
+    `torch.einsum`.  The fold: the EQ's taps on the insert loop's batch and
+    on the chunk, `FIR_FOLD_MAX` taps on the chunk; bound 2W - 1 float32
+    instructions an output; library `F.conv1d` (TF32 off).  The moving
+    average: the compressor's detector (win 48, both channels), its attack
+    (240) and the limiter's ramp (73) on the linked row; bound win float32
+    instructions an output; library `F.avg_pool1d`.  The envelope: the
+    compressor's level on the insert loop's linked row from position 0 and
+    on the chunk's from a position mid-grid with a carried state; bound
+    the level read once and env written once (8 float32 instructions a
+    frame); library `torch.cummax` over the whole row.  The windowed
+    maximum: the limiter's W = 73 over its ring and attenuation on both
+    rows; bound the same bytes (its 7 levels of maxima are the ops);
+    library `F.max_pool1d` over the padded row."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -4574,89 +4673,245 @@ def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
     delay, eq, comp, rev, lim = chain.stages
     gen = torch.Generator(device=dev).manual_seed(SEED + 145)
     y = 0.1 * torch.randn((files, C, T), device=dev, generator=gen)
-    out, faults = {}, []
+    cases = []
 
-    # the MAC at three shapes, one group each: the insert loop's reverb (an
-    # IR per channel over 8 files), a 20 s stream chunk's (one stereo file)
-    # and the meter's K-weighting (K = 2, one IR over both channels)
+    def bound(ops: float, nbytes: float, rate: float = FP32_INSTR_PER_S) -> dict:
+        t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
+        return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops > t_bytes else "bytes")
+
     B = rev.stream_grid(48000)
     H = rev._spectrum(B, dev).to(torch.complex64)                      # (30, 2, 1, Nf)
     kw = ld.k_weighting_ir().astype(np.float32)
     Bk = ch._fft_block_size(int(kw.shape[0]))
-    Hk = ch._spectrum([ch._partition_ir(kw, Bk)], dev)[:, 0].contiguous()   # (2, 1, Nf)
+    Hk = ch._spectrum([ch._partition_ir(kw, Bk)], dev)[:, 0].contiguous()   # (K, 1, Nf)
     G = ch.UPOLS_GROUP
-    mac_shapes = (("insert loop", H, (C, files)), ("20 s stream chunk", H, (C, 1)),
-                  ("meter", Hk, (C,)))
-    per_mac = {}
-    for label, Hs, lead in mac_shapes:
+    for label, Hs, lead in (("insert loop", H, (C, files)), ("20 s stream chunk", H, (C, 1)),
+                            ("meter", Hk, (C,))):
         K, Nf = Hs.shape[0], Hs.shape[-1]
         buf = torch.randn((K - 1 + G, *lead, Nf), dtype=torch.complex64, device=dev,
                           generator=gen)
-        per_mac[label] = r = _mac_times(buf, Hs, G, faults)
-        r["ptxas"] = _ptxas_stats(f"upols_mac_regILi{K}E" if K <= 32 else "upols_mac_col")
-        r["shape"] = f"K={K}, G={G}, {' x '.join(map(str, lead))} rows, {Nf} bins"
-    out["upols_mac"] = dict(per_mac["insert loop"], per_shape=per_mac)
+        rows, h_rows = int(np.prod(lead)), int(np.prod(Hs.shape[1:-1]))
+        macs = K * G * rows * Nf
+        nbytes = 8.0 * Nf * ((K - 1 + G) * rows + K * h_rows + G * rows)
+        Xw = buf.unfold(0, K, 1)                                  # (G, *lead, Nf, K), oldest first
+        Hx = Hs.flip(0).movedim(0, -1).expand(*lead, Nf, K)
+        cases.append(dict(
+            kernel="upols_mac", label=label,
+            shape=f"K={K}, G={G}, {' x '.join(map(str, lead))} rows, {Nf} bins",
+            run=lambda buf=buf, Hs=Hs: ck.upols_mac(buf, Hs, G),
+            twin=lambda buf=buf, Hs=Hs: ck.upols_mac_reference(buf, Hs, G),
+            library=lambda Xw=Xw, Hx=Hx: torch.einsum("g...k,...k->g...", Xw, Hx),
+            patterns=("upols_mac",), per_call=1,
+            ptxas=f"upols_mac_regILi{K}E" if K <= 32 else "upols_mac_col",
+            bound_ms_8_instructions=1e3 * max(8.0 * macs / FP64_INSTR_PER_S,
+                                              nbytes / HBM_BYTES_PER_S),
+            **bound(6.0 * macs, nbytes, FP64_INSTR_PER_S)))
 
-    # the fold at three shapes: the EQ's 351 taps on the insert loop's batch
-    # and on a 20 s stream chunk, and the widest fold a stage runs
-    # (`FIR_FOLD_MAX` taps) on the chunk; the meter runs no fold
     bank = design_cycle_bank(44100, 48000)
     scfg = ProcessingConfig(output_dir="unused", target_rate=48000, chain=chain,
                             latency_frames=312)
     t_chunk = st._chunk_cycles(bank, scfg, 20.0, 44100) * bank.L
     yc = 0.1 * torch.randn((C, t_chunk), device=dev, generator=gen)
     taps = eq._taps(48000)
-    W = int(taps.shape[0])
     wide = (rng.standard_normal(ch.FIR_FOLD_MAX) / np.sqrt(ch.FIR_FOLD_MAX)).astype(np.float32)
-    per_fold = {}
     for label, v, tp in (("insert loop", y, taps), ("20 s stream chunk", yc, taps),
                          (f"20 s stream chunk, {ch.FIR_FOLD_MAX} taps", yc, wide)):
-        per_fold[label] = r = _fold_times(v, tp, faults)
-        r["ptxas"] = _ptxas_stats("fir_fold_kernel")
-        r["shape"] = f"W={tp.shape[0]}, {' x '.join(map(str, v.shape))}"
-    out["fir_fold"] = dict(per_fold["insert loop"], per_shape=per_fold)
+        W, n_out = int(tp.shape[0]), v.numel()
+        td = torch.from_numpy(tp.copy()).to(dev)
+        wt = torch.from_numpy(np.ascontiguousarray(tp[::-1])).to(dev).reshape(1, 1, W)
+        cases.append(dict(
+            kernel="fir_fold", label=label, shape=f"W={W}, {' x '.join(map(str, v.shape))}",
+            run=lambda v=v, td=td: ck.fir_fold(v, td),
+            twin=lambda v=v, tp=tp: ch._fir_fold_reference(v, tp),
+            library=lambda v=v, wt=wt, W=W: F.conv1d(v.reshape(-1, 1, v.shape[-1]), wt,
+                                                     padding=W - 1)[..., :v.shape[-1]],
+            patterns=("fir_fold",), per_call=1, ptxas="fir_fold_kernel",
+            **bound((2 * W - 1) * n_out, 8.0 * n_out + 4 * W)))
 
-    # the moving averages: the compressor's detector (1 ms) on both channels,
-    # its attack (5 ms) and the limiter's ramp (1.5 ms + 1) on the linked row
     sq = torch.square(y)
     link = sq[:, :1].contiguous()
-    per_win = {}
-    for win, v in ((48, sq), (240, link), (73, link)):
-        got = ck.ma_past(v, win)
-        want = ch._uniform_ma_past_reference(v, win)
-        e = float((got - want).abs().max())
-        if not _bitwise(got, want):
-            faults.append(f"ma_past != twin at win={win} on {tuple(v.shape)} (max {e:.3g})")
-        n_v = v.numel()
-        t_ops = win * n_v / FP32_INSTR_PER_S
-        t_bytes = 8.0 * n_v / HBM_BYTES_PER_S
+    for win, v, label in ((240, link, "insert loop, compressor attack"),
+                          (48, sq, "insert loop, compressor detector"),
+                          (73, link, "insert loop, limiter ramp")):
         vin = F.pad(v.reshape(-1, 1, v.shape[-1]), (win - 1, 0))
-        per_win[win] = dict(
-            ms=_median_ms(lambda: ck.ma_past(v, win)),
-            plain_ms=_median_ms(lambda: ch._uniform_ma_past_reference(v, win), runs=3),
-            bound_ms=1e3 * max(t_ops, t_bytes),
-            bound_by="operations" if t_ops > t_bytes else "bytes",
-            library_ms=_median_ms(lambda: F.avg_pool1d(vin, win, stride=1)),
-            max_abs_err=e, shape=f"win={win}, {tuple(v.shape)}")
-    out["ma_past"] = dict(per_win[240], per_window=per_win)
-    for name in ("upols_mac", "fir_fold"):
-        for label, r in out[name]["per_shape"].items():
-            old8 = (f" (old 8-instruction count {r['bound_ms_8_instructions']:.4f})"
-                    if name == "upols_mac" else "")
-            dev_ms = ("not read: the profiler saw no kernel" if r["device_ms"] is None
-                      else f"{r['device_ms']:.4f}")
-            print(f"chain 14c: {name}, {label} ({r['shape']}): kernel {r['ms']:.4f} ms (device "
-                  f"{dev_ms}), bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}){old8}, twin {r['plain_ms']:.2f} ms, "
-                  f"library {r['library_ms']:.3f} ms, max |kernel - twin| {r['max_abs_err']:.3g}, "
-                  f"ptxas {r['ptxas']} [{card}]", flush=True)
-    for win, r in per_win.items():
-        print(f"chain 14c: ma_past ({r['shape']}): kernel {r['ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.3f} ms ({r['bound_by']}), twin {r['plain_ms']:.2f} ms, "
-              f"avg_pool1d {r['library_ms']:.3f} ms, max |kernel - twin| "
-              f"{r['max_abs_err']:.3g} [{card}]", flush=True)
+        cases.append(dict(
+            kernel="ma_past", label=label, shape=f"win={win}, {tuple(v.shape)}",
+            run=lambda v=v, win=win: ck.ma_past(v, win),
+            twin=lambda v=v, win=win: ch._uniform_ma_past_reference(v, win),
+            library=lambda vin=vin, win=win: F.avg_pool1d(vin, win, stride=1),
+            patterns=("ma_past",), per_call=1, ptxas="ma_past_tiles",
+            **bound(win * v.numel(), 8.0 * v.numel())))
+
+    # the compressor's level on the linked rows, and the limiter's ring and
+    # attenuation after its release
+    c_comp, c_lim = comp.release_db_per_s / 48000, lim.release_db_per_s / 48000
+    L = lim.lookahead_frames(48000)
+    level_loop = 10.0 * torch.log10(torch.clamp(
+        ck.ma_past(sq, 48).amax(dim=-2, keepdim=True), min=1e-20))        # (8, 1, T)
+    yc1 = yc * 3.0
+    level_chunk = 10.0 * torch.log10(torch.clamp(
+        torch.square(yc1).amax(dim=-2, keepdim=True), min=1e-20))         # (1, t_chunk)
+    pos = 3 * t_chunk
+    for label, lv, p0, carried in (("insert loop", level_loop, 0, False),
+                                   ("20 s stream chunk", level_chunk, pos, True)):
+        lead = tuple(lv.shape[:-1])
+        m = torch.full(lead, -40.0 if carried else -1e9, device=dev)
+        ec = torch.full(lead, -35.0 if carried else -1e9, device=dev)
+        n = lv.numel()
+        cases.append(dict(
+            kernel="slanted_cummax", label=label, shape=f"{tuple(lv.shape)}, pos {p0}",
+            run=lambda lv=lv, p0=p0, m=m, ec=ec: ck.slanted_cummax(
+                lv, c_comp, p0, m, ec, ch.Compressor._ENV_BLOCK),
+            twin=lambda lv=lv, p0=p0, m=m, ec=ec: ch.Compressor._slanted_cummax_stream_reference(
+                lv, c_comp, p0, m, ec),
+            library=lambda lv=lv: torch.cummax(lv, dim=-1),
+            patterns=("env_tile_max", "env_walk", "env_write"), per_call=3,
+            ptxas="env_write", **bound(8.0 * n, 8.0 * n + 16.0 * lv.numel() / lv.shape[-1])))
+    for label, v in (("insert loop", y), ("20 s stream chunk", yc1)):
+        lvl = torch.amax(torch.abs(v), dim=-2, keepdim=True)
+        atten = torch.clamp(20.0 * torch.log10(torch.clamp(lvl, min=1e-20))
+                            - float(np.float32(lim.ceiling_db)), min=0.0)
+        init = torch.full(tuple(atten.shape[:-1]), -1e9, device=dev)
+        rel = ch.Compressor._slanted_cummax_stream(atten, c_lim, 0, init, init)[0]
+        ac = torch.cat([torch.zeros((*rel.shape[:-1], L), device=dev), rel], dim=-1)
+        W = L + 1
+        levels = int(np.log2(W)) + ((W & (W - 1)) != 0)
+        acp = F.pad(ac.reshape(-1, 1, ac.shape[-1]), (W - 1, 0))
+        cases.append(dict(
+            kernel="window_max", label=label, shape=f"W={W}, {tuple(ac.shape)}",
+            run=lambda ac=ac, W=W: ck.window_max(ac, W),
+            twin=lambda ac=ac, W=W: ch._window_max_past_reference(ac, W),
+            library=lambda acp=acp, W=W: F.max_pool1d(acp, W, stride=1),
+            patterns=("wmax_tile",), per_call=1, ptxas="wmax_tile",
+            **bound(levels * ac.numel(), 8.0 * ac.numel())))
+    return cases, dict(chain=chain, y=y, W=int(taps.shape[0]), taps=taps)
+
+
+def chain_device_times_main(dev, runs: int = 10) -> dict:
+    """14c's device times, for the child process (``--chain-device-times``):
+    {"kernel | label": device ms a call, or None}.  Every case runs ``runs``
+    times in one `torch.profiler` trace after a warm-up call each; the
+    kernel events, in order of their start, are cut into each case's
+    ``runs x per_call`` and each cut must hold only that case's kernels (a
+    case whose cut does not is None, and so is every case after a miscount)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+    cases, _ = _chain_cases(dev)
+    for c in cases:
+        c["run"]()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in cases:
+            for _ in range(runs):
+                c["run"]()
+            torch.cuda.synchronize()
+    patterns = {p for c in cases for p in c["patterns"]}
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and any(p in e.name for p in patterns)), key=lambda e: e.time_range.start)
+    out, i = {}, 0
+    for c in cases:
+        cut = evs[i:i + runs * c["per_call"]]
+        i += len(cut)
+        whole = (len(cut) == runs * c["per_call"]
+                 and all(any(p in e.name for p in c["patterns"]) for e in cut))
+        out[f"{c['kernel']} | {c['label']}"] = (
+            sum(e.time_range.elapsed_us() for e in cut) / 1e3 / runs if whole else None)
+        if whole and len(c["patterns"]) > 1:
+            each = {p: sum(e.time_range.elapsed_us() for e in cut if p in e.name) / 1e3 / runs
+                    for p in c["patterns"]}
+            print(f"chain 14c: {c['kernel']}, {c['label']}: device ms a call by kernel "
+                  + ", ".join(f"{p} {ms:.4f}" for p, ms in each.items()), flush=True)
+    if i != len(evs):
+        out = dict.fromkeys(out)
+    print(f"chain 14c: profiled child: cases built and warm in {t1 - t0:.1f} s, one trace of "
+          f"{len(evs)} kernels in {time.time() - t1:.1f} s", flush=True)
+    return out
+
+
+def _chain_device_times_fresh() -> dict:
+    """14c's profiled device times in a process of its own: deep in the
+    whole script this process's profiler read no kernel events at phase 14
+    (as 11c's traces came out a graph short there), while a fresh process's
+    traces are whole.  Raises if the child fails."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--chain-device-times"],
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("chain 14c"):
+            print(line, flush=True)
+    result = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or not result:
+        raise AssertionError(f"chain 14c: the profiled process failed (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    return json.loads(result[-1])
+
+
+def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
+    """14c: each kernel against its twin, bitwise (a fault otherwise), at
+    the shapes of `_chain_cases`: its one-call time (CUDA events, median of
+    10), its device time (`torch.profiler` in a process of its own; a fault
+    if it read none), its bound, its twin's time (median of 3), a library
+    yardstick the port never calls and ptxas's registers and spills; then
+    the stages around them: `_fft_convolve_multi` of the 2.5 s stereo IR,
+    the 351-tap EQ's fold, the compressor and the limiter.  Returns the JSON
+    summary's numbers (each kernel's first shape, every shape under
+    "per_shape"), with the launches of the stage calls as the path
+    "chain_stages", and the faults."""
+    import torch
+
+    from f9tpu_torch.ops import chain as ch
+    from f9tpu_torch.ops import chain_kernels as ck
+
+    cases, ctx = _chain_cases(dev)
+    faults = []
+    t0 = time.time()
+    device = _chain_device_times_fresh()
+    walls = {"profiled child": time.time() - t0, "envelope and window max": 0.0}
+    out = {}
+    for c in cases:
+        t0 = time.time()
+        got, want = c["run"](), c["twin"]()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(float((torch.view_as_real(g) - torch.view_as_real(w)).abs().max()
+                        if g.is_complex() else (g - w).abs().max()) for g, w in zip(got, want))
+        same = all(_bitwise(g, w) for g, w in zip(got, want))
+        if not same:
+            faults.append(f"{c['kernel']} != twin at {c['shape']} (max {err:.3g})")
+        dev_ms = device.get(f"{c['kernel']} | {c['label']}")
+        if dev_ms is None:
+            faults.append(f"{c['kernel']}, {c['label']}: the profiler read no device time")
+        r = dict(ms=_median_ms(c["run"]), device_ms=dev_ms,
+                 plain_ms=_median_ms(c["twin"], runs=3), bound_ms=c["bound_ms"],
+                 bound_by=c["bound_by"], library_ms=_median_ms(c["library"]),
+                 max_abs_err=err, bitwise=same, ptxas=_ptxas_stats(c["ptxas"]),
+                 shape=c["shape"])
+        if "bound_ms_8_instructions" in c:
+            r["bound_ms_8_instructions"] = c["bound_ms_8_instructions"]
+        if c["kernel"] not in out:
+            out[c["kernel"]] = dict(r, per_shape={})
+        out[c["kernel"]]["per_shape"][c["label"]] = r
+        old8 = (f" (old 8-instruction count {r['bound_ms_8_instructions']:.4f})"
+                if "bound_ms_8_instructions" in r else "")
+        print(f"chain 14c: {c['kernel']}, {c['label']} ({r['shape']}): kernel {r['ms']:.4f} ms "
+              f"(device {'none' if dev_ms is None else f'{dev_ms:.4f}'}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}){old8}, twin {r['plain_ms']:.2f} ms, "
+              f"library {r['library_ms']:.3f} ms, max |kernel - twin| {err:.3g}, bitwise "
+              f"{same}, ptxas {r['ptxas']} [{card}]", flush=True)
+        if c["kernel"] in ("slanted_cummax", "window_max"):
+            walls["envelope and window max"] += time.time() - t0
+    if _ptxas_stats("env_tile_max") is not None:
+        print(f"chain 14c: ptxas env_tile_max {_ptxas_stats('env_tile_max')}, env_walk "
+              f"{_ptxas_stats('env_walk')}, ma_past unstaged {_ptxas_stats('ma_past_rows')}"
+              f" [{card}]", flush=True)
 
     # the stages around them, on the same batch, their launches counted
+    chain, y, W, taps = ctx["chain"], ctx["y"], ctx["W"], ctx["taps"]
+    _delay, _eq, comp, rev, lim = chain.stages
+    files, C, T = CHAIN_SHAPE
     _zero_counts()
     stages = {}
     for label, fn in (("_fft_convolve_multi, 2.5 s stereo IR (UPOLS)",
@@ -4665,14 +4920,16 @@ def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
                       ("Compressor -18:3", lambda: comp.apply(y, 48000)),
                       ("Limiter -0.3", lambda: lim.apply(y, 48000))):
         _, stages[label] = _timed(fn)
-    counts = (ck.launches_mac, ck.launches_fold, ck.launches_ma)
+    counts = tuple(getattr(ck, name) for name in CHAIN_COUNTERS)
     for label, ms in stages.items():
         print(f"chain 14c: stage {label} on {files} x {C} x {T}: {ms:.2f} ms [{card}]",
               flush=True)
-    print(f"chain 14c: launches in the stage calls (3 runs each): upols_mac {counts[0]}, "
-          f"fir_fold {counts[1]}, ma_past {counts[2]} [{card}]", flush=True)
+    print(f"chain 14c: launches in the stage calls (3 runs each): "
+          + ", ".join(f"{n[len('launches_'):]} {k}" for n, k in zip(CHAIN_COUNTERS, counts))
+          + f" [{card}]", flush=True)
     out["stages_ms"] = stages
     out["launches"] = counts
+    out["walls"] = walls
     return out, faults
 
 
@@ -4689,14 +4946,20 @@ def phase_chain_kernels(card: str, dev) -> dict:
     walls["14a"] = time.time() - t0
     t0 = time.time()
     faults += _chain_twin_cases(card, dev)
+    t1 = time.time()
+    faults += _dynamics_twin_cases(card, dev)
+    new = {"14b dynamics": time.time() - t1}
     walls["14b"] = time.time() - t0
     t0 = time.time()
     out, times_faults = _chain_times(card, dev)
     faults += times_faults
     walls["14c"] = time.time() - t0
+    new.update({f"14c {k}": v for k, v in out["walls"].items()})
     total = time.time() - t_all
     print(f"phase 14 (chain kernels): {total:.1f} s (budget {CHAIN_KERNELS_BUDGET_S:g}): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + "; of it the dynamics "
+          "kernels' cases and the profiled child: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in new.items()) + f" [{card}]", flush=True)
     if total > CHAIN_KERNELS_BUDGET_S:
         faults.append(f"{total:.1f} s > {CHAIN_KERNELS_BUDGET_S:g} s")
     _raise_faults("phase 14", faults)
@@ -4719,6 +4982,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--chunk-times"]:
         print(json.dumps(windowed_chunk_ms(resolve_device("cuda"))), flush=True)
+        return 0
+    if sys.argv[1:] == ["--chain-device-times"]:
+        print(json.dumps(chain_device_times_main(resolve_device("cuda"))), flush=True)
         return 0
     if sys.argv[1:] == ["--graph-profile"]:
         print(json.dumps(graph_profile_main(resolve_device("cuda"))), flush=True)
@@ -4748,8 +5014,8 @@ def main() -> int:
         _build.load_library()
         print(_build.build_log.strip(), flush=True)
         out = phase_chain_kernels(card, resolve_device("cuda"))
-        print(json.dumps({k: {kk: vv for kk, vv in out[k].items() if kk != "per_window"}
-                          for k in ("upols_mac", "fir_fold", "ma_past")}), flush=True)
+        print(json.dumps({k: out[k] for k in ("upols_mac", "fir_fold", "ma_past",
+                                              "slanted_cummax", "window_max")}), flush=True)
         return 0
     if sys.argv[1:] == ["--epilogue"]:
         _build.load_library()
@@ -4873,7 +5139,9 @@ def main() -> int:
     for i, (name, source, replaces) in enumerate((
             ("upols_mac", "f9tpu_torch/csrc/upols.cu", "f9tpu/ops/chain.py:128"),
             ("fir_fold", "f9tpu_torch/csrc/fold.cu", "f9tpu/ops/chain.py:85"),
-            ("ma_past", "f9tpu_torch/csrc/fold.cu", "f9tpu/ops/chain.py:873"))):
+            ("ma_past", "f9tpu_torch/csrc/fold.cu", "f9tpu/ops/chain.py:873"),
+            ("slanted_cummax", "f9tpu_torch/csrc/dynamics.cu", "f9tpu/ops/chain.py:733"),
+            ("window_max", "f9tpu_torch/csrc/dynamics.cu", "f9tpu/ops/chain.py:902"))):
         by_path = {p: n[i] for p, n in chain_by_path.items()}
         print(f"{name}: launches by path {by_path} [{card}]", flush=True)
         need = ("insert_loop", "stream") + (("normalize",) if name == "upols_mac" else ())
@@ -4891,6 +5159,7 @@ def main() -> int:
             **{k: k14[k] for k in ("device_ms", "bound_ms_8_instructions", "per_shape")
                if k in k14}})
     chain_kernels[0]["also_replaces"] = "f9tpu/ops/chain.py:160"
+    chain_kernels[3]["also_replaces"] = "f9tpu/ops/chain.py:703"
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",

@@ -51,10 +51,24 @@
 // A span past 48 KB (W > 2,559 with the counter's columns) raises the
 // kernel's shared-memory limit.
 //
-// The moving average does win - 1 sums an output; at the compressor's
-// windows it is bound by its adds, not its bytes.  A block stages its span
-// of the row (outputs + win - 1 samples) in shared memory once, so device
-// memory is read about once; a thread computes one output at a time.
+// The moving average does win - 1 sums an output, each separately rounded
+// (the window is summed newest first from x[n], so a sliding sum, which
+// would round differently, is out): at the compressor's attack window (240)
+// 23.2 M outputs x 240 = 5.6 G float32 instructions, 0.17 ms at 33.5 T a
+// second, against 0.19 GB moved (0.06 ms), so it is bound by its adds.  The
+// first design (a thread an output) made a shared-memory load for every
+// add, and the SM's one 32-bit warp load a clock took the time (0.71-0.76
+// ms at win 240, 22 % of the bound).  Now, as in the fold, a thread owns
+// MA_R = 8 consecutive outputs and slides their window through registers:
+// the loop over k is unrolled by 8, so the rotation is static and a step of
+// 8 k loads the 8 samples new to the window (two 16-byte loads) for 64
+// adds.  A block stages its span (2048 outputs and the window's 8 * ((win -
+// 1) / 8 + 1) samples before them) once by cp.async, a tile inside the row
+// without a bounds check a sample (by count, the checked 64-bit index is
+// about a dozen instructions a sample, as many as 12 of the adds); a span past
+// 48 KB (win > ~10,000) raises the kernel's shared-memory limit, and only
+// past the block's 227 KB does the kernel read the row from device memory.
+// Outputs go back through shared memory, a warp's stores contiguous.
 
 #include <cuda_runtime.h>
 
@@ -77,11 +91,13 @@ constexpr int REG_LEVELS = 3;
 static_assert((FOLD_MAX_W >> 4) < (1 << PAIR_LEVELS), "the counter is too shallow");
 static_assert(FOLD_R % 4 == 0 && FOLD_R <= 8, "a step keeps R - 1 samples of the last");
 
+constexpr int MA_R = 8;                         // consecutive outputs a thread
 constexpr int MA_THREADS = 256;
-constexpr int MA_PER_THREAD = 4;
-constexpr int MA_TILE = MA_THREADS * MA_PER_THREAD;   // outputs a block
-// shared memory a block may use without raising its attribute
+constexpr int MA_TILE = MA_THREADS * MA_R;      // outputs a block
+static_assert(MA_R == 8, "a step loads its new samples as one load8");
+// shared memory a block may use without raising its attribute, and at most
 constexpr int SMEM_STATIC_MAX = 48 * 1024;
+constexpr int SMEM_BLOCK_MAX = 227 * 1024;
 
 // 4 bytes global -> shared without passing through registers; +0.0 when
 // `ok` is false (the source is then not read)
@@ -265,55 +281,143 @@ fir_fold_kernel(const float* __restrict__ x, const float* __restrict__ taps,
     }
 }
 
-// Stage [n0 - span_pre, n0 + MA_TILE) of row `xr` (length T) in `xs`,
-// +0.0 outside the row.
-__device__ __forceinline__ void stage_span(float* xs, const float* xr, long long T,
-                                           long long n0, int span_pre)
+// Samples staged before a tile of the moving average: every eight of steps
+// its first thread walks back through, the last (partial) eight's 8 samples
+// whole.
+__host__ __device__ __forceinline__ int ma_pre(int win)
 {
-    const int span = MA_TILE + span_pre;
-    for (int i = threadIdx.x; i < span; i += blockDim.x) {
-        const long long n = n0 - span_pre + i;
-        xs[i] = (n >= 0 && n < T) ? xr[n] : 0.0f;
+    return MA_R * ((win - 1) / MA_R + 1);
+}
+
+// Steps k = 1 + 8j + u, u < `steps`, of eight j for the thread's MA_R
+// outputs: acc_i += x[nt + i - k], which is now[m] or last[m - 8], m = 7 + i
+// - u.  Inlined with steps = MA_R in the loop, so every index is static.
+__device__ __forceinline__ void ma_eight(float (&acc)[MA_R], const float (&now)[MA_R],
+                                         const float (&last)[MA_R], int steps)
+{
+#pragma unroll
+    for (int u = 0; u < MA_R; ++u) {
+        if (u < steps) {
+#pragma unroll
+            for (int i = 0; i < MA_R; ++i) {
+                const int m = MA_R - 1 + i - u;
+                acc[i] = __fadd_rn(acc[i], m < MA_R ? now[m] : last[m - MA_R]);
+            }
+        }
     }
 }
 
-// One output of the moving average, from the window's newest sample xe[0]
-// back; `xr` the row and n the position when the window is not staged.
-template <bool STAGED>
-__device__ __forceinline__ float ma_one(const float* xe, const float* xr, long long n, int win,
-                                        float inv)
+// A thread's MA_R outputs nt + i, i < MA_R: acc_i = x[nt + i], then step k =
+// 1 .. win - 1 adds x[nt + i - k], times inv.  Steps go by eights: eight j
+// (k = 1 + 8j + u, u < 8) reads x[nt - 8(j + 1) .. nt - 8j + 7], the 8
+// samples `now` new in it and the 8 `last` of eight j - 1 (eight -1's are
+// the k = 0 terms x[nt .. nt + 7]); two register windows take the roles in
+// turns.  load(v, b) gives x[b .. b + 7].
+template <typename Load>
+__device__ __forceinline__ void ma_outputs(float (&out)[MA_R], const Load& load, long long nt,
+                                           int q, int r, float inv)
 {
-    float acc = xe[0];
-    for (int k = 1; k < win; ++k) {
-        float v;
-        if (STAGED) v = xe[-k];
-        else v = (n - k >= 0) ? xr[n - k] : 0.0f;
-        acc = __fadd_rn(acc, v);
+    float acc[MA_R], A[MA_R], C[MA_R];
+    load(C, nt);
+#pragma unroll
+    for (int i = 0; i < MA_R; ++i) acc[i] = C[i];
+    int j = 0;
+#pragma unroll 1
+    for (; j + 1 < q; j += 2) {
+        load(A, nt - MA_R * (j + 1));
+        ma_eight(acc, A, C, MA_R);
+        load(C, nt - MA_R * (j + 2));
+        ma_eight(acc, C, A, MA_R);
     }
-    return __fmul_rn(acc, inv);
+    if (j < q) {                              // an odd eight left: its window becomes C
+        load(A, nt - MA_R * (j + 1));
+        ma_eight(acc, A, C, MA_R);
+#pragma unroll
+        for (int i = 0; i < MA_R; ++i) C[i] = A[i];
+    }
+    if (r) {                                  // the same for every thread
+        load(A, nt - MA_R * (q + 1));
+        ma_eight(acc, A, C, r);
+    }
+#pragma unroll
+    for (int i = 0; i < MA_R; ++i) out[i] = __fmul_rn(acc[i], inv);
 }
 
-template <bool STAGED>
+// The staged form: block b is row b / tiles, outputs [n0, n0 + MA_TILE) of
+// it, thread t outputs n0 + 8t + i.  The block stages its span once by
+// cp.async; a tile inside the row (the common case) does so, and stores its
+// outputs, without a bounds check a sample.  The outputs go back through
+// the span's buffer, a warp's stores contiguous.
 __global__ void __launch_bounds__(MA_THREADS)
-ma_past_kernel(const float* x, float* y, long long T, long long tiles, int win, float inv)
+ma_past_tiles(const float* __restrict__ x, float* __restrict__ y, long long T, long long tiles,
+              int win, float inv)
 {
-    extern __shared__ float xs[];
+    extern __shared__ float4 ma_sm4[];
+    float* xs = reinterpret_cast<float*>(ma_sm4);
+    const int pre = ma_pre(win), span = pre + MA_TILE;
     const long long row = blockIdx.x / tiles;
     const long long n0 = (blockIdx.x - row * tiles) * MA_TILE;
     const float* xr = x + row * T;
-    if (STAGED) {
-        stage_span(xs, xr, T, n0, win - 1);
-        __syncthreads();
+    const bool inside = n0 - pre >= 0 && n0 + MA_TILE <= T;
+    if (inside) {
+        const float* src = xr + (n0 - pre);
+        for (int i = threadIdx.x; i < span; i += MA_THREADS)
+            cp_async4_or_zero(xs + i, src + i, true);
+    } else {
+        for (int i = threadIdx.x; i < span; i += MA_THREADS) {
+            const long long n = n0 - pre + i;
+            const bool ok = n >= 0 && n < T;
+            cp_async4_or_zero(xs + i, xr + (ok ? n : 0), ok);
+        }
     }
-#pragma unroll 1
-    for (int j = 0; j < MA_PER_THREAD; ++j) {
-        const int t = j * MA_THREADS + threadIdx.x;
-        const long long n = n0 + t;
-        if (!STAGED && n >= T) break;
-        const float v = STAGED ? ma_one<true>(xs + t + win - 1, xr, n, win, inv)
-                               : ma_one<false>(xr + n, xr, n, win, inv);
-        if (n < T) y[row * T + n] = v;
+    cp_async_wait_all();
+    __syncthreads();
+    // xs + (b - (n0 - pre)) is 32-byte aligned for every b a thread loads
+    auto load = [&](float (&v)[MA_R], long long b) { load8(v, xs + (b - (n0 - pre))); };
+    float out[MA_R];
+    ma_outputs(out, load, n0 + MA_R * threadIdx.x, (win - 1) / MA_R, (win - 1) % MA_R, inv);
+    __syncthreads();
+    reinterpret_cast<float4*>(xs + MA_R * threadIdx.x)[0] =
+        make_float4(out[0], out[1], out[2], out[3]);
+    reinterpret_cast<float4*>(xs + MA_R * threadIdx.x)[1] =
+        make_float4(out[4], out[5], out[6], out[7]);
+    __syncthreads();
+    float* yr = y + row * T + n0;
+    if (n0 + MA_TILE <= T) {
+#pragma unroll
+        for (int k = 0; k < MA_R; ++k) {
+            const int i = k * MA_THREADS + threadIdx.x;
+            yr[i] = xs[i];
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < MA_R; ++k) {
+            const int i = k * MA_THREADS + threadIdx.x;
+            if (n0 + i < T) yr[i] = xs[i];
+        }
     }
+}
+
+// The unstaged form, for windows whose span passes a block's 227 KB:
+// block b is row b / tiles, outputs [n0, n0 + MA_TILE); the samples come
+// from the row (+0.0 outside it).
+__global__ void __launch_bounds__(MA_THREADS)
+ma_past_rows(const float* __restrict__ x, float* __restrict__ y, long long T, long long tiles,
+             int win, float inv)
+{
+    const long long row = blockIdx.x / tiles;
+    const long long n0 = (blockIdx.x - row * tiles) * MA_TILE;
+    const float* xr = x + row * T;
+    const long long nt = n0 + MA_R * threadIdx.x;
+    auto load = [&](float (&v)[MA_R], long long b) {
+#pragma unroll
+        for (int u = 0; u < MA_R; ++u) v[u] = (b + u >= 0 && b + u < T) ? xr[b + u] : 0.0f;
+    };
+    float out[MA_R];
+    ma_outputs(out, load, nt, (win - 1) / MA_R, (win - 1) % MA_R, inv);
+#pragma unroll
+    for (int i = 0; i < MA_R; ++i)
+        if (nt + i < T) y[row * T + nt + i] = out[i];
 }
 
 int grid_of(long long rows, long long T, long long* tiles)
@@ -350,22 +454,27 @@ int f9_fir_fold(const float* x, const float* taps, float* y, long long rows, lon
 
 // y (rows, T) = the causal moving average of x (rows, T) over win >= 2
 // samples, each window summed newest first and times inv = f32(1 / win).
-// A window whose span does not fit a block's static shared memory reads
-// the row from device memory.  Launches on `stream`; returns a CUDA error
-// code.
+// A span past 48 KB raises the staged form's shared-memory limit; past a
+// block's 227 KB the unstaged form reads the row from device memory.
+// Launches on `stream`; returns a CUDA error code.
 int f9_ma_past(const float* x, float* y, long long rows, long long T, int win, float inv,
                void* stream)
 {
+    static int allowed[SMEM_MAX_DEVICES] = {};
     long long tiles;
     const int blocks = grid_of(rows, T, &tiles);
     if (win < 2 || blocks < 0) return (int)cudaErrorInvalidValue;
-    const long long smem = (long long)(win - 1 + MA_TILE) * sizeof(float);
-    if (smem <= SMEM_STATIC_MAX)
-        ma_past_kernel<true><<<blocks, MA_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-            x, y, T, tiles, win, inv);
-    else
-        ma_past_kernel<false><<<blocks, MA_THREADS, 0, (cudaStream_t)stream>>>(
-            x, y, T, tiles, win, inv);
+    const long long smem = (long long)(ma_pre(win) + MA_TILE) * (long long)sizeof(float);
+    if (smem > SMEM_BLOCK_MAX) {
+        ma_past_rows<<<blocks, MA_THREADS, 0, (cudaStream_t)stream>>>(x, y, T, tiles, win, inv);
+        return (int)cudaGetLastError();
+    }
+    if (smem > SMEM_STATIC_MAX) {
+        const cudaError_t e = allow_smem((const void*)ma_past_tiles, allowed, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    ma_past_tiles<<<blocks, MA_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+        x, y, T, tiles, win, inv);
     return (int)cudaGetLastError();
 }
 

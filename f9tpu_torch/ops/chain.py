@@ -25,8 +25,9 @@ Numerics, as in the JAX package:
   is O((K + G) * N) whatever the capture length;
 - dynamics (compressor, expander, limiter) use causal moving averages
   (`_uniform_ma_past`, a fixed-order fold for every window), a slanted
-  running maximum for the linear-in-dB release (`Compressor._slanted_cummax`)
-  and a windowed maximum (`_window_max_past`): no per-sample recurrence.
+  running maximum for the linear-in-dB release (`Compressor._slanted_cummax`,
+  blocks on an absolute grid with a carried state) and a windowed maximum
+  (`_window_max_past`, doubling): no per-sample recurrence.
 
 Streaming (`Chain.stream_grid`, `stream_init`, `apply_stream`): each stage
 carries its own state from chunk to chunk, so the chunked output equals the
@@ -39,9 +40,11 @@ the chain: a convolution's algorithm, and so its rounding, is picked by
 shape.  On the CPU the transcendentals go through `_whole_vectors`, which
 keeps torch's scalar loop tails out of every call.
 
-On a card the fold, the moving average and UPOLS's multiply-sum are
-hand-written CUDA kernels (`ops/chain_kernels.py`, `csrc/fold.cu`,
-`csrc/upols.cu`), each equal bit for bit to the plain form the CPU runs.
+On a card the fold, the moving average, UPOLS's multiply-sum, the release
+envelope and the windowed maximum are hand-written CUDA kernels
+(`ops/chain_kernels.py`, `csrc/fold.cu`, `csrc/upols.cu`,
+`csrc/dynamics.cu`), each equal bit for bit to the plain form the CPU runs
+(the `*_reference` functions).
 """
 
 from __future__ import annotations
@@ -451,6 +454,18 @@ def _uniform_ma_past_reference(x: torch.Tensor, win: int) -> torch.Tensor:
 
 def _window_max_past(a: torch.Tensor, W: int) -> torch.Tensor:
     """Causal windowed maximum ``out[m] = max a[m-W+1..m]`` (positions
+    before the start read as 0): ``a`` itself for ``W <= 1``; else
+    `_window_max_past_reference` on a CPU tensor and the windowed-maximum
+    kernel (`chain_kernels.window_max`, bitwise the same) on any other."""
+    if W <= 1:
+        return a
+    if a.device.type == "cpu":
+        return _window_max_past_reference(a, W)
+    return chain_kernels.window_max(a.contiguous(), W)
+
+
+def _window_max_past_reference(a: torch.Tensor, W: int) -> torch.Tensor:
+    """Causal windowed maximum ``out[m] = max a[m-W+1..m]`` (positions
     before the start read as 0, the neutral element for the non-negative
     attenuation streams it is fed).  log2(W) shifted maxima by doubling;
     max is exact, so any combine order gives the same bits."""
@@ -829,6 +844,19 @@ class Compressor:
     @staticmethod
     def _slanted_cummax_stream(level_db: torch.Tensor, c: float, pos: int,
                                m: torch.Tensor, env_carry: torch.Tensor):
+        """``(env, m', env_carry')`` of the chunk ``level_db`` starting at
+        absolute position ``pos``, on the grid of `_ENV_BLOCK` (read at call
+        time): `_slanted_cummax_stream_reference` on a CPU tensor and the
+        envelope kernel (`chain_kernels.slanted_cummax`, bitwise the same)
+        on any other."""
+        if level_db.device.type == "cpu":
+            return Compressor._slanted_cummax_stream_reference(level_db, c, pos, m, env_carry)
+        return chain_kernels.slanted_cummax(level_db.contiguous(), c, pos, m.contiguous(),
+                                            env_carry.contiguous(), Compressor._ENV_BLOCK)
+
+    @staticmethod
+    def _slanted_cummax_stream_reference(level_db: torch.Tensor, c: float, pos: int,
+                                         m: torch.Tensor, env_carry: torch.Tensor):
         """The slanted cummax of a chunk starting at absolute position
         ``pos``, on the absolute grid of `_ENV_BLOCK`-frame blocks: within a
         block ``cummax(level + c*j) - c*j`` (j the frame's index in its

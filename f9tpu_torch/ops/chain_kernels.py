@@ -1,11 +1,14 @@
-"""The insert chain's convolutions as hand-written CUDA kernels, and their
-plain twins.
+"""The insert chain's convolutions and dynamics as hand-written CUDA
+kernels, and their plain twins.
 
 The JAX package runs the chain's long convolution as one on-device
-``lax.scan`` (`f9tpu/ops/chain.py:128 _upols`, `:160 _upols_stream`) and
-lets XLA fuse the short FIR's W shifted products (`:85 _fir_fold`) and the
-moving average's window (`:873 _uniform_ma_past`) into one pass each.  The
-port runs three kernels in their place:
+``lax.scan`` (`f9tpu/ops/chain.py:128 _upols`, `:160 _upols_stream`), lets
+XLA fuse the short FIR's W shifted products (`:85 _fir_fold`), the moving
+average's window (`:873 _uniform_ma_past`) and the windowed maximum's
+shifted maxima (`:902 _window_max_past`), and compiles the release
+envelope's ``cummax`` and block scan (`:733
+Compressor._slanted_cummax_stream`, `:703 _slanted_cummax`).  The port runs
+five kernels in their place:
 
 - `upols_mac` (`csrc/upols.cu`, ``f9_upols_mac``): the delay-line
   multiply-sum of a group of G UPOLS blocks in one launch, in float64 in
@@ -13,19 +16,29 @@ port runs three kernels in their place:
   once; up to 32 taps a block stages H and the spectra in shared memory as
   float64 and a lane walks the tree in registers for 2 outputs.  Its twin
   `upols_mac_reference` is that formula per block;
-- `fir_fold` (``f9_fir_fold``: 8 consecutive outputs a thread, their
-  window of samples slid through registers) and `ma_past` (``f9_ma_past``:
-  one thread an output), in `csrc/fold.cu`, the eager forms' float32 ops in
+- `fir_fold` (``f9_fir_fold``) and `ma_past` (``f9_ma_past``), in
+  `csrc/fold.cu`: a thread computes 8 consecutive outputs and slides their
+  window of samples through registers, the eager forms' float32 ops in
   their order.  Their twins are `chain._fir_fold_reference` and
-  `chain._uniform_ma_past_reference`, and `chain._fir_fold` /
-  `chain._uniform_ma_past` dispatch between twin and kernel.
+  `chain._uniform_ma_past_reference`;
+- `slanted_cummax` (``f9_slanted_cummax``, `csrc/dynamics.cu`): the release
+  envelope of a chunk on the absolute `Compressor._ENV_BLOCK` grid, with
+  its carried state, in three launches (tile maxima, a walk per row, the
+  rescan); twin `chain.Compressor._slanted_cummax_stream_reference`;
+- `window_max` (``f9_window_max``, the same file): the causal windowed
+  maximum, the twin's doubling levels in shared memory; twin
+  `chain._window_max_past_reference`.
 
+`chain._fir_fold`, `chain._uniform_ma_past`, `chain._window_max_past` and
+`chain.Compressor._slanted_cummax_stream` dispatch between twin and kernel.
 The wrapper rule, as for `src_kernel` and `epilogue`: on a CPU tensor the
 twin runs; on any other tensor the kernel is launched on the current
 stream, or the call raises (a failed build with nvcc's output, a refused
-launch with CUDA's error); nothing falls back.  Each kernel is held to its
-twin bit for bit.  ``launches_mac``, ``launches_fold`` and ``launches_ma``
-count launches; each is a plain integer raised under a lock.
+launch with CUDA's error, an input the kernel does not take); nothing falls
+back.  Each kernel is held to its twin bit for bit.  ``launches_mac``,
+``launches_fold``, ``launches_ma``, ``launches_env`` and ``launches_wmax``
+count wrapper calls that launched; each is a plain integer raised under a
+lock.
 """
 
 from __future__ import annotations
@@ -37,12 +50,15 @@ import numpy as np
 import torch
 
 __all__ = ["MAC_MAX_K", "upols_mac", "upols_mac_reference", "fir_fold", "ma_past",
-           "launches_mac", "launches_fold", "launches_ma"]
+           "slanted_cummax", "window_max", "launches_mac", "launches_fold", "launches_ma",
+           "launches_env", "launches_wmax"]
 
 #: kernel launches since the counts were last reset
 launches_mac = 0
 launches_fold = 0
 launches_ma = 0
+launches_env = 0
+launches_wmax = 0
 _launch_lock = threading.Lock()
 
 #: the deepest delay line the MAC kernel takes (`csrc/upols.cu` MAC_MAX_K)
@@ -50,6 +66,15 @@ MAC_MAX_K = 64
 #: the widest fold the kernel takes (`csrc/fold.cu` FOLD_MAX_W: its counter's
 #: depth and, past 2,559 taps, a shared-memory limit raised above 48 KB)
 FOLD_MAX_W = 5632
+#: the envelope's widest tile (`csrc/dynamics.cu` ENV_TILE) and longest block
+#: (its in-block index j stays exact in float32)
+ENV_TILE = 2048
+ENV_MAX_BLOCK = 1 << 24
+#: the widest window the windowed maximum stages in shared memory
+#: (`csrc/dynamics.cu` WMAX_STAGED_MAX_W: two spans of 2048 + W - 1 floats in
+#: a block's 227 KB); past it each level is a launch over device memory
+#: through a scratch row
+WMAX_STAGED_MAX_W = 27009
 
 
 def _delay_line_sum(p: torch.Tensor) -> torch.Tensor:
@@ -205,4 +230,83 @@ def ma_past(x: torch.Tensor, win: int) -> torch.Tensor:
         raise RuntimeError(f"ma_past kernel launch failed: CUDA error {err}")
     with _launch_lock:
         launches_ma += 1
+    return y
+
+
+def _state_of(t: torch.Tensor, lead: tuple, device, what: str) -> None:
+    if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != device
+            or tuple(t.shape) != lead):
+        raise ValueError(f"the envelope kernel takes a contiguous float32 {what} of shape "
+                         f"{lead} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def slanted_cummax(level: torch.Tensor, c: float, pos: int, m: torch.Tensor,
+                   env_carry: torch.Tensor, block: int):
+    """The envelope kernel: ``(env, m', env_carry')`` of
+    `chain.Compressor._slanted_cummax_stream_reference` for the chunk
+    ``level (..., T)`` float32 starting at absolute frame ``pos``, on the grid
+    of ``block``-frame blocks (a power of two <= `ENV_MAX_BLOCK`), from the
+    state ``m``, ``env_carry`` (shape ``level.shape[:-1]``, float32, on the
+    same device).  The new state comes back as device tensors (no host
+    sync); an empty chunk returns the state it was given.  Launches or
+    raises."""
+    global launches_env
+    B = int(block)
+    if B < 1 or B & (B - 1) or B > ENV_MAX_BLOCK:
+        raise ValueError(f"the envelope kernel takes a block length that is a power of two "
+                         f"<= {ENV_MAX_BLOCK}, got {block}")
+    rows, T = _rows_of(level, "envelope")
+    lead = tuple(level.shape[:-1])
+    _state_of(m, lead, level.device, "m")
+    _state_of(env_carry, lead, level.device, "env_carry")
+    env = torch.empty_like(level)
+    if rows == 0 or T == 0:
+        return env, m, env_carry
+    p0 = int(pos) % B
+    tile = min(ENV_TILE, B)
+    ntiles = -(-(p0 + T) // tile) - p0 // tile
+    nblocks = -(-(p0 + T) // B)
+    scratch = torch.empty(rows * 2 * (ntiles + nblocks), dtype=torch.float32,
+                          device=level.device)
+    m_out, c_out = torch.empty_like(m), torch.empty_like(env_carry)
+    from ._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(level.device):
+        err = lib.f9_slanted_cummax(_ptr(level), _ptr(m), _ptr(env_carry), _ptr(env),
+                                    _ptr(m_out), _ptr(c_out), _ptr(scratch), scratch.numel(),
+                                    rows, T, p0, B, float(np.float32(c)),
+                                    _stream(level.device))
+    if err != 0:
+        raise RuntimeError(f"slanted_cummax kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        launches_env += 1
+    return env, m_out, c_out
+
+
+def window_max(a: torch.Tensor, W: int) -> torch.Tensor:
+    """The windowed-maximum kernel: ``out[m] = max a[m-W+1..m]`` along the
+    last axis of a float32 tensor off the CPU, +0.0 read before the start,
+    in `chain._window_max_past_reference`'s order, ``W >= 2``.  Launches or
+    raises."""
+    global launches_wmax
+    W = int(W)
+    if W < 2 or W >= 1 << 31:
+        raise ValueError(f"the windowed-maximum kernel takes 2 <= W < 2^31, got {W}")
+    rows, T = _rows_of(a, "windowed-maximum")
+    y = torch.empty_like(a)
+    if rows == 0 or T == 0:
+        return y
+    scratch = torch.empty_like(a) if W > WMAX_STAGED_MAX_W else None
+    from ._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(a.device):
+        err = lib.f9_window_max(_ptr(a), _ptr(y),
+                                ctypes.c_void_p(None if scratch is None else scratch.data_ptr()),
+                                rows, T, W, _stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"window_max kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        launches_wmax += 1
     return y

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""What the chain's MAC and fold kernels are held back by: time them with
-one design choice changed.
+"""What the chain's MAC, fold, moving-average and windowed-maximum kernels
+are held back by: time them with one design choice changed.
 
     python3 -m f9tpu_torch.tools.chain_kernel_ablation
 
 Runs on one CUDA GPU from the root of a checkout.  It builds copies of
-`f9tpu_torch/csrc/upols.cu` and `csrc/fold.cu` with one choice changed each
+`f9tpu_torch/csrc/upols.cu`, `csrc/fold.cu` and `csrc/dynamics.cu` with one
+choice changed each
 (nvcc, all at once, into `f9tpu_torch/_build/chain_ablation/`, with ptxas's
 register and spill report), launches every copy through its C entry point
 at `chip_smoke.py` 14c's shapes (the MAC: one group of the insert loop's
 reverb, K = 30 over 2 x 8 rows, of a stream chunk's, 2 x 1 rows, and of the
 meter's K-weighting, K = 1 over 2 rows; the fold: 351 taps on 8 x 2 x
-2,903,040 and on 2 x 962,560, and 1024 taps on the latter), holds each
+2,903,040 and on 2 x 962,560, and 1024 taps on the latter; the moving
+average at the compressor's windows 240 and 48 and the limiter's 73 on
+the insert loop's rows; the windowed maximum at W = 73 on the limiter's
+8 x 1 x 2,903,112), holds each
 output to its plain twin bit for bit, and prints each copy's device time
 (`torch.profiler`, the median of 10 launches, the lesser of two turns),
 with the card's name and power limit, then one JSON line.
@@ -21,7 +25,9 @@ The MAC's copies: `four_outputs` (4 outputs a lane, not 2),
 leaves' loads), both together (this kernel's first form), and `stage_8` /
 `stage_20` (loads a thread keeps in flight while staging, not 12).  The
 fold's: `all_registers` (the counter's nine levels in registers, not three),
-`one_register_level` and `four_outputs` (4 outputs a thread, not 8).
+`one_register_level` and `four_outputs` (4 outputs a thread, not 8).  The
+moving average's and the windowed maximum's: `checked_staging` (every tile
+stages and stores with a bounds check a sample, not only the row's edges).
 """
 
 from __future__ import annotations
@@ -40,6 +46,10 @@ _BARRIER = '        asm volatile("" ::: "memory");\n'
 _BATCH = "constexpr int MAC_STAGE_BATCH = 12;"
 _LEVELS = "constexpr int REG_LEVELS = 3;"
 _R = "constexpr int FOLD_R = 8;"
+_MA_INSIDE = "const bool inside = n0 - pre >= 0 && n0 + MA_TILE <= T;"
+_MA_STORE = "if (n0 + MA_TILE <= T) {"
+_WMAX_INSIDE = "if (n0 - (W - 1) >= 0 && n0 + WMAX_TILE <= T) {"
+_WMAX_STORE = "if (n0 + WMAX_TILE <= T) {"
 
 #: (source, [(text, replacement), ...]) by copy name
 VARIANTS = {
@@ -57,7 +67,19 @@ VARIANTS = {
         "one_register_level": [(_LEVELS, "constexpr int REG_LEVELS = 1;")],
         "four_outputs": [(_R, "constexpr int FOLD_R = 4;")],
     }),
+    "ma": ("fold.cu", {
+        "whole": [],
+        "checked_staging": [(_MA_INSIDE, "const bool inside = false;"),
+                            (_MA_STORE, "if (false) {")],
+    }),
+    "wmax": ("dynamics.cu", {
+        "whole": [],
+        "checked_staging": [(_WMAX_INSIDE, "if (false) {"), (_WMAX_STORE, "if (false) {")],
+    }),
 }
+#: each kernel's C entry point and the name its profiler events hold
+ENTRY = {"mac": ("f9_upols_mac", "upols_mac"), "fold": ("f9_fir_fold", "fir_fold"),
+         "ma": ("f9_ma_past", "ma_past"), "wmax": ("f9_window_max", "wmax_tile")}
 
 
 def variant_sources() -> dict:
@@ -113,10 +135,15 @@ def _build_all(out_dir: str) -> dict:
         lib = ctypes.CDLL(so)
         if kernel == "mac":
             lib.f9_upols_mac.argtypes = [vp, vp, vp, i64, i64, i64, i32, i32, i32, vp]
-        else:
+        elif kernel == "fold":
             lib.f9_fir_fold.argtypes = [vp, vp, vp, i64, i64, i32, vp]
-        # the K = 30 instance of the MAC, the fold kernel
-        regs = _ptxas(err, "upols_mac_regILi30E" if kernel == "mac" else "fir_fold_kernel")
+        elif kernel == "ma":
+            lib.f9_ma_past.argtypes = [vp, vp, i64, i64, i32, ctypes.c_float, vp]
+        elif kernel == "wmax":
+            lib.f9_window_max.argtypes = [vp, vp, vp, i64, i64, i32, vp]
+        # the K = 30 instance of the MAC, each other kernel's staged form
+        regs = _ptxas(err, {"mac": "upols_mac_regILi30E", "fold": "fir_fold_kernel",
+                            "ma": "ma_past_tiles", "wmax": "wmax_tile"}[kernel])
         libs[(kernel, copy)] = (lib, regs)
     return libs
 
@@ -192,10 +219,24 @@ def main(argv: list[str] | None = None) -> int:
         T = x.shape[-1]
         args = (x.data_ptr(), tp.data_ptr(), y.data_ptr(), x.numel() // T, T, W)
         cases[("fold", label)] = (args, y, ch._fir_fold_reference(x, taps), (x, tp))
+    sq = torch.square(x8)
+    link = sq[:, :1].contiguous()
+    for label, x, win in (("win 240, 8 x 1 x 2,903,040", link, 240),
+                          ("win 48, 8 x 2 x 2,903,040", sq, 48),
+                          ("win 73, 8 x 1 x 2,903,040", link, 73)):
+        y = torch.empty_like(x)
+        T = x.shape[-1]
+        args = (x.data_ptr(), y.data_ptr(), x.numel() // T, T, win, float(np.float32(1.0 / win)))
+        cases[("ma", label)] = (args, y, ch._uniform_ma_past_reference(x, win), (x,))
+    a = torch.clamp(torch.randn((8, 1, 2_903_112), device=dev, generator=gen), min=0.0)
+    y = torch.empty_like(a)
+    args = (a.data_ptr(), y.data_ptr(), None, 8, a.shape[-1], 73)
+    cases[("wmax", "W 73, 8 x 1 x 2,903,112")] = (args, y, ch._window_max_past_reference(a, 73),
+                                                  (a,))
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib, kernel, args):
-        fn = lib.f9_upols_mac if kernel == "mac" else lib.f9_fir_fold
+        fn = getattr(lib, ENTRY[kernel][0])
         err = fn(*args, stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
@@ -210,8 +251,7 @@ def main(argv: list[str] | None = None) -> int:
                 torch.cuda.synchronize()
                 same = torch.equal(_bits(out), _bits(want))
                 bitwise[(kernel, copy, label)] = bitwise.get((kernel, copy, label), True) and same
-                t = _device_ms(lambda: launch(lib, kernel, args),
-                               "upols_mac" if kernel == "mac" else "fir_fold")
+                t = _device_ms(lambda: launch(lib, kernel, args), ENTRY[kernel][1])
                 times.setdefault((kernel, copy, label), []).append(t)
     summary = []
     for (kernel, copy, label), ts in times.items():

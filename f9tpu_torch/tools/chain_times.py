@@ -15,10 +15,13 @@ K-weighting of one 20 s chunk; then the delay-line MAC and the fold kernel
 alone at three shapes each (the MAC: one group of the insert loop's reverb,
 of the stream chunk's and of the meter's K-weighting; the fold: the EQ's
 taps on the insert loop's batch and on the stream chunk, and `FIR_FOLD_MAX`
-taps on the chunk).  Device times are CUDA events, the median of 5 calls
-after a warm-up; the kernels also get the ms a call of a back-to-back loop
-and their device time from `torch.profiler` (a small launch's events time
-the host's launch too).  A
+taps on the chunk), and the dynamics kernels at the insert loop's and the
+chunk's linked rows (the moving average at the compressor's and the
+limiter's windows, the release envelope, the windowed maximum; a tree
+without the envelope or the windowed-maximum kernel skips them).  Device
+times are CUDA events, the median of 5 calls after a warm-up; the kernels
+also get the ms a call of a back-to-back loop and their device time from
+`torch.profiler` (a small launch's events time the host's launch too).  A
 sha256 of the graph's outputs, of the stream chunk's payload, of the
 meter's result and of the chunk's K-weighting shows whether two trees
 compute the same bytes.  It prints one JSON line with the card's name and
@@ -68,9 +71,10 @@ def _ms(fn, runs: int = 5) -> float:
     return float(np.median(ts))
 
 
-def _device_ms(fn, pattern: str, runs: int = 20) -> float:
-    """Device ms a call of the kernels whose names hold ``pattern``, from
-    `torch.profiler` over ``runs`` calls after one."""
+def _device_ms(fn, pattern, runs: int = 20) -> float:
+    """Device ms a call of the kernels whose names hold ``pattern`` (a
+    string or a tuple of them), from `torch.profiler` over ``runs`` calls
+    after one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -81,7 +85,8 @@ def _device_ms(fn, pattern: str, runs: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
-             for e in prof.key_averages() if pattern in e.key)
+             for e in prof.key_averages()
+             if any(p in e.key for p in ((pattern,) if isinstance(pattern, str) else pattern)))
     return us / 1e3 / runs
 
 
@@ -266,6 +271,50 @@ def main(argv=None) -> int:
             ms=_ms(lambda: ck.fir_fold(v, td)),
             loop_ms=_loop_ms(lambda: ck.fir_fold(v, td), calls=10),
             device_ms=_device_ms(lambda: ck.fir_fold(v, td), "fir_fold", runs=5))
+    # the dynamics kernels on the insert loop's linked rows and a 20 s
+    # chunk's: the moving averages (the compressor's detector on both
+    # channels, its attack and the limiter's ramp), the compressor's release
+    # envelope and the limiter's windowed maximum; a tree without a kernel
+    # skips it
+    comp, lim = chain.stages[2], chain.stages[4]
+    sq = torch.square(y)
+    link = sq[:, :1].contiguous()
+    sqc = torch.square(chunk)
+    for label, v, win in (("ma_past, insert loop, win 48", sq, 48),
+                          ("ma_past, insert loop, win 240", link, 240),
+                          ("ma_past, insert loop, win 73", link, 73),
+                          ("ma_past, 20 s stream chunk, win 240", sqc[:1].contiguous(), 240)):
+        kernels[label] = dict(
+            shape=f"win={win}, {tuple(v.shape)}", sha256=_sha(ck.ma_past(v, win)),
+            ms=_ms(lambda: ck.ma_past(v, win)), loop_ms=_loop_ms(lambda: ck.ma_past(v, win)),
+            device_ms=_device_ms(lambda: ck.ma_past(v, win), "ma_past"))
+    c_comp, c_lim = comp.release_db_per_s / 48000, lim.release_db_per_s / 48000
+    L = lim.lookahead_frames(48000)
+    for where, v, pos in (("insert loop", y, 0), ("20 s stream chunk", chunk[None], 3 * 960000)):
+        lead = (v.shape[0], 1)
+        level = (10.0 * torch.log10(torch.clamp(
+            torch.square(v).amax(dim=-2, keepdim=True), min=1e-20))).contiguous()
+        init = torch.full(lead, -1e9, device=dev)
+        lvl = torch.abs(v).amax(dim=-2, keepdim=True)
+        atten = torch.clamp(20.0 * torch.log10(torch.clamp(lvl, min=1e-20))
+                            - float(np.float32(lim.ceiling_db)), min=0.0).contiguous()
+        ac = torch.cat([torch.zeros((*lead, L), device=dev),
+                        ch.Compressor._slanted_cummax_stream(atten, c_lim, 0, init, init)[0]],
+                       dim=-1)
+        if hasattr(ck, "slanted_cummax"):
+            def env(level=level, init=init, pos=pos):
+                return ck.slanted_cummax(level, c_comp, pos, init, init, ch.Compressor._ENV_BLOCK)
+
+            kernels[f"slanted_cummax, {where}"] = dict(
+                shape=f"{tuple(level.shape)}, pos {pos}", sha256=_sha(*env()), ms=_ms(env),
+                loop_ms=_loop_ms(env), device_ms=_device_ms(env, ("env_tile_max", "env_walk",
+                                                                  "env_write")))
+        if hasattr(ck, "window_max"):
+            kernels[f"window_max, {where}"] = dict(
+                shape=f"W={L + 1}, {tuple(ac.shape)}", sha256=_sha(ck.window_max(ac, L + 1)),
+                ms=_ms(lambda: ck.window_max(ac, L + 1)),
+                loop_ms=_loop_ms(lambda: ck.window_max(ac, L + 1)),
+                device_ms=_device_ms(lambda: ck.window_max(ac, L + 1), "wmax_tile"))
     out["kernels"] = kernels
     print(json.dumps(out), flush=True)
     return 0

@@ -11,7 +11,8 @@
 - The kernels' orders and indexing, replayed in numpy (the MAC's staged
   blocks and two-output lanes walking the halving tree in float64, its
   column form above 32 taps, the fold's eight-output windows, eights,
-  16s and counter, the moving average's newest-first sum), equal the
+  16s and counter, the moving average's newest-first sum and its
+  eight-output register windows), equal the
   plain twins bit for bit: the CUDA sources compute in these orders with
   one rounding per `_rn` intrinsic, and the MAC's FMA product is the
   twin's (`test_fma_product_is_the_twin_s`).
@@ -20,7 +21,12 @@
   the bound of `tests/test_torch_chain.py::test_fft_convolve_matches_jax`
   (torch's CPU FFT is MKL's, JAX's pocketfft).
 - The wrapper rule: a CPU tensor never loads the kernel library and counts
-  no launch; a tensor off the CPU launches or raises, never the twin.
+  no launch; a tensor off the CPU launches or raises, never the twin; each
+  wrapper refuses what its kernel does not take (the envelope a block length
+  that is not a power of two, a state of another shape, a level that is not
+  contiguous; the windowed maximum W < 2) before the library is asked for.
+  The envelope's and the windowed maximum's orders are replayed in
+  `tests/test_torch_dynamics_kernels.py`.
 - `cuda`-marked tests hold each kernel to its twin on the card; they skip
   without one (`chip_smoke.py --chain-kernels` runs them at full size)."""
 
@@ -590,6 +596,77 @@ def test_ma_kernel_order_is_the_twin_s(win):
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
+MA_R, MA_THREADS = 8, 256
+MA_TILE = MA_R * MA_THREADS
+
+
+def _ma_kernel_order(x: np.ndarray, win: int) -> np.ndarray:
+    """The moving-average kernel (`csrc/fold.cu` ma_past_tiles) replayed in
+    numpy float32: per tile of `MA_TILE` outputs the staged span of pre =
+    8 * ((win - 1) // 8 + 1) samples before it (+0.0 outside the row; the
+    unstaged form, ma_past_rows, reads the same values from the row), thread t
+    owning outputs nt + i, nt = n0 + 8t, i < 8: acc_i = x[nt + i], then eights
+    of steps k = 1 + 8j + u adding x[nt + i - k] = now[7 + i - u] or
+    last[i - u - 1], the two windows A and C taking the roles in turns, the
+    last (win - 1) % 8 steps from a window loaded whole, times f32(1 /
+    win)."""
+    x = np.asarray(x, np.float32)
+    lead, T = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, T)
+    q, r = (win - 1) // 8, (win - 1) % 8
+    pre = 8 * (q + 1)
+    tiles = -(-T // MA_TILE)
+    padded = np.zeros((rows.shape[0], pre + tiles * MA_TILE), np.float32)
+    padded[:, pre:pre + T] = rows
+    xs = padded[:, np.arange(tiles)[:, None] * MA_TILE + np.arange(pre + MA_TILE)[None, :]]
+    base = pre + MA_R * np.arange(MA_THREADS)            # nt's index in the span
+
+    def load(off):                                        # (rows, tiles, threads, 8)
+        return xs[:, :, off[:, None] + np.arange(8)[None, :]]
+
+    def eight(now, last, steps):
+        for u in range(steps):
+            for i in range(MA_R):
+                m = MA_R - 1 + i - u
+                acc[i] = acc[i] + (now[..., m] if m < MA_R else last[..., m - MA_R])
+
+    C = load(base)
+    acc = [C[..., i].copy() for i in range(MA_R)]
+    j = 0
+    while j + 1 < q:
+        A = load(base - MA_R * (j + 1))
+        eight(A, C, MA_R)
+        C = load(base - MA_R * (j + 2))
+        eight(C, A, MA_R)
+        j += 2
+    if j < q:
+        A = load(base - MA_R * (j + 1))
+        eight(A, C, MA_R)
+        C = A
+    if r:
+        eight(load(base - MA_R * (q + 1)), C, r)
+    out = np.stack([a * np.float32(1.0 / win) for a in acc], axis=-1)
+    return out.reshape(rows.shape[0], tiles * MA_TILE)[:, :T].reshape(*lead, T)
+
+
+@pytest.mark.parametrize("win", [2, 3, 9, 16, 17, 48, 73, 240, 4801, 12000, 60000])
+def test_ma_register_order_is_the_twin_s(win):
+    """The redesigned kernel's order (8 outputs a thread, their window slid
+    through registers by eights, two windows in turns) equals
+    `_uniform_ma_past_reference` bit for bit on rows of 5000 frames (three
+    tiles) that start with zeros of both signs, on rows of 300 (less than a
+    tile) and a 1-D row; win covers an odd and an even number of eights,
+    eights with and without a remainder, a span past 48 KB (12,000) and one
+    past a block's 227 KB (60,000, read from the row)."""
+    for shape in ((2, 5000), (3, 1, 300), (2500,)):
+        x = np.square(_sig(shape, win + len(shape)))
+        x[..., :60] = 0.0
+        x[..., 1:60:2] = -0.0
+        want = tchain._uniform_ma_past_reference(torch.from_numpy(x), win).numpy()
+        got = _ma_kernel_order(x, win)
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), shape
+
+
 def test_dispatch_keeps_the_eager_forms_on_the_cpu():
     """On the CPU `_fir_fold` is the reference and `_uniform_ma_past` too,
     bit for bit; one tap is one multiply and a window of 1 the input."""
@@ -668,12 +745,13 @@ def test_k_weight_matches_jax():
 # ------------------------------------------------------ the wrapper rule
 
 def _counts():
-    return ck.launches_mac, ck.launches_fold, ck.launches_ma
+    return ck.launches_mac, ck.launches_fold, ck.launches_ma, ck.launches_env, ck.launches_wmax
 
 
 def test_a_cpu_tensor_never_loads_the_library(monkeypatch):
-    """The UPOLS convolvers, the fold and the moving average on CPU tensors
-    run their twins: the library is never loaded and no launch counts."""
+    """The UPOLS convolvers, the fold, the moving average, the envelope and
+    the windowed maximum on CPU tensors run their twins: the library is
+    never loaded and no launch counts."""
     def no_build():
         raise AssertionError("a CPU tensor loaded the kernel library")
 
@@ -684,13 +762,16 @@ def test_a_cpu_tensor_never_loads_the_library(monkeypatch):
     tchain._fft_convolve_multi(x, _irs(700, 2, 52), block=128)
     tchain._fir_fold(x, _sig((33,), 53, level=0.1))
     tchain._uniform_ma_past(x, 48)
+    tchain._window_max_past(x, 73)
+    init = torch.full((2, 2), -1e9)
+    tchain.Compressor._slanted_cummax_stream(x, 0.01, 100, init, init)
     tchain.Compressor(-24.0, 4.0).apply(x, 48000)
     tchain.Limiter(-0.3).apply(x, 48000)
     tloud.k_weight(x[0])
     assert _counts() == n0
 
 
-@pytest.mark.parametrize("which", ["mac", "fold", "ma"])
+@pytest.mark.parametrize("which", ["mac", "fold", "ma", "env", "wmax"])
 def test_a_tensor_off_the_cpu_never_runs_the_twin(which, monkeypatch):
     """Off the CPU each wrapper launches or raises: with a library that does
     not build, the call raises nvcc's error, runs no twin and counts no
@@ -704,6 +785,9 @@ def test_a_tensor_off_the_cpu_never_runs_the_twin(which, monkeypatch):
     monkeypatch.setattr(ck, "upols_mac_reference", twin)
     monkeypatch.setattr(tchain, "_fir_fold_reference", twin)
     monkeypatch.setattr(tchain, "_uniform_ma_past_reference", twin)
+    monkeypatch.setattr(tchain, "_window_max_past_reference", twin)
+    monkeypatch.setattr(tchain.Compressor, "_slanted_cummax_stream_reference",
+                        staticmethod(twin))
     monkeypatch.setattr(_build, "load_library", no_build)
     n0 = _counts()
     x = torch.empty((2, 2, 5000), device="meta")
@@ -714,12 +798,18 @@ def test_a_tensor_off_the_cpu_never_runs_the_twin(which, monkeypatch):
                          torch.empty((K, 2, 1, 65), dtype=torch.complex64, device="meta"), G)
         elif which == "fold":
             tchain._fir_fold(x, np.ones(351, np.float32))
-        else:
+        elif which == "ma":
             tchain._uniform_ma_past(x, 240)
+        elif which == "env":
+            m = torch.empty((2, 1), device="meta")
+            tchain.Compressor._slanted_cummax_stream(x[:, :1], 0.01, 77, m, m)
+        else:
+            tchain._window_max_past(x, 73)
     assert _counts() == n0
 
 
-@pytest.mark.parametrize("bad", ["K", "spectra", "dtype", "bins", "rows", "taps", "win"])
+@pytest.mark.parametrize("bad", ["K", "spectra", "dtype", "bins", "rows", "taps", "win",
+                                 "block", "state", "level", "W"])
 def test_the_wrappers_refuse_what_the_kernels_do_not_take(bad, monkeypatch):
     """Shapes, types and sizes a kernel does not take raise ValueError
     before the library is asked for."""
@@ -747,8 +837,20 @@ def test_the_wrappers_refuse_what_the_kernels_do_not_take(bad, monkeypatch):
         elif bad == "taps":
             ck.fir_fold(torch.empty((2, 100), device="meta"),
                         torch.ones(ck.FOLD_MAX_W + 1, device="meta"))
-        else:
+        elif bad == "win":
             ck.ma_past(torch.empty((2, 100), dtype=torch.float64, device="meta"), 8)
+        elif bad == "block":                      # not a power of two
+            m = torch.empty((2,), device="meta")
+            ck.slanted_cummax(torch.empty((2, 100), device="meta"), 0.01, 0, m, m, 3 << 10)
+        elif bad == "state":                      # m not of the level's leading shape
+            m = torch.empty((2,), device="meta")
+            ck.slanted_cummax(torch.empty((2, 100), device="meta"), 0.01, 0,
+                              torch.empty((2, 1), device="meta"), m, 256)
+        elif bad == "level":                      # not contiguous
+            m = torch.empty((2,), device="meta")
+            ck.slanted_cummax(torch.empty((100, 2), device="meta").t(), 0.01, 0, m, m, 256)
+        else:
+            ck.window_max(torch.empty((2, 100), device="meta"), 1)
     assert _counts() == n0
 
 
@@ -857,6 +959,43 @@ def test_fold_and_ma_kernels_match_twins_on_card(card):
     for win in (2, 48, 73, 240, 4801):
         got = tchain._uniform_ma_past(xd, win)
         assert _same(got, tchain._uniform_ma_past_reference(xd, win)), win
+
+
+@pytest.mark.cuda
+def test_envelope_kernel_matches_twin_on_card(card, monkeypatch):
+    """Bitwise, env and the state out, with `_ENV_BLOCK` at 256 and 2^17:
+    chunks from mid-block, ending on the grid and shorter than a tile, from
+    the virgin and a carried state; each call launches the kernel once."""
+    rng = np.random.default_rng(2)
+    for B in (256, 1 << 17):
+        monkeypatch.setattr(tchain.Compressor, "_ENV_BLOCK", B)
+        for pos, T in ((B // 2 + 13, 3 * B + 5000), (3 * B + B // 2, B // 2), (5, 7)):
+            lv = torch.from_numpy(rng.uniform(-90.0, 6.0, (3, 1, T)).astype(np.float32)).to(card)
+            for m in (torch.full((3, 1), -1e9, device=card),
+                      torch.from_numpy(rng.uniform(-40.0, 0.0, (3, 1)).astype(np.float32)).to(card)):
+                n0 = ck.launches_env
+                got = tchain.Compressor._slanted_cummax_stream(lv, 0.005, pos, m, m)
+                torch.cuda.synchronize()
+                assert ck.launches_env == n0 + 1
+                want = tchain.Compressor._slanted_cummax_stream_reference(lv, 0.005, pos, m, m)
+                for g, w in zip(got, want):
+                    assert _same(g, w.contiguous()), (B, pos, T)
+
+
+@pytest.mark.cuda
+def test_window_max_kernel_matches_twin_on_card(card):
+    """Bitwise on signed input at W = 2, 3, 73, 1025 and 30,000 (the level
+    launches), on rows not a multiple of the tile and on rows shorter than
+    one."""
+    x = _sig((3, 1, 40000 + 37), 9)
+    xd = torch.from_numpy(x).to(card)
+    for W in (2, 3, 73, 1025, 30000):
+        for v in (xd, xd[..., :300].contiguous()):
+            n0 = ck.launches_wmax
+            got = tchain._window_max_past(v, W)
+            torch.cuda.synchronize()
+            assert ck.launches_wmax == n0 + 1
+            assert _same(got, tchain._window_max_past_reference(v, W)), (W, v.shape)
 
 
 @pytest.mark.cuda
