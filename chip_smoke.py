@@ -195,9 +195,12 @@ its results, any failure exiting non-zero:
    and from device memory) on rows that start with +0.0 and -0.0, on a 1-D
    row and on rows shorter than a tile; the release envelope with
    `_ENV_BLOCK` patched to 256 and at 2^17 (chunks from mid-block, shorter
-   than a tile, ending on the grid, carried states, an empty chunk, a NaN)
-   and the windowed maximum (W = 2-30,000, signed input, zeros of both
-   signs); the compressor, expander and limiter streamed at two chunk sizes
+   than a tile, ending on the grid, carried states, an empty chunk, a NaN;
+   a tile's length +- 1, 8 rows in one launch, rows off the 16-byte grid,
+   at 2^20 a look-back over more than 32 tiles) and the windowed maximum (W
+   = 2-30,000 across the register form's limit, signed input, ties of both
+   zeros, NaNs of two payloads, rows off the 16-byte grid and at its step
+   edges); the compressor, expander and limiter streamed at two chunk sizes
    equal to the whole by sha256; `_upols` at B = 4096, 8192 and 16384
    streamed at 1, G - 1, G and G + 1 blocks (and at 4096 with groups of 1)
    equal to the whole by sha256 and two rows alone equal to them in a batch
@@ -4482,13 +4485,20 @@ def _dynamics_twin_cases(card: str, dev) -> list[str]:
     `_ENV_BLOCK` patched to 256 and at 2^17 over `_env_chunks`, on 3 x 1 rows
     and a 1-D row, levels that start with +0.0 and -0.0 and hold a plateau
     of equal values, from the virgin state and from a carried one; an empty
-    chunk hands its state back; a NaN spreads as the twin's does.  The
-    windowed maximum (`_window_max_past` against the reference) at W = 2, 3,
-    8, 73, 1025, 27,009 (the widest staged) and 30,000 (level launches) on
-    signed noise with zeros of both signs and a plateau, rows of 100,037,
-    300 and 7 frames and a 1-D row.  Then the compressor, the expander and
-    the limiter streamed at two chunk sizes against the whole signal by
-    sha256, at both block lengths, each launching both kernels."""
+    chunk hands its state back; a NaN spreads as the twin's does; the tiles'
+    edges (a tile's length +- 1, from a tile's last frame, across two block
+    boundaries, at 2^20 a look-back over more than 32 tiles of a block) on 8
+    rows in one launch, 8 rows one float off the 16-byte grid and one row.
+    The windowed maximum (`_window_max_past` against the reference) at W =
+    2, 3, 8, 9, 72, 73, 74, 289, 512 (the widest in registers) and 513, 1025,
+    27,009 (the widest staged) and 30,000 (level launches) on signed noise
+    with zeros of both signs, ties of both in one window, NaNs of two
+    payloads (bit for bit: the tree keeps the newest) and a plateau, rows of
+    100,037 frames, the same one float off the 16-byte grid, rows at the
+    register form's step edges (253, 256, 513 and 1023 frames), of 300 and 7
+    frames and a 1-D row.  Then the compressor, the expander and the limiter
+    streamed at two chunk sizes against the whole signal by sha256, at both
+    block lengths, each launching both kernels."""
     import numpy as np
     import torch
 
@@ -4541,11 +4551,43 @@ def _dynamics_twin_cases(card: str, dev) -> list[str]:
             nan_g, nan_w = torch.isnan(g), torch.isnan(w)
             if not torch.equal(nan_g, nan_w) or not _bitwise(g[~nan_g], w[~nan_w]):
                 faults.append(f"slanted_cummax with a NaN: {k} differs")
+        # the one-pass design's edges at 2^17: a tile's length +- 1, a chunk
+        # from a tile's last frame, chunks across two block boundaries (8
+        # rows take the narrow tile there, `chain_kernels.env_tile_frames`,
+        # and 600 rows the wide one); at 2^20 a look-back over more than 32
+        # tiles of a block (64 wide tiles on 8 rows, 512 narrow on 1); 8 rows
+        # in one launch, and rows that start off the 16-byte grid (a view
+        # one float in)
+        n_edge = 0
+        tile = ck.ENV_TILE
+        flat = torch.from_numpy(rng.uniform(
+            -90.0, 6.0, max(8 * (70 * tile + 9), 600 * (2 * tile + 4))).astype(np.float32)).to(dev)
+        eight = ((8, 0), (8, 1), (1, 3))
+        wide = ((600, 0), (600, 1))
+        for B, pos, T, shapes in ((B0, 0, tile, eight + wide), (B0, 0, tile + 1, eight + wide),
+                                  (B0, tile - 1, 2, eight), (B0, tile - 1, tile + 2, eight + wide),
+                                  (B0, B0 - tile, tile, eight),
+                                  (B0, B0 - tile - 1, 2 * tile + 3, eight + wide),
+                                  (B0, 5, 2 * B0 + 3, eight), (1 << 20, 1, 70 * tile + 5, eight)):
+            comp._ENV_BLOCK = B
+            for rows, shift in shapes:
+                lvd = flat[shift:shift + rows * T].view(rows, 1, T)
+                m = torch.from_numpy(rng.uniform(-40.0, 0.0, (rows, 1)).astype(np.float32)).to(dev)
+                ec = torch.from_numpy(rng.uniform(-40.0, 0.0, (rows, 1)).astype(np.float32)).to(dev)
+                got = comp._slanted_cummax_stream(lvd, 300.0 / 48000, pos, m, ec)
+                want = comp._slanted_cummax_stream_reference(lvd, 300.0 / 48000, pos, m, ec)
+                n_edge += 1
+                bad = [k for k, g, w in zip(("env", "m'", "env_carry'"), got, want)
+                       if not _bitwise(g, w)]
+                if bad:
+                    faults.append(f"slanted_cummax edge B={B} pos={pos} T={T} rows={rows} "
+                                  f"view+{shift}: {bad} differ")
     finally:
         comp._ENV_BLOCK = B0
-    print(f"chain 14b: slanted_cummax vs twin: {n_env} cases (B = 256 and {B0}), "
-          f"{len(faults)} faults, an empty chunk and a NaN ({time.time() - t0:.1f} s) [{card}]",
-          flush=True)
+    print(f"chain 14b: slanted_cummax vs twin: {n_env} cases (B = 256 and {B0}), {n_edge} at "
+          f"the tiles' edges (8 and 600 rows a launch, rows off the 16-byte grid, wide and "
+          f"narrow tiles), {len(faults)} faults, an empty chunk and a NaN "
+          f"({time.time() - t0:.1f} s) [{card}]", flush=True)
 
     t0 = time.time()
     n_wmax, nf = 0, len(faults)
@@ -4555,16 +4597,40 @@ def _dynamics_twin_cases(card: str, dev) -> list[str]:
     x[2, :, 1000:1100] = -0.0
     x[2, :, 1100:1200] = 0.0
     x[:, :, 5000:5100] = 0.25
+    # ties of both zeros in one window, and NaNs of two payloads a few
+    # positions apart (the tree's newest NaN wins) and at a row's start
+    x[0, :, 7000:7400:2] = -0.0
+    x[0, :, 7001:7400:2] = 0.0
+    nan_a, nan_b = (np.array([w], np.uint32).view(np.float32)[0] for w in (0x7FC00001, 0xFFC00123))
+    x[1, :, 9000] = nan_a
+    x[1, :, 9011] = nan_b
+    x[2, :, 3] = nan_b
+    x[2, :, 60_000] = nan_a
+    x[2, :, 60_300] = nan_b
     xd = torch.from_numpy(x).to(dev)
     short = xd[..., :300].contiguous()
-    for sig, label in ((xd, "(3, 1, 100037)"), (xd[2, 0].contiguous(), "1-D"),
-                       (short, "(3, 1, 300)"), (short[..., :7].contiguous(), "(3, 1, 7)")):
-        for W in (2, 3, 8, 73, 1025) + ((27009, 30000) if sig.shape[-1] > 1000 else ()):
+    # the same rows one float off the 16-byte grid (the output, a fresh
+    # tensor, then on another grid than the input), and rows whose lengths
+    # sit at the register form's step and segment edges
+    flat = torch.from_numpy(np.concatenate([[0.5], x.reshape(-1)]).astype(np.float32)).to(dev)
+    shifted = flat[1:].view(3, 1, 100_037)
+    step = ck.WMAX_STEP
+    edges = [xd[..., :n].contiguous() for n in (step - 3, step, 2 * step + 1, 4 * step - 1)]
+    reg_ws = (2, 3, 8, 9, 72, 73, 74, 289, ck.WMAX_REG_MAX_W, ck.WMAX_REG_MAX_W + 1)
+    for sig, label, ws in (
+            (xd, "(3, 1, 100037)", reg_ws + (1025, 27009, 30000)),
+            (shifted, "(3, 1, 100037) one float off the grid", reg_ws),
+            (xd[2, 0].contiguous(), "1-D", (2, 3, 8, 73, 1025, 27009, 30000)),
+            (short, "(3, 1, 300)", (2, 3, 8, 73, 289, 1025)),
+            (short[..., :7].contiguous(), "(3, 1, 7)", (2, 3, 8, 73, 1025)),
+            *((e, f"(3, 1, {e.shape[-1]})", (9, 73, 289, ck.WMAX_REG_MAX_W)) for e in edges)):
+        for W in ws:
             n_wmax += 1
             if not _bitwise(ch._window_max_past(sig, W), ch._window_max_past_reference(sig, W)):
                 faults.append(f"window_max W={W} {label}")
-    print(f"chain 14b: window_max vs twin: {n_wmax} cases, {len(faults) - nf} faults "
-          f"({time.time() - t0:.1f} s) [{card}]", flush=True)
+    print(f"chain 14b: window_max vs twin: {n_wmax} cases (NaNs of two payloads and ties of "
+          f"both zeros held bit for bit), {len(faults) - nf} faults ({time.time() - t0:.1f} s) "
+          f"[{card}]", flush=True)
     # torch's own tie rule for zeros of both signs on the card, which the
     # twins inherit (reported, not held: the kernels replay it or never meet it)
     z = torch.tensor([0.0, -0.0], device=dev)
@@ -4622,6 +4688,18 @@ def _ptxas_stats(pattern: str):
 
     return next((v for k, v in _build.ptxas_report(_build.build_log).items() if pattern in k),
                 None)
+
+
+def _env_quads(lv, pos: int) -> int:
+    """The quads a thread of the envelope kernel's instance for the chunk
+    ``lv`` from ``pos`` (`chain_kernels.env_tile_frames`: 16 for the wide
+    tile, 2 for the narrow one)."""
+    from f9tpu_torch.ops import chain as ch
+    from f9tpu_torch.ops import chain_kernels as ck
+
+    B = ch.Compressor._ENV_BLOCK
+    tile = ck.env_tile_frames(lv.numel() // lv.shape[-1], lv.shape[-1], pos % B, B)
+    return (ck.ENV_TILE if tile > ck.ENV_TILE_NARROW else ck.ENV_TILE_NARROW) // 1024
 
 
 def _chain_cases(dev) -> tuple[list[dict], dict]:
@@ -4766,8 +4844,8 @@ def _chain_cases(dev) -> tuple[list[dict], dict]:
             twin=lambda lv=lv, p0=p0, m=m, ec=ec: ch.Compressor._slanted_cummax_stream_reference(
                 lv, c_comp, p0, m, ec),
             library=lambda lv=lv: torch.cummax(lv, dim=-1),
-            patterns=("env_tile_max", "env_walk", "env_write"), per_call=3,
-            ptxas="env_write", **bound(8.0 * n, 8.0 * n + 16.0 * lv.numel() / lv.shape[-1])))
+            patterns=("env_scan",), per_call=1,
+            ptxas=f"env_scanILi{_env_quads(lv, p0)}E", **bound(8.0 * n, 8.0 * n + 16.0 * lv.numel() / lv.shape[-1])))
     for label, v in (("insert loop", y), ("20 s stream chunk", yc1)):
         lvl = torch.amax(torch.abs(v), dim=-2, keepdim=True)
         atten = torch.clamp(20.0 * torch.log10(torch.clamp(lvl, min=1e-20))
@@ -4783,7 +4861,7 @@ def _chain_cases(dev) -> tuple[list[dict], dict]:
             run=lambda ac=ac, W=W: ck.window_max(ac, W),
             twin=lambda ac=ac, W=W: ch._window_max_past_reference(ac, W),
             library=lambda acp=acp, W=W: F.max_pool1d(acp, W, stride=1),
-            patterns=("wmax_tile",), per_call=1, ptxas="wmax_tile",
+            patterns=("wmax_reg",), per_call=1, ptxas="wmax_regILi6ELb1E",
             **bound(levels * ac.numel(), 8.0 * ac.numel())))
     return cases, dict(chain=chain, y=y, W=int(taps.shape[0]), taps=taps)
 
@@ -4903,10 +4981,13 @@ def _chain_times(card: str, dev) -> tuple[dict, list[str]]:
               f"{same}, ptxas {r['ptxas']} [{card}]", flush=True)
         if c["kernel"] in ("slanted_cummax", "window_max"):
             walls["envelope and window max"] += time.time() - t0
-    if _ptxas_stats("env_tile_max") is not None:
-        print(f"chain 14c: ptxas env_tile_max {_ptxas_stats('env_tile_max')}, env_walk "
-              f"{_ptxas_stats('env_walk')}, ma_past unstaged {_ptxas_stats('ma_past_rows')}"
-              f" [{card}]", flush=True)
+    if _ptxas_stats("env_scan") is not None:
+        print(f"chain 14c: ptxas env_scan (wide, narrow tile) {_ptxas_stats('env_scanILi16E')}, "
+              f"{_ptxas_stats('env_scanILi2E')}; wmax_reg (W = 2, 512, 511) "
+              f"{_ptxas_stats('wmax_regILi1ELb0E')}, "
+              f"{_ptxas_stats('wmax_regILi9ELb0E')}, {_ptxas_stats('wmax_regILi8ELb1E')}, "
+              f"wmax_tile (513 <= W <= {ck.WMAX_STAGED_MAX_W}) {_ptxas_stats('wmax_tile')}, "
+              f"ma_past unstaged {_ptxas_stats('ma_past_rows')} [{card}]", flush=True)
 
     # the stages around them, on the same batch, their launches counted
     chain, y, W, taps = ctx["chain"], ctx["y"], ctx["W"], ctx["taps"]

@@ -100,9 +100,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.f9_fir_fold.restype = i32
     lib.f9_ma_past.argtypes = [vp, vp, i64, i64, i32, f32, vp]
     lib.f9_ma_past.restype = i32
-    lib.f9_slanted_cummax.argtypes = [vp] * 7 + [i64, i64, i64, i32, i32, f32, vp]
+    lib.f9_slanted_cummax.argtypes = [vp] * 7 + [i64, i64, i64, i32, i32, i32, f32, vp]
     lib.f9_slanted_cummax.restype = i32
-    lib.f9_window_max.argtypes = [vp, vp, vp, i64, i64, i32, vp]
+    lib.f9_window_max.argtypes = [vp, vp, vp, i64, i64, i32, i32, vp]
     lib.f9_window_max.restype = i32
     return lib
 

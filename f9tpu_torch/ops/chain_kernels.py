@@ -23,11 +23,14 @@ five kernels in their place:
   `chain._uniform_ma_past_reference`;
 - `slanted_cummax` (``f9_slanted_cummax``, `csrc/dynamics.cu`): the release
   envelope of a chunk on the absolute `Compressor._ENV_BLOCK` grid, with
-  its carried state, in three launches (tile maxima, a walk per row, the
-  rescan); twin `chain.Compressor._slanted_cummax_stream_reference`;
+  its carried state, in one pass (a memset of its flags, then one launch:
+  tiles claimed from a ticket, decoupled look-back inside an envelope block,
+  each block's carry folded by its tiles); twin
+  `chain.Compressor._slanted_cummax_stream_reference`;
 - `window_max` (``f9_window_max``, the same file): the causal windowed
-  maximum, the twin's doubling levels in shared memory; twin
-  `chain._window_max_past_reference`.
+  maximum, the twin's doubling levels in registers (a warp streams a
+  segment of a row, `wmax_segment_steps`) up to `WMAX_REG_MAX_W`, in shared
+  memory up to `WMAX_STAGED_MAX_W`; twin `chain._window_max_past_reference`.
 
 `chain._fir_fold`, `chain._uniform_ma_past`, `chain._window_max_past` and
 `chain.Compressor._slanted_cummax_stream` dispatch between twin and kernel.
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 
 __all__ = ["MAC_MAX_K", "upols_mac", "upols_mac_reference", "fir_fold", "ma_past",
-           "slanted_cummax", "window_max", "launches_mac", "launches_fold", "launches_ma",
+           "slanted_cummax", "window_max", "env_tile_frames", "wmax_segment_steps", "launches_mac", "launches_fold", "launches_ma",
            "launches_env", "launches_wmax"]
 
 #: kernel launches since the counts were last reset
@@ -66,10 +69,21 @@ MAC_MAX_K = 64
 #: the widest fold the kernel takes (`csrc/fold.cu` FOLD_MAX_W: its counter's
 #: depth and, past 2,559 taps, a shared-memory limit raised above 48 KB)
 FOLD_MAX_W = 5632
-#: the envelope's widest tile (`csrc/dynamics.cu` ENV_TILE) and longest block
+#: the envelope kernel's tiles, the frames one look-back publishes
+#: (`csrc/dynamics.cu` ENV_Q_WIDE and ENV_Q_NARROW quads a thread): the wide
+#: one where a call has at least `ENV_WIDE_MIN_TILES` of them (4 blocks for
+#: each of an H100's 132 SMs), else the narrow one; and the longest block
 #: (its in-block index j stays exact in float32)
-ENV_TILE = 2048
+ENV_TILE = 16384
+ENV_TILE_NARROW = 2048
+ENV_WIDE_MIN_TILES = 4 * 132
 ENV_MAX_BLOCK = 1 << 24
+#: the widest window the windowed maximum runs in registers (`csrc/dynamics.cu`
+#: WMAX_REG_MAX_W: every shift within one warp step of `WMAX_STEP` positions),
+#: and the warps its segments aim for (16 on each of an H100's 132 SMs)
+WMAX_REG_MAX_W = 512
+WMAX_STEP = 256
+WMAX_REG_WARPS = 16 * 132
 #: the widest window the windowed maximum stages in shared memory
 #: (`csrc/dynamics.cu` WMAX_STAGED_MAX_W: two spans of 2048 + W - 1 floats in
 #: a block's 227 KB); past it each level is a launch over device memory
@@ -240,6 +254,15 @@ def _state_of(t: torch.Tensor, lead: tuple, device, what: str) -> None:
                          f"{lead} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def env_tile_frames(rows: int, T: int, p0: int, B: int) -> int:
+    """The envelope kernel's tile for ``rows`` rows of ``T`` frames from
+    index ``p0`` of a ``B``-frame block: `ENV_TILE` where the rows hold at
+    least `ENV_WIDE_MIN_TILES` such tiles (every block busy with few
+    look-backs), else `ENV_TILE_NARROW`; never longer than B."""
+    wide = -(-(p0 + T) // ENV_TILE) - p0 // ENV_TILE
+    return min(ENV_TILE if rows * wide >= ENV_WIDE_MIN_TILES else ENV_TILE_NARROW, B)
+
+
 def slanted_cummax(level: torch.Tensor, c: float, pos: int, m: torch.Tensor,
                    env_carry: torch.Tensor, block: int):
     """The envelope kernel: ``(env, m', env_carry')`` of
@@ -263,11 +286,10 @@ def slanted_cummax(level: torch.Tensor, c: float, pos: int, m: torch.Tensor,
     if rows == 0 or T == 0:
         return env, m, env_carry
     p0 = int(pos) % B
-    tile = min(ENV_TILE, B)
+    tile = env_tile_frames(rows, T, p0, B)
     ntiles = -(-(p0 + T) // tile) - p0 // tile
-    nblocks = -(-(p0 + T) // B)
-    scratch = torch.empty(rows * 2 * (ntiles + nblocks), dtype=torch.float32,
-                          device=level.device)
+    # the ticket, then one (status, value) word a tile; the kernel zeroes them
+    scratch = torch.empty(2 * (1 + rows * ntiles), dtype=torch.float32, device=level.device)
     m_out, c_out = torch.empty_like(m), torch.empty_like(env_carry)
     from ._build import load_library
 
@@ -275,13 +297,23 @@ def slanted_cummax(level: torch.Tensor, c: float, pos: int, m: torch.Tensor,
     with torch.cuda.device(level.device):
         err = lib.f9_slanted_cummax(_ptr(level), _ptr(m), _ptr(env_carry), _ptr(env),
                                     _ptr(m_out), _ptr(c_out), _ptr(scratch), scratch.numel(),
-                                    rows, T, p0, B, float(np.float32(c)),
+                                    rows, T, p0, B, tile, float(np.float32(c)),
                                     _stream(level.device))
     if err != 0:
         raise RuntimeError(f"slanted_cummax kernel launch failed: CUDA error {err}")
     with _launch_lock:
         launches_env += 1
     return env, m_out, c_out
+
+
+def wmax_segment_steps(rows: int, T: int) -> int:
+    """Steps of `WMAX_STEP` positions a warp of the windowed maximum's
+    register form streams: the rows' steps (``ceil((T + 3) / WMAX_STEP)`` a
+    row, the grid starting up to 3 positions before the row on its 16-byte
+    grid) spread over `WMAX_REG_WARPS` warps, at least 2 (each segment
+    starts ``ceil((W - 1) / WMAX_STEP)`` steps early to warm its levels)."""
+    steps = -(-(T + 3) // WMAX_STEP)
+    return max(2, -(-rows * steps // WMAX_REG_WARPS))
 
 
 def window_max(a: torch.Tensor, W: int) -> torch.Tensor:
@@ -298,13 +330,14 @@ def window_max(a: torch.Tensor, W: int) -> torch.Tensor:
     if rows == 0 or T == 0:
         return y
     scratch = torch.empty_like(a) if W > WMAX_STAGED_MAX_W else None
+    seg = wmax_segment_steps(rows, T) if W <= WMAX_REG_MAX_W else 0
     from ._build import load_library
 
     lib = load_library()
     with torch.cuda.device(a.device):
         err = lib.f9_window_max(_ptr(a), _ptr(y),
                                 ctypes.c_void_p(None if scratch is None else scratch.data_ptr()),
-                                rows, T, W, _stream(a.device))
+                                rows, T, W, seg, _stream(a.device))
     if err != 0:
         raise RuntimeError(f"window_max kernel launch failed: CUDA error {err}")
     with _launch_lock:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""What the chain's MAC, fold, moving-average and windowed-maximum kernels
-are held back by: time them with one design choice changed.
+"""What the chain's MAC, fold, moving-average, envelope and windowed-maximum
+kernels are held back by: time them with one design choice changed.
 
-    python3 -m f9tpu_torch.tools.chain_kernel_ablation
+    python3 -m f9tpu_torch.tools.chain_kernel_ablation [--kernels env,wmax]
 
 Runs on one CUDA GPU from the root of a checkout.  It builds copies of
 `f9tpu_torch/csrc/upols.cu`, `csrc/fold.cu` and `csrc/dynamics.cu` with one
@@ -14,8 +14,10 @@ reverb, K = 30 over 2 x 8 rows, of a stream chunk's, 2 x 1 rows, and of the
 meter's K-weighting, K = 1 over 2 rows; the fold: 351 taps on 8 x 2 x
 2,903,040 and on 2 x 962,560, and 1024 taps on the latter; the moving
 average at the compressor's windows 240 and 48 and the limiter's 73 on
-the insert loop's rows; the windowed maximum at W = 73 on the limiter's
-8 x 1 x 2,903,112), holds each
+the insert loop's rows; the release envelope on the compressor's linked
+rows, 8 x 1 x 2,903,040 from position 0 and a 20 s chunk's 1 x 962,560 from
+mid-grid; the windowed maximum at W = 73 on the limiter's 8 x 1 x 2,903,112
+and the chunk's 1 x 962,632), holds each
 output to its plain twin bit for bit, and prints each copy's device time
 (`torch.profiler`, the median of 10 launches, the lesser of two turns),
 with the card's name and power limit, then one JSON line.
@@ -26,8 +28,19 @@ leaves' loads), both together (this kernel's first form), and `stage_8` /
 `stage_20` (loads a thread keeps in flight while staging, not 12).  The
 fold's: `all_registers` (the counter's nine levels in registers, not three),
 `one_register_level` and `four_outputs` (4 outputs a thread, not 8).  The
-moving average's and the windowed maximum's: `checked_staging` (every tile
-stages and stores with a bounds check a sample, not only the row's edges).
+moving average's: `checked_staging` (every tile stages and stores with a
+bounds check a sample, not only the row's edges).  The envelope's:
+`wide_4096` and `wide_8192` (the wide tile, the frames one look-back
+publishes, of 4 or 8 quads a thread, not 16), `narrow_1024` and
+`narrow_4096` (the narrow one of 1 or 4, not 2), `exact_always` (torch's
+NaN rule at every maximum, not only where a NaN may meet it) and
+`release_acquire` (the flags stored with release and read with acquire
+semantics, not relaxed); and the whole copy with the other tile than
+`chain_kernels.env_tile_frames` picks.  The windowed
+maximum's: `staged` (W = 73 through the shared-memory form, this kernel's
+first design), `exact_always` (torch's NaN rule at every maximum, not only
+in steps whose windows hold a NaN) and the register form's segments of 8,
+16 and 172 steps besides `chain_kernels.wmax_segment_steps`' choice.
 """
 
 from __future__ import annotations
@@ -48,8 +61,13 @@ _LEVELS = "constexpr int REG_LEVELS = 3;"
 _R = "constexpr int FOLD_R = 8;"
 _MA_INSIDE = "const bool inside = n0 - pre >= 0 && n0 + MA_TILE <= T;"
 _MA_STORE = "if (n0 + MA_TILE <= T) {"
-_WMAX_INSIDE = "if (n0 - (W - 1) >= 0 && n0 + WMAX_TILE <= T) {"
-_WMAX_STORE = "if (n0 + WMAX_TILE <= T) {"
+_ENV_WIDE = "constexpr int ENV_Q_WIDE = 16;"
+_ENV_NARROW = "constexpr int ENV_Q_NARROW = 2;"
+_ENV_EXACT1 = "if (__any_sync(FULL, nan))"
+_ENV_EXACT2 = "if (tile_nan || s_P != s_P || carry != carry)"
+_ENV_LD, _ENV_ST = "ld.relaxed.gpu", "st.relaxed.gpu"
+_WMAX_REG = "if (W <= WMAX_REG_MAX_W) {"
+_WMAX_EXACT = "if (nans & window)"
 
 #: (source, [(text, replacement), ...]) by copy name
 VARIANTS = {
@@ -72,14 +90,31 @@ VARIANTS = {
         "checked_staging": [(_MA_INSIDE, "const bool inside = false;"),
                             (_MA_STORE, "if (false) {")],
     }),
+    "env": ("dynamics.cu", {
+        "whole": [],
+        "wide_4096": [(_ENV_WIDE, "constexpr int ENV_Q_WIDE = 4;")],
+        "wide_8192": [(_ENV_WIDE, "constexpr int ENV_Q_WIDE = 8;")],
+        "narrow_1024": [(_ENV_NARROW, "constexpr int ENV_Q_NARROW = 1;")],
+        "narrow_4096": [(_ENV_NARROW, "constexpr int ENV_Q_NARROW = 4;")],
+        "exact_always": [(_ENV_EXACT1, "if (true)"), (_ENV_EXACT2, "if (true)")],
+        "release_acquire": [(_ENV_LD, "ld.acquire.gpu"), (_ENV_ST, "st.release.gpu")],
+    }),
     "wmax": ("dynamics.cu", {
         "whole": [],
-        "checked_staging": [(_WMAX_INSIDE, "if (false) {"), (_WMAX_STORE, "if (false) {")],
+        "staged": [(_WMAX_REG, "if (false) {")],
+        "exact_always": [(_WMAX_EXACT, "if (true)")],
     }),
 }
+#: the windowed maximum's register-form segment lengths (steps a warp) timed
+#: beside `wmax_segment_steps`' choice (0), on the whole copy
+WMAX_SEGMENTS = (0, 8, 16, 172)
+#: the envelope copies' (wide, narrow) tiles, where their quads a thread differ
+ENV_COPY_TILES = {"wide_4096": (4096, 2048), "wide_8192": (8192, 2048),
+                  "narrow_1024": (16384, 1024), "narrow_4096": (16384, 4096)}
 #: each kernel's C entry point and the name its profiler events hold
 ENTRY = {"mac": ("f9_upols_mac", "upols_mac"), "fold": ("f9_fir_fold", "fir_fold"),
-         "ma": ("f9_ma_past", "ma_past"), "wmax": ("f9_window_max", "wmax_tile")}
+         "ma": ("f9_ma_past", "ma_past"), "env": ("f9_slanted_cummax", "env_scan"),
+         "wmax": ("f9_window_max", "wmax_")}
 
 
 def variant_sources() -> dict:
@@ -113,12 +148,14 @@ def _ptxas(log: str, pattern: str) -> str:
     return f"{r.get('registers')} registers{spills}"
 
 
-def _build_all(out_dir: str) -> dict:
+def _build_all(out_dir: str, kernels) -> dict:
     from f9tpu_torch.ops import _build
 
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for (kernel, copy), text in variant_sources().items():
+        if kernel not in kernels:
+            continue
         cu = os.path.join(out_dir, f"{kernel}_{copy}.cu")
         with open(cu, "w") as f:
             f.write(text)
@@ -139,11 +176,16 @@ def _build_all(out_dir: str) -> dict:
             lib.f9_fir_fold.argtypes = [vp, vp, vp, i64, i64, i32, vp]
         elif kernel == "ma":
             lib.f9_ma_past.argtypes = [vp, vp, i64, i64, i32, ctypes.c_float, vp]
+        elif kernel == "env":
+            lib.f9_slanted_cummax.argtypes = [vp] * 7 + [i64, i64, i64, i32, i32, i32,
+                                                         ctypes.c_float, vp]
         elif kernel == "wmax":
-            lib.f9_window_max.argtypes = [vp, vp, vp, i64, i64, i32, vp]
-        # the K = 30 instance of the MAC, each other kernel's staged form
+            lib.f9_window_max.argtypes = [vp, vp, vp, i64, i64, i32, i32, vp]
+        # the K = 30 instance of the MAC, W = 73's windowed maximum, each other
+        # kernel's staged form
         regs = _ptxas(err, {"mac": "upols_mac_regILi30E", "fold": "fir_fold_kernel",
-                            "ma": "ma_past_tiles", "wmax": "wmax_tile"}[kernel])
+                            "ma": "ma_past_tiles", "env": "env_scan",
+                            "wmax": "wmax_tile" if copy == "staged" else "wmax_regILi6ELb1E"}[kernel])
         libs[(kernel, copy)] = (lib, regs)
     return libs
 
@@ -175,8 +217,14 @@ def _device_ms(fn, name: str, runs: int = 10) -> float:
 
 
 def main(argv: list[str] | None = None) -> int:
-    argparse.ArgumentParser(prog="python3 -m f9tpu_torch.tools.chain_kernel_ablation",
-                            description=__doc__.split("\n")[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(prog="python3 -m f9tpu_torch.tools.chain_kernel_ablation",
+                                 description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", default=",".join(VARIANTS),
+                    help=f"the kernels to time, of {','.join(VARIANTS)} (default: all)")
+    args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
+    if set(kernels) - set(VARIANTS):
+        ap.error(f"--kernels takes {','.join(VARIANTS)}")
     import numpy as np
     import torch
 
@@ -193,7 +241,7 @@ def main(argv: list[str] | None = None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
     dev = resolve_device("cuda")
-    libs = _build_all(os.path.join(ROOT, "f9tpu_torch", "_build", "chain_ablation"))
+    libs = _build_all(os.path.join(ROOT, "f9tpu_torch", "_build", "chain_ablation"), kernels)
     gen = torch.Generator(device=dev).manual_seed(15)
     G, Nf = ch.UPOLS_GROUP, 4097
     cases = {}
@@ -228,15 +276,41 @@ def main(argv: list[str] | None = None) -> int:
         T = x.shape[-1]
         args = (x.data_ptr(), y.data_ptr(), x.numel() // T, T, win, float(np.float32(1.0 / win)))
         cases[("ma", label)] = (args, y, ch._uniform_ma_past_reference(x, win), (x,))
+    B = ch.Compressor._ENV_BLOCK
+    c = float(np.float32(80.0 / 48000))
+    for label, rows, T, pos in (("8 x 1 x 2,903,040 from 0", 8, 2_903_040, 0),
+                                ("1 x 962,560 from 2,887,680", 1, 962_560, 2_887_680)):
+        lv = 10.0 * torch.log10(torch.clamp(link[:rows, :, :T] if rows == 8 else
+                                            torch.square(x2[:1]), min=1e-20)).contiguous()
+        init = torch.full((rows, 1) if rows == 8 else (1,), -40.0 if pos else -1e9, device=dev)
+        env, m_out, c_out = torch.empty_like(lv), torch.empty_like(init), torch.empty_like(init)
+        ntiles = -(-(pos % B + T) // 1024) - (pos % B) // 1024    # the smallest copy's tiles
+        scratch = torch.empty(2 * (1 + rows * ntiles), device=dev)
+        want = ch.Compressor._slanted_cummax_stream_reference(lv, c, pos, init, init)
+        chosen = ck.env_tile_frames(rows, T, pos % B, B)
+        for tile in (chosen, ck.ENV_TILE_NARROW if chosen == ck.ENV_TILE else ck.ENV_TILE):
+            # the last argument the tile, which the copies of other tiles replace
+            args = (lv.data_ptr(), init.data_ptr(), init.data_ptr(), env.data_ptr(),
+                    m_out.data_ptr(), c_out.data_ptr(), scratch.data_ptr(), scratch.numel(), rows,
+                    T, pos % B, B, c, min(tile, B))
+            cases[("env", f"{label}, tile {tile}")] = (args, (env, m_out, c_out), want,
+                                                       (lv, init, scratch))
     a = torch.clamp(torch.randn((8, 1, 2_903_112), device=dev, generator=gen), min=0.0)
-    y = torch.empty_like(a)
-    args = (a.data_ptr(), y.data_ptr(), None, 8, a.shape[-1], 73)
-    cases[("wmax", "W 73, 8 x 1 x 2,903,112")] = (args, y, ch._window_max_past_reference(a, 73),
-                                                  (a,))
+    for label, v in (("W 73, 8 x 1 x 2,903,112", a), ("W 73, 1 x 962,632", a[0, :, :962_632])):
+        v = v.contiguous()
+        for seg in WMAX_SEGMENTS:
+            y = torch.empty_like(v)
+            rows, T = v.numel() // v.shape[-1], v.shape[-1]
+            args = (v.data_ptr(), y.data_ptr(), None, rows, T, 73,
+                    seg or ck.wmax_segment_steps(rows, T))
+            cases[("wmax", f"{label}, segments of {seg or args[-1]}")] = (
+                args, y, ch._window_max_past_reference(v, 73), (v,))
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib, kernel, args):
         fn = getattr(lib, ENTRY[kernel][0])
+        if kernel == "env":              # the tile goes before fl(c)
+            args = (*args[:12], args[13], args[12])
         err = fn(*args, stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
@@ -245,11 +319,21 @@ def main(argv: list[str] | None = None) -> int:
     for _turn in range(2):
         for (kernel, copy), (lib, _) in libs.items():
             for (k, label), (args, out, want, _inputs) in cases.items():
-                if k != kernel:
-                    continue
+                if k != kernel or (kernel == "wmax" and copy != "whole"
+                                   and args[-1] != ck.wmax_segment_steps(args[3], args[4])):
+                    continue                  # other segment lengths: the whole copy only
+                if kernel == "env":
+                    rows, T, p0, B = args[8:12]
+                    chosen = ck.env_tile_frames(rows, T, p0, B)
+                    if copy != "whole" and args[-1] != min(chosen, B):
+                        continue              # the other tile: the whole copy only
+                    if copy in ENV_COPY_TILES:
+                        wide, narrow = ENV_COPY_TILES[copy]
+                        args = (*args[:-1], min(wide if chosen == ck.ENV_TILE else narrow, B))
                 launch(lib, kernel, args)
                 torch.cuda.synchronize()
-                same = torch.equal(_bits(out), _bits(want))
+                same = all(torch.equal(_bits(o), _bits(w)) for o, w in
+                           zip(*((out, want) if isinstance(out, tuple) else ((out,), (want,)))))
                 bitwise[(kernel, copy, label)] = bitwise.get((kernel, copy, label), True) and same
                 t = _device_ms(lambda: launch(lib, kernel, args), ENTRY[kernel][1])
                 times.setdefault((kernel, copy, label), []).append(t)

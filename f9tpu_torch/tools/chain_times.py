@@ -84,8 +84,11 @@ def _device_ms(fn, pattern, runs: int = 20) -> float:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
-             for e in prof.key_averages()
+    def device_us(e):
+        t = getattr(e, "device_time_total", None)
+        return e.cuda_time_total if t is None else t
+
+    us = sum(device_us(e) for e in prof.key_averages()
              if any(p in e.key for p in ((pattern,) if isinstance(pattern, str) else pattern)))
     return us / 1e3 / runs
 
@@ -305,16 +308,19 @@ def main(argv=None) -> int:
             def env(level=level, init=init, pos=pos):
                 return ck.slanted_cummax(level, c_comp, pos, init, init, ch.Compressor._ENV_BLOCK)
 
+            # the first design's three launches and the one-pass kernel, and
+            # the memset of the latter's flags beside it
             kernels[f"slanted_cummax, {where}"] = dict(
                 shape=f"{tuple(level.shape)}, pos {pos}", sha256=_sha(*env()), ms=_ms(env),
-                loop_ms=_loop_ms(env), device_ms=_device_ms(env, ("env_tile_max", "env_walk",
-                                                                  "env_write")))
+                loop_ms=_loop_ms(env),
+                device_ms=_device_ms(env, ("env_tile_max", "env_walk", "env_write", "env_scan")),
+                memset_ms=_device_ms(env, "Memset"))
         if hasattr(ck, "window_max"):
             kernels[f"window_max, {where}"] = dict(
                 shape=f"W={L + 1}, {tuple(ac.shape)}", sha256=_sha(ck.window_max(ac, L + 1)),
                 ms=_ms(lambda: ck.window_max(ac, L + 1)),
                 loop_ms=_loop_ms(lambda: ck.window_max(ac, L + 1)),
-                device_ms=_device_ms(lambda: ck.window_max(ac, L + 1), "wmax_tile"))
+                device_ms=_device_ms(lambda: ck.window_max(ac, L + 1), ("wmax_tile", "wmax_reg")))
     out["kernels"] = kernels
     print(json.dumps(out), flush=True)
     return 0
