@@ -213,7 +213,29 @@ its results, any failure exiting non-zero:
    the EQ's fold, the compressor and the limiter; the kernels' launches by
    path over phases 4-10 and 14c, each non-zero on the insert loop and the
    stream, the multiply-sum also on normalize; the phase fails past
-   `CHAIN_KERNELS_BUDGET_S`.
+   `CHAIN_KERNELS_BUDGET_S`;
+15. the L < 8 fold (`phase_cycle_fold`; `f9tpu_torch/csrc/cycle_fold.cu`):
+   (a) on the 48 dense L < 8 banks of the standard rates at the four sinc
+   presets, the meter's 8-32 kHz banks, a Lagrange bank and two banks of
+   the generic form only (M = 3, M = 48), the kernel in its form, and the
+   slid banks in the generic form too, against its twin on the card at 4 x
+   2^18 cycles (a NaN and an inf in a row) and at a tile's edges, rows off
+   the 16-byte grid and a 3-D chunk: bitwise outside NaNs, NaN at the same
+   places; (b) the fused peak bitwise
+   `torch.max(torch.abs(twin))` there and on the true-peak bank with a NaN,
+   +-inf, silence, -0.0 and subnormals; (c) the card's kernel bitwise the
+   CPU's twin on eight banks; (d) chunked == whole by sha256 at two chunk
+   sizes on a 2^22-frame signal, and the chunks' peak the whole one's; the
+   fold banks and phase 3's four `cycle_src` banks against the float64
+   oracle at a 0.89 peak (dB, 24-bit LSB error; the batch graph's float32
+   `resample` beside each fold bank); (e) `cli stream` of a 96 kHz 24-bit
+   stereo file to 48 kHz at two chunk sizes: identical bytes, the fold
+   launched, codes against the CPU path; (f) at the meter's true-peak chunk
+   and a 20 s stream chunk, device time (`torch.profiler` in a process of
+   its own, ``--cycle-fold-device-times``) and CUDA-event time beside the
+   bound, the twin and a float64 `F.conv1d` the port never calls; the
+   kernel's launches by path over phases 4-10 and 15e, non-zero on
+   normalize and 15e's stream; the phase fails past `CYCLE_FOLD_BUDGET_S`.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -223,8 +245,9 @@ CUDA GPU it exits 1 and prints no result.  ``python3 chip_smoke.py
 sits in (a parent tree unpacked by `git archive` beside this script's copy);
 ``--epilogue`` runs phase 11 alone, ``--graph-profile`` only 11c's trace,
 ``--sweep`` phase 12 alone, ``--fuzz`` phase 13 alone, ``--chain-kernels``
-phase 14 alone and ``--chain-device-times`` only 14c's profiled device
-times.
+phase 14 alone, ``--chain-device-times`` only 14c's profiled device
+times, ``--cycle-fold`` phase 15 alone and ``--cycle-fold-device-times``
+only 15f's profiled device times.
 """
 
 from __future__ import annotations
@@ -357,11 +380,13 @@ CHAIN_READS: list[tuple[int, ...]] = []
 def _zero_counts() -> None:
     """Set every launch count to 0, just before a main path is driven."""
     from f9tpu_torch.ops import chain_kernels as ck
+    from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import epilogue as ep
     from f9tpu_torch.ops import src_kernel as sk
 
     sk.launches = sk.launches_windowed = 0
     ep.launches = 0
+    cf.launches = 0
     for name in CHAIN_COUNTERS:
         setattr(ck, name, 0)
 
@@ -370,12 +395,15 @@ def _read_counts() -> tuple[int, int]:
     """(every `cycle_src` launch, those of the windowed form) since
     `_zero_counts`, read just after a main path was driven; the epilogue
     pair's count is read at the same moment into `EPILOGUE_READS`, the
-    chain kernels' into `CHAIN_READS`."""
+    chain kernels' into `CHAIN_READS`, the L < 8 fold's into
+    `CYCLE_FOLD_READS`."""
     from f9tpu_torch.ops import chain_kernels as ck
+    from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import epilogue as ep
     from f9tpu_torch.ops import src_kernel as sk
 
     EPILOGUE_READS.append(ep.launches)
+    CYCLE_FOLD_READS.append(cf.launches)
     CHAIN_READS.append(tuple(getattr(ck, name) for name in CHAIN_COUNTERS))
     return sk.launches, sk.launches_windowed
 
@@ -1691,8 +1719,10 @@ def phase_varispeed(card: str, work: str, dev) -> tuple[int, int]:
     # memory: drop those the phases before left cached on the card
     from f9tpu_torch.ops import resample as tr
 
+    from f9tpu_torch.ops import cycle_fold as cf
+
     for cache in (sk._device_bank, sk._stacked_bank_f64, tr.bank_to_torch,
-                  tr._phase_bank_f64, tr._bank_f64):
+                  tr._phase_bank_f64, tr._bank_f64, cf._device_operands):
         cache.cache_clear()
     torch.cuda.empty_cache()
     long_path = os.path.join(work, "long.wav")
@@ -1705,13 +1735,17 @@ def phase_varispeed(card: str, work: str, dev) -> tuple[int, int]:
 
 
 NORMALIZE_FLAGS = ["--rate", "48000", "--normalize-lufs=-16", "--normalize-tp=-1"]
+#: `_meter_split`'s true-peak line (before the kernel, "4x true-peak fold (float64, L=4)")
+TP_LABEL = "4x true-peak (cycle_fold kernel, fused peak, L=4)"
 
 
 def _meter_split(card: str, path: str, dev) -> None:
     """One file's normalization meter by CUDA events (median of 3 after a
     warm-up), summed over its 20 s chunks: the SRC to 48 kHz, the
-    K-weighting, the hop energies and the 4x true-peak fold, beside the
-    whole `meter_source_streamed` call (host reads and uploads included)."""
+    K-weighting, the hop energies and the 4x true-peak oversampler fused
+    with its peak (`_tp_step`: the `cycle_fold` kernel, one memset and one
+    launch a chunk), beside the whole `meter_source_streamed` call (host
+    reads and uploads included)."""
     import torch
 
     from f9tpu_torch.io import codec
@@ -1728,7 +1762,7 @@ def _meter_split(card: str, path: str, dev) -> None:
     th_l, th_r = ld._halos(tp_bank)
     read = ld.array_reader(x)
     t = {"SRC to 48 kHz (cycle_src, presliced)": 0.0, "K-weighting (UPOLS)": 0.0,
-         "hop energies": 0.0, "4x true-peak fold (float64, L=4)": 0.0}
+         "hop energies": 0.0, TP_LABEL: 0.0}
     n_chunks = 0
     for start in range(0, T, chunk_in):
         xp = torch.from_numpy(ld._read_span(read, C, T, start - h_l,
@@ -1748,7 +1782,7 @@ def _meter_split(card: str, path: str, dev) -> None:
                                          dim=-1))
         t["hop energies"] += ms
         _, ms = _timed(lambda: ld._tp_step(xtp, cycles=chunk_in, rate_in=rate, oversample=4))
-        t["4x true-peak fold (float64, L=4)"] += ms
+        t[TP_LABEL] += ms
         n_chunks += 1
     t0 = time.time()
     m = ld.meter_source_streamed(read, C, T, rate, want_tp=True, device=dev)
@@ -5048,6 +5082,499 @@ def phase_chain_kernels(card: str, dev) -> dict:
     return out
 
 
+#: phase 15 (the L < 8 fold kernel) fails past this many seconds (on one
+#: H100 33.0-42.1 s alone and 44.3 in the whole script, of it 15f's profiled
+#: child process 16.2-22.5)
+CYCLE_FOLD_BUDGET_S = 60.0
+#: 15a's rows and cycles a bank (fewer cycles past W = 800 taps: the widest
+#: bank's twin makes 9,600 passes)
+CYCLE_FOLD_SHAPE = (4, 1 << 18)
+#: 15a-c's extra banks beside the 48 dense L < 8 banks of the standard rates:
+#: the meter's conversions to 48 kHz from 8, 16, 24 and 32 kHz and a Lagrange
+#: bank (96 and 192 kHz to 48 kHz high are among the 48), and two that only
+#: the generic form takes: M = 3, and the widest, M = 48 at 32 threads a block
+CYCLE_FOLD_EXTRA = ((8000, 48000, "high", "sinc"), (16000, 48000, "high", "sinc"),
+                    (24000, 48000, "high", "sinc"), (32000, 48000, "high", "sinc"),
+                    (48000, 96000, "high", "lagrange"), (48000, 16000, "high", "sinc"),
+                    (384000, 8000, "ultra", "sinc"))
+#: 15c's banks, the first six also 15d's: the true-peak oversampler (the same
+#: bank at every rate: L = 4, M = 1), the stream's 2:1 and 4:1 pairs both
+#: ways, the meter's 32 and 8 kHz ones, a Lagrange one
+CYCLE_FOLD_CORE = ((44100, 176400, "high", "sinc"), (96000, 48000, "high", "sinc"),
+                   (48000, 96000, "ultra", "sinc"), (192000, 48000, "ultra", "sinc"),
+                   (48000, 192000, "low", "sinc"), (32000, 48000, "high", "sinc"),
+                   (8000, 48000, "high", "sinc"), (48000, 96000, "high", "lagrange"))
+#: 15e's source: a 96 kHz stereo 24-bit WAV of this many seconds, streamed to
+#: 48 kHz at these chunk sizes
+CYCLE_FOLD_STREAM = (30.0, ("20", "7.3"))
+#: the cycle_fold kernel's launches of each main-path drive, as `_read_counts`
+#: read them (`main` sums them by path; `EPILOGUE_READS` keeps step with it)
+CYCLE_FOLD_READS: list[int] = []
+
+
+def _fold_banks() -> list[tuple[int, int, str, str]]:
+    """15a's banks: every dense L < 8 bank of the standard rates at the four
+    sinc presets (48), then `CYCLE_FOLD_EXTRA`."""
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.models.filters import QUALITY_PRESETS, STANDARD_RATES
+
+    std = [(ri, ro, q, "sinc") for ri in STANDARD_RATES for ro in STANDARD_RATES
+           for q in QUALITY_PRESETS if ri != ro and design_cycle_bank(ri, ro, quality=q).L < 8]
+    return std + list(CYCLE_FOLD_EXTRA)
+
+
+def _nan_bitwise(a, b) -> bool:
+    """float32 tensors equal bit for bit outside their NaNs, NaN at the same
+    places (a NaN's payload is the device's own)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(_bits(a[~na]), _bits(b[~nb])))
+
+
+def _fold_input(rng, rows: int, T: int, dev, level: float = 0.89):
+    """``rows`` x ``T`` uniform noise peaking near ``level`` on the card."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(rng.uniform(-level, level, (rows, T)).astype(np.float32)).to(dev)
+
+
+def _fold_twin_cases(card: str, dev) -> tuple[list[str], float, int]:
+    """15a and 15b: on every bank of `_fold_banks`, the kernel in the form
+    `fold_form` picks and, where that is the slid form, in the generic form
+    too, against its twin on the card at `CYCLE_FOLD_SHAPE` (a NaN and a +inf
+    in the last row) and at the edges: one cycle, a tile less one, a tile, a
+    tile and one, rows a float off the 16-byte grid with a stride past the
+    row, a 3-D chunk; the samples bitwise outside their NaNs (NaN at the
+    same places), the fused peak bitwise `torch.max(torch.abs(twin))`; then the peak on
+    the true-peak bank with a NaN, +-inf, silence, -0.0 and subnormals.
+    Returns (faults, the largest |kernel - twin| outside NaNs, cases)."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import resample as tr
+
+    rng = np.random.default_rng(SEED + 150)
+    rows, Q = CYCLE_FOLD_SHAPE
+    faults, worst, n = [], 0.0, 0
+
+    def check(tag, xp, bank, cycles):
+        nonlocal worst, n
+        n0 = cf.launches
+        y = cf.resample_presliced_fold_kernel(xp, bank, cycles)
+        pk = cf.presliced_absmax_kernel(xp, bank, cycles)
+        yt = tr._presliced_fold(xp, bank, cycles)
+        pt = torch.max(torch.abs(yt))
+        forms = {cf.fold_form(bank): (y, pk)}
+        if cf.fold_form(bank):           # the generic form, which other banks take
+            forms[0] = (cf._launch(xp, bank, cycles, False, form=0),
+                        cf._launch(xp, bank, cycles, True, form=0))
+        torch.cuda.synchronize()
+        n += 1
+        if cf.launches != n0 + 2 * len(forms):
+            faults.append(f"{tag}: {cf.launches - n0} launches for {2 * len(forms)} calls")
+        for form, (y, pk) in forms.items():
+            ok = torch.isfinite(yt) & torch.isfinite(y)
+            if bool(ok.any()):
+                worst = max(worst, float((y[ok] - yt[ok]).abs().max()))
+            if not _nan_bitwise(y, yt):
+                faults.append(f"{tag} form {form}: the samples differ from the twin's "
+                              f"({int((_bits(y) != _bits(yt)).sum())} words)")
+            if not _nan_bitwise(pk.reshape(1), pt.reshape(1)):
+                faults.append(f"{tag} form {form}: peak {float(pk)!r} != twin's {float(pt)!r}")
+
+    for ri, ro, q, kind in _fold_banks():
+        bank = design_cycle_bank(ri, ro, quality=q, kind=kind)
+        name = f"{ri}->{ro} {q} {kind} (L={bank.L} M={bank.M} W={bank.W})"
+        if not cf.fold_kernel_applicable(bank):
+            faults.append(f"{name}: not applicable")
+            continue
+        Qb = min(Q, Q * 800 // bank.W)
+        xp = _fold_input(rng, rows, (Qb - 1) * bank.M + bank.W, dev)
+        xp[-1, 1000] = float("nan")
+        xp[-1, 5000] = float("inf")
+        check(f"15a {name} {rows} x {Qb}", xp, bank, Qb)
+        tq = cf.FOLD_CYCLES * cf.fold_threads(bank)
+        for cycles in (1, tq - 1, tq, tq + 1):
+            T = (cycles - 1) * bank.M + bank.W
+            flat = _fold_input(rng, 1, 3 * (T + 5) + 1, dev)[0]
+            off = flat[1:1 + 3 * (T + 5)].view(3, T + 5)[:, :T]     # a float off the grid
+            check(f"15a {name} 3 x {cycles} off the grid", off, bank, cycles)
+        T = (tq + 2) * bank.M + bank.W
+        check(f"15a {name} 2 x 2 x {tq + 3}", _fold_input(rng, 4, T, dev).view(2, 2, T),
+              bank, tq + 3)
+    # 15b: the fused peak on special values, the true-peak bank
+    tiny = float(np.float32(1e-45))
+    for rate in (44100,):
+        bank = design_cycle_bank(rate, 4 * rate, quality="high")
+        Qc = 20000
+        T = (Qc - 1) * bank.M + bank.W
+        base = _fold_input(rng, 2, T, dev)
+        cases = {"silence": torch.zeros_like(base), "-0.0": torch.full_like(base, -0.0),
+                 "subnormals": torch.from_numpy(
+                     (rng.integers(-6, 7, (2, T)) * tiny).astype(np.float32)).to(dev)}
+        for label, pos, v in (("NaN", 777, float("nan")), ("+inf", 3333, float("inf")),
+                              ("-inf", 4444, float("-inf"))):
+            cases[label] = base.clone()
+            cases[label][1, pos] = v
+        cases["NaN and +inf"] = cases["NaN"].clone()
+        cases["NaN and +inf"][0, 9] = float("inf")
+        for label, xp in cases.items():
+            check(f"15b {rate}->{4 * rate} {label}", xp, bank, Qc)
+            pk = float(cf.presliced_absmax_kernel(xp, bank, Qc))
+            want = {"silence": 0.0, "-0.0": 0.0}.get(label)
+            if want is not None and not (pk == 0.0 and not np.signbit(pk)):
+                faults.append(f"15b {label}: peak {pk!r}, not +0.0")
+            if "NaN" in label and not np.isnan(pk):
+                faults.append(f"15b {label}: peak {pk!r}, not NaN")
+            if label.endswith("inf") and label != "NaN and +inf" and not np.isinf(pk):
+                faults.append(f"15b {label}: peak {pk!r}, not inf")
+    print(f"cycle_fold 15a-b: {n} cases over {len(_fold_banks())} banks (the 48 dense L < 8 "
+          f"banks of the standard rates, the meter's 8-32 kHz, a Lagrange bank, 48 -> 16 and "
+          f"384 -> 8 kHz), each in its form and the slid banks in the generic form too: "
+          f"kernel == twin bitwise outside NaNs and the fused peak == torch.max(torch.abs(twin)),"
+          f" {len(faults)} faults; max |kernel - twin| {worst:.3g} [{card}]", flush=True)
+    return faults, worst, n
+
+
+def _fold_cpu_cases(card: str, dev) -> list[str]:
+    """15c: the card's kernel against the CPU's twin on the same input, bit
+    for bit (NaN at the same places), samples and peak, on
+    `CYCLE_FOLD_CORE` at 2 x 2^15 cycles with a NaN and an inf."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import resample as tr
+
+    rng = np.random.default_rng(SEED + 151)
+    faults, Q = [], 1 << 15
+    for ri, ro, q, kind in CYCLE_FOLD_CORE:
+        bank = design_cycle_bank(ri, ro, quality=q, kind=kind)
+        x = rng.uniform(-0.89, 0.89, (2, (Q - 1) * bank.M + bank.W)).astype(np.float32)
+        x[1, 321], x[0, 4321] = np.nan, np.inf
+        y = cf.resample_presliced_fold_kernel(torch.from_numpy(x).to(dev), bank, Q).cpu()
+        pk = cf.presliced_absmax_kernel(torch.from_numpy(x).to(dev), bank, Q).cpu()
+        yc = tr._presliced_fold(torch.from_numpy(x), bank, Q)
+        same = _nan_bitwise(y, yc) and _nan_bitwise(pk.reshape(1),
+                                                    torch.max(torch.abs(yc)).reshape(1))
+        if not same:
+            faults.append(f"15c {ri}->{ro} {q} {kind}: card != CPU twin")
+    print(f"cycle_fold 15c: card kernel == CPU twin bitwise on {len(CYCLE_FOLD_CORE) - len(faults)}"
+          f" of {len(CYCLE_FOLD_CORE)} banks at 2 x {Q} cycles (a NaN and an inf) [{card}]",
+          flush=True)
+    return faults
+
+
+def _fold_chunks(card: str, dev, frames: int = 1 << 22) -> list[str]:
+    """15d: a 2^22-frame stereo signal through the kernel whole and as haloed
+    chunks of 6000 and 1777 cycles: the samples' sha256 equal, and the
+    largest chunk peak the whole one's."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import cycle_fold as cf
+
+    rng = np.random.default_rng(SEED + 152)
+    x = torch.from_numpy(_signal(rng, 2, frames, 48000)).to(dev)
+    faults = []
+    for ri, ro, q, kind in CYCLE_FOLD_CORE[:6]:
+        bank = design_cycle_bank(ri, ro, quality=q, kind=kind)
+        out_len = bank.out_len(frames)
+        Q = -(-out_len // bank.L)
+        xp = torch.zeros((2, (Q + 6000) * bank.M + bank.W), device=dev)
+        xp[:, bank.pad_front:bank.pad_front + frames] = x
+        whole = cf.resample_presliced_fold_kernel(xp, bank, Q)
+        pk_whole = cf.presliced_absmax_kernel(xp, bank, Q)
+        shas = {"whole": _digest(whole)}
+        for cycles in (6000, 1777):
+            outs, peaks = [], []
+            for q0 in range(0, Q, cycles):
+                n = min(cycles, Q - q0)
+                span = xp[:, q0 * bank.M:q0 * bank.M + (n - 1) * bank.M + bank.W]
+                outs.append(cf.resample_presliced_fold_kernel(span, bank, n))
+                peaks.append(cf.presliced_absmax_kernel(span, bank, n))
+            shas[str(cycles)] = _digest(torch.cat(outs, dim=-1))
+            if not _nan_bitwise(torch.stack(peaks).max().reshape(1), pk_whole.reshape(1)):
+                faults.append(f"15d {ri}->{ro} {q} {kind}: chunk peaks {cycles} != whole")
+        print(f"cycle_fold 15d: {ri}->{ro} {q} {kind}: 2 x {frames} frames, {Q} cycles whole "
+              f"and in chunks of 6000 and 1777: sha256 {shas} [{card}]", flush=True)
+        if len(set(shas.values())) != 1:
+            faults.append(f"15d {ri}->{ro} {q} {kind}: chunked != whole {shas}")
+        del xp, whole
+    del x
+    torch.cuda.empty_cache()
+    return faults
+
+
+def _fold_oracle(card: str, dev, frames: int = 16384) -> tuple[list[str], dict]:
+    """Each fold bank of 15a and phase 3's four `cycle_src` banks against the
+    float64 oracle near full scale (two tones and noise scaled to a 0.89
+    peak, 16384 frames): dB RMS (<= `ORACLE_DB_MAX`) and the 24-bit LSB
+    error, max and RMS; beside each fold bank, the batch graph's plain
+    float32 `resample` (unfold + matmul) on the same input."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.models import design_cycle_bank, resample_oracle
+    from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import resample as tr
+    from f9tpu_torch.ops import src_kernel as sk
+
+    rng = np.random.default_rng(SEED + 153)
+    faults, rows = [], {}
+    worst = {"fold": (-999.0, 0.0), "matmul": (-999.0, 0.0), "cycle_src": (-999.0, 0.0)}
+    banks = [(b, "fold") for b in _fold_banks()] + [((ri, ro, q, "sinc"), "cycle_src")
+                                                    for ri, ro, q in DENSE_BANKS]
+    for (ri, ro, q, kind), form in banks:
+        x = _signal(rng, 1, frames, ri)
+        x *= np.float32(0.89 / np.abs(x).max())
+        bank = design_cycle_bank(ri, ro, quality=q, kind=kind)
+        ref = resample_oracle(x, ri, ro, quality=q, kind=kind)
+        xt = torch.from_numpy(x).to(dev)
+        if form == "fold":
+            Q = -(-ref.shape[-1] // bank.L)
+            xp = torch.zeros((1, (Q - 1) * bank.M + bank.W), device=dev)
+            keep = min(frames, xp.shape[-1] - bank.pad_front)
+            xp[:, bank.pad_front:bank.pad_front + keep] = xt[:, :keep]
+            outs = {"fold": cf.resample_presliced_fold_kernel(xp, bank, Q),
+                    "matmul": tr.resample(xt, bank)}
+        else:
+            outs = {"cycle_src": sk.resample_kernel(xt, bank)}
+        line = []
+        for f, y in outs.items():
+            y = y.cpu().numpy()[:, :ref.shape[-1]]
+            lsb = np.abs(y.astype(np.float64) - ref) * float(1 << 23)
+            db = _db(y - ref, ref)
+            rows[f"{ri}->{ro} {q} {kind} {f}"] = dict(db=db, lsb_max=float(lsb.max()),
+                                                      lsb_rms=float(np.sqrt(np.mean(lsb ** 2))))
+            line.append(f"{f} {db:.1f} dB, {lsb.max():.3f} LSB max, "
+                        f"{np.sqrt(np.mean(lsb ** 2)):.3f} RMS")
+            worst[f] = (max(worst[f][0], db), max(worst[f][1], float(lsb.max())))
+            if f != "matmul" and not db <= ORACLE_DB_MAX:
+                faults.append(f"oracle {ri}->{ro} {q} {kind} {f}: {db:.1f} dB")
+        print(f"cycle_fold oracle: {ri}->{ro} {q} {kind} (L={bank.L} M={bank.M}) at a 0.89 "
+              f"peak: " + "; ".join(line) + f" [{card}]", flush=True)
+    print("cycle_fold oracle: worst (dB, LSB max) " + ", ".join(
+        f"{f} {db:.1f} dB {lsb:.3f} LSB" for f, (db, lsb) in worst.items()) + f" [{card}]",
+          flush=True)
+    return faults, {"worst": worst, "banks": rows}
+
+
+def _fold_stream(card: str, work: str, dev) -> tuple[list[str], int]:
+    """15e: `cli stream` of a 96 kHz stereo 24-bit WAV to 48 kHz (the 2:1
+    bank, L = 1, M = 2) on the card at two chunk sizes, launches counted
+    from zero: identical bytes, and the codes against the CPU path (0
+    samples expected to differ; <= `LSB_TOL` is the contract).  Returns
+    (faults, the kernel's launches)."""
+    import numpy as np
+
+    seconds, chunks = CYCLE_FOLD_STREAM
+    src = os.path.join(work, "src96k.wav")
+    n = _write_long_wav(src, seconds, SEED + 154, rate=96000)
+    faults, shas, outs = [], {}, {}
+    _zero_counts()
+    for cs in chunks:
+        out = os.path.join(work, f"s96k_{cs}.wav")
+        rc, res, wall = _cli_json(["stream", src, "--out", out, "--rate", "48000", "--json",
+                                   "--chunk-seconds", cs])
+        shas[cs], outs[cs] = (_sha256(out) if rc == 0 else ""), out
+        print(f"cycle_fold 15e: cli stream 96k -> 48k of {seconds:g} s, chunk {cs} s: rc={rc} "
+              f"out_frames={res.get('out_frames')} wall={wall:.3f} s sha256={shas[cs][:16]} "
+              f"[{card}]", flush=True)
+        if rc != 0 or res.get("out_frames") != n // 2:
+            faults.append(f"15e: chunk {cs}: rc={rc} {res}")
+    _read_counts()
+    launches = CYCLE_FOLD_READS[-1]
+    if len(set(shas.values())) != 1:
+        faults.append(f"15e: bytes depend on the chunk size {shas}")
+    out_cpu = os.path.join(work, "s96k_cpu.wav")
+    rc, res, wall_c = _cli_json(["stream", src, "--out", out_cpu, "--rate", "48000", "--json",
+                                 "--device", "cpu"])
+    g, _ = _read_codes(outs[chunks[0]])
+    c, _ = _read_codes(out_cpu) if rc == 0 else (np.zeros(0), 0)
+    same = g.shape == c.shape
+    diff = np.abs(g - c) if same else np.zeros(1)
+    print(f"cycle_fold 15e: the card's {launches} fold launches; CPU path rc={rc} in "
+          f"{wall_c:.1f} s: {int((diff != 0).sum()) if same else -1} of {g.size} samples differ, "
+          f"max {int(diff.max())} LSB (tol {LSB_TOL}) [{card}]", flush=True)
+    if rc != 0 or not same or int(diff.max()) > LSB_TOL:
+        faults.append("15e: card vs CPU path")
+    if launches < 1:
+        faults.append("15e: the stream launched no fold kernel")
+    return faults, launches
+
+
+def _fold_time_cases(dev) -> list[dict]:
+    """15f's cases, built the same way here and in the profiled child: the
+    meter's true-peak chunk (a 20 s chunk at 44.1 kHz, 2 x 882,000 cycles of
+    the 4x bank, the fused peak) and a 20 s stream chunk at 96 -> 48 kHz high
+    (2 x 960,000 cycles of the 2:1 bank, the samples).  Each: run, twin,
+    library (one float64 `F.conv1d` of the chunk by G's columns, stride M:
+    the same sums in another order, which the port never calls), bound (the
+    larger of rows x cycles x sum(hi - lo) FMAs at `FP64_INSTR_PER_S` and the
+    chunk read once, y written once at `HBM_BYTES_PER_S`)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import resample as tr
+
+    rng = np.random.default_rng(SEED + 155)
+    cases = []
+    for label, (ri, ro), Q, peak in (("meter true-peak chunk", (44100, 176400), 882000, True),
+                                      ("20 s stream chunk 96k->48k", (96000, 48000), 960000,
+                                       False)):
+        bank = design_cycle_bank(ri, ro, quality="high")
+        T = (Q - 1) * bank.M + bank.W
+        xp = torch.from_numpy(_signal(rng, 2, T, ri)).to(dev)
+        x64 = xp.to(torch.float64)[:, None]
+        gt = torch.from_numpy(tr.cycle_matrix_f32(bank).T.copy()).to(dev, torch.float64)[:, None]
+        fmas = 2 * Q * sum(hi - lo for _, lo, hi in tr._fold_rows(bank))
+        nbytes = 4 * (2 * T + (0 if peak else 2 * Q * bank.L))
+        t_ops, t_bytes = fmas / FP64_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+        cases.append(dict(
+            label=label, shape=f"L={bank.L} M={bank.M} W={bank.W}, 2 x {Q} cycles"
+            + (", fused peak" if peak else ""),
+            run=(lambda xp=xp, b=bank, Q=Q: cf.presliced_absmax_kernel(xp, b, Q)) if peak else
+            (lambda xp=xp, b=bank, Q=Q: cf.resample_presliced_fold_kernel(xp, b, Q)),
+            twin=(lambda xp=xp, b=bank, Q=Q: cf.presliced_absmax_reference(xp, b, Q)) if peak else
+            (lambda xp=xp, b=bank, Q=Q: tr._presliced_fold(xp, b, Q)),
+            library=lambda x64=x64, gt=gt, M=bank.M: F.conv1d(x64, gt, stride=M),
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            ptxas=f"cycle_fold_kernelILi{bank.L}ELi{cf.fold_form(bank)}ELb{int(peak)}E"))
+    return cases
+
+
+def cycle_fold_device_times_main(dev, runs: int = 20) -> dict:
+    """15f's device times, for the child process (``--cycle-fold-device-
+    times``): {label: device ms a call of the kernel, "<label> memset": the
+    memset's}, from one `torch.profiler` session a case over ``runs`` calls
+    after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for c in _fold_time_cases(dev):
+        c["run"]()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                c["run"]()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = [e for e in evs if "cycle_fold_kernel" in e.name]
+        mset = [e for e in evs if "emset" in e.name]
+        out[c["label"]] = (sum(e.time_range.elapsed_us() for e in kern) / 1e3 / runs
+                           if len(kern) == runs else None)
+        out[f"{c['label']} memset"] = sum(e.time_range.elapsed_us() for e in mset) / 1e3 / runs
+        print(f"cycle_fold 15f: profiled child: {c['label']}: {len(kern)} kernel events "
+              f"({sorted({e.name for e in kern})}), {len(mset)} memsets", flush=True)
+    return out
+
+
+def _fold_times(card: str, dev) -> tuple[dict, list[str]]:
+    """15f: at `_fold_time_cases`' two shapes, the kernel's device time (the
+    profiler in a process of its own, ``--cycle-fold-device-times``; a fault
+    if it reads none) and one call's CUDA-event time (median of 10) beside
+    its bound, the twin's (median of 3) and the library call's; the kernel
+    bitwise the twin there.  Returns the JSON summary's numbers (the meter's
+    chunk first, both under "per_shape") and the faults."""
+    import torch
+
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--cycle-fold-device-times"], capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("cycle_fold 15f"):
+            print(line, flush=True)
+    result = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    faults = []
+    if proc.returncode != 0 or not result:
+        faults.append(f"15f: the profiled process failed (exit {proc.returncode}): "
+                      f"{proc.stderr[-2000:]}")
+        device = {}
+    else:
+        device = json.loads(result[-1])
+    out = {}
+    for c in _fold_time_cases(dev):
+        got, want = c["run"](), c["twin"]()
+        same = _nan_bitwise(got.reshape(-1), want.reshape(-1))
+        err = float((got - want).abs().max())
+        if not same:
+            faults.append(f"15f {c['label']}: kernel != twin")
+        dev_ms = device.get(c["label"])
+        if dev_ms is None:
+            faults.append(f"15f {c['label']}: the profiler read no device time")
+        r = dict(ms=_median_ms(c["run"]), device_ms=dev_ms,
+                 memset_ms=device.get(f"{c['label']} memset"),
+                 plain_ms=_median_ms(c["twin"], runs=3), library_ms=_median_ms(c["library"]),
+                 bound_ms=c["bound_ms"], bound_by=c["bound_by"], max_abs_err=err, bitwise=same,
+                 shape=c["shape"], ptxas=_ptxas_stats(c["ptxas"]))
+        if not out:
+            out = dict(r, per_shape={})
+        out["per_shape"][c["label"]] = r
+        print(f"cycle_fold 15f: {c['label']} ({r['shape']}): kernel {r['ms']:.4f} ms (device "
+              f"{'none' if dev_ms is None else f'{dev_ms:.4f}'}, memset "
+              f"{r['memset_ms'] or 0:.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), twin "
+              f"{r['plain_ms']:.2f} ms, float64 F.conv1d {r['library_ms']:.3f} ms, bitwise "
+              f"{same}, ptxas {r['ptxas']} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return out, faults
+
+
+def phase_cycle_fold(card: str, work: str, dev) -> dict:
+    """Phase 15, the L < 8 fold kernel: 15a-b against its twin on every
+    bank, 15c against the CPU's twin, 15d chunked against whole, the banks
+    against the float64 oracle near full scale, 15e the 96 kHz stream, 15f
+    the times; held to `CYCLE_FOLD_BUDGET_S`.  Returns 15f's numbers with
+    15e's launches and 15a's largest difference."""
+    t_all = time.time()
+    walls, faults = {}, []
+    t0 = time.time()
+    twin_faults, worst, cases = _fold_twin_cases(card, dev)
+    faults += twin_faults
+    walls["15a-b"] = time.time() - t0
+    t0 = time.time()
+    faults += _fold_cpu_cases(card, dev)
+    walls["15c"] = time.time() - t0
+    t0 = time.time()
+    faults += _fold_chunks(card, dev)
+    walls["15d"] = time.time() - t0
+    t0 = time.time()
+    oracle_faults, oracle = _fold_oracle(card, dev)
+    faults += oracle_faults
+    walls["oracle"] = time.time() - t0
+    t0 = time.time()
+    stream_faults, stream_launches = _fold_stream(card, work, dev)
+    faults += stream_faults
+    walls["15e"] = time.time() - t0
+    t0 = time.time()
+    out, time_faults = _fold_times(card, dev)
+    faults += time_faults
+    walls["15f"] = time.time() - t0
+    total = time.time() - t_all
+    print(f"phase 15 (cycle_fold): {total:.1f} s (budget {CYCLE_FOLD_BUDGET_S:g}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
+    if total > CYCLE_FOLD_BUDGET_S:
+        faults.append(f"{total:.1f} s > {CYCLE_FOLD_BUDGET_S:g} s")
+    _raise_faults("phase 15", faults)
+    out.update(max_abs_err=worst, cases=cases, stream_launches=stream_launches,
+               oracle_worst=oracle["worst"], seconds=dict(walls, total=total))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5066,6 +5593,23 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--chain-device-times"]:
         print(json.dumps(chain_device_times_main(resolve_device("cuda"))), flush=True)
+        return 0
+    if sys.argv[1:] == ["--cycle-fold-device-times"]:
+        print(json.dumps(cycle_fold_device_times_main(resolve_device("cuda"))), flush=True)
+        return 0
+    if sys.argv[1:] == ["--cycle-fold"]:
+        card = _card()
+        print(card, flush=True)
+        _build.load_library()
+        print(_build.build_log.strip(), flush=True)
+        work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+        try:
+            out = phase_cycle_fold(card, work, resolve_device("cuda"))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(json.dumps({k: out[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                              "bound_ms", "max_abs_err", "cases",
+                                              "stream_launches", "seconds")}), flush=True)
         return 0
     if sys.argv[1:] == ["--graph-profile"]:
         print(json.dumps(graph_profile_main(resolve_device("cuda"))), flush=True)
@@ -5124,6 +5668,7 @@ def main() -> int:
     windowed = {}
     epilogue_by_path = {}
     chain_by_path = {}
+    fold_by_path = {}
     kw = None
     slice_work = None
     for n, path, phase in ((4, "default_job", lambda c, w: phase_slice(c, w, dev=dev)),
@@ -5147,6 +5692,7 @@ def main() -> int:
             total, windowed[path] = phase(card, work)
             epilogue_by_path[path] = sum(EPILOGUE_READS[reads:])
             chain_by_path[path] = _chain_sum(reads)
+            fold_by_path[path] = sum(CYCLE_FOLD_READS[reads:])
             dense[path] = total - windowed[path]
             if path == "default_job":
                 slice_work, work = work, None    # phase 9a holds its outputs to these
@@ -5163,6 +5709,7 @@ def main() -> int:
             dense[path], windowed[path] = total - win, win
         epilogue_by_path["tools"] = sum(EPILOGUE_READS[reads:])
         chain_by_path["tools"] = _chain_sum(reads)
+        fold_by_path["tools"] = sum(CYCLE_FOLD_READS[reads:])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 8 (tool path): {time.time() - t0:.1f} s", flush=True)
@@ -5176,6 +5723,7 @@ def main() -> int:
                 dense[path], windowed[path] = total - win, win
             epilogue_by_path["multi_device"] = sum(EPILOGUE_READS[reads:])
             chain_by_path["multi_device"] = _chain_sum(reads)
+            fold_by_path["multi_device"] = sum(CYCLE_FOLD_READS[reads:])
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase 9 (multi-device): {time.time() - t0:.1f} s", flush=True)
@@ -5188,6 +5736,7 @@ def main() -> int:
                 dense[path], windowed[path] = total - win, win
             epilogue_by_path["rows_layout"] = sum(EPILOGUE_READS[reads:])
             chain_by_path["rows_layout"] = _chain_sum(reads)
+            fold_by_path["rows_layout"] = sum(CYCLE_FOLD_READS[reads:])
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase 10 (rows layout): {time.time() - t0:.1f} s", flush=True)
@@ -5241,6 +5790,27 @@ def main() -> int:
                if k in k14}})
     chain_kernels[0]["also_replaces"] = "f9tpu/ops/chain.py:160"
     chain_kernels[3]["also_replaces"] = "f9tpu/ops/chain.py:703"
+    work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
+    t0 = time.time()
+    try:
+        kfold = phase_cycle_fold(card, work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 15 (cycle_fold): {time.time() - t0:.1f} s", flush=True)
+    fold_by_path["cycle_fold_stream"] = kfold["stream_launches"]
+    print(f"cycle_fold: launches by path {fold_by_path} [{card}]", flush=True)
+    idle = [p for p in ("normalize", "cycle_fold_stream") if fold_by_path.get(p, 0) < 1]
+    if idle:
+        raise AssertionError(f"cycle_fold: no launch on the paths {idle}")
+    chain_kernels.append({
+        # no TPU kernel computes it: XLA's convolution of the streamed SRC
+        # and the true peak's max |y| (`replaces` names the JAX functions)
+        "name": "cycle_fold", "route": "cuda", "source": "f9tpu_torch/csrc/cycle_fold.cu",
+        "replaces": "f9tpu/ops/resample.py:307", "also_replaces": "f9tpu/ops/loudness.py:363",
+        "launches": sum(fold_by_path.values()), "launches_by_path": fold_by_path,
+        **{k: kfold[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "device_ms", "per_shape", "cases",
+                                 "oracle_worst")}})
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",

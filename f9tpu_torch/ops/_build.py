@@ -104,6 +104,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.f9_slanted_cummax.restype = i32
     lib.f9_window_max.argtypes = [vp, vp, vp, i64, i64, i32, i32, vp]
     lib.f9_window_max.restype = i32
+    lib.f9_cycle_fold.argtypes = [vp] * 5 + [i64, i64, i64, i64, i32, i32, i32, i32, i32, i32,
+                                             vp]
+    lib.f9_cycle_fold.restype = i32
+    lib.f9_cycle_fold_cycles.argtypes = []
+    lib.f9_cycle_fold_cycles.restype = i32
     return lib
 
 

@@ -32,8 +32,11 @@ within 0.01 LU / 0.01 dB (the tests hold them):
   the port computes on the trimmed signal.
 - The 4x true-peak oversampler is the bank ``rate -> 4*rate`` (L = 4,
   M = 1), below the `cycle_src` kernel's L >= 8.  The whole-file form runs
-  the unfold + matmul `resample`; the streamed form (`_tp_step`) runs
-  `resample_presliced`'s float64 fold on either device.
+  the unfold + matmul `resample`; the streamed form (`_tp_step`) runs the
+  `cycle_fold` kernel fused with the peak on the card (one memset and one
+  launch a chunk, no oversampled signal written) and its twin, the float64
+  fold `resample._presliced_fold` and ``max |y|``, on the CPU: the same
+  bits either way.
 
 Every public function takes ``device`` (default: the input tensor's device,
 else CUDA through `resolve_device`; CPU runs pass ``"cpu"``).
@@ -357,12 +360,14 @@ def _meter48_step(xp: torch.Tensor, carry: torch.Tensor, *, cycles: int,
 
 def _tp_step(xp: torch.Tensor, *, cycles: int, rate_in: int, oversample: int):
     """One true-peak chunk: the 4x oversampler on a haloed chunk, then the
-    absolute maximum (NaN propagates)."""
-    from .resample import resample_presliced
+    absolute maximum (NaN propagates): the fused `cycle_fold` kernel on the
+    card, its twin on the CPU."""
+    from .cycle_fold import presliced_absmax_kernel, presliced_absmax_reference
 
     bank = design_cycle_bank(rate_in, rate_in * oversample, quality="high")
-    y = resample_presliced(xp, bank, cycles)
-    return torch.max(torch.abs(y))
+    if xp.device.type == "cpu":
+        return presliced_absmax_reference(xp, bank, cycles)
+    return presliced_absmax_kernel(xp, bank, cycles)
 
 
 def _meter_chunk_plan(rate: int, chunk_seconds: float, ctx: int):

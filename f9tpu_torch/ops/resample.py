@@ -10,8 +10,10 @@ cycle matrix ``G`` (`f9tpu_torch.models.filters.design_cycle_bank`), so
 not take (`f9tpu_torch.ops.src_kernel.kernel_applicable`: L < 8): a strided
 ``unfold`` of the padded signal into cycle windows and one float32
 ``torch.matmul``.  `resample_presliced` is the streamed form, on a chunk
-that carries its own halos: the kernel on the card, a fixed-order float64
-fold elsewhere.
+that carries its own halos: on the card the `cycle_src` kernel (L >= 8) or
+the `cycle_fold` kernel (`ops/cycle_fold.py`, a dense bank with L < 8), on
+the CPU their plain twins, among them the fixed-order float64 fold
+`_presliced_fold` that the `cycle_fold` kernel equals bit for bit.
 
 Varispeed banks (``bank.G is None``: 44.1k -> 44056 reduces to L/M =
 11014/11025, whose dense matrix would be 0.5 GB) run from the ``(L, K)``
@@ -187,20 +189,25 @@ def resample_presliced(xp: torch.Tensor, bank: CycleBank, num_cycles: int) -> to
     The streaming path's SRC (`f9tpu.ops.resample.resample_presliced`).
 
     On a CUDA tensor the `cycle_src` kernel runs where it takes the bank
-    (`src_kernel.resample_presliced_kernel`, dense or varispeed).  CPU
-    tensors, and the banks the kernel does not take on either device, get
-    the fixed-order float64 forms: `_presliced_fold` for a dense bank (L <
-    8), `_gather_core` for a varispeed bank.  All compute each output from
-    its own window in an order that does not depend on where the chunk
-    starts, so chunked output equals whole output bit for bit."""
+    (`src_kernel.resample_presliced_kernel`, dense or varispeed, L >= 8)
+    and the `cycle_fold` kernel where that takes it
+    (`cycle_fold.resample_presliced_fold_kernel`: a dense bank with L < 8),
+    bit for bit the fold below.  CPU tensors, and the banks neither kernel
+    takes, get the fixed-order float64 forms: `_presliced_fold` for a dense
+    bank (L < 8), `_gather_core` for a varispeed bank.  All compute each
+    output from its own window in an order that does not depend on where
+    the chunk starts, so chunked output equals whole output bit for bit."""
     need = (num_cycles - 1) * bank.M + bank.W
     if xp.shape[-1] < need:
         raise ValueError(f"padded input too short: {xp.shape[-1]} < {need}")
     if xp.device.type == "cuda":
+        from .cycle_fold import fold_kernel_applicable, resample_presliced_fold_kernel
         from .src_kernel import kernel_applicable, resample_presliced_kernel
 
         if kernel_applicable(bank):
             return resample_presliced_kernel(xp, bank, num_cycles)
+        if fold_kernel_applicable(bank):
+            return resample_presliced_fold_kernel(xp, bank, num_cycles)
     if bank.G is None:
         return _gather_core(xp, bank, num_cycles * bank.L)
     return _presliced_fold(xp, bank, num_cycles)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """What the chain's MAC, fold, moving-average, envelope and windowed-maximum
-kernels are held back by: time them with one design choice changed.
+kernels and the L < 8 SRC fold are held back by: time them with one design
+choice changed.
 
     python3 -m f9tpu_torch.tools.chain_kernel_ablation [--kernels env,wmax]
 
 Runs on one CUDA GPU from the root of a checkout.  It builds copies of
-`f9tpu_torch/csrc/upols.cu`, `csrc/fold.cu` and `csrc/dynamics.cu` with one
-choice changed each
+`f9tpu_torch/csrc/upols.cu`, `csrc/fold.cu`, `csrc/dynamics.cu` and
+`csrc/cycle_fold.cu` with one choice changed each
 (nvcc, all at once, into `f9tpu_torch/_build/chain_ablation/`, with ptxas's
 register and spill report), launches every copy through its C entry point
 at `chip_smoke.py` 14c's shapes (the MAC: one group of the insert loop's
@@ -17,7 +18,10 @@ average at the compressor's windows 240 and 48 and the limiter's 73 on
 the insert loop's rows; the release envelope on the compressor's linked
 rows, 8 x 1 x 2,903,040 from position 0 and a 20 s chunk's 1 x 962,560 from
 mid-grid; the windowed maximum at W = 73 on the limiter's 8 x 1 x 2,903,112
-and the chunk's 1 x 962,632), holds each
+and the chunk's 1 x 962,632; the L < 8 fold at `chip_smoke.py` 15f's shapes,
+the meter's true-peak chunk fused with its peak and as samples, 2 x 882,000
+cycles of the 4x bank, and a 20 s stream chunk at 96 -> 48 kHz, 2 x 960,000
+cycles of the 2:1 bank), holds each
 output to its plain twin bit for bit, and prints each copy's device time
 (`torch.profiler`, the median of 10 launches, the lesser of two turns),
 with the card's name and power limit, then one JSON line.
@@ -40,7 +44,13 @@ semantics, not relaxed); and the whole copy with the other tile than
 maximum's: `staged` (W = 73 through the shared-memory form, this kernel's
 first design), `exact_always` (torch's NaN rule at every maximum, not only
 in steps whose windows hold a NaN) and the register form's segments of 8,
-16 and 172 steps besides `chain_kernels.wmax_segment_steps`' choice.
+16 and 172 steps besides `chain_kernels.wmax_segment_steps`' choice.  The
+L < 8 fold's: `generic` (the generic form where `cycle_fold.fold_form`
+picks the slid one: a thread's cycles a block apart, every sample loaded and
+converted for every row), `four_cycles` (4 cycles a thread, not 8),
+`predicated_rows` (every row through the predicated columns, no branch for
+the rows that take every column), and the generic form with 8 and with 4
+cycles a thread and predicated rows (this kernel's first form).
 """
 
 from __future__ import annotations
@@ -68,6 +78,9 @@ _ENV_EXACT2 = "if (tile_nan || s_P != s_P || carry != carry)"
 _ENV_LD, _ENV_ST = "ld.relaxed.gpu", "st.relaxed.gpu"
 _WMAX_REG = "if (W <= WMAX_REG_MAX_W) {"
 _WMAX_EXACT = "if (nans & window)"
+_FOLD_C = "constexpr int FOLD_C = 8;"
+_FOLD_FULL = "if ((e & 63) == L) {"
+_FOLD_FORM = "const int form = ms;"
 
 #: (source, [(text, replacement), ...]) by copy name
 VARIANTS = {
@@ -104,6 +117,15 @@ VARIANTS = {
         "staged": [(_WMAX_REG, "if (false) {")],
         "exact_always": [(_WMAX_EXACT, "if (true)")],
     }),
+    "cycle_fold": ("cycle_fold.cu", {
+        "whole": [],
+        "generic": [(_FOLD_FORM, "const int form = 0;")],
+        "four_cycles": [(_FOLD_C, "constexpr int FOLD_C = 4;")],
+        "predicated_rows": [(_FOLD_FULL, "if (false) {")],
+        "generic_predicated_four_cycles": [(_FOLD_FORM, "const int form = 0;"),
+                                           (_FOLD_C, "constexpr int FOLD_C = 4;"),
+                                           (_FOLD_FULL, "if (false) {")],
+    }),
 }
 #: the windowed maximum's register-form segment lengths (steps a warp) timed
 #: beside `wmax_segment_steps`' choice (0), on the whole copy
@@ -114,7 +136,7 @@ ENV_COPY_TILES = {"wide_4096": (4096, 2048), "wide_8192": (8192, 2048),
 #: each kernel's C entry point and the name its profiler events hold
 ENTRY = {"mac": ("f9_upols_mac", "upols_mac"), "fold": ("f9_fir_fold", "fir_fold"),
          "ma": ("f9_ma_past", "ma_past"), "env": ("f9_slanted_cummax", "env_scan"),
-         "wmax": ("f9_window_max", "wmax_")}
+         "wmax": ("f9_window_max", "wmax_"), "cycle_fold": ("f9_cycle_fold", "cycle_fold_kernel")}
 
 
 def variant_sources() -> dict:
@@ -181,11 +203,16 @@ def _build_all(out_dir: str, kernels) -> dict:
                                                          ctypes.c_float, vp]
         elif kernel == "wmax":
             lib.f9_window_max.argtypes = [vp, vp, vp, i64, i64, i32, i32, vp]
+        elif kernel == "cycle_fold":
+            lib.f9_cycle_fold.argtypes = [vp] * 5 + [i64, i64, i64, i64, i32, i32, i32, i32,
+                                                     i32, i32, vp]
         # the K = 30 instance of the MAC, W = 73's windowed maximum, each other
         # kernel's staged form
         regs = _ptxas(err, {"mac": "upols_mac_regILi30E", "fold": "fir_fold_kernel",
                             "ma": "ma_past_tiles", "env": "env_scan",
-                            "wmax": "wmax_tile" if copy == "staged" else "wmax_regILi6ELb1E"}[kernel])
+                            "wmax": "wmax_tile" if copy == "staged" else "wmax_regILi6ELb1E",
+                            "cycle_fold": "cycle_fold_kernelILi4ELi1ELb1E"
+                            if copy != "generic" else "cycle_fold_kernelILi4ELi0ELb1E"}[kernel])
         libs[(kernel, copy)] = (lib, regs)
     return libs
 
@@ -305,6 +332,28 @@ def main(argv: list[str] | None = None) -> int:
                     seg or ck.wmax_segment_steps(rows, T))
             cases[("wmax", f"{label}, segments of {seg or args[-1]}")] = (
                 args, y, ch._window_max_past_reference(v, 73), (v,))
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import resample as tr
+
+    for label, (ri, ro), Q, peak in (("meter chunk, fused peak", (44100, 176400), 882_000, True),
+                                      ("meter chunk, samples", (44100, 176400), 882_000, False),
+                                      ("20 s stream chunk 96k->48k", (96000, 48000), 960_000,
+                                       False)):
+        bank = design_cycle_bank(ri, ro, quality="high")
+        T = (Q - 1) * bank.M + bank.W
+        xp = 0.5 * torch.randn((2, T), device=dev, generator=gen)
+        g, tab = cf._device_operands(bank, dev)
+        y = torch.empty((2, Q * bank.L), device=dev)
+        out = torch.empty(1, dtype=torch.int32, device=dev) if peak else y
+        want = tr._presliced_fold(xp, bank, Q)
+        want = torch.max(torch.abs(want)).reshape(1) if peak else want
+        # 128 threads a block fit every copy at these banks
+        args = (xp.data_ptr(), g.data_ptr(), tab.data_ptr(), None if peak else y.data_ptr(),
+                out.data_ptr() if peak else None, 2, T, T, Q, bank.L, bank.M, bank.W,
+                int(tab.shape[0]), 128, cf.fold_form(bank))
+        cases[("cycle_fold", label)] = (args, out.view(torch.float32) if peak else out, want,
+                                        (xp, g, tab, y))
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib, kernel, args):

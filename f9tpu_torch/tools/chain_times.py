@@ -10,8 +10,9 @@ Times, on the card, with the `f9tpu_torch` of the checkout at ``--root``
 the 60 s capture bucket at 44.1 kHz, reverb mode) and each chain stage alone
 on its 48 kHz output; one 20 s chunk of the stream with the chain (SRC,
 chain, finish); and one 54.6 s stereo file's loudness meter
-(`meter_source_streamed` with the true peak, host clock) and its
-K-weighting of one 20 s chunk; then the delay-line MAC and the fold kernel
+(`meter_source_streamed` with the true peak, host clock), its true peak
+alone (each 20 s chunk's `_tp_step`, summed) and its K-weighting of one
+20 s chunk; then the delay-line MAC and the fold kernel
 alone at three shapes each (the MAC: one group of the insert loop's reverb,
 of the stream chunk's and of the meter's K-weighting; the fold: the EQ's
 taps on the insert loop's batch and on the stream chunk, and `FIR_FOLD_MAX`
@@ -23,12 +24,12 @@ times are CUDA events, the median of 5 calls after a warm-up; the kernels
 also get the ms a call of a back-to-back loop and their device time from
 `torch.profiler` (a small launch's events time the host's launch too).  A
 sha256 of the graph's outputs, of the stream chunk's payload, of the
-meter's result and of the chunk's K-weighting shows whether two trees
-compute the same bytes.  It prints one JSON line with the card's name and
-power limit.  Run it as a script, not with ``-m``, so that ``--root``
-decides which ``f9tpu_torch`` is imported: comparing two trees takes one
-process each, in turns (parent, change, change, parent) on one card.
-Without a card it exits 1.
+meter's result and its chunks' true peaks, and of the chunk's K-weighting
+shows whether two trees compute the same bytes.  It prints one JSON line
+with the card's name and power limit.  Run it as a script, not with
+``-m``, so that ``--root`` decides which ``f9tpu_torch`` is imported:
+comparing two trees takes one process each, in turns (parent, change,
+change, parent) on one card.  Without a card it exits 1.
 """
 
 from __future__ import annotations
@@ -234,6 +235,19 @@ def main(argv=None) -> int:
     out["meter_sha256"] = _sha(m["lufs"], m["true_peak_db"])
     out["meter"] = m
     out["meter_file_ms"] = float(np.median(walls[1:]))
+    # the meter's true peak alone: each 20 s chunk's `_tp_step` on its haloed
+    # span, as `meter_source_streamed` cuts it
+    ctx = int(ld.k_weighting_ir().shape[0]) - 1
+    chunk_in = ld._meter_chunk_plan(44100, 20.0, ctx)[0]
+    th_l, th_r = ld._halos(design_cycle_bank(44100, 4 * 44100, quality="high"))
+    tp_ms, peaks = 0.0, []
+    for start in range(0, T, chunk_in):
+        xtp = torch.from_numpy(ld._read_span(read, 2, T, start - th_l,
+                                             th_l + chunk_in + th_r)).to(dev)
+        peaks.append(ld._tp_step(xtp, cycles=chunk_in, rate_in=44100, oversample=4))
+        tp_ms += _ms(lambda: ld._tp_step(xtp, cycles=chunk_in, rate_in=44100, oversample=4))
+    out["meter_true_peak_ms"] = tp_ms
+    out["meter_true_peak_sha256"] = _sha(*peaks)
     z = torch.from_numpy(np.ascontiguousarray(x[2, :, :20 * 48000 + 5000])).to(dev)
     out["k_weight_20s_sha256"] = _sha(ld.k_weight(z))
     out["k_weight_20s_ms"] = _ms(lambda: ld.k_weight(z))
