@@ -88,8 +88,8 @@ its results, any failure exiting non-zero:
    bus with a monitor mix, in memory and `--stream`: identical sha256 of
    the main and monitor files, two items within 2 LSB of the CPU path, and
    a `--loops 3` programme routed to the stream by itself; (f) `cli process
-   --profile` names the kernel, `--save-config` then `--config` gives the
-   same bytes.  Kernel launches are counted from zero for (a), (b), (d), (e);
+   --profile`, in a process of its own, names the kernel, `--save-config`
+   then `--config` gives the same bytes.  Kernel launches are counted from zero for (a), (b), (d), (e);
 9. the multi-device path (`f9tpu_torch.parallel`) on the one card: each mesh
    names cuda:0 four times, so its shards share the card and the times
    record the shard threads' overhead, not a scaling.  (a) Phase 4's 8
@@ -235,7 +235,21 @@ its results, any failure exiting non-zero:
    its own, ``--cycle-fold-device-times``) and CUDA-event time beside the
    bound, the twin and a float64 `F.conv1d` the port never calls; the
    kernel's launches by path over phases 4-10 and 15e, non-zero on
-   normalize and 15e's stream; the phase fails past `CYCLE_FOLD_BUDGET_S`.
+   normalize and 15e's stream; the phase fails past `CYCLE_FOLD_BUDGET_S`;
+16. the front end as one kernel (`phase_front_end`; `f9tpu_torch/csrc/
+   frontend.cu`): (a) against its twin on the card, bitwise, over 16- and
+   24-bit wires in both byte orders and the float32 bucket, 1-8 input
+   channels, fan-out and identity, swapped, silent and wider routing, valid
+   lengths at a tile's edges, rows off the 16-byte grid, the stream form's
+   means, spans and offsets, the slice's 8 x 2 x 2^22 wire and 65,600 mono
+   files; (b) `f9tpu_torch/tools/front_end_times.py` in a process of its own:
+   the raw front end at the slice's shape (plain and routed, beside its bound
+   and the twin), the float wire, the raw- and float-wire graphs and a 20 s
+   stream chunk, with device operations a call and peak memory; ptxas; (c)
+   the kernel's launches by path over phases 4-10, non-zero on the default
+   job, the insert loop, the stream, normalize and the rows layout; the
+   phase fails past `FRONT_END_BUDGET_S`.  Phase 4's graph split also times
+   the graph on the raw wire.
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -247,7 +261,10 @@ sits in (a parent tree unpacked by `git archive` beside this script's copy);
 ``--sweep`` phase 12 alone, ``--fuzz`` phase 13 alone, ``--chain-kernels``
 phase 14 alone, ``--chain-device-times`` only 14c's profiled device
 times, ``--cycle-fold`` phase 15 alone and ``--cycle-fold-device-times``
-only 15f's profiled device times.
+only 15f's profiled device times, ``--front-end`` phase 16 alone, and
+``--front-end-digests DIR`` only the sha256 of phase 4's job, phase 6's
+streams and phase 7d's normalized job, their inputs made in DIR (the same
+DIR for every tree compared: a file's dither is keyed by its path).
 """
 
 from __future__ import annotations
@@ -382,11 +399,13 @@ def _zero_counts() -> None:
     from f9tpu_torch.ops import chain_kernels as ck
     from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import epilogue as ep
+    from f9tpu_torch.ops import frontend as fe
     from f9tpu_torch.ops import src_kernel as sk
 
     sk.launches = sk.launches_windowed = 0
     ep.launches = 0
     cf.launches = 0
+    fe.launches = 0
     for name in CHAIN_COUNTERS:
         setattr(ck, name, 0)
 
@@ -396,14 +415,16 @@ def _read_counts() -> tuple[int, int]:
     `_zero_counts`, read just after a main path was driven; the epilogue
     pair's count is read at the same moment into `EPILOGUE_READS`, the
     chain kernels' into `CHAIN_READS`, the L < 8 fold's into
-    `CYCLE_FOLD_READS`."""
+    `CYCLE_FOLD_READS`, the front end's into `FRONT_END_READS`."""
     from f9tpu_torch.ops import chain_kernels as ck
     from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import epilogue as ep
+    from f9tpu_torch.ops import frontend as fe
     from f9tpu_torch.ops import src_kernel as sk
 
     EPILOGUE_READS.append(ep.launches)
     CYCLE_FOLD_READS.append(cf.launches)
+    FRONT_END_READS.append(fe.launches)
     CHAIN_READS.append(tuple(getattr(ck, name) for name in CHAIN_COUNTERS))
     return sk.launches, sk.launches_windowed
 
@@ -806,7 +827,7 @@ def _slice_graph_split(card: str, in_dir: str, dev) -> None:
     2^22-frame bucket, on device-resident input by CUDA events (median of 3
     after one warm-up): the whole graph, the SRC alone, the epilogue pair
     alone on the SRC output, and the graph's peak device memory above its
-    inputs."""
+    inputs; then the same graph on the raw 24-bit wire the job uploads."""
     import numpy as np
     import torch
 
@@ -842,13 +863,27 @@ def _slice_graph_split(card: str, in_dir: str, dev) -> None:
     _, t_ep = _timed(lambda: ep.epilogue(y, res.out_frames, cs, bits=24, remove_dc=True,
                                          gain=1.0))
     audio_s = float(valid.sum()) / 44100
+    # the default job's own wire: the same files as 24-bit PCM bytes, resident
+    wire = np.zeros((8, blen * 6), np.uint8)
+    for i in range(8):
+        data, _ = codec.read_raw_pcm(os.path.join(in_dir, f"take{i}.wav"))
+        wire[i, :data.size] = data
+    wd = torch.from_numpy(wire).to(dev)
+
+    def whole_raw():
+        return graph.process_batch_raw(wd, vd, cfg, 44100, seeds, in_channels=2, in_bits=24,
+                                       latency_frames=lat, device=dev)
+    whole_raw()
+    peak_raw = _peak_gb(whole_raw, dev)
+    _, t_raw = _timed(whole_raw)
     GRAPH_READINGS["slice"] = {"graph_ms": t_all, "src_ms": t_src, "epilogue_ms": t_ep,
-                               "peak_gb": peak}
+                               "peak_gb": peak, "raw_graph_ms": t_raw, "raw_peak_gb": peak_raw}
     print(f"slice graph: 8 files x 2 ch x 2^22 input frames ({audio_s:.1f} s of source), "
           f"latency {lat}: whole graph {t_all:.2f} ms ({audio_s / (t_all / 1000):.0f}x real "
           f"time), SRC alone {t_src:.3f} ms, the epilogue pair alone over {tuple(y.shape)} "
-          f"{t_ep:.3f} ms; the graph's peak device memory above its inputs {peak} GB "
-          f"[{card}]", flush=True)
+          f"{t_ep:.3f} ms; the graph's peak device memory above its inputs {peak} GB; "
+          f"on the raw 24-bit wire (process_batch_raw, the default job's) {t_raw:.2f} ms, "
+          f"peak {peak_raw} GB [{card}]", flush=True)
 
 
 def _loop_graph_split(card: str, in_dir: str, names: list[str], ir_path: str,
@@ -2262,25 +2297,36 @@ def _preview_path(card: str, work: str) -> tuple[int, int]:
 
 def _profile_and_config(card: str, work: str, in_dir: str) -> None:
     """8f: `cli process --profile` names the kernel; `--save-config` then
-    `--config` gives the same bytes."""
+    `--config` gives the same bytes.  The profiled job runs as a user runs
+    it, in a process of its own: deep in this script the profiler has lost
+    the port's own kernels while recording torch's (11c and 14c profile in
+    a child process for the same reason)."""
     names = sorted(os.listdir(in_dir))[:2]
     srcs = [os.path.join(in_dir, n) for n in names]
     prof = os.path.join(work, "prof")
     cfg = os.path.join(work, "settings.json")
-    rc, _out, err, wall = _run_cli(["process", *srcs, "--out", os.path.join(work, "pa"),
-                                    "--rate", "48000", "--gain", "-3", "--seed", "11",
-                                    "--profile", prof, "--save-config", cfg])
-    if rc != 0:
-        raise AssertionError(f"tool 8f: process --profile rc={rc}\n{err[-2000:]}")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "f9tpu_torch.cli", "process", *srcs, "--out",
+                           os.path.join(work, "pa"), "--rate", "48000", "--gain", "-3",
+                           "--seed", "11", "--profile", prof, "--save-config", cfg],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"tool 8f: process --profile rc={proc.returncode}\n"
+                             f"{proc.stderr[-2000:]}")
     with open(os.path.join(prof, "trace.json")) as f:
         trace = json.load(f)
     kernels = sorted({e.get("name", "") for e in trace.get("traceEvents", [])
                       if e.get("cat") == "kernel" and "cycle_src" in e.get("name", "")})
-    print(f"tool 8f: cli process --profile ({wall:.3f} s): trace.json "
+    print(f"tool 8f: cli process --profile ({wall:.3f} s in a process of its own): trace.json "
           f"{os.path.getsize(os.path.join(prof, 'trace.json')) / 1e6:.1f} MB, kernels named "
           f"cycle_src: {kernels} [{card}]", flush=True)
     if not kernels:
-        raise AssertionError("tool 8f: the profile names no cycle_src kernel")
+        cats = {}
+        for e in trace.get("traceEvents", []):
+            cats[e.get("cat", "")] = cats.get(e.get("cat", ""), 0) + 1
+        raise AssertionError(f"tool 8f: the profile names no cycle_src kernel (the trace's "
+                             f"events by category: {cats})")
     rc, _out, err, _ = _run_cli(["process", *srcs, "--out", os.path.join(work, "pb"),
                                  "--config", cfg])
     same = all(_sha256(os.path.join(work, "pa", n.replace(".wav", "_processed.wav")))
@@ -5575,6 +5621,286 @@ def phase_cycle_fold(card: str, work: str, dev) -> dict:
     return out
 
 
+#: phase 16's budget, seconds: the case grid, the slice's shape and the timing child
+FRONT_END_BUDGET_S = 120.0
+#: the front end's launches of each main-path drive, as `_read_counts` read
+#: them (`main` sums them by path; `EPILOGUE_READS` keeps step with it)
+FRONT_END_READS: list[int] = []
+#: the paths whose drives must launch the front-end kernel (16c)
+FRONT_END_PATHS = ("default_job", "rows_layout", "stream", "normalize", "insert_loop")
+#: the wires of 16a: (bits, big-endian), None for the float32 bucket
+FRONT_END_WIRES = ((16, False), (16, True), (24, False), (24, True), None)
+
+
+def _fe_name(spec) -> str:
+    return "float32" if spec is None else f"{spec[0]}-bit {'BE' if spec[1] else 'LE'}"
+
+
+def _fe_wire(rng, spec, files: int, c_in: int, frames: int, extra: int = 0):
+    """Random wire bytes ``(files, frames * c_in * bytes + extra)`` with the
+    extreme codes in file 0, or a float32 ``(files, c_in, frames)`` bucket
+    with -0.0, NaN and inf in its last file; a CPU tensor."""
+    import numpy as np
+    import torch
+
+    if spec is None:
+        x = (0.5 * rng.standard_normal((files, c_in, frames))).astype(np.float32)
+        x[-1, 0, :3] = [-0.0, np.nan, np.inf]
+        return torch.from_numpy(x)
+    nb = spec[0] // 8
+    raw = rng.integers(0, 256, size=(files, frames * c_in * nb + extra), dtype=np.uint8)
+    top = 1 if spec[1] else nb - 1
+    raw[0, :2 * nb] = 0
+    raw[0, top] = 0x80
+    raw[0, nb:2 * nb] = 0xFF
+    raw[0, nb + top] = 0x7F
+    return torch.from_numpy(raw)
+
+
+def _fe_routings(c_in: int) -> list:
+    """(name, routing, out_channels): identity, swap, silent, wider than the
+    input, fan-out (`tests/test_torch_frontend.py`'s grid)."""
+    cases = [("none", None, None), ("identity", list(range(c_in)), None),
+             ("swap", list(range(c_in))[::-1], None),
+             ("silent", [-1] + list(range(1, c_in))[::-1], None),
+             ("wider", [i % c_in for i in range(c_in + 2)] + [-1], None)]
+    if c_in == 1:
+        cases += [("fan-out", None, 2), ("fan-out routed", [5, -1, 0, 3], 6)]
+    return cases
+
+
+def _front_end_twin_cases(card: str, dev) -> tuple[list[str], float, int]:
+    """16a: the kernel against its twin on the card, bitwise (`torch.equal`
+    on the bits): every wire, 1-8 input channels, each routing of
+    `_fe_routings`, valid lengths of 0, 1, a tile's edge and one either
+    side, part of the bucket, all of it and past it, at a bucket of two tiles
+    and three frames; rows 1-15 bytes off the 16-byte grid with a stride past
+    the row; the stream form with means, spans and offsets; the slice's
+    8 x 2 x 2^22 24-bit wire with 50-60 s files; 65,600 mono 16-bit files.
+    Returns the faults, the largest difference and the case count."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.ops import frontend as fe
+
+    rng = np.random.default_rng(SEED + 160)
+    faults, worst, n = [], 0.0, 0
+
+    def check(label: str, kernel, twin) -> None:
+        nonlocal worst, n
+        n += 1
+        got, want = kernel(), twin()
+        if not _bitwise(got, want):
+            faults.append(f"16a {label}: kernel != twin")
+            if got.shape == want.shape:
+                d = torch.where(torch.isfinite(want), (got - want).abs(), torch.zeros((), device=dev))
+                worst = max(worst, float(d.max()))
+            else:
+                worst = float("inf")
+
+    for spec in FRONT_END_WIRES:
+        for c_in in (1, 2, 3, 6, 8):
+            bpf = 0 if spec is None else c_in * spec[0] // 8
+            tile = fe.front_end_tile(bpf)
+            frames = 2 * tile + 3
+            x = _fe_wire(rng, spec, 8, c_in, frames, extra=1 if spec else 0).to(dev)
+            fv = torch.tensor([0, 1, tile - 1, tile, tile + 1, frames // 2 + 3, frames,
+                               frames + 5], dtype=torch.int32, device=dev)
+            raw = None if spec is None else (c_in, *spec)
+            for name, routing, out_ch in _fe_routings(c_in):
+                kw = dict(raw=raw, routing=routing, out_channels=out_ch)
+                check(f"{_fe_name(spec)} C_in={c_in} {name}",
+                      lambda: fe.front_end(x, fv, **kw),
+                      lambda: fe.front_end_reference(x, fv, **kw))
+            if spec is None:
+                continue
+            shift = 1 + (5 * c_in) % 15
+            wide = torch.zeros((8, x.shape[1] + 19), dtype=torch.uint8, device=dev)
+            wide[:, shift:shift + x.shape[1]] = x
+            v = wide[:, shift:shift + x.shape[1]]
+            check(f"{_fe_name(spec)} C_in={c_in} rows {shift} bytes off the grid",
+                  lambda: fe.front_end(v, fv, raw=raw, routing=[c_in - 1, -1]),
+                  lambda: fe.front_end_reference(v, fv, raw=raw, routing=[c_in - 1, -1]))
+            routing = list(range(c_in))[::-1] + [-1]
+            for (lo, hi), off in (((0, 0), 0), ((3, frames - 4), 0), ((-5, 10 ** 6), 0),
+                                  ((100, 400), 250), ((0, 300), -40)):
+                mean = torch.from_numpy((0.01 * rng.standard_normal((c_in + 1, 1)))
+                                        .astype(np.float32)).to(dev)
+                kw = dict(raw=raw, routing=routing, mean=mean, span=(lo, hi), idx_offset=off)
+                check(f"{_fe_name(spec)} C_in={c_in} stream span [{lo}, {hi}) offset {off}",
+                      lambda: fe.front_end(v[1], **kw), lambda: fe.front_end_reference(v[1], **kw))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wire = torch.randint(0, 256, (8, 6 << 22), dtype=torch.uint8, device=dev, generator=gen)
+    fv = torch.from_numpy(rng.integers(50 * 44100, 60 * 44100, 8).astype(np.int32)).to(dev)
+    for routing in (None, [1, 0]):
+        check(f"the slice's 8 x 2 x 2^22 24-bit wire, routing {routing}",
+              lambda: fe.front_end(wire, fv, raw=(2, 24, False), routing=routing),
+              lambda: fe.front_end_reference(wire, fv, raw=(2, 24, False), routing=routing))
+    del wire
+    mono = torch.randint(0, 256, (65600, 600), dtype=torch.uint8, device=dev, generator=gen)
+    fv = torch.from_numpy(rng.integers(0, 301, 65600).astype(np.int32)).to(dev)
+    check("65,600 mono 16-bit files of 300 frames, fanned out to 2",
+          lambda: fe.front_end(mono, fv, raw=(1, 16, False), out_channels=2),
+          lambda: fe.front_end_reference(mono, fv, raw=(1, 16, False), out_channels=2))
+    torch.cuda.empty_cache()
+    print(f"front_end 16a: {n} cases, {n - len(faults)} bitwise the twin, largest difference "
+          f"{worst:g} [{card}]", flush=True)
+    return faults, worst, n
+
+
+def _front_end_times(card: str) -> tuple[dict, list[str]]:
+    """16b: `f9tpu_torch/tools/front_end_times.py` on this checkout in a
+    process of its own (CUDA events and `torch.profiler`'s device events):
+    the raw front end at the slice's shape, routed, at the full bucket, the
+    float wire, the raw- and float-wire graphs, a 20 s stream chunk and the
+    twin's three cases, each with its device operations a call and peak
+    memory.  Returns the cases by name and the faults."""
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "f9tpu_torch", "tools",
+                                                        "front_end_times.py"), "--tag", "change"],
+                          capture_output=True, text=True, timeout=600)
+    cases, faults = {}, []
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            c = json.loads(line)
+            cases[c["case"]] = c
+            print(f"front_end 16b: {c['case']}: {c['events_ms']:.4f} ms (device "
+                  f"{'none' if c['device_ms'] is None else format(c['device_ms'], '.4f')} in "
+                  f"{c['device_ops']:g} operations), peak {c['peak_mb']} MB"
+                  + (f", bound {c['bound_ms']:.4f} ms" if "bound_ms" in c else "")
+                  + f", sha256 {c['sha256']} [{card}]", flush=True)
+    if proc.returncode != 0 or "raw" not in cases:
+        faults.append(f"16b: the timing process failed (exit {proc.returncode}): "
+                      f"{proc.stderr[-2000:]}")
+    for name in ("raw", "raw routed", "raw full bucket", "float", "stream chunk"):
+        c = cases.get(name)
+        if c is not None and (c["device_ms"] is None or c["device_ops"] != 1):
+            faults.append(f"16b {name}: {c['device_ops']} device operations a call, not the "
+                          f"kernel alone")
+    for name in ("raw", "raw routed", "stream chunk"):
+        if name in cases and cases.get(f"twin {name}", {}).get("sha256") != cases[name]["sha256"]:
+            faults.append(f"16b {name}: the kernel's output differs from the twin's")
+    return cases, faults
+
+
+def phase_front_end(card: str, dev) -> dict:
+    """Phase 16, the front end as one kernel: 16a against its twin on the
+    case grid, 16b the times in a child process beside the twin, the bound
+    and ptxas; held to `FRONT_END_BUDGET_S`.  Returns the JSON summary's
+    numbers."""
+    t_all = time.time()
+    faults, walls = [], {}
+    t0 = time.time()
+    twin_faults, worst, n_cases = _front_end_twin_cases(card, dev)
+    faults += twin_faults
+    walls["16a"] = time.time() - t0
+    t0 = time.time()
+    cases, time_faults = _front_end_times(card)
+    faults += time_faults
+    walls["16b"] = time.time() - t0
+    from f9tpu_torch.ops import _build
+
+    ptxas = {k: v for k, v in _build.ptxas_report(_build.build_log).items()
+             if "front_end_kernel" in k}
+    print(f"front_end: ptxas {ptxas} [{card}]", flush=True)
+    total = time.time() - t_all
+    print(f"phase 16 (front end): {total:.1f} s (budget {FRONT_END_BUDGET_S:g}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
+    if total > FRONT_END_BUDGET_S:
+        faults.append(f"{total:.1f} s > {FRONT_END_BUDGET_S:g} s")
+    _raise_faults("phase 16", faults)
+    raw, twin = cases["raw"], cases.get("twin raw", {})
+    return {"max_abs_err": worst, "cases": n_cases, "ms": raw["events_ms"],
+            "device_ms": raw["device_ms"], "plain_ms": twin.get("events_ms"),
+            "bound_ms": raw["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "ptxas": ptxas, "per_case": {k: {f: v[f] for f in ("events_ms", "device_ms",
+                                                              "device_ops", "peak_mb",
+                                                              "bound_ms") if f in v}
+                                         for k, v in cases.items()},
+            "seconds": dict(walls, total=total)}
+
+
+def front_end_digests(work: str) -> dict:
+    """The sha256 of phase 4's job (8 stereo 24-bit takes, `cli process
+    --rate 48000`), phase 6's streams (6b's `cli process` of the 600 s file
+    and two 30 s files, 6c's `cli stream` of the 600 s file with the chain at
+    20 s chunks) and phase 7d's normalized job, for the `f9tpu_torch` beside
+    this script, its inputs made in ``work`` as the phases make theirs.  A
+    file's dither is keyed by its path, so trees are compared with the same
+    ``work`` (``--front-end-digests DIR``: emptied first)."""
+    import numpy as np
+
+    from f9tpu_torch import cli, resolve_device
+    from f9tpu_torch.io import wav
+    from f9tpu_torch.ops.resample import resample_rates
+    from f9tpu_torch.pipeline import calibration
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def digest(out_dir: str) -> str:
+        h = hashlib.sha256()
+        for name in sorted(os.listdir(out_dir)):
+            if name.endswith((".wav", ".aiff", ".flac")):
+                h.update(name.encode() + bytes.fromhex(_sha256(os.path.join(out_dir, name))))
+        return h.hexdigest()[:16]
+
+    def run(argv: list[str]) -> None:
+        rc, _out, err, _wall = _run_cli(argv)
+        if rc != 0:
+            raise AssertionError(f"digests: {' '.join(argv[:2])} rc={rc}\n{err[-2000:]}")
+
+    got = {}
+    rng = np.random.default_rng(SEED + 1)
+    slice_in = os.path.join(work, "slice")
+    os.makedirs(slice_in)
+    for i in range(8):
+        frames = int(rng.integers(50 * 44100, 60 * 44100))
+        wav.write_wav(os.path.join(slice_in, f"take{i}.wav"), _signal(rng, 2, frames, 44100),
+                      44100, bits=24)
+    run(["process", slice_in, "--out", os.path.join(work, "slice_out"), "--rate", "48000"])
+    got["default_job"] = digest(os.path.join(work, "slice_out"))
+
+    stream_in = os.path.join(work, "stream")
+    os.makedirs(stream_in)
+    long_path = os.path.join(stream_in, "long.wav")
+    _write_long_wav(long_path, 600.0, SEED + 8)
+    for i in range(2):
+        _write_long_wav(os.path.join(stream_in, f"short{i}.wav"), 30.0, SEED + 9 + i)
+    run(["process", stream_in, "--out", os.path.join(work, "stream_b"), "--rate", "48000"])
+    got["stream_6b"] = digest(os.path.join(work, "stream_b"))
+    ir_path = os.path.join(work, "IR.wav")
+    wav.write_wav(ir_path, _stereo_ir(np.random.default_rng(SEED + 2)), 48000, bits=32)
+    chain = cli._build_chain(argparse.Namespace(**_chain_args(ir_path)))
+    ring = chain.tail_frames(48000)
+    lat = calibration.measure_latency(
+        44100, 48000, chain_fn=lambda v: chain.apply(resample_rates(v, 44100, 48000), 48000),
+        capture_frames=max(calibration.CAPTURE_FRAMES,
+                           -(-(3 * ring + (1 << 15)) * 44100 // 48000)),
+        ringout_frames=ring, device=resolve_device("cuda")).latency_frames
+    out_c = os.path.join(work, "stream_c")
+    os.makedirs(out_c)
+    run(["stream", long_path, "--out", os.path.join(out_c, "long_20.wav"), "--rate", "48000",
+         "--chain-delay-ms", "5", "--chain-eq", "peaking:1000:1:3", "--chain-comp=-18:3",
+         "--chain-ir", ir_path, "--chain-limit=-0.3", "--latency", str(lat),
+         "--chunk-seconds", "20"])
+    got["stream_6c"] = digest(out_c)
+
+    rng = np.random.default_rng(SEED + 72)
+    norm_in = os.path.join(work, "normalize")
+    os.makedirs(norm_in)
+    levels_db = np.linspace(0.0, -20.0, 8)
+    for i in range(8):
+        frames = int(rng.integers(50 * 44100, 60 * 44100))
+        x = _signal(rng, 2, frames, 44100) * np.float32(10.0 ** (levels_db[i] / 20.0))
+        if i == 6:
+            x[:, ::22050] = 0.6
+        wav.write_wav(os.path.join(norm_in, f"take{i}.wav"), x, 44100, bits=24)
+    run(["process", norm_in, "--out", os.path.join(work, "normalize_out"), *NORMALIZE_FLAGS])
+    got["normalize"] = digest(os.path.join(work, "normalize_out"))
+    shutil.rmtree(work, ignore_errors=True)
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -5610,6 +5936,23 @@ def main() -> int:
         print(json.dumps({k: out[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                               "bound_ms", "max_abs_err", "cases",
                                               "stream_launches", "seconds")}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--front-end"]:
+        card = _card()
+        print(card, flush=True)
+        _build.load_library()
+        print(_build.build_log.strip(), flush=True)
+        out = phase_front_end(card, resolve_device("cuda"))
+        print(json.dumps({k: out[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                              "max_abs_err", "cases", "ptxas", "per_case",
+                                              "seconds")}), flush=True)
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--front-end-digests":
+        card = _card()
+        t0 = time.time()
+        got = front_end_digests(os.path.abspath(sys.argv[2]))
+        print(json.dumps({"tree": ROOT, **got, "seconds": time.time() - t0, "card": card}),
+              flush=True)
         return 0
     if sys.argv[1:] == ["--graph-profile"]:
         print(json.dumps(graph_profile_main(resolve_device("cuda"))), flush=True)
@@ -5669,6 +6012,7 @@ def main() -> int:
     epilogue_by_path = {}
     chain_by_path = {}
     fold_by_path = {}
+    front_by_path = {}
     kw = None
     slice_work = None
     for n, path, phase in ((4, "default_job", lambda c, w: phase_slice(c, w, dev=dev)),
@@ -5693,6 +6037,7 @@ def main() -> int:
             epilogue_by_path[path] = sum(EPILOGUE_READS[reads:])
             chain_by_path[path] = _chain_sum(reads)
             fold_by_path[path] = sum(CYCLE_FOLD_READS[reads:])
+            front_by_path[path] = sum(FRONT_END_READS[reads:])
             dense[path] = total - windowed[path]
             if path == "default_job":
                 slice_work, work = work, None    # phase 9a holds its outputs to these
@@ -5710,6 +6055,7 @@ def main() -> int:
         epilogue_by_path["tools"] = sum(EPILOGUE_READS[reads:])
         chain_by_path["tools"] = _chain_sum(reads)
         fold_by_path["tools"] = sum(CYCLE_FOLD_READS[reads:])
+        front_by_path["tools"] = sum(FRONT_END_READS[reads:])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 8 (tool path): {time.time() - t0:.1f} s", flush=True)
@@ -5724,6 +6070,7 @@ def main() -> int:
             epilogue_by_path["multi_device"] = sum(EPILOGUE_READS[reads:])
             chain_by_path["multi_device"] = _chain_sum(reads)
             fold_by_path["multi_device"] = sum(CYCLE_FOLD_READS[reads:])
+            front_by_path["multi_device"] = sum(FRONT_END_READS[reads:])
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase 9 (multi-device): {time.time() - t0:.1f} s", flush=True)
@@ -5737,6 +6084,7 @@ def main() -> int:
             epilogue_by_path["rows_layout"] = sum(EPILOGUE_READS[reads:])
             chain_by_path["rows_layout"] = _chain_sum(reads)
             fold_by_path["rows_layout"] = sum(CYCLE_FOLD_READS[reads:])
+            front_by_path["rows_layout"] = sum(FRONT_END_READS[reads:])
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"phase 10 (rows layout): {time.time() - t0:.1f} s", flush=True)
@@ -5802,6 +6150,13 @@ def main() -> int:
     idle = [p for p in ("normalize", "cycle_fold_stream") if fold_by_path.get(p, 0) < 1]
     if idle:
         raise AssertionError(f"cycle_fold: no launch on the paths {idle}")
+    t0 = time.time()
+    kfe = phase_front_end(card, dev)
+    print(f"phase 16 (front end): {time.time() - t0:.1f} s", flush=True)
+    print(f"front_end: launches by path {front_by_path} [{card}]", flush=True)
+    idle = [p for p in FRONT_END_PATHS if front_by_path.get(p, 0) < 1]
+    if idle:
+        raise AssertionError(f"front_end: no launch on the paths {idle}")
     chain_kernels.append({
         # no TPU kernel computes it: XLA's convolution of the streamed SRC
         # and the true peak's max |y| (`replaces` names the JAX functions)
@@ -5811,6 +6166,15 @@ def main() -> int:
         **{k: kfold[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "device_ms", "per_shape", "cases",
                                  "oracle_worst")}})
+    chain_kernels.append({
+        # no TPU kernel computes it: one XLA fusion of the JAX graph's front
+        # end and of the stream's (`replaces` names the JAX functions)
+        "name": "front_end", "route": "cuda", "source": "f9tpu_torch/csrc/frontend.cu",
+        "replaces": "f9tpu/pipeline/graph.py:63",
+        "also_replaces": ["f9tpu/ops/devcodec.py:32", "f9tpu/pipeline/stream.py:229"],
+        "launches": sum(front_by_path.values()), "launches_by_path": front_by_path,
+        **{k: kfe[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "device_ms", "cases", "ptxas", "per_case")}})
 
     print(json.dumps({"kernels": [{
         "name": "cycle_src",

@@ -3,11 +3,12 @@
 
 One fixed-shape batch ``(files, channels, frames)`` runs, in order:
 
-    on-device unpack -> mono fan-out -> channel routing -> mask ->
-    [capture head-room pad] -> SRC (CUDA kernel) -> [insert chain] ->
-    [latency trim] -> [reverb-tail detection] -> the epilogue kernel pair
-    (masked DC mean and gain, peak/RMS, position-keyed TPDF dither +
-    quantize, routed-silent channels to zero, byte packing) -> tail floor
+    the front end (one kernel on the card: on-device unpack -> mono fan-out
+    -> channel routing -> mask) -> [capture head-room pad] -> SRC (CUDA
+    kernel) -> [insert chain] -> [latency trim] -> [reverb-tail detection]
+    -> the epilogue kernel pair (masked DC mean and gain, peak/RMS,
+    position-keyed TPDF dither + quantize, routed-silent channels to zero,
+    byte packing) -> tail floor
 
 PyTorch runs it eagerly on the tensors' device; there is no jit.  Per-file
 lengths ride through as masks, as in the JAX graph, and the per-file
@@ -55,14 +56,13 @@ from ..config import ProcessingConfig, recording_length
 from ..models.filters import design_cycle_bank
 
 from ..device import resolve_device
-from ..ops import analysis, dither, epilogue
+from ..ops import analysis, dither, epilogue, frontend
 from ..ops.chain import Chain
-from ..ops.devcodec import unpack_pcm_interleaved
 from ..ops.routing import route_channels
 from ..ops.resample import (_banded_geometry, _overlap_rows, banded_rows_plan,
                             rows_marshal_plan)
 from ..ops.src_kernel import resample_auto, resample_staged
-from ..ops.trim import detect_tail_end, mask_beyond, trim_latency
+from ..ops.trim import detect_tail_end, trim_latency
 from . import link
 
 __all__ = ["ProcessResult", "build_process_fn", "process_batch", "process_batch_raw",
@@ -107,12 +107,11 @@ def _channels(x, routing, out_channels):
 
 
 def _front_end(x, frames_valid, routing, out_channels, raw_in):
-    """On-device raw decode, fan-out and routing (`_channels`) and zeroing
-    beyond each file's true length."""
-    if raw_in is not None:
-        in_channels, in_bits, in_big = raw_in
-        x = unpack_pcm_interleaved(x, in_channels, in_bits, big_endian=in_big)
-    return mask_beyond(_channels(x, routing, out_channels), frames_valid)
+    """On-device raw decode, fan-out and routing and zeroing beyond each
+    file's true length, for the raw wire and the float bucket alike: one
+    call of `ops.frontend` (the kernel on the card, its twin on the CPU)."""
+    return frontend.front_end(x, frames_valid, raw=raw_in, routing=routing,
+                              out_channels=out_channels)
 
 
 def _exact_out_valid(frames_valid: torch.Tensor, bank, out_total: int) -> torch.Tensor:

@@ -64,9 +64,8 @@ from ..io.wav import WavWriter
 from ..models.filters import design_cycle_bank, resolve_ratio
 
 from ..device import resolve_device
-from ..ops import dither, epilogue
+from ..ops import dither, epilogue, frontend
 from ..ops.chain import Chain
-from ..ops.devcodec import unpack_pcm_interleaved
 from ..ops.resample import resample_presliced
 from .graph import gain_lin_f32
 from .link import Download, upload
@@ -219,28 +218,21 @@ def _finish_chunk(y, carry, seeds_c, pos0: int, gain: float, *, rate_out, bits,
     return codes, env, carry
 
 
-def _raw_front(raw, *, in_wire, in_channels, fanout=0, route=None,
+def _raw_front(raw, *, in_wire, in_channels, fanout=0, routing=None,
                mean=None, valid=(0, 0), idx_offset=0):
     """The on-device input front of the raw wire: container bytes ->
     float32 ``(channels, frames)``, mono fan-out, the routing gather
-    (``route`` = (source index, silent mask) tensors) and the DC mean
-    subtracted over the real span ``valid`` only (zero-padded halos stay
-    exactly zero, as on the float wire's host path).  Integer to float
-    scaling is a power of two, so the floats equal the host decode's.
-    ``idx_offset`` is the frame of ``raw``'s first byte in ``valid``'s
-    coordinates (a frames shard's place in its super-chunk)."""
+    (``routing``, -1 silent) and the DC mean subtracted over the real span
+    ``valid`` only (zero-padded halos stay exactly zero, as on the float
+    wire's host path): one call of `ops.frontend` (the kernel on the card,
+    its twin on the CPU).  Integer to float scaling is a power of two, so
+    the floats equal the host decode's.  ``idx_offset`` is the frame of
+    ``raw``'s first byte in ``valid``'s coordinates (a frames shard's place
+    in its super-chunk)."""
     in_bits, in_be = in_wire
-    x = unpack_pcm_interleaved(raw, in_channels, in_bits, big_endian=in_be)
-    if fanout:
-        x = x.expand(fanout, x.shape[-1])
-    if route is not None:
-        idx, silent = route
-        x = x.index_select(0, idx).masked_fill(silent[:, None], 0.0)
-    if mean is not None:
-        i = torch.arange(x.shape[-1], device=x.device) + idx_offset
-        real = (i >= valid[0]) & (i < valid[1])
-        x = x - torch.where(real, mean, torch.zeros((), device=x.device))
-    return x
+    return frontend.front_end(raw, raw=(in_channels, in_bits, in_be), routing=routing,
+                              out_channels=fanout or None, mean=mean, span=valid,
+                              idx_offset=idx_offset)
 
 
 class _Emitter:
@@ -515,11 +507,6 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
         bpf_in = C_in * (in_wire[0] // 8) if in_wire is not None else 0
         mean_dev = (torch.from_numpy(mean).to(dev)
                     if (cfg.remove_dc and in_wire is not None) else None)
-        route = None
-        if routing is not None and in_wire is not None:
-            r = np.asarray(routing, np.int64)
-            route = (torch.from_numpy(np.where(r < 0, 0, r)).to(dev),
-                     torch.from_numpy(r < 0).to(dev))
 
         def read_span(lo: int, length: int) -> np.ndarray:
             """Frames ``[lo, lo + length)`` routed and DC-corrected,
@@ -564,7 +551,7 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
             if in_wire is not None:
                 buf, a, b = read_span_raw(k * chunk_in - halo_left, span)
                 xp = _raw_front(upload(buf, dev), in_wire=in_wire,
-                                in_channels=C_in, fanout=fanout, route=route,
+                                in_channels=C_in, fanout=fanout, routing=routing,
                                 mean=mean_dev, valid=(a, b))
             else:
                 xp = upload(read_span(k * chunk_in - halo_left, span), dev)
@@ -575,7 +562,7 @@ def _stream_resample_impl(in_path, out_path, cfg, chunk_seconds, progress_cb,
         if mesh is not None:
             step_out, dispatch = _sharded_dispatch(
                 mesh, bank, cycles, lat, read_span, read_span_raw, finish,
-                in_wire=in_wire, raw_args=(C_in, fanout, route, mean_dev),
+                in_wire=in_wire, raw_args=(C_in, fanout, routing, mean_dev),
                 shard_finish=cfg.chain is None)
 
         # atomic publish: stream into .part, os.replace at the end
@@ -637,15 +624,14 @@ def _sharded_dispatch(mesh, bank, cycles: int, lat: int, read_span, read_span_ra
         raise ValueError(
             f"chunk of {chunk_in} frames is smaller than the filter halo "
             f"({max(halo_left, halo_right)}); raise chunk_seconds")
-    C_in, fanout, route, mean_dev = raw_args
+    C_in, fanout, routing, mean_dev = raw_args
     frames = P(None, "frames")
 
     def local(ctx, xc, ol, orr, k, raw_valid):
         idx = ctx.axis_index("frames")
         if raw_valid is not None:
             xc = _raw_front(xc, in_wire=in_wire, in_channels=C_in, fanout=fanout,
-                            route=(None if route is None
-                                   else tuple(t.to(ctx.device) for t in route)),
+                            routing=routing,
                             mean=None if mean_dev is None else mean_dev.to(ctx.device),
                             valid=raw_valid, idx_offset=idx * chunk_in)
         y = frames_local(ctx, xc, ol, orr, bank)

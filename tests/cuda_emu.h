@@ -1,5 +1,6 @@
-// The CUDA features f9tpu_torch/csrc/cycle_fold.cu uses, emulated on the CPU
-// for tests/test_torch_cycle_fold.py: one std::thread per CUDA thread, a
+// The CUDA features f9tpu_torch/csrc/cycle_fold.cu and csrc/frontend.cu use,
+// emulated on the CPU for tests/test_torch_cycle_fold.py and
+// tests/test_torch_frontend.py: one std::thread per CUDA thread, a
 // std::barrier for __syncthreads, the blocks of a launch one after another,
 // a block's dynamic shared memory filled with NaNs before it starts (so a
 // word read before it is written shows).  Host memory stands for device
@@ -9,6 +10,7 @@
 #include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <cstdint>
 #include <cstring>
 #include <mutex>
 #include <thread>
@@ -68,7 +70,13 @@ inline unsigned atomicMax(unsigned* p, unsigned v)
     return old;
 }
 
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
+
 inline float __double2float_rn(double d) { return static_cast<float>(d); }
+inline float __int2float_rn(int v) { return static_cast<float>(v); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 inline unsigned __float_as_uint(float f)
 {
     unsigned u;
