@@ -740,7 +740,7 @@ def _slice_steady(card: str, in_dir: str, work: str, one: dict, one_link: dict) 
     """The default job on 32 of the slice's takes (each of the 8 files
     under four names: four 8-file batches), beside phase 4's one batch:
     wall, x real time, the collector's blocking time per batch (the
-    "device" stage's thread-seconds over its batches) and the dispatch
+    "collect" stage's thread-seconds over its batches) and the dispatch
     thread's (the "dispatch" stage: build, upload, graph enqueue and the
     downloads' start), split by `_dispatch_clock`."""
     from f9tpu_torch import cli
@@ -760,13 +760,14 @@ def _slice_steady(card: str, in_dir: str, work: str, one: dict, one_link: dict) 
     if rc != 0 or summary["completed"] != 32 or summary["failed"] != 0:
         raise AssertionError(f"slice 4 batches: expected 32 completed, got {summary}")
     for n_batches, s, w, ln in ((1, one, None, one_link), (4, summary, wall, many_link)):
-        dev_s = s["throughput"]["device"]["wall_seconds"]
+        collect_s = s["throughput"]["collect"]["wall_seconds"]
         disp_s = s["throughput"]["dispatch"]["wall_seconds"]
         per = {k: 1e3 * v / n_batches for k, v in ln.items()}
         disp = 1e3 * disp_s / n_batches
         build = disp - per["host_empty"] - per["graph"] - per["download"]
         print(f"slice link: {n_batches} batch(es) of 8 files: collector blocking "
-              f"{1e3 * dev_s / n_batches:.1f} ms per batch (device stage {dev_s:.3f} thread-s); "
+              f"{1e3 * collect_s / n_batches:.1f} ms per batch (collect stage {collect_s:.3f} "
+              f"thread-s); "
               f"dispatch thread {disp:.1f} ms per batch: host_empty {per['host_empty']:.1f}, "
               f"batch build {build:.1f}, graph enqueue {per['graph'] - per['upload']:.1f} + "
               f"upload {per['upload']:.1f}, Download {per['download']:.1f} ms"
@@ -2426,11 +2427,11 @@ def _files_axis(card: str, slice_work: str, dev) -> tuple[int, int]:
         if turn == 1:
             counts = _read_counts()
         same = sum(_sha256(build_output_path(p, out, "_processed")) == want[p] for p in paths)
-        dev_stage = res.throughput.get("device", {})
+        collect_s = res.throughput["collect"]["wall_seconds"]
         print(f"files 9a: {'mesh 4x1x1' if m is not None else 'one device'} "
               f"completed={res.completed} sha256 equal to phase 4: {same} of {len(paths)} "
               f"wall={wall:.3f} s x_realtime={res.audio_seconds_out / wall:.1f} collector "
-              f"blocking {1e3 * dev_stage.get('wall_seconds', 0.0):.1f} ms "
+              f"blocking {1e3 * collect_s:.1f} ms "
               f"[{card}]", flush=True)
         if res.completed != len(paths) or same != len(paths):
             raise AssertionError(f"files 9a: {same} of {len(paths)} outputs equal")

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..spans import span
 from . import chain_kernels
 from .chain_kernels import _delay_line_sum  # noqa: F401  (the tree's one definition)
 
@@ -1168,6 +1169,7 @@ class Chain:
                         f"stage {s!r} lacks required method {attr}()")
         self.stages = tuple(stages)
         self._sig = tuple(s.signature() for s in self.stages)
+        self._spans = tuple("f9.chain." + type(s).__name__.lower() for s in self.stages)
 
     def signature(self) -> tuple:
         return self._sig
@@ -1183,8 +1185,10 @@ class Chain:
         return sum(s.tail_frames(rate) for s in self.stages)
 
     def apply(self, y: torch.Tensor, rate: int) -> torch.Tensor:
-        for s in self.stages:
-            y = s.apply(y, rate)
+        with span("f9.chain"):
+            for s, name in zip(self.stages, self._spans):
+                with span(name):
+                    y = s.apply(y, rate)
         return y
 
     def stream_grid(self, rate: int) -> int:

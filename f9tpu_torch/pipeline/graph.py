@@ -56,6 +56,7 @@ from ..config import ProcessingConfig, recording_length
 from ..models.filters import design_cycle_bank
 
 from ..device import resolve_device
+from ..spans import span, spanned
 from ..ops import analysis, dither, epilogue, frontend
 from ..ops.chain import Chain
 from ..ops.routing import route_channels
@@ -106,6 +107,7 @@ def _channels(x, routing, out_channels):
     return x
 
 
+@spanned("f9.front_end")
 def _front_end(x, frames_valid, routing, out_channels, raw_in):
     """On-device raw decode, fan-out and routing and zeroing beyond each
     file's true length, for the raw wire and the float bucket alike: one
@@ -154,7 +156,8 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
     # and keeps the first out_len codes, so that its epilogue reduces over
     # the rows layout's shape
     whole = chain is None and not reverb_mode and (static_zero_latency or not trim_enabled)
-    y = resample_auto(x, bank, out_len=-(-out_len // bank.L) * bank.L if whole else None)
+    with span("f9.src"):
+        y = resample_auto(x, bank, out_len=-(-out_len // bank.L) * bank.L if whole else None)
 
     if chain is not None:
         # the insert loop: the processor stack runs on the resampled signal,
@@ -164,26 +167,28 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
     out_total = y.shape[-1]
     keep = out_len if whole else out_total
     if trim_enabled and not static_zero_latency:
-        y = trim_latency(y, latency_frames, out_total)
+        with span("f9.trim"):
+            y = trim_latency(y, latency_frames, out_total)
     out_valid = _exact_out_valid(frames_valid, bank, keep)
 
     if reverb_mode:
-        # loudest-channel envelope; quiet windows count only once each
-        # file's source span has played (min_frames = out_valid)
-        mono_detect = torch.amax(torch.abs(y), dim=1)
-        if channel_axis is not None:
-            # the loudest channel may live on another shard: every shard
-            # reaches the same per-file verdict
-            mono_detect = channel_axis.pmax(mono_detect)
-        end_frame, terminated = detect_tail_end(
-            mono_detect, noise_floor_db, margin_pct,
-            rate=rate_out, window_ms=tail_window_ms, hop_ms=tail_hop_ms,
-            consecutive=tail_consecutive, min_frames=out_valid, mode=tail_mode)
-        # the tail may run past the source but not past the capture; a tail
-        # that never fell quiet keeps the whole capture
-        out_frames = torch.maximum(torch.clamp(end_frame, max=out_total), out_valid)
-        # an empty file has no tail to ring
-        out_frames = torch.where(out_valid > 0, out_frames, torch.zeros_like(out_frames))
+        with span("f9.tail"):
+            # loudest-channel envelope; quiet windows count only once each
+            # file's source span has played (min_frames = out_valid)
+            mono_detect = torch.amax(torch.abs(y), dim=1)
+            if channel_axis is not None:
+                # the loudest channel may live on another shard: every shard
+                # reaches the same per-file verdict
+                mono_detect = channel_axis.pmax(mono_detect)
+            end_frame, terminated = detect_tail_end(
+                mono_detect, noise_floor_db, margin_pct,
+                rate=rate_out, window_ms=tail_window_ms, hop_ms=tail_hop_ms,
+                consecutive=tail_consecutive, min_frames=out_valid, mode=tail_mode)
+            # the tail may run past the source but not past the capture; a tail
+            # that never fell quiet keeps the whole capture
+            out_frames = torch.maximum(torch.clamp(end_frame, max=out_total), out_valid)
+            # an empty file has no tail to ring
+            out_frames = torch.where(out_valid > 0, out_frames, torch.zeros_like(out_frames))
     else:
         terminated = torch.ones((files,), dtype=torch.bool, device=dev)
         out_frames = out_valid
@@ -211,35 +216,37 @@ def _epilogue(y, out_frames, seeds, *, bits, do_dither, remove_dc, gain_db, gain
     the tail floor."""
     files, C, _ = y.shape
     g = 10.0 ** (gain_db / 20.0) if gain_db else 1.0
-    cs = None
-    if do_dither:
-        # noise keyed by (file seed, global channel, absolute output frame):
-        # bytes do not depend on batching, sharding, devices, the layout or
-        # the package that made them; a channel shard offsets its local
-        # channel index
-        cid = torch.arange(C, dtype=torch.int64, device=y.device)
+    with span("f9.epilogue"):
+        cs = None
+        if do_dither:
+            # noise keyed by (file seed, global channel, absolute output frame):
+            # bytes do not depend on batching, sharding, devices, the layout or
+            # the package that made them; a channel shard offsets its local
+            # channel index
+            cid = torch.arange(C, dtype=torch.int64, device=y.device)
+            if channel_axis is not None:
+                cid = cid + channel_axis.index * C
+            cs = dither.channel_seeds(dither.noise_seeds(seeds, files), cid)
+        # routed-silent channels stay digital zero even under dither
+        silent = [c for c, r in enumerate(routing or ()) if r < 0]
+        codes, sumsq, peak, mean = epilogue.epilogue(
+            y.contiguous(), out_frames, cs, bits=bits, remove_dc=remove_dc, gain=g,
+            gain_lin=gain_lin, keep=keep, silent=silent, packed=packed)
+        c_total = C
         if channel_axis is not None:
-            cid = cid + channel_axis.index * C
-        cs = dither.channel_seeds(dither.noise_seeds(seeds, files), cid)
-    # routed-silent channels stay digital zero even under dither
-    silent = [c for c, r in enumerate(routing or ()) if r < 0]
-    codes, sumsq, peak, mean = epilogue.epilogue(
-        y.contiguous(), out_frames, cs, bits=bits, remove_dc=remove_dc, gain=g,
-        gain_lin=gain_lin, keep=keep, silent=silent, packed=packed)
-    c_total = C
-    if channel_axis is not None:
-        # per-file metrics over every shard's channels
-        sumsq = channel_axis.psum(sumsq)
-        peak = channel_axis.pmax(peak)
-        c_total *= channel_axis.size
-    n_valid = (out_frames.to(torch.float32) * c_total).clamp(min=1.0)
-    level_db = analysis._amp_to_db(torch.sqrt(sumsq.to(torch.float32) / n_valid))
-    pk_db = analysis._amp_to_db(peak)
+            # per-file metrics over every shard's channels
+            sumsq = channel_axis.psum(sumsq)
+            peak = channel_axis.pmax(peak)
+            c_total *= channel_axis.size
+        n_valid = (out_frames.to(torch.float32) * c_total).clamp(min=1.0)
+        level_db = analysis._amp_to_db(torch.sqrt(sumsq.to(torch.float32) / n_valid))
+        pk_db = analysis._amp_to_db(peak)
     nf_est = _tail_floor(y, out_frames, mean, epilogue.gain_factor(g, gain_lin),
                          max(1, rate_out * tail_window_ms // 1000), channel_axis)
     return codes, pk_db, level_db, nf_est
 
 
+@spanned("f9.tail_floor")
 def _tail_floor(y, out_frames, mean, g, win: int, channel_axis=None):
     """Noise floor: the RMS of the loudest channel's ``|z|`` over the last
     ``win`` samples of each file's valid span, ``z = (y - mean) * g``
@@ -283,11 +290,14 @@ def _process_impl_rows(x, frames_valid, seeds, *, rate_in, rate_out, cfg_key,
     files = x.shape[0]
     if num_cycles is not None:
         Q = num_cycles
-        y = resample_staged(_channels(x, routing, out_channels), bank, Q)
+        x = _channels(x, routing, out_channels)
+        with span("f9.src"):
+            y = resample_staged(x, bank, Q)
     else:
         x = _front_end(x, frames_valid, routing, out_channels, raw_in)
         Q = -(-bank.out_len(x.shape[-1]) // bank.L)
-        y = resample_auto(x, bank, out_len=Q * bank.L)
+        with span("f9.src"):
+            y = resample_auto(x, bank, out_len=Q * bank.L)
     out_total = Q * bank.L
     out_valid = _exact_out_valid(frames_valid, bank, out_total)
     codes, pk_db, level_db, nf_est = _epilogue(
@@ -464,6 +474,7 @@ def _rows_ok(cfg: ProcessingConfig, rows_layout: bool, latency_frames) -> bool:
             and isinstance(latency_frames, int) and latency_frames == 0)
 
 
+@spanned("f9.graph")
 def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
                   latency_frames=0, pad_frames: int | None = None,
                   noise_floor_db: float | None = None, rows_layout: bool = False,
@@ -522,6 +533,7 @@ def process_batch(x, frames_valid, cfg: ProcessingConfig, rate_in: int, seeds,
                          noise_floor_db=nf_est)
 
 
+@spanned("f9.graph")
 def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
                       seeds, in_channels: int, in_bits: int,
                       in_big_endian: bool = False, latency_frames=0,

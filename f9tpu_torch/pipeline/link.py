@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..spans import spanned
+
 __all__ = ["host_empty", "upload", "side_stream", "Download"]
 
 
@@ -35,6 +37,7 @@ def host_empty(shape, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=dev.type == "cuda")
 
 
+@spanned("f9.link.upload")
 def upload(a, dev: torch.device) -> torch.Tensor:
     """Host numpy array or CPU tensor -> ``dev``; to the card through a
     pinned buffer (``a`` itself when it is pinned), without waiting for the
@@ -59,6 +62,7 @@ class Download:
     stream), else on the current stream; `get` waits for them and returns
     numpy arrays."""
 
+    @spanned("f9.link.download")
     def __init__(self, *tensors, side=None):
         self._event = None
         if any(t is not None and t.is_cuda for t in tensors):

@@ -10,6 +10,8 @@ with copy-to-clipboard in FileListAndLogComponent).  Here: the same
 human-readable line log, plus a JSONL event journal and per-stage throughput
 counters (decoded/resampled/encoded audio-seconds) — the profiling the
 reference lists as TODO (Docs/debug-notes.md:80-83) made first-class.
+The device path's named spans, for a `torch.profiler` trace, are
+`f9tpu_torch.spans`.
 """
 
 from __future__ import annotations

@@ -631,9 +631,9 @@ class BatchProcessor:
                     return
                 bi, c_paths, dl, c_valid, c_rate_in = item
                 b = buckets[bi]
-                # stage wall = the collector's blocking time materialising
-                # this batch (device work still outstanding + the copies,
-                # which the dispatch thread started)
+                # stage "collect": the collector's blocking time while it
+                # waits for this batch (device work still outstanding + the
+                # copies, which the dispatch thread started), not device time
                 t_blk = time.time()
                 try:
                     # a files-sharded batch comes as one download per shard,
@@ -647,7 +647,7 @@ class BatchProcessor:
                     errors.append(str(err))
                     continue
                 self.throughput.add(
-                    "device", float(c_valid.sum()) / c_rate_in,
+                    "collect", float(c_valid.sum()) / c_rate_in,
                     max(time.time() - t_blk, 1e-3))
                 rows = len(parts[0][1])
                 for i, p in enumerate(c_paths):

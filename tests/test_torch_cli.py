@@ -323,6 +323,10 @@ def test_cli_process_profile_writes_a_trace(tmp_path, capsys):
     assert rc == 0 and "profiler trace" in out
     trace = json.load(open(os.path.join(prof, "trace.json")))
     assert trace["traceEvents"]
+    # the batch path's named spans (f9tpu_torch/spans.py) are in it
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"f9.graph", "f9.link.upload", "f9.front_end", "f9.src", "f9.epilogue",
+            "f9.tail_floor", "f9.link.download"} <= names
 
 
 @pytest.mark.parametrize("flags, item", [

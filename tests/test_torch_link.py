@@ -85,7 +85,7 @@ def test_scheduler_routes_every_batch_through_the_link(tmp_path, counted, normal
     assert counted["upload"].count(want) == 2, counted["upload"]
     # the dispatch thread's stage counts the same audio as the collector's
     th = res.throughput
-    assert th["dispatch"]["audio_seconds"] == pytest.approx(th["device"]["audio_seconds"])
+    assert th["dispatch"]["audio_seconds"] == pytest.approx(th["collect"]["audio_seconds"])
     assert th["dispatch"]["audio_seconds"] == pytest.approx(4 * 20000 / 44100)
 
 
