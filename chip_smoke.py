@@ -150,8 +150,10 @@ its results, any failure exiting non-zero:
    presets, each on 2 x 16384 frames of noise and a tone through
    `resample_rates`: the exact length, <= -120 dB against the float64
    oracle, the route read from the launch counters as `kernel_applicable`
-   says (dense, windowed, or no launch for L < 8), and each kernel bank
-   within `TWIN_TOL` of its twin; (b) every kernel bank whole against three
+   and `fold_batch_applicable` say (dense, windowed, the flat fold for
+   L = 1, no launch for the matmul of L = 2-6), each `cycle_src` bank
+   within `TWIN_TOL` of its twin and each flat-fold bank bitwise its twin;
+   (b) every kernel bank whole against three
    haloed chunks of unequal cycle counts (`resample_presliced`):
    `torch.equal`; (c) the 72 studio sinc kernel banks at the slice's batch,
    8 stereo signals x 60 s at the input rate: the kernel against the
@@ -227,15 +229,23 @@ its results, any failure exiting non-zero:
    CPU's twin on eight banks; (d) chunked == whole by sha256 at two chunk
    sizes on a 2^22-frame signal, and the chunks' peak the whole one's; the
    fold banks and phase 3's four `cycle_src` banks against the float64
-   oracle at a 0.89 peak (dB, 24-bit LSB error; the batch graph's float32
-   `resample` beside each fold bank); (e) `cli stream` of a 96 kHz 24-bit
-   stereo file to 48 kHz at two chunk sizes: identical bytes, the fold
-   launched, codes against the CPU path; (f) at the meter's true-peak chunk
-   and a 20 s stream chunk, device time (`torch.profiler` in a process of
-   its own, ``--cycle-fold-device-times``) and CUDA-event time beside the
-   bound, the twin and a float64 `F.conv1d` the port never calls; the
-   kernel's launches by path over phases 4-10 and 15e, non-zero on
-   normalize and 15e's stream; the phase fails past `CYCLE_FOLD_BUDGET_S`;
+   oracle at a 0.89 peak (dB, 24-bit LSB error; the batch graph's
+   `resample` beside each fold bank: the flat fold for L = 1, float32
+   matmul otherwise); (e) `cli stream` of a 96 kHz 24-bit stereo file to 48
+   kHz at two chunk sizes: identical bytes, the fold launched, codes
+   against the CPU path; (f) at the meter's true-peak chunk and a 20 s
+   stream chunk, device time (`torch.profiler` in a process of its own,
+   ``--cycle-fold-device-times``) and CUDA-event time beside the bound, the
+   twin and a float64 `F.conv1d` the port never calls; the phase fails past
+   `CYCLE_FOLD_BUDGET_S`; (g) the flat form, the batch SRC of an L = 1
+   bank, at the `studio48.hires_sfx` cell's batch (8 x 2 x 2^22 at 96 kHz,
+   files of 30-43 s, zero past them) through `resample`: one flat launch,
+   bitwise its twin on the padded signal and the presliced kernel on it,
+   and its device time (``--cycle-fold-flat-device-times``) beside its
+   bound, the twin and the unfold + matmul form it replaced, held to
+   `CYCLE_FOLD_FLAT_BUDGET_S`; the kernel's launches, and its flat form's,
+   by path over phases 4-10, 15e and 15g, non-zero on normalize, 15e's
+   stream and 15g;
 16. the front end as one kernel (`phase_front_end`; `f9tpu_torch/csrc/
    frontend.cu`): (a) against its twin on the card, bitwise, over 16- and
    24-bit wires in both byte orders and the float32 bucket, 1-8 input
@@ -404,7 +414,7 @@ def _zero_counts() -> None:
 
     sk.launches = sk.launches_windowed = 0
     ep.launches = 0
-    cf.launches = 0
+    cf.launches = cf.launches_flat = 0
     fe.launches = 0
     for name in CHAIN_COUNTERS:
         setattr(ck, name, 0)
@@ -415,7 +425,8 @@ def _read_counts() -> tuple[int, int]:
     `_zero_counts`, read just after a main path was driven; the epilogue
     pair's count is read at the same moment into `EPILOGUE_READS`, the
     chain kernels' into `CHAIN_READS`, the L < 8 fold's into
-    `CYCLE_FOLD_READS`, the front end's into `FRONT_END_READS`."""
+    `CYCLE_FOLD_READS` (its flat form's, the batch SRC of L = 1 banks, also
+    into `CYCLE_FOLD_FLAT_READS`), the front end's into `FRONT_END_READS`."""
     from f9tpu_torch.ops import chain_kernels as ck
     from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import epilogue as ep
@@ -424,6 +435,7 @@ def _read_counts() -> tuple[int, int]:
 
     EPILOGUE_READS.append(ep.launches)
     CYCLE_FOLD_READS.append(cf.launches)
+    CYCLE_FOLD_FLAT_READS.append(cf.launches_flat)
     FRONT_END_READS.append(fe.launches)
     CHAIN_READS.append(tuple(getattr(ck, name) for name in CHAIN_COUNTERS))
     return sk.launches, sk.launches_windowed
@@ -3433,14 +3445,19 @@ def _plan_text(bank) -> str:
             f"smem={plan.smem_bytes} B")
 
 
-def _sweep_route(bank) -> tuple[str, tuple[int, int]]:
-    """The route `kernel_applicable` and the plan give a bank, and the
-    launch counts (every launch, the windowed form's) one call must read."""
+def _sweep_route(bank) -> tuple[str, tuple[int, int, int]]:
+    """The route `kernel_applicable`, `fold_batch_applicable` and the plan
+    give a bank, and the launch counts (every `cycle_src` launch, the
+    windowed form's, the `cycle_fold` flat form's) one call must read."""
+    from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import src_kernel as sk
 
     if not sk.kernel_applicable(bank):
-        return ("gather" if bank.G is None else "plain (L < 8)"), (0, 0)
-    return ("windowed", (1, 1)) if sk.kernel_plan(bank).pitch else ("dense", (1, 0))
+        if bank.G is None:
+            return "gather", (0, 0, 0)
+        return ("fold (L = 1)", (0, 0, 1)) if cf.fold_batch_applicable(bank) else \
+            ("matmul (L < 8)", (0, 0, 0))
+    return ("windowed", (1, 1, 0)) if sk.kernel_plan(bank).pitch else ("dense", (1, 0, 0))
 
 
 def _sweep_input(ri: int, frames: int):
@@ -3464,17 +3481,19 @@ def _twin_rows(x, bank):
 def _sweep_accuracy(card: str, dev, banks: dict) -> dict:
     """12a: every bank through `resample_rates` on the card: exact length,
     <= -120 dB against the float64 oracle, the route read from the launch
-    counters (as `kernel_applicable` says), and each kernel bank within
-    `TWIN_TOL` of its plain twin on the card."""
+    counters (as `kernel_applicable` and `fold_batch_applicable` say), each
+    `cycle_src` bank within `TWIN_TOL` of its plain twin on the card and
+    each flat-fold bank bit for bit its twin."""
     import torch
 
     from f9tpu_torch.models import resample_oracle
+    from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import resample as tr
     from f9tpu_torch.ops import src_kernel as sk
 
     frames = SWEEP_SHAPE[1]
     routes: dict[str, int] = {}
-    launches = [0, 0]
+    launches = [0, 0, 0]
     worst_db, max_err = -1e9, {"dense": 0.0, "windowed": 0.0}
     faults = []
     for (ri, ro, q, kind), bank in banks.items():
@@ -3485,12 +3504,18 @@ def _sweep_accuracy(card: str, dev, banks: dict) -> dict:
         _zero_counts()
         y = tr.resample_rates(x, ri, ro, quality=q, kind=kind)
         torch.cuda.synchronize()
-        got = (sk.launches, sk.launches_windowed)
-        launches[0] += got[0]
-        launches[1] += got[1]
+        got = (sk.launches, sk.launches_windowed, cf.launches_flat)
+        for i, n in enumerate(got):
+            launches[i] += n
         ref = resample_oracle(x_np, ri, ro, quality=q, kind=kind)
         db = _db(y.cpu().numpy() - ref, ref) if tuple(y.shape) == ref.shape else 0.0
         err = float((y - _twin_rows(x, bank)).abs().max()) if want[0] else None
+        if want[2]:         # the flat fold: bit for bit its twin on the padded signal
+            n, Q, keep, pad_front, pad_back = tr._cycle_budget(frames, bank, None)
+            twin = tr._presliced_fold(torch.nn.functional.pad(x[:, :keep], (pad_front, pad_back)),
+                                      bank, Q)[:, :n]
+            if not _nan_bitwise(y, twin):
+                faults.append(f"{name}: the flat fold differs from its twin")
         print(f"sweep 12a: {name}: {_plan_text(bank)}; route {route}, launches {got} "
               f"(want {want}); out_len {y.shape[-1]} (exact {bank.out_len(frames)}); "
               f"oracle {db:.1f} dB; vs twin "
@@ -3509,7 +3534,8 @@ def _sweep_accuracy(card: str, dev, banks: dict) -> dict:
             max_err[route] = max(max_err[route], err)
     print(f"sweep 12a: {len(banks)} banks of 2 x {frames} frames, routes {routes}, worst "
           f"{worst_db:.1f} dB vs oracle, kernel vs twin max abs {max_err} (tol "
-          f"{TWIN_TOL:g}), launches (all, windowed) {tuple(launches)} [{card}]", flush=True)
+          f"{TWIN_TOL:g}), launches (all, windowed, flat fold) {tuple(launches)} [{card}]",
+          flush=True)
     _raise_faults("sweep 12a", faults)
     return {"launches": tuple(launches), "max_abs_err": max_err}
 
@@ -3662,13 +3688,14 @@ def _sweep_jobs(card: str, dev) -> dict:
     from f9tpu_torch.config import ProcessingConfig
     from f9tpu_torch.io import wav
     from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import epilogue as ep
     from f9tpu_torch.ops import src_kernel as sk
     from f9tpu_torch.pipeline import BatchProcessor, build_output_path
 
     rng = np.random.default_rng(SEED + 120)
     cpu = resolve_device("cpu")
-    src_total, ep_total, worst = 0, 0, 0
+    src_total, flat_total, ep_total, worst = 0, 0, 0, 0
     faults = []
     for ri, ro in _sweep_pairs():
         bank = design_cycle_bank(ri, ro, quality="high")
@@ -3686,7 +3713,7 @@ def _sweep_jobs(card: str, dev) -> dict:
                 _zero_counts()
                 res = BatchProcessor(cfg, device=d).run(paths)
                 if tag == "card":
-                    n_src, n_ep = sk.launches, ep.launches
+                    n_src, n_flat, n_ep = sk.launches, cf.launches_flat, ep.launches
                 if res.completed != 2:
                     raise AssertionError(f"sweep 12e: {ri}->{ro} {tag}: {res.completed} of 2")
                 outs[tag] = [_read_codes(build_output_path(p, cfg.output_dir, cfg.postfix))
@@ -3703,22 +3730,24 @@ def _sweep_jobs(card: str, dev) -> dict:
                 diffs.append(int(np.abs(g - c).max()))
             worst = max([worst] + diffs)
             src_total += n_src
+            flat_total += n_flat
             ep_total += n_ep
-            want_src = sk.kernel_applicable(bank)
-            print(f"sweep 12e: {ri}->{ro} high: frames (got, exact) {lens}; card vs CPU max "
-                  f"{diffs} LSB (tol {LSB_TOL}); SRC launches {n_src}, epilogue {n_ep}",
-                  flush=True)
+            want_src, want_flat = sk.kernel_applicable(bank), cf.fold_batch_applicable(bank)
+            print(f"sweep 12e: {ri}->{ro} high (L={bank.L}): frames (got, exact) {lens}; card vs "
+                  f"CPU max {diffs} LSB (tol {LSB_TOL}); SRC launches {n_src}, flat fold "
+                  f"{n_flat}, epilogue {n_ep}", flush=True)
             if max(diffs, default=0) > LSB_TOL:
                 faults.append(f"{ri}->{ro}: card vs CPU {diffs} LSB")
-            if n_ep < 1 or (n_src >= 1) != want_src:
-                faults.append(f"{ri}->{ro}: launches SRC {n_src}, epilogue {n_ep} (kernel "
-                              f"takes the bank: {want_src})")
+            if n_ep < 1 or (n_src >= 1) != want_src or (n_flat >= 1) != want_flat:
+                faults.append(f"{ri}->{ro}: launches SRC {n_src}, flat fold {n_flat}, epilogue "
+                              f"{n_ep} (cycle_src takes the bank: {want_src}, the flat fold: "
+                              f"{want_flat})")
         finally:
             shutil.rmtree(work, ignore_errors=True)
     print(f"sweep 12e: {len(_sweep_pairs())} pairs, card vs CPU max {worst} LSB; launches SRC "
-          f"{src_total}, epilogue {ep_total} [{card}]", flush=True)
+          f"{src_total}, flat fold {flat_total}, epilogue {ep_total} [{card}]", flush=True)
     _raise_faults("sweep 12e", faults)
-    return {"src": src_total, "epilogue": ep_total}
+    return {"src": src_total, "flat_fold": flat_total, "epilogue": ep_total}
 
 
 def phase_sweep(card: str, dev) -> dict:
@@ -5154,9 +5183,18 @@ CYCLE_FOLD_CORE = ((44100, 176400, "high", "sinc"), (96000, 48000, "high", "sinc
 #: 15e's source: a 96 kHz stereo 24-bit WAV of this many seconds, streamed to
 #: 48 kHz at these chunk sizes
 CYCLE_FOLD_STREAM = (30.0, ("20", "7.3"))
+#: 15g's batch: files, channels, bucket frames at 96 kHz and the files'
+#: seconds, the `studio48.hires_sfx` cell's (zero past each file, as the front
+#: end leaves the bucket)
+CYCLE_FOLD_BATCH = (8, 2, 1 << 22, (30.0, 43.0))
+#: 15g's budget, seconds, apart from 15a-f's `CYCLE_FOLD_BUDGET_S` (on one
+#: H100 19.9 s alone, of it the profiled child's torch import ~10)
+CYCLE_FOLD_FLAT_BUDGET_S = 30.0
 #: the cycle_fold kernel's launches of each main-path drive, as `_read_counts`
 #: read them (`main` sums them by path; `EPILOGUE_READS` keeps step with it)
 CYCLE_FOLD_READS: list[int] = []
+#: the flat form's share of them (`cycle_fold.launches_flat`), read beside them
+CYCLE_FOLD_FLAT_READS: list[int] = []
 
 
 def _fold_banks() -> list[tuple[int, int, str, str]]:
@@ -5365,8 +5403,9 @@ def _fold_oracle(card: str, dev, frames: int = 16384) -> tuple[list[str], dict]:
     """Each fold bank of 15a and phase 3's four `cycle_src` banks against the
     float64 oracle near full scale (two tones and noise scaled to a 0.89
     peak, 16384 frames): dB RMS (<= `ORACLE_DB_MAX`) and the 24-bit LSB
-    error, max and RMS; beside each fold bank, the batch graph's plain
-    float32 `resample` (unfold + matmul) on the same input."""
+    error, max and RMS; beside each fold bank, the batch graph's `resample`
+    on the same input (the flat fold for L = 1, else float32 unfold +
+    matmul)."""
     import numpy as np
     import torch
 
@@ -5377,7 +5416,7 @@ def _fold_oracle(card: str, dev, frames: int = 16384) -> tuple[list[str], dict]:
 
     rng = np.random.default_rng(SEED + 153)
     faults, rows = [], {}
-    worst = {"fold": (-999.0, 0.0), "matmul": (-999.0, 0.0), "cycle_src": (-999.0, 0.0)}
+    worst = {"fold": (-999.0, 0.0), "batch": (-999.0, 0.0), "cycle_src": (-999.0, 0.0)}
     banks = [(b, "fold") for b in _fold_banks()] + [((ri, ro, q, "sinc"), "cycle_src")
                                                     for ri, ro, q in DENSE_BANKS]
     for (ri, ro, q, kind), form in banks:
@@ -5392,7 +5431,7 @@ def _fold_oracle(card: str, dev, frames: int = 16384) -> tuple[list[str], dict]:
             keep = min(frames, xp.shape[-1] - bank.pad_front)
             xp[:, bank.pad_front:bank.pad_front + keep] = xt[:, :keep]
             outs = {"fold": cf.resample_presliced_fold_kernel(xp, bank, Q),
-                    "matmul": tr.resample(xt, bank)}
+                    "batch": tr.resample(xt, bank)}
         else:
             outs = {"cycle_src": sk.resample_kernel(xt, bank)}
         line = []
@@ -5405,7 +5444,7 @@ def _fold_oracle(card: str, dev, frames: int = 16384) -> tuple[list[str], dict]:
             line.append(f"{f} {db:.1f} dB, {lsb.max():.3f} LSB max, "
                         f"{np.sqrt(np.mean(lsb ** 2)):.3f} RMS")
             worst[f] = (max(worst[f][0], db), max(worst[f][1], float(lsb.max())))
-            if f != "matmul" and not db <= ORACLE_DB_MAX:
+            if f != "batch" and not db <= ORACLE_DB_MAX:
                 faults.append(f"oracle {ri}->{ro} {q} {kind} {f}: {db:.1f} dB")
         print(f"cycle_fold oracle: {ri}->{ro} {q} {kind} (L={bank.L} M={bank.M}) at a 0.89 "
               f"peak: " + "; ".join(line) + f" [{card}]", flush=True)
@@ -5459,6 +5498,74 @@ def _fold_stream(card: str, work: str, dev) -> tuple[list[str], int]:
     return faults, launches
 
 
+def _fold_batch_input(dev, seed: int):
+    """15g's batch (`CYCLE_FOLD_BATCH`) on ``dev``: ``(files, C, frames)``
+    float32, each file's samples (a length drawn in the cell's seconds at
+    96 kHz) two tones and noise at `_signal`'s levels, made on the device
+    and rounded to 24-bit codes, zero past them; and the lengths."""
+    import math
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    files, C, T, (lo, hi) = CYCLE_FOLD_BATCH
+    lengths = rng.integers(int(lo * 96000), int(hi * 96000) + 1, size=files)
+    f = torch.from_numpy(rng.uniform(80.0, 6000.0, size=(files, C, 2, 1))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(T, dtype=torch.float64, device=dev) * (2 * math.pi / 96000)
+    x = (0.3 * torch.sin(f[:, :, 0] * t) + 0.15 * torch.sin(f[:, :, 1] * t + 0.7)
+         + 0.02 * torch.randn((files, C, T), dtype=torch.float64, device=dev, generator=gen))
+    x = torch.round(x * (1 << 23)) / (1 << 23)
+    valid = torch.arange(T, device=dev) < torch.from_numpy(lengths).to(dev)[:, None, None]
+    return torch.where(valid, x, 0.0).to(torch.float32), [int(n) for n in lengths]
+
+
+def _fold_flat_batch(card: str, dev) -> tuple[list[str], int]:
+    """15g: the batch SRC of `CYCLE_FOLD_BATCH` at 96 -> 48 kHz high (the
+    `studio48.hires_sfx` cell's graph call: ``resample`` of the front end's
+    ``(8, 2, 2^22)`` to whole cycles), launches counted from zero: one flat
+    launch, and its samples bit for bit the twin on the padded signal and
+    the presliced kernel (the streamed form) on the same padded signal.
+    Returns (faults, the flat launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import resample as tr
+
+    bank = design_cycle_bank(96000, 48000, quality="high")
+    x, lengths = _fold_batch_input(dev, SEED + 156)
+    T = x.shape[-1]
+    Q = -(-bank.out_len(T) // bank.L)
+    _zero_counts()
+    y = tr.resample(x, bank, out_len=Q * bank.L)
+    torch.cuda.synchronize()
+    flat, total = cf.launches_flat, cf.launches
+    _n, Q, keep, pad_front, pad_back = tr._cycle_budget(T, bank, Q * bank.L)
+    xp = F.pad(x.reshape(-1, T)[:, :keep], (pad_front, pad_back))
+    twin = tr._presliced_fold(xp, bank, Q).reshape(y.shape)
+    streamed = cf.resample_presliced_fold_kernel(xp, bank, Q).reshape(y.shape)
+    faults = []
+    same_twin, same_stream = _nan_bitwise(y, twin), _nan_bitwise(y, streamed)
+    silent = int((y == 0).all(dim=-1).sum())
+    print(f"cycle_fold 15g: hires batch {tuple(x.shape)} (files of {min(lengths) / 96000:.1f}-"
+          f"{max(lengths) / 96000:.1f} s) -> {tuple(y.shape)} through resample: {flat} flat "
+          f"launches of {total}; bitwise the twin {same_twin}, the presliced kernel "
+          f"{same_stream}; {silent} silent rows [{card}]", flush=True)
+    if (flat, total) != (1, 1):
+        faults.append(f"15g: {flat} flat launches of {total}, not 1 of 1")
+    if not same_twin:
+        faults.append(f"15g: the flat form differs from the twin in "
+                      f"{int((_bits(y) != _bits(twin)).sum())} words")
+    if not same_stream:
+        faults.append("15g: the flat form differs from the presliced kernel")
+    del x, xp, y, twin, streamed
+    torch.cuda.empty_cache()
+    return faults, flat
+
+
 def _fold_time_cases(dev) -> list[dict]:
     """15f's cases, built the same way here and in the profiled child: the
     meter's true-peak chunk (a 20 s chunk at 44.1 kHz, 2 x 882,000 cycles of
@@ -5503,17 +5610,53 @@ def _fold_time_cases(dev) -> list[dict]:
     return cases
 
 
-def cycle_fold_device_times_main(dev, runs: int = 20) -> dict:
+def _fold_flat_time_cases(dev) -> list[dict]:
+    """15g's case, in `_fold_time_cases`' form: the flat form at the hires
+    cell's batch (`_fold_batch_input`); its library form is the unfold and
+    float32 matmul it replaced, its bound the larger of the FMAs of the
+    outputs the files' samples reach at `FP64_INSTR_PER_S` and those samples
+    read once, y written once at `HBM_BYTES_PER_S`."""
+    import torch.nn.functional as F
+
+    from f9tpu_torch.models import design_cycle_bank
+    from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import resample as tr
+
+    bank = design_cycle_bank(96000, 48000, quality="high")
+    xb, lengths = _fold_batch_input(dev, SEED + 156)
+    files, C, T = xb.shape
+    Q = -(-bank.out_len(T) // bank.L)
+    _n, _Q, keep, pad_front, pad_back = tr._cycle_budget(T, bank, Q * bank.L)
+    fmas = C * sum(bank.out_len(n) for n in lengths) * bank.W
+    nbytes = 4 * C * (sum(lengths) + files * Q * bank.L)
+    t_ops, t_bytes = fmas / FP64_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+    return [dict(
+        label="hires batch 96k->48k, flat",
+        shape=f"L={bank.L} M={bank.M} W={bank.W}, {files * C} x {Q} cycles, files of "
+        f"{min(lengths) / 96000:.1f}-{max(lengths) / 96000:.1f} s in {T / 96000:.1f}",
+        run=lambda xb=xb, b=bank, n=Q * bank.L: tr.resample(xb, b, out_len=n),
+        twin=lambda xb=xb, b=bank, Q=Q: tr._presliced_fold(F.pad(
+            xb.reshape(-1, xb.shape[-1])[:, :keep], (pad_front, pad_back)), b, Q).reshape(
+                *xb.shape[:-1], Q * b.L),
+        library=lambda xb=xb, b=bank, n=Q * bank.L: tr._unfold_matmul(xb, b, n),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops > t_bytes else "bytes",
+        ptxas=f"cycle_fold_kernelILi{bank.L}ELi{cf.fold_form(bank)}ELb0E")]
+
+
+def cycle_fold_device_times_main(dev, flat: bool = False, runs: int = 20) -> dict:
     """15f's device times, for the child process (``--cycle-fold-device-
-    times``): {label: device ms a call of the kernel, "<label> memset": the
-    memset's}, from one `torch.profiler` session a case over ``runs`` calls
-    after a warm-up."""
+    times``; 15g's with ``flat``, ``--cycle-fold-flat-device-times``):
+    {label: device ms a call of the kernel, "<label> memset": the memset's},
+    from one `torch.profiler` session a case over ``runs`` calls after a
+    warm-up."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for c in _fold_time_cases(dev):
+    tag = "15g" if flat else "15f"
+    for c in (_fold_flat_time_cases if flat else _fold_time_cases)(dev):
         c["run"]()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -5526,44 +5669,48 @@ def cycle_fold_device_times_main(dev, runs: int = 20) -> dict:
         out[c["label"]] = (sum(e.time_range.elapsed_us() for e in kern) / 1e3 / runs
                            if len(kern) == runs else None)
         out[f"{c['label']} memset"] = sum(e.time_range.elapsed_us() for e in mset) / 1e3 / runs
-        print(f"cycle_fold 15f: profiled child: {c['label']}: {len(kern)} kernel events "
+        print(f"cycle_fold {tag}: profiled child: {c['label']}: {len(kern)} kernel events "
               f"({sorted({e.name for e in kern})}), {len(mset)} memsets", flush=True)
     return out
 
 
-def _fold_times(card: str, dev) -> tuple[dict, list[str]]:
-    """15f: at `_fold_time_cases`' two shapes, the kernel's device time (the
-    profiler in a process of its own, ``--cycle-fold-device-times``; a fault
-    if it reads none) and one call's CUDA-event time (median of 10) beside
-    its bound, the twin's (median of 3) and the library call's; the kernel
-    bitwise the twin there.  Returns the JSON summary's numbers (the meter's
-    chunk first, both under "per_shape") and the faults."""
+def _fold_times(card: str, dev, flat: bool = False) -> tuple[dict, list[str]]:
+    """15f: at `_fold_time_cases`' two shapes (15g: `_fold_flat_time_cases`'
+    one, with ``flat``), the kernel's device time (the profiler in a process
+    of its own, ``--cycle-fold-device-times`` or ``--cycle-fold-flat-device-
+    times``; a fault if it reads none) and one call's CUDA-event time
+    (median of 10) beside its bound, the twin's (median of 3) and the
+    library call's; the kernel bitwise the twin there.  Returns the JSON
+    summary's numbers (the first case's, and every case's under
+    "per_shape") and the faults."""
     import torch
 
+    tag = "15g" if flat else "15f"
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--cycle-fold-flat-device-times" if flat else
                            "--cycle-fold-device-times"], capture_output=True, text=True,
                           timeout=600)
     for line in proc.stdout.splitlines():
-        if line.startswith("cycle_fold 15f"):
+        if line.startswith(f"cycle_fold {tag}"):
             print(line, flush=True)
     result = [line for line in proc.stdout.splitlines() if line.startswith("{")]
     faults = []
     if proc.returncode != 0 or not result:
-        faults.append(f"15f: the profiled process failed (exit {proc.returncode}): "
+        faults.append(f"{tag}: the profiled process failed (exit {proc.returncode}): "
                       f"{proc.stderr[-2000:]}")
         device = {}
     else:
         device = json.loads(result[-1])
     out = {}
-    for c in _fold_time_cases(dev):
+    for c in (_fold_flat_time_cases if flat else _fold_time_cases)(dev):
         got, want = c["run"](), c["twin"]()
         same = _nan_bitwise(got.reshape(-1), want.reshape(-1))
         err = float((got - want).abs().max())
         if not same:
-            faults.append(f"15f {c['label']}: kernel != twin")
+            faults.append(f"{tag} {c['label']}: kernel != twin")
         dev_ms = device.get(c["label"])
         if dev_ms is None:
-            faults.append(f"15f {c['label']}: the profiler read no device time")
+            faults.append(f"{tag} {c['label']}: the profiler read no device time")
         r = dict(ms=_median_ms(c["run"]), device_ms=dev_ms,
                  memset_ms=device.get(f"{c['label']} memset"),
                  plain_ms=_median_ms(c["twin"], runs=3), library_ms=_median_ms(c["library"]),
@@ -5572,11 +5719,12 @@ def _fold_times(card: str, dev) -> tuple[dict, list[str]]:
         if not out:
             out = dict(r, per_shape={})
         out["per_shape"][c["label"]] = r
-        print(f"cycle_fold 15f: {c['label']} ({r['shape']}): kernel {r['ms']:.4f} ms (device "
+        print(f"cycle_fold {tag}: {c['label']} ({r['shape']}): kernel {r['ms']:.4f} ms (device "
               f"{'none' if dev_ms is None else f'{dev_ms:.4f}'}, memset "
               f"{r['memset_ms'] or 0:.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), twin "
-              f"{r['plain_ms']:.2f} ms, float64 F.conv1d {r['library_ms']:.3f} ms, bitwise "
-              f"{same}, ptxas {r['ptxas']} [{card}]", flush=True)
+              f"{r['plain_ms']:.2f} ms, {'unfold + matmul' if flat else 'float64 F.conv1d'} "
+              f"{r['library_ms']:.3f} ms, bitwise {same}, ptxas {r['ptxas']} [{card}]",
+              flush=True)
     torch.cuda.empty_cache()
     return out, faults
 
@@ -5612,13 +5760,23 @@ def phase_cycle_fold(card: str, work: str, dev) -> dict:
     faults += time_faults
     walls["15f"] = time.time() - t0
     total = time.time() - t_all
-    print(f"phase 15 (cycle_fold): {total:.1f} s (budget {CYCLE_FOLD_BUDGET_S:g}): "
+    t0 = time.time()
+    flat_faults, flat_launches = _fold_flat_batch(card, dev)
+    flat_out, time_faults = _fold_times(card, dev, flat=True)
+    faults += flat_faults + time_faults
+    out["per_shape"].update(flat_out["per_shape"])
+    walls["15g"] = time.time() - t0
+    print(f"phase 15 (cycle_fold): {total:.1f} s (budget {CYCLE_FOLD_BUDGET_S:g}), 15g "
+          f"{walls['15g']:.1f} s (budget {CYCLE_FOLD_FLAT_BUDGET_S:g}): "
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
     if total > CYCLE_FOLD_BUDGET_S:
         faults.append(f"{total:.1f} s > {CYCLE_FOLD_BUDGET_S:g} s")
+    if walls["15g"] > CYCLE_FOLD_FLAT_BUDGET_S:
+        faults.append(f"15g {walls['15g']:.1f} s > {CYCLE_FOLD_FLAT_BUDGET_S:g} s")
     _raise_faults("phase 15", faults)
     out.update(max_abs_err=worst, cases=cases, stream_launches=stream_launches,
-               oracle_worst=oracle["worst"], seconds=dict(walls, total=total))
+               flat_launches=flat_launches, oracle_worst=oracle["worst"],
+               seconds=dict(walls, total=total + walls["15g"]))
     return out
 
 
@@ -5924,6 +6082,10 @@ def main() -> int:
     if sys.argv[1:] == ["--cycle-fold-device-times"]:
         print(json.dumps(cycle_fold_device_times_main(resolve_device("cuda"))), flush=True)
         return 0
+    if sys.argv[1:] == ["--cycle-fold-flat-device-times"]:
+        print(json.dumps(cycle_fold_device_times_main(resolve_device("cuda"), flat=True)),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--cycle-fold"]:
         card = _card()
         print(card, flush=True)
@@ -6013,6 +6175,7 @@ def main() -> int:
     epilogue_by_path = {}
     chain_by_path = {}
     fold_by_path = {}
+    flat_by_path = {}
     front_by_path = {}
     kw = None
     slice_work = None
@@ -6038,6 +6201,7 @@ def main() -> int:
             epilogue_by_path[path] = sum(EPILOGUE_READS[reads:])
             chain_by_path[path] = _chain_sum(reads)
             fold_by_path[path] = sum(CYCLE_FOLD_READS[reads:])
+            flat_by_path[path] = sum(CYCLE_FOLD_FLAT_READS[reads:])
             front_by_path[path] = sum(FRONT_END_READS[reads:])
             dense[path] = total - windowed[path]
             if path == "default_job":
@@ -6056,6 +6220,7 @@ def main() -> int:
         epilogue_by_path["tools"] = sum(EPILOGUE_READS[reads:])
         chain_by_path["tools"] = _chain_sum(reads)
         fold_by_path["tools"] = sum(CYCLE_FOLD_READS[reads:])
+        flat_by_path["tools"] = sum(CYCLE_FOLD_FLAT_READS[reads:])
         front_by_path["tools"] = sum(FRONT_END_READS[reads:])
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6071,6 +6236,7 @@ def main() -> int:
             epilogue_by_path["multi_device"] = sum(EPILOGUE_READS[reads:])
             chain_by_path["multi_device"] = _chain_sum(reads)
             fold_by_path["multi_device"] = sum(CYCLE_FOLD_READS[reads:])
+            flat_by_path["multi_device"] = sum(CYCLE_FOLD_FLAT_READS[reads:])
             front_by_path["multi_device"] = sum(FRONT_END_READS[reads:])
         finally:
             shutil.rmtree(work, ignore_errors=True)
@@ -6085,6 +6251,7 @@ def main() -> int:
             epilogue_by_path["rows_layout"] = sum(EPILOGUE_READS[reads:])
             chain_by_path["rows_layout"] = _chain_sum(reads)
             fold_by_path["rows_layout"] = sum(CYCLE_FOLD_READS[reads:])
+            flat_by_path["rows_layout"] = sum(CYCLE_FOLD_FLAT_READS[reads:])
             front_by_path["rows_layout"] = sum(FRONT_END_READS[reads:])
         finally:
             shutil.rmtree(work, ignore_errors=True)
@@ -6147,7 +6314,11 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 15 (cycle_fold): {time.time() - t0:.1f} s", flush=True)
     fold_by_path["cycle_fold_stream"] = kfold["stream_launches"]
+    fold_by_path["cycle_fold_flat_batch"] = flat_by_path["cycle_fold_flat_batch"] = \
+        kfold["flat_launches"]
     print(f"cycle_fold: launches by path {fold_by_path} [{card}]", flush=True)
+    print(f"cycle_fold: launches_flat (the batch SRC of L = 1 banks) by path {flat_by_path} "
+          f"[{card}]", flush=True)
     idle = [p for p in ("normalize", "cycle_fold_stream") if fold_by_path.get(p, 0) < 1]
     if idle:
         raise AssertionError(f"cycle_fold: no launch on the paths {idle}")
@@ -6164,6 +6335,7 @@ def main() -> int:
         "name": "cycle_fold", "route": "cuda", "source": "f9tpu_torch/csrc/cycle_fold.cu",
         "replaces": "f9tpu/ops/resample.py:307", "also_replaces": "f9tpu/ops/loudness.py:363",
         "launches": sum(fold_by_path.values()), "launches_by_path": fold_by_path,
+        "launches_flat_by_path": flat_by_path,
         **{k: kfold[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "device_ms", "per_shape", "cases",
                                  "oracle_worst")}})

@@ -12,6 +12,16 @@
 // f9tpu_torch/ops/resample.py:_presliced_fold (one float64 pass per non-zero
 // row of G) and torch.max(torch.abs(_presliced_fold(...))).
 //
+// Three launch forms share the kernel.  The presliced one (f9_cycle_fold, y
+// or peak) reads a chunk that carries its own halos: cycle q reads samples
+// q * M .. q * M + W - 1 of its row.  The flat one (f9_cycle_fold_flat, the
+// batch SRC of a dense L = 1 bank) reads the unpadded signal: cycle q reads
+// q * M + w - pad_front, as +0.0 outside [0, keep), which is what the twin
+// reads from F.pad(x[..., :keep], (pad_front, pad_back)).  Both forms stage
+// a block's span by the same loop; the presliced form is the flat one with
+// pad_front = 0 and keep = T.  A padded zero's product is +-0.0 and every
+// sum starts from +0.0, so the pads leave every bit as the twin's.
+//
 // Bit for bit the twin.  The twin forms y[q, l] = sum_w x[q*M + w] * G[w, l]
 // in float64 over the rows w of its table (`_fold_rows`: the rows of G with a
 // non-zero entry, each with the range [lo, hi) of its non-zero columns), w
@@ -84,13 +94,14 @@ __host__ __device__ constexpr bool slide_ok(int L, int MS)
 
 // acc[i][l] += xv(i) * G[r][l] over the row's columns: every column with no
 // predicate where the row takes them all (lo == 0, hi == L: all but a few
-// rows of a sinc bank, the same branch for the whole block), else the
-// columns in [lo, hi), each a predicate on a compile-time l.
+// rows of a sinc bank, the same branch for the whole block, and every row of
+// a bank with L = 1, whose entry is then never read), else the columns in
+// [lo, hi), each a predicate on a compile-time l.
 template <int L, typename XV>
 __device__ __forceinline__ void fold_row(double (&acc)[FOLD_C][L], const double* gr, int e,
                                          const XV& xv)
 {
-    if ((e & 63) == L) {
+    if (L == 1 || (e & 63) == L) {
 #pragma unroll
         for (int l = 0; l < L; ++l) {
             const double gl = gr[l];
@@ -111,8 +122,11 @@ __device__ __forceinline__ void fold_row(double (&acc)[FOLD_C][L], const double*
 }
 
 // Block b: row b / tiles, cycles [q0, q0 + FOLD_C * threads) of it.  x's row
-// r starts at x + r * ld and holds T samples (read as +0.0 past them); y is
-// (rows, Q * L).  PEAK: no y; the block's max |y| pattern goes to *peak.
+// r starts at x + r * ld; the span's sample n is the row's sample
+// q0 * M + n - pad_front, read as +0.0 outside [0, keep); y is (rows, Q * L).
+// PEAK: no y; the block's max |y| pattern goes to *peak.  A block whose span
+// is silent (every sample +-0.0) folds nothing: each of its sums is +0.0,
+// as the twin's is (+0.0 plus +-0.0 products stays +0.0).
 //
 // MS == 0, the generic form: the span split by M phases (sample n at
 // (n % M) * P + n / M); thread t takes the cycles t + threads * i and loads
@@ -135,8 +149,8 @@ template <int L, int MS, bool PEAK>
 __global__ void __launch_bounds__(FOLD_MAX_THREADS)
 cycle_fold_kernel(const float* __restrict__ x, const double* __restrict__ g,
                   const int* __restrict__ rows, float* __restrict__ y,
-                  unsigned* __restrict__ peak, long long ld, long long T, long long Q,
-                  int M, int W, int n_rows, long long tiles)
+                  unsigned* __restrict__ peak, long long ld, long long keep,
+                  long long pad_front, long long Q, int M, int W, int n_rows, long long tiles)
 {
     extern __shared__ double fold_sm[];
     __shared__ unsigned warp_max[FOLD_MAX_THREADS / 32];
@@ -150,17 +164,22 @@ cycle_fold_kernel(const float* __restrict__ x, const double* __restrict__ g,
     float* xs = reinterpret_cast<float*>(tab + n_rows);           // S x P
     const long long row = blockIdx.x / tiles;
     const long long q0 = (blockIdx.x - row * tiles) * tq;
-    const float* xr = x + row * ld + q0 * M;
-    const long long avail = T - q0 * M;
+    const float* xr = x + row * ld;
+    const long long s0 = q0 * M - pad_front;       // the row's sample at span word 0
     for (int i = threadIdx.x; i < n_rows * L; i += nt) gs[i] = g[i];
     for (int r = threadIdx.x; r < n_rows; r += nt) {
         const int e = rows[r];
         const int w = e >> 6;
         tab[r] = MS ? e : ((((w % M) * P + w / M) << 6) | (e & 63));
     }
-    for (int n = threadIdx.x; n < span; n += nt)
-        xs[(n % S) * P + n / S] = n < avail ? xr[n] : 0.0f;
-    __syncthreads();
+    unsigned heard = 0u;
+    for (int n = threadIdx.x; n < span; n += nt) {
+        const long long src = s0 + n;
+        const float v = src >= 0 && src < keep ? xr[src] : 0.0f;
+        heard |= __float_as_uint(v) & 0x7fffffffu;
+        xs[(n % S) * P + n / S] = v;
+    }
+    const bool silent = !__syncthreads_or(heard != 0u);
 
     const int t = threadIdx.x;
     double acc[FOLD_C][L];
@@ -168,7 +187,9 @@ cycle_fold_kernel(const float* __restrict__ x, const double* __restrict__ g,
     for (int i = 0; i < FOLD_C; ++i)
 #pragma unroll
         for (int l = 0; l < L; ++l) acc[i][l] = 0.0;
-    if constexpr (MS == 0) {
+    if (silent) {
+        // every output +0.0, left in acc
+    } else if constexpr (MS == 0) {
 #pragma unroll 2
         for (int r = 0; r < n_rows; ++r) {
             const int e = tab[r];
@@ -266,8 +287,9 @@ long long fold_smem(int L, int M, int W, int n_rows, int threads, int ms)
 
 template <int L, int MS, bool PEAK>
 cudaError_t launch(const float* x, const double* g, const int* rows, float* y,
-                   unsigned* peak, long long n_sig, long long ld, long long T, long long Q,
-                   int M, int W, int n_rows, int threads, int smem, cudaStream_t stream)
+                   unsigned* peak, long long n_sig, long long ld, long long keep,
+                   long long pad_front, long long Q, int M, int W, int n_rows, int threads,
+                   int smem, cudaStream_t stream)
 {
     static int allowed[SMEM_MAX_DEVICES] = {};
     const long long tiles = (Q + (long long)FOLD_C * threads - 1) / ((long long)FOLD_C * threads);
@@ -276,7 +298,7 @@ cudaError_t launch(const float* x, const double* g, const int* rows, float* y,
     cudaError_t e = allow_smem((const void*)cycle_fold_kernel<L, MS, PEAK>, allowed, smem);
     if (e != cudaSuccess) return e;
     cycle_fold_kernel<L, MS, PEAK><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
-        x, g, rows, y, peak, ld, T, Q, M, W, n_rows, tiles);
+        x, g, rows, y, peak, ld, keep, pad_front, Q, M, W, n_rows, tiles);
     return cudaGetLastError();
 }
 
@@ -284,10 +306,12 @@ cudaError_t launch(const float* x, const double* g, const int* rows, float* y,
 // instance is compiled that no bank can take.
 template <int L, bool PEAK>
 cudaError_t launch_ms(int ms, const float* x, const double* g, const int* rows, float* y,
-                      unsigned* peak, long long n_sig, long long ld, long long T, long long Q,
-                      int M, int W, int n_rows, int threads, int smem, cudaStream_t s)
+                      unsigned* peak, long long n_sig, long long ld, long long keep,
+                      long long pad_front, long long Q, int M, int W, int n_rows, int threads,
+                      int smem, cudaStream_t s)
 {
-#define F9_FOLD_ARGS x, g, rows, y, peak, n_sig, ld, T, Q, M, W, n_rows, threads, smem, s
+#define F9_FOLD_ARGS x, g, rows, y, peak, n_sig, ld, keep, pad_front, Q, M, W, n_rows, threads, \
+                     smem, s
     switch (ms) {
     case 0: return launch<L, 0, PEAK>(F9_FOLD_ARGS);
     case 1: if constexpr (slide_ok(L, 1)) return launch<L, 1, PEAK>(F9_FOLD_ARGS); break;
@@ -301,10 +325,12 @@ cudaError_t launch_ms(int ms, const float* x, const double* g, const int* rows, 
 
 template <bool PEAK>
 cudaError_t launch_l(int L, int ms, const float* x, const double* g, const int* rows, float* y,
-                     unsigned* peak, long long n_sig, long long ld, long long T, long long Q,
-                     int M, int W, int n_rows, int threads, int smem, cudaStream_t s)
+                     unsigned* peak, long long n_sig, long long ld, long long keep,
+                     long long pad_front, long long Q, int M, int W, int n_rows, int threads,
+                     int smem, cudaStream_t s)
 {
-#define F9_FOLD_ARGS ms, x, g, rows, y, peak, n_sig, ld, T, Q, M, W, n_rows, threads, smem, s
+#define F9_FOLD_ARGS ms, x, g, rows, y, peak, n_sig, ld, keep, pad_front, Q, M, W, n_rows, \
+                     threads, smem, s
     switch (L) {
     case 1: return launch_ms<1, PEAK>(F9_FOLD_ARGS);
     case 2: return launch_ms<2, PEAK>(F9_FOLD_ARGS);
@@ -318,6 +344,21 @@ cudaError_t launch_l(int L, int ms, const float* x, const double* g, const int* 
 #undef F9_FOLD_ARGS
 }
 
+// The checks both entries share: the bank's geometry, the block and the
+// form (`threads` 128, 64 or 32 and `ms` 0, generic, or M, slid: every row
+// present, slide_ok, as ops/cycle_fold.py fold_threads and fold_form pick
+// them), and the block's shared memory; 0 where they fail.
+long long checked_smem(long long n_sig, long long Q, int L, int M, int W, int n_rows,
+                       int threads, int ms)
+{
+    if (L < 1 || L > FOLD_MAX_L || M < 1 || W < 1 || W >= (1 << 25) || n_rows < 1
+        || n_rows > W || (threads != 32 && threads != 64 && threads != 128) || Q < 1
+        || n_sig < 1 || (ms != 0 && (ms != M || n_rows != W || !slide_ok(L, ms))))
+        return 0;
+    const long long smem = fold_smem(L, M, W, n_rows, threads, ms);
+    return smem > SMEM_BLOCK_MAX ? 0 : smem;
+}
+
 }  // namespace
 
 extern "C" {
@@ -325,37 +366,50 @@ extern "C" {
 // The cycles a thread takes, which ops/cycle_fold.py FOLD_CYCLES must equal.
 int f9_cycle_fold_cycles() { return FOLD_C; }
 
-// The fold of n_sig rows of x (row r at x + r * ld, T samples) by a dense
-// bank of L < 8 phases and stride M, given as its n_rows non-zero rows of G
-// (g, (n_rows, L) float64) and their table (rows, (n_rows,) int32: w << 6 |
-// lo << 3 | hi, w ascending): Q cycles a row, T >= (Q - 1) * M + W.  With
-// peak == NULL it writes y (n_sig, Q * L) float32; otherwise it writes no y
-// and leaves in *peak the largest pattern of |y| (a float32's bits), after
-// zeroing it on the stream.  `threads` is 128, 64 or 32 and `ms` the form, 0
-// (generic) or M (slid: every row present, slide_ok), as ops/cycle_fold.py
-// fold_threads and fold_form pick them.  Launches on `stream`; returns a
-// CUDA error code (0 = launched).
+// The presliced form: the fold of n_sig rows of x (row r at x + r * ld, T
+// samples) by a dense bank of L < 8 phases and stride M, given as its n_rows
+// non-zero rows of G (g, (n_rows, L) float64) and their table (rows,
+// (n_rows,) int32: w << 6 | lo << 3 | hi, w ascending): Q cycles a row,
+// T >= (Q - 1) * M + W.  With peak == NULL it writes y (n_sig, Q * L)
+// float32; otherwise it writes no y and leaves in *peak the largest pattern
+// of |y| (a float32's bits), after zeroing it on the stream.  Launches on
+// `stream`; returns a CUDA error code (0 = launched).
 int f9_cycle_fold(const float* x, const double* g, const int* rows, float* y, unsigned* peak,
                   long long n_sig, long long ld, long long T, long long Q, int L, int M, int W,
                   int n_rows, int threads, int ms, void* stream)
 {
-    if (L < 1 || L > FOLD_MAX_L || M < 1 || W < 1 || n_rows < 1 || n_rows > W
-        || (threads != 32 && threads != 64 && threads != 128) || Q < 1 || n_sig < 1
-        || T < (Q - 1) * M + W || ld < T
-        || (ms != 0 && (ms != M || n_rows != W || !slide_ok(L, ms))))
-        return (int)cudaErrorInvalidValue;
     const int form = ms;
-    const long long smem = fold_smem(L, M, W, n_rows, threads, form);
-    if (smem > SMEM_BLOCK_MAX || (long long)W >= (1LL << 25)) return (int)cudaErrorInvalidValue;
+    const long long smem = checked_smem(n_sig, Q, L, M, W, n_rows, threads, form);
+    if (smem == 0 || T < (Q - 1) * M + W || ld < T) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     if (peak != nullptr) {
         cudaError_t e = cudaMemsetAsync(peak, 0, sizeof(unsigned), s);
         if (e != cudaSuccess) return (int)e;
-        return (int)launch_l<true>(L, form, x, g, rows, nullptr, peak, n_sig, ld, T, Q, M, W,
+        return (int)launch_l<true>(L, form, x, g, rows, nullptr, peak, n_sig, ld, T, 0, Q, M, W,
                                    n_rows, threads, (int)smem, s);
     }
-    return (int)launch_l<false>(L, form, x, g, rows, y, nullptr, n_sig, ld, T, Q, M, W, n_rows,
-                                threads, (int)smem, s);
+    return (int)launch_l<false>(L, form, x, g, rows, y, nullptr, n_sig, ld, T, 0, Q, M, W,
+                                n_rows, threads, (int)smem, s);
+}
+
+// The flat form: the same fold of n_sig unpadded rows of x (row r at x + r *
+// ld, its first `keep` samples read, ld >= keep), the signal behind
+// `pad_front` zeros and followed by zeros to the span of Q cycles: y
+// (n_sig, Q * L) float32, each output bit for bit the presliced form's on
+// F.pad(x[..., :keep], (pad_front, (Q - 1) * M + W - pad_front - keep)).
+// Launches on `stream`; returns a CUDA error code (0 = launched).
+int f9_cycle_fold_flat(const float* x, const double* g, const int* rows, float* y,
+                       long long n_sig, long long ld, long long keep, long long pad_front,
+                       long long Q, int L, int M, int W, int n_rows, int threads, int ms,
+                       void* stream)
+{
+    const int form = ms;
+    const long long smem = checked_smem(n_sig, Q, L, M, W, n_rows, threads, form);
+    if (smem == 0 || keep < 0 || pad_front < 0 || pad_front + keep > (Q - 1) * M + W
+        || (n_sig > 1 && ld < keep))
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_l<false>(L, form, x, g, rows, y, nullptr, n_sig, ld, keep, pad_front, Q,
+                                M, W, n_rows, threads, (int)smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

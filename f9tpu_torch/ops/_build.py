@@ -107,6 +107,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.f9_cycle_fold.argtypes = [vp] * 5 + [i64, i64, i64, i64, i32, i32, i32, i32, i32, i32,
                                              vp]
     lib.f9_cycle_fold.restype = i32
+    lib.f9_cycle_fold_flat.argtypes = [vp] * 4 + [i64] * 5 + [i32] * 6 + [vp]
+    lib.f9_cycle_fold_flat.restype = i32
     lib.f9_cycle_fold_cycles.argtypes = []
     lib.f9_cycle_fold_cycles.restype = i32
     lib.f9_front_end.argtypes = [vp] * 5 + [i64] * 4 + [i32] * 5 + [i64] * 3 + [vp]

@@ -1,25 +1,35 @@
 """The cycle SRC of a dense bank with L < 8 phases as a hand-written CUDA
-kernel (`csrc/cycle_fold.cu`, ``f9_cycle_fold``), plain or fused with the
-absolute maximum of its output.
+kernel (`csrc/cycle_fold.cu`, ``f9_cycle_fold`` and ``f9_cycle_fold_flat``),
+plain or fused with the absolute maximum of its output.
 
-The JAX package computes the streamed SRC of a dense bank as an XLA
+The JAX package computes the SRC of a dense bank with L < 8 as an XLA
 convolution at HIGHEST precision (`f9tpu/ops/resample.py:307
 resample_presliced`) and a metering chunk's true peak as the maximum of the
 absolute value of the 4x oversampled chunk (`f9tpu/ops/loudness.py:363
 _tp_step`).  Its Pallas kernel needs L >= 8 and M >= 16, and the port's
-`cycle_src` L >= 8, so the integer-ratio banks (2:1, 4:1 and back), the
+`cycle_src` L >= 8, so the integer-ratio banks (2:1, 3:1, 4:1 and back), the
 meter's conversions to 48 kHz from 8-32, 96 and 192 kHz and the 4x
 true-peak oversampler (L = 4, M = 1) come here.
 
-The two kernel forms and their plain twins, each bit for bit:
+The three launch forms and their plain twins, each bit for bit:
 
 - `resample_presliced_fold_kernel` = `resample._presliced_fold`: ``y[...,
   q*L + l] = sum_w xp[..., q*M + w] * G[w, l]`` in float64 over the
   non-zero rows of G (`resample._fold_rows`, w ascending), each output's sum
-  from +0.0, rounded to float32 once;
+  from +0.0, rounded to float32 once.  The streamed SRC: its caller is
+  `resample.resample_presliced`.
+- `resample_fold_kernel`, the flat form, = ``_presliced_fold(F.pad(x[...,
+  :keep_T], (pad_front, pad_back)), bank, Q)`` with `resample._cycle_budget`'s
+  numbers: the same fold read from the unpadded signal, the pads read as
+  +0.0 inside the kernel, no padded copy made.  The batch SRC of the dense
+  banks with L = 1 (the integer-ratio downsamplings, `fold_batch_applicable`):
+  its caller is `resample.resample`, and through it `src_kernel.resample_auto`
+  (the batch graph, `resample_rates`) and `resample_staged` (the rows layout).
+  Dense banks with L = 2 and 4 keep the float32 matmul there, which is JAX's
+  conv bit for bit on upsampling.
 - `presliced_absmax_kernel` = `presliced_absmax_reference`, ``torch.max(
   torch.abs(_presliced_fold(...)))``: a 0-d float32, NaN if any output is
-  NaN.  The fused form writes no y.
+  NaN.  The fused form writes no y.  Its caller is `loudness._tp_step`.
 
 A float32 sample times a float32 tap is exact in float64, so the kernel's
 FMA rounds where the twin's sum rounds; it walks the twin's table in its
@@ -27,9 +37,9 @@ order (columns outside a row's ``[lo, hi)`` skipped, zeros inside it added).
 The wrapper rule, as for `src_kernel` and `chain_kernels`: the kernel
 wrappers launch on the current stream or raise (a CPU tensor, a bank
 `fold_kernel_applicable` refuses, a failed build or launch); the callers
-(`resample.resample_presliced`, `loudness._tp_step`) send a CPU tensor to
-the twin and a CUDA tensor to the kernel, never one for the other.
-``launches`` counts wrapper calls that launched.
+send a CPU tensor to the twin and a CUDA tensor to the kernel, never one
+for the other.  ``launches`` counts wrapper calls that launched, of every
+form; ``launches_flat`` those of the flat form alone.
 """
 
 from __future__ import annotations
@@ -42,15 +52,17 @@ import numpy as np
 import torch
 
 from ..models.filters import CycleBank
-from .resample import _fold_rows, _presliced_fold, cycle_matrix_f32
+from .resample import _cycle_budget, _fold_rows, _presliced_fold, cycle_matrix_f32
 
 __all__ = ["FOLD_CYCLES", "fold_table", "fold_form", "fold_smem", "fold_threads",
-           "fold_kernel_applicable",
+           "fold_kernel_applicable", "fold_batch_applicable", "resample_fold_kernel",
            "resample_presliced_fold_kernel", "presliced_absmax_kernel",
-           "presliced_absmax_reference", "launches"]
+           "presliced_absmax_reference", "launches", "launches_flat"]
 
-#: kernel launches since the count was last reset
+#: kernel launches since the count was last reset, of every form
 launches = 0
+#: those of the flat form (`resample_fold_kernel`), each also in ``launches``
+launches_flat = 0
 _launch_lock = threading.Lock()
 
 #: cycles a thread takes (`csrc/cycle_fold.cu` FOLD_C, checked at the first
@@ -133,6 +145,16 @@ def fold_kernel_applicable(bank: CycleBank) -> bool:
     return fold_threads(bank) is not None
 
 
+def fold_batch_applicable(bank: CycleBank) -> bool:
+    """Does the batch SRC (`resample.resample` on the card) of ``bank`` run
+    the fold kernel's flat form?  A dense bank with L = 1 that the kernel
+    takes: every integer-ratio downsampling (96k -> 48k, 192k -> 48k, 48k ->
+    16k, 384k -> 8k).  Dense banks with L = 2 and 4 keep the float32 matmul,
+    bit for bit JAX's conv there, which the fold would leave by 5-8 LSB;
+    L >= 8 runs `cycle_src`."""
+    return bank.L == 1 and fold_kernel_applicable(bank)
+
+
 @functools.lru_cache(maxsize=64)
 def _device_operands(bank: CycleBank, device: torch.device):
     tab, gr = fold_table(bank)
@@ -143,29 +165,60 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _launch(xp: torch.Tensor, bank: CycleBank, num_cycles: int, peak: bool,
-            form: int | None = None):
-    """Both wrappers' launch; ``form`` overrides `fold_form` (0, the generic
-    form, takes every bank: `chip_smoke.py` 15a holds both forms to the
-    twin)."""
-    global launches
-    if xp.device.type == "cpu":
+def _threads(x: torch.Tensor, bank: CycleBank) -> int:
+    """The block's threads for ``bank``; raises for what the kernel does
+    not take (a CPU tensor, the bank, float64 samples) before the library
+    is asked for."""
+    if x.device.type == "cpu":
         raise ValueError("the fold kernel takes a CUDA tensor; a CPU tensor runs the twin")
     threads = fold_threads(bank)
     if threads is None:
         raise ValueError(f"the fold kernel does not take bank L={bank.L} M={bank.M} "
                          f"W={bank.W} ({'varispeed' if bank.G is None else 'dense'})")
-    if xp.dtype != torch.float32:
-        raise ValueError(f"the fold kernel takes float32, got {xp.dtype}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"the fold kernel takes float32, got {x.dtype}")
+    return threads
+
+
+def _rows(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``x`` as ``(rows, T)`` with unit stride along T, and its row stride."""
+    T = x.shape[-1]
+    x2 = x.reshape(-1, T)
+    if x2.stride(-1) != 1:
+        x2 = x2.contiguous()
+    return x2, (x2.stride(0) if x2.shape[0] > 1 else T)
+
+
+def _library(device: torch.device):
+    from ._build import load_library
+
+    lib = load_library()
+    if lib.f9_cycle_fold_cycles() != FOLD_CYCLES:
+        raise RuntimeError(f"csrc/cycle_fold.cu takes {lib.f9_cycle_fold_cycles()} cycles a "
+                           f"thread, ops/cycle_fold.py {FOLD_CYCLES}")
+    return lib, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _count(flat: bool) -> None:
+    global launches, launches_flat
+    with _launch_lock:
+        launches += 1
+        launches_flat += flat
+
+
+def _launch(xp: torch.Tensor, bank: CycleBank, num_cycles: int, peak: bool,
+            form: int | None = None):
+    """The presliced and fused wrappers' launch; ``form`` overrides
+    `fold_form` (0, the generic form, takes every bank: `chip_smoke.py` 15a
+    holds both forms to the twin)."""
+    threads = _threads(xp, bank)
     Q = int(num_cycles)
     T = xp.shape[-1]
     need = (Q - 1) * bank.M + bank.W
     if Q < 0 or T < need:
         raise ValueError(f"padded input too short: {T} < {need}")
     lead = tuple(xp.shape[:-1])
-    x2 = xp.reshape(-1, T)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
+    x2, ld = _rows(xp)
     n_sig = x2.shape[0]
     if peak and (Q == 0 or n_sig == 0):
         raise ValueError("the true peak of an empty chunk is undefined")
@@ -174,24 +227,48 @@ def _launch(xp: torch.Tensor, bank: CycleBank, num_cycles: int, peak: bool,
     out = torch.empty((), dtype=torch.int32, device=xp.device) if peak else None
     if Q == 0 or n_sig == 0:
         return y.reshape(*lead, 0)
-    ld = x2.stride(0) if n_sig > 1 else T
     g, tab = _device_operands(bank, xp.device)
-    from ._build import load_library
-
-    lib = load_library()
-    if lib.f9_cycle_fold_cycles() != FOLD_CYCLES:
-        raise RuntimeError(f"csrc/cycle_fold.cu takes {lib.f9_cycle_fold_cycles()} cycles a "
-                           f"thread, ops/cycle_fold.py {FOLD_CYCLES}")
+    lib, stream = _library(xp.device)
     with torch.cuda.device(xp.device):
         err = lib.f9_cycle_fold(_ptr(x2), _ptr(g), _ptr(tab), _ptr(y), _ptr(out), n_sig, ld, T,
                                 Q, bank.L, bank.M, bank.W, int(tab.shape[0]), threads,
-                                fold_form(bank) if form is None else form,
-                                ctypes.c_void_p(torch.cuda.current_stream(xp.device).cuda_stream))
+                                fold_form(bank) if form is None else form, stream)
     if err != 0:
         raise RuntimeError(f"cycle_fold kernel launch failed: CUDA error {err}")
-    with _launch_lock:
-        launches += 1
+    _count(False)
     return out.view(torch.float32) if peak else y.reshape(*lead, Q * bank.L)
+
+
+def resample_fold_kernel(x: torch.Tensor, bank: CycleBank,
+                         out_len: int | None = None) -> torch.Tensor:
+    """The flat form: `resample.resample` of ``x (..., T)`` float32 on the
+    card by a bank the kernel takes, ``(..., out_len)`` with ``out_len``
+    defaulting to ``ceil(T*L/M)``, in one launch on the unpadded signal.
+    Each output is bit for bit ``_presliced_fold(F.pad(x[..., :keep_T],
+    (pad_front, pad_back)), bank, Q)`` with `resample._cycle_budget`'s
+    numbers; rows may stand a stride apart wider than T.  Launches or
+    raises."""
+    threads = _threads(x, bank)
+    T = x.shape[-1]
+    lead = tuple(x.shape[:-1])
+    out_len, Q, keep_T, pad_front, _pad_back = _cycle_budget(T, bank, out_len)
+    n_sig = int(np.prod(lead))
+    if T == 0 or out_len == 0 or n_sig == 0:
+        return x.new_zeros((*lead, out_len))
+    x2, ld = _rows(x)
+    y = torch.empty((n_sig, Q * bank.L), dtype=torch.float32, device=x.device)
+    g, tab = _device_operands(bank, x.device)
+    lib, stream = _library(x.device)
+    with torch.cuda.device(x.device):
+        err = lib.f9_cycle_fold_flat(_ptr(x2), _ptr(g), _ptr(tab), _ptr(y), n_sig, ld, keep_T,
+                                     pad_front, Q, bank.L, bank.M, bank.W, int(tab.shape[0]),
+                                     threads, fold_form(bank), stream)
+    if err != 0:
+        raise RuntimeError(f"cycle_fold kernel launch failed: CUDA error {err}")
+    _count(True)
+    if Q * bank.L != out_len:
+        y = y[:, :out_len]
+    return y.reshape(*lead, out_len)
 
 
 def resample_presliced_fold_kernel(xp: torch.Tensor, bank: CycleBank,

@@ -6,14 +6,18 @@ cycle matrix ``G`` (`f9tpu_torch.models.filters.design_cycle_bank`), so
 
     y[b, q*L : (q+1)*L] = x_padded[b, q*M : q*M + W] @ G
 
-`resample` here is the plain form for the dense banks the CUDA kernel does
-not take (`f9tpu_torch.ops.src_kernel.kernel_applicable`: L < 8): a strided
-``unfold`` of the padded signal into cycle windows and one float32
-``torch.matmul``.  `resample_presliced` is the streamed form, on a chunk
-that carries its own halos: on the card the `cycle_src` kernel (L >= 8) or
-the `cycle_fold` kernel (`ops/cycle_fold.py`, a dense bank with L < 8), on
-the CPU their plain twins, among them the fixed-order float64 fold
-`_presliced_fold` that the `cycle_fold` kernel equals bit for bit.
+`resample` here is the batch form for the dense banks the `cycle_src`
+kernel does not take (`f9tpu_torch.ops.src_kernel.kernel_applicable`:
+L < 8).  On the card a bank with L = 1 (the integer-ratio downsamplings,
+`cycle_fold.fold_batch_applicable`) runs the `cycle_fold` kernel's flat
+form, one launch on the unpadded signal, bit for bit the float64 fold
+`_presliced_fold` of the padded signal; a bank with L = 2 or 4, and every
+such bank on the CPU, runs a strided ``unfold`` of the padded signal into
+cycle windows and float32 ``torch.matmul``.  `resample_presliced` is the
+streamed form, on a chunk that carries its own halos: on the card the
+`cycle_src` kernel (L >= 8) or the `cycle_fold` kernel (`ops/cycle_fold.py`,
+a dense bank with L < 8), on the CPU their plain twins, among them
+`_presliced_fold`.
 
 Varispeed banks (``bank.G is None``: 44.1k -> 44056 reduces to L/M =
 11014/11025, whose dense matrix would be 0.5 GB) run from the ``(L, K)``
@@ -125,9 +129,23 @@ def resample(x: torch.Tensor, bank: CycleBank,
     """Resample the last axis of float32 ``x (..., T)`` by the bank's ratio:
     ``(..., out_len)`` with ``out_len`` defaulting to ``ceil(T*L/M)``.
     Output sample n estimates the input at position ``n*M/L``.  A varispeed
-    bank goes to `resample_banded`."""
+    bank goes to `resample_banded`.  A dense bank with L = 1 on the card
+    goes to the `cycle_fold` kernel's flat form (`_fold_takes`); any other
+    dense bank, and every one on the CPU, is the padded signal's cycle
+    windows times G in float32 matmuls."""
     if bank.G is None:
         return resample_banded(x, bank, out_len=out_len)
+    if _fold_takes(x, bank):
+        from .cycle_fold import resample_fold_kernel
+
+        return resample_fold_kernel(x, bank, out_len=out_len)
+    return _unfold_matmul(x, bank, out_len)
+
+
+def _unfold_matmul(x: torch.Tensor, bank: CycleBank, out_len: int | None) -> torch.Tensor:
+    """`resample`'s library form for a dense bank, on ``x``'s device: the
+    padded signal's ``(rows, Q, W)`` cycle windows, a strided ``unfold``,
+    times G by float32 ``torch.matmul`` in chunks of `_WINDOW_ELEMS`."""
     L, M, W = bank.L, bank.M, bank.W
     T = x.shape[-1]
     lead = x.shape[:-1]
@@ -351,6 +369,17 @@ def banded_rows_plan(bank: CycleBank, frames: int) -> tuple[int, int, int]:
     are cut from is ``(n_rows - 1)*M + row_width`` long."""
     w_rows = _banded_geometry(bank)[3]
     return -(-bank.out_len(frames) // bank.L), w_rows, bank.pad_front
+
+
+def _fold_takes(t: torch.Tensor, bank: CycleBank) -> bool:
+    """Does `resample` send ``t`` to the `cycle_fold` kernel's flat form?  A
+    bank `cycle_fold.fold_batch_applicable` takes (dense, L = 1) on any
+    device but the CPU, as `_kernel_takes` rules for `cycle_src`."""
+    if t.device.type == "cpu":
+        return False
+    from .cycle_fold import fold_batch_applicable
+
+    return fold_batch_applicable(bank)
 
 
 def _kernel_takes(t: torch.Tensor, bank: CycleBank) -> bool:

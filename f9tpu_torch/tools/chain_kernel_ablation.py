@@ -20,8 +20,9 @@ rows, 8 x 1 x 2,903,040 from position 0 and a 20 s chunk's 1 x 962,560 from
 mid-grid; the windowed maximum at W = 73 on the limiter's 8 x 1 x 2,903,112
 and the chunk's 1 x 962,632; the L < 8 fold at `chip_smoke.py` 15f's shapes,
 the meter's true-peak chunk fused with its peak and as samples, 2 x 882,000
-cycles of the 4x bank, and a 20 s stream chunk at 96 -> 48 kHz, 2 x 960,000
-cycles of the 2:1 bank), holds each
+cycles of the 4x bank, a 20 s stream chunk at 96 -> 48 kHz, 2 x 960,000
+cycles of the 2:1 bank, and that bank's flat form at `chip_smoke.py` 15g's
+batch, 8 x 2 x 2^22 samples of files of 30-43 s, zero past them), holds each
 output to its plain twin bit for bit, and prints each copy's device time
 (`torch.profiler`, the median of 10 launches, the lesser of two turns),
 with the card's name and power limit, then one JSON line.
@@ -50,7 +51,11 @@ picks the slid one: a thread's cycles a block apart, every sample loaded and
 converted for every row), `four_cycles` (4 cycles a thread, not 8),
 `predicated_rows` (every row through the predicated columns, no branch for
 the rows that take every column), and the generic form with 8 and with 4
-cycles a thread and predicated rows (this kernel's first form).
+cycles a thread and predicated rows (this kernel's first form); then
+`no_silent_skip` (a block whose span is silent folds it all the same),
+`sixteen_cycles` (16 cycles a thread, the slid form's registers raised to
+fit) and `threads_256` (blocks of 256 threads), and the whole copy's flat
+form at 32 and 64 threads a block besides `cycle_fold.fold_threads`' 128.
 """
 
 from __future__ import annotations
@@ -79,8 +84,12 @@ _ENV_LD, _ENV_ST = "ld.relaxed.gpu", "st.relaxed.gpu"
 _WMAX_REG = "if (W <= WMAX_REG_MAX_W) {"
 _WMAX_EXACT = "if (nans & window)"
 _FOLD_C = "constexpr int FOLD_C = 8;"
-_FOLD_FULL = "if ((e & 63) == L) {"
+_FOLD_FULL = "if (L == 1 || (e & 63) == L) {"
 _FOLD_FORM = "const int form = ms;"
+_FOLD_SILENT = "const bool silent = !__syncthreads_or(heard != 0u);"
+_FOLD_SLIDE = "constexpr int FOLD_SLIDE_DOUBLES = 64;"
+_FOLD_MAX_T = "constexpr int FOLD_MAX_THREADS = 128;"
+_FOLD_T_CHECK = "threads != 128"
 
 #: (source, [(text, replacement), ...]) by copy name
 VARIANTS = {
@@ -125,8 +134,17 @@ VARIANTS = {
         "generic_predicated_four_cycles": [(_FOLD_FORM, "const int form = 0;"),
                                            (_FOLD_C, "constexpr int FOLD_C = 4;"),
                                            (_FOLD_FULL, "if (false) {")],
+        "no_silent_skip": [(_FOLD_SILENT, "__syncthreads();\n    const bool silent = false;")],
+        "sixteen_cycles": [(_FOLD_C, "constexpr int FOLD_C = 16;"),
+                           (_FOLD_SLIDE, "constexpr int FOLD_SLIDE_DOUBLES = 128;")],
+        "threads_256": [(_FOLD_MAX_T, "constexpr int FOLD_MAX_THREADS = 256;"),
+                        (_FOLD_T_CHECK, "threads != 128 && threads != 256")],
     }),
 }
+#: the fold's copies that launch other blocks than 128 threads
+FOLD_COPY_THREADS = {"threads_256": 256}
+#: the whole fold's other blocks, timed on the flat form
+FOLD_FLAT_THREADS = (32, 64)
 #: the windowed maximum's register-form segment lengths (steps a warp) timed
 #: beside `wmax_segment_steps`' choice (0), on the whole copy
 WMAX_SEGMENTS = (0, 8, 16, 172)
@@ -206,6 +224,7 @@ def _build_all(out_dir: str, kernels) -> dict:
         elif kernel == "cycle_fold":
             lib.f9_cycle_fold.argtypes = [vp] * 5 + [i64, i64, i64, i64, i32, i32, i32, i32,
                                                      i32, i32, vp]
+            lib.f9_cycle_fold_flat.argtypes = [vp] * 4 + [i64] * 5 + [i32] * 6 + [vp]
         # the K = 30 instance of the MAC, W = 73's windowed maximum, each other
         # kernel's staged form
         regs = _ptxas(err, {"mac": "upols_mac_regILi30E", "fold": "fir_fold_kernel",
@@ -354,10 +373,32 @@ def main(argv: list[str] | None = None) -> int:
                 int(tab.shape[0]), 128, cf.fold_form(bank))
         cases[("cycle_fold", label)] = (args, out.view(torch.float32) if peak else out, want,
                                         (xp, g, tab, y))
+    # the flat form (the batch SRC of an L = 1 bank) at 15g's batch
+    import chip_smoke
+    import torch.nn.functional as F
+
+    bank = design_cycle_bank(96000, 48000, quality="high")
+    xb, _lengths = chip_smoke._fold_batch_input(dev, chip_smoke.SEED + 156)
+    T = xb.shape[-1]
+    n, Q, keep, pad_front, pad_back = tr._cycle_budget(T, bank, None)
+    g, tab = cf._device_operands(bank, dev)
+    y = torch.empty((xb.numel() // T, Q), device=dev)
+    want = tr._presliced_fold(F.pad(xb.reshape(-1, T)[:, :keep], (pad_front, pad_back)), bank, Q)
+    for threads in (cf.fold_threads(bank),) + FOLD_FLAT_THREADS:
+        args = ("flat", xb.data_ptr(), g.data_ptr(), tab.data_ptr(), y.data_ptr(), y.shape[0], T,
+                keep, pad_front, Q, bank.L, bank.M, bank.W, int(tab.shape[0]), threads,
+                cf.fold_form(bank))
+        cases[("cycle_fold", f"hires batch, flat, {threads} threads")] = (args, y, want,
+                                                                          (xb, g, tab))
     stream = torch.cuda.current_stream().cuda_stream
 
-    def launch(lib, kernel, args):
-        fn = getattr(lib, ENTRY[kernel][0])
+    def launch(lib, kernel, args, copy):
+        flat = args[0] == "flat"                      # the fold's flat form
+        if flat:
+            args = args[1:]
+        if kernel == "cycle_fold" and copy in FOLD_COPY_THREADS:
+            args = (*args[:13], FOLD_COPY_THREADS[copy], args[14])
+        fn = lib.f9_cycle_fold_flat if flat else getattr(lib, ENTRY[kernel][0])
         if kernel == "env":              # the tile goes before fl(c)
             args = (*args[:12], args[13], args[12])
         err = fn(*args, stream)
@@ -371,6 +412,9 @@ def main(argv: list[str] | None = None) -> int:
                 if k != kernel or (kernel == "wmax" and copy != "whole"
                                    and args[-1] != ck.wmax_segment_steps(args[3], args[4])):
                     continue                  # other segment lengths: the whole copy only
+                if kernel == "cycle_fold" and copy != "whole" and label.startswith("hires") \
+                        and args[14] in FOLD_FLAT_THREADS:
+                    continue                  # other blocks: the whole copy only
                 if kernel == "env":
                     rows, T, p0, B = args[8:12]
                     chosen = ck.env_tile_frames(rows, T, p0, B)
@@ -379,12 +423,12 @@ def main(argv: list[str] | None = None) -> int:
                     if copy in ENV_COPY_TILES:
                         wide, narrow = ENV_COPY_TILES[copy]
                         args = (*args[:-1], min(wide if chosen == ck.ENV_TILE else narrow, B))
-                launch(lib, kernel, args)
+                launch(lib, kernel, args, copy)
                 torch.cuda.synchronize()
                 same = all(torch.equal(_bits(o), _bits(w)) for o, w in
                            zip(*((out, want) if isinstance(out, tuple) else ((out,), (want,)))))
                 bitwise[(kernel, copy, label)] = bitwise.get((kernel, copy, label), True) and same
-                t = _device_ms(lambda: launch(lib, kernel, args), ENTRY[kernel][1])
+                t = _device_ms(lambda: launch(lib, kernel, args, copy), ENTRY[kernel][1])
                 times.setdefault((kernel, copy, label), []).append(t)
     summary = []
     for (kernel, copy, label), ts in times.items():

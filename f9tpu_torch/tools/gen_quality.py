@@ -8,7 +8,8 @@ and rate pair (the port's twin of `tools/gen_quality.py`).
 Measures through the port's production path,
 `f9tpu_torch.ops.resample.resample_rates`, on ``--device`` (default
 ``cuda``: the `cycle_src` kernel, dense or windowed, where it takes the
-bank; the unfold + matmul form for L < 8), with the JAX tool's pairs,
+bank; for L < 8 the `cycle_fold` kernel where L = 1, else the unfold +
+matmul form), with the JAX tool's pairs,
 presets, test tones and FFT analysis under the same names:
 `passband_ripple_db`, `edge_frac`, `alias_rejection_db`,
 `image_suppression_db`, `thdn_db` and `oracle_db` (RMS error against the
@@ -221,8 +222,9 @@ def render(device: torch.device, pairs=PAIRS, log=None) -> str:
         f"Generated by `python -m f9tpu_torch.tools.gen_quality --device {device.type}` on "
         f"**{card_name(device)}**",
         "through the port's production path (`f9tpu_torch.ops.resample.resample_rates`: the",
-        "`cycle_src` kernel, dense or windowed, where it takes the bank; the unfold + matmul",
-        "form for L < 8), with the pairs, tones and FFT analysis of `tools/gen_quality.py`,",
+        "`cycle_src` kernel, dense or windowed, where it takes the bank; for L < 8 the",
+        "`cycle_fold` kernel where L = 1, else the unfold + matmul form), with the pairs,",
+        "tones and FFT analysis of `tools/gen_quality.py`,",
         "whose JAX figures are `docs/QUALITY.md`.  Presets are Kaiser windowed-sinc designs",
         "parameterised by zero-crossings-per-side at the limiting rate:",
         "",

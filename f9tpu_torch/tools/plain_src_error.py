@@ -5,11 +5,12 @@ on the card and on the CPU.
     python3 -m f9tpu_torch.tools.plain_src_error [--quality high] [--seconds 60]
 
 The `cycle_src` kernel does not take the integer-ratio banks (L in {1, 2,
-4}); `f9tpu_torch.ops.resample.resample` serves them on either device as
-one float32 `torch.matmul` of the unfolded cycle windows (cuBLAS on the
-card, the CPU's BLAS here), with no compensation.  For every such studio
+4}); `f9tpu_torch.ops.resample.resample` serves them as one float32
+`torch.matmul` of the unfolded cycle windows (cuBLAS on the card, the CPU's
+BLAS here), with no compensation, but for L = 1 on the card, where it runs
+the `cycle_fold` kernel, bit for bit the fold below.  For every such studio
 pair this runs a stereo signal of ``--seconds`` at about -12 dBFS (two tones
-and noise) through that form on the card and on the CPU, and through the
+and noise) through `resample` on the card and on the CPU, and through the
 fixed-order float64 fold `_presliced_fold` (the exact sum rounded once),
 and prints in LSB at 24 bits the largest difference of card and CPU, the
 24-bit codes they round to, and each against the fold, with the card's name

@@ -50,6 +50,17 @@ inline double* emu_dynamic_smem() { return emu_dynamic.data(); }
 inline unsigned* emu_static_smem() { return emu_static.data(); }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 
+// a barrier that also tells each thread whether any thread's predicate held
+inline int __syncthreads_or(int pred)
+{
+    emu_lanes[threadIdx.x] = pred != 0;
+    emu_bar->arrive_and_wait();
+    int any = 0;
+    for (unsigned k = 0; k < blockDim.x; ++k) any |= emu_lanes[k];
+    emu_bar->arrive_and_wait();
+    return any;
+}
+
 // every lane of the warp arrives (as every thread of the kernel calls it)
 inline unsigned __reduce_max_sync(unsigned, unsigned v)
 {

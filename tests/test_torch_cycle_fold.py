@@ -22,14 +22,17 @@ on the CPU.
   ``fma`` bit for bit.
 - The CUDA source itself, built by g++ against `tests/cuda_emu.h` (a
   thread per CUDA thread, a barrier for ``__syncthreads``, shared memory
-  filled with NaNs), equals the twin bit for bit in both forms.
+  filled with NaNs), equals the twin bit for bit in both forms, and its
+  flat launch form (the batch SRC of the L = 1 banks, read from the
+  unpadded signal) equals the twin of the padded signal.
 - Dispatch: a CPU tensor never launches or loads the library, the kernel
   wrappers refuse a CPU tensor and every bank and input the kernel does not
   take before the library is asked for, `fold_kernel_applicable` is true on
   exactly the dense L < 8 banks, and `cycle_src`'s `kernel_applicable` on
-  exactly the others.
-- A `cuda`-marked test holds the kernel to its twin on the card; it skips
-  without one (`chip_smoke.py --cycle-fold` runs it at full size)."""
+  exactly the others; the batch form each bank takes off the CPU: the flat
+  fold for dense L = 1, the matmul for dense L = 2-6, `cycle_src` for L >= 8.
+- `cuda`-marked tests hold the kernel to its twin on the card; they skip
+  without one (`chip_smoke.py --cycle-fold` runs them at full size)."""
 
 import importlib
 
@@ -369,8 +372,15 @@ def _emulated_kernel(tmp_dir: str):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.f9_cycle_fold.argtypes = [vp] * 5 + [i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp]
     lib.f9_cycle_fold.restype = i32
+    lib.f9_cycle_fold_flat.argtypes = [vp] * 4 + [i64] * 5 + [i32] * 6 + [vp]
+    lib.f9_cycle_fold_flat.restype = i32
     lib.f9_cycle_fold_cycles.restype = i32
     return lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return _emulated_kernel(str(tmp_path_factory.mktemp("cycle_fold_emu")))
 
 
 def test_kernel_source_emulated_equals_the_twin(tmp_path):
@@ -414,6 +424,91 @@ def test_kernel_source_emulated_equals_the_twin(tmp_path):
                                  threads, form, None) != 0
 
 
+#: the flat form's cases: (rate_in, rate_out, quality, rows, frames, cycles
+#: cut from the default count, row stride past the row)
+_FLAT_BANKS = [(96000, 48000, "high"), (96000, 48000, "ultra"), (48000, 16000, "high"),
+               (48000, 16000, "ultra"), (192000, 48000, "high"), (192000, 48000, "ultra")]
+_FLAT_CASES = [(ri, ro, q, rows, frames, cut, extra)
+               for ri, ro, q in _FLAT_BANKS
+               for rows, frames, cut, extra in ((1, 6 * 4096 + 37, 0, 0), (3, 2500, 0, 7),
+                                                (16, 3001, 700, 5))]
+
+
+@pytest.mark.parametrize("ri,ro,q,rows,frames,cut,extra", _FLAT_CASES,
+                         ids=[f"{ri}-{ro}-{q}-{rows}x{frames}-cut{cut}-ld+{extra}"
+                              for ri, ro, q, rows, frames, cut, extra in _FLAT_CASES])
+def test_flat_form_emulated_equals_the_twin(emulated, ri, ro, q, rows, frames, cut, extra):
+    """The flat launch form of the CUDA source, run on the CPU a thread per
+    CUDA thread, on the L = 1 banks (M = 2, 3, 4 at high and ultra): from
+    the unpadded rows, the bank's front pad (``pad_front`` > 0) and the
+    cycle budget `resample` computes, the output equals
+    ``_presliced_fold(F.pad(x[..., :keep_T], (pad_front, pad_back)))`` bit
+    for bit, in the form `fold_form` picks and in the generic form.  The
+    cases: one row whose last cycles read past ``keep_T``, several tiles and
+    a partial last one, a stretch of -0.0 longer than two blocks' spans
+    (blocks that fold nothing and must give +0.0); rows a stride wider than
+    T whose last cycles read past ``keep_T`` into the stride's gap (data
+    there, read as zeros); 16 such rows with fewer outputs asked for than
+    the default (``keep_T`` shorter than the rows), a row of silence, one
+    of -0.0 but a single subnormal (2.1e-44, which no block may take for
+    silence), and a NaN and an inf."""
+    import torch.nn.functional as F
+
+    bank = design_cycle_bank(ri, ro, quality=q)
+    assert bank.L == 1 and cf.fold_batch_applicable(bank) and bank.pad_front > 0
+    tab, g = cf.fold_table(bank)
+    threads = cf.fold_threads(bank)
+    out_len = bank.out_len(frames) - cut
+    out_len, Q, keep_T, pad_front, pad_back = tres._cycle_budget(frames, bank, out_len)
+    assert (keep_T < frames) == (cut > 0)
+    assert (pad_back > 0) == (cut == 0)              # the last cycle reads past keep_T
+    ld = frames + extra
+    rng = np.random.default_rng(ri % 997 + rows + cut)
+    flat = rng.uniform(-0.89, 0.89, 1 + rows * ld).astype(np.float32)
+    x = flat[1:].reshape(rows, ld)                                # a float off the grid
+    x[0, frames // 4: frames // 4 + 12000] = -0.0
+    if rows > 3:
+        x[1, :] = 0.0
+        x[2, :] = -0.0
+        x[2, 100] = np.uint32(15).view(np.float32)
+        x[-1, 17], x[-1, frames // 2] = np.nan, np.inf
+    xt = torch.from_numpy(np.ascontiguousarray(x[:, :frames]))
+    want = tres._presliced_fold(F.pad(xt[:, :keep_T], (pad_front, pad_back)), bank, Q)
+    want = want[:, :out_len].numpy()
+    for form in sorted({0, cf.fold_form(bank)}):
+        y = np.full((rows, Q * bank.L), np.nan, np.float32)
+        assert emulated.f9_cycle_fold_flat(
+            x.ctypes.data, g.ctypes.data, tab.ctypes.data, y.ctypes.data, rows, ld, keep_T,
+            pad_front, Q, bank.L, bank.M, bank.W, len(tab), threads, form, None) == 0
+        assert _same_bits(y[:, :out_len], want), (form, rows, cut)
+    if rows > 3:
+        assert not np.any(want[1]) and not np.signbit(want[1]).any()
+        assert np.any(want[2])
+
+
+def test_flat_form_emulated_refuses(emulated):
+    """The flat entry refuses a geometry the kernel cannot read: pads and
+    kept samples past the span of Q cycles, a negative pad or length, a row
+    stride shorter than the kept samples, and a form the bank does not take."""
+    bank = design_cycle_bank(96000, 48000)
+    tab, g = cf.fold_table(bank)
+    x = np.zeros(4 * 4096, np.float32)
+    y = np.zeros(4 * 4096, np.float32)
+    Q = 1000
+    span = (Q - 1) * bank.M + bank.W
+
+    def call(rows=2, ld=4096, keep=2000, pad_front=bank.pad_front, form=2, threads=128):
+        return emulated.f9_cycle_fold_flat(x.ctypes.data, g.ctypes.data, tab.ctypes.data,
+                                           y.ctypes.data, rows, ld, keep, pad_front, Q, bank.L,
+                                           bank.M, bank.W, len(tab), threads, form, None)
+
+    assert call() == 0
+    for bad in (dict(keep=span - bank.pad_front + 1), dict(keep=-1), dict(pad_front=-1),
+                dict(ld=1999), dict(form=1), dict(threads=96)):
+        assert call(**bad) != 0, bad
+    assert call(rows=1, ld=1) == 0                   # one row: its stride is not read
+
+
 # --------------------------------------------------------------- dispatch
 
 def test_dispatch_rule_over_the_grid():
@@ -435,43 +530,99 @@ def test_dispatch_rule_over_the_grid():
     assert (n_fold, n_src) == (320, 285)
 
 
+#: the batch form off the CPU, by `_batch_form`, over the grid of
+#: `test_dispatch_rule_over_the_grid`
+BATCH_FORMS = {"cycle_fold": 195, "matmul": 125, "cycle_src": 285}
+
+
+def _batch_form(bank, monkeypatch) -> str:
+    """The form `src_kernel.resample_auto` sends a batch of ``bank`` to off
+    the CPU: the kernels' wrappers replaced by recorders, the rest run on a
+    meta tensor (shapes only)."""
+    taken = []
+
+    def record(name):
+        def wrapper(x, bank, out_len=None):
+            taken.append(name)
+            n = bank.out_len(x.shape[-1]) if out_len is None else out_len
+            return x.new_empty((*x.shape[:-1], n))
+        return wrapper
+
+    monkeypatch.setattr(sk, "resample_kernel", record("cycle_src"))
+    monkeypatch.setattr(cf, "resample_fold_kernel", record("cycle_fold"))
+    x = torch.empty((2, 4099), device="meta")
+    y = sk.resample_auto(x, bank)
+    assert tuple(y.shape) == (2, bank.out_len(4099)) and len(taken) <= 1
+    return taken[0] if taken else ("matmul" if bank.G is not None else "gather")
+
+
+def test_batch_form_over_the_grid(monkeypatch):
+    """The batch SRC each bank of the grid takes off the CPU, read from
+    `resample_auto`'s own dispatch: the fold kernel's flat form for exactly
+    the dense L = 1 banks (`fold_batch_applicable`), the float32 matmul for
+    the dense L = 2-6 banks, `cycle_src` for L >= 8; counted."""
+    counts = {}
+    for ri in GRID_RATES:
+        for ro in GRID_RATES:
+            for q, kind in [(p, "sinc") for p in QUALITY_PRESETS] + [("high", "lagrange")]:
+                bank = design_cycle_bank(ri, ro, quality=q, kind=kind)
+                form = _batch_form(bank, monkeypatch)
+                want = ("cycle_src" if bank.L >= 8 else "cycle_fold" if bank.L == 1
+                        else "matmul")
+                assert form == want, (ri, ro, q, kind)
+                assert cf.fold_batch_applicable(bank) == (form == "cycle_fold")
+                counts[form] = counts.get(form, 0) + 1
+    assert counts == BATCH_FORMS
+    assert cf.launches_flat == 0 and _build._lib is None
+
+
 def test_cpu_tensor_never_launches():
-    """On the CPU `resample_presliced` and `_tp_step` run the twins and the
-    kernel's count stays 0; the library is never loaded."""
-    cf.launches = 0
+    """On the CPU `resample_presliced`, `resample` and `_tp_step` run the
+    twins and the kernel's counts stay 0; the library is never loaded."""
+    cf.launches = cf.launches_flat = 0
     bank = design_cycle_bank(96000, 48000)
     xp = torch.from_numpy(_haloed(_signal(2, 900, seed=3), bank, 400))
     y = tres.resample_presliced(xp, bank, 400)
     assert torch.equal(y, tres._presliced_fold(xp, bank, 400))
+    assert tres.resample(xp, bank).shape == (2, bank.out_len(xp.shape[-1]))
     tp = design_cycle_bank(48000, 192000)
     pk = tloud._tp_step(torch.from_numpy(_haloed(_signal(2, 500, seed=4), tp, 500)), cycles=500,
                         rate_in=48000, oversample=4)
     assert pk.dim() == 0 and pk.dtype == torch.float32
-    assert cf.launches == 0 and _build._lib is None
+    assert cf.launches == cf.launches_flat == 0 and _build._lib is None
 
 
 def test_wrappers_refuse_before_loading_the_library():
     """A CPU tensor, and on another device a bank the kernel does not take
     (L >= 8, varispeed), float64 samples, a chunk too short for its cycles
     and an empty chunk's peak: each raises before the library is asked
-    for."""
+    for; the flat form of an empty signal returns before it too."""
     fold_bank = design_cycle_bank(44100, 176400)
     cpu = torch.zeros(2, 2000)
-    for fn in (cf.resample_presliced_fold_kernel, cf.presliced_absmax_kernel):
+    for fn in (cf.resample_presliced_fold_kernel, cf.presliced_absmax_kernel,
+               cf.resample_fold_kernel):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(cpu, fold_bank, 100)
     meta = torch.empty((2, 200000), device="meta")
     refused = [(meta, design_cycle_bank(44100, 48000), 100, "does not take"),
                (meta, design_cycle_bank(44100, 44056), 2, "does not take"),
-               (meta.to(torch.float64), fold_bank, 100, "float32"),
-               (torch.empty((2, 127), device="meta"), fold_bank, 1, "too short")]
-    for x, bank, n, msg in refused:
+               (meta.to(torch.float64), fold_bank, 100, "float32")]
+    for x, bank, n, msg in refused + [(torch.empty((2, 127), device="meta"), fold_bank, 1,
+                                       "too short")]:
         for fn in (cf.resample_presliced_fold_kernel, cf.presliced_absmax_kernel):
             with pytest.raises(ValueError, match=msg):
                 fn(x, bank, n)
+    for x, bank, n, msg in refused:
+        with pytest.raises(ValueError, match=msg):
+            cf.resample_fold_kernel(x, bank, n)
+    # an empty signal, or no row, resamples to nothing without a launch
+    l1 = design_cycle_bank(96000, 48000)
+    for shape, n in (((2, 0), None), ((0, 3000), None), ((2, 3000), 0)):
+        y = cf.resample_fold_kernel(torch.empty(shape, device="meta"), l1, n)
+        assert tuple(y.shape) == (shape[0], l1.out_len(shape[1]) if n is None else n)
     with pytest.raises(ValueError, match="empty"):
         cf.presliced_absmax_kernel(torch.empty((0, 2000), device="meta"), fold_bank, 100)
-    assert _build._lib is None and cf.launches == 0
+    assert _build._lib is None and cf.launches == cf.launches_flat == 0
 
 
 # ------------------------------------------------------------ on the card
@@ -500,3 +651,32 @@ def test_kernel_matches_twin_on_card(card):
             assert _same_bits(y.cpu().numpy(), tres._presliced_fold(xs, bank, Q).cpu().numpy())
             assert _same_bits(pk.cpu().numpy(),
                               cf.presliced_absmax_reference(xs, bank, Q).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_flat_form_on_card(card):
+    """A 96 kHz stereo file through `resample` (the batch SRC) on the card:
+    one flat launch a call, bit for bit the twin of the padded signal and
+    `resample_presliced` (the streamed form) of the same padded signal; at
+    the default length and at a shorter one, from a row stride past the
+    row."""
+    import torch.nn.functional as F
+
+    bank = design_cycle_bank(96000, 48000)
+    frames = 96000 * 3 + 17
+    x = torch.from_numpy(_signal(2, frames + 9, seed=23)).to(card)[:, :frames]
+    for out_len in (None, bank.out_len(frames) - 1000):
+        n_all, n_flat = cf.launches, cf.launches_flat
+        y = tres.resample(x, bank, out_len=out_len)
+        assert (cf.launches, cf.launches_flat) == (n_all + 1, n_flat + 1)
+        n, Q, keep_T, pad_front, pad_back = tres._cycle_budget(frames, bank, out_len)
+        xp = F.pad(x[:, :keep_T], (pad_front, pad_back))
+        want = tres._presliced_fold(xp, bank, Q)[:, :n]
+        streamed = tres.resample_presliced(xp, bank, Q)[:, :n]
+        assert y.shape == (2, n)
+        assert torch.equal(_bits_of(y), _bits_of(want))
+        assert torch.equal(_bits_of(y), _bits_of(streamed))
+
+
+def _bits_of(t):
+    return t.contiguous().view(torch.int32).cpu()
