@@ -151,8 +151,8 @@ its results, any failure exiting non-zero:
    `resample_rates`: the exact length, <= -120 dB against the float64
    oracle, the route read from the launch counters as `kernel_applicable`
    and `fold_batch_applicable` say (dense, windowed, the flat fold for
-   L = 1, no launch for the matmul of L = 2-6), each `cycle_src` bank
-   within `TWIN_TOL` of its twin and each flat-fold bank bitwise its twin;
+   every dense L < 8 bank), each `cycle_src` bank within `TWIN_TOL` of its
+   twin and each flat-fold bank bitwise its twin;
    (b) every kernel bank whole against three
    haloed chunks of unequal cycle counts (`resample_presliced`):
    `torch.equal`; (c) the 72 studio sinc kernel banks at the slice's batch,
@@ -162,7 +162,10 @@ its results, any failure exiting non-zero:
    `f9tpu_torch.tools.gen_quality` over its whole matrix, every figure
    within its tolerance of `docs/QUALITY.md`; (e) the batch job
    (`BatchProcessor.run`) on every studio pair at high, two stereo 24-bit
-   WAVs of 5 s and 7.3 s: exact lengths, <= 2 LSB from the port's CPU path.
+   WAVs of 5 s and 7.3 s: exact lengths, <= 2 LSB from the port's CPU path
+   (for the x2 and x4 pairs, whose card SRC is the flat fold, the CPU path
+   with the fold's plain twin in place of its matmul; the matmul's distance
+   printed beside it).
    Launches are counted from zero around each call of (a) and each job of
    (e); the phase fails past `SWEEP_BUDGET_S`;
 13. the config-interaction fuzz at card scale (`phase_fuzz`), the
@@ -229,20 +232,23 @@ its results, any failure exiting non-zero:
    CPU's twin on eight banks; (d) chunked == whole by sha256 at two chunk
    sizes on a 2^22-frame signal, and the chunks' peak the whole one's; the
    fold banks and phase 3's four `cycle_src` banks against the float64
-   oracle at a 0.89 peak (dB, 24-bit LSB error; the batch graph's
-   `resample` beside each fold bank: the flat fold for L = 1, float32
-   matmul otherwise); (e) `cli stream` of a 96 kHz 24-bit stereo file to 48
-   kHz at two chunk sizes: identical bytes, the fold launched, codes
-   against the CPU path; (f) at the meter's true-peak chunk and a 20 s
-   stream chunk, device time (`torch.profiler` in a process of its own,
-   ``--cycle-fold-device-times``) and CUDA-event time beside the bound, the
-   twin and a float64 `F.conv1d` the port never calls; the phase fails past
-   `CYCLE_FOLD_BUDGET_S`; (g) the flat form, the batch SRC of an L = 1
-   bank, at the `studio48.hires_sfx` cell's batch (8 x 2 x 2^22 at 96 kHz,
-   files of 30-43 s, zero past them) through `resample`: one flat launch,
-   bitwise its twin on the padded signal and the presliced kernel on it,
-   and its device time (``--cycle-fold-flat-device-times``) beside its
-   bound, the twin and the unfold + matmul form it replaced, held to
+   oracle at a 0.89 peak (dB, 24-bit LSB error, the fold's at most
+   `FOLD_ORACLE_LSB`; the batch graph's `resample` beside each fold bank:
+   the flat fold, bitwise the presliced kernel); (e) `cli stream` of a 96
+   kHz 24-bit stereo file to 48 kHz at two chunk sizes: identical bytes,
+   the fold launched, codes against the CPU path; (f) at the meter's
+   true-peak chunk and a 20 s stream chunk, device time (`torch.profiler`
+   in a process of its own, ``--cycle-fold-device-times``) and CUDA-event
+   time beside the bound, the twin and a float64 `F.conv1d` the port never
+   calls; the phase fails past `CYCLE_FOLD_BUDGET_S`; (g) the flat form,
+   the batch SRC of a dense L < 8 bank, at two cells' batches of 8 x 2 x
+   2^22, zero past the files: the `studio48.hires_sfx` cell's at 96 -> 48
+   kHz (L = 1, files of 30-43 s) and the `studio96.sfx48` cell's at 48 ->
+   96 kHz (L = 2, files of 30-60 s),
+   through `resample`: one flat launch, bitwise its twin on the padded
+   signal and the presliced kernel on it, and its device time
+   (``--cycle-fold-flat-device-times hires|sfx48``) beside its bound, the
+   twin and the unfold + matmul form it replaced, each batch held to
    `CYCLE_FOLD_FLAT_BUDGET_S`; the kernel's launches, and its flat form's,
    by path over phases 4-10, 15e and 15g, non-zero on normalize, 15e's
    stream and 15g;
@@ -300,6 +306,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: while an indexing fault is of the order of the signal.
 TWIN_TOL = 5e-7
 ORACLE_DB_MAX = -120.0
+#: the L < 8 fold's largest error against the float64 oracle near full
+#: scale, in LSB at 24 bits: its float32 taps and one rounding of an exact
+#: float64 sum (0.25-0.61 over phase 15's banks on the CPU)
+FOLD_ORACLE_LSB = 1.0
 #: the JAX package's own tolerance between two SRC forms after quantizing
 LSB_TOL = 2
 #: the insert loop's card-vs-CPU bound: the JAX package's full-scale bound
@@ -3455,7 +3465,7 @@ def _sweep_route(bank) -> tuple[str, tuple[int, int, int]]:
     if not sk.kernel_applicable(bank):
         if bank.G is None:
             return "gather", (0, 0, 0)
-        return ("fold (L = 1)", (0, 0, 1)) if cf.fold_batch_applicable(bank) else \
+        return ("flat fold", (0, 0, 1)) if cf.fold_batch_applicable(bank) else \
             ("matmul (L < 8)", (0, 0, 0))
     return ("windowed", (1, 1, 0)) if sk.kernel_plan(bank).pitch else ("dense", (1, 0, 0))
 
@@ -3511,10 +3521,7 @@ def _sweep_accuracy(card: str, dev, banks: dict) -> dict:
         db = _db(y.cpu().numpy() - ref, ref) if tuple(y.shape) == ref.shape else 0.0
         err = float((y - _twin_rows(x, bank)).abs().max()) if want[0] else None
         if want[2]:         # the flat fold: bit for bit its twin on the padded signal
-            n, Q, keep, pad_front, pad_back = tr._cycle_budget(frames, bank, None)
-            twin = tr._presliced_fold(torch.nn.functional.pad(x[:, :keep], (pad_front, pad_back)),
-                                      bank, Q)[:, :n]
-            if not _nan_bitwise(y, twin):
+            if not _nan_bitwise(y, cf.resample_fold_reference(x, bank)):
                 faults.append(f"{name}: the flat fold differs from its twin")
         print(f"sweep 12a: {name}: {_plan_text(bank)}; route {route}, launches {got} "
               f"(want {want}); out_len {y.shape[-1]} (exact {bank.out_len(frames)}); "
@@ -3675,13 +3682,33 @@ def _sweep_quality(card: str, dev) -> None:
     _raise_faults("quality 12d", faults)
 
 
+@contextlib.contextmanager
+def _cpu_src_as_flat_fold():
+    """The CPU's batch SRC of a dense bank, `resample._unfold_matmul` (the
+    float32 matmul, JAX's conv bit for bit), replaced by the card's form:
+    the flat fold's plain twin `cycle_fold.resample_fold_reference`, while
+    the block runs; restored after."""
+    from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import resample as tr
+
+    saved = tr._unfold_matmul
+    tr._unfold_matmul = lambda x, bank, out_len: cf.resample_fold_reference(x, bank, out_len)
+    try:
+        yield
+    finally:
+        tr._unfold_matmul = saved
+
+
 def _sweep_jobs(card: str, dev) -> dict:
     """12e: per studio pair at high, one in-process `BatchProcessor.run` on
     the card over two stereo 24-bit WAVs of 5 s and 7.3 s at the input rate
     (calibration, the bucket, the SRC route, the epilogue pair), then the
     same job on the port's CPU path: every output at the exact length and
-    within `LSB_TOL` of the CPU's bytes.  Returns the launches (every SRC
-    launch, the epilogue pair's)."""
+    within `LSB_TOL` of the CPU's bytes.  Where the card's batch SRC is the
+    flat fold of a bank with L > 1 (x2, x4), the CPU job compared runs the
+    fold's plain twin in place of the matmul (`_cpu_src_as_flat_fold`); the
+    card's distance to the CPU's own path, the matmul, is printed beside
+    it.  Returns the launches (every SRC launch, the epilogue pair's)."""
     import numpy as np
 
     from f9tpu_torch import resolve_device
@@ -3699,6 +3726,7 @@ def _sweep_jobs(card: str, dev) -> dict:
     faults = []
     for ri, ro in _sweep_pairs():
         bank = design_cycle_bank(ri, ro, quality="high")
+        fold_twin = cf.fold_batch_applicable(bank) and bank.L > 1
         work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
         try:
             paths = []
@@ -3707,19 +3735,23 @@ def _sweep_jobs(card: str, dev) -> dict:
                 wav.write_wav(p, _signal(rng, 2, int(sec * ri), ri), ri, bits=24)
                 paths.append(p)
             outs = {}
-            for tag, d in (("card", dev), ("cpu", cpu)):
+            runs = [("card", dev), ("cpu", cpu)] + ([("cpu fold", cpu)] if fold_twin else [])
+            for tag, d in runs:
                 cfg = ProcessingConfig(output_dir=os.path.join(work, tag), target_rate=ro,
                                        quality="high", batch_size=2, seed=0)
                 _zero_counts()
-                res = BatchProcessor(cfg, device=d).run(paths)
+                with _cpu_src_as_flat_fold() if tag == "cpu fold" else contextlib.nullcontext():
+                    res = BatchProcessor(cfg, device=d).run(paths)
                 if tag == "card":
                     n_src, n_flat, n_ep = sk.launches, cf.launches_flat, ep.launches
                 if res.completed != 2:
                     raise AssertionError(f"sweep 12e: {ri}->{ro} {tag}: {res.completed} of 2")
                 outs[tag] = [_read_codes(build_output_path(p, cfg.output_dir, cfg.postfix))
                              for p in paths]
-            lens, diffs = [], []
-            for p, (g, g_rate), (c, c_rate) in zip(paths, outs["card"], outs["cpu"]):
+            lens, diffs, matmul = [], [], []
+            for i, p in enumerate(paths):
+                g, g_rate = outs["card"][i]
+                c, c_rate = outs["cpu fold" if fold_twin else "cpu"][i]
                 n_in = wav.read_wav(p)[0].shape[-1]
                 lens.append((g.shape[-1], bank.out_len(n_in)))
                 if g_rate != ro or c_rate != ro or g.shape != c.shape \
@@ -3728,14 +3760,19 @@ def _sweep_jobs(card: str, dev) -> dict:
                                   f"{bank.out_len(n_in)}")
                     continue
                 diffs.append(int(np.abs(g - c).max()))
+                if fold_twin:
+                    m = outs["cpu"][i][0]
+                    matmul.append(int(np.abs(g - m).max()) if m.shape == g.shape else -1)
             worst = max([worst] + diffs)
             src_total += n_src
             flat_total += n_flat
             ep_total += n_ep
             want_src, want_flat = sk.kernel_applicable(bank), cf.fold_batch_applicable(bank)
+            against = (f"CPU with the fold's twin max {diffs} LSB (tol {LSB_TOL}), CPU's matmul "
+                       f"{matmul}" if fold_twin else f"CPU max {diffs} LSB (tol {LSB_TOL})")
             print(f"sweep 12e: {ri}->{ro} high (L={bank.L}): frames (got, exact) {lens}; card vs "
-                  f"CPU max {diffs} LSB (tol {LSB_TOL}); SRC launches {n_src}, flat fold "
-                  f"{n_flat}, epilogue {n_ep}", flush=True)
+                  f"{against}; SRC launches {n_src}, flat fold {n_flat}, epilogue {n_ep}",
+                  flush=True)
             if max(diffs, default=0) > LSB_TOL:
                 faults.append(f"{ri}->{ro}: card vs CPU {diffs} LSB")
             if n_ep < 1 or (n_src >= 1) != want_src or (n_flat >= 1) != want_flat:
@@ -5183,12 +5220,15 @@ CYCLE_FOLD_CORE = ((44100, 176400, "high", "sinc"), (96000, 48000, "high", "sinc
 #: 15e's source: a 96 kHz stereo 24-bit WAV of this many seconds, streamed to
 #: 48 kHz at these chunk sizes
 CYCLE_FOLD_STREAM = (30.0, ("20", "7.3"))
-#: 15g's batch: files, channels, bucket frames at 96 kHz and the files'
-#: seconds, the `studio48.hires_sfx` cell's (zero past each file, as the front
-#: end leaves the bucket)
-CYCLE_FOLD_BATCH = (8, 2, 1 << 22, (30.0, 43.0))
-#: 15g's budget, seconds, apart from 15a-f's `CYCLE_FOLD_BUDGET_S` (on one
-#: H100 19.9 s alone, of it the profiled child's torch import ~10)
+#: 15g's batches, a benchmark cell's each: the rates in and out, files,
+#: channels, bucket frames at the input rate and the files' seconds (zero
+#: past each file, as the front end leaves the bucket); `studio48.hires_sfx`
+#: (96 -> 48 kHz, L = 1) and `studio96.sfx48` (48 -> 96 kHz, L = 2)
+CYCLE_FOLD_BATCHES = {"hires": (96000, 48000, 8, 2, 1 << 22, (30.0, 43.0)),
+                      "sfx48": (48000, 96000, 8, 2, 1 << 22, (30.0, 60.0))}
+#: 15g's budget a batch, seconds, apart from 15a-f's `CYCLE_FOLD_BUDGET_S`
+#: (hires on one H100 19.9 s alone, of it the profiled child's torch import
+#: ~10)
 CYCLE_FOLD_FLAT_BUDGET_S = 30.0
 #: the cycle_fold kernel's launches of each main-path drive, as `_read_counts`
 #: read them (`main` sums them by path; `EPILOGUE_READS` keeps step with it)
@@ -5404,8 +5444,9 @@ def _fold_oracle(card: str, dev, frames: int = 16384) -> tuple[list[str], dict]:
     float64 oracle near full scale (two tones and noise scaled to a 0.89
     peak, 16384 frames): dB RMS (<= `ORACLE_DB_MAX`) and the 24-bit LSB
     error, max and RMS; beside each fold bank, the batch graph's `resample`
-    on the same input (the flat fold for L = 1, else float32 unfold +
-    matmul)."""
+    on the same input (the flat fold), bit for bit the presliced kernel's
+    samples; the fold's and the batch's largest error at most
+    `FOLD_ORACLE_LSB`."""
     import numpy as np
     import torch
 
@@ -5435,6 +5476,9 @@ def _fold_oracle(card: str, dev, frames: int = 16384) -> tuple[list[str], dict]:
         else:
             outs = {"cycle_src": sk.resample_kernel(xt, bank)}
         line = []
+        if form == "fold" and not _nan_bitwise(outs["batch"],
+                                               outs["fold"][:, :outs["batch"].shape[-1]]):
+            faults.append(f"oracle {ri}->{ro} {q} {kind}: the batch form is not the fold")
         for f, y in outs.items():
             y = y.cpu().numpy()[:, :ref.shape[-1]]
             lsb = np.abs(y.astype(np.float64) - ref) * float(1 << 23)
@@ -5444,8 +5488,10 @@ def _fold_oracle(card: str, dev, frames: int = 16384) -> tuple[list[str], dict]:
             line.append(f"{f} {db:.1f} dB, {lsb.max():.3f} LSB max, "
                         f"{np.sqrt(np.mean(lsb ** 2)):.3f} RMS")
             worst[f] = (max(worst[f][0], db), max(worst[f][1], float(lsb.max())))
-            if f != "batch" and not db <= ORACLE_DB_MAX:
+            if not db <= ORACLE_DB_MAX:
                 faults.append(f"oracle {ri}->{ro} {q} {kind} {f}: {db:.1f} dB")
+            if f != "cycle_src" and not lsb.max() <= FOLD_ORACLE_LSB:
+                faults.append(f"oracle {ri}->{ro} {q} {kind} {f}: {lsb.max():.3f} LSB")
         print(f"cycle_fold oracle: {ri}->{ro} {q} {kind} (L={bank.L} M={bank.M}) at a 0.89 "
               f"peak: " + "; ".join(line) + f" [{card}]", flush=True)
     print("cycle_fold oracle: worst (dB, LSB max) " + ", ".join(
@@ -5498,22 +5544,23 @@ def _fold_stream(card: str, work: str, dev) -> tuple[list[str], int]:
     return faults, launches
 
 
-def _fold_batch_input(dev, seed: int):
-    """15g's batch (`CYCLE_FOLD_BATCH`) on ``dev``: ``(files, C, frames)``
-    float32, each file's samples (a length drawn in the cell's seconds at
-    96 kHz) two tones and noise at `_signal`'s levels, made on the device
-    and rounded to 24-bit codes, zero past them; and the lengths."""
+def _fold_batch_input(dev, seed: int, key: str = "hires"):
+    """15g's batch ``key`` of `CYCLE_FOLD_BATCHES` on ``dev``: ``(files, C,
+    frames)`` float32, each file's samples (a length drawn in the cell's
+    seconds at its input rate) two tones and noise at `_signal`'s levels,
+    made on the device and rounded to 24-bit codes, zero past them; and the
+    lengths."""
     import math
 
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    files, C, T, (lo, hi) = CYCLE_FOLD_BATCH
-    lengths = rng.integers(int(lo * 96000), int(hi * 96000) + 1, size=files)
+    rate, _ro, files, C, T, (lo, hi) = CYCLE_FOLD_BATCHES[key]
+    lengths = rng.integers(int(lo * rate), int(hi * rate) + 1, size=files)
     f = torch.from_numpy(rng.uniform(80.0, 6000.0, size=(files, C, 2, 1))).to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    t = torch.arange(T, dtype=torch.float64, device=dev) * (2 * math.pi / 96000)
+    t = torch.arange(T, dtype=torch.float64, device=dev) * (2 * math.pi / rate)
     x = (0.3 * torch.sin(f[:, :, 0] * t) + 0.15 * torch.sin(f[:, :, 1] * t + 0.7)
          + 0.02 * torch.randn((files, C, T), dtype=torch.float64, device=dev, generator=gen))
     x = torch.round(x * (1 << 23)) / (1 << 23)
@@ -5521,13 +5568,17 @@ def _fold_batch_input(dev, seed: int):
     return torch.where(valid, x, 0.0).to(torch.float32), [int(n) for n in lengths]
 
 
-def _fold_flat_batch(card: str, dev) -> tuple[list[str], int]:
-    """15g: the batch SRC of `CYCLE_FOLD_BATCH` at 96 -> 48 kHz high (the
-    `studio48.hires_sfx` cell's graph call: ``resample`` of the front end's
-    ``(8, 2, 2^22)`` to whole cycles), launches counted from zero: one flat
-    launch, and its samples bit for bit the twin on the padded signal and
-    the presliced kernel (the streamed form) on the same padded signal.
-    Returns (faults, the flat launches)."""
+#: 15g's input seeds, past `SEED`
+_FOLD_BATCH_SEEDS = {"hires": 156, "sfx48": 157}
+
+
+def _fold_flat_batch(card: str, dev, key: str) -> tuple[list[str], int]:
+    """15g: the batch SRC of ``key`` of `CYCLE_FOLD_BATCHES` at high (the
+    cell's graph call: ``resample`` of the front end's ``(8, 2, 2^22)`` to
+    whole cycles), launches counted from zero: one flat launch, and its
+    samples bit for bit the twin on the padded signal and the presliced
+    kernel (the streamed form) on the same padded signal.  Returns (faults,
+    the flat launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -5535,8 +5586,9 @@ def _fold_flat_batch(card: str, dev) -> tuple[list[str], int]:
     from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import resample as tr
 
-    bank = design_cycle_bank(96000, 48000, quality="high")
-    x, lengths = _fold_batch_input(dev, SEED + 156)
+    ri, ro = CYCLE_FOLD_BATCHES[key][:2]
+    bank = design_cycle_bank(ri, ro, quality="high")
+    x, lengths = _fold_batch_input(dev, SEED + _FOLD_BATCH_SEEDS[key], key)
     T = x.shape[-1]
     Q = -(-bank.out_len(T) // bank.L)
     _zero_counts()
@@ -5550,17 +5602,18 @@ def _fold_flat_batch(card: str, dev) -> tuple[list[str], int]:
     faults = []
     same_twin, same_stream = _nan_bitwise(y, twin), _nan_bitwise(y, streamed)
     silent = int((y == 0).all(dim=-1).sum())
-    print(f"cycle_fold 15g: hires batch {tuple(x.shape)} (files of {min(lengths) / 96000:.1f}-"
-          f"{max(lengths) / 96000:.1f} s) -> {tuple(y.shape)} through resample: {flat} flat "
-          f"launches of {total}; bitwise the twin {same_twin}, the presliced kernel "
-          f"{same_stream}; {silent} silent rows [{card}]", flush=True)
+    print(f"cycle_fold 15g: {key} batch {ri // 1000}k->{ro // 1000}k (L={bank.L}) "
+          f"{tuple(x.shape)} (files of {min(lengths) / ri:.1f}-{max(lengths) / ri:.1f} s) -> "
+          f"{tuple(y.shape)} through resample: {flat} flat launches of {total}; bitwise the "
+          f"twin {same_twin}, the presliced kernel {same_stream}; {silent} silent rows "
+          f"[{card}]", flush=True)
     if (flat, total) != (1, 1):
-        faults.append(f"15g: {flat} flat launches of {total}, not 1 of 1")
+        faults.append(f"15g {key}: {flat} flat launches of {total}, not 1 of 1")
     if not same_twin:
-        faults.append(f"15g: the flat form differs from the twin in "
+        faults.append(f"15g {key}: the flat form differs from the twin in "
                       f"{int((_bits(y) != _bits(twin)).sum())} words")
     if not same_stream:
-        faults.append("15g: the flat form differs from the presliced kernel")
+        faults.append(f"15g {key}: the flat form differs from the presliced kernel")
     del x, xp, y, twin, streamed
     torch.cuda.empty_cache()
     return faults, flat
@@ -5610,53 +5663,51 @@ def _fold_time_cases(dev) -> list[dict]:
     return cases
 
 
-def _fold_flat_time_cases(dev) -> list[dict]:
-    """15g's case, in `_fold_time_cases`' form: the flat form at the hires
-    cell's batch (`_fold_batch_input`); its library form is the unfold and
-    float32 matmul it replaced, its bound the larger of the FMAs of the
-    outputs the files' samples reach at `FP64_INSTR_PER_S` and those samples
-    read once, y written once at `HBM_BYTES_PER_S`."""
-    import torch.nn.functional as F
-
+def _fold_flat_time_cases(dev, key: str) -> list[dict]:
+    """15g's case, in `_fold_time_cases`' form: the flat form at the batch
+    ``key`` of `CYCLE_FOLD_BATCHES` (`_fold_batch_input`); its library form
+    is the unfold and float32 matmul it replaced, its bound the larger of
+    the FMAs of the cycles the files' samples reach (each row's ``hi - lo``
+    a cycle) at `FP64_INSTR_PER_S` and those samples read once, y written
+    once at `HBM_BYTES_PER_S`."""
     from f9tpu_torch.models import design_cycle_bank
     from f9tpu_torch.ops import cycle_fold as cf
     from f9tpu_torch.ops import resample as tr
 
-    bank = design_cycle_bank(96000, 48000, quality="high")
-    xb, lengths = _fold_batch_input(dev, SEED + 156)
+    ri, ro = CYCLE_FOLD_BATCHES[key][:2]
+    bank = design_cycle_bank(ri, ro, quality="high")
+    xb, lengths = _fold_batch_input(dev, SEED + _FOLD_BATCH_SEEDS[key], key)
     files, C, T = xb.shape
     Q = -(-bank.out_len(T) // bank.L)
-    _n, _Q, keep, pad_front, pad_back = tr._cycle_budget(T, bank, Q * bank.L)
-    fmas = C * sum(bank.out_len(n) for n in lengths) * bank.W
+    per_cycle = sum(hi - lo for _, lo, hi in tr._fold_rows(bank))
+    fmas = C * sum(-(-bank.out_len(n) // bank.L) for n in lengths) * per_cycle
     nbytes = 4 * C * (sum(lengths) + files * Q * bank.L)
     t_ops, t_bytes = fmas / FP64_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
     return [dict(
-        label="hires batch 96k->48k, flat",
+        label=f"{key} batch {ri // 1000}k->{ro // 1000}k, flat",
         shape=f"L={bank.L} M={bank.M} W={bank.W}, {files * C} x {Q} cycles, files of "
-        f"{min(lengths) / 96000:.1f}-{max(lengths) / 96000:.1f} s in {T / 96000:.1f}",
+        f"{min(lengths) / ri:.1f}-{max(lengths) / ri:.1f} s in {T / ri:.1f}",
         run=lambda xb=xb, b=bank, n=Q * bank.L: tr.resample(xb, b, out_len=n),
-        twin=lambda xb=xb, b=bank, Q=Q: tr._presliced_fold(F.pad(
-            xb.reshape(-1, xb.shape[-1])[:, :keep], (pad_front, pad_back)), b, Q).reshape(
-                *xb.shape[:-1], Q * b.L),
+        twin=lambda xb=xb, b=bank, n=Q * bank.L: cf.resample_fold_reference(xb, b, n),
         library=lambda xb=xb, b=bank, n=Q * bank.L: tr._unfold_matmul(xb, b, n),
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops > t_bytes else "bytes",
         ptxas=f"cycle_fold_kernelILi{bank.L}ELi{cf.fold_form(bank)}ELb0E")]
 
 
-def cycle_fold_device_times_main(dev, flat: bool = False, runs: int = 20) -> dict:
+def cycle_fold_device_times_main(dev, flat: str | None = None, runs: int = 20) -> dict:
     """15f's device times, for the child process (``--cycle-fold-device-
-    times``; 15g's with ``flat``, ``--cycle-fold-flat-device-times``):
-    {label: device ms a call of the kernel, "<label> memset": the memset's},
-    from one `torch.profiler` session a case over ``runs`` calls after a
-    warm-up."""
+    times``; 15g's of the batch ``flat``, ``--cycle-fold-flat-device-times
+    <batch>``): {label: device ms a call of the kernel, "<label> memset":
+    the memset's}, from one `torch.profiler` session a case over ``runs``
+    calls after a warm-up."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
     tag = "15g" if flat else "15f"
-    for c in (_fold_flat_time_cases if flat else _fold_time_cases)(dev):
+    for c in (_fold_flat_time_cases(dev, flat) if flat else _fold_time_cases(dev)):
         c["run"]()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -5674,21 +5725,21 @@ def cycle_fold_device_times_main(dev, flat: bool = False, runs: int = 20) -> dic
     return out
 
 
-def _fold_times(card: str, dev, flat: bool = False) -> tuple[dict, list[str]]:
+def _fold_times(card: str, dev, flat: str | None = None) -> tuple[dict, list[str]]:
     """15f: at `_fold_time_cases`' two shapes (15g: `_fold_flat_time_cases`'
-    one, with ``flat``), the kernel's device time (the profiler in a process
-    of its own, ``--cycle-fold-device-times`` or ``--cycle-fold-flat-device-
-    times``; a fault if it reads none) and one call's CUDA-event time
-    (median of 10) beside its bound, the twin's (median of 3) and the
-    library call's; the kernel bitwise the twin there.  Returns the JSON
+    one of the batch ``flat``), the kernel's device time (the profiler in a
+    process of its own, ``--cycle-fold-device-times`` or ``--cycle-fold-
+    flat-device-times <batch>``; a fault if it reads none) and one call's
+    CUDA-event time (median of 10) beside its bound, the twin's (median of
+    3) and the library call's; the kernel bitwise the twin there.  Returns the JSON
     summary's numbers (the first case's, and every case's under
     "per_shape") and the faults."""
     import torch
 
     tag = "15g" if flat else "15f"
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--cycle-fold-flat-device-times" if flat else
-                           "--cycle-fold-device-times"], capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__)]
+                          + (["--cycle-fold-flat-device-times", flat] if flat else
+                             ["--cycle-fold-device-times"]), capture_output=True, text=True,
                           timeout=600)
     for line in proc.stdout.splitlines():
         if line.startswith(f"cycle_fold {tag}"):
@@ -5702,7 +5753,7 @@ def _fold_times(card: str, dev, flat: bool = False) -> tuple[dict, list[str]]:
     else:
         device = json.loads(result[-1])
     out = {}
-    for c in (_fold_flat_time_cases if flat else _fold_time_cases)(dev):
+    for c in (_fold_flat_time_cases(dev, flat) if flat else _fold_time_cases(dev)):
         got, want = c["run"](), c["twin"]()
         same = _nan_bitwise(got.reshape(-1), want.reshape(-1))
         err = float((got - want).abs().max())
@@ -5760,23 +5811,28 @@ def phase_cycle_fold(card: str, work: str, dev) -> dict:
     faults += time_faults
     walls["15f"] = time.time() - t0
     total = time.time() - t_all
-    t0 = time.time()
-    flat_faults, flat_launches = _fold_flat_batch(card, dev)
-    flat_out, time_faults = _fold_times(card, dev, flat=True)
-    faults += flat_faults + time_faults
-    out["per_shape"].update(flat_out["per_shape"])
-    walls["15g"] = time.time() - t0
+    flat_launches, flat_walls = 0, 0.0
+    for key in CYCLE_FOLD_BATCHES:
+        t0 = time.time()
+        flat_faults, n_flat = _fold_flat_batch(card, dev, key)
+        flat_out, time_faults = _fold_times(card, dev, flat=key)
+        faults += flat_faults + time_faults
+        out["per_shape"].update(flat_out["per_shape"])
+        flat_launches += n_flat
+        walls[f"15g {key}"] = time.time() - t0
+        flat_walls += walls[f"15g {key}"]
+        if walls[f"15g {key}"] > CYCLE_FOLD_FLAT_BUDGET_S:
+            faults.append(f"15g {key} {walls[f'15g {key}']:.1f} s > "
+                          f"{CYCLE_FOLD_FLAT_BUDGET_S:g} s")
     print(f"phase 15 (cycle_fold): {total:.1f} s (budget {CYCLE_FOLD_BUDGET_S:g}), 15g "
-          f"{walls['15g']:.1f} s (budget {CYCLE_FOLD_FLAT_BUDGET_S:g}): "
+          f"{flat_walls:.1f} s (budget {CYCLE_FOLD_FLAT_BUDGET_S:g} a batch): "
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f" [{card}]", flush=True)
     if total > CYCLE_FOLD_BUDGET_S:
         faults.append(f"{total:.1f} s > {CYCLE_FOLD_BUDGET_S:g} s")
-    if walls["15g"] > CYCLE_FOLD_FLAT_BUDGET_S:
-        faults.append(f"15g {walls['15g']:.1f} s > {CYCLE_FOLD_FLAT_BUDGET_S:g} s")
     _raise_faults("phase 15", faults)
     out.update(max_abs_err=worst, cases=cases, stream_launches=stream_launches,
                flat_launches=flat_launches, oracle_worst=oracle["worst"],
-               seconds=dict(walls, total=total + walls["15g"]))
+               seconds=dict(walls, total=total + flat_walls))
     return out
 
 
@@ -6082,9 +6138,9 @@ def main() -> int:
     if sys.argv[1:] == ["--cycle-fold-device-times"]:
         print(json.dumps(cycle_fold_device_times_main(resolve_device("cuda"))), flush=True)
         return 0
-    if sys.argv[1:] == ["--cycle-fold-flat-device-times"]:
-        print(json.dumps(cycle_fold_device_times_main(resolve_device("cuda"), flat=True)),
-              flush=True)
+    if len(sys.argv) == 3 and sys.argv[1] == "--cycle-fold-flat-device-times":
+        print(json.dumps(cycle_fold_device_times_main(resolve_device("cuda"),
+                                                      flat=sys.argv[2])), flush=True)
         return 0
     if sys.argv[1:] == ["--cycle-fold"]:
         card = _card()
@@ -6317,7 +6373,7 @@ def main() -> int:
     fold_by_path["cycle_fold_flat_batch"] = flat_by_path["cycle_fold_flat_batch"] = \
         kfold["flat_launches"]
     print(f"cycle_fold: launches by path {fold_by_path} [{card}]", flush=True)
-    print(f"cycle_fold: launches_flat (the batch SRC of L = 1 banks) by path {flat_by_path} "
+    print(f"cycle_fold: launches_flat (the batch SRC of L < 8 banks) by path {flat_by_path} "
           f"[{card}]", flush=True)
     idle = [p for p in ("normalize", "cycle_fold_stream") if fold_by_path.get(p, 0) < 1]
     if idle:

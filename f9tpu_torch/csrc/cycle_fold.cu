@@ -15,12 +15,12 @@
 // Three launch forms share the kernel.  The presliced one (f9_cycle_fold, y
 // or peak) reads a chunk that carries its own halos: cycle q reads samples
 // q * M .. q * M + W - 1 of its row.  The flat one (f9_cycle_fold_flat, the
-// batch SRC of a dense L = 1 bank) reads the unpadded signal: cycle q reads
-// q * M + w - pad_front, as +0.0 outside [0, keep), which is what the twin
-// reads from F.pad(x[..., :keep], (pad_front, pad_back)).  Both forms stage
-// a block's span by the same loop; the presliced form is the flat one with
-// pad_front = 0 and keep = T.  A padded zero's product is +-0.0 and every
-// sum starts from +0.0, so the pads leave every bit as the twin's.
+// batch SRC of a dense bank on the card) reads the unpadded signal: cycle q
+// reads q * M + w - pad_front, as +0.0 outside [0, keep), which is what the
+// twin reads from F.pad(x[..., :keep], (pad_front, pad_back)).  Both forms
+// stage a block's span by the same loop; the presliced form is the flat one
+// with pad_front = 0 and keep = T.  A padded zero's product is +-0.0 and
+// every sum starts from +0.0, so the pads leave every bit as the twin's.
 //
 // Bit for bit the twin.  The twin forms y[q, l] = sum_w x[q*M + w] * G[w, l]
 // in float64 over the rows w of its table (`_fold_rows`: the rows of G with a

@@ -21,12 +21,15 @@ The three launch forms and their plain twins, each bit for bit:
 - `resample_fold_kernel`, the flat form, = ``_presliced_fold(F.pad(x[...,
   :keep_T], (pad_front, pad_back)), bank, Q)`` with `resample._cycle_budget`'s
   numbers: the same fold read from the unpadded signal, the pads read as
-  +0.0 inside the kernel, no padded copy made.  The batch SRC of the dense
-  banks with L = 1 (the integer-ratio downsamplings, `fold_batch_applicable`):
-  its caller is `resample.resample`, and through it `src_kernel.resample_auto`
-  (the batch graph, `resample_rates`) and `resample_staged` (the rows layout).
-  Dense banks with L = 2 and 4 keep the float32 matmul there, which is JAX's
-  conv bit for bit on upsampling.
+  +0.0 inside the kernel, no padded copy made.  The batch SRC on the card
+  of every dense bank the kernel takes (`fold_batch_applicable`): the
+  integer-ratio downsamplings (L = 1) and upsamplings (L = 2, 4) and the
+  meter's conversions to 48 kHz (L = 3, 6).  Its caller is
+  `resample.resample`, and through it `src_kernel.resample_auto` (the batch
+  graph, `resample_rates`) and `resample_staged` (the rows layout).  Its
+  plain twin is `resample_fold_reference`.  The card's batch form answers
+  to the float64 oracle (its sums are exact products added in float64);
+  the CPU keeps the float32 matmul, JAX's conv bit for bit.
 - `presliced_absmax_kernel` = `presliced_absmax_reference`, ``torch.max(
   torch.abs(_presliced_fold(...)))``: a 0-d float32, NaN if any output is
   NaN.  The fused form writes no y.  Its caller is `loudness._tp_step`.
@@ -50,14 +53,15 @@ import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models.filters import CycleBank
 from .resample import _cycle_budget, _fold_rows, _presliced_fold, cycle_matrix_f32
 
 __all__ = ["FOLD_CYCLES", "fold_table", "fold_form", "fold_smem", "fold_threads",
            "fold_kernel_applicable", "fold_batch_applicable", "resample_fold_kernel",
-           "resample_presliced_fold_kernel", "presliced_absmax_kernel",
-           "presliced_absmax_reference", "launches", "launches_flat"]
+           "resample_fold_reference", "resample_presliced_fold_kernel",
+           "presliced_absmax_kernel", "presliced_absmax_reference", "launches", "launches_flat"]
 
 #: kernel launches since the count was last reset, of every form
 launches = 0
@@ -147,12 +151,14 @@ def fold_kernel_applicable(bank: CycleBank) -> bool:
 
 def fold_batch_applicable(bank: CycleBank) -> bool:
     """Does the batch SRC (`resample.resample` on the card) of ``bank`` run
-    the fold kernel's flat form?  A dense bank with L = 1 that the kernel
-    takes: every integer-ratio downsampling (96k -> 48k, 192k -> 48k, 48k ->
-    16k, 384k -> 8k).  Dense banks with L = 2 and 4 keep the float32 matmul,
-    bit for bit JAX's conv there, which the fold would leave by 5-8 LSB;
+    the fold kernel's flat form?  Every dense bank the kernel takes
+    (`fold_kernel_applicable`, L < 8): the integer-ratio downsamplings (96k
+    -> 48k, 384k -> 8k: L = 1), upsamplings (48k -> 96k, 48k -> 192k: L =
+    2, 4) and the meter's 16k -> 48k and 8k -> 48k (L = 3, 6).  The fold
+    reads under 1 LSB from the float64 oracle near full scale where the
+    float32 matmul, JAX's conv bit for bit, reads up to 8 on upsampling;
     L >= 8 runs `cycle_src`."""
-    return bank.L == 1 and fold_kernel_applicable(bank)
+    return fold_kernel_applicable(bank)
 
 
 @functools.lru_cache(maxsize=64)
@@ -244,10 +250,10 @@ def resample_fold_kernel(x: torch.Tensor, bank: CycleBank,
     """The flat form: `resample.resample` of ``x (..., T)`` float32 on the
     card by a bank the kernel takes, ``(..., out_len)`` with ``out_len``
     defaulting to ``ceil(T*L/M)``, in one launch on the unpadded signal.
-    Each output is bit for bit ``_presliced_fold(F.pad(x[..., :keep_T],
-    (pad_front, pad_back)), bank, Q)`` with `resample._cycle_budget`'s
-    numbers; rows may stand a stride apart wider than T.  Launches or
-    raises."""
+    Each output is bit for bit `resample_fold_reference`, ``_presliced_fold(
+    F.pad(x[..., :keep_T], (pad_front, pad_back)), bank, Q)`` with
+    `resample._cycle_budget`'s numbers; rows may stand a stride apart wider
+    than T.  Launches or raises."""
     threads = _threads(x, bank)
     T = x.shape[-1]
     lead = tuple(x.shape[:-1])
@@ -269,6 +275,20 @@ def resample_fold_kernel(x: torch.Tensor, bank: CycleBank,
     if Q * bank.L != out_len:
         y = y[:, :out_len]
     return y.reshape(*lead, out_len)
+
+
+def resample_fold_reference(x: torch.Tensor, bank: CycleBank,
+                            out_len: int | None = None) -> torch.Tensor:
+    """The plain twin of `resample_fold_kernel`, on ``x``'s device:
+    ``_presliced_fold(F.pad(x[..., :keep_T], (pad_front, pad_back)), bank,
+    Q)`` with `resample._cycle_budget`'s numbers, cut to ``out_len``."""
+    T = x.shape[-1]
+    lead = tuple(x.shape[:-1])
+    out_len, Q, keep_T, pad_front, pad_back = _cycle_budget(T, bank, out_len)
+    if T == 0 or out_len == 0:
+        return x.new_zeros((*lead, out_len))
+    xp = F.pad(x[..., :keep_T], (pad_front, pad_back))
+    return _presliced_fold(xp, bank, Q)[..., :out_len]
 
 
 def resample_presliced_fold_kernel(xp: torch.Tensor, bank: CycleBank,

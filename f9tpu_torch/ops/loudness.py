@@ -32,7 +32,8 @@ within 0.01 LU / 0.01 dB (the tests hold them):
   the port computes on the trimmed signal.
 - The 4x true-peak oversampler is the bank ``rate -> 4*rate`` (L = 4,
   M = 1), below the `cycle_src` kernel's L >= 8.  The whole-file form runs
-  the unfold + matmul `resample`; the streamed form (`_tp_step`) runs the
+  `resample` (the `cycle_fold` kernel's flat form on the card, the unfold
+  + matmul on the CPU); the streamed form (`_tp_step`) runs the
   `cycle_fold` kernel fused with the peak on the card (one memset and one
   launch a chunk, no oversampled signal written) and its twin, the float64
   fold `resample._presliced_fold` and ``max |y|``, on the CPU: the same

@@ -358,8 +358,8 @@ def kernel_applicable(bank: CycleBank) -> bool:
 
     It needs L >= 8 (a block computes 8 to 40 output phases; below 8, the
     integer-ratio banks with L in {1, 2, 4}, most of it would idle and
-    `resample.resample` serves them: the `cycle_fold` kernel for L = 1 on
-    the card, else the unfold + matmul form) and, for a dense bank, a signal span
+    `resample.resample` serves them: the `cycle_fold` kernel on the card,
+    the unfold + matmul form on the CPU) and, for a dense bank, a signal span
     of 16 cycles that fits a block's shared memory (M up to ~3,000), for a
     varispeed bank 16 union windows of one column tile and the ring that
     do: `kernel_plan` is not None.  Unlike the Pallas
@@ -671,9 +671,9 @@ def resample_auto(x: torch.Tensor, bank: CycleBank,
                   out_len: int | None = None) -> torch.Tensor:
     """The kernel where `kernel_applicable`, `resample` otherwise (the JAX
     package's dispatch): for a dense bank with L < 8 the `cycle_fold`
-    kernel's flat form where L = 1 on the card and the unfold + matmul form
-    otherwise, the float64 gather form for a varispeed bank whose window does
-    not fit the kernel."""
+    kernel's flat form on the card and the unfold + matmul form on the CPU,
+    the float64 gather form for a varispeed bank whose window does not fit
+    the kernel."""
     if kernel_applicable(bank):
         return resample_kernel(x, bank, out_len=out_len)
     return resample(x, bank, out_len=out_len)

@@ -223,7 +223,7 @@ def render(device: torch.device, pairs=PAIRS, log=None) -> str:
         f"**{card_name(device)}**",
         "through the port's production path (`f9tpu_torch.ops.resample.resample_rates`: the",
         "`cycle_src` kernel, dense or windowed, where it takes the bank; for L < 8 the",
-        "`cycle_fold` kernel where L = 1, else the unfold + matmul form), with the pairs,",
+        "`cycle_fold` kernel on the card, the unfold + matmul form on the CPU), with the pairs,",
         "tones and FFT analysis of `tools/gen_quality.py`,",
         "whose JAX figures are `docs/QUALITY.md`.  Presets are Kaiser windowed-sinc designs",
         "parameterised by zero-crossings-per-side at the limiting rate:",

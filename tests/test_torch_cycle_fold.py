@@ -23,17 +23,23 @@ on the CPU.
 - The CUDA source itself, built by g++ against `tests/cuda_emu.h` (a
   thread per CUDA thread, a barrier for ``__syncthreads``, shared memory
   filled with NaNs), equals the twin bit for bit in both forms, and its
-  flat launch form (the batch SRC of the L = 1 banks, read from the
-  unpadded signal) equals the twin of the padded signal.
+  flat launch form (the batch SRC of the dense banks on the card, read from
+  the unpadded signal) equals the twin of the padded signal at L = 1, 2, 3,
+  4 and 6.
+- The flat form's contract at L = 2, 3, 4 and 6: its twin
+  (`cycle_fold.resample_fold_reference`) within 1 LSB at 24 bits and -140
+  dB of the float64 oracle near full scale, and the wrapper's launch
+  numbers and shapes those of `resample`.
 - Dispatch: a CPU tensor never launches or loads the library, the kernel
   wrappers refuse a CPU tensor and every bank and input the kernel does not
   take before the library is asked for, `fold_kernel_applicable` is true on
   exactly the dense L < 8 banks, and `cycle_src`'s `kernel_applicable` on
   exactly the others; the batch form each bank takes off the CPU: the flat
-  fold for dense L = 1, the matmul for dense L = 2-6, `cycle_src` for L >= 8.
+  fold for every dense L < 8 bank, `cycle_src` for L >= 8.
 - `cuda`-marked tests hold the kernel to its twin on the card; they skip
   without one (`chip_smoke.py --cycle-fold` runs them at full size)."""
 
+import contextlib
 import importlib
 
 import numpy as np
@@ -428,6 +434,12 @@ def test_kernel_source_emulated_equals_the_twin(tmp_path):
 #: cut from the default count, row stride past the row)
 _FLAT_BANKS = [(96000, 48000, "high"), (96000, 48000, "ultra"), (48000, 16000, "high"),
                (48000, 16000, "ultra"), (192000, 48000, "high"), (192000, 48000, "ultra")]
+#: the dense banks with L > 1 whose batch SRC runs the flat form on the card:
+#: x2 and x4 (L = 2, 4) at high and ultra, the meter's 16k and 8k -> 48k
+#: (L = 3, 6)
+_FLAT_UP_BANKS = [(48000, 96000, "high"), (48000, 96000, "ultra"), (48000, 192000, "high"),
+                  (48000, 192000, "ultra"), (16000, 48000, "high"), (8000, 48000, "high")]
+_FLAT_BANKS += _FLAT_UP_BANKS
 _FLAT_CASES = [(ri, ro, q, rows, frames, cut, extra)
                for ri, ro, q in _FLAT_BANKS
                for rows, frames, cut, extra in ((1, 6 * 4096 + 37, 0, 0), (3, 2500, 0, 7),
@@ -439,7 +451,8 @@ _FLAT_CASES = [(ri, ro, q, rows, frames, cut, extra)
                               for ri, ro, q, rows, frames, cut, extra in _FLAT_CASES])
 def test_flat_form_emulated_equals_the_twin(emulated, ri, ro, q, rows, frames, cut, extra):
     """The flat launch form of the CUDA source, run on the CPU a thread per
-    CUDA thread, on the L = 1 banks (M = 2, 3, 4 at high and ultra): from
+    CUDA thread, on the L = 1 banks (M = 2, 3, 4 at high and ultra) and the
+    L = 2, 3, 4, 6 banks of `_FLAT_UP_BANKS` (M = 1): from
     the unpadded rows, the bank's front pad (``pad_front`` > 0) and the
     cycle budget `resample` computes, the output equals
     ``_presliced_fold(F.pad(x[..., :keep_T], (pad_front, pad_back)))`` bit
@@ -455,7 +468,7 @@ def test_flat_form_emulated_equals_the_twin(emulated, ri, ro, q, rows, frames, c
     import torch.nn.functional as F
 
     bank = design_cycle_bank(ri, ro, quality=q)
-    assert bank.L == 1 and cf.fold_batch_applicable(bank) and bank.pad_front > 0
+    assert cf.fold_batch_applicable(bank) and bank.pad_front > 0
     tab, g = cf.fold_table(bank)
     threads = cf.fold_threads(bank)
     out_len = bank.out_len(frames) - cut
@@ -532,7 +545,7 @@ def test_dispatch_rule_over_the_grid():
 
 #: the batch form off the CPU, by `_batch_form`, over the grid of
 #: `test_dispatch_rule_over_the_grid`
-BATCH_FORMS = {"cycle_fold": 195, "matmul": 125, "cycle_src": 285}
+BATCH_FORMS = {"cycle_fold": 320, "matmul": 0, "cycle_src": 285}
 
 
 def _batch_form(bank, monkeypatch) -> str:
@@ -559,21 +572,68 @@ def _batch_form(bank, monkeypatch) -> str:
 def test_batch_form_over_the_grid(monkeypatch):
     """The batch SRC each bank of the grid takes off the CPU, read from
     `resample_auto`'s own dispatch: the fold kernel's flat form for exactly
-    the dense L = 1 banks (`fold_batch_applicable`), the float32 matmul for
-    the dense L = 2-6 banks, `cycle_src` for L >= 8; counted."""
-    counts = {}
+    the dense L < 8 banks (`fold_batch_applicable`), `cycle_src` for L >= 8,
+    the float32 matmul for none; counted."""
+    counts = {"matmul": 0}
     for ri in GRID_RATES:
         for ro in GRID_RATES:
             for q, kind in [(p, "sinc") for p in QUALITY_PRESETS] + [("high", "lagrange")]:
                 bank = design_cycle_bank(ri, ro, quality=q, kind=kind)
                 form = _batch_form(bank, monkeypatch)
-                want = ("cycle_src" if bank.L >= 8 else "cycle_fold" if bank.L == 1
-                        else "matmul")
+                want = "cycle_src" if bank.L >= 8 else "cycle_fold"
                 assert form == want, (ri, ro, q, kind)
                 assert cf.fold_batch_applicable(bank) == (form == "cycle_fold")
                 counts[form] = counts.get(form, 0) + 1
     assert counts == BATCH_FORMS
     assert cf.launches_flat == 0 and _build._lib is None
+
+
+@pytest.mark.parametrize("ri,ro,q", _FLAT_UP_BANKS,
+                         ids=[f"{ri}-{ro}-{q}" for ri, ro, q in _FLAT_UP_BANKS])
+def test_flat_form_contract_above_l1(ri, ro, q, monkeypatch):
+    """The card's batch SRC of the dense banks with L = 2, 3, 4 and 6, on
+    one second of two channels at a 0.89 peak: its twin
+    (`resample_fold_reference`, the float64 fold of the padded signal)
+    within 1 LSB at 24 bits and -140 dB of the float64 oracle; and on a
+    meta tensor, rows a stride apart wider than T, `resample_fold_kernel`
+    launches once with `resample`'s cycle budget and returns `resample`'s
+    shape (the library and the device context stood in for)."""
+    bank = design_cycle_bank(ri, ro, quality=q)
+    assert 2 <= bank.L <= 6 and cf.fold_batch_applicable(bank)
+    x = _signal(2, ri, seed=ro % 97 + bank.L)
+    x *= np.float32(0.89 / np.abs(x).max())
+    xt = torch.from_numpy(x)
+    twin = cf.resample_fold_reference(xt, bank).numpy()
+    ref = resample_oracle(x, ri, ro, quality=q)
+    assert twin.shape == ref.shape == (2, bank.out_len(ri))
+    assert np.abs(twin.astype(np.float64) - ref).max() * 2.0 ** 23 <= 1.0
+    assert _db(twin - ref, ref) <= -140.0
+
+    calls = []
+
+    class _Recorder:
+        def f9_cycle_fold_flat(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(cf, "_library", lambda device: (_Recorder(), None))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(cf, "launches", 0)
+    monkeypatch.setattr(cf, "launches_flat", 0)
+    T = 4099
+    for out_len in (None, bank.out_len(T) - 5, bank.out_len(T) - bank.L):
+        calls.clear()
+        xm = torch.empty((3, T + 11), device="meta")[:, :T]
+        y = cf.resample_fold_kernel(xm, bank, out_len)
+        want = tres.resample(torch.zeros((3, T)), bank, out_len)
+        assert y.shape == want.shape and y.device.type == "meta", (out_len, y.shape)
+        _n, Q, keep, pad_front, _pad_back = tres._cycle_budget(T, bank, out_len)
+        (_x, _g, _tab, _y, rows, ld, got_keep, got_front, got_Q, L, M, W, n_rows, threads,
+         form, _stream), = calls
+        assert (rows, ld, got_keep, got_front, got_Q) == (3, T + 11, keep, pad_front, Q)
+        assert (L, M, W, n_rows) == (bank.L, bank.M, bank.W, len(cf.fold_table(bank)[0]))
+        assert (threads, form) == (cf.fold_threads(bank), cf.fold_form(bank))
+    assert cf.launches == cf.launches_flat == 3
 
 
 def test_cpu_tensor_never_launches():
@@ -655,27 +715,29 @@ def test_kernel_matches_twin_on_card(card):
 
 @pytest.mark.cuda
 def test_flat_form_on_card(card):
-    """A 96 kHz stereo file through `resample` (the batch SRC) on the card:
-    one flat launch a call, bit for bit the twin of the padded signal and
-    `resample_presliced` (the streamed form) of the same padded signal; at
-    the default length and at a shorter one, from a row stride past the
-    row."""
+    """A 3 s stereo file at 96 kHz down to 48 kHz (L = 1) and at 48 kHz up
+    to 96 kHz (L = 2) through `resample` (the batch SRC) on the card: one
+    flat launch a call, bit for bit the twin of the padded signal
+    (`resample_fold_reference`) and `resample_presliced` (the streamed
+    form) of the same padded signal; at the default length and at a shorter
+    one, from a row stride past the row."""
     import torch.nn.functional as F
 
-    bank = design_cycle_bank(96000, 48000)
-    frames = 96000 * 3 + 17
-    x = torch.from_numpy(_signal(2, frames + 9, seed=23)).to(card)[:, :frames]
-    for out_len in (None, bank.out_len(frames) - 1000):
-        n_all, n_flat = cf.launches, cf.launches_flat
-        y = tres.resample(x, bank, out_len=out_len)
-        assert (cf.launches, cf.launches_flat) == (n_all + 1, n_flat + 1)
-        n, Q, keep_T, pad_front, pad_back = tres._cycle_budget(frames, bank, out_len)
-        xp = F.pad(x[:, :keep_T], (pad_front, pad_back))
-        want = tres._presliced_fold(xp, bank, Q)[:, :n]
-        streamed = tres.resample_presliced(xp, bank, Q)[:, :n]
-        assert y.shape == (2, n)
-        assert torch.equal(_bits_of(y), _bits_of(want))
-        assert torch.equal(_bits_of(y), _bits_of(streamed))
+    for ri, ro in ((96000, 48000), (48000, 96000)):
+        bank = design_cycle_bank(ri, ro)
+        frames = ri * 3 + 17
+        x = torch.from_numpy(_signal(2, frames + 9, seed=23)).to(card)[:, :frames]
+        for out_len in (None, bank.out_len(frames) - 1001):
+            n_all, n_flat = cf.launches, cf.launches_flat
+            y = tres.resample(x, bank, out_len=out_len)
+            assert (cf.launches, cf.launches_flat) == (n_all + 1, n_flat + 1)
+            n, Q, keep_T, pad_front, pad_back = tres._cycle_budget(frames, bank, out_len)
+            xp = F.pad(x[:, :keep_T], (pad_front, pad_back))
+            want = cf.resample_fold_reference(x, bank, out_len)
+            streamed = tres.resample_presliced(xp, bank, Q)[:, :n]
+            assert y.shape == (2, n)
+            assert torch.equal(_bits_of(y), _bits_of(want))
+            assert torch.equal(_bits_of(y), _bits_of(streamed))
 
 
 def _bits_of(t):
