@@ -149,10 +149,10 @@ its results, any failure exiting non-zero:
    and 44.1k <-> 44,056, 192k -> 44,056 and 44.1k -> 42,735 at the four
    presets, each on 2 x 16384 frames of noise and a tone through
    `resample_rates`: the exact length, <= -120 dB against the float64
-   oracle, the route read from the launch counters as `kernel_applicable`
-   and `fold_batch_applicable` say (dense, windowed, the flat fold for
-   every dense L < 8 bank), each `cycle_src` bank within `TWIN_TOL` of its
-   twin and each flat-fold bank bitwise its twin;
+   oracle, the route read from the launch counters as `src_route` says
+   (`cycle_src` dense or windowed, the flat fold, the plain form), each
+   `cycle_src` bank within `TWIN_TOL` of its twin and each flat-fold bank
+   bitwise its twin;
    (b) every kernel bank whole against three
    haloed chunks of unequal cycle counts (`resample_presliced`):
    `torch.equal`; (c) the 72 studio sinc kernel banks at the slice's batch,
@@ -461,6 +461,7 @@ def phase_kernel(card: str, dev) -> dict:
     from f9tpu_torch.models import design_cycle_bank, resample_oracle
     from f9tpu_torch.ops import _build
     from f9tpu_torch.ops import src_kernel as sk
+    from f9tpu_torch.ops import src_plain as sp
 
     rng = np.random.default_rng(SEED)
     n_sig, frames = 32, 1 << 20
@@ -472,7 +473,7 @@ def phase_kernel(card: str, dev) -> dict:
     for ri, ro, q in [(44100, 48000, "high"), (48000, 44100, "high"),
                       (44100, 48000, "ultra"), (176400, 48000, "high")]:
         bank = design_cycle_bank(ri, ro, quality=q)
-        R = sk._overlap_rows(bank)
+        R = sp._overlap_rows(bank)
         plan = sk.kernel_plan(bank)
         if not sk.kernel_applicable(bank):
             raise AssertionError(f"{ri}->{ro} {q}: kernel not applicable")
@@ -1775,12 +1776,11 @@ def phase_varispeed(card: str, work: str, dev) -> tuple[int, int]:
     t0 = time.time()
     # only the streamed bank's device copies count towards the stream's peak
     # memory: drop those the phases before left cached on the card
-    from f9tpu_torch.ops import resample as tr
-
     from f9tpu_torch.ops import cycle_fold as cf
+    from f9tpu_torch.ops import src_plain as sp
 
-    for cache in (sk._device_bank, sk._stacked_bank_f64, tr.bank_to_torch,
-                  tr._phase_bank_f64, tr._bank_f64, cf._device_operands):
+    for cache in (sk._device_bank, sp._stacked_bank_f64, sp.bank_to_torch,
+                  sp._phase_bank_f64, sp._bank_f64, cf._device_operands):
         cache.cache_clear()
     torch.cuda.empty_cache()
     long_path = os.path.join(work, "long.wav")
@@ -2044,10 +2044,10 @@ def _tool_kernel_check(card: str, dev) -> float:
     worst = 0.0
     for ri, ro, q in SELFTEST_BANKS:
         bank = design_cycle_bank(ri, ro, quality=q)
-        if not sk.kernel_applicable(bank):
-            # 96 -> 48 k is L/M = 1/2: `resample_auto` takes the plain form
-            print(f"tool kernel {ri}->{ro} {q}: L={bank.L}, below the kernel's L >= 8; "
-                  f"selftest runs the plain unfold + matmul form", flush=True)
+        route = sk.src_route(bank, dev)
+        if route.impl != "cycle_src":
+            print(f"tool kernel {ri}->{ro} {q}: L={bank.L}, route {route.impl}, not "
+                  f"cycle_src's", flush=True)
             continue
         noise = (0.25 * np.random.default_rng(0).standard_normal(ri // 2)).astype(np.float32)
         for label, x in (("parity noise 0.5 s", torch.from_numpy(noise).to(dev)),
@@ -3444,9 +3444,10 @@ def _bank_name(ri: int, ro: int, q: str, kind: str) -> str:
 
 def _plan_text(bank) -> str:
     from f9tpu_torch.ops import src_kernel as sk
+    from f9tpu_torch.ops import src_plain as sp
 
     plan = sk.kernel_plan(bank)
-    geo = f"L={bank.L} M={bank.M} W={bank.W} R={sk._overlap_rows(bank)}"
+    geo = f"L={bank.L} M={bank.M} W={bank.W} R={sp._overlap_rows(bank)}"
     if plan is None:
         return geo + ", no plan"
     form = (f"pitch={plan.pitch} group={plan.group}" if plan.pitch
@@ -3455,19 +3456,17 @@ def _plan_text(bank) -> str:
             f"smem={plan.smem_bytes} B")
 
 
-def _sweep_route(bank) -> tuple[str, tuple[int, int, int]]:
-    """The route `kernel_applicable`, `fold_batch_applicable` and the plan
-    give a bank, and the launch counts (every `cycle_src` launch, the
-    windowed form's, the `cycle_fold` flat form's) one call must read."""
-    from f9tpu_torch.ops import cycle_fold as cf
+def _sweep_route(bank, dev) -> tuple[str, tuple[int, int, int]]:
+    """The route `src_route` gives a bank on the card (`cycle_src` split by
+    its plan into dense and windowed), and the launch counts (every
+    `cycle_src` launch, the windowed form's, the `cycle_fold` flat form's)
+    one call must read."""
     from f9tpu_torch.ops import src_kernel as sk
 
-    if not sk.kernel_applicable(bank):
-        if bank.G is None:
-            return "gather", (0, 0, 0)
-        return ("flat fold", (0, 0, 1)) if cf.fold_batch_applicable(bank) else \
-            ("matmul (L < 8)", (0, 0, 0))
-    return ("windowed", (1, 1, 0)) if sk.kernel_plan(bank).pitch else ("dense", (1, 0, 0))
+    impl = sk.src_route(bank, dev).impl
+    if impl == "cycle_src":
+        return ("windowed", (1, 1, 0)) if sk.kernel_plan(bank).pitch else ("dense", (1, 0, 0))
+    return impl, {"cycle_fold": (0, 0, 1), "plain": (0, 0, 0)}[impl]
 
 
 def _sweep_input(ri: int, frames: int):
@@ -3491,7 +3490,7 @@ def _twin_rows(x, bank):
 def _sweep_accuracy(card: str, dev, banks: dict) -> dict:
     """12a: every bank through `resample_rates` on the card: exact length,
     <= -120 dB against the float64 oracle, the route read from the launch
-    counters (as `kernel_applicable` and `fold_batch_applicable` say), each
+    counters (as `src_route` says), each
     `cycle_src` bank within `TWIN_TOL` of its plain twin on the card and
     each flat-fold bank bit for bit its twin."""
     import torch
@@ -3510,7 +3509,7 @@ def _sweep_accuracy(card: str, dev, banks: dict) -> dict:
         name = _bank_name(ri, ro, q, kind)
         x_np = _sweep_input(ri, frames)
         x = torch.from_numpy(x_np).to(dev)
-        route, want = _sweep_route(bank)
+        route, want = _sweep_route(bank, dev)
         _zero_counts()
         y = tr.resample_rates(x, ri, ro, quality=q, kind=kind)
         torch.cuda.synchronize()
@@ -3684,19 +3683,20 @@ def _sweep_quality(card: str, dev) -> None:
 
 @contextlib.contextmanager
 def _cpu_src_as_flat_fold():
-    """The CPU's batch SRC of a dense bank, `resample._unfold_matmul` (the
-    float32 matmul, JAX's conv bit for bit), replaced by the card's form:
-    the flat fold's plain twin `cycle_fold.resample_fold_reference`, while
-    the block runs; restored after."""
+    """The batch table's CPU entry for a `cycle_fold` bank (the float32
+    matmul, JAX's conv bit for bit) replaced by the card's form, the flat
+    fold's plain twin `cycle_fold.resample_fold_reference`, while the block
+    runs; restored after."""
     from f9tpu_torch.ops import cycle_fold as cf
-    from f9tpu_torch.ops import resample as tr
+    from f9tpu_torch.ops import src_kernel as sk
 
-    saved = tr._unfold_matmul
-    tr._unfold_matmul = lambda x, bank, out_len: cf.resample_fold_reference(x, bank, out_len)
+    key = ("cycle_fold", False)
+    saved = sk._BATCH[key]
+    sk._BATCH[key] = sk._on_signal(cf.resample_fold_reference)
     try:
         yield
     finally:
-        tr._unfold_matmul = saved
+        sk._BATCH[key] = saved
 
 
 def _sweep_jobs(card: str, dev) -> dict:
@@ -3726,7 +3726,8 @@ def _sweep_jobs(card: str, dev) -> dict:
     faults = []
     for ri, ro in _sweep_pairs():
         bank = design_cycle_bank(ri, ro, quality="high")
-        fold_twin = cf.fold_batch_applicable(bank) and bank.L > 1
+        route = sk.src_route(bank, dev).impl
+        fold_twin = route == "cycle_fold" and bank.L > 1
         work = tempfile.mkdtemp(prefix=".smoke-", dir=ROOT)
         try:
             paths = []
@@ -3767,7 +3768,7 @@ def _sweep_jobs(card: str, dev) -> dict:
             src_total += n_src
             flat_total += n_flat
             ep_total += n_ep
-            want_src, want_flat = sk.kernel_applicable(bank), cf.fold_batch_applicable(bank)
+            want_src, want_flat = route == "cycle_src", route == "cycle_fold"
             against = (f"CPU with the fold's twin max {diffs} LSB (tol {LSB_TOL}), CPU's matmul "
                        f"{matmul}" if fold_twin else f"CPU max {diffs} LSB (tol {LSB_TOL})")
             print(f"sweep 12e: {ri}->{ro} high (L={bank.L}): frames (got, exact) {lens}; card vs "
@@ -3989,12 +3990,14 @@ def _fuzz_counts() -> tuple[int, int, int]:
 
 def _route_faults(tag: str, bank, counts) -> list[str]:
     """A run must launch the epilogue pair, and the SRC form that
-    ``bank`` takes (`kernel_applicable`, a windowed plan or a dense one)."""
+    ``bank`` takes (`src_route`'s `cycle_src`, a windowed plan or a dense one)."""
+    import torch
+
     from f9tpu_torch.ops import src_kernel as sk
 
     dense, win, ep = counts
     faults = [] if ep >= 1 else [f"{tag}: no epilogue launch"]
-    if sk.kernel_applicable(bank):
+    if sk.src_route(bank, torch.device("cuda")).impl == "cycle_src":
         windowed = bool(sk.kernel_plan(bank).pitch)
         if (win if windowed else dense) < 1:
             faults.append(f"{tag}: no {'windowed' if windowed else 'dense'} SRC launch "

@@ -9,13 +9,13 @@
 // (f9tpu/ops/loudness.py:363 _tp_step); its Pallas kernel
 // (f9tpu/ops/pallas_src.py) takes neither, since it needs L >= 8 and M >= 16,
 // and neither does the port's cycle_src (L >= 8).  Their plain twins are
-// f9tpu_torch/ops/resample.py:_presliced_fold (one float64 pass per non-zero
+// f9tpu_torch/ops/src_plain.py:_presliced_fold (one float64 pass per non-zero
 // row of G) and torch.max(torch.abs(_presliced_fold(...))).
 //
 // Three launch forms share the kernel.  The presliced one (f9_cycle_fold, y
 // or peak) reads a chunk that carries its own halos: cycle q reads samples
 // q * M .. q * M + W - 1 of its row.  The flat one (f9_cycle_fold_flat, the
-// batch SRC of a dense bank on the card) reads the unpadded signal: cycle q
+// batch SRC) reads the unpadded signal: cycle q
 // reads q * M + w - pad_front, as +0.0 outside [0, keep), which is what the
 // twin reads from F.pad(x[..., :keep], (pad_front, pad_back)).  Both forms
 // stage a block's span by the same loop; the presliced form is the flat one

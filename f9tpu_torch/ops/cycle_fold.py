@@ -11,38 +11,30 @@ _tp_step`).  Its Pallas kernel needs L >= 8 and M >= 16, and the port's
 meter's conversions to 48 kHz from 8-32, 96 and 192 kHz and the 4x
 true-peak oversampler (L = 4, M = 1) come here.
 
-The three launch forms and their plain twins, each bit for bit:
+The three launch forms and their plain twins (`ops/src_plain.py`), each
+bit for bit:
 
-- `resample_presliced_fold_kernel` = `resample._presliced_fold`: ``y[...,
-  q*L + l] = sum_w xp[..., q*M + w] * G[w, l]`` in float64 over the
-  non-zero rows of G (`resample._fold_rows`, w ascending), each output's sum
-  from +0.0, rounded to float32 once.  The streamed SRC: its caller is
-  `resample.resample_presliced`.
-- `resample_fold_kernel`, the flat form, = ``_presliced_fold(F.pad(x[...,
-  :keep_T], (pad_front, pad_back)), bank, Q)`` with `resample._cycle_budget`'s
-  numbers: the same fold read from the unpadded signal, the pads read as
-  +0.0 inside the kernel, no padded copy made.  The batch SRC on the card
-  of every dense bank the kernel takes (`fold_batch_applicable`): the
-  integer-ratio downsamplings (L = 1) and upsamplings (L = 2, 4) and the
-  meter's conversions to 48 kHz (L = 3, 6).  Its caller is
-  `resample.resample`, and through it `src_kernel.resample_auto` (the batch
-  graph, `resample_rates`) and `resample_staged` (the rows layout).  Its
-  plain twin is `resample_fold_reference`.  The card's batch form answers
-  to the float64 oracle (its sums are exact products added in float64);
-  the CPU keeps the float32 matmul, JAX's conv bit for bit.
+- `resample_presliced_fold_kernel` = `_presliced_fold`: ``y[..., q*L + l] =
+  sum_w xp[..., q*M + w] * G[w, l]`` in float64 over the non-zero rows of
+  G (`_fold_rows`, w ascending), each output's sum from +0.0, rounded to
+  float32 once.  The streamed SRC.
+- `resample_fold_kernel`, the flat form, = `resample_fold_reference`: the
+  same fold read from the unpadded signal with `_cycle_budget`'s numbers,
+  the pads read as +0.0 inside the kernel, no padded copy made.  The batch
+  SRC.
 - `presliced_absmax_kernel` = `presliced_absmax_reference`, ``torch.max(
   torch.abs(_presliced_fold(...)))``: a 0-d float32, NaN if any output is
-  NaN.  The fused form writes no y.  Its caller is `loudness._tp_step`.
+  NaN.  The fused form writes no y.  The meter's true peak.
 
-A float32 sample times a float32 tap is exact in float64, so the kernel's
-FMA rounds where the twin's sum rounds; it walks the twin's table in its
-order (columns outside a row's ``[lo, hi)`` skipped, zeros inside it added).
-The wrapper rule, as for `src_kernel` and `chain_kernels`: the kernel
-wrappers launch on the current stream or raise (a CPU tensor, a bank
-`fold_kernel_applicable` refuses, a failed build or launch); the callers
-send a CPU tensor to the twin and a CUDA tensor to the kernel, never one
-for the other.  ``launches`` counts wrapper calls that launched, of every
-form; ``launches_flat`` those of the flat form alone.
+Which banks on which device take each form is `src_kernel.src_route`'s
+answer.  A float32 sample times a float32 tap is exact in float64, so the
+kernel's FMA rounds where the twin's sum rounds; it walks the twin's table
+in its order (columns outside a row's ``[lo, hi)`` skipped, zeros inside
+it added).  The wrapper rule, as for `src_kernel` and `chain_kernels`: the
+kernel wrappers launch on the current stream or raise (a CPU tensor, a bank
+`fold_kernel_applicable` refuses, a failed build or launch).  ``launches``
+counts wrapper calls that launched, of every form; ``launches_flat`` those
+of the flat form alone.
 """
 
 from __future__ import annotations
@@ -53,13 +45,14 @@ import threading
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..models.filters import CycleBank
-from .resample import _cycle_budget, _fold_rows, _presliced_fold, cycle_matrix_f32
+from .src_plain import (  # noqa: F401  (the twins, named beside their kernels)
+    _cycle_budget, _fold_rows, cycle_matrix_f32, presliced_absmax_reference,
+    resample_fold_reference)
 
 __all__ = ["FOLD_CYCLES", "fold_table", "fold_form", "fold_smem", "fold_threads",
-           "fold_kernel_applicable", "fold_batch_applicable", "resample_fold_kernel",
+           "fold_kernel_applicable", "resample_fold_kernel",
            "resample_fold_reference", "resample_presliced_fold_kernel",
            "presliced_absmax_kernel", "presliced_absmax_reference", "launches", "launches_flat"]
 
@@ -83,7 +76,7 @@ FOLD_MAX_L = 7
 @functools.lru_cache(maxsize=256)
 def fold_table(bank: CycleBank) -> tuple[np.ndarray, np.ndarray]:
     """The kernel's operands for ``bank``: the table ``(n_rows,)`` int32 of
-    ``w << 6 | lo << 3 | hi`` for each row of `resample._fold_rows` (w
+    ``w << 6 | lo << 3 | hi`` for each row of `_fold_rows` (w
     ascending), and those rows of G, ``(n_rows, L)`` float64 (the float32
     taps widened)."""
     rows = _fold_rows(bank)
@@ -147,18 +140,6 @@ def fold_kernel_applicable(bank: CycleBank) -> bool:
     (`fold_threads`): every such bank of the standard rates and presets, the
     widest (384 kHz -> 8 kHz ultra, W = 9,600) at 32 threads."""
     return fold_threads(bank) is not None
-
-
-def fold_batch_applicable(bank: CycleBank) -> bool:
-    """Does the batch SRC (`resample.resample` on the card) of ``bank`` run
-    the fold kernel's flat form?  Every dense bank the kernel takes
-    (`fold_kernel_applicable`, L < 8): the integer-ratio downsamplings (96k
-    -> 48k, 384k -> 8k: L = 1), upsamplings (48k -> 96k, 48k -> 192k: L =
-    2, 4) and the meter's 16k -> 48k and 8k -> 48k (L = 3, 6).  The fold
-    reads under 1 LSB from the float64 oracle near full scale where the
-    float32 matmul, JAX's conv bit for bit, reads up to 8 on upsampling;
-    L >= 8 runs `cycle_src`."""
-    return fold_kernel_applicable(bank)
 
 
 @functools.lru_cache(maxsize=64)
@@ -247,13 +228,11 @@ def _launch(xp: torch.Tensor, bank: CycleBank, num_cycles: int, peak: bool,
 
 def resample_fold_kernel(x: torch.Tensor, bank: CycleBank,
                          out_len: int | None = None) -> torch.Tensor:
-    """The flat form: `resample.resample` of ``x (..., T)`` float32 on the
-    card by a bank the kernel takes, ``(..., out_len)`` with ``out_len``
-    defaulting to ``ceil(T*L/M)``, in one launch on the unpadded signal.
-    Each output is bit for bit `resample_fold_reference`, ``_presliced_fold(
-    F.pad(x[..., :keep_T], (pad_front, pad_back)), bank, Q)`` with
-    `resample._cycle_budget`'s numbers; rows may stand a stride apart wider
-    than T.  Launches or raises."""
+    """The flat form: the batch SRC of ``x (..., T)`` float32 on the card by
+    a bank the kernel takes, ``(..., out_len)`` with ``out_len`` defaulting
+    to ``ceil(T*L/M)``, in one launch on the unpadded signal.  Each output is
+    bit for bit `resample_fold_reference`; rows may stand a stride apart
+    wider than T.  Launches or raises."""
     threads = _threads(x, bank)
     T = x.shape[-1]
     lead = tuple(x.shape[:-1])
@@ -277,25 +256,11 @@ def resample_fold_kernel(x: torch.Tensor, bank: CycleBank,
     return y.reshape(*lead, out_len)
 
 
-def resample_fold_reference(x: torch.Tensor, bank: CycleBank,
-                            out_len: int | None = None) -> torch.Tensor:
-    """The plain twin of `resample_fold_kernel`, on ``x``'s device:
-    ``_presliced_fold(F.pad(x[..., :keep_T], (pad_front, pad_back)), bank,
-    Q)`` with `resample._cycle_budget`'s numbers, cut to ``out_len``."""
-    T = x.shape[-1]
-    lead = tuple(x.shape[:-1])
-    out_len, Q, keep_T, pad_front, pad_back = _cycle_budget(T, bank, out_len)
-    if T == 0 or out_len == 0:
-        return x.new_zeros((*lead, out_len))
-    xp = F.pad(x[..., :keep_T], (pad_front, pad_back))
-    return _presliced_fold(xp, bank, Q)[..., :out_len]
-
-
 def resample_presliced_fold_kernel(xp: torch.Tensor, bank: CycleBank,
                                    num_cycles: int) -> torch.Tensor:
     """The fold kernel on a haloed chunk ``xp (..., T)`` float32 on the card,
     ``T >= (num_cycles - 1)*M + W``: ``(..., num_cycles * L)`` float32, bit
-    for bit `resample._presliced_fold`.  Launches or raises."""
+    for bit `_presliced_fold`.  Launches or raises."""
     return _launch(xp, bank, num_cycles, peak=False)
 
 
@@ -306,13 +271,3 @@ def presliced_absmax_kernel(xp: torch.Tensor, bank: CycleBank,
     NaN).  One memset and one launch; no y is written.  Launches or
     raises."""
     return _launch(xp, bank, num_cycles, peak=True)
-
-
-def presliced_absmax_reference(xp: torch.Tensor, bank: CycleBank,
-                               num_cycles: int) -> torch.Tensor:
-    """The plain twin of `presliced_absmax_kernel`: ``torch.max(torch.abs(
-    _presliced_fold(xp, bank, num_cycles)))``."""
-    need = (num_cycles - 1) * bank.M + bank.W
-    if xp.shape[-1] < need:
-        raise ValueError(f"padded input too short: {xp.shape[-1]} < {need}")
-    return torch.max(torch.abs(_presliced_fold(xp, bank, num_cycles)))

@@ -31,13 +31,10 @@ within 0.01 LU / 0.01 dB (the tests hold them):
   (the windows that reach into padding are masked out by ``n_valid``), so
   the port computes on the trimmed signal.
 - The 4x true-peak oversampler is the bank ``rate -> 4*rate`` (L = 4,
-  M = 1), below the `cycle_src` kernel's L >= 8.  The whole-file form runs
-  `resample` (the `cycle_fold` kernel's flat form on the card, the unfold
-  + matmul on the CPU); the streamed form (`_tp_step`) runs the
-  `cycle_fold` kernel fused with the peak on the card (one memset and one
-  launch a chunk, no oversampled signal written) and its twin, the float64
-  fold `resample._presliced_fold` and ``max |y|``, on the CPU: the same
-  bits either way.
+  M = 1).  The whole-file form runs the batch SRC (`resample_rates`); the
+  streamed form (`_tp_step`) runs the `cycle_fold` kernel fused with the
+  peak (one memset and one launch a chunk, no oversampled signal written)
+  or its twin, as `src_route` says: the same bits either way.
 
 Every public function takes ``device`` (default: the input tensor's device,
 else CUDA through `resolve_device`; CPU runs pass ``"cpu"``).
@@ -55,6 +52,9 @@ import torch
 
 from ..device import resolve_device
 from ..models.filters import design_cycle_bank
+from .cycle_fold import presliced_absmax_kernel, presliced_absmax_reference
+from .resample import resample_presliced, resample_rates
+from .src_kernel import src_route
 
 __all__ = ["integrated_lufs", "k_weighting_ir", "block_loudness",
            "true_peak_db", "loudness_range", "r128_stats",
@@ -169,8 +169,6 @@ def _hop_energies(x: torch.Tensor, rate: int):
     per-channel 100 ms hop energy sums.  Returns ``(hop_sq (C, n_hops),
     n_hops)``; the sub-hop tail (< 100 ms) is dropped."""
     if rate != _RATE:
-        from .resample import resample_rates
-
         x = resample_rates(x, int(rate), _RATE, quality="high")
     C, T = x.shape
     n_hops = T // _HOP
@@ -289,8 +287,6 @@ def true_peak_db(x, rate: int, oversample: int = 4, device=None) -> torch.Tensor
     signals scan in fixed overlap-save chunks (same halo math as
     `pipeline.stream`), so device memory is bounded whatever the file's
     length; max is order-independent, so the chunked scan is exact."""
-    from .resample import resample_rates
-
     x = _on_device(x, device)
     T = x.shape[-1]
     if T > _TP_CHUNK_THRESHOLD:
@@ -345,8 +341,6 @@ def _meter48_step(xp: torch.Tensor, carry: torch.Tensor, *, cycles: int,
                   rate_in: int, ctx: int):
     """One metering chunk: SRC to 48 kHz (exact overlap-save), K-weight with
     carried context, 100 ms hop energies.  Returns (hop_sq (C, n), carry)."""
-    from .resample import resample_presliced
-
     if rate_in != _RATE:
         bank = design_cycle_bank(rate_in, _RATE, quality="high")
         y = resample_presliced(xp, bank, cycles)
@@ -359,16 +353,16 @@ def _meter48_step(xp: torch.Tensor, carry: torch.Tensor, *, cycles: int,
     return hop_sq, z[:, -ctx:]
 
 
+#: the true peak of a haloed chunk by `src_route`'s answer for the oversampler
+_TP_PEAK = {("cycle_fold", True): presliced_absmax_kernel,
+            ("cycle_fold", False): presliced_absmax_reference}
+
+
 def _tp_step(xp: torch.Tensor, *, cycles: int, rate_in: int, oversample: int):
     """One true-peak chunk: the 4x oversampler on a haloed chunk, then the
-    absolute maximum (NaN propagates): the fused `cycle_fold` kernel on the
-    card, its twin on the CPU."""
-    from .cycle_fold import presliced_absmax_kernel, presliced_absmax_reference
-
+    absolute maximum (NaN propagates), by `_TP_PEAK`."""
     bank = design_cycle_bank(rate_in, rate_in * oversample, quality="high")
-    if xp.device.type == "cpu":
-        return presliced_absmax_reference(xp, bank, cycles)
-    return presliced_absmax_kernel(xp, bank, cycles)
+    return _TP_PEAK[src_route(bank, xp.device)](xp, bank, cycles)
 
 
 def _meter_chunk_plan(rate: int, chunk_seconds: float, ctx: int):

@@ -28,14 +28,14 @@ smaller group while its grid still fits on the card at once), `window_traffic`
 counts from the plan what a launch stages.  The JAX package has no kernel of its own for them (XLA
 evaluates `_banded_eval_rows`, one matmul per 128-output segment).
 
-The wrapper rule: on a CUDA tensor `resample_rows` / `resample_kernel`
-launch the kernel or raise; on a CPU tensor they run the plain PyTorch twin
-`resample_rows_reference` (the stacked-bank matmul plus R row-shifted adds
-of `f9tpu.ops.pallas_src.resample_rows_pre`; for a varispeed bank the
-float64 gather form `f9tpu_torch.ops.resample._gather_core`).  There is no
-fallback from the kernel to the twin.  ``launches`` counts kernel launches;
-the count is a plain integer raised under a lock, so launches made from
-several host threads all count.
+The rule that picks the SRC implementation for a bank on a device is
+`src_route`; `resample_auto` (the batch SRC) and `resample_staged` (the
+rows layout's) run the implementation `_BATCH` gives for its answer.  The
+wrapper rule: `resample_rows` / `resample_kernel` launch the kernel on a
+CUDA tensor or raise; their plain twin `resample_rows_reference` lives in
+`ops/src_plain.py`.  ``launches`` counts kernel launches; the count is a
+plain integer raised under a lock, so launches made from several host
+threads all count.
 """
 
 from __future__ import annotations
@@ -44,20 +44,21 @@ import ctypes
 import dataclasses
 import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..models.filters import CycleBank
-
-from .resample import (_gather_core, _h_rev_f32_cached, _overlap_rows,
-                       _pad_for_cycles, _phase_tables, cycle_matrix_f32, resample,
-                       rows_marshal_plan)
+from .cycle_fold import fold_threads, resample_fold_kernel
+from .src_plain import (  # noqa: F401  (the twin and the rows plan, named beside the kernel)
+    _h_rev_f32_cached, _phase_tables, _plain_batch, _unfold_matmul, cycle_matrix_f32,
+    resample_kernel_reference, resample_rows_reference, rows_marshal_plan, stacked_bank_f32)
 
 __all__ = ["kernel_applicable", "kernel_plan", "packed_bank_f32", "tf32_rna",
            "resample_rows", "resample_rows_reference", "resample_kernel",
            "resample_auto", "resample_presliced_kernel", "resample_staged",
-           "rows_marshal_plan",
+           "rows_marshal_plan", "src_route", "SrcRoute",
            "stacked_bank_f32", "window_traffic", "launches", "launches_windowed"]
 
 #: CUDA kernel launches since the count was last reset (a plain integer:
@@ -354,18 +355,14 @@ def kernel_plan(bank: CycleBank) -> KernelPlan | None:
 
 
 def kernel_applicable(bank: CycleBank) -> bool:
-    """Does the CUDA kernel take this bank?
-
-    It needs L >= 8 (a block computes 8 to 40 output phases; below 8, the
-    integer-ratio banks with L in {1, 2, 4}, most of it would idle and
-    `resample.resample` serves them: the `cycle_fold` kernel on the card,
-    the unfold + matmul form on the CPU) and, for a dense bank, a signal span
-    of 16 cycles that fits a block's shared memory (M up to ~3,000), for a
-    varispeed bank 16 union windows of one column tile and the ring that
-    do: `kernel_plan` is not None.  Unlike the Pallas
-    gate (`pallas_applicable`: R <= 8, M >= 16, both TPU VMEM tiling rules)
-    it does not bound R: G streams through the ring in 16-row chunks.  Every
-    bank `pallas_applicable` accepts at the standard rates is accepted here."""
+    """Does the CUDA kernel take this bank?  `kernel_plan` is not None: L >=
+    8 (a block computes 8 to 40 output phases) and, for a dense bank, a
+    signal span of 16 cycles that fits a block's shared memory (M up to
+    ~3,000), for a varispeed bank 16 union windows of one column tile and the
+    ring that do.  Unlike the Pallas gate (`pallas_applicable`: R <= 8, M >=
+    16, both TPU VMEM tiling rules) it does not bound R: G streams through
+    the ring in 16-row chunks.  Every bank `pallas_applicable` accepts at the
+    standard rates is accepted here."""
     return kernel_plan(bank) is not None
 
 
@@ -436,28 +433,6 @@ def _device_bank(bank: CycleBank, device: torch.device):
     return torch.from_numpy(packed).to(device), torch.from_numpy(tiles).to(device)
 
 
-@functools.lru_cache(maxsize=64)
-def _stacked_bank_cached(bank: CycleBank) -> np.ndarray:
-    L, M, W = bank.L, bank.M, bank.W
-    R = _overlap_rows(bank)
-    g = np.zeros(((R + 1) * M, L), np.float32)
-    g[:W] = cycle_matrix_f32(bank)
-    # row-block transposes stacked on the OUTPUT dim: gs[r*L + p, m] = G[r*M + m, p]
-    return np.ascontiguousarray(
-        np.concatenate([g[r * M:(r + 1) * M].T for r in range(R + 1)], axis=0))
-
-
-def stacked_bank_f32(bank: CycleBank) -> np.ndarray:
-    """The cycle bank restructured for the shift-after-dot rows form:
-    ``((R+1)*L, M)`` where block r holds ``G[r*M:(r+1)*M].T``."""
-    return _stacked_bank_cached(bank)
-
-
-@functools.lru_cache(maxsize=64)
-def _stacked_bank_f64(bank: CycleBank, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(stacked_bank_f32(bank)).to(device, torch.float64)
-
-
 @functools.lru_cache(maxsize=16)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -522,111 +497,17 @@ def _launch(xf: torch.Tensor, bank: CycleBank, Q: int, out_len: int,
     return y
 
 
-def _rows_marshal(x: torch.Tensor, bank: CycleBank, Q: int) -> torch.Tensor:
-    """The twin's marshal step: ``x (bc, T)`` at flat offset ``pad_front`` of
-    a float64 zero ``(bc, Q + R, M)`` cycle-row tiling (the samples past its
-    end are dropped, as the kernel never reads them)."""
-    bc, T = x.shape
-    n_rows = Q + _overlap_rows(bank)
-    pf = bank.pad_front
-    keep = max(0, min(T, n_rows * bank.M - pf))
-    xp = torch.zeros((bc, n_rows * bank.M), dtype=torch.float64, device=x.device)
-    xp[:, pf:pf + keep] = x[:, :keep]
-    return xp.view(bc, n_rows, bank.M)
-
-
-def _rows_core(xp3: torch.Tensor, bank: CycleBank) -> torch.Tensor:
-    """The twin's rows-input core (`f9tpu.ops.pallas_src.resample_rows_pre`'s
-    math): float64 cycle rows ``(bc, n_rows, M)`` -> float64 ``(bc, n_rows -
-    R, L)``, one matmul by the stacked bank plus R row-shifted adds (the
-    callers round to float32 once)."""
-    L = bank.L
-    R = _overlap_rows(bank)
-    Q = xp3.shape[1] - R
-    gs = _stacked_bank_f64(bank, xp3.device)            # ((R+1)*L, M)
-    P = torch.matmul(xp3, gs.T)                          # (bc, Q+R, (R+1)*L)
-    y = P[:, :Q, :L].clone()
-    for r in range(1, R + 1):
-        y += P[:, r:r + Q, r * L:(r + 1) * L]
-    return y
-
-
-def resample_rows_reference(x: torch.Tensor, bank: CycleBank,
-                            out_len: int | None = None
-                            ) -> tuple[torch.Tensor, int]:
-    """Plain PyTorch twin of the kernel: ``(y (..., Q, L), out_len)`` with
-    output sample ``t`` at ``y[..., t // L, t % L]``.  Marshals the signal
-    into zero-padded ``(Q + R, M)`` cycle rows (`_rows_marshal`), multiplies
-    by the stacked bank once and adds R row-shifted blocks (`_rows_core`).
-
-    The float32 signal and bank are multiplied and summed in float64 and the
-    result rounded to float32 once, so the twin is the exact sum to within
-    half an output ulp: the reference the kernel (and the card's output
-    against the CPU path's) is held to.  A float32 matmul would itself carry
-    ~0.35 LSB RMS of summation error at 24 bits.
-
-    A varispeed bank has no stacked bank: its twin is the float64 gather
-    form (`f9tpu_torch.ops.resample._gather_core`) over whole cycles."""
-    lead = x.shape[:-1]
-    if out_len is None:
-        out_len = bank.out_len(x.shape[-1])
-    Q = -(-out_len // bank.L)
-    if bank.G is None:
-        _, xp = _pad_for_cycles(x, bank, out_len)
-        if xp is None:
-            return x.new_zeros((*lead, 0, bank.L)), out_len
-        return _gather_core(xp, bank, Q * bank.L).reshape(*lead, Q, bank.L), out_len
-    T = x.shape[-1]
-    if T == 0 or out_len == 0:
-        return x.new_zeros((*lead, 0, bank.L)), out_len
-    y = _rows_core(_rows_marshal(x.reshape(-1, T), bank, Q), bank)
-    return y.to(x.dtype).reshape(*lead, Q, bank.L), out_len
-
-
-def resample_staged(xs: torch.Tensor, bank: CycleBank, num_cycles: int) -> torch.Tensor:
-    """SRC of the rows layout's host-marshalled staging: ``xs (..., T)``, the
-    signal at offset ``pad_front`` of a zero buffer that holds every input
-    the first ``num_cycles`` output cycles read (``(num_cycles + R)*M`` floats
-    for a dense bank, `rows_marshal_plan`; ``(num_cycles - 1)*M + row_width``
-    for a varispeed bank, `banded_rows_plan`) -> ``(..., num_cycles * L)``.
-
-    Each output equals bit for bit what `resample_auto` gives for the same
-    signal with ``out_len = num_cycles * L``, on either device: on a CUDA
-    tensor the kernel's presliced launch (``pad_front = 0``; its outputs are
-    the whole form's, `chip_smoke.py` phases 6a and 7b), on a CPU tensor the
-    twin's core on the staging itself (`_rows_core`, the packed path's own
-    float64 function on the same ``(bc, Q + R, M)`` rows) or the gather
-    form; a bank the kernel does not take runs the packed path's plain form
-    on both."""
-    lead, T = xs.shape[:-1], xs.shape[-1]
-    n = num_cycles * bank.L
-    if xs.is_cuda and kernel_applicable(bank):
-        return resample_presliced_kernel(xs, bank, num_cycles)
-    if bank.G is None:
-        return _gather_core(xs, bank, n)
-    if not kernel_applicable(bank):
-        return resample(xs[..., bank.pad_front:], bank, out_len=n)
-    n_rows = num_cycles + _overlap_rows(bank)
-    if T != n_rows * bank.M:
-        raise ValueError(f"staging of {T} floats != (num_cycles + R) * M = "
-                         f"{n_rows * bank.M}")
-    xp3 = xs.reshape(-1, n_rows, bank.M).to(torch.float64)
-    return _rows_core(xp3, bank).to(torch.float32).reshape(*lead, n)
-
-
 def resample_rows(x: torch.Tensor, bank: CycleBank,
                   out_len: int | None = None) -> tuple[torch.Tensor, int]:
-    """``(y (..., Q, L), out_len)``, ``Q = ceil(out_len / L)``: the kernel on
-    a CUDA tensor, the twin on a CPU tensor."""
-    if x.device.type == "cpu":
-        return resample_rows_reference(x, bank, out_len=out_len)
+    """``(y (..., Q, L), out_len)``, ``Q = ceil(out_len / L)``, through the
+    kernel (its twin: `resample_rows_reference`).  Launches or raises."""
     T = x.shape[-1]
     lead = x.shape[:-1]
     if out_len is None:
         out_len = bank.out_len(T)
     Q = -(-out_len // bank.L)
     if T == 0 or out_len == 0:
-        return x.new_zeros((*lead, 0, bank.L)), out_len
+        return x.new_zeros((*lead, Q, bank.L)), out_len
     y = _launch(x.reshape(-1, T).contiguous(), bank, Q, Q * bank.L, Q * bank.L)
     return y.reshape(*lead, Q, bank.L), out_len
 
@@ -634,20 +515,26 @@ def resample_rows(x: torch.Tensor, bank: CycleBank,
 def resample_kernel(x: torch.Tensor, bank: CycleBank,
                     out_len: int | None = None) -> torch.Tensor:
     """Drop-in equivalent of `resample` through the kernel (flat output
-    ``(..., out_len)``; the counterpart of `resample_pallas`).  The kernel
-    writes the flat layout directly, so no reshape pass follows it."""
-    T = x.shape[-1]
-    lead = x.shape[:-1]
+    ``(..., out_len)``; the counterpart of `resample_pallas`, its twin
+    `resample_kernel_reference`).  The kernel writes the flat layout
+    directly, so no reshape pass follows it.  Launches or raises."""
+    return _kernel_flat(x, bank, out_len, 0)
+
+
+def _kernel_flat(xs: torch.Tensor, bank: CycleBank, out_len: int | None,
+                 front: int) -> torch.Tensor:
+    """`resample_kernel` of the signal ``xs[..., front:]``: one launch on
+    ``xs`` whose output cycle q reads ``xs[..., q*M - pad_front + front +
+    w]``, so the ``front`` samples before the signal are read in place."""
+    T = xs.shape[-1] - front
+    lead = xs.shape[:-1]
     if out_len is None:
         out_len = bank.out_len(T)
     if T == 0 or out_len == 0:
-        return x.new_zeros((*lead, out_len))
-    if x.device.type == "cpu":
-        y, _ = resample_rows_reference(x, bank, out_len=out_len)
-        bc = int(np.prod(lead)) if lead else 1
-        return y.reshape(bc, -1)[:, :out_len].reshape(*lead, out_len)
+        return xs.new_zeros((*lead, out_len))
     Q = -(-out_len // bank.L)
-    y = _launch(x.reshape(-1, T).contiguous(), bank, Q, out_len, out_len)
+    y = _launch(xs.reshape(-1, xs.shape[-1]).contiguous(), bank, Q, out_len, out_len,
+                pad_front=bank.pad_front - front)
     return y.reshape(*lead, out_len)
 
 
@@ -660,20 +547,74 @@ def resample_presliced_kernel(xp: torch.Tensor, bank: CycleBank,
     k8 order wherever the chunk starts; where a cycle's window sits in the
     block's span (or which row of a windowed launch it is) moves only the
     shared-memory address."""
-    T = xp.shape[-1]
-    lead = xp.shape[:-1]
-    n = num_cycles * bank.L
-    y = _launch(xp.reshape(-1, T).contiguous(), bank, num_cycles, n, n, pad_front=0)
-    return y.reshape(*lead, n)
+    return _kernel_flat(xp, bank, num_cycles * bank.L, bank.pad_front)
+
+
+# --------------------------------------------------------------------------
+# Which SRC implementation runs, and the batch forms that ask.
+# --------------------------------------------------------------------------
+
+
+class SrcRoute(NamedTuple):
+    """`src_route`'s answer: the implementation, and whether the tensor is
+    off the CPU."""
+    impl: str       # "cycle_src", "cycle_fold" or "plain"
+    card: bool
+
+
+def src_route(bank: CycleBank, device: torch.device) -> SrcRoute:
+    """Which SRC implementation runs for ``bank`` on ``device``: the one
+    rule, which every SRC entry looks up in a table of its own.
+    ``cycle_src`` where `kernel_plan` takes the bank (L >= 8, dense or
+    varispeed); else ``cycle_fold`` where `cycle_fold.fold_threads` does (a
+    dense bank with L < 8); else ``plain``, a library matmul of the cycle
+    windows or the float64 gather of a varispeed bank (of the common rates
+    only 384k -> 11,025 Hz, L = 147, M = 5,120).  ``card`` is ``device.type
+    != "cpu"``: the kernel launches, and its wrapper raises on anything but
+    a CUDA tensor.  On the CPU its fixed-order twin runs, except in the
+    batch SRC of a ``cycle_fold`` bank: the float32 matmul there, the JAX
+    package's convolution bit for bit, where the card answers to the
+    float64 oracle."""
+    if kernel_plan(bank) is not None:
+        impl = "cycle_src"
+    elif fold_threads(bank) is not None:
+        impl = "cycle_fold"
+    else:
+        impl = "plain"
+    return SrcRoute(impl, device.type != "cpu")
+
+
+def _on_signal(form):
+    """The batch entry of a form that pads the signal itself: ``form`` of
+    ``xs[..., front:]``."""
+    return lambda xs, bank, out_len, front: form(xs[..., front:] if front else xs, bank, out_len)
+
+
+#: the batch SRC of the signal ``xs[..., front:]``, zero before it, by
+#: `src_route`'s answer: ``(xs, bank, out_len, front) -> (..., out_len)``
+_BATCH = {("cycle_src", True): _kernel_flat,
+          ("cycle_src", False): _on_signal(resample_kernel_reference),
+          ("cycle_fold", True): _on_signal(resample_fold_kernel),
+          ("cycle_fold", False): _on_signal(_unfold_matmul),
+          ("plain", True): _on_signal(_plain_batch),
+          ("plain", False): _on_signal(_plain_batch)}
 
 
 def resample_auto(x: torch.Tensor, bank: CycleBank,
                   out_len: int | None = None) -> torch.Tensor:
-    """The kernel where `kernel_applicable`, `resample` otherwise (the JAX
-    package's dispatch): for a dense bank with L < 8 the `cycle_fold`
-    kernel's flat form on the card and the unfold + matmul form on the CPU,
-    the float64 gather form for a varispeed bank whose window does not fit
-    the kernel."""
-    if kernel_applicable(bank):
-        return resample_kernel(x, bank, out_len=out_len)
-    return resample(x, bank, out_len=out_len)
+    """The batch SRC (the JAX package's `pallas_src.resample_auto`):
+    ``x (..., T)`` -> ``(..., out_len)``, ``out_len`` defaulting to
+    ``ceil(T*L/M)``, by `_BATCH`'s entry for `src_route`'s answer."""
+    return _BATCH[src_route(bank, x.device)](x, bank, out_len, 0)
+
+
+def resample_staged(xs: torch.Tensor, bank: CycleBank, num_cycles: int) -> torch.Tensor:
+    """SRC of the rows layout's host-marshalled staging: ``xs (..., T)``, the
+    signal at offset ``pad_front`` of a zero buffer that holds every input
+    the first ``num_cycles`` output cycles read (``(num_cycles + R)*M`` floats
+    for a dense bank, `rows_marshal_plan`; ``(num_cycles - 1)*M + row_width``
+    for a varispeed bank, `banded_rows_plan`) -> ``(..., num_cycles * L)``:
+    the batch SRC of ``xs[..., pad_front:]`` with ``out_len = num_cycles *
+    L``, bit for bit `resample_auto` of the signal, the `cycle_src` kernel
+    reading the staging in place."""
+    return _BATCH[src_route(bank, xs.device)](xs, bank, num_cycles * bank.L, bank.pad_front)

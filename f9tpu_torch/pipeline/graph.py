@@ -60,9 +60,9 @@ from ..spans import span, spanned
 from ..ops import analysis, dither, epilogue, frontend
 from ..ops.chain import Chain
 from ..ops.routing import route_channels
-from ..ops.resample import (_banded_geometry, _overlap_rows, banded_rows_plan,
-                            rows_marshal_plan)
 from ..ops.src_kernel import resample_auto, resample_staged
+from ..ops.src_plain import (_banded_geometry, _overlap_rows, banded_rows_plan,
+                             rows_marshal_plan)
 from ..ops.trim import detect_tail_end, trim_latency
 from . import link
 

@@ -10,10 +10,8 @@ expanded to the bus's channel count and laid end to end with
 `_iter_item_blocks`, so their bytes are the same.
 
 Mixed-rate items are resampled in haloed chunks by `resample_presliced` on
-``device`` (default CUDA, raising without a GPU): on the card the
-`cycle_src` kernel's presliced form, dense or windowed by the item's rate,
-on the CPU the float64 fold or gather.  Either is chunk-invariant bit for
-bit.  The monitor mixdown (`ops.routing.mixdown_monitor`) runs on the same
+``device`` (default CUDA, raising without a GPU), chunk-invariant bit
+for bit on either device.  The monitor mixdown (`ops.routing.mixdown_monitor`) runs on the same
 device.
 """
 

@@ -5,7 +5,7 @@ The same tri-state verdict as the JAX package's: loop detected, no output
 (the tone was not generated), no input (nothing came back), or degraded (a
 signal came back at the wrong frequency).  The tone is made and resampled
 on ``device`` (default CUDA, raising without a GPU; ``"cpu"`` only when
-asked), so on the card the SRC is the `cycle_src` kernel; the zero
+asked), so on the card the SRC is the kernel `src_route` names; the zero
 crossings are counted on the host copy, as in the JAX package.
 """
 

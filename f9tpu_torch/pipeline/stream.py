@@ -5,7 +5,7 @@ A file flows through fixed-size chunks of whole cycles (multiples of M input
 frames), each read from the file with the filter's halo on both sides.  Per
 chunk, on the device: the raw-PCM decode (integer WAV/AIFF/FLAC sources ship
 their container bytes), mono fan-out, routing and DC removal, the SRC
-(`resample_presliced`: the `cycle_src` kernel with no implicit padding), the
+(`resample_presliced`, with no implicit padding), the
 insert chain's streamed form with its carried state, then gain, dither keyed
 by absolute output position and the 24-bit packing in one pass (the epilogue
 kernel's second pass, `ops.epilogue`).  The host writes each
@@ -31,8 +31,7 @@ audio path's chunk size) and the shared gain rule, the functions the batch
 scheduler uses, so a file gets the same gain, bit for bit, on either path.
 
 Varispeed banks stream like any other: the card takes the flat haloed chunk
-(`resample_presliced`, the kernel's windowed form), as it does for dense
-banks.  The JAX package marshals varispeed chunks into cycle rows on the
+(`resample_presliced`), as it does for dense banks.  The JAX package marshals varispeed chunks into cycle rows on the
 host to spare its device a retiling pass that this kernel never makes.
 
 On a mesh with a frames axis (``mesh=``) each step is a super-chunk of

@@ -7,10 +7,8 @@ and rate pair (the port's twin of `tools/gen_quality.py`).
 
 Measures through the port's production path,
 `f9tpu_torch.ops.resample.resample_rates`, on ``--device`` (default
-``cuda``: the `cycle_src` kernel, dense or windowed, where it takes the
-bank; for L < 8 the `cycle_fold` kernel where L = 1, else the unfold +
-matmul form), with the JAX tool's pairs,
-presets, test tones and FFT analysis under the same names:
+``cuda``; the implementation per bank is `src_kernel.src_route`'s), with
+the JAX tool's pairs, presets, test tones and FFT analysis under the same names:
 `passband_ripple_db`, `edge_frac`, `alias_rejection_db`,
 `image_suppression_db`, `thdn_db` and `oracle_db` (RMS error against the
 float64 oracle `f9tpu_torch.models.oracle`).  It writes the same tables as
@@ -88,7 +86,7 @@ def _tone(freq: float, rate: int, n: int = N, amp: float = 0.5) -> np.ndarray:
 def _resample(x: np.ndarray, rate_in, rate_out, quality, kind, device) -> np.ndarray:
     """``x`` through `resample_rates` on ``device``, back as numpy.  The
     device goes through `resolve_device`, which switches TF32 off before
-    any matmul of the L < 8 banks runs."""
+    any matmul runs."""
     xt = torch.from_numpy(x).to(resolve_device(device))
     return resample_rates(xt, rate_in, rate_out, quality=quality, kind=kind).cpu().numpy()
 
@@ -221,9 +219,8 @@ def render(device: torch.device, pairs=PAIRS, log=None) -> str:
         "",
         f"Generated by `python -m f9tpu_torch.tools.gen_quality --device {device.type}` on "
         f"**{card_name(device)}**",
-        "through the port's production path (`f9tpu_torch.ops.resample.resample_rates`: the",
-        "`cycle_src` kernel, dense or windowed, where it takes the bank; for L < 8 the",
-        "`cycle_fold` kernel on the card, the unfold + matmul form on the CPU), with the pairs,",
+        "through the port's production path (`f9tpu_torch.ops.resample.resample_rates`, each",
+        "bank on the implementation `f9tpu_torch.ops.src_kernel.src_route` picks), with the pairs,",
         "tones and FFT analysis of `tools/gen_quality.py`,",
         "whose JAX figures are `docs/QUALITY.md`.  Presets are Kaiser windowed-sinc designs",
         "parameterised by zero-crossings-per-side at the limiting rate:",

@@ -1,15 +1,14 @@
 #!/usr/bin/env python3
-"""How far the plain SRC form of the L < 8 banks rounds from the exact sum,
-on the card and on the CPU.
+"""How far `resample` of the studio banks that `cycle_src` does not take
+rounds from the exact sum, on the card and on the CPU.
 
     python3 -m f9tpu_torch.tools.plain_src_error [--quality high] [--seconds 60]
 
-The `cycle_src` kernel does not take the integer-ratio banks (L in {1, 2,
-4}); `f9tpu_torch.ops.resample.resample` serves them on the CPU as one
-float32 `torch.matmul` of the unfolded cycle windows (the CPU's BLAS), with
-no compensation, and on the card by the `cycle_fold` kernel, bit for bit
-the fold below.  For every such studio
-pair this runs a stereo signal of ``--seconds`` at about -12 dBFS (two tones
+Which implementation `f9tpu_torch.ops.resample.resample` runs on each
+device is `src_kernel.src_route`'s answer (for these banks the float32
+`torch.matmul` of the unfolded cycle windows on the CPU, with no
+compensation).  For every studio pair whose answer is not ``cycle_src``
+this runs a stereo signal of ``--seconds`` at about -12 dBFS (two tones
 and noise) through `resample` on the card and on the CPU, and through the
 fixed-order float64 fold `_presliced_fold` (the exact sum rounded once),
 and prints in LSB at 24 bits the largest difference of card and CPU, the
@@ -29,7 +28,7 @@ import torch
 from ..device import resolve_device
 from ..models.filters import STANDARD_RATES, design_cycle_bank
 from ..ops import resample as tr
-from ..ops.src_kernel import kernel_applicable
+from ..ops.src_kernel import src_route
 
 
 def _signal(rng, frames: int, rate: int) -> torch.Tensor:
@@ -57,7 +56,7 @@ def main(argv=None) -> int:
     for ri in STANDARD_RATES:
         for ro in STANDARD_RATES:
             bank = design_cycle_bank(ri, ro, quality=args.quality)
-            if ri == ro or kernel_applicable(bank):
+            if ri == ro or src_route(bank, dev).impl == "cycle_src":
                 continue
             x = _signal(rng, int(args.seconds * ri), ri)
             y_cpu = tr.resample(x, bank)

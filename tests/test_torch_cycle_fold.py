@@ -72,6 +72,8 @@ METER_BANKS = [(8000, 48000, "high"), (16000, 48000, "high"), (24000, 48000, "hi
                (32000, 48000, "high")]
 #: the grid of the dispatch rule: the standard rates, the meter's and 384 kHz
 GRID_RATES = (8000, 16000, 24000, 32000, 44100, 48000, 88200, 96000, 176400, 192000, 384000)
+#: a device off the CPU, for `src_route` (which reads its type alone)
+CARD = torch.device("cuda")
 
 
 @pytest.fixture(autouse=True)
@@ -468,7 +470,7 @@ def test_flat_form_emulated_equals_the_twin(emulated, ri, ro, q, rows, frames, c
     import torch.nn.functional as F
 
     bank = design_cycle_bank(ri, ro, quality=q)
-    assert cf.fold_batch_applicable(bank) and bank.pad_front > 0
+    assert sk.src_route(bank, CARD).impl == "cycle_fold" and bank.pad_front > 0
     tab, g = cf.fold_table(bank)
     threads = cf.fold_threads(bank)
     out_len = bank.out_len(frames) - cut
@@ -545,36 +547,36 @@ def test_dispatch_rule_over_the_grid():
 
 #: the batch form off the CPU, by `_batch_form`, over the grid of
 #: `test_dispatch_rule_over_the_grid`
-BATCH_FORMS = {"cycle_fold": 320, "matmul": 0, "cycle_src": 285}
+BATCH_FORMS = {"cycle_fold": 320, "plain": 0, "cycle_src": 285}
 
 
 def _batch_form(bank, monkeypatch) -> str:
     """The form `src_kernel.resample_auto` sends a batch of ``bank`` to off
-    the CPU: the kernels' wrappers replaced by recorders, the rest run on a
-    meta tensor (shapes only)."""
+    the CPU: the batch table's entries replaced by recorders, run on a meta
+    tensor (shapes only)."""
     taken = []
 
     def record(name):
-        def wrapper(x, bank, out_len=None):
+        def entry(xs, bank, out_len, front):
             taken.append(name)
-            n = bank.out_len(x.shape[-1]) if out_len is None else out_len
-            return x.new_empty((*x.shape[:-1], n))
-        return wrapper
+            n = bank.out_len(xs.shape[-1] - front) if out_len is None else out_len
+            return xs.new_empty((*xs.shape[:-1], n))
+        return entry
 
-    monkeypatch.setattr(sk, "resample_kernel", record("cycle_src"))
-    monkeypatch.setattr(cf, "resample_fold_kernel", record("cycle_fold"))
+    for key in list(sk._BATCH):
+        monkeypatch.setitem(sk._BATCH, key, record(key[0]))
     x = torch.empty((2, 4099), device="meta")
     y = sk.resample_auto(x, bank)
-    assert tuple(y.shape) == (2, bank.out_len(4099)) and len(taken) <= 1
-    return taken[0] if taken else ("matmul" if bank.G is not None else "gather")
+    assert tuple(y.shape) == (2, bank.out_len(4099)) and len(taken) == 1
+    return taken[0]
 
 
 def test_batch_form_over_the_grid(monkeypatch):
     """The batch SRC each bank of the grid takes off the CPU, read from
     `resample_auto`'s own dispatch: the fold kernel's flat form for exactly
-    the dense L < 8 banks (`fold_batch_applicable`), `cycle_src` for L >= 8,
-    the float32 matmul for none; counted."""
-    counts = {"matmul": 0}
+    the dense L < 8 banks, `cycle_src` for L >= 8, the plain form for none;
+    each `src_route`'s answer, counted."""
+    counts = {"plain": 0}
     for ri in GRID_RATES:
         for ro in GRID_RATES:
             for q, kind in [(p, "sinc") for p in QUALITY_PRESETS] + [("high", "lagrange")]:
@@ -582,7 +584,7 @@ def test_batch_form_over_the_grid(monkeypatch):
                 form = _batch_form(bank, monkeypatch)
                 want = "cycle_src" if bank.L >= 8 else "cycle_fold"
                 assert form == want, (ri, ro, q, kind)
-                assert cf.fold_batch_applicable(bank) == (form == "cycle_fold")
+                assert sk.src_route(bank, CARD) == (form, True)
                 counts[form] = counts.get(form, 0) + 1
     assert counts == BATCH_FORMS
     assert cf.launches_flat == 0 and _build._lib is None
@@ -599,7 +601,7 @@ def test_flat_form_contract_above_l1(ri, ro, q, monkeypatch):
     launches once with `resample`'s cycle budget and returns `resample`'s
     shape (the library and the device context stood in for)."""
     bank = design_cycle_bank(ri, ro, quality=q)
-    assert 2 <= bank.L <= 6 and cf.fold_batch_applicable(bank)
+    assert 2 <= bank.L <= 6 and sk.src_route(bank, CARD).impl == "cycle_fold"
     x = _signal(2, ri, seed=ro % 97 + bank.L)
     x *= np.float32(0.89 / np.abs(x).max())
     xt = torch.from_numpy(x)

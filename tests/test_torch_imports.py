@@ -66,3 +66,33 @@ def test_source_imports_nothing_of_the_jax_package(rel):
         for name in names:
             assert name.split(".")[0] not in ("f9tpu", "jax", "jaxlib"), \
                 f"{rel}:{node.lineno} imports {name}"
+
+
+#: the SRC modules from the plain layer up: each imports only those before it
+SRC_LAYERS = ("src_plain", "cycle_fold", "src_kernel", "resample")
+
+
+def test_src_modules_import_one_way_and_never_at_call_time():
+    """No module of `f9tpu_torch/ops` imports an SRC module inside a
+    function, and an SRC module imports at module level only the layers
+    below it: the plain layer no kernel module, each kernel module the plain
+    layer, the routed entries both."""
+    ops = os.path.join(PKG, "ops")
+    for fname in sorted(f for f in os.listdir(ops) if f.endswith(".py")):
+        with open(os.path.join(ops, fname)) as f:
+            tree = ast.parse(f.read(), fname)
+        mod = fname[:-3]
+        funcs = [n for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef,
+                                                             ast.AsyncFunctionDef))]
+        for fn in funcs:
+            for node in ast.walk(fn):
+                if isinstance(node, ast.ImportFrom) and node.level == 1:
+                    assert node.module not in SRC_LAYERS, \
+                        f"ops/{fname}:{node.lineno} imports .{node.module} in {fn.name}"
+        if mod in SRC_LAYERS:
+            below = SRC_LAYERS[:SRC_LAYERS.index(mod)]
+            for node in tree.body:
+                if isinstance(node, ast.ImportFrom) and node.level == 1 \
+                        and node.module in SRC_LAYERS:
+                    assert node.module in below, \
+                        f"ops/{fname}:{node.lineno} imports .{node.module}, above it"

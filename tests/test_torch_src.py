@@ -61,11 +61,11 @@ def test_src_forms_match_jax_and_oracle(ri, ro, q):
     want_pallas = np.asarray(pallas_src.resample_pallas(jnp.asarray(x), jb))
     want_conv = np.asarray(jres.resample(jnp.asarray(x), jb))
     ref = resample_oracle(x, ri, ro, quality=q)
-    rows, out_len = sk.resample_rows(xt, bank)
+    rows, out_len = sk.resample_rows_reference(xt, bank)
     assert rows.shape == (2, -(-out_len // bank.L), bank.L)
     got = {
         "auto": sk.resample_auto(xt, bank).numpy(),
-        "kernel": sk.resample_kernel(xt, bank).numpy(),
+        "twin": sk.resample_kernel_reference(xt, bank).numpy(),
         "rows": rows.reshape(2, -1)[:, :out_len].numpy(),
         "unfold": tres.resample(xt, bank).numpy(),
         "rates": tres.resample_rates(xt, ri, ro, quality=q).numpy(),
@@ -85,7 +85,7 @@ def test_explicit_out_len_matches_jax(out_len):
     x = _signal(44100, seed=3)[:, :3700]
     want = np.asarray(pallas_src.resample_pallas(
         jnp.asarray(x), jbank(44100, 48000, quality="medium"), out_len=out_len))
-    got = sk.resample_kernel(torch.from_numpy(x), bank, out_len=out_len).numpy()
+    got = sk.resample_kernel_reference(torch.from_numpy(x), bank, out_len=out_len).numpy()
     got_conv = tres.resample(torch.from_numpy(x), bank, out_len=out_len).numpy()
     assert got.shape == got_conv.shape == want.shape == (2, out_len)
     assert np.abs(got - want).max() <= 2e-6
@@ -130,7 +130,7 @@ def test_kernel_gate_covers_pallas_gate_and_cpu_never_launches():
     assert n_pallas > 100
     bank = design_cycle_bank(44100, 48000)
     sk.resample_auto(torch.zeros((2, 1000)), bank)
-    sk.resample_rows(torch.zeros((2, 1000)), bank)
+    tres.resample_presliced(torch.zeros((2, 9 * bank.M + bank.W)), bank, 10)
     assert sk.launches == 0
 
 

@@ -3,11 +3,10 @@ benchmark's plain reference (`bench_h100.reference`: float64, its own banks,
 calibration and dither hash).
 
 48 kHz files go up x2 to a 96 kHz session (the dense L = 2 bank) and x4 to
-192 kHz (L = 4).  On the CPU both run `ops.resample.resample`'s unfold and
-float32 matmul, JAX's conv bit for bit; on the card the `cycle_fold`
-kernel's flat form, bit for bit its plain twin
-`cycle_fold.resample_fold_reference`, which the card-form cases route the
-CPU's SRC to.  `process_batch_raw` and the reference take the same 24-bit
+192 kHz (L = 4).  On the CPU both run the unfold and float32 matmul, JAX's
+conv bit for bit; on the card the `cycle_fold` kernel's flat form, bit for
+bit its plain twin `cycle_fold.resample_fold_reference`, which the card-form
+cases put in the batch table's CPU entry (`src_kernel._BATCH`).  `process_batch_raw` and the reference take the same 24-bit
 wire, lengths and dither seeds, and `bench_h100.judge.compare` reads the
 same numbers the benchmark's ``correct`` reads.  The plain reference with
 its SRC in TF32 (10 mantissa bits) stands in for a program of a lower
@@ -25,7 +24,7 @@ from bench_h100 import judge  # noqa: E402
 from bench_h100.reference.pipeline import Reference  # noqa: E402
 from f9tpu_torch.config import ProcessingConfig  # noqa: E402
 from f9tpu_torch.ops import cycle_fold as cf  # noqa: E402
-from f9tpu_torch.ops import resample as tres  # noqa: E402
+from f9tpu_torch.ops import src_kernel as sk  # noqa: E402
 from f9tpu_torch.pipeline import graph  # noqa: E402
 from f9tpu_torch.pipeline.calibration import CalibrationCache  # noqa: E402
 
@@ -125,7 +124,7 @@ def test_card_form_batch_within_limits_of_the_reference(target_rate, monkeypatch
         calls.append(bank.L)
         return cf.resample_fold_reference(x, bank, out_len)
 
-    monkeypatch.setattr(tres, "_unfold_matmul", twin)
+    monkeypatch.setitem(sk._BATCH, ("cycle_fold", False), sk._on_signal(twin))
     cfg = _studio96(target_rate)
     latency, got = _program(cfg)
     assert calls and set(calls) == {target_rate // RATE_IN}

@@ -139,7 +139,7 @@ def test_gather_twin_matches_the_dense_twin_on_standard_ratios(ri, ro):
     bank, jb = design_cycle_bank(ri, ro, quality="medium"), jbank(ri, ro, quality="medium")
     assert bank.dense_ok
     g = tres.resample_gather(torch.from_numpy(x), bank).numpy()
-    d = sk.resample_kernel(torch.from_numpy(x), bank).numpy()
+    d = sk.resample_kernel_reference(torch.from_numpy(x), bank).numpy()
     j = np.asarray(jres.resample_gather(jnp.asarray(x), jb))
     assert g.shape == d.shape == j.shape
     assert np.abs(g - d).max() <= ABS_TOL and np.abs(g - j).max() <= ABS_TOL
@@ -162,10 +162,10 @@ def test_bank_to_torch_returns_the_phase_bank_of_a_varispeed_bank():
 def test_empty_and_short_inputs():
     bank = design_cycle_bank(44100, 44056, quality="low")
     assert tres.resample(torch.zeros((2, 0)), bank).shape == (2, 0)
-    assert sk.resample_rows(torch.zeros((2, 0)), bank)[0].shape == (2, 0, bank.L)
+    assert sk.resample_rows_reference(torch.zeros((2, 0)), bank)[0].shape == (2, 0, bank.L)
     y = tres.resample(torch.ones((1, 7)), bank, out_len=5)
     assert y.shape == (1, 5) and torch.isfinite(y).all()
-    rows, out_len = sk.resample_rows(torch.from_numpy(_noise(1, 500, 2)), bank)
+    rows, out_len = sk.resample_rows_reference(torch.from_numpy(_noise(1, 500, 2)), bank)
     assert out_len == bank.out_len(500) and rows.shape == (1, 1, bank.L)
 
 
