@@ -266,6 +266,16 @@ its results, any failure exiting non-zero:
    job, the insert loop, the stream, normalize and the rows layout; the
    phase fails past `FRONT_END_BUDGET_S`.  Phase 4's graph split also times
    the graph on the raw wire.
+17. the link carries only audio (`phase_link`, in a process of its own):
+   the benchmark's cd (44.1k -> 48k, 50-60 s) and sfx48 (48k -> 96k, 30-60
+   s) library batches, 8 files in the 2^22 bucket, through the narrowed
+   forms (lengths on the host: each file's valid wire bytes up, the payload
+   as wide as the longest file) and the whole-row forms (the lengths on
+   the device first) in turns: each file's bytes, `out_frames` and metrics
+   bitwise equal, the payload's width, the link's counters (`bytes_up`,
+   `bytes_down`, `ragged_uploads`) against the wire and payload bytes, and
+   each form's `h2d_ms` / `d2h_ms` (the copies' device time a batch,
+   `torch.profiler`).
 
 Each phase prints its wall time.  The line before the last is the kernels'
 JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -277,10 +287,11 @@ sits in (a parent tree unpacked by `git archive` beside this script's copy);
 ``--sweep`` phase 12 alone, ``--fuzz`` phase 13 alone, ``--chain-kernels``
 phase 14 alone, ``--chain-device-times`` only 14c's profiled device
 times, ``--cycle-fold`` phase 15 alone and ``--cycle-fold-device-times``
-only 15f's profiled device times, ``--front-end`` phase 16 alone, and
-``--front-end-digests DIR`` only the sha256 of phase 4's job, phase 6's
-streams and phase 7d's normalized job, their inputs made in DIR (the same
-DIR for every tree compared: a file's dither is keyed by its path).
+only 15f's profiled device times, ``--front-end`` phase 16 alone,
+``--link`` phase 17 alone, and ``--front-end-digests DIR`` only the sha256
+of phase 4's job, phase 6's streams and phase 7d's normalized job, their
+inputs made in DIR (the same DIR for every tree compared: a file's dither
+is keyed by its path).
 """
 
 from __future__ import annotations
@@ -572,13 +583,14 @@ def _dispatch_clock():
     """Host seconds the batch job's dispatch thread spends in its calls
     while the block runs: ``host_empty`` (the pinned batch buffer),
     ``graph`` (`process_batch` / `process_batch_raw`, the uploads inside
-    included), ``upload`` and ``download`` (`Download.__init__`: the pinned
-    result buffers and the copies' enqueue)."""
+    included), ``upload`` (`upload` and the wire's `upload_rows`) and
+    ``download`` (`Download.__init__`: the pinned result buffers and the
+    copies' enqueue)."""
     from f9tpu_torch.pipeline import link
     from f9tpu_torch.pipeline import scheduler
 
     spent = {"host_empty": 0.0, "graph": 0.0, "upload": 0.0, "download": 0.0}
-    saved = link.host_empty, link.upload, link.Download.__init__
+    saved = link.host_empty, link.upload, link.upload_rows, link.Download.__init__
     graphs = scheduler.process_batch, scheduler.process_batch_raw
 
     def timed(key, fn):
@@ -591,13 +603,14 @@ def _dispatch_clock():
         return run
 
     link.host_empty, link.upload = timed("host_empty", saved[0]), timed("upload", saved[1])
-    link.Download.__init__ = timed("download", saved[2])
+    link.upload_rows = timed("upload", saved[2])
+    link.Download.__init__ = timed("download", saved[3])
     scheduler.process_batch = timed("graph", graphs[0])
     scheduler.process_batch_raw = timed("graph", graphs[1])
     try:
         yield spent
     finally:
-        link.host_empty, link.upload, link.Download.__init__ = saved
+        link.host_empty, link.upload, link.upload_rows, link.Download.__init__ = saved
         scheduler.process_batch, scheduler.process_batch_raw = graphs
 
 
@@ -6037,6 +6050,160 @@ def phase_front_end(card: str, dev) -> dict:
             "seconds": dict(walls, total=total)}
 
 
+#: 17's library batches, as the benchmark's cells make them: (rate in, rate
+#: out, seconds spread over the 32-file mix); 8 files a batch in the 2^22 bucket
+LINK_BATCHES = {"cd": (44100, 48000, (50.0, 60.0)), "sfx48": (48000, 96000, (30.0, 60.0))}
+LINK_BUCKET = 1 << 22
+#: a batch's link bytes besides the wire and the payload: the per-file and
+#: scalar vectors each way (lengths, seeds, latency, noise floor; metrics)
+LINK_SMALL_BYTES = 1024
+
+
+def _link_batch(dev, key: str, seed: int):
+    """17's 8-file batch ``key`` of `LINK_BATCHES`: the 24-bit stereo wire
+    in a pinned buffer of the 2^22 bucket, zero past each file, each file
+    two tones and noise (`_signal`) at a length drawn from 32 spread evenly
+    over the mix's seconds; and the lengths (numpy int32)."""
+    import numpy as np
+    import torch
+
+    from f9tpu_torch.pipeline import link
+
+    rate, _ro, (lo, hi) = LINK_BATCHES[key]
+    spread = [int(round((lo + (hi - lo) * (i + 0.5) / 32) * rate)) for i in range(32)]
+    rng = np.random.default_rng(seed)
+    valid = np.array(rng.permutation(spread)[:8], np.int32)
+    wire = link.host_empty((8, LINK_BUCKET * 6), torch.uint8, dev)
+    host = wire.numpy()
+    s = 1 << 23
+    for i, n in enumerate(valid.tolist()):
+        x = np.round(_signal(rng, 2, n, rate).astype(np.float64) * s)
+        codes = np.clip(x, -s, s - 1).astype("<i4").T.copy()
+        host[i, :n * 6] = codes.view(np.uint8).reshape(n, 2, 4)[..., :3].reshape(-1)
+        host[i, n * 6:] = 0
+    return wire, valid
+
+
+def _link_forms(card: str, dev, key: str, runs: int = 4) -> tuple[dict, list[str]]:
+    """17 for one batch: the narrowed forms (lengths on the host: the wire
+    up as each file's valid bytes, the payload as wide as the longest file)
+    and the whole-row forms (the same lengths uploaded first, so the graph
+    sees them on the device) in turns, new, whole, whole, new.  Every run's
+    files bitwise the first's; the link's counters a run; the copies'
+    device time a batch (`torch.profiler`, ``runs`` batches a turn)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from f9tpu_torch.config import ProcessingConfig
+    from f9tpu_torch.ops.epilogue import TILE
+    from f9tpu_torch.pipeline import calibration, graph, link
+
+    rate_in, rate_out, _s = LINK_BATCHES[key]
+    wire, valid = _link_batch(dev, key, SEED + 170 + len(key))
+    cfg = ProcessingConfig(output_dir="unused", target_rate=rate_out)
+    lat = calibration.measure_latency(rate_in, rate_out, device=dev).latency_frames
+    seeds = np.arange(1, 9, dtype=np.int32)
+    side = link.side_stream(dev)
+    on_card = link.upload(valid, dev)
+    torch.cuda.synchronize()
+
+    def batch(form):
+        res = graph.process_batch_raw(wire, valid if form == "new" else on_card, cfg,
+                                      rate_in, seeds, in_channels=2, in_bits=24,
+                                      latency_frames=lat, device=dev)
+        return link.Download(res.codes, res.out_frames, res.peak_db, res.rms_db,
+                             res.noise_floor_db, res.tail_terminated, side=side)
+
+    faults, first, counts, copies = [], None, {}, {"new": [], "whole": []}
+    for form in ("new", "whole", "whole", "new"):
+        link.bytes_up = link.bytes_down = link.ragged_uploads = 0
+        host = batch(form).get()
+        counts[form] = (link.bytes_up, link.bytes_down, link.ragged_uploads)
+        payload, frames = host[0], host[1]
+        if first is None:
+            first = host
+        same = all(np.array_equal(a, b) for a, b in zip(host[1:], first[1:]))
+        for i, of in enumerate(frames.tolist()):
+            same &= np.array_equal(payload[i, :of * 6], first[0][i, :of * 6])
+        same &= not payload[:, first[0].shape[1]:].any()
+        if not same:
+            faults.append(f"17 {key}: the {form} form's files differ from the first run's")
+        if form == "whole":
+            copies["out_total"] = payload.shape[1] // 6
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                batch(form).get()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        copies[form].append(tuple(
+            sum(e.time_range.elapsed_us() for e in ev if e.name.startswith(p)) / 1e3 / runs
+            for p in ("Memcpy HtoD", "Memcpy DtoH")))
+    up_new, down_new, rag_new = counts["new"]
+    up_whole, down_whole, rag_whole = counts["whole"]
+    wire_valid = int(valid.sum()) * 6
+    width = first[0].shape[1]
+    longest = int(first[1].max())
+    if width != 6 * min(copies["out_total"], -(-longest // TILE) * TILE):
+        faults.append(f"17 {key}: payload {width // 6} frames wide, the longest file {longest}")
+    if (rag_new, rag_whole) != (1, 0):
+        faults.append(f"17 {key}: ragged uploads {rag_new} / {rag_whole}, not 1 / 0")
+    for name, got, want in (("bytes_up new", up_new, wire_valid),
+                            ("bytes_up whole", up_whole, wire.numel()),
+                            ("bytes_down new", down_new, 8 * width),
+                            ("bytes_down whole", down_whole, 8 * 6 * copies["out_total"])):
+        if not 0 <= got - want < LINK_SMALL_BYTES:
+            faults.append(f"17 {key}: {name} {got}, the wire or payload {want}")
+    med = {f: tuple(float(np.median([c[k] for c in copies[f]])) for k in (0, 1))
+           for f in ("new", "whole")}
+    print(f"link 17: {key} batch {rate_in // 1000}k->{rate_out // 1000}k, files of "
+          f"{valid.min() / rate_in:.1f}-{valid.max() / rate_in:.1f} s in the "
+          f"2^{LINK_BUCKET.bit_length() - 1} bucket: "
+          f"files bitwise equal in 4 runs {not faults}; new form bytes_up {up_new:,} "
+          f"bytes_down {down_new:,} ragged_uploads {rag_new}; whole-row form bytes_up "
+          f"{up_whole:,} bytes_down {down_whole:,} ragged_uploads {rag_whole}; payload "
+          f"{width // 6:,} frames a row of {copies['out_total']:,}; h2d_ms new "
+          f"{med['new'][0]:.3f} / whole {med['whole'][0]:.3f}, d2h_ms new {med['new'][1]:.3f} "
+          f"/ whole {med['whole'][1]:.3f} (device time a batch, torch.profiler, "
+          f"{runs} batches a turn, turns " + "; ".join(
+              f"{f} " + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in copies[f])
+              for f in ("new", "whole")) + f") [{card}]", flush=True)
+    return {"bytes_up": [up_new, up_whole], "bytes_down": [down_new, down_whole],
+            "ragged_uploads": [rag_new, rag_whole], "h2d_ms": [med["new"][0], med["whole"][0]],
+            "d2h_ms": [med["new"][1], med["whole"][1]], "width": width // 6,
+            "out_total": copies["out_total"]}, faults
+
+
+def phase_link(card: str, dev) -> dict:
+    """Phase 17, the link carries only audio: the benchmark's cd and sfx48
+    library batches through the narrowed and the whole-row forms in turns
+    (`_link_forms`).  Raises on any fault; returns the numbers by batch."""
+    t0 = time.time()
+    out, faults = {}, []
+    for key in LINK_BATCHES:
+        out[key], f = _link_forms(card, dev, key)
+        faults += f
+    print(f"phase 17 (link): {time.time() - t0:.1f} s [{card}]", flush=True)
+    _raise_faults("phase 17", faults)
+    return out
+
+
+def _link_fresh() -> dict:
+    """Phase 17 in a process of its own (``--link``: its profiler's traces
+    are whole there), its lines passed through.  Raises if it fails."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--link"],
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith(("link 17", "phase 17")):
+            print(line, flush=True)
+    result = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or not result:
+        raise AssertionError(f"phase 17: the link process failed (exit {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(result[-1])
+
+
 def front_end_digests(work: str) -> dict:
     """The sha256 of phase 4's job (8 stereo 24-bit takes, `cli process
     --rate 48000`), phase 6's streams (6b's `cli process` of the 600 s file
@@ -6175,6 +6342,12 @@ def main() -> int:
         got = front_end_digests(os.path.abspath(sys.argv[2]))
         print(json.dumps({"tree": ROOT, **got, "seconds": time.time() - t0, "card": card}),
               flush=True)
+        return 0
+    if sys.argv[1:] == ["--link"]:
+        card = _card()
+        print(card, flush=True)
+        _build.load_library()
+        print(json.dumps(phase_link(card, resolve_device("cuda"))), flush=True)
         return 0
     if sys.argv[1:] == ["--graph-profile"]:
         print(json.dumps(graph_profile_main(resolve_device("cuda"))), flush=True)
@@ -6388,6 +6561,9 @@ def main() -> int:
     idle = [p for p in FRONT_END_PATHS if front_by_path.get(p, 0) < 1]
     if idle:
         raise AssertionError(f"front_end: no launch on the paths {idle}")
+    t0 = time.time()
+    _link_fresh()
+    print(f"phase 17 (link, in a process of its own): {time.time() - t0:.1f} s", flush=True)
     chain_kernels.append({
         # no TPU kernel computes it: XLA's convolution of the streamed SRC
         # and the true peak's max |y| (`replaces` names the JAX functions)

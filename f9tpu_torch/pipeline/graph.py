@@ -87,9 +87,12 @@ class ProcessResult:
     """Device outputs for one batch (tensors on the batch's device)."""
 
     codes: Any          # layout "flat": int32 codes (files, channels, out_total),
-                        # or the uint8 payload (files, out_total * channels * bits // 8);
-                        # layout "rows": int32 (files, channels, Q, L), sample t at
-                        # [..., t // L, t % L] (a view of whole cycles)
+                        # or the uint8 payload (files, width * channels * bits // 8),
+                        # width the longest file's out_frames rounded up to the
+                        # epilogue's TILE where the host knows the lengths and no
+                        # reverb tail can lengthen a file (`_payload_width`), else
+                        # out_total; layout "rows": int32 (files, channels, Q, L),
+                        # sample t at [..., t // L, t % L] (a view of whole cycles)
     out_frames: Any     # (files,) int32 — valid output length per file
     tail_terminated: Any  # (files,) bool
     peak_db: Any        # (files,) float32, pre-quantize
@@ -129,10 +132,23 @@ def _exact_out_valid(frames_valid: torch.Tensor, bank, out_total: int) -> torch.
     return torch.clamp(out_valid, max=out_total).to(torch.int32)
 
 
+def _payload_width(valid_host, bank, keep: int, cycle: int = 1) -> int:
+    """How many output frames a batch must write when the host holds its
+    lengths ``valid_host`` and no tail verdict can lengthen a file: the
+    longest file's valid output (`_exact_out_valid`, at least 1) rounded up
+    to the epilogue's `TILE`, so the row stride stays 16-byte aligned and
+    the allocators see few sizes, then to whole ``cycle``s, at most
+    ``keep``.  Every position past it is a zero that no file keeps."""
+    out = _exact_out_valid(torch.as_tensor(valid_host), bank, keep)
+    w = max(int(out.max()) if out.numel() else 0, 1)
+    w = -(-w // epilogue.TILE) * epilogue.TILE
+    return min(keep, -(-w // cycle) * cycle)
+
+
 def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
                   rate_in, rate_out, cfg_key, static_zero_latency=False,
                   raw_in=None, packed_out=False, chain=None, channel_axis=None,
-                  gain_lin=None):
+                  gain_lin=None, valid_host=None):
     (quality, kind, bits, do_dither, remove_dc, gain_db, trim_enabled,
      reverb_mode, margin_pct, tail_mode, tail_window_ms, tail_hop_ms,
      tail_consecutive, pad_frames, routing, out_channels) = cfg_key
@@ -192,6 +208,8 @@ def _process_impl(x, frames_valid, latency_frames, noise_floor_db, seeds, *,
     else:
         terminated = torch.ones((files,), dtype=torch.bool, device=dev)
         out_frames = out_valid
+        if valid_host is not None:
+            keep = _payload_width(valid_host, bank, keep)
 
     codes, pk_db, level_db, nf_est = _epilogue(
         y, out_frames, seeds, bits=bits, do_dither=do_dither, remove_dc=remove_dc,
@@ -271,7 +289,8 @@ def _tail_floor(y, out_frames, mean, g, win: int, channel_axis=None):
 
 
 def _process_impl_rows(x, frames_valid, seeds, *, rate_in, rate_out, cfg_key,
-                       raw_in=None, packed_out=False, gain_lin=None, num_cycles=None):
+                       raw_in=None, packed_out=False, gain_lin=None, num_cycles=None,
+                       valid_host=None):
     """The rows layout (no reverb, no chain, zero latency): int32 codes
     ``(files, C, Q, L)``, a view of whole cycles, with the out_frames and
     metrics of the packed path bit for bit.
@@ -282,7 +301,8 @@ def _process_impl_rows(x, frames_valid, seeds, *, rate_in, rate_out, cfg_key,
     ``pad_front`` of a buffer zero outside each file's valid samples, read
     by `resample_staged` (no front-end mask: the staging is the contract).
     With ``packed_out`` the codes are packed on the device, as the packed
-    path packs them."""
+    path packs them; ``valid_host``, the lengths on the host, narrows that
+    payload to the whole cycles that cover `_payload_width`."""
     (quality, kind, bits, do_dither, remove_dc, gain_db, _trim_enabled,
      _reverb_mode, _margin_pct, _tail_mode, tail_window_ms, _tail_hop_ms,
      _tail_consecutive, _pad_frames, routing, out_channels) = cfg_key
@@ -300,10 +320,13 @@ def _process_impl_rows(x, frames_valid, seeds, *, rate_in, rate_out, cfg_key,
             y = resample_auto(x, bank, out_len=Q * bank.L)
     out_total = Q * bank.L
     out_valid = _exact_out_valid(frames_valid, bank, out_total)
+    keep = out_total
+    if valid_host is not None and packed_out:
+        keep = _payload_width(valid_host, bank, out_total, cycle=bank.L)
     codes, pk_db, level_db, nf_est = _epilogue(
         y, out_valid, seeds, bits=bits, do_dither=do_dither, remove_dc=remove_dc,
         gain_db=gain_db, gain_lin=gain_lin, rate_out=rate_out,
-        tail_window_ms=tail_window_ms, routing=routing, keep=out_total,
+        tail_window_ms=tail_window_ms, routing=routing, keep=keep,
         packed=bits if packed_out else None)
     terminated = torch.ones((files,), dtype=torch.bool, device=x.device)
     if not packed_out:
@@ -427,6 +450,16 @@ def _as_tensor(a, dtype, device) -> torch.Tensor:
     return link.upload(t.to(dtype), device)
 
 
+def _host_lengths(frames_valid) -> np.ndarray | None:
+    """The per-file lengths as int64 numpy where the host holds them
+    (numpy, a list or a CPU tensor), None where they live on a device."""
+    if isinstance(frames_valid, torch.Tensor):
+        if frames_valid.device.type != "cpu":
+            return None
+        return frames_valid.numpy().astype(np.int64)
+    return np.asarray(frames_valid, np.int64)
+
+
 def _seed_vector(seeds, files: int, device) -> torch.Tensor:
     s = _as_tensor(seeds, torch.int32, device)
     if s.shape != (files,):
@@ -542,15 +575,33 @@ def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
                       device=None) -> ProcessResult:
     """Raw-bytes path: uint8 interleaved PCM ``(files, bucket_frames *
     in_channels * in_bits // 8)`` in, packed payload out.  ``codes`` holds
-    the uint8 payload ``(files, out_total * out_channels * cfg.bits // 8)``;
+    the uint8 payload ``(files, width * out_channels * cfg.bits // 8)``;
     slice each file to ``out_frames[i] * out_channels * cfg.bits // 8``.
+
+    Where ``frames_valid`` is on the host (numpy, a list or a CPU tensor),
+    a host wire goes up as each file's valid bytes only (`link.upload_rows`:
+    the bytes past them are never read), and without reverb mode ``width``
+    is the longest file's ``out_frames`` rounded up to the epilogue's
+    `TILE` (`_payload_width`), so the download carries no bucket row past
+    it; with a tail verdict to make on the device, or lengths already on
+    the device, the wire goes up whole and ``width`` is ``out_total``.
+    Every file's bytes, ``out_frames`` and metrics are the same either way.
     With ``rows_layout`` (where it applies) the rows layout's whole cycles
     are packed on the device, so the result's layout is "flat" as well and
     its first ``out_len`` frames are the packed path's bytes."""
     if cfg.bits not in (16, 24):
         raise ValueError("packed output path requires bits in (16, 24)")
     dev = _pick_device(raw, device)
-    raw = _as_tensor(raw, torch.uint8, dev)
+    valid_host = _host_lengths(frames_valid)
+    if valid_host is not None and not (isinstance(raw, torch.Tensor)
+                                       and raw.device.type != "cpu"):
+        t = raw if isinstance(raw, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(raw))
+        t = t.to(torch.uint8)
+        frame_bytes = in_channels * (in_bits // 8)
+        n = np.clip(valid_host, 0, t.shape[-1] // frame_bytes) * frame_bytes
+        raw = link.upload_rows(t, n, dev)
+    else:
+        raw = _as_tensor(raw, torch.uint8, dev)
     frames = _as_tensor(frames_valid, torch.int32, dev)
     sd = _seed_vector(seeds, raw.shape[0], dev)
     gain_lin = _gain_vector(per_file_gain_db, raw.shape[0], dev)
@@ -558,7 +609,8 @@ def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
     if _rows_ok(cfg, rows_layout, latency_frames):
         payload, out_frames, terminated, pk, level, nf_est = _process_impl_rows(
             raw, frames, sd, rate_in=rate_in, rate_out=cfg.target_rate,
-            cfg_key=_cfg_key(cfg, 0), raw_in=raw_in, packed_out=True, gain_lin=gain_lin)
+            cfg_key=_cfg_key(cfg, 0), raw_in=raw_in, packed_out=True, gain_lin=gain_lin,
+            valid_host=valid_host)
     else:
         lat, static_zero = _latency(latency_frames, dev)
         payload, out_frames, terminated, pk, level, nf_est = _process_impl(
@@ -566,7 +618,7 @@ def process_batch_raw(raw, frames_valid, cfg: ProcessingConfig, rate_in: int,
             rate_in=rate_in, rate_out=cfg.target_rate,
             cfg_key=_cfg_key(cfg, _default_pad_frames(cfg, rate_in, latency_frames)),
             static_zero_latency=static_zero, raw_in=raw_in, packed_out=True,
-            chain=cfg.chain, gain_lin=gain_lin)
+            chain=cfg.chain, gain_lin=gain_lin, valid_host=valid_host)
     return ProcessResult(codes=payload, out_frames=out_frames,
                          tail_terminated=terminated, peak_db=pk, rms_db=level,
                          noise_floor_db=nf_est)

@@ -228,3 +228,119 @@ def test_a_file_s_codes_do_not_depend_on_its_row_in_the_batch():
     shift = (raw.codes[0, :, :n].double() - got.codes[0, :, :n].double()).mean(dim=-1)
     want = raw.codes[0, :, :n].double().mean(dim=-1)
     assert torch.allclose(shift, want, atol=0.51)
+
+
+#: a bucket the files fill little of: their payload is narrower than its row
+BUCKET = 20000
+SHORT = np.array([3000, 2000, 17], np.int32)
+NARROW = {"packed": {}, "rows": {"rows_layout": True}, "latency": {"latency_frames": 3},
+          "reverb": {"noise_floor_db": -90.0}}
+
+
+def _short_wire(fill: int) -> np.ndarray:
+    """`_raw_batch`'s 24-bit wire in `BUCKET` frames, ``fill`` past each
+    file's `SHORT` length."""
+    rng = np.random.default_rng(77)
+    x = (0.25 * np.sin(2 * np.pi * 997.0 * np.arange(BUCKET) / 44100)
+         + 0.05 * rng.standard_normal((FILES, C, BUCKET)) + 0.01)
+    codes = np.round(x * (1 << 23)).astype(np.int64)
+    inter = np.swapaxes(codes, 1, 2) & 0xFFFFFF
+    raw = np.stack([(inter >> (8 * k)) & 0xFF for k in range(3)], -1)
+    raw = raw.astype(np.uint8).reshape(FILES, -1)
+    for i, n in enumerate(SHORT):
+        raw[i, n * C * 3:] = fill
+    return raw
+
+
+def _short_run(raw, case: str):
+    cfg = TConfig(output_dir="unused", target_rate=48000, reverb_mode=case == "reverb")
+    return tgraph.process_batch_raw(raw, SHORT, cfg, 44100, SEEDS, in_channels=C,
+                                    in_bits=24, device="cpu", **NARROW[case])
+
+
+def _same_files(got, want):
+    """Each file's bytes up to its end and every per-file result, bit for
+    bit; past the narrower payload the wider one holds only zeros."""
+    for name in ("out_frames", "tail_terminated", "peak_db", "rms_db", "noise_floor_db"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    w = min(got.codes.shape[-1], want.codes.shape[-1])
+    for i, of in enumerate(want.out_frames.tolist()):
+        n = of * C * 3
+        assert n <= w and torch.equal(got.codes[i, :n], want.codes[i, :n]), i
+    for r in (got, want):
+        assert not r.codes[:, w:].any()
+
+
+@pytest.mark.parametrize("case", list(NARROW))
+def test_wire_bytes_past_each_file_are_never_read(case):
+    """0xA5 past each file's valid wire bytes gives the zero-padded
+    batch's payload, out_frames and metrics bit for bit: nothing on the
+    device reads past a file's valid span, which is why the link uploads
+    only that span."""
+    _same_files(_short_run(_short_wire(0xA5), case), _short_run(_short_wire(0), case))
+
+
+@pytest.mark.parametrize("case", list(NARROW))
+def test_payload_is_as_wide_as_the_longest_file_on_the_host(case, monkeypatch):
+    """With the lengths on the host the payload is the longest file's
+    out_frames rounded up to the epilogue's TILE (whole cycles in the rows
+    layout), not the bucket's row; in reverb mode, or with the lengths on a
+    device (`_host_lengths` None: the wire goes up whole), it is the whole
+    row.  Each file's bytes and results are the same either way."""
+    got = _short_run(_short_wire(0), case)
+    monkeypatch.setattr(tgraph, "_host_lengths", lambda v: None)
+    whole = _short_run(_short_wire(0), case)
+    _same_files(got, whole)
+    bank = tbank(44100, 48000, quality="high")
+    out_total = whole.codes.shape[-1] // (C * 3)
+    assert out_total >= bank.out_len(BUCKET)
+    longest = int(got.out_frames.max())
+    width = -(-longest // 4096) * 4096
+    if case == "rows":
+        width = -(-width // bank.L) * bank.L
+    want = out_total if case == "reverb" else width
+    assert got.codes.shape == (FILES, want * C * 3)
+    assert case == "reverb" or want < out_total
+
+
+def test_host_lengths_are_found_where_they_live():
+    """numpy, a list and a CPU tensor are on the host; a tensor elsewhere
+    is not."""
+    for v in (SHORT, SHORT.tolist(), torch.from_numpy(SHORT)):
+        got = tgraph._host_lengths(v)
+        assert got.dtype == np.int64 and np.array_equal(got, SHORT)
+    assert tgraph._host_lengths(torch.empty(3, dtype=torch.int32, device="meta")) is None
+
+
+def test_link_counters_add_up_to_the_valid_spans(monkeypatch):
+    """One raw batch: the link is handed each file's valid wire bytes (one
+    ragged upload) and the four per-file and scalar vectors, and its
+    download is the narrowed payload and the five per-file results."""
+    from f9tpu_torch.pipeline import link
+
+    for name in ("bytes_up", "bytes_down", "ragged_uploads"):
+        monkeypatch.setattr(link, name, 0)
+    res = _short_run(_short_wire(0xA5), "latency")
+    # lengths and seeds (int32), the latency (int64) and the noise floor
+    assert link.bytes_up == int(SHORT.sum()) * C * 3 + 2 * 4 * FILES + 8 + 4
+    assert link.ragged_uploads == 1
+    outs = (res.codes, res.out_frames, res.peak_db, res.rms_db, res.noise_floor_db,
+            res.tail_terminated)
+    link.Download(*outs, side=None).get()
+    assert link.bytes_down == 4096 * C * 3 * FILES + 4 * 4 * FILES + FILES
+
+
+def test_narrow_payload_matches_jax():
+    """The port's narrowed payload against the JAX package's whole row:
+    the shared prefix within 2 LSB as `test_process_batch_raw_matches_jax`
+    holds it, and the JAX row all zero past the port's width."""
+    raw = _short_wire(0)
+    kw = dict(output_dir="/tmp/x", target_rate=48000)
+    want = jgraph.process_batch_raw(jnp.asarray(raw), SHORT, ProcessingConfig(**kw), 44100,
+                                    jnp.asarray(SEEDS), in_channels=C, in_bits=24)
+    got = tgraph.process_batch_raw(raw, SHORT, TConfig(**kw), 44100, SEEDS, in_channels=C,
+                                   in_bits=24, device="cpu")
+    wc = np.asarray(want.codes)
+    w = got.codes.shape[-1]
+    assert w < wc.shape[-1] and not wc[:, w:].any()
+    _check(got, want, _payload_codes(got.codes.numpy(), 24), _payload_codes(wc[:, :w], 24))
